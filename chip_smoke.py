@@ -1,0 +1,472 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the final line):
+  1. build   -- compile the CUDA kernels of csrc/ with nvcc for sm_90a;
+  2. kernels -- hold each kernel against its plain PyTorch version on the
+                card at N=2^20, S=128, P=16, k_max=3 (bit-exact: integer
+                outputs, tolerance 0), and time kernel, plain version and
+                the device-memory bound;
+  3. main    -- run_conf on confs/ring_1m_s128.conf (the bench.py hash
+                geometry at N=2^20, drop-free, 160 ticks, EVENT_MODE agg);
+                every kernel of the path must launch once per tick, with no
+                false removal and at least one detection;
+  4. lossy   -- the same geometry with 5% message drops for 64 ticks
+                (confs/ring_1m_s128_drop.conf), driving K2's masks form;
+  5. parity  -- a small N=256 full-event conf on the card (kernels) and on
+                the CPU (plain versions): dbg.log, stats.log and
+                msgcount.log must be byte-identical.
+Then it prints one JSON line of kernel numbers, the card's name and power
+limit, and last {"ok": true, "device": {...}}.  `--only build,kernels`
+runs a subset of the phases and prints no final line; `--only profile`
+splits one tick of each 1M conf into its RNG draw, kernels and the rest
+and prints a torch.profiler summary with the device's busy share.  Run
+outputs (logs, profiler tables) go to --out-dir (default smoke_out/).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+N, S, P, K_MAX = 1 << 20, 128, 16, 3
+TFAIL, TREMOVE = 16, 40
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+PHASES = ("build", "kernels", "main", "lossy", "parity")
+OPT_IN = ("profile",)           # run only when named in --only
+TPU_KERNEL = {
+    "receive_fused": "distributed_membership_tpu/ops/fused_receive.py:176",
+    "gossip_fused": "distributed_membership_tpu/ops/fused_gossip.py:195",
+    "probe_window_fused": "distributed_membership_tpu/ops/fused_probe.py:137",
+}
+CSRC = "distributed_membership_tpu_torch/csrc/"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi exited {out.returncode}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` launches (CUDA
+    events, after one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(pairs) -> int:
+    """Largest |got - want| over output pairs, as integers (0 iff every
+    pair is bit-identical)."""
+    import torch
+    err = 0
+    for got, want in pairs:
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{tuple(got.shape)} {got.dtype} != "
+                                 f"{tuple(want.shape)} {want.dtype}")
+        if got.numel():
+            d = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
+            err = max(err, int(d))
+    return err
+
+
+def packed(rng, n, occ, hb_hi, shape):
+    """Random packed u32 entries (hb * n + id + 1) with occupancy `occ`,
+    as int32 bits."""
+    import numpy as np
+    ids = rng.integers(0, n, size=shape, dtype=np.int64)
+    hbs = rng.integers(0, hb_hi, size=shape, dtype=np.int64)
+    val = np.where(rng.random(shape, dtype=np.float32) < occ,
+                   (hbs * n + ids + 1) & 0xFFFFFFFF, 0)
+    return val.astype(np.uint32).view(np.int32)
+
+
+def phase_kernels(torch, dev) -> dict:
+    """Phase 2: every kernel against its plain version at the main path's
+    shapes; returns one record per kernel form."""
+    import numpy as np
+    from distributed_membership_tpu_torch.ops.fused_gossip import (
+        gossip_fused, gossip_plain)
+    from distributed_membership_tpu_torch.ops.fused_probe import (
+        probe_plain, probe_window_fused)
+    from distributed_membership_tpu_torch.ops.fused_receive import (
+        receive_core, receive_fused)
+    from distributed_membership_tpu_torch.ops.view_merge import STRIDE
+
+    rng = np.random.default_rng(20260)
+    t = 90
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    shape = (N, S)
+    view = T(packed(rng, N, 0.7, 2 * t + 2, shape))
+    view_ts = T(rng.integers(0, t + 1, size=shape, dtype=np.int32))
+    mail = T(packed(rng, N, 0.4, 2 * t + 4, shape))
+    cand = T(np.where(rng.random(shape, dtype=np.float32) < 0.1,
+                      packed(rng, N, 1.0, 2 * t + 4, shape), 0))
+    recv = T(rng.random(N) < 0.95)
+    act = T(rng.random(N) < 0.95)
+    self_on = act & T(rng.random(N) < 0.98)
+    own_hb = rng.integers(1, 2 * t + 3, size=N, dtype=np.int64)
+    self_pack = T(((own_hb * N + np.arange(N) + 1) & 0xFFFFFFFF)
+                  .astype(np.uint32).view(np.int32)) * self_on.to(torch.int32)
+    rows = {}
+
+    def nbytes(*ts):
+        return sum(x.numel() * x.element_size() for x in ts)
+
+    def record(name, form, err, k_ms, p_ms, moved):
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        log(f"kernel {name}[{form}]: max_abs_err={err} kernel_ms={k_ms} "
+            f"plain_ms={p_ms} bound_ms={bound} ({moved} bytes) "
+            "library_ms=null")
+        if err != 0:
+            raise AssertionError(f"{name}[{form}] differs from its plain "
+                                 "version (integer outputs, tolerance 0)")
+        rows[form] = dict(name=name, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                          bound_ms=bound, bound_by="bytes", library_ms=None)
+
+    # ---- K1 receive (updates view/view_ts/mail in place) ----
+    args = (cand, recv, act, self_on, self_pack)
+    ref = receive_core(N, S, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail,
+                       *args)
+    got = receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t, view.clone(),
+                        view_ts.clone(), mail.clone(), *args)
+    torch.cuda.synchronize()
+    err = max_abs_err(zip(got, ref))
+    del ref, got
+    v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
+    k_ms = cuda_ms(lambda: receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t,
+                                         v2, ts2, m2, *args), 20)
+    p_ms = cuda_ms(lambda: receive_core(N, S, TFAIL, TREMOVE, STRIDE, t,
+                                        view, view_ts, mail, *args), 3)
+    del v2, ts2, m2
+    # in: view, view_ts, mail, cand and the row vectors; out: view,
+    # view_ts, mail, rm_ids (4 B) and join (1 B) per slot, two [N] counts
+    record("receive_fused", "receive", err, k_ms, p_ms,
+           nbytes(view, view_ts, mail, cand, recv, act, self_on, self_pack)
+           + nbytes(view, view_ts, mail) + N * S * 5 + N * 8)
+
+    # ---- K2 gossip, both operand forms ----
+    payload = torch.where(T(rng.random(shape, dtype=np.float32) < 0.3),
+                          view, 0)
+    k_eff = T(rng.integers(0, K_MAX + 1, size=N, dtype=np.int32))
+    err = 0
+    for shifts_np in ([1, N - 1, 12345], [777, 524288, 99991]):
+        shifts = T(np.asarray(shifts_np, np.int32))
+        ref = gossip_plain(N, S, K_MAX, mail, payload, k_eff, shifts)
+        got = gossip_fused(N, S, K_MAX, mail.clone(), payload, k_eff, shifts)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([(got, ref)]))
+    del ref, got
+    m2 = mail.clone()
+    k_ms = cuda_ms(lambda: gossip_fused(N, S, K_MAX, m2, payload, k_eff,
+                                        shifts), 20)
+    p_ms = cuda_ms(lambda: gossip_plain(N, S, K_MAX, mail, payload, k_eff,
+                                        shifts), 3)
+    record("gossip_fused", "gossip", err, k_ms, p_ms,
+           2 * nbytes(mail) + nbytes(payload, k_eff, shifts))
+
+    masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
+    ref = gossip_plain(N, S, K_MAX, mail, view, None, shifts, masks)
+    got = gossip_fused(N, S, K_MAX, mail.clone(), view, None, shifts,
+                       masks=masks)
+    torch.cuda.synchronize()
+    err = max_abs_err([(got, ref)])
+    del ref, got
+    k_ms = cuda_ms(lambda: gossip_fused(N, S, K_MAX, m2, view, None, shifts,
+                                        masks=masks), 20)
+    p_ms = cuda_ms(lambda: gossip_plain(N, S, K_MAX, mail, view, None,
+                                        shifts, masks), 3)
+    record("gossip_fused", "gossip_masks", err, k_ms, p_ms,
+           2 * nbytes(mail) + nbytes(view, masks, shifts))
+    del masks, m2, payload
+
+    # ---- K3 probe window: agg partials (main path) and hist ----
+    fail_ids = (3, 777777, N - 1)
+    rm = np.full(shape, -1, np.int32)
+    hit = rng.random(shape, dtype=np.float32) < 0.02
+    rm[hit] = rng.choice(np.asarray(fail_ids + (5, 6), np.int32),
+                         size=int(hit.sum()))
+    rm_ids = T(rm)
+    del rm, hit
+    err = 0
+    for ptr in (120, 32):                  # wrapping and inner window
+        ref = probe_plain(N, S, P, TFAIL, fail_ids, False, True, t, ptr, 0,
+                          view, None, act, rm_ids)
+        got = probe_window_fused(N, S, P, TFAIL, fail_ids, False, True, t,
+                                 ptr, 0, view, None, act, rm_ids)
+        torch.cuda.synchronize()
+        if set(got) != set(ref):
+            raise AssertionError(f"probe outputs {sorted(got)}")
+        err = max(err, max_abs_err((got[k], ref[k]) for k in ref))
+    k_ms = cuda_ms(lambda: probe_window_fused(
+        N, S, P, TFAIL, fail_ids, False, True, t, ptr, 0, view, None, act,
+        rm_ids), 20)
+    p_ms = cuda_ms(lambda: probe_plain(
+        N, S, P, TFAIL, fail_ids, False, True, t, ptr, 0, view, None, act,
+        rm_ids), 3)
+    # in: the P window columns of view, act and the rm plane; out: P ids
+    # and 1 + F counts per row
+    record("probe_window_fused", "probe", err, k_ms, p_ms,
+           N * P * 4 + nbytes(act, rm_ids) + N * P * 4
+           + N * 4 * (1 + len(fail_ids)))
+
+    ref = probe_plain(N, S, P, TFAIL, (), True, False, t, 120, 0, view,
+                      view_ts, act, None)
+    got = probe_window_fused(N, S, P, TFAIL, (), True, False, t, 120, 0,
+                             view, view_ts, act, None)
+    torch.cuda.synchronize()
+    if set(got) != set(ref):
+        raise AssertionError(f"probe outputs {sorted(got)}")
+    err = max_abs_err((got[k], ref[k]) for k in ref)
+    k_ms = cuda_ms(lambda: probe_window_fused(
+        N, S, P, TFAIL, (), True, False, t, 120, 0, view, view_ts, act,
+        None), 20)
+    p_ms = cuda_ms(lambda: probe_plain(
+        N, S, P, TFAIL, (), True, False, t, 120, 0, view, view_ts, act,
+        None), 3)
+    record("probe_window_fused", "probe_hist", err, k_ms, p_ms,
+           nbytes(view, view_ts, act) + N * P * 4 + N * 2 * 8 * 4)
+    return rows
+
+
+def run_path(torch, conf: str, name: str, expect: dict, out_dir: str) -> dict:
+    """Drive run_conf once on the card, with every launch count set to 0
+    just before and read just after."""
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = run_conf(conf, out_dir=os.path.join(out_dir, name), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    p = result.params
+    det = result.extra["detection_summary"]
+    info = {
+        "ticks": p.TOTAL_TIME, "n": p.EN_GPSZ, "wall_s": wall,
+        "ticks_per_s": p.TOTAL_TIME / wall,
+        "node_ticks_per_s": p.EN_GPSZ * p.TOTAL_TIME / wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches,
+        "detection": {k: v for k, v in det.items()
+                      if k != "latency_hist_nonzero"},
+    }
+    log(f"main[{name}]: " + json.dumps(info))
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches} != {expect}")
+    return info
+
+
+def phase_profile(torch, conf: str, name: str, out_dir: str,
+                  warm: int = 3, ticks: int = 5) -> dict:
+    """Where one tick's time goes at N=2^20: the whole step, its RNG plan
+    alone (CUDA events), and a torch.profiler window over ``ticks`` steps
+    (device kernel time by name, device busy share of the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_membership_tpu_torch.backends import tpu_hash
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.ops.rng_plan import hash_ring_rng
+    from distributed_membership_tpu_torch.runtime import failures
+
+    params = Params.from_file(conf)
+    plan = failures.make_plan(params, random.Random("app:0"))
+    cfg = tpu_hash.make_config(params, collect_events=False,
+                               fail_ids=tpu_hash.plan_fail_ids(plan),
+                               device="cuda")
+    pt = failures.plan_tensors(params, plan, 0, params.TOTAL_TIME, "cuda")
+    state = tpu_hash.init_state_warm(
+        cfg, failures.make_run_key(params, 0 ^ 0x5EED), "cuda")
+    step = tpu_hash.make_step(cfg)
+    t = 0
+    for t in range(warm):
+        state, _ = step(state, t, pt.tick_key(t), pt)
+
+    def one_tick():
+        nonlocal state, t
+        t += 1
+        state, _ = step(state, t, pt.tick_key(t), pt)
+
+    step_ms = cuda_ms(one_tick, ticks)
+    rng_ms = cuda_ms(lambda: hash_ring_rng(
+        pt.tick_key(t), n=cfg.n, s=cfg.s, g=cfg.g,
+        k_max=min(cfg.fanout, cfg.s), p_cnt=cfg.probes,
+        seed_rows=min(cfg.seed_cap, cfg.n), use_drop=cfg.drop_prob > 0,
+        device="cuda"), ticks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            one_tick()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, cnt = per_kernel.get(e.name, (0.0, 0))
+            per_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                  cnt + 1)
+    dev_ms = sum(ms for ms, _ in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    info = {"step_ms": step_ms, "rng_ms": rng_ms,
+            "profiled_ticks": ticks, "wall_ms": wall_us / 1e3,
+            "device_ms": dev_ms,
+            "device_busy_share": dev_ms * 1e3 / wall_us,
+            "kernel_launches": sum(c for _, c in per_kernel.values()),
+            "top_device_ms": [[k[:70], ms, c] for k, (ms, c) in top]}
+    log(f"profile[{name}]: " + json.dumps(info))
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as fh:
+        fh.write(prof.key_averages().table(row_limit=40))
+    return info
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out-dir", default=os.path.join(REPO, "smoke_out"),
+                    help="directory for run outputs (default smoke_out/)")
+    ap.add_argument("--only", default="",
+                    help="comma list of phases to run "
+                         f"({','.join(PHASES + OPT_IN)}); default all but "
+                         f"{','.join(OPT_IN)}")
+    args = ap.parse_args(argv)
+    phases = set(filter(None, args.only.split(","))) or set(PHASES)
+    if not phases <= set(PHASES + OPT_IN):
+        return fail(f"unknown phases "
+                    f"{sorted(phases - set(PHASES + OPT_IN))}")
+
+    import torch
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, REPO)
+    try:
+        from distributed_membership_tpu_torch import kernels
+    except ImportError as e:
+        return fail(f"the port's package is not importable here ({e})")
+    dev = torch.device("cuda")
+    card = nvidia_smi()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    out_dir = args.out_dir
+    os.makedirs(out_dir, exist_ok=True)
+    t_start = time.perf_counter()
+
+    secs = kernels.build(ptxas_report=True)
+    log(f"build: {secs:.1f}s (nvcc, sm_90a, one process per source)")
+    for name, text in kernels.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas[{name}]: {line.strip()}")
+
+    rows = {}
+    if "kernels" in phases:
+        t0 = time.perf_counter()
+        rows = phase_kernels(torch, dev)
+        torch.cuda.empty_cache()
+        log(f"phase kernels: {time.perf_counter() - t0:.1f}s")
+
+    confs = os.path.join(REPO, "distributed_membership_tpu_torch", "confs")
+    if "profile" in phases:
+        for name in ("ring_1m_s128", "ring_1m_s128_drop"):
+            phase_profile(torch, os.path.join(confs, name + ".conf"), name,
+                          out_dir)
+            torch.cuda.empty_cache()
+    paths = {}
+    if "main" in phases:
+        paths["main"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128.conf"), "main",
+            {"receive": 160, "gossip": 160, "gossip_masks": 0, "probe": 160},
+            out_dir)
+        det = paths["main"]["detection"]
+        if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
+            return fail(f"main path detection summary: {det}")
+        torch.cuda.empty_cache()
+    if "lossy" in phases:
+        paths["lossy"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_drop.conf"), "lossy",
+            {"receive": 64, "gossip": 0, "gossip_masks": 64, "probe": 64},
+            out_dir)
+        if paths["lossy"]["detection"].get("detections_total", 0) <= 0:
+            return fail("lossy path: no detection")
+        torch.cuda.empty_cache()
+    if "parity" in phases:
+        from distributed_membership_tpu_torch.runtime.application import (
+            run_conf)
+        conf = os.path.join(confs, "ring_256_s128_drop.conf")
+        for d in ("cuda", "cpu"):
+            run_conf(conf, out_dir=os.path.join(out_dir, f"parity_{d}"),
+                     device=d)
+        for f in ("dbg.log", "stats.log", "msgcount.log"):
+            a, b = (open(os.path.join(out_dir, f"parity_{d}", f),
+                         "rb").read()
+                    for d in ("cuda", "cpu"))
+            if a != b:
+                return fail(f"parity: {f} differs between cuda and cpu")
+            if f == "dbg.log" and b" removed " not in a:
+                return fail("parity: dbg.log holds no removal")
+        log("parity: N=256 full-event logs byte-identical, cuda vs cpu")
+    log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
+
+    if phases != set(PHASES):
+        log(f"partial run ({sorted(phases)}): no result line")
+        return 0
+    # One entry per kernel form on a main path; `launches` from the path
+    # that drives it (K2's masks form runs under drops).  The probe
+    # kernel's hist form serves TELEMETRY, which this slice refuses, so its
+    # numbers ride the probe entry.
+    out = []
+    for form, path, src in (("receive", "main", "receive.cu"),
+                            ("gossip", "main", "gossip.cu"),
+                            ("gossip_masks", "lossy", "gossip.cu"),
+                            ("probe", "main", "probe.cu")):
+        r = dict(rows[form])
+        name = r.pop("name")
+        out.append({"name": f"{name}[{form}]", "route": "cuda",
+                    "source": CSRC + src, "replaces": TPU_KERNEL[name],
+                    "launches": paths[path]["launches"][form], **r})
+    hist = rows["probe_hist"]
+    out[-1].update(hist_ms=hist["ms"], hist_plain_ms=hist["plain_ms"],
+                   hist_bound_ms=hist["bound_ms"],
+                   hist_max_abs_err=hist["max_abs_err"])
+    log(json.dumps({"kernels": out}))
+    log(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,559 @@
+"""``tpu_hash`` backend, ring exchange, warm join: the port's main path
+(counterpart of the JAX package's ``backends/tpu_hash.py``).
+
+Node ``i`` stores member ``id`` at slot ``(id + i * STRIDE) mod S`` of a
+``[N, S]`` table of packed u32 ``(heartbeat, id)`` entries; the mailbox
+uses the same slot map, so delivery and merge are one elementwise max,
+and occupancy is sticky (an occupied slot only takes its occupant's id).
+Per tick (``make_step``):
+
+* the join control plane and the self refresh (heartbeat + 2);
+* the ack candidates of the probe/ack gather pipeline (probes issued two
+  ticks ago, answered from a one-tick-lagged heartbeat vector);
+* the receive pass -- K1 (ops/fused_receive.py);
+* gossip: entry thinning to ~G per row, then ``fanout`` circulant shifts
+  delivered in one pass -- K2 (ops/fused_gossip.py), with per-shift keep
+  masks when messages drop;
+* the introducer's seed burst to joiners;
+* the probe window and the aggregate partials -- K3
+  (ops/fused_probe.py), then the message counters;
+* on-device aggregates (EVENT_MODE agg) or per-tick event planes (full).
+
+The tick loop is a Python loop: the tick ``t``, the window pointer, the
+drop window and the failure tick are host ints, so the step never waits
+on the device.  Everything the JAX step computes with ``u32`` is carried
+as int32 bits and widened to int64 where order or ``%`` matters
+(ops/view_merge.py).  Random streams are the JAX ones, bit for bit
+(ops/threefry.py, ops/rng_plan.py).
+
+Refused with ``NotImplementedError`` (ROADMAP.md names the queue item):
+the scatter exchange and cold joins, FOLDED, SCENARIO, SHIFT_SET,
+ENFORCE_BUFFSIZE, CHECKPOINT_EVERY, MEGA_TICKS, TELEMETRY, RNG_MODE
+hoisted, PROBE_IO approx_lag/none, and more than FAST_AGG_MAX_FAILED
+failed ids under EVENT_MODE agg.  On CUDA the kernels are the path, so
+``VIEW_SIZE % 128 != 0`` and a pinned ``FUSED_*: 0`` are refused too; on
+the CPU the wrappers run their plain versions and ``FUSED_*: 1`` is
+refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random as _pyrandom
+import time as _time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from distributed_membership_tpu_torch.addressing import INTRODUCER_INDEX
+from distributed_membership_tpu_torch.backends import RunResult, register
+from distributed_membership_tpu_torch.backends.tpu_sparse import (
+    SEED_CAP, CompactEvents, SparseTickEvents, compact_tick, finish_run)
+from distributed_membership_tpu_torch.config import Params
+from distributed_membership_tpu_torch.eventlog import EventLog
+from distributed_membership_tpu_torch.observability.aggregates import (
+    FAST_AGG_MAX_FAILED, init_agg, init_fast_agg, update_fast_agg)
+from distributed_membership_tpu_torch.ops.fused_gossip import gossip_fused
+from distributed_membership_tpu_torch.ops.fused_probe import (
+    probe_window_fused)
+from distributed_membership_tpu_torch.ops.fused_receive import receive_fused
+from distributed_membership_tpu_torch.ops.rng_plan import hash_ring_rng
+from distributed_membership_tpu_torch.ops.threefry import Key, randint
+from distributed_membership_tpu_torch.ops.view_merge import (
+    EMPTY, M32, STRIDE, as_u32, member_of, to_bits)
+from distributed_membership_tpu_torch.runtime.failures import (
+    FailurePlan, PlanTensors, make_run_key, plan_tensors, resolve_plan)
+
+I32 = torch.int32
+I64 = torch.int64
+# Above this node count probe-recv / ack-send counters are attributed to
+# the prober's row (totals stay exact), as in the JAX package.
+PROBE_IO_EXACT_MAX = 1 << 17
+
+
+def probe_attribution_exact(params: Params) -> bool:
+    if params.resolved_exchange() != "ring" or params.PROBES <= 0:
+        return True
+    if params.PROBE_IO != "auto":
+        return params.PROBE_IO == "exact"
+    return params.EN_GPSZ <= PROBE_IO_EXACT_MAX
+
+
+class HashState(NamedTuple):
+    """The JAX ``HashState`` leaves; u32 planes as int32 bits."""
+    view: torch.Tensor          # [N, S] packed entries, 0 = empty
+    view_ts: torch.Tensor       # [N, S] int32 tick of last strict increase
+    started: torch.Tensor       # [N] bool
+    in_group: torch.Tensor      # [N] bool
+    failed: torch.Tensor        # [N] bool
+    self_hb: torch.Tensor       # [N] int32
+    mail: torch.Tensor          # [N, S] receiver-slot-mapped mailbox
+    amail: torch.Tensor         # [1, 1] placeholder (scatter exchange)
+    pmail: torch.Tensor         # [1, 1] placeholder (scatter exchange)
+    joinreq_infl: torch.Tensor  # [N] bool
+    joinrep_infl: torch.Tensor  # [N] bool
+    pending_recv: torch.Tensor  # [N] int32
+    agg: NamedTuple             # FastAgg (agg mode) or AggStats placeholder
+    probe_ids1: torch.Tensor    # [N, P] ids probed last tick (id + 1)
+    probe_ids2: torch.Tensor    # [N, P] ids probed two ticks ago
+    act_prev: torch.Tensor      # [N] bool act mask of the previous tick
+    wf_prev: torch.Tensor       # [1] placeholder (PROBE_IO approx_lag)
+
+
+@dataclasses.dataclass(frozen=True)
+class HashConfig:
+    n: int
+    s: int                 # view / mailbox slots per node
+    g: int                 # entries piggybacked per gossip message
+    tfail: int
+    tremove: int
+    fanout: int
+    drop_prob: float
+    probes: int = 0
+    qp: int = 16           # scatter-mode probe mailbox width (sets p_red)
+    seed_cap: int = SEED_CAP
+    collect_events: bool = True
+    fail_ids: tuple = ()   # static failed ids for the FastAgg path
+    fast_agg: bool = False
+    count_probe_io: bool = True
+
+
+def slot_of(cfg: HashConfig, node, member):
+    """``(member + node * STRIDE) mod S`` computed modularly (the naive
+    product overflows int32 above ~271k nodes)."""
+    return (member % cfg.s + (node % cfg.s) * (STRIDE % cfg.s)) % cfg.s
+
+
+def pack_u(cfg: HashConfig, hb, member):
+    """Packed entry ``hb * N + member + 1`` as int64 holding the u32."""
+    return ((hb.to(I64) & M32) * cfg.n + (member.to(I64) & M32) + 1) & M32
+
+
+def _scatter_msgs(cfg: HashConfig, plane, rows, local_tgt, msg_id, msg_hb,
+                  msg_valid):
+    """Max-combine messages into the mailboxes of ``rows`` (distinct
+    global row ids) in place; message ``k`` goes to ``rows[local_tgt[k]]``
+    at its slot there.  Only those rows are widened."""
+    s = plane.shape[1]
+    r = rows.shape[0]
+    tgt = rows[local_tgt]
+    addr = torch.where(msg_valid, local_tgt * s + slot_of(cfg, tgt, msg_id),
+                       r * s)
+    val = torch.where(msg_valid, pack_u(cfg, msg_hb, msg_id), 0)
+    sub = torch.cat([as_u32(plane.index_select(0, rows)).reshape(-1),
+                     torch.zeros((1,), dtype=I64, device=plane.device)])
+    sub.scatter_reduce_(0, addr.reshape(-1), val.reshape(-1), "amax")
+    plane.index_copy_(0, rows, to_bits(sub[:-1].reshape(r, s)))
+    return plane
+
+
+def init_state(cfg: HashConfig, device) -> HashState:
+    n, s = cfg.n, cfg.s
+    i32 = dict(dtype=I32, device=device)
+    b = dict(dtype=torch.bool, device=device)
+    probe_shape = (n, cfg.probes) if cfg.probes > 0 else (1, 1)
+    return HashState(
+        view=torch.zeros((n, s), **i32),
+        view_ts=torch.zeros((n, s), **i32),
+        started=torch.zeros((n,), **b),
+        in_group=torch.zeros((n,), **b),
+        failed=torch.zeros((n,), **b),
+        self_hb=torch.zeros((n,), **i32),
+        mail=torch.zeros((n, s), **i32),
+        amail=torch.zeros((1, 1), **i32),
+        pmail=torch.zeros((1, 1), **i32),
+        joinreq_infl=torch.zeros((n,), **b),
+        joinrep_infl=torch.zeros((n,), **b),
+        pending_recv=torch.zeros((n,), **i32),
+        agg=(init_fast_agg(len(cfg.fail_ids), n, device) if cfg.fast_agg
+             else init_agg(n, device)),
+        probe_ids1=torch.zeros(probe_shape, **i32),
+        probe_ids2=torch.zeros(probe_shape, **i32),
+        act_prev=torch.zeros((n,), **b),
+        wf_prev=torch.zeros((1,), **b),
+    )
+
+
+def init_state_warm(cfg: HashConfig, key: Key, device) -> HashState:
+    """Every node in the group at t=0 with itself and ~S/2 random
+    neighbours (JAX ``init_state_warm``)."""
+    n, s = cfg.n, cfg.s
+    st = init_state(cfg, device)
+    idx = torch.arange(n, dtype=I64, device=device)
+    fill = max(s // 2, 1)
+    offs = randint(key, (n, fill), 1, max(n, 2), device)
+    nbrs = (idx[:, None] + offs) % n
+    view = _scatter_msgs(cfg, st.view, idx, idx[:, None].expand(n, fill),
+                         nbrs, torch.zeros_like(nbrs),
+                         torch.ones(nbrs.shape, dtype=torch.bool,
+                                    device=device))
+    # The self slot belongs to self (admission reserves it).
+    view[idx, slot_of(cfg, idx, idx)] = to_bits(
+        pack_u(cfg, torch.zeros_like(idx), idx))
+    ones = torch.ones((n,), dtype=torch.bool, device=device)
+    return st._replace(view=view, started=ones, in_group=ones.clone())
+
+
+def _pack_probe_table(hb, wf, act):
+    """Ack heartbeat in the high 30 bits, will-flush (bit 0) and act
+    (bit 1) below: one u32 per target, one gather per tick."""
+    return (((hb.to(I64) & M32) << 2) & M32) | wf.to(I64) | (act.to(I64) << 1)
+
+
+def _credit_orphan_recvs(per_prober, will_flush):
+    """Approximate attribution: probe recvs counted for a prober that will
+    not flush are re-credited to the first row that will (``argmax`` of a
+    bool picks the first true), so totals match exact attribution."""
+    orphan = torch.where(will_flush, 0, per_prober).sum(dtype=I32)
+    safe = torch.argmax(will_flush.to(I32)).reshape(1)
+    out = torch.where(will_flush, per_prober, 0)
+    return out.index_add_(0, safe, (orphan * will_flush.any()).reshape(1))
+
+
+def _roll(vec, shift, idx, n: int):
+    """``jnp.roll(vec, shift)`` for a device scalar shift: out[i] =
+    vec[(i - shift) mod n], without a host sync."""
+    return vec.index_select(0, (idx - shift.to(I64)) % n)
+
+
+def make_step(cfg: HashConfig):
+    """``step(state, t, key, plan) -> (state, SparseTickEvents)`` for the
+    ring exchange under warm join; ``t`` is a host int, ``key`` the tick's
+    threefry key, ``plan`` the run's PlanTensors."""
+    n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
+    intro = INTRODUCER_INDEX
+    k_max = min(cfg.fanout, s)
+    # Scatter mode sends each probe twice when its probe mailbox is lossy;
+    # the ring keeps the wire-message counters comparable.
+    p_red = 1 if cfg.qp >= n else 2
+    if p_cnt >= s:
+        raise ValueError(f"ring mode needs PROBES < VIEW_SIZE "
+                         f"(got {p_cnt} >= {s})")
+    use_drop = cfg.drop_prob > 0.0
+    # Every drop coin is `uniform < f32(p)`.
+    p_drop = float(np.float32(cfg.drop_prob))
+    want_agg = cfg.fast_agg and not cfg.collect_events
+    fail_ids = cfg.fail_ids if want_agg else ()
+
+    def step(state: HashState, t: int, key: Key, plan: PlanTensors):
+        if t < 0:
+            raise ValueError("ticks start at 0")
+        dev = state.view.device
+        idx = torch.arange(n, dtype=I64, device=dev)
+        rng = hash_ring_rng(key, n=n, s=s, g=g, k_max=k_max,
+                            p_cnt=max(p_cnt, 0),
+                            seed_rows=min(cfg.seed_cap, n),
+                            use_drop=use_drop, device=dev)
+        drop_active = plan.drop_active(t)
+        coins = use_drop and drop_active
+
+        # ---- join control plane (warm join: every node started at -1,
+        # so nothing starts during the run and no JOINREQ is sent) ----
+        recv_mask = state.started & ~state.failed
+        rcol = recv_mask[:, None]
+        recv_tick = torch.where(recv_mask, state.pending_recv, 0)
+        pending_recv = torch.where(recv_mask, 0, state.pending_recv)
+        in_group = state.in_group | (state.joinrep_infl & recv_mask)
+        joinrep_infl = state.joinrep_infl & ~recv_mask
+        seeds = state.joinreq_infl & recv_mask[intro]
+        joinreq_infl = state.joinreq_infl & ~recv_mask[intro]
+        rep_ok = seeds
+        if coins:
+            rep_ok = seeds & ~(rng.ctrl_u.reshape(2, n)[1] < p_drop)
+        joinrep_infl = joinrep_infl | rep_ok
+        n_seeds = seeds.sum(dtype=I32)
+        sent_rep = torch.where(
+            (idx == intro) & recv_mask[intro], rep_ok.sum(dtype=I32), 0)
+        pending_recv = pending_recv + rep_ok.to(I32)
+
+        # ---- self refresh (double heartbeat increment) ----
+        act = state.started & ~state.failed & in_group
+        self_hb = torch.where(act, state.self_hb + 2, state.self_hb)
+        self_val = to_bits(pack_u(
+            cfg, torch.where(act, state.self_hb + 1, 0), idx))
+
+        # ---- ack candidates: probes issued at t-2, answered with the
+        # target's heartbeat at t-1 (0 if it was not act) ----
+        cand_full = torch.zeros((n, s), dtype=I32, device=dev)
+        ack_recv_cnt = torch.zeros((n,), dtype=I32, device=dev)
+        if p_cnt > 0:
+            ids2 = state.probe_ids2
+            id2 = (ids2.to(I64) - 1).clamp_min(0)
+            vec = torch.where(state.act_prev, state.self_hb - 1, 0)
+            ids1 = state.probe_ids1
+            v1 = ids1 != 0
+            tgt1 = (ids1.to(I64) - 1).clamp_min(0)
+            will_flush = (recv_mask & ~plan.fail_mask
+                          if t == plan.fail_time else recv_mask)
+            tbl = _pack_probe_table(vec, will_flush, act)
+            gcat = tbl[torch.cat([id2, tgt1], dim=1)]        # one gather
+            hb_ack = (gcat[:, :p_cnt] >> 2).to(I32)
+            probe_bits1 = gcat[:, p_cnt:]
+            valid2 = (ids2 != 0) & (hb_ack > 0)
+            if use_drop and plan.drop_active(t - 1):
+                valid2 = valid2 & ~(rng.ack_u.reshape(n, p_cnt) < p_drop)
+            cand = torch.where(valid2, to_bits(pack_u(cfg, hb_ack, id2)), 0)
+            ptr2 = ((t - 2) * p_cnt) % s
+            cols2 = (ptr2 + torch.arange(p_cnt, device=dev)) % s
+            cand_full[:, cols2] = cand
+            ack_recv_cnt = (valid2 & rcol).sum(1, dtype=I32)
+
+        # ---- receive: admit, ack refresh, self refresh, sweep (K1) ----
+        (view, view_ts, mail, join_mask, rm_ids, numfailed,
+         size) = receive_fused(n, s, cfg.tfail, cfg.tremove, STRIDE, t,
+                               state.view, state.view_ts, state.mail,
+                               cand_full, recv_mask, act, act, self_val)
+        present = view != 0
+        difft = t - view_ts
+
+        # ---- gossip (K2) ----
+        numpotential = size - 1 - numfailed
+        fresh = present & (difft < cfg.tfail)
+        is_self_slot = present & (member_of(view, n) == idx[:, None])
+        seed_burst_on = act[intro]
+        n_seeds_row = torch.where((idx == intro) & seed_burst_on, n_seeds, 0)
+        k_eff = (numpotential.clamp(max=cfg.fanout)
+                 - n_seeds_row).clamp_min(0).to(I32)
+        if g >= s:
+            keep = fresh
+        else:
+            fresh_cnt = fresh.sum(1, dtype=I32)
+            p_keep = torch.where(
+                fresh_cnt > 1,
+                (g - 1) / (fresh_cnt - 1).clamp_min(1).to(torch.float32),
+                1.0)
+            u = rng.thin_u.reshape(n, s)
+            keep = fresh & ((u < p_keep[:, None]) | is_self_slot)
+        keep = keep & act[:, None]
+        shifts = rng.shift_draw
+        sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
+        recv_add = torch.zeros((n,), dtype=I32, device=dev)
+        if k_max > 0 and not use_drop:
+            # Payload is nonzero exactly where keep holds, so a row's
+            # message count per shift is its kept count under the fanout.
+            mail = gossip_fused(n, s, k_max, mail,
+                                torch.where(keep, view, 0), k_eff, shifts)
+            c0 = keep.sum(1, dtype=I32)
+            for j in range(k_max):
+                cnt = torch.where(j < k_eff, c0, 0)
+                sent_gossip += cnt
+                recv_add += _roll(cnt, shifts[j], idx, n)
+        elif k_max > 0:
+            masks = torch.empty((k_max, n, s), dtype=torch.bool, device=dev)
+            for j in range(k_max):
+                m = keep & (j < k_eff)[:, None]
+                if coins:
+                    m &= ~(rng.gossip_u[j].reshape(n, s) < p_drop)
+                masks[j] = m
+                cnt = m.sum(1, dtype=I32)
+                sent_gossip += cnt
+                recv_add += _roll(cnt, shifts[j], idx, n)
+            mail = gossip_fused(n, s, k_max, mail, view, k_eff, shifts,
+                                masks=masks)
+        sent_tick = sent_gossip + sent_rep
+
+        # ---- introducer burst to this tick's joiners (full fresh view);
+        # top_k ties go lowest index first, hence the stable sort ----
+        cap = min(cfg.seed_cap, n)
+        seed_idx = torch.sort(seeds.to(I32), descending=True,
+                              stable=True).indices[:cap]
+        seed_valid = seeds[seed_idx] & seed_burst_on
+        burst_valid = seed_valid[:, None] & fresh[intro][None, :]
+        if coins:
+            burst_valid = burst_valid & ~(rng.burst_u.reshape(cap, s)
+                                          < p_drop)
+        iv = as_u32(view[intro])
+        ipres = iv > 0
+        intro_id = torch.where(ipres, ((iv - 1) & M32) % n, EMPTY)
+        intro_hb = torch.where(ipres, ((iv - 1) & M32) // n, -1)
+        local = torch.arange(cap, dtype=I64, device=dev)[:, None].expand(
+            cap, s)
+        mail = _scatter_msgs(cfg, mail, seed_idx, local,
+                             intro_id[None, :].expand(cap, s),
+                             intro_hb[None, :].expand(cap, s), burst_valid)
+        sent_tick[intro] += burst_valid.sum(dtype=I32)
+        recv_add.index_add_(0, seed_idx, burst_valid.sum(1, dtype=I32)
+                            * seed_valid.to(I32))
+
+        # ---- SWIM round-robin probing (K3) ----
+        probe_ids1, probe_ids2 = state.probe_ids1, state.probe_ids2
+        act_prev = state.act_prev
+        pfo = None
+        if p_cnt > 0:
+            ptr = (t * p_cnt) % s
+            pfo = probe_window_fused(
+                n, s, p_cnt, cfg.tfail, fail_ids, False, want_agg, t, ptr, 0,
+                view, None, act, rm_ids if want_agg else None)
+            window_ids = pfo["ids"]
+            p_valid = window_ids != 0
+            if coins:
+                p_valid = p_valid & ~(rng.probe_u.reshape(n, p_cnt) < p_drop)
+            probe_ids2 = probe_ids1
+            probe_ids1 = torch.where(p_valid, window_ids, 0)
+            act_prev = act
+            sent_probes = p_valid.sum(1, dtype=I32) * p_red
+            if cfg.count_probe_io:
+                # Probes issued at t-1 arrive now; act targets ack.
+                ack_send = v1 & ((probe_bits1 & 2) != 0)
+                zeros = torch.zeros((n + 1,), dtype=I32, device=dev)
+                recv_probe = zeros.index_add(
+                    0, torch.where(v1, tgt1, n).reshape(-1),
+                    torch.full((n * p_cnt,), p_red, dtype=I32, device=dev)
+                )[:n]
+                sent_ack = zeros.index_add(
+                    0, torch.where(ack_send, tgt1, n).reshape(-1),
+                    torch.ones((n * p_cnt,), dtype=I32, device=dev))[:n]
+            else:
+                per_prober = (v1 & ((probe_bits1 & 1) != 0)).sum(
+                    1, dtype=I32) * p_red
+                recv_probe = _credit_orphan_recvs(per_prober, will_flush)
+                sent_ack = (v1 & ((probe_bits1 & 2) != 0)).sum(1, dtype=I32)
+            sent_tick = sent_tick + sent_probes + sent_ack
+            recv_add = recv_add + recv_probe + ack_recv_cnt
+        pending_recv = pending_recv + recv_add
+
+        failed = (state.failed | plan.fail_mask if t == plan.fail_time
+                  else state.failed)
+
+        if cfg.collect_events:
+            agg = state.agg
+            join_ids = torch.where(join_mask & present, member_of(view, n),
+                                   EMPTY).to(I32)
+            out = SparseTickEvents(join_ids, rm_ids, sent_tick, recv_tick)
+        else:
+            det = pfo["det"] if fail_ids else None
+            view_ids = (torch.where(present, member_of(view, n), EMPTY)
+                        if t == plan.fail_time and fail_ids else None)
+            agg = update_fast_agg(
+                state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
+                rm_total_tick=pfo["rm_cnt"].sum(dtype=I32),
+                det_tick=None if det is None else det.sum(1, dtype=I32),
+                any_true_rm=None if det is None else (det > 0).any(0),
+                view_ids=view_ids, view_present=present,
+                fail_time=plan.fail_time, holder_failed=plan.fail_mask,
+                sent_tick=sent_tick, recv_tick=recv_tick)
+            out = SparseTickEvents((join_mask & present).sum(dtype=I32),
+                                   pfo["rm_cnt"].sum(dtype=I32),
+                                   sent_tick.sum(dtype=I32),
+                                   recv_tick.sum(dtype=I32))
+        new_state = HashState(view, view_ts, state.started, in_group,
+                              failed, self_hb, mail, state.amail,
+                              state.pmail, joinreq_infl, joinrep_infl,
+                              pending_recv, agg, probe_ids1, probe_ids2,
+                              act_prev, state.wf_prev)
+        return new_state, out
+
+    return step
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
+                              f"{item})")
+
+
+def make_config(params: Params, collect_events: bool = True,
+                fail_ids: tuple = (), device="cpu") -> HashConfig:
+    """The ring/natural subset of the JAX ``make_config``, with the
+    refusals of the slice (module docstring)."""
+    n = params.EN_GPSZ
+    s = params.VIEW_SIZE if params.VIEW_SIZE > 0 else n
+    g = params.GOSSIP_LEN if params.GOSSIP_LEN > 0 else s
+    if params.JOIN_MODE != "warm":
+        _refuse(f"JOIN_MODE {params.JOIN_MODE} (cold joins)",
+                "Queue 1 item 3")
+    if params.resolved_exchange() != "ring":
+        _refuse("the scatter exchange", "Queue 1 item 3")
+    for key, bad, item in (
+            ("FOLDED", params.FOLDED == 1, "Queue 1 item 7"),
+            ("SCENARIO", bool(params.SCENARIO), "Queue 1 item 5"),
+            ("SHIFT_SET", params.SHIFT_SET != 0, "Queue 1 item 9"),
+            ("ENFORCE_BUFFSIZE", params.ENFORCE_BUFFSIZE != 0,
+             "Queue 1 item 9"),
+            ("CHECKPOINT_EVERY", params.CHECKPOINT_EVERY > 0,
+             "Queue 1 item 4"),
+            ("MEGA_TICKS", params.MEGA_TICKS > 0, "Queue 1 item 4"),
+            ("TELEMETRY", params.TELEMETRY != "off", "Queue 1 item 4"),
+            ("RNG_MODE hoisted", params.RNG_MODE == "hoisted",
+             "Queue 1 item 4"),
+            (f"PROBE_IO {params.PROBE_IO}",
+             params.PROBE_IO in ("approx_lag", "none"), "Queue 1 item 9")):
+        if bad:
+            _refuse(key, item)
+    fast_agg = not collect_events and len(fail_ids) <= FAST_AGG_MAX_FAILED
+    if not collect_events and not fast_agg:
+        _refuse(f"EVENT_MODE agg with more than {FAST_AGG_MAX_FAILED} failed "
+                "ids (the scatter-based AggStats update)", "Queue 1 item 9")
+    if n < 4:
+        raise ValueError("the ring step's packed probe table needs N >= 4")
+    knobs = {k: getattr(params, k)
+             for k in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE")}
+    if torch.device(device).type == "cuda":
+        if s % 128 != 0:
+            _refuse(f"VIEW_SIZE {s} on CUDA (the kernels are the path there "
+                    "and take VIEW_SIZE % 128 == 0)", "Queue 1 item 9")
+        pinned_off = [k for k, v in knobs.items() if v == 0]
+        if pinned_off:
+            _refuse(f"{'/'.join(pinned_off)}: 0 on CUDA (the kernels are "
+                    "the path there; the plain versions run on CPU tensors "
+                    "only)", "Queue 1 item 9")
+    else:
+        pinned_on = [k for k, v in knobs.items() if v == 1]
+        if pinned_on:
+            _refuse(f"{'/'.join(pinned_on)}: 1 on the CPU (it pins the CUDA "
+                    "kernels, which run only on the card; use -1 or 0)",
+                    "Queue 1 item 9")
+    return HashConfig(
+        n=n, s=s, g=min(g, s), tfail=params.TFAIL, tremove=params.TREMOVE,
+        fanout=params.FANOUT, drop_prob=params.effective_drop_prob(),
+        probes=params.PROBES,
+        qp=n if n <= 1024 else max(128, 32 * params.PROBES),
+        collect_events=collect_events,
+        fail_ids=tuple(int(f) for f in fail_ids) if fast_agg else (),
+        fast_agg=fast_agg,
+        count_probe_io=probe_attribution_exact(params))
+
+
+def plan_fail_ids(plan: FailurePlan) -> tuple:
+    return tuple(plan.failed_indices) if plan.fail_time is not None else ()
+
+
+def run_scan(params: Params, plan: FailurePlan, seed: int, device,
+             collect_events: bool = True, total_time: Optional[int] = None):
+    """Run the whole simulation; returns ``(final_state, events)`` with
+    ``events`` the host-compacted per-tick planes in full event mode and
+    ``None`` in agg mode."""
+    cfg = make_config(params, collect_events, fail_ids=plan_fail_ids(plan),
+                      device=device)
+    total = total_time if total_time is not None else params.TOTAL_TIME
+    params.validate_sparse_packing(total)
+    plan_t = plan_tensors(params, plan, seed, total, device)
+    state = init_state_warm(cfg, make_run_key(params, seed ^ 0x5EED), device)
+    step = make_step(cfg)
+    joins, removes, sent, recv = [], [], [], []
+    for t in range(total):
+        state, out = step(state, t, plan_t.tick_key(t), plan_t)
+        if collect_events:
+            joins.append(compact_tick(t, out.join_ids))
+            removes.append(compact_tick(t, out.rm_ids))
+            sent.append(out.sent)
+            recv.append(out.recv)
+    if not collect_events:
+        return state, None
+    empty = np.zeros((0, 3), np.int64)
+    return state, CompactEvents(
+        np.concatenate(joins) if joins else empty,
+        np.concatenate(removes) if removes else empty,
+        torch.stack(sent).cpu().numpy() if sent else np.zeros((0, cfg.n)),
+        torch.stack(recv).cpu().numpy() if recv else np.zeros((0, cfg.n)),
+        total)
+
+
+@register("tpu_hash")
+def run_tpu_hash(params: Params, log: Optional[EventLog] = None,
+                 seed: Optional[int] = None, device="cuda") -> RunResult:
+    t0 = _time.time()
+    seed = params.SEED if seed is None else seed
+    log = log if log is not None else EventLog()
+    plan = resolve_plan(params, _pyrandom.Random(f"app:{seed}"))
+    return finish_run(params, plan, log, run_scan, t0, seed, device)

@@ -1,0 +1,180 @@
+"""On-device event aggregates for scale runs (the JAX package's
+``observability/aggregates.py``, FastAgg path).
+
+At 1M nodes the per-tick event planes cannot be kept, so a run folds
+them into O(N) accumulators: per-failed-id detection counts, the
+tracker census at the failure tick, distinct-observer flags, the
+detection-latency histogram and message totals.  Everything the
+detection summary reports is computed from these on the host at the
+end.  ``AggStats`` exists only as the placeholder that full event mode
+carries in the state (its scatter-based update is not ported).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+LAT_BINS = 512          # ticks-after-failure resolution; last bin overflows
+FAST_AGG_MAX_FAILED = 8
+_NO_TICK = np.iinfo(np.int32).max
+
+
+class AggStats(NamedTuple):
+    rm_count: torch.Tensor
+    det_count: torch.Tensor
+    rm_first: torch.Tensor
+    rm_last: torch.Tensor
+    join_count: torch.Tensor
+    trackers: torch.Tensor
+    tracker_obs: torch.Tensor
+    det_obs: torch.Tensor
+    lat_hist: torch.Tensor
+    sent_total: torch.Tensor
+    recv_total: torch.Tensor
+
+
+def init_agg(n: int, device) -> AggStats:
+    i32 = dict(dtype=torch.int32, device=device)
+    return AggStats(
+        rm_count=torch.zeros((n,), **i32),
+        det_count=torch.zeros((n,), **i32),
+        rm_first=torch.full((n,), _NO_TICK, **i32),
+        rm_last=torch.full((n,), -1, **i32),
+        join_count=torch.zeros((n,), **i32),
+        trackers=torch.zeros((n,), **i32),
+        tracker_obs=torch.zeros((n,), dtype=torch.bool, device=device),
+        det_obs=torch.zeros((n,), dtype=torch.bool, device=device),
+        lat_hist=torch.zeros((LAT_BINS,), **i32),
+        sent_total=torch.zeros((n,), **i32),
+        recv_total=torch.zeros((n,), **i32),
+    )
+
+
+class FastAgg(NamedTuple):
+    det_count: torch.Tensor    # [F] i32 true detections per failed id
+    trackers: torch.Tensor     # [F] i32 live views holding id f at fail_time
+    tracker_obs: torch.Tensor  # [N] bool held >= 1 crashed id at the crash
+    det_obs: torch.Tensor      # [N] bool issued >= 1 true detection
+    lat_hist: torch.Tensor     # [LAT_BINS] i32
+    join_total: torch.Tensor   # [] i32
+    rm_total: torch.Tensor     # [] i32 (false removals = rm - det)
+    sent_total: torch.Tensor   # [N] i32
+    recv_total: torch.Tensor   # [N] i32
+
+
+def init_fast_agg(n_failed: int, rows: int, device) -> FastAgg:
+    i32 = dict(dtype=torch.int32, device=device)
+    return FastAgg(
+        det_count=torch.zeros((max(n_failed, 1),), **i32),
+        trackers=torch.zeros((max(n_failed, 1),), **i32),
+        tracker_obs=torch.zeros((rows,), dtype=torch.bool, device=device),
+        det_obs=torch.zeros((rows,), dtype=torch.bool, device=device),
+        lat_hist=torch.zeros((LAT_BINS,), **i32),
+        join_total=torch.zeros((), **i32),
+        rm_total=torch.zeros((), **i32),
+        sent_total=torch.zeros((rows,), **i32),
+        recv_total=torch.zeros((rows,), **i32),
+    )
+
+
+def update_fast_agg(agg: FastAgg, *, t: int, fail_ids: tuple,
+                    join_events, rm_total_tick, det_tick, any_true_rm,
+                    view_ids, view_present, fail_time: int, holder_failed,
+                    sent_tick, recv_tick) -> FastAgg:
+    """One tick (JAX ``update_fast_agg`` with the probe kernel's
+    partials as ``pre``): ``det_tick`` [F] removals naming each failed id,
+    ``any_true_rm`` [N] rows that removed one, ``rm_total_tick`` all
+    removals.  ``t`` and ``fail_time`` are host ints, so the crash-tick
+    census is a host branch."""
+    post = t > fail_time
+    trackers, tracker_obs = agg.trackers, agg.tracker_obs
+    if fail_ids:
+        det_tick = det_tick if post else torch.zeros_like(det_tick)
+        if t == fail_time:
+            live = ~holder_failed[:, None]
+            holds = [view_present & (view_ids == f) for f in fail_ids]
+            trackers = torch.stack([(h & live).sum(dtype=torch.int32)
+                                    for h in holds])
+            tracker_obs = torch.stack([h.any(1) for h in holds]).any(0) \
+                & ~holder_failed
+    else:
+        det_tick = torch.zeros_like(agg.det_count)
+        any_true_rm = torch.zeros_like(agg.det_obs)
+    lat = min(max(t - fail_time, 0), LAT_BINS - 1)
+    lat_hist = agg.lat_hist.clone()
+    lat_hist[lat] += det_tick.sum(dtype=torch.int32)
+    return FastAgg(
+        det_count=agg.det_count + det_tick,
+        trackers=trackers,
+        tracker_obs=tracker_obs,
+        det_obs=agg.det_obs | (any_true_rm & post),
+        lat_hist=lat_hist,
+        join_total=agg.join_total + join_events.sum(dtype=torch.int32),
+        rm_total=agg.rm_total + rm_total_tick,
+        sent_total=agg.sent_total + sent_tick,
+        recv_total=agg.recv_total + recv_tick,
+    )
+
+
+def latency_stats(hist: np.ndarray) -> dict:
+    hist = np.asarray(hist)
+    total_det = int(hist.sum())
+    if not total_det:
+        return {}
+    ticks = np.arange(hist.shape[0])
+    cdf = np.cumsum(hist)
+    return {
+        "latency_min": int(ticks[hist > 0][0]),
+        "latency_max": int(ticks[hist > 0][-1]),
+        "latency_p50": int(np.searchsorted(cdf, 0.50 * total_det)),
+        "latency_p99": int(np.searchsorted(cdf, 0.99 * total_det)),
+        "latency_overflow_count": int(hist[hist.shape[0] - 1]),
+        "latency_hist_nonzero": {
+            int(k): int(v) for k, v in zip(ticks[hist > 0], hist[hist > 0])},
+    }
+
+
+def _completeness_stats(trackers, detections, tracker_obs, det_obs,
+                        n_failed: int, total_det: int) -> dict:
+    tracker_nodes = int(tracker_obs.sum())
+    detecting = int((det_obs & tracker_obs).sum())
+    return {
+        "failed_nodes": n_failed,
+        "trackers_per_failed_min": int(trackers.min()),
+        "trackers_per_failed_mean": float(trackers.mean()),
+        "detections_total": total_det,
+        "tracker_nodes": tracker_nodes,
+        "observer_completeness": (
+            detecting / tracker_nodes if tracker_nodes else 1.0),
+        "detection_completeness": float((detections >= trackers).mean()),
+        "detected_by_someone": float((detections > 0).mean()),
+    }
+
+
+def fast_summary(agg: FastAgg, fail_ids, fail_time) -> dict:
+    """The detection summary: accuracy (false removals), completeness
+    per failed id and per observer, and the latency distribution."""
+    agg = FastAgg(*(x.cpu().numpy() for x in agg))
+    det_total = int(agg.det_count.sum())
+    out = {
+        "n": agg.tracker_obs.shape[0],
+        "joins_total": int(agg.join_total),
+        "false_removals": int(agg.rm_total) - det_total,
+        "msgs_sent": int(agg.sent_total.sum()),
+        "msgs_recv": int(agg.recv_total.sum()),
+    }
+    if fail_time is not None and len(fail_ids):
+        f = len(fail_ids)
+        out.update(_completeness_stats(
+            agg.trackers[:f], agg.det_count[:f], agg.tracker_obs,
+            agg.det_obs, f, int(agg.lat_hist.sum())))
+        out.update(latency_stats(agg.lat_hist))
+    return out
+
+
+def detection_summary(agg: FastAgg, fail_mask: np.ndarray, fail_time) -> dict:
+    fail_ids = tuple(np.nonzero(np.asarray(fail_mask, bool))[0])
+    return fast_summary(agg, fail_ids, fail_time)

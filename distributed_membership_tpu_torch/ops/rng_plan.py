@@ -1,0 +1,62 @@
+"""Per-tick RNG plan for the ring step (counterpart of the JAX package's
+``ops/rng_plan.py``).
+
+The key derivation is exactly the JAX step's: ``split(key, 8)`` into
+``(k_targets, k_entries, k_drop, k_ctrl, k_drop_p, k_shifts, k_ack1,
+k_ack2)``, per-shift drop keys ``fold_in(k_drop, j)``, and the seed-burst
+coin on the raw ``k_drop``.  The JAX package groups same-size draws into
+one vmapped threefry call; a vmapped draw equals the per-key draw, so the
+port simply draws each request on its own.
+
+Drop coins are kept as float32 uniforms: ``bernoulli(k, p)`` is
+``uniform(k) < f32(p)``, compared at the use site.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from distributed_membership_tpu_torch.ops.threefry import (
+    Key, fold_in, randint, split, uniform)
+
+
+class RingRng(NamedTuple):
+    """One tick's random material, flat float32 draws (consumers reshape).
+    Streams a config does not consume are empty tensors."""
+    shift_draw: torch.Tensor       # [k_max] int32 gossip shifts in [1, N)
+    thin_u: torch.Tensor           # [N*S] entry-thinning uniforms (g < s)
+    gossip_u: Tuple[torch.Tensor, ...]  # k_max x [N*S] per-shift drop coins
+    ctrl_u: torch.Tensor           # [2*N] control-plane drop coins
+    burst_u: torch.Tensor          # [seed_rows*S] seed-burst drop coins
+    probe_u: torch.Tensor          # [N*P] probe-leg drop coins
+    ack_u: torch.Tensor            # [N*P] ack-leg drop coins
+
+
+def hash_ring_rng(key: Key, *, n: int, s: int, g: int, k_max: int,
+                  p_cnt: int, seed_rows: int, use_drop: bool,
+                  device) -> RingRng:
+    """The single-chip ring step's plan (JAX ``hash_ring_rng`` with
+    ``shift_set=0`` and the natural layout's control and burst coins)."""
+    (_k_targets, k_entries, k_drop, k_ctrl, _k_drop_p, k_shifts,
+     k_ack1, k_ack2) = split(key, 8)
+    empty = torch.zeros((0,), dtype=torch.float32, device=device)
+    shift_draw = randint(k_shifts, (k_max,), 1, max(n, 2), device)
+    thin_u = uniform(k_entries, (n * s,), device) if g < s else empty
+    if not use_drop:
+        return RingRng(shift_draw, thin_u, (), empty, empty, empty, empty)
+    probe_u = ack_u = empty
+    if p_cnt > 0:
+        probe_u = uniform(k_ack1, (n * p_cnt,), device)
+        ack_u = uniform(k_ack2, (n * p_cnt,), device)
+    return RingRng(
+        shift_draw=shift_draw,
+        thin_u=thin_u,
+        gossip_u=tuple(uniform(fold_in(k_drop, j), (n * s,), device)
+                       for j in range(k_max)),
+        ctrl_u=uniform(k_ctrl, (2 * n,), device),
+        burst_u=uniform(k_drop, (seed_rows * s,), device),
+        probe_u=probe_u,
+        ack_u=ack_u,
+    )

@@ -1,0 +1,37 @@
+"""Packed view entries: the slot-map constants and u32 helpers.
+
+A view or mailbox entry is the u32 ``hb * N + id + 1`` (0 = empty), as in
+the JAX package.  CPU PyTorch has almost no u32 arithmetic, so the port
+keeps every packed plane as an ``int32`` tensor holding the u32 bit
+pattern (the CUDA kernels read the same bytes as ``uint32``) and widens
+to ``int64`` wherever order or ``%`` matters.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EMPTY = -1          # member id of a free slot
+STRIDE = 7919       # odd prime per-node slot-map offset (JAX view_merge.py)
+M32 = 0xFFFFFFFF
+
+
+def as_u32(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern -> int64 holding the unsigned value."""
+    return bits.to(torch.int64) & M32
+
+
+def to_bits(u: torch.Tensor) -> torch.Tensor:
+    """int64 holding a u32 value (taken mod 2^32) -> int32 bit pattern."""
+    return (((u & M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unsigned max of two int32 bit-pattern tensors."""
+    return torch.where(as_u32(b) > as_u32(a), b, a)
+
+
+def member_of(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """``(packed - 1) % n`` in u32 arithmetic (0 - 1 wraps to 2^32 - 1),
+    as int64."""
+    return ((as_u32(bits) - 1) & M32) % n

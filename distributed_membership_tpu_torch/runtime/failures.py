@@ -1,0 +1,115 @@
+"""Failure injection plans (the JAX package's ``runtime/failures.py``).
+
+The plan is drawn up front from Python's seeded ``random.Random`` (the
+reference's crash-stop of one random node, or of ``EN_GPSZ/2`` contiguous
+nodes, or of whole racks, at ``FAIL_TIME``; DROP_MSG's drop window), so
+the port injects the same failures as the JAX package for the same seed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+from typing import List, Optional
+
+import torch
+
+from distributed_membership_tpu_torch.addressing import index_to_id
+from distributed_membership_tpu_torch.config import Params
+from distributed_membership_tpu_torch.ops import threefry
+
+
+@dataclasses.dataclass
+class FailurePlan:
+    kind: str                    # 'single' | 'multi' | 'racks'
+    fail_time: Optional[int]
+    failed_indices: List[int]
+    drop_start: Optional[int]
+    drop_stop: Optional[int]
+
+
+def make_plan(params: Params, rng: random.Random) -> FailurePlan:
+    n = params.EN_GPSZ
+    drop_start = params.DROP_START if params.DROP_MSG else None
+    drop_stop = params.DROP_STOP if params.DROP_MSG else None
+    if params.RACK_SIZE > 0 and params.RACK_FAILURES > 0:
+        n_racks = max(n // params.RACK_SIZE, 1)
+        racks = rng.sample(range(n_racks), min(params.RACK_FAILURES, n_racks))
+        failed = sorted(i for r in racks
+                        for i in range(r * params.RACK_SIZE,
+                                       min((r + 1) * params.RACK_SIZE, n)))
+        return FailurePlan("racks", params.FAIL_TIME, failed, drop_start,
+                           drop_stop)
+    if params.SINGLE_FAILURE:
+        return FailurePlan("single", params.FAIL_TIME, [rng.randrange(n)],
+                           drop_start, drop_stop)
+    start = rng.randrange(n) // 2        # C precedence: (rand() % N) / 2
+    return FailurePlan("multi", params.FAIL_TIME,
+                       list(range(start, min(start + n // 2, n))),
+                       drop_start, drop_stop)
+
+
+def resolve_plan(params: Params, rng: random.Random) -> FailurePlan:
+    if params.SCENARIO:
+        raise NotImplementedError(
+            "SCENARIO is not ported yet (ROADMAP.md Queue 1 item 5, the "
+            "scenario engine)")
+    return make_plan(params, rng)
+
+
+def make_run_key(params: Params, seed: int) -> threefry.Key:
+    """Root key of the run.  Only threefry2x32 has a portable stream."""
+    if params.PRNG_IMPL != "threefry2x32":
+        raise NotImplementedError(
+            f"PRNG_IMPL {params.PRNG_IMPL} draws from XLA's hardware RNG, "
+            "which has no portable stream; the port runs threefry2x32 only "
+            "(ROADMAP.md Queue 1 item 8)")
+    return threefry.prng_key(seed)
+
+
+@dataclasses.dataclass
+class PlanTensors:
+    """The schedule the tick loop consumes.  Scalars stay host ints (the
+    loop branches on them without a device sync); ``fail_mask`` lives on
+    the run's device."""
+    root: threefry.Key
+    fail_mask: torch.Tensor      # [N] bool
+    fail_time: int               # -1 = never
+    drop_lo: int
+    drop_hi: int
+
+    def tick_key(self, t: int) -> threefry.Key:
+        """``fold_in(PRNGKey(seed), t)``, the JAX per-tick key."""
+        return threefry.fold_in(self.root, t)
+
+    def drop_active(self, t: int) -> bool:
+        return self.drop_lo < t <= self.drop_hi
+
+
+def plan_tensors(params: Params, plan: FailurePlan, seed: int, total: int,
+                 device) -> PlanTensors:
+    n = params.EN_GPSZ
+    fail_mask = torch.zeros((n,), dtype=torch.bool)
+    fail_time = -1
+    if plan.fail_time is not None:
+        fail_mask[plan.failed_indices] = True
+        fail_time = plan.fail_time
+    return PlanTensors(
+        root=make_run_key(params, seed),
+        fail_mask=fail_mask.to(device),
+        fail_time=fail_time,
+        drop_lo=(plan.drop_start if plan.drop_start is not None
+                 else total + 1),
+        drop_hi=(plan.drop_stop if plan.drop_stop is not None
+                 else total + 1))
+
+
+def log_failures(plan: FailurePlan, log, t: int) -> None:
+    """The 'Node failed at time...' lines of Application.cpp:184,192."""
+    if plan.fail_time != t:
+        return
+    if plan.kind == "single":
+        log.node_failed_single(index_to_id(plan.failed_indices[0]), t)
+    else:
+        for i in plan.failed_indices:
+            log.node_failed_multi(index_to_id(i), t)

@@ -1,0 +1,190 @@
+"""The port end to end against the JAX package, and its package rules.
+
+* Full event mode: ``dbg.log``, ``stats.log`` and ``msgcount.log`` of the
+  port on ``--device cpu`` are byte-identical to the JAX package's
+  ``run_conf`` on the same conf and seed (N = 256, S = 128, 5% drops).
+* Agg mode: the detection summaries are identical (N = 4096, drop-free).
+* The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
+* The default device is CUDA: without a GPU a run raises instead of
+  running on the CPU, and what the slice does not cover is refused.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+import warnings
+
+import pytest
+import torch
+
+from distributed_membership_tpu.runtime import application as jax_app
+from distributed_membership_tpu_torch.backends.tpu_hash import make_config
+from distributed_membership_tpu_torch.config import Params
+from distributed_membership_tpu_torch.runtime import application
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "distributed_membership_tpu_torch"
+
+_RING = ("MAX_NNB: {n}\nSINGLE_FAILURE: 1\nDROP_MSG: {drop}\n"
+         "MSG_DROP_PROB: {p}\nVIEW_SIZE: 128\nGOSSIP_LEN: 32\nPROBES: 16\n"
+         "FANOUT: 3\nTFAIL: 16\nTREMOVE: 40\nTOTAL_TIME: {total}\n"
+         "FAIL_TIME: {fail}\nJOIN_MODE: warm\nEXCHANGE: ring\n"
+         "BACKEND: tpu_hash\n")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: under pytest-xdist several test processes
+    share the cores, and torch's OpenMP workers would then wait on each
+    other at every op of the tick loop."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _runs(tmp_path, conf_text, seed):
+    conf = tmp_path / "ring.conf"
+    conf.write_text(conf_text)
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out["jax"] = jax_app.run_conf(str(conf), seed=seed,
+                                      out_dir=str(tmp_path / "jax"))
+        out["port"] = application.run_conf(str(conf), seed=seed,
+                                           out_dir=str(tmp_path / "port"),
+                                           device="cpu")
+    return out
+
+
+def test_full_event_logs_byte_identical(tmp_path):
+    conf = _RING.format(n=256, drop=1, p=0.05, total=120, fail=50)
+    runs = _runs(tmp_path, conf, seed=7)
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        want = (tmp_path / "jax" / name).read_bytes()
+        got = (tmp_path / "port" / name).read_bytes()
+        assert got == want, name
+    dbg = (tmp_path / "port" / "dbg.log").read_text()
+    assert "removed" in dbg and "Node failed at time" in dbg
+    assert runs["port"].failed_indices == runs["jax"].failed_indices
+
+
+def test_agg_detection_summary_identical(tmp_path):
+    conf = (_RING.format(n=4096, drop=0, p=0, total=140, fail=60)
+            + "EVENT_MODE: agg\n")
+    runs = _runs(tmp_path, conf, seed=0)
+    want = runs["jax"].extra["detection_summary"]
+    got = runs["port"].extra["detection_summary"]
+    assert got == want
+    assert got["detections_total"] > 0 and got["false_removals"] == 0
+
+
+def test_cli_json_summary(tmp_path):
+    conf = tmp_path / "ring.conf"
+    conf.write_text(_RING.format(n=64, drop=0, p=0, total=30, fail=10))
+    out = subprocess.run(
+        [sys.executable, "-m", "distributed_membership_tpu_torch",
+         str(conf), "--device", "cpu", "--json", "--seed", "2",
+         "--out-dir", str(tmp_path / "o")],
+        capture_output=True, text=True, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert '"device": "cpu"' in out.stdout.splitlines()[-1]
+    assert (tmp_path / "o" / "dbg.log").exists()
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_imports_no_jax():
+    """Neither the port nor chip_smoke.py imports JAX or any module of
+    the JAX package: statically (every import statement, including those
+    inside functions) and at run time (a fresh interpreter)."""
+    for path in _port_sources():
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib",
+                                   "distributed_membership_tpu"), (
+                    f"{path.relative_to(REPO)} imports {name}")
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import distributed_membership_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'distributed_membership_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules\n"
+        "           if m.startswith('distributed_membership_tpu_torch')]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = tmp_path / "ring.conf"
+    conf.write_text(_RING.format(n=64, drop=0, p=0, total=10, fail=5))
+    with pytest.raises(RuntimeError, match="cuda"):
+        application.run_conf(str(conf), out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        application.main([str(conf), "--out-dir", str(tmp_path)])
+    assert not (tmp_path / "dbg.log").exists()
+
+
+@pytest.mark.parametrize("extra", [
+    "JOIN_MODE: staggered\n", "EXCHANGE: scatter\n", "FOLDED: 1\n",
+    "SHIFT_SET: 4\n", "ENFORCE_BUFFSIZE: 1\n", "CHECKPOINT_EVERY: 10\n",
+    "MEGA_TICKS: 4\n", "TELEMETRY: scalars\n", "RNG_MODE: hoisted\n",
+    "PROBE_IO: approx_lag\n", "PROBE_IO: none\n"])
+def test_outside_the_slice_is_refused(extra):
+    p = Params.from_text(_RING.format(n=64, drop=0, p=0, total=10, fail=5)
+                         + extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        make_config(p, device="cpu")
+
+
+def test_refusals_on_the_card_and_off():
+    base = _RING.format(n=64, drop=0, p=0, total=10, fail=5)
+    # On CUDA the kernels are the path: no pinned-off kernel, S % 128.
+    with pytest.raises(NotImplementedError, match="FUSED_GOSSIP"):
+        make_config(Params.from_text(base + "FUSED_GOSSIP: 0\n"),
+                    device="cuda")
+    with pytest.raises(NotImplementedError, match="VIEW_SIZE % 128"):
+        make_config(Params.from_text(base.replace("VIEW_SIZE: 128",
+                                                  "VIEW_SIZE: 64")
+                                     .replace("GOSSIP_LEN: 32",
+                                              "GOSSIP_LEN: 16")
+                                     .replace("PROBES: 16", "PROBES: 8")),
+                    device="cuda")
+    # On the CPU a pinned-on kernel cannot run.
+    with pytest.raises(NotImplementedError, match="FUSED_RECEIVE"):
+        make_config(Params.from_text(base + "FUSED_RECEIVE: 1\n"),
+                    device="cpu")
+    # Under agg mode at most FAST_AGG_MAX_FAILED failed ids.
+    with pytest.raises(NotImplementedError, match="FAST_AGG|failed ids"):
+        make_config(Params.from_text(base), collect_events=False,
+                    fail_ids=tuple(range(9)), device="cpu")
+    # Other PRNG implementations have no portable stream.
+    from distributed_membership_tpu_torch.runtime.failures import (
+        make_run_key, resolve_plan)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_run_key(Params.from_text(base + "PRNG_IMPL: rbg\n"), 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        resolve_plan(Params.from_text(base + "SCENARIO: x.json\n"), None)
+    from distributed_membership_tpu_torch.backends import get_backend
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_backend("tpu_sparse")
