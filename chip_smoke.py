@@ -6,9 +6,10 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure exits non-zero before the final line):
   1. build   -- compile the CUDA kernels of csrc/ with nvcc for sm_90a;
   2. kernels -- hold each kernel against its plain PyTorch version on the
-                card at N=2^20, S=128, P=16, k_max=3 (bit-exact: integer
-                outputs, tolerance 0), and time kernel, plain version and
-                the device-memory bound;
+                card (bit-exact: integer outputs, tolerance 0), and time
+                kernel, plain version and the device-memory bound: K1-K3
+                at N=2^20, S=128, P=16, k_max=3; K5-K7 on the folded
+                layout at N=2^20, S=16, P=2, k_max=3;
   3. main    -- run_conf on confs/ring_1m_s128.conf (the bench.py hash
                 geometry at N=2^20, drop-free, 160 ticks, EVENT_MODE agg);
                 every kernel of the path must launch once per tick, with no
@@ -17,7 +18,16 @@ Phases (any failure exits non-zero before the final line):
                 (confs/ring_1m_s128_drop.conf), driving K2's masks form;
   5. parity  -- a small N=256 full-event conf on the card (kernels) and on
                 the CPU (plain versions): dbg.log, stats.log and
-                msgcount.log must be byte-identical.
+                msgcount.log must be byte-identical;
+  6. folded  -- run_conf on confs/ring_1m_s16_folded.conf (the bench.py
+                S=16 geometry at N=2^20 on the folded layout, drop-free,
+                160 ticks): K5-K7 once per tick and no natural kernel, no
+                false removal, at least one detection;
+  7. folded_lossy  -- the same with 5% drops for 64 ticks
+                (confs/ring_1m_s16_folded_drop.conf);
+  8. folded_parity -- confs/ring_16k_s16_folded_drop.conf on the card and
+                on the CPU: the detection summary and every leaf of the
+                final state must be identical.
 Then it prints one JSON line of kernel numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  `--only build,kernels`
 runs a subset of the phases and prints no final line; `--only profile`
@@ -38,14 +48,22 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N, S, P, K_MAX = 1 << 20, 128, 16, 3
+FS, FP = 16, 2                  # the folded path's view size and probes
 TFAIL, TREMOVE = 16, 40
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
-PHASES = ("build", "kernels", "main", "lossy", "parity")
+PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
+          "folded_lossy", "folded_parity")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
     "receive_fused": "distributed_membership_tpu/ops/fused_receive.py:176",
     "gossip_fused": "distributed_membership_tpu/ops/fused_gossip.py:195",
     "probe_window_fused": "distributed_membership_tpu/ops/fused_probe.py:137",
+    "receive_folded_fused":
+        "distributed_membership_tpu/ops/fused_folded.py:123",
+    "gossip_folded_stacked":
+        "distributed_membership_tpu/ops/fused_folded.py:196",
+    "probe_folded_window_fused":
+        "distributed_membership_tpu/ops/fused_probe.py:253",
 }
 CSRC = "distributed_membership_tpu_torch/csrc/"
 
@@ -111,8 +129,26 @@ def packed(rng, n, occ, hb_hi, shape):
     return val.astype(np.uint32).view(np.int32)
 
 
+def nbytes(*ts) -> int:
+    return sum(x.numel() * x.element_size() for x in ts)
+
+
+def record(rows: dict, name, form, err, k_ms, p_ms, moved) -> None:
+    """Log one kernel form's numbers and keep them in ``rows``; raises if
+    the kernel disagreed with its plain version."""
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    log(f"kernel {name}[{form}]: max_abs_err={err} kernel_ms={k_ms} "
+        f"plain_ms={p_ms} bound_ms={bound} ({moved} bytes) "
+        "library_ms=null")
+    if err != 0:
+        raise AssertionError(f"{name}[{form}] differs from its plain "
+                             "version (integer outputs, tolerance 0)")
+    rows[form] = dict(name=name, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                      bound_ms=bound, bound_by="bytes", library_ms=None)
+
+
 def phase_kernels(torch, dev) -> dict:
-    """Phase 2: every kernel against its plain version at the main path's
+    """Phase 2: K1-K3 against their plain versions at the main path's
     shapes; returns one record per kernel form."""
     import numpy as np
     from distributed_membership_tpu_torch.ops.fused_gossip import (
@@ -140,20 +176,6 @@ def phase_kernels(torch, dev) -> dict:
                   .astype(np.uint32).view(np.int32)) * self_on.to(torch.int32)
     rows = {}
 
-    def nbytes(*ts):
-        return sum(x.numel() * x.element_size() for x in ts)
-
-    def record(name, form, err, k_ms, p_ms, moved):
-        bound = moved / HBM_BYTES_PER_S * 1e3
-        log(f"kernel {name}[{form}]: max_abs_err={err} kernel_ms={k_ms} "
-            f"plain_ms={p_ms} bound_ms={bound} ({moved} bytes) "
-            "library_ms=null")
-        if err != 0:
-            raise AssertionError(f"{name}[{form}] differs from its plain "
-                                 "version (integer outputs, tolerance 0)")
-        rows[form] = dict(name=name, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                          bound_ms=bound, bound_by="bytes", library_ms=None)
-
     # ---- K1 receive (updates view/view_ts/mail in place) ----
     args = (cand, recv, act, self_on, self_pack)
     ref = receive_core(N, S, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail,
@@ -171,7 +193,7 @@ def phase_kernels(torch, dev) -> dict:
     del v2, ts2, m2
     # in: view, view_ts, mail, cand and the row vectors; out: view,
     # view_ts, mail, rm_ids (4 B) and join (1 B) per slot, two [N] counts
-    record("receive_fused", "receive", err, k_ms, p_ms,
+    record(rows, "receive_fused", "receive", err, k_ms, p_ms,
            nbytes(view, view_ts, mail, cand, recv, act, self_on, self_pack)
            + nbytes(view, view_ts, mail) + N * S * 5 + N * 8)
 
@@ -192,7 +214,7 @@ def phase_kernels(torch, dev) -> dict:
                                         shifts), 20)
     p_ms = cuda_ms(lambda: gossip_plain(N, S, K_MAX, mail, payload, k_eff,
                                         shifts), 3)
-    record("gossip_fused", "gossip", err, k_ms, p_ms,
+    record(rows, "gossip_fused", "gossip", err, k_ms, p_ms,
            2 * nbytes(mail) + nbytes(payload, k_eff, shifts))
 
     masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
@@ -206,7 +228,7 @@ def phase_kernels(torch, dev) -> dict:
                                         masks=masks), 20)
     p_ms = cuda_ms(lambda: gossip_plain(N, S, K_MAX, mail, view, None,
                                         shifts, masks), 3)
-    record("gossip_fused", "gossip_masks", err, k_ms, p_ms,
+    record(rows, "gossip_fused", "gossip_masks", err, k_ms, p_ms,
            2 * nbytes(mail) + nbytes(view, masks, shifts))
     del masks, m2, payload
 
@@ -236,7 +258,7 @@ def phase_kernels(torch, dev) -> dict:
         rm_ids), 3)
     # in: the P window columns of view, act and the rm plane; out: P ids
     # and 1 + F counts per row
-    record("probe_window_fused", "probe", err, k_ms, p_ms,
+    record(rows, "probe_window_fused", "probe", err, k_ms, p_ms,
            N * P * 4 + nbytes(act, rm_ids) + N * P * 4
            + N * 4 * (1 + len(fail_ids)))
 
@@ -254,9 +276,150 @@ def phase_kernels(torch, dev) -> dict:
     p_ms = cuda_ms(lambda: probe_plain(
         N, S, P, TFAIL, (), True, False, t, 120, 0, view, view_ts, act,
         None), 3)
-    record("probe_window_fused", "probe_hist", err, k_ms, p_ms,
+    record(rows, "probe_window_fused", "probe_hist", err, k_ms, p_ms,
            nbytes(view, view_ts, act) + N * P * 4 + N * 2 * 8 * 4)
     return rows
+
+
+def phase_kernels_folded(torch, dev) -> dict:
+    """Phase 2, folded layout: K5-K7 against their plain versions at the
+    folded path's shapes (N=2^20, S=16, P=2, k_max=3); returns one record
+    per kernel form."""
+    import numpy as np
+    from distributed_membership_tpu_torch.ops.fused_folded import (
+        folded_receive_core, gossip_folded_plain, gossip_folded_stacked,
+        receive_folded_fused)
+    from distributed_membership_tpu_torch.ops.fused_probe import (
+        probe_folded_plain, probe_folded_window_fused)
+    from distributed_membership_tpu_torch.ops.view_merge import STRIDE
+
+    rng = np.random.default_rng(20262)
+    t = 90
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    r = N * FS // 128
+    shape = (r, 128)
+    view = T(packed(rng, N, 0.7, 2 * t + 2, shape))
+    view_ts = T(rng.integers(0, t + 1, size=shape, dtype=np.int32))
+    mail = T(packed(rng, N, 0.4, 2 * t + 4, shape))
+    cand = T(np.where(rng.random(shape, dtype=np.float32) < 0.1,
+                      packed(rng, N, 1.0, 2 * t + 4, shape), 0))
+    recv = T(rng.random(N) < 0.95)
+    act = T(rng.random(N) < 0.95)
+    own_hb = rng.integers(1, 2 * t + 3, size=N, dtype=np.int64)
+    self_val = T(((own_hb * N + np.arange(N) + 1) & 0xFFFFFFFF)
+                 .astype(np.uint32).view(np.int32)) * act.to(torch.int32)
+    rows = {}
+
+    # ---- K5 receive (updates view/view_ts/mail in place) ----
+    args = (cand, recv, act, self_val)
+    ref = folded_receive_core(N, FS, TFAIL, TREMOVE, STRIDE, t, view,
+                              view_ts, mail, *args)
+    got = receive_folded_fused(N, FS, TFAIL, TREMOVE, STRIDE, t,
+                               view.clone(), view_ts.clone(), mail.clone(),
+                               *args)
+    torch.cuda.synchronize()
+    err = max_abs_err(zip(got, ref))
+    del ref, got
+    v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
+    k_ms = cuda_ms(lambda: receive_folded_fused(
+        N, FS, TFAIL, TREMOVE, STRIDE, t, v2, ts2, m2, *args), 20)
+    p_ms = cuda_ms(lambda: folded_receive_core(
+        N, FS, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail, *args), 3)
+    del v2, ts2, m2
+    # in: view, view_ts, mail, cand, the per-node vectors; out: view,
+    # view_ts, mail, rm_ids (4 B) and join, stale (1 B) per entry
+    record(rows, "receive_folded_fused", "receive_folded", err, k_ms, p_ms,
+           nbytes(view, view_ts, mail, cand, recv, act, self_val)
+           + nbytes(view, view_ts, mail) + r * 128 * 6)
+
+    # ---- K6 gossip: stacked payloads (the path) and shared + masks ----
+    shifts = T(np.asarray([1, N - 1, 12345], np.int32))
+    cs = STRIDE % FS
+    c1 = ((shifts % FS) * cs % FS).to(torch.int32)
+    c2 = (((shifts - N) % FS) * cs % FS).to(torch.int32)
+    payloads = torch.where(
+        T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3),
+        view[None], 0)
+    err = 0
+    for single in (True, False):
+        ref = gossip_folded_plain(r, FS, K_MAX, single, mail, payloads,
+                                  shifts, c1, c2)
+        got = gossip_folded_stacked(r, FS, K_MAX, single, mail.clone(),
+                                    payloads, shifts, c1, c2)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([(got, ref)]))
+    del ref, got
+    m2 = mail.clone()
+    k_ms = cuda_ms(lambda: gossip_folded_stacked(
+        r, FS, K_MAX, True, m2, payloads, shifts, c1, c2), 20)
+    p_ms = cuda_ms(lambda: gossip_folded_plain(
+        r, FS, K_MAX, True, mail, payloads, shifts, c1, c2), 3)
+    record(rows, "gossip_folded_stacked", "gossip_folded", err, k_ms, p_ms,
+           2 * nbytes(mail) + nbytes(payloads, shifts, c1))
+    del payloads
+
+    masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
+    ref = gossip_folded_plain(r, FS, K_MAX, True, mail, view[None], shifts,
+                              c1, c2, masks)
+    got = gossip_folded_stacked(r, FS, K_MAX, True, mail.clone(), view[None],
+                                shifts, c1, c2, masks)
+    torch.cuda.synchronize()
+    err = max_abs_err([(got, ref)])
+    del ref, got
+    k_ms = cuda_ms(lambda: gossip_folded_stacked(
+        r, FS, K_MAX, True, m2, view[None], shifts, c1, c2, masks), 20)
+    p_ms = cuda_ms(lambda: gossip_folded_plain(
+        r, FS, K_MAX, True, mail, view[None], shifts, c1, c2, masks), 3)
+    record(rows, "gossip_folded_stacked", "gossip_folded_masks", err, k_ms,
+           p_ms, 2 * nbytes(mail) + nbytes(view, masks, shifts, c1))
+    del masks, m2
+
+    # ---- K7 probe window: agg partials (the path) and hist ----
+    fail_ids = (3, 777777, N - 1)
+    rm = np.full(shape, -1, np.int32)
+    hit = rng.random(shape, dtype=np.float32) < 0.02
+    rm[hit] = rng.choice(np.asarray(fail_ids + (5, 6), np.int32),
+                         size=int(hit.sum()))
+    rm_ids = T(rm)
+    del rm, hit
+
+    def probe_err(want_hist, want_agg, ptr):
+        fails = fail_ids if want_agg else ()
+        a = (N, FS, FP, TFAIL, fails, want_hist, want_agg, t, ptr, 0, view,
+             view_ts if want_hist else None, act,
+             rm_ids if want_agg else None)
+        ref, got = probe_folded_plain(*a), probe_folded_window_fused(*a)
+        torch.cuda.synchronize()
+        if set(got) != set(ref):
+            raise AssertionError(f"probe_folded outputs {sorted(got)}")
+        pairs = [(got[k], ref[k]) for k in ref if k != "det_cols"]
+        pairs += list(zip(got.get("det_cols", ()), ref.get("det_cols", ())))
+        return max_abs_err(pairs), a
+
+    err = 0
+    for ptr in (FS - 1, 6):               # wrapping and inner window
+        e, a = probe_err(False, True, ptr)
+        err = max(err, e)
+    k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
+    p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
+    # in: view, act, rm_ids; out: the id plane, det_any (1 B per entry),
+    # 1 + F counts per plane row
+    record(rows, "probe_folded_window_fused", "probe_folded", err, k_ms,
+           p_ms, nbytes(view, act, rm_ids, view) + r * 128
+           + r * 4 * (1 + len(fail_ids)))
+    err, a = probe_err(True, False, FS - 1)
+    k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
+    p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
+    record(rows, "probe_folded_window_fused", "probe_folded_hist", err,
+           k_ms, p_ms, nbytes(view, view_ts, act, view) + r * 2 * 8 * 4)
+    return rows
+
+
+def launches_expected(**nonzero) -> dict:
+    """The launch counts of a path: ``nonzero`` and 0 for every other
+    kernel form."""
+    from distributed_membership_tpu_torch import kernels
+    return {k: nonzero.get(k, 0) for k in kernels.LAUNCHES}
 
 
 def run_path(torch, conf: str, name: str, expect: dict, out_dir: str) -> dict:
@@ -308,9 +471,8 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
                                fail_ids=tpu_hash.plan_fail_ids(plan),
                                device="cuda")
     pt = failures.plan_tensors(params, plan, 0, params.TOTAL_TIME, "cuda")
-    state = tpu_hash.init_state_warm(
-        cfg, failures.make_run_key(params, 0 ^ 0x5EED), "cuda")
-    step = tpu_hash.make_step(cfg)
+    step, init = tpu_hash.step_and_init(cfg)
+    state = init(cfg, failures.make_run_key(params, 0 ^ 0x5EED), "cuda")
     t = 0
     for t in range(warm):
         state, _ = step(state, t, pt.tick_key(t), pt)
@@ -325,6 +487,7 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
         pt.tick_key(t), n=cfg.n, s=cfg.s, g=cfg.g,
         k_max=min(cfg.fanout, cfg.s), p_cnt=cfg.probes,
         seed_rows=min(cfg.seed_cap, cfg.n), use_drop=cfg.drop_prob > 0,
+        need_ctrl=not cfg.folded, need_burst=not cfg.folded,
         device="cuda"), ticks)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -395,11 +558,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         rows = phase_kernels(torch, dev)
         torch.cuda.empty_cache()
+        rows.update(phase_kernels_folded(torch, dev))
+        torch.cuda.empty_cache()
         log(f"phase kernels: {time.perf_counter() - t0:.1f}s")
 
     confs = os.path.join(REPO, "distributed_membership_tpu_torch", "confs")
     if "profile" in phases:
-        for name in ("ring_1m_s128", "ring_1m_s128_drop"):
+        for name in ("ring_1m_s128", "ring_1m_s128_drop",
+                     "ring_1m_s16_folded", "ring_1m_s16_folded_drop"):
             phase_profile(torch, os.path.join(confs, name + ".conf"), name,
                           out_dir)
             torch.cuda.empty_cache()
@@ -407,8 +573,7 @@ def main(argv=None) -> int:
     if "main" in phases:
         paths["main"] = run_path(
             torch, os.path.join(confs, "ring_1m_s128.conf"), "main",
-            {"receive": 160, "gossip": 160, "gossip_masks": 0, "probe": 160},
-            out_dir)
+            launches_expected(receive=160, gossip=160, probe=160), out_dir)
         det = paths["main"]["detection"]
         if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
             return fail(f"main path detection summary: {det}")
@@ -416,7 +581,7 @@ def main(argv=None) -> int:
     if "lossy" in phases:
         paths["lossy"] = run_path(
             torch, os.path.join(confs, "ring_1m_s128_drop.conf"), "lossy",
-            {"receive": 64, "gossip": 0, "gossip_masks": 64, "probe": 64},
+            launches_expected(receive=64, gossip_masks=64, probe=64),
             out_dir)
         if paths["lossy"]["detection"].get("detections_total", 0) <= 0:
             return fail("lossy path: no detection")
@@ -437,29 +602,81 @@ def main(argv=None) -> int:
             if f == "dbg.log" and b" removed " not in a:
                 return fail("parity: dbg.log holds no removal")
         log("parity: N=256 full-event logs byte-identical, cuda vs cpu")
+    if "folded" in phases:
+        paths["folded"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s16_folded.conf"), "folded",
+            launches_expected(receive_folded=160, gossip_folded=160,
+                              probe_folded=160), out_dir)
+        det = paths["folded"]["detection"]
+        if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
+            return fail(f"folded path detection summary: {det}")
+        torch.cuda.empty_cache()
+    if "folded_lossy" in phases:
+        paths["folded_lossy"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s16_folded_drop.conf"),
+            "folded_lossy", launches_expected(
+                receive_folded=64, gossip_folded=64, probe_folded=64),
+            out_dir)
+        if paths["folded_lossy"]["detection"].get("detections_total", 0) <= 0:
+            return fail("folded_lossy path: no detection")
+        torch.cuda.empty_cache()
+    if "folded_parity" in phases:
+        from distributed_membership_tpu_torch.convert import state_to_numpy
+        from distributed_membership_tpu_torch.runtime.application import (
+            run_conf)
+        conf = os.path.join(confs, "ring_16k_s16_folded_drop.conf")
+        res = {d: run_conf(conf, out_dir=os.path.join(out_dir,
+                                                      f"folded_parity_{d}"),
+                           device=d) for d in ("cuda", "cpu")}
+        summ = {d: r.extra["detection_summary"] for d, r in res.items()}
+        if summ["cuda"] != summ["cpu"]:
+            return fail(f"folded_parity: detection summaries differ: {summ}")
+        leaves = {d: state_to_numpy(r.extra["final_state"])
+                  for d, r in res.items()}
+        if leaves["cuda"].keys() != leaves["cpu"].keys():
+            return fail("folded_parity: state leaves differ")
+        for name, want in leaves["cpu"].items():
+            got = leaves["cuda"][name]
+            if got.shape != want.shape or (got != want).any():
+                return fail(f"folded_parity: final state leaf {name} "
+                            "differs between cuda and cpu")
+        if summ["cpu"].get("detections_total", 0) <= 0:
+            return fail("folded_parity: no detection")
+        log(f"folded_parity: N=2^14 detection summary and {len(leaves['cpu'])}"
+            " final-state leaves identical, cuda vs cpu")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):
         log(f"partial run ({sorted(phases)}): no result line")
         return 0
-    # One entry per kernel form on a main path; `launches` from the path
-    # that drives it (K2's masks form runs under drops).  The probe
-    # kernel's hist form serves TELEMETRY, which this slice refuses, so its
-    # numbers ride the probe entry.
+    # One entry per kernel form on a path; `launches` from the path that
+    # drives it (K2's masks form runs under drops).  Forms no path runs
+    # ride their kernel's entry: the probe kernels' hist forms serve
+    # TELEMETRY, which the port refuses, and K6's masks form is held in
+    # phase 2 only (the folded step masks its payloads itself).
     out = []
-    for form, path, src in (("receive", "main", "receive.cu"),
-                            ("gossip", "main", "gossip.cu"),
-                            ("gossip_masks", "lossy", "gossip.cu"),
-                            ("probe", "main", "probe.cu")):
+    for form, path, src, extra in (
+            ("receive", "main", "receive.cu", None),
+            ("gossip", "main", "gossip.cu", None),
+            ("gossip_masks", "lossy", "gossip.cu", None),
+            ("probe", "main", "probe.cu", ("probe_hist", "hist")),
+            ("receive_folded", "folded", "receive_folded.cu", None),
+            ("gossip_folded", "folded", "gossip_folded.cu",
+             ("gossip_folded_masks", "masks")),
+            ("probe_folded", "folded", "probe_folded.cu",
+             ("probe_folded_hist", "hist"))):
         r = dict(rows[form])
         name = r.pop("name")
-        out.append({"name": f"{name}[{form}]", "route": "cuda",
-                    "source": CSRC + src, "replaces": TPU_KERNEL[name],
-                    "launches": paths[path]["launches"][form], **r})
-    hist = rows["probe_hist"]
-    out[-1].update(hist_ms=hist["ms"], hist_plain_ms=hist["plain_ms"],
-                   hist_bound_ms=hist["bound_ms"],
-                   hist_max_abs_err=hist["max_abs_err"])
+        entry = {"name": f"{name}[{form}]", "route": "cuda",
+                 "source": CSRC + src, "replaces": TPU_KERNEL[name],
+                 "launches": paths[path]["launches"][form], **r}
+        if extra:
+            x, tag = rows[extra[0]], extra[1]
+            entry.update({f"{tag}_ms": x["ms"],
+                          f"{tag}_plain_ms": x["plain_ms"],
+                          f"{tag}_bound_ms": x["bound_ms"],
+                          f"{tag}_max_abs_err": x["max_abs_err"]})
+        out.append(entry)
     log(json.dumps({"kernels": out}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -26,14 +26,22 @@ as int32 bits and widened to int64 where order or ``%`` matters
 (ops/view_merge.py).  Random streams are the JAX ones, bit for bit
 (ops/threefry.py, ops/rng_plan.py).
 
+``FOLDED`` selects the folded layout for ``S < 128``
+(backends/tpu_hash_folded.py, kernels K5-K7), behind the JAX package's
+gates (``make_config``, same messages, ``ValueError``).  ``FOLDED: 1`` is
+honoured on both devices; ``-1`` picks it on CUDA when the gates pass and
+``S < 128``, and the natural layout otherwise (always on the CPU, as the
+JAX package's auto is off away from its accelerator).
+
 Refused with ``NotImplementedError`` (ROADMAP.md names the queue item):
-the scatter exchange and cold joins, FOLDED, SCENARIO, SHIFT_SET,
+the scatter exchange and cold joins, SCENARIO, SHIFT_SET,
 ENFORCE_BUFFSIZE, CHECKPOINT_EVERY, MEGA_TICKS, TELEMETRY, RNG_MODE
 hoisted, PROBE_IO approx_lag/none, and more than FAST_AGG_MAX_FAILED
-failed ids under EVENT_MODE agg.  On CUDA the kernels are the path, so
-``VIEW_SIZE % 128 != 0`` and a pinned ``FUSED_*: 0`` are refused too; on
-the CPU the wrappers run their plain versions and ``FUSED_*: 1`` is
-refused.
+failed ids under EVENT_MODE agg.  On CUDA the kernels are the path, so a
+pinned ``FUSED_*: 0`` is refused, and so is ``VIEW_SIZE % 128 != 0``
+outside the folded layout (full event mode, or a geometry the folded
+gates refuse); on the CPU the wrappers run their plain versions and
+``FUSED_*: 1`` is refused.
 """
 
 from __future__ import annotations
@@ -117,6 +125,7 @@ class HashConfig:
     fail_ids: tuple = ()   # static failed ids for the FastAgg path
     fast_agg: bool = False
     count_probe_io: bool = True
+    folded: bool = False   # [N*S/128, 128] planes (tpu_hash_folded.py)
 
 
 def slot_of(cfg: HashConfig, node, member):
@@ -244,7 +253,8 @@ def make_step(cfg: HashConfig):
         rng = hash_ring_rng(key, n=n, s=s, g=g, k_max=k_max,
                             p_cnt=max(p_cnt, 0),
                             seed_rows=min(cfg.seed_cap, n),
-                            use_drop=use_drop, device=dev)
+                            use_drop=use_drop, need_ctrl=True,
+                            need_burst=True, device=dev)
         drop_active = plan.drop_active(t)
         coins = use_drop and drop_active
 
@@ -452,20 +462,59 @@ def _refuse(what: str, item: str) -> None:
                               f"{item})")
 
 
+def _folded_gates(params: Params, n: int, s: int, collect_events: bool,
+                  fast_agg: bool, kernels: bool) -> Optional[str]:
+    """Why the folded layout cannot run this config, in the JAX package's
+    words (``tpu_hash.make_config``), or None.  ``kernels``: the run goes
+    through the folded kernels (on CUDA), which the JAX package gates on
+    at least 8 plane rows."""
+    from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
+        folded_supported)
+    p_cnt = params.PROBES
+    if params.resolved_exchange() != "ring" or params.JOIN_MODE != "warm":
+        return "FOLDED requires EXCHANGE ring and JOIN_MODE warm"
+    if collect_events:
+        return "FOLDED requires aggregate events (EVENT_MODE agg)"
+    if not folded_supported(n, s, p_cnt):
+        return (f"FOLDED needs 0 < VIEW_SIZE < 128 dividing 128, N a "
+                f"multiple of 128/VIEW_SIZE, and PROBES dividing 128 "
+                f"(got N={n}, S={s}, P={p_cnt})")
+    if not fast_agg:
+        return ("FOLDED requires the FastAgg event path (a static failed "
+                f"set of at most {FAST_AGG_MAX_FAILED} ids)")
+    if kernels and (n * s) // 128 < 8:
+        return (f"FOLDED FUSED_* kernels need at least 8 plane rows "
+                f"(N*VIEW_SIZE/128 >= 8; got N={n}, S={s})")
+    # The folded step always runs the probe traversal (K7 or its plain
+    # version), so the JAX FUSED_PROBE gate holds on both devices.
+    if not 0 < p_cnt < s:
+        return (f"FUSED_PROBE needs 0 < PROBES < VIEW_SIZE "
+                f"(got PROBES={p_cnt}, S={s})")
+    return None
+
+
 def make_config(params: Params, collect_events: bool = True,
                 fail_ids: tuple = (), device="cpu") -> HashConfig:
-    """The ring/natural subset of the JAX ``make_config``, with the
-    refusals of the slice (module docstring)."""
+    """The ring subset of the JAX ``make_config`` (natural or folded
+    layout), with the refusals of the ported slices (module
+    docstring)."""
     n = params.EN_GPSZ
     s = params.VIEW_SIZE if params.VIEW_SIZE > 0 else n
     g = params.GOSSIP_LEN if params.GOSSIP_LEN > 0 else s
+    on_cuda = torch.device(device).type == "cuda"
+    fast_agg = not collect_events and len(fail_ids) <= FAST_AGG_MAX_FAILED
+    why_not_folded = _folded_gates(params, n, s, collect_events, fast_agg,
+                                   kernels=on_cuda)
+    if params.FOLDED == 1 and why_not_folded:
+        raise ValueError(why_not_folded)
+    folded = params.FOLDED == 1 or (params.FOLDED == -1 and on_cuda
+                                    and s < 128 and not why_not_folded)
     if params.JOIN_MODE != "warm":
         _refuse(f"JOIN_MODE {params.JOIN_MODE} (cold joins)",
                 "Queue 1 item 3")
     if params.resolved_exchange() != "ring":
         _refuse("the scatter exchange", "Queue 1 item 3")
     for key, bad, item in (
-            ("FOLDED", params.FOLDED == 1, "Queue 1 item 7"),
             ("SCENARIO", bool(params.SCENARIO), "Queue 1 item 5"),
             ("SHIFT_SET", params.SHIFT_SET != 0, "Queue 1 item 9"),
             ("ENFORCE_BUFFSIZE", params.ENFORCE_BUFFSIZE != 0,
@@ -480,7 +529,6 @@ def make_config(params: Params, collect_events: bool = True,
              params.PROBE_IO in ("approx_lag", "none"), "Queue 1 item 9")):
         if bad:
             _refuse(key, item)
-    fast_agg = not collect_events and len(fail_ids) <= FAST_AGG_MAX_FAILED
     if not collect_events and not fast_agg:
         _refuse(f"EVENT_MODE agg with more than {FAST_AGG_MAX_FAILED} failed "
                 "ids (the scatter-based AggStats update)", "Queue 1 item 9")
@@ -488,10 +536,12 @@ def make_config(params: Params, collect_events: bool = True,
         raise ValueError("the ring step's packed probe table needs N >= 4")
     knobs = {k: getattr(params, k)
              for k in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE")}
-    if torch.device(device).type == "cuda":
-        if s % 128 != 0:
-            _refuse(f"VIEW_SIZE {s} on CUDA (the kernels are the path there "
-                    "and take VIEW_SIZE % 128 == 0)", "Queue 1 item 9")
+    if on_cuda:
+        if s % 128 != 0 and not folded:
+            _refuse(f"VIEW_SIZE {s} on CUDA outside FOLDED (the natural "
+                    "kernels take VIEW_SIZE % 128 == 0; S < 128 runs on the "
+                    f"folded layout in EVENT_MODE agg, here: "
+                    f"{why_not_folded or 'FOLDED: 0'})", "Queue 1 item 9")
         pinned_off = [k for k, v in knobs.items() if v == 0]
         if pinned_off:
             _refuse(f"{'/'.join(pinned_off)}: 0 on CUDA (the kernels are "
@@ -511,7 +561,18 @@ def make_config(params: Params, collect_events: bool = True,
         collect_events=collect_events,
         fail_ids=tuple(int(f) for f in fail_ids) if fast_agg else (),
         fast_agg=fast_agg,
-        count_probe_io=probe_attribution_exact(params))
+        count_probe_io=probe_attribution_exact(params),
+        folded=folded)
+
+
+def step_and_init(cfg: HashConfig):
+    """``(step, init_warm)`` for the config's layout (the JAX
+    ``_get_step_and_init``)."""
+    if cfg.folded:
+        from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
+            init_state_warm_folded, make_folded_step)
+        return make_folded_step(cfg), init_state_warm_folded
+    return make_step(cfg), init_state_warm
 
 
 def plan_fail_ids(plan: FailurePlan) -> tuple:
@@ -528,8 +589,8 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
     total = total_time if total_time is not None else params.TOTAL_TIME
     params.validate_sparse_packing(total)
     plan_t = plan_tensors(params, plan, seed, total, device)
-    state = init_state_warm(cfg, make_run_key(params, seed ^ 0x5EED), device)
-    step = make_step(cfg)
+    step, init = step_and_init(cfg)
+    state = init(cfg, make_run_key(params, seed ^ 0x5EED), device)
     joins, removes, sent, recv = [], [], [], []
     for t in range(total):
         state, out = step(state, t, plan_t.tick_key(t), plan_t)

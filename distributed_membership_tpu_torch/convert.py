@@ -5,6 +5,8 @@ arrays with the JAX ``HashState`` leaf names (``agg.<field>`` for the
 aggregate leaves) and the JAX dtypes (u32 planes as ``uint32``);
 ``state_from_numpy`` builds the port's state from such a dict, e.g. the
 leaves of a JAX state.  Both copy, so neither side aliases the other.
+A folded state (backends/tpu_hash_folded.py) has the same leaves with
+folded shapes; both directions keep whatever shape a leaf has.
 """
 
 from __future__ import annotations

@@ -1,0 +1,60 @@
+// Pieces shared by the probe-window kernels K3 (probe.cu, the [N, S]
+// layout) and K7 (probe_folded.cu, the folded layout): the failed-id
+// argument and the staleness / suspicion histogram counters.
+#pragma once
+
+#include "common.cuh"
+
+// Up to eight failed ids, passed by value.  Declared outside the
+// anonymous namespace: a type with internal linkage in its signature would
+// give the exported entry point internal linkage too.
+struct FailIds {
+    int ids[8];
+};
+
+namespace {
+
+constexpr int kMaxFail = 8;
+constexpr int kBuckets = 8;        // h_staleness / h_suspicion buckets
+constexpr int kBucketShift = 3;    // bucket width 8 ticks
+
+__device__ __forceinline__ int bucket_of(int v) {
+    int b = v >> kBucketShift;     // arithmetic shift: floor division
+    b = b > kBuckets - 1 ? kBuckets - 1 : b;
+    return b < 0 ? 0 : b;
+}
+
+// Eight per-row bucket counts in four registers, two 16-bit fields per
+// word (word q holds buckets 2q and 2q + 1).  A row holds fewer than 2^16
+// entries (the wrappers check), so a field never carries into the next,
+// and one warp reduction sums two buckets.
+struct Buckets {
+    unsigned w0 = 0u, w1 = 0u, w2 = 0u, w3 = 0u;
+
+    __device__ __forceinline__ void add(int b) {
+        const unsigned inc = 1u << ((b & 1) << 4);
+        const int q = b >> 1;
+        w0 += q == 0 ? inc : 0u;
+        w1 += q == 1 ? inc : 0u;
+        w2 += q == 2 ? inc : 0u;
+        w3 += q == 3 ? inc : 0u;
+    }
+
+    // Warp-sums the fields; lane 0 writes the row's eight counts.
+    __device__ __forceinline__ void store(int lane, int* __restrict__ out) {
+        const unsigned s0 = __reduce_add_sync(DM_FULL_MASK, w0);
+        const unsigned s1 = __reduce_add_sync(DM_FULL_MASK, w1);
+        const unsigned s2 = __reduce_add_sync(DM_FULL_MASK, w2);
+        const unsigned s3 = __reduce_add_sync(DM_FULL_MASK, w3);
+        if (lane == 0) {
+            const unsigned sums[4] = {s0, s1, s2, s3};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                out[2 * q] = static_cast<int>(sums[q] & 0xffffu);
+                out[2 * q + 1] = static_cast<int>(sums[q] >> 16);
+            }
+        }
+    }
+};
+
+}  // namespace

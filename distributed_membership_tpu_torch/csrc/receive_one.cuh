@@ -1,0 +1,63 @@
+// The receive pass of one packed entry, shared by K1 (receive.cu, the
+// [N, S] layout) and K5 (receive_folded.cu, the folded layout): sticky
+// admission of mail, the occupant-matched strict-increase ack refresh,
+// the self-slot refresh and the TFAIL/TREMOVE sweep, with the entry's
+// stale and occupied counts added to the caller's.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+struct RowCtx {
+    int t, tfail, tremove;
+    unsigned n;
+    unsigned node;      // global node id the entry belongs to
+    int self_slot;      // slot_of(node, node)
+    bool recv, act, son;
+    unsigned spack;     // packed self entry
+};
+
+__device__ __forceinline__ void receive_one(const RowCtx& r, int col,
+                                            unsigned& v, int& ts,
+                                            unsigned& m, unsigned cand,
+                                            unsigned char& join, int& rm,
+                                            int& stale_cnt, int& size_cnt) {
+    const bool self_mask = col == r.self_slot;
+    const unsigned v0 = v;
+    const bool prev_present = v0 > 0u;
+    // Sticky admission: the self slot admits only the node's own id; an
+    // occupied slot only its occupant's id; an empty slot anything.
+    const unsigned in_id = dm_member(m, r.n);
+    const bool ok = self_mask ? (in_id == r.node)
+                              : (!prev_present || in_id == dm_member(v0, r.n));
+    unsigned nv = v0;
+    if (r.recv && m > 0u && ok && m > v0) nv = m;
+    int nts = ts;
+    const bool changed = nv > v0;
+    if (changed) nts = r.t;
+    join = changed && !prev_present;
+    if (r.recv) m = 0u;
+    // Ack refresh: occupant must match, strictly newer heartbeat.
+    if (r.recv && cand > 0u && nv > 0u && cand > nv &&
+        dm_member(cand, r.n) == dm_member(nv, r.n)) {
+        nv = cand;
+        nts = r.t;
+    }
+    if (self_mask && r.son) {
+        nv = r.spack;
+        nts = r.t;
+    }
+    // TFAIL / TREMOVE sweep.
+    const int difft = dm_sub_wrap(r.t, nts);
+    const bool stale = nv > 0u && difft >= r.tfail && r.act;
+    const bool removes = stale && difft >= r.tremove;
+    rm = removes ? static_cast<int>(dm_member(nv, r.n)) : -1;
+    if (removes) nv = 0u;
+    stale_cnt += stale;
+    size_cnt += nv > 0u;
+    v = nv;
+    ts = nts;
+}
+
+}  // namespace

@@ -30,11 +30,15 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 SOURCES = {"receive": "receive.cu", "gossip": "gossip.cu",
-           "probe": "probe.cu"}
-HEADERS = ("common.cuh",)
+           "probe": "probe.cu", "receive_folded": "receive_folded.cu",
+           "gossip_folded": "gossip_folded.cu",
+           "probe_folded": "probe_folded.cu"}
+HEADERS = ("common.cuh", "receive_one.cuh", "probe_parts.cuh")
 
-LAUNCHES: Dict[str, int] = {"receive": 0, "gossip": 0, "gossip_masks": 0,
-                            "probe": 0}
+LAUNCHES: Dict[str, int] = {
+    "receive": 0, "gossip": 0, "gossip_masks": 0, "probe": 0,
+    "receive_folded": 0, "gossip_folded": 0, "gossip_folded_masks": 0,
+    "probe_folded": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # ptxas report per source, last build
@@ -52,9 +56,12 @@ _SIGNATURES = {
     "dm_gossip": [_U, _I, _I, _I, _I] + [_P] * 6,
     "dm_probe": [_I, _I, _U, _I, _I, _I, _LL, _I, _P, _P, _P, _P, _I,
                  FailIds] + [_P] * 6,
+    "dm_receive_folded": [_I, _U, _I, _I, _I, _I, _LL, _I] + [_P] * 11,
+    "dm_gossip_folded": [_I] * 5 + [_P] * 7,
+    "dm_probe_folded": [_I, _I, _U, _I, _I, _LL, _I, _P, _P, _P, _P, _I,
+                        FailIds] + [_P] * 7,
 }
-_ENTRY = {"receive": "dm_receive", "gossip": "dm_gossip",
-          "probe": "dm_probe"}
+_ENTRY = {name: f"dm_{name}" for name in SOURCES}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,180 @@
+"""K5 and K6: the receive pass and gossip delivery on the folded layout
+(counterpart of the JAX package's ``ops/fused_folded.py``).
+
+For ``S < 128`` dividing 128 the ring state is stored folded: ``F = 128 //
+S`` nodes share each ``[rows, 128]`` plane row, entry ``e`` belonging to
+node ``row0 + e // S`` at slot ``e % S``.  That is the byte layout of the
+natural ``[N, S]`` plane, so the plain versions here work on
+``plane.view(-1, S)`` and reshape back.
+
+* :func:`roll_nodes` / :func:`roll_slots` -- the folds of a node-axis and
+  a slot-axis roll, written from those definitions (the JAX
+  ``tpu_hash_folded`` functions of the same names).
+* :func:`folded_receive_core` -- K5's plain version, op for op the JAX
+  ``_folded_receive_body`` (the natural pass's elementwise body on the
+  unfolded view); :func:`receive_folded_fused` -- its wrapper, the CUDA
+  kernel ``csrc/receive_folded.cu`` for CUDA tensors.  Unlike the TPU
+  kernel it takes ``recv``, ``act`` and ``self_val`` as per-node
+  vectors, not as pre-broadcast planes.
+* :func:`gossip_folded_plain` -- K6's plain version, the JAX folded
+  step's per-shift ``roll_slots(roll_nodes(payload_j, thr_j), c_j)``
+  loop; :func:`gossip_folded_stacked` -- its wrapper, the CUDA kernel
+  ``csrc/gossip_folded.cu`` for CUDA tensors (mail updated in place).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from distributed_membership_tpu_torch import kernels
+from distributed_membership_tpu_torch.ops.fused_receive import (
+    receive_planes)
+from distributed_membership_tpu_torch.ops.view_merge import umax
+
+LANES = 128
+
+
+def roll_nodes(x, r, f: int, s: int):
+    """Fold of ``roll(unfolded, r, axis=0)``: node ``i`` takes node ``(i
+    - r) mod N``'s slots.  ``r`` is an int or a device scalar (no host
+    sync)."""
+    n = x.shape[0] * f
+    src = (torch.arange(n, dtype=torch.int64, device=x.device) - r) % n
+    return x.view(n, s).index_select(0, src).view(x.shape)
+
+
+def roll_slots(x, c, s: int):
+    """Fold of ``roll(unfolded, c, axis=1)``: slot ``q`` of every node
+    takes slot ``(q - c) mod S``."""
+    cols = (torch.arange(s, dtype=torch.int64, device=x.device) - c) % s
+    return x.reshape(-1, s).index_select(1, cols).view(x.shape)
+
+
+def folded_receive_core(n: int, s: int, tfail: int, tremove: int,
+                        stride: int, t: int, view, view_ts, mail, cand,
+                        recv, act, self_val, row0: int = 0):
+    """K5's plain version.  Planes are ``[rows, 128]`` (int32 u32 bits,
+    ``view_ts`` int32); ``recv``/``act`` bool and ``self_val`` int32
+    u32-bit vectors over the plane's ``rows * 128 // S`` nodes.  Returns
+    ``(view, view_ts, mail_cleared, join_mask, rm_ids, stale)`` as
+    planes."""
+    shape = view.shape
+    out = receive_planes(n, s, tfail, tremove, stride, t,
+                         *(p.view(-1, s) for p in (view, view_ts, mail,
+                                                   cand)),
+                         recv, act, act, self_val, row0)
+    return tuple(p.view(shape) for p in out)
+
+
+def _check_planes(what, planes, rows, dev):
+    kernels.require(all(p.shape == (rows, LANES) and p.dtype == torch.int32
+                        and p.is_contiguous() and p.device == dev
+                        for p in planes),
+                    f"{what}: planes must be contiguous int32 "
+                    f"[{rows}, {LANES}] on one device")
+
+
+def receive_folded_fused(n: int, s: int, tfail: int, tremove: int,
+                         stride: int, t: int, view, view_ts, mail, cand,
+                         recv, act, self_val, row0: int = 0):
+    """K5 wrapper: the CUDA kernel for CUDA tensors (in place on
+    ``view``/``view_ts``/``mail``), :func:`folded_receive_core` for CPU
+    ones."""
+    req = kernels.require
+    req(0 < s < LANES and LANES % s == 0,
+        f"receive_folded: S must divide {LANES} (got {s})")
+    rows = view.shape[0]
+    nodes = rows * (LANES // s)
+    dev = view.device
+    planes = (view, view_ts, mail, cand)
+    _check_planes("receive_folded", planes, rows, dev)
+    req(all(v.shape == (nodes,) and v.is_contiguous() and v.device == dev
+            for v in (recv, act, self_val))
+        and recv.dtype == act.dtype == torch.bool
+        and self_val.dtype == torch.int32,
+        f"receive_folded: recv/act (bool) and self_val (int32) must be "
+        f"contiguous [{nodes}] on the planes' device")
+    if not view.is_cuda:
+        return folded_receive_core(n, s, tfail, tremove, stride, t, view,
+                                   view_ts, mail, cand, recv, act, self_val,
+                                   row0)
+    req(all(p.data_ptr() % 16 == 0 for p in planes),
+        "receive_folded kernel reads 16-byte vectors: planes must be "
+        "16-byte aligned")
+    join = torch.empty((rows, LANES), dtype=torch.bool, device=dev)
+    rm_ids = torch.empty((rows, LANES), dtype=torch.int32, device=dev)
+    stale = torch.empty((rows, LANES), dtype=torch.bool, device=dev)
+    p = kernels.ptr
+    rc = kernels.library("receive_folded").dm_receive_folded(
+        t, n, s, tfail, tremove, stride, row0, rows, p(view), p(view_ts),
+        p(mail), p(cand), p(recv), p(act), p(self_val), p(join), p(rm_ids),
+        p(stale), kernels.stream_of(view))
+    kernels.check(rc, "receive_folded")
+    kernels.LAUNCHES["receive_folded"] += 1
+    return view, view_ts, mail, join, rm_ids, stale
+
+
+def gossip_folded_plain(rows: int, s: int, k_max: int, single_col: bool,
+                        mail, payloads, thr, c1, c2, masks=None):
+    """K6's plain version: per shift ``j`` (payload ``j``, or the shared
+    payload ``0`` gated by ``masks[j]``) deliver ``roll_slots(roll_nodes(
+    payload, thr_j), c_j)`` with ``c_j = c1_j`` for receiver nodes ``>=
+    thr_j`` (or always, when ``single_col``) and ``c2_j`` below, and max
+    it into mail."""
+    f = LANES // s
+    node = torch.arange(rows * f, dtype=torch.int64, device=mail.device)
+    out = mail
+    for j in range(k_max):
+        send = payloads[0 if payloads.shape[0] == 1 else j]
+        if masks is not None:
+            send = torch.where(masks[j], send, 0)
+        rolled = roll_nodes(send, thr[j], f, s)
+        delivered = roll_slots(rolled, c1[j], s)
+        if not single_col:
+            wrapped = roll_slots(rolled, c2[j], s)
+            delivered = torch.where((node >= thr[j])[:, None],
+                                    delivered.view(-1, s),
+                                    wrapped.view(-1, s)).view(rows, LANES)
+        out = umax(out, delivered)
+    return out
+
+
+def gossip_folded_stacked(rows: int, s: int, k_max: int, single_col: bool,
+                          mail, payloads, thr, c1, c2, masks=None):
+    """K6 wrapper.  ``mail`` int32 u32-bit ``[rows, 128]``; ``payloads``
+    ``[k_max, rows, 128]`` pre-masked, or ``[1, rows, 128]`` shared by
+    every shift; ``masks`` bool ``[k_max, rows, 128]`` sender-indexed keep
+    masks or None; ``thr``/``c1``/``c2`` int32 ``[k_max]`` on the device
+    (node shift and slot shifts, ``c2`` unread when ``single_col``)."""
+    req = kernels.require
+    dev = mail.device
+    req(0 < s < LANES and LANES % s == 0,
+        f"gossip_folded: S must divide {LANES} (got {s})")
+    _check_planes("gossip_folded", (mail,), rows, dev)
+    req(payloads.shape in ((k_max, rows, LANES), (1, rows, LANES))
+        and payloads.dtype == torch.int32 and payloads.device == dev
+        and payloads.is_contiguous(),
+        f"gossip_folded: payloads must be contiguous int32 "
+        f"[{k_max} or 1, {rows}, {LANES}]")
+    req(all(v.shape == (k_max,) and v.dtype == torch.int32
+            and v.device == dev and v.is_contiguous() for v in (thr, c1, c2)),
+        f"gossip_folded: thr/c1/c2 must be contiguous int32 [{k_max}]")
+    if masks is not None:
+        req(masks.shape == (k_max, rows, LANES) and masks.dtype == torch.bool
+            and masks.device == dev and masks.is_contiguous(),
+            f"gossip_folded: masks must be contiguous bool "
+            f"[{k_max}, {rows}, {LANES}]")
+    if not mail.is_cuda:
+        return gossip_folded_plain(rows, s, k_max, single_col, mail,
+                                   payloads, thr, c1, c2, masks)
+    if k_max == 0:
+        return mail
+    p = kernels.ptr
+    rc = kernels.library("gossip_folded").dm_gossip_folded(
+        rows, s, k_max, int(single_col), int(payloads.shape[0] == 1),
+        p(mail), p(payloads), p(masks), p(thr), p(c1), p(c2),
+        kernels.stream_of(mail))
+    kernels.check(rc, "gossip_folded")
+    kernels.LAUNCHES["gossip_folded" if masks is None
+                     else "gossip_folded_masks"] += 1
+    return mail

@@ -1,5 +1,6 @@
-"""K3: the probe-window read plus aggregate partials (counterpart of the
-JAX package's ``ops/fused_probe.py``).
+"""K3 and K7: the probe-window read plus aggregate partials, on the
+natural and the folded layout (counterpart of the JAX package's
+``ops/fused_probe.py``).
 
 The window is the cyclic P-slot band of each row starting at ``ptr = (t
 * P) mod S``; a slot yields a probe id if it is occupied, not the node
@@ -17,6 +18,17 @@ Outputs (a dict): ``ids`` int32 ``[rows, P]`` (0 = no probe, else id +
 1); with ``want_hist`` ``stale_rows``/``susp_rows`` int32 ``[rows, 8]``;
 with ``want_agg`` ``rm_cnt`` int32 ``[rows]`` and ``det`` int32
 ``[F, rows]``.
+
+* :func:`probe_folded_plain` / :func:`probe_folded_window_fused` -- K7,
+  the same on ``[rows, 128]`` folded planes (ops/fused_folded.py): the
+  window roll is segment-wise, ``ids`` is the whole rolled and validated
+  ``[rows, 128]`` plane (the caller keeps the first P positions of each
+  node), the partials are per plane row, and ``act`` is per node.  The
+  output dict has the JAX keys: ``ids``, ``rm_cnt`` and ``det_cols``
+  (int32 ``[rows, 1]`` each), ``det_any`` (bool ``[rows, 128]``, removals
+  of any failed id, when there are failed ids) and, with ``want_hist``,
+  ``stale_rows`` and ``susp_rows``.  The CUDA kernel is
+  ``csrc/probe_folded.cu``.
 """
 
 from __future__ import annotations
@@ -24,6 +36,8 @@ from __future__ import annotations
 import torch
 
 from distributed_membership_tpu_torch import kernels
+from distributed_membership_tpu_torch.ops.fused_folded import (
+    LANES, roll_slots)
 from distributed_membership_tpu_torch.ops.view_merge import M32, as_u32
 
 # h_staleness / h_suspicion geometry (JAX observability/timeline.py).
@@ -79,6 +93,7 @@ def probe_window_fused(n: int, s: int, p_cnt: int, tfail: int,
         f"probe: need 0 < P < S and 0 <= ptr < S (P={p_cnt}, ptr={ptr})")
     req(len(fail_ids) <= MAX_FAIL_IDS,
         f"probe: at most {MAX_FAIL_IDS} fail ids (got {len(fail_ids)})")
+    req(s < 1 << 16, f"probe: S must be below 2^16 (got {s})")
     req(view.shape == (rows, s) and view.dtype == torch.int32
         and view.is_contiguous(), f"probe: view must be int32 [{rows}, {s}]")
     req(act.shape == (rows,) and act.dtype == torch.bool
@@ -114,4 +129,104 @@ def probe_window_fused(n: int, s: int, p_cnt: int, tfail: int,
         p(out.get("rm_cnt")), p(out.get("det")), kernels.stream_of(view))
     kernels.check(rc, "probe")
     kernels.LAUNCHES["probe"] += 1
+    return out
+
+
+def probe_folded_plain(n: int, s: int, p_cnt: int, tfail: int,
+                       fail_ids: tuple, want_hist: bool, want_agg: bool,
+                       t: int, ptr: int, row0: int, view, view_ts, act,
+                       rm_ids) -> dict:
+    rows = view.shape[0]
+    dev = view.device
+    w = as_u32(roll_slots(view, (s - ptr) % s, s)).view(-1, s)
+    node = row0 + torch.arange(w.shape[0], dtype=torch.int64, device=dev)
+    w_id = ((w - 1) & M32) % n
+    valid = (w > 0) & (w_id != node[:, None]) & act[:, None]
+    out = {"ids": torch.where(valid, w_id + 1, 0).to(torch.int32)
+           .view(rows, LANES)}
+    if want_hist:
+        difft = t - view_ts
+        pres = view != 0
+        out["stale_rows"] = _bucket_rows(difft, pres)
+        out["susp_rows"] = _bucket_rows(difft - tfail, pres & (difft >= tfail))
+    if want_agg:
+        out["rm_cnt"] = (rm_ids >= 0).sum(1, keepdim=True, dtype=torch.int32)
+        hits = [rm_ids == f for f in fail_ids]
+        out["det_cols"] = tuple(h.sum(1, keepdim=True, dtype=torch.int32)
+                                for h in hits)
+        if hits:
+            out["det_any"] = torch.stack(hits).any(0)
+    return out
+
+
+def probe_folded_window_fused(n: int, s: int, p_cnt: int, tfail: int,
+                              fail_ids: tuple, want_hist: bool,
+                              want_agg: bool, t: int, ptr: int, row0: int,
+                              view, view_ts, act, rm_ids) -> dict:
+    """K7 wrapper.  ``view`` int32 u32-bit ``[rows, 128]``, ``view_ts``
+    int32 ``[rows, 128]`` (``None`` unless ``want_hist``), ``act`` bool
+    over the plane's ``rows * 128 // S`` nodes, ``rm_ids`` int32 ``[rows,
+    128]`` (``None`` unless ``want_agg``); ``t``, ``ptr`` and ``row0`` are
+    host ints."""
+    rows = view.shape[0]
+    dev = view.device
+    req = kernels.require
+    req(0 < s < LANES and LANES % s == 0,
+        f"probe_folded: S must divide {LANES} (got {s})")
+    req(0 < p_cnt < s and 0 <= ptr < s,
+        f"probe_folded: need 0 < P < S and 0 <= ptr < S (P={p_cnt}, "
+        f"ptr={ptr})")
+    req(len(fail_ids) <= MAX_FAIL_IDS,
+        f"probe_folded: at most {MAX_FAIL_IDS} fail ids "
+        f"(got {len(fail_ids)})")
+    req(view.shape == (rows, LANES) and view.dtype == torch.int32
+        and view.is_contiguous(),
+        f"probe_folded: view must be contiguous int32 [{rows}, {LANES}]")
+    nodes = rows * (LANES // s)
+    req(act.shape == (nodes,) and act.dtype == torch.bool
+        and act.device == dev and act.is_contiguous(),
+        f"probe_folded: act must be bool [{nodes}]")
+    for name, plane, want in (("view_ts", view_ts, want_hist),
+                              ("rm_ids", rm_ids, want_agg)):
+        req((plane is not None) == want,
+            f"probe_folded: {name} given iff wanted")
+        if want:
+            req(plane.shape == (rows, LANES) and plane.dtype == torch.int32
+                and plane.device == dev and plane.is_contiguous(),
+                f"probe_folded: {name} must be contiguous int32 "
+                f"[{rows}, {LANES}]")
+    if not view.is_cuda:
+        return probe_folded_plain(n, s, p_cnt, tfail, fail_ids, want_hist,
+                                  want_agg, t, ptr, row0, view, view_ts,
+                                  act, rm_ids)
+    req(all(x.data_ptr() % 16 == 0 for x in (view, view_ts, rm_ids)
+            if x is not None),
+        "probe_folded kernel reads 16-byte vectors: planes must be 16-byte "
+        "aligned")
+    i32 = dict(dtype=torch.int32, device=dev)
+    fails = fail_ids if want_agg else ()
+    out = {"ids": torch.empty((rows, LANES), **i32)}
+    det = det_any = None
+    if want_hist:
+        out["stale_rows"] = torch.empty((rows, HIST_BUCKETS), **i32)
+        out["susp_rows"] = torch.empty((rows, HIST_BUCKETS), **i32)
+    if want_agg:
+        out["rm_cnt"] = torch.empty((rows, 1), **i32)
+        det = torch.empty((len(fails), rows), **i32)
+        out["det_cols"] = tuple(d.unsqueeze(1) for d in det)
+        if fails:
+            det_any = torch.empty((rows, LANES), dtype=torch.bool,
+                                  device=dev)
+            out["det_any"] = det_any
+    fail = kernels.FailIds()
+    for k, f in enumerate(fails):
+        fail.ids[k] = int(f)
+    p = kernels.ptr
+    rc = kernels.library("probe_folded").dm_probe_folded(
+        t, ptr, n, s, tfail, row0, rows, p(view), p(view_ts), p(act),
+        p(rm_ids), len(fails), fail, p(out["ids"]), p(out.get("stale_rows")),
+        p(out.get("susp_rows")), p(out.get("rm_cnt")), p(det), p(det_any),
+        kernels.stream_of(view))
+    kernels.check(rc, "probe_folded")
+    kernels.LAUNCHES["probe_folded"] += 1
     return out

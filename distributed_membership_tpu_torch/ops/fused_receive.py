@@ -2,7 +2,8 @@
 ``ops/fused_receive.py``).
 
 * :func:`receive_core` -- the plain PyTorch version, op for op the JAX
-  ``_receive_body``: sticky admission of mail, the occupant-matched
+  ``_receive_body`` (its elementwise part, :func:`receive_planes`, is
+  also K5's plain version): sticky admission of mail, the occupant-matched
   strict-increase ack refresh, the double-heartbeat self refresh
   (MP1Node.cpp:412-415) and the TFAIL/TREMOVE sweep (MP1Node.cpp:429-446).
 * :func:`receive_fused` -- the wrapper: the CUDA kernel
@@ -23,13 +24,14 @@ from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, M32, as_u32, to_bits)
 
 
-def receive_core(n: int, s: int, tfail: int, tremove: int, stride: int,
-                 t: int, view, view_ts, mail, cand, recv_mask, act,
-                 self_on, self_pack, row0: int = 0):
-    """Plain version.  ``view``/``mail``/``cand``/``self_pack`` are int32
-    u32-bit planes, ``view_ts`` int32, the masks bool ``[rows]``; ``row0``
-    is the first row's global node id.  Returns ``(view, view_ts,
-    mail_cleared, join_mask, rm_ids, numfailed, size)``."""
+def receive_planes(n: int, s: int, tfail: int, tremove: int, stride: int,
+                   t: int, view, view_ts, mail, cand, recv_mask, act,
+                   self_on, self_pack, row0: int = 0):
+    """The elementwise pass on an ``[rows, S]`` plane (``row0`` is the
+    first row's global node id).  Returns ``(view, view_ts, mail_cleared,
+    join_mask, rm_ids, stale)`` with ``stale`` the pre-remove TFAIL mask;
+    the natural and the folded receive (ops/fused_folded.py) reduce it
+    their own way."""
     rows = view.shape[0]
     dev = view.device
     node = row0 + torch.arange(rows, dtype=torch.int64, device=dev)
@@ -70,14 +72,27 @@ def receive_core(n: int, s: int, tfail: int, tremove: int, stride: int,
     present = new_v > 0
     difft = t - new_ts
     stale = present & (difft >= tfail) & act[:, None]
-    numfailed = stale.sum(1, dtype=torch.int32)
     removes = stale & (difft >= tremove)
     rm_ids = torch.where(removes, ((new_v - 1) & M32) % n,
                          EMPTY).to(torch.int32)
     new_v = torch.where(removes, 0, new_v)
-    size = (new_v > 0).sum(1, dtype=torch.int32)
     return (to_bits(new_v), new_ts.to(torch.int32), mail_cleared,
-            join_mask, rm_ids, numfailed, size)
+            join_mask, rm_ids, stale)
+
+
+def receive_core(n: int, s: int, tfail: int, tremove: int, stride: int,
+                 t: int, view, view_ts, mail, cand, recv_mask, act,
+                 self_on, self_pack, row0: int = 0):
+    """Plain version.  ``view``/``mail``/``cand``/``self_pack`` are int32
+    u32-bit planes, ``view_ts`` int32, the masks bool ``[rows]``; ``row0``
+    is the first row's global node id.  Returns ``(view, view_ts,
+    mail_cleared, join_mask, rm_ids, numfailed, size)``."""
+    view, view_ts, mail_cleared, join_mask, rm_ids, stale = receive_planes(
+        n, s, tfail, tremove, stride, t, view, view_ts, mail, cand,
+        recv_mask, act, self_on, self_pack, row0)
+    return (view, view_ts, mail_cleared, join_mask, rm_ids,
+            stale.sum(1, dtype=torch.int32),
+            (view != 0).sum(1, dtype=torch.int32))
 
 
 def receive_fused(n: int, s: int, tfail: int, tremove: int, stride: int,

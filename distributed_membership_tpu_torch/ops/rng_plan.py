@@ -36,9 +36,12 @@ class RingRng(NamedTuple):
 
 def hash_ring_rng(key: Key, *, n: int, s: int, g: int, k_max: int,
                   p_cnt: int, seed_rows: int, use_drop: bool,
-                  device) -> RingRng:
+                  need_ctrl: bool, need_burst: bool, device) -> RingRng:
     """The single-chip ring step's plan (JAX ``hash_ring_rng`` with
-    ``shift_set=0`` and the natural layout's control and burst coins)."""
+    ``shift_set=0``).  The natural step draws the control and burst coins
+    (``need_ctrl``/``need_burst``); the folded step reads neither, and
+    their keys are separate, so leaving them out changes no other
+    stream."""
     (_k_targets, k_entries, k_drop, k_ctrl, _k_drop_p, k_shifts,
      k_ack1, k_ack2) = split(key, 8)
     empty = torch.zeros((0,), dtype=torch.float32, device=device)
@@ -55,8 +58,9 @@ def hash_ring_rng(key: Key, *, n: int, s: int, g: int, k_max: int,
         thin_u=thin_u,
         gossip_u=tuple(uniform(fold_in(k_drop, j), (n * s,), device)
                        for j in range(k_max)),
-        ctrl_u=uniform(k_ctrl, (2 * n,), device),
-        burst_u=uniform(k_drop, (seed_rows * s,), device),
+        ctrl_u=uniform(k_ctrl, (2 * n,), device) if need_ctrl else empty,
+        burst_u=(uniform(k_drop, (seed_rows * s,), device) if need_burst
+                 else empty),
         probe_u=probe_u,
         ack_u=ack_u,
     )

@@ -146,8 +146,7 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    "JOIN_MODE: staggered\n", "EXCHANGE: scatter\n", "FOLDED: 1\n",
-    "SHIFT_SET: 4\n", "ENFORCE_BUFFSIZE: 1\n", "CHECKPOINT_EVERY: 10\n",
+    "JOIN_MODE: staggered\n", "EXCHANGE: scatter\n", "SHIFT_SET: 4\n", "ENFORCE_BUFFSIZE: 1\n", "CHECKPOINT_EVERY: 10\n",
     "MEGA_TICKS: 4\n", "TELEMETRY: scalars\n", "RNG_MODE: hoisted\n",
     "PROBE_IO: approx_lag\n", "PROBE_IO: none\n"])
 def test_outside_the_slice_is_refused(extra):
@@ -155,6 +154,65 @@ def test_outside_the_slice_is_refused(extra):
                          + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         make_config(p, device="cpu")
+
+
+_FOLDED = ("MAX_NNB: {n}\nSINGLE_FAILURE: 1\nDROP_MSG: 0\n"
+           "MSG_DROP_PROB: 0\nVIEW_SIZE: {s}\nGOSSIP_LEN: 4\nPROBES: {p}\n"
+           "FANOUT: 3\nTFAIL: 16\nTREMOVE: 40\nTOTAL_TIME: 10\n"
+           "FAIL_TIME: 5\nJOIN_MODE: warm\nEXCHANGE: ring\n"
+           "BACKEND: tpu_hash\nFOLDED: 1\n")
+
+
+@pytest.mark.parametrize("conf,collect,device,jax_extra", [
+    # full event mode
+    (_FOLDED.format(n=256, s=16, p=2), True, "cpu", ""),
+    # the scatter exchange
+    (_FOLDED.format(n=256, s=16, p=2) + "EXCHANGE: scatter\n", False,
+     "cpu", ""),
+    # S does not divide 128
+    (_FOLDED.format(n=256, s=48, p=8), False, "cpu", ""),
+    # PROBES >= S
+    (_FOLDED.format(n=256, s=16, p=16), False, "cpu", ""),
+    # fewer than 8 plane rows where the kernels run (the JAX package
+    # gates its folded kernels so; the port's kernels are the CUDA path)
+    (_FOLDED.format(n=32, s=16, p=2), False, "cuda",
+     "FUSED_RECEIVE: 1\n"),
+], ids=["full_events", "scatter", "s48", "probes_ge_s", "few_rows"])
+def test_folded_gates(conf, collect, device, jax_extra):
+    """FOLDED: 1 outside the folded layout's scope raises the JAX
+    package's ValueError, word for word."""
+    from distributed_membership_tpu.backends import tpu_hash as jax_hash
+    from distributed_membership_tpu.config import Params as JaxParams
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jp = JaxParams.from_text(conf + jax_extra)
+        pp = Params.from_text(conf)
+    with pytest.raises(ValueError) as want:
+        jax_hash.make_config(jp, collect, fail_ids=(3,))
+    with pytest.raises(ValueError) as got:
+        make_config(pp, collect, fail_ids=(3,), device=device)
+    assert str(got.value) == str(want.value)
+    assert "FOLDED" in str(got.value) or "PROBES" in str(got.value)
+
+
+def test_folded_auto_resolution():
+    """FOLDED: -1 takes the folded layout on CUDA where its gates pass
+    and S < 128, the natural layout otherwise, and always the natural
+    one on the CPU."""
+    conf = _FOLDED.format(n=256, s=16, p=2).replace("FOLDED: 1", "FOLDED: -1")
+    p = Params.from_text(conf)
+    assert make_config(p, False, fail_ids=(3,), device="cuda").folded
+    assert not make_config(p, False, fail_ids=(3,), device="cpu").folded
+    assert make_config(Params.from_text(conf.replace("FOLDED: -1",
+                                                     "FOLDED: 1")),
+                       False, fail_ids=(3,), device="cpu").folded
+    s128 = Params.from_text(_RING.format(n=256, drop=0, p=0, total=10,
+                                         fail=5))
+    assert not make_config(s128, False, fail_ids=(3,), device="cuda").folded
+    # Full events at S < 128 on CUDA: natural, and the natural kernels
+    # refuse the view size, naming why FOLDED does not apply.
+    with pytest.raises(NotImplementedError, match="FOLDED requires agg"):
+        make_config(p, True, device="cuda")
 
 
 def test_refusals_on_the_card_and_off():

@@ -15,10 +15,14 @@ import pytest
 import torch
 
 from distributed_membership_tpu_torch import kernels
+from distributed_membership_tpu_torch.ops.fused_folded import (
+    folded_receive_core, gossip_folded_plain, gossip_folded_stacked,
+    receive_folded_fused)
 from distributed_membership_tpu_torch.ops.fused_gossip import (
     gossip_fused, gossip_plain)
 from distributed_membership_tpu_torch.ops.fused_probe import (
-    probe_plain, probe_window_fused)
+    probe_folded_plain, probe_folded_window_fused, probe_plain,
+    probe_window_fused)
 from distributed_membership_tpu_torch.ops.fused_receive import (
     receive_core, receive_fused)
 from distributed_membership_tpu_torch.ops.view_merge import STRIDE
@@ -136,9 +140,142 @@ def test_run_on_card_matches_cpu(cuda, tmp_path):
         "BACKEND: tpu_hash\n")
     kernels.reset_launches()
     run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
-    assert kernels.LAUNCHES == {"receive": 80, "gossip": 0,
-                                "gossip_masks": 80, "probe": 80}
+    assert kernels.LAUNCHES == {
+        "receive": 80, "gossip": 0, "gossip_masks": 80, "probe": 80,
+        "receive_folded": 0, "gossip_folded": 0, "gossip_folded_masks": 0,
+        "probe_folded": 0}
     run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
     for name in ("dbg.log", "stats.log", "msgcount.log"):
         assert ((tmp_path / "cuda" / name).read_bytes()
                 == (tmp_path / "cpu" / name).read_bytes()), name
+
+
+# ---------------------------------------------------------------------------
+# The folded kernels K5-K7.  (N, S): 4096 at S=16 (512 plane rows), 4096
+# at S=64 (2048 rows), and 260 at S=64, whose 130 rows fill neither a
+# whole block of K5/K6 nor of K7; 260 also takes two column alignments.
+
+FOLDED_SHAPES = [(4096, 16), (4096, 64), (260, 64)]
+
+
+def _rows(n, s):
+    return n * s // 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", FOLDED_SHAPES)
+def test_receive_folded_kernel(cuda, n, s):
+    t = 45
+    rows = _rows(n, s)
+    rng = np.random.default_rng(n + s)
+    view = _packed(rng, n, 0.7, (rows, 128))
+    view_ts = torch.from_numpy(
+        rng.integers(0, t + 1, size=(rows, 128), dtype=np.int32))
+    mail = _packed(rng, n, 0.4, (rows, 128))
+    cand = torch.where(_flags(rng, rows * 128, 0.5).reshape(rows, 128), view,
+                       _packed(rng, n, 0.1, (rows, 128)))
+    act = _flags(rng, n, 0.9)
+    spack = _packed(rng, n, 1.0, (n,)) * act
+    args = [x.to(cuda) for x in (view, view_ts, mail, cand,
+                                 _flags(rng, n, 0.9), act, spack)]
+    want = folded_receive_core(n, s, TFAIL, TREMOVE, STRIDE, t, *args)
+    kernels.reset_launches()
+    got = receive_folded_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
+                               *(a.clone() for a in args))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["receive_folded"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["stacked", "masks"])
+@pytest.mark.parametrize("single", [True, False])
+@pytest.mark.parametrize("n,s", FOLDED_SHAPES)
+def test_gossip_folded_kernel(cuda, n, s, single, form):
+    k_max = 3
+    rows = _rows(n, s)
+    rng = np.random.default_rng(n + s)
+    mail = _packed(rng, n, 0.5, (rows, 128)).to(cuda)
+    view = _packed(rng, n, 0.8, (rows, 128)).to(cuda)
+    thr = torch.tensor([1, n - 1, 37], dtype=torch.int32, device=cuda)
+    c1 = ((thr % s) * (STRIDE % s) % s).to(torch.int32)
+    c2 = (((thr - n) % s) * (STRIDE % s) % s).to(torch.int32)
+    if form == "masks":
+        payloads = view[None]
+        masks = _flags(rng, k_max * rows * 128, 0.7).reshape(
+            k_max, rows, 128).to(cuda)
+    else:
+        keep = _flags(rng, k_max * rows * 128, 0.3).reshape(
+            k_max, rows, 128).to(cuda)
+        payloads = torch.where(keep, view[None], 0)
+        masks = None
+    want = gossip_folded_plain(rows, s, k_max, single, mail, payloads, thr,
+                               c1, c2, masks)
+    kernels.reset_launches()
+    got = gossip_folded_stacked(rows, s, k_max, single, mail.clone(),
+                                payloads, thr, c1, c2, masks)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gossip_folded" if form == "stacked"
+                            else "gossip_folded_masks"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["agg", "hist"])
+@pytest.mark.parametrize("n,s", FOLDED_SHAPES)
+def test_probe_folded_kernel(cuda, n, s, mode):
+    t, p_cnt = 37, s // 8
+    rows = _rows(n, s)
+    rng = np.random.default_rng(n + s)
+    view = _packed(rng, n, 0.7, (rows, 128)).to(cuda)
+    view_ts = torch.from_numpy(
+        rng.integers(0, t + 3, size=(rows, 128), dtype=np.int32)).to(cuda)
+    rm = torch.from_numpy(np.where(
+        rng.random((rows, 128)) < 0.1, rng.integers(0, 8, size=(rows, 128)),
+        -1).astype(np.int32)).to(cuda)
+    act = _flags(rng, n, 0.9).to(cuda)
+    hist, agg = mode == "hist", mode == "agg"
+    for ptr in (s - 1, 3):
+        args = (p_cnt, TFAIL, (3, 5) if agg else (), hist, agg, t, ptr, 0,
+                view, view_ts if hist else None, act, rm if agg else None)
+        want = probe_folded_plain(n, s, *args)
+        got = probe_folded_window_fused(n, s, *args)
+        torch.cuda.synchronize()
+        assert set(got) == set(want)
+        for k in want:
+            if k == "det_cols":
+                assert all(torch.equal(g, w)
+                           for g, w in zip(got[k], want[k]))
+            else:
+                assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_folded_run_on_card_matches_cpu(cuda, tmp_path):
+    """A small folded run ends in the same state and detection summary on
+    the card (K5-K7) as on the CPU (plain versions), each folded kernel
+    once per tick."""
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = tmp_path / "folded.conf"
+    conf.write_text(
+        "MAX_NNB: 4096\nSINGLE_FAILURE: 1\nDROP_MSG: 1\n"
+        "MSG_DROP_PROB: 0.05\nDROP_START: 0\nDROP_STOP: 80\n"
+        "VIEW_SIZE: 16\nGOSSIP_LEN: 4\nPROBES: 2\nFANOUT: 3\nTFAIL: 16\n"
+        "TREMOVE: 40\nTOTAL_TIME: 80\nFAIL_TIME: 10\nJOIN_MODE: warm\n"
+        "EXCHANGE: ring\nEVENT_MODE: agg\nBACKEND: tpu_hash\nFOLDED: 1\n")
+    kernels.reset_launches()
+    card = run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive_folded": 80, "gossip_folded": 80, "probe_folded": 80}
+    cpu = run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
+    assert (card.extra["detection_summary"]
+            == cpu.extra["detection_summary"])
+    want = state_to_numpy(cpu.extra["final_state"])
+    got = state_to_numpy(card.extra["final_state"])
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)

@@ -105,7 +105,8 @@ def test_hash_ring_rng_matches_jax(use_drop, n, s, g, k_max, p_cnt):
         jk, n=n, s=s, g=g, k_max=k_max, p_cnt=p_cnt, seed_rows=seed_rows,
         shift_set=0, use_drop=use_drop, need_ctrl=True, need_burst=True)
     got = hash_ring_rng(_key(jk), n=n, s=s, g=g, k_max=k_max, p_cnt=p_cnt,
-                        seed_rows=seed_rows, use_drop=use_drop, device="cpu")
+                        seed_rows=seed_rows, use_drop=use_drop,
+                        need_ctrl=True, need_burst=True, device="cpu")
     np.testing.assert_array_equal(_as_np(got.shift_draw),
                                   _as_np(want.shift_draw))
     for name in ("thin_u", "ctrl_u", "burst_u", "probe_u", "ack_u"):
@@ -117,6 +118,27 @@ def test_hash_ring_rng_matches_jax(use_drop, n, s, g, k_max, p_cnt):
         np.testing.assert_array_equal(_as_np(u),
                                       np.asarray(want.gossip_u[j]),
                                       err_msg=f"gossip_u[{j}]")
+
+
+@pytest.mark.parametrize("use_drop", [False, True])
+def test_folded_ring_rng_matches_jax(use_drop):
+    """The folded step's plan (S = 16, no control or burst coins): the
+    streams it reads equal the JAX ones, and the two it skips are
+    empty."""
+    jk = jax.random.fold_in(jax.random.PRNGKey(4), 17)
+    kw = dict(n=256, s=16, g=4, k_max=3, p_cnt=2, seed_rows=8,
+              use_drop=use_drop, need_ctrl=False, need_burst=False)
+    want = jax_rng_plan.hash_ring_rng(jk, shift_set=0, **kw)
+    got = hash_ring_rng(_key(jk), device="cpu", **kw)
+    for name in ("shift_draw", "thin_u", "probe_u", "ack_u"):
+        np.testing.assert_array_equal(_as_np(getattr(got, name)),
+                                      _as_np(getattr(want, name)),
+                                      err_msg=name)
+    assert got.ctrl_u.numel() == got.burst_u.numel() == 0
+    assert len(got.gossip_u) == (3 if use_drop else 0)
+    for j, u in enumerate(got.gossip_u):
+        np.testing.assert_array_equal(_as_np(u),
+                                      np.asarray(want.gossip_u[j]))
 
 
 def test_random_bits_rejects_oversize_draw():
