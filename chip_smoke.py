@@ -27,7 +27,19 @@ Phases (any failure exits non-zero before the final line):
                 (confs/ring_1m_s16_folded_drop.conf);
   8. folded_parity -- confs/ring_16k_s16_folded_drop.conf on the card and
                 on the CPU: the detection summary and every leaf of the
-                final state must be identical.
+                final state must be identical;
+  9. sharded -- run_conf on confs/ring_1m_s128_sharded.conf (the main
+                path's geometry on the sharded backend, one shard, 160
+                ticks): K1, K4 and K3 once per tick and no other kernel, no
+                false removal, at least one detection;
+ 10. sharded_lossy -- confs/ring_1m_s128_sharded8_drop.conf: eight shards
+                on the card, 5% drops, 64 ticks, at least one detection;
+ 11. sharded_parity -- confs/ring_256_s128_sharded8_drop.conf (N=256, eight
+                shards of 32 rows, full events) on the card and on the
+                CPU: the three logs must be byte-identical.
+Phase 2 also holds K4 (the sharded step's stacked gossip) in both operand
+forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
+not a multiple of 128 (two column alignments, per-shard shifts).
 Then it prints one JSON line of kernel numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  `--only build,kernels`
 runs a subset of the phases and prints no final line; `--only profile`
@@ -52,7 +64,8 @@ FS, FP = 16, 2                  # the folded path's view size and probes
 TFAIL, TREMOVE = 16, 40
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
-          "folded_lossy", "folded_parity")
+          "folded_lossy", "folded_parity", "sharded", "sharded_lossy",
+          "sharded_parity")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
     "receive_fused": "distributed_membership_tpu/ops/fused_receive.py:176",
@@ -64,6 +77,8 @@ TPU_KERNEL = {
         "distributed_membership_tpu/ops/fused_folded.py:196",
     "probe_folded_window_fused":
         "distributed_membership_tpu/ops/fused_probe.py:253",
+    "gossip_fused_stacked":
+        "distributed_membership_tpu/ops/fused_gossip.py:91",
 }
 CSRC = "distributed_membership_tpu_torch/csrc/"
 
@@ -415,6 +430,93 @@ def phase_kernels_folded(torch, dev) -> dict:
     return rows
 
 
+def phase_kernels_stacked(torch, dev) -> dict:
+    """Phase 2, the sharded step's K4 against its plain version: both
+    operand forms at the sharded path's shapes (N=2^20, S=128, k_max=3, one
+    shard), and the stacked form on eight shards of L=131000 rows, whose
+    (L * STRIDE) % S != 0 takes the wrapped rows' column shifts; returns
+    one record per form."""
+    import numpy as np
+    from distributed_membership_tpu_torch.ops.fused_gossip import (
+        gossip_fused_stacked, gossip_stacked_plain)
+    from distributed_membership_tpu_torch.ops.view_merge import STRIDE
+
+    rng = np.random.default_rng(20263)
+    t = 90
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    rows = {}
+
+    def shifts(d, n_local, seed):
+        r = np.random.default_rng(seed)
+        c = r.integers(0, n_local, size=K_MAX).astype(np.int32)
+        s1 = r.integers(0, S, size=(d, K_MAX)).astype(np.int32)
+        s2 = r.integers(0, S, size=(d, K_MAX)).astype(np.int32)
+        return T(c), T(s1), T(s2)
+
+    shape = (N, S)
+    mail = T(packed(rng, N, 0.4, 2 * t + 4, shape))
+    view = T(packed(rng, N, 0.7, 2 * t + 2, shape))
+    payloads = torch.where(
+        T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3), view[None],
+        0)
+    err = 0
+    for seed in (1, 2):
+        c, s1, s2 = shifts(1, N, seed)
+        for single in (True, False):
+            ref = gossip_stacked_plain(N, S, K_MAX, single, mail, payloads,
+                                       c, s1, s2)
+            got = gossip_fused_stacked(N, S, K_MAX, single, mail.clone(),
+                                       payloads, c, s1, s2)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([(got, ref)]))
+    del ref, got
+    m2 = mail.clone()
+    single = (N * STRIDE) % S == 0
+    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+        N, S, K_MAX, single, m2, payloads, c, s1, s2), 20)
+    p_ms = cuda_ms(lambda: gossip_stacked_plain(
+        N, S, K_MAX, single, mail, payloads, c, s1, s2), 3)
+    # in: mail, the K payloads, the shifts; out: mail
+    record(rows, "gossip_fused_stacked", "gossip_stacked", err, k_ms, p_ms,
+           2 * nbytes(mail) + nbytes(payloads, c, s1, s2))
+
+    # Eight shards, L = 131000: per-shard shifts, two column alignments.
+    d, n_local = 8, N // 8 - 72
+    n8 = d * n_local
+    c8, s18, s28 = shifts(d, n_local, 3)
+    ref = gossip_stacked_plain(n_local, S, K_MAX, False, mail[:n8],
+                               payloads[:, :n8].contiguous(), c8, s18, s28)
+    got = gossip_fused_stacked(n_local, S, K_MAX, False,
+                               mail[:n8].clone(),
+                               payloads[:, :n8].contiguous(), c8, s18, s28)
+    torch.cuda.synchronize()
+    err8 = max_abs_err([(got, ref)])
+    del ref, got, payloads
+    log(f"kernel gossip_fused_stacked[two_col]: D={d} L={n_local} "
+        f"max_abs_err={err8}")
+    if err8 != 0:
+        raise AssertionError("gossip_fused_stacked on eight shards differs "
+                             "from its plain version")
+    rows["gossip_stacked"]["two_col_max_abs_err"] = err8
+
+    masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
+    c, s1, s2 = shifts(1, N, 4)
+    ref = gossip_stacked_plain(N, S, K_MAX, single, mail, view[None], c, s1,
+                               s2, masks)
+    got = gossip_fused_stacked(N, S, K_MAX, single, mail.clone(), view[None],
+                               c, s1, s2, masks)
+    torch.cuda.synchronize()
+    err = max_abs_err([(got, ref)])
+    del ref, got
+    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+        N, S, K_MAX, single, m2, view[None], c, s1, s2, masks), 20)
+    p_ms = cuda_ms(lambda: gossip_stacked_plain(
+        N, S, K_MAX, single, mail, view[None], c, s1, s2, masks), 3)
+    record(rows, "gossip_fused_stacked", "gossip_stacked_masks", err, k_ms,
+           p_ms, 2 * nbytes(mail) + nbytes(view, masks, c, s1, s2))
+    return rows
+
+
 def launches_expected(**nonzero) -> dict:
     """The launch counts of a path: ``nonzero`` and 0 for every other
     kernel form."""
@@ -460,19 +562,44 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
     (device kernel time by name, device busy share of the wall)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_membership_tpu_torch.backends import tpu_hash
+    from distributed_membership_tpu_torch.backends import (
+        tpu_hash, tpu_hash_sharded)
     from distributed_membership_tpu_torch.config import Params
     from distributed_membership_tpu_torch.ops.rng_plan import hash_ring_rng
     from distributed_membership_tpu_torch.runtime import failures
 
     params = Params.from_file(conf)
     plan = failures.make_plan(params, random.Random("app:0"))
-    cfg = tpu_hash.make_config(params, collect_events=False,
-                               fail_ids=tpu_hash.plan_fail_ids(plan),
-                               device="cuda")
+    fail_ids = tpu_hash.plan_fail_ids(plan)
     pt = failures.plan_tensors(params, plan, 0, params.TOTAL_TIME, "cuda")
-    step, init = tpu_hash.step_and_init(cfg)
-    state = init(cfg, failures.make_run_key(params, 0 ^ 0x5EED), "cuda")
+    key0 = failures.make_run_key(params, 0 ^ 0x5EED)
+    if params.BACKEND == "tpu_hash_sharded":
+        mesh = tpu_hash_sharded.resolve_mesh(params, "cuda")
+        n_local = mesh.rows_per_shard(params.EN_GPSZ)
+        cfg = tpu_hash_sharded.sharded_config(params, False, fail_ids,
+                                              n_local, device="cuda")
+        step = tpu_hash_sharded.make_ring_sharded_step(cfg, mesh)
+        state = tpu_hash_sharded.init_local_state_warm(cfg, mesh, key0)
+
+        def plan_rng(key):
+            return tpu_hash_sharded._mesh_rng(
+                key, mesh, n=cfg.n, n_local=n_local, s=cfg.s, g=cfg.g,
+                k_max=min(cfg.fanout, cfg.s), p_cnt=cfg.probes,
+                seed_rows=min(cfg.seed_cap, cfg.n),
+                use_drop=cfg.drop_prob > 0, cold_join=False, device="cuda")
+    else:
+        cfg = tpu_hash.make_config(params, collect_events=False,
+                                   fail_ids=fail_ids, device="cuda")
+        step, init = tpu_hash.step_and_init(cfg)
+        state = init(cfg, key0, "cuda")
+
+        def plan_rng(key):
+            return hash_ring_rng(
+                key, n=cfg.n, s=cfg.s, g=cfg.g,
+                k_max=min(cfg.fanout, cfg.s), p_cnt=cfg.probes,
+                seed_rows=min(cfg.seed_cap, cfg.n),
+                use_drop=cfg.drop_prob > 0, need_ctrl=not cfg.folded,
+                need_burst=not cfg.folded, device="cuda")
     t = 0
     for t in range(warm):
         state, _ = step(state, t, pt.tick_key(t), pt)
@@ -483,12 +610,7 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
         state, _ = step(state, t, pt.tick_key(t), pt)
 
     step_ms = cuda_ms(one_tick, ticks)
-    rng_ms = cuda_ms(lambda: hash_ring_rng(
-        pt.tick_key(t), n=cfg.n, s=cfg.s, g=cfg.g,
-        k_max=min(cfg.fanout, cfg.s), p_cnt=cfg.probes,
-        seed_rows=min(cfg.seed_cap, cfg.n), use_drop=cfg.drop_prob > 0,
-        need_ctrl=not cfg.folded, need_burst=not cfg.folded,
-        device="cuda"), ticks)
+    rng_ms = cuda_ms(lambda: plan_rng(pt.tick_key(t)), ticks)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -560,12 +682,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         rows.update(phase_kernels_folded(torch, dev))
         torch.cuda.empty_cache()
+        rows.update(phase_kernels_stacked(torch, dev))
+        torch.cuda.empty_cache()
         log(f"phase kernels: {time.perf_counter() - t0:.1f}s")
 
     confs = os.path.join(REPO, "distributed_membership_tpu_torch", "confs")
     if "profile" in phases:
         for name in ("ring_1m_s128", "ring_1m_s128_drop",
-                     "ring_1m_s16_folded", "ring_1m_s16_folded_drop"):
+                     "ring_1m_s16_folded", "ring_1m_s16_folded_drop",
+                     "ring_1m_s128_sharded", "ring_1m_s128_sharded8_drop"):
             phase_profile(torch, os.path.join(confs, name + ".conf"), name,
                           out_dir)
             torch.cuda.empty_cache()
@@ -644,6 +769,43 @@ def main(argv=None) -> int:
             return fail("folded_parity: no detection")
         log(f"folded_parity: N=2^14 detection summary and {len(leaves['cpu'])}"
             " final-state leaves identical, cuda vs cpu")
+    if "sharded" in phases:
+        paths["sharded"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_sharded.conf"),
+            "sharded", launches_expected(receive=160, gossip_stacked=160,
+                                         probe=160), out_dir)
+        det = paths["sharded"]["detection"]
+        if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
+            return fail(f"sharded path detection summary: {det}")
+        torch.cuda.empty_cache()
+    if "sharded_lossy" in phases:
+        paths["sharded_lossy"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_sharded8_drop.conf"),
+            "sharded_lossy", launches_expected(
+                receive=64, gossip_stacked=64, probe=64), out_dir)
+        if paths["sharded_lossy"]["detection"].get("detections_total",
+                                                   0) <= 0:
+            return fail("sharded_lossy path: no detection")
+        torch.cuda.empty_cache()
+    if "sharded_parity" in phases:
+        from distributed_membership_tpu_torch.runtime.application import (
+            run_conf)
+        conf = os.path.join(confs, "ring_256_s128_sharded8_drop.conf")
+        for d in ("cuda", "cpu"):
+            run_conf(conf, out_dir=os.path.join(out_dir,
+                                                f"sharded_parity_{d}"),
+                     device=d)
+        for f in ("dbg.log", "stats.log", "msgcount.log"):
+            a, b = (open(os.path.join(out_dir, f"sharded_parity_{d}", f),
+                         "rb").read()
+                    for d in ("cuda", "cpu"))
+            if a != b:
+                return fail(f"sharded_parity: {f} differs between cuda and "
+                            "cpu")
+            if f == "dbg.log" and b" removed " not in a:
+                return fail("sharded_parity: dbg.log holds no removal")
+        log("sharded_parity: N=256 eight-shard full-event logs "
+            "byte-identical, cuda vs cpu")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):
@@ -653,7 +815,8 @@ def main(argv=None) -> int:
     # drives it (K2's masks form runs under drops).  Forms no path runs
     # ride their kernel's entry: the probe kernels' hist forms serve
     # TELEMETRY, which the port refuses, and K6's masks form is held in
-    # phase 2 only (the folded step masks its payloads itself).
+    # phase 2 only (the folded step masks its payloads itself), as is
+    # K4's (the sharded step masks its payloads before the block hop).
     out = []
     for form, path, src, extra in (
             ("receive", "main", "receive.cu", None),
@@ -664,7 +827,9 @@ def main(argv=None) -> int:
             ("gossip_folded", "folded", "gossip_folded.cu",
              ("gossip_folded_masks", "masks")),
             ("probe_folded", "folded", "probe_folded.cu",
-             ("probe_folded_hist", "hist"))):
+             ("probe_folded_hist", "hist")),
+            ("gossip_stacked", "sharded", "gossip_stacked.cu",
+             ("gossip_stacked_masks", "masks"))):
         r = dict(rows[form])
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",

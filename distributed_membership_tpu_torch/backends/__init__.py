@@ -1,8 +1,9 @@
 """Backend registry (the JAX package's ``backends/__init__.py``).
 
 A backend turns ``Params`` into a completed run.  The port implements
-``tpu_hash`` (ring exchange, warm join); the conf's ``BACKEND:`` key
-names the same backends as the JAX package, and the others are refused.
+``tpu_hash`` and ``tpu_hash_sharded`` (ring exchange, warm join); the
+conf's ``BACKEND:`` key names the same backends as the JAX package, and
+the others are refused.
 """
 
 from __future__ import annotations
@@ -36,7 +37,11 @@ class RunResult:
 BackendFn = Callable[..., RunResult]
 
 _REGISTRY: Dict[str, BackendFn] = {}
-_MODULES = {"tpu_hash": "distributed_membership_tpu_torch.backends.tpu_hash"}
+_MODULES = {
+    "tpu_hash": "distributed_membership_tpu_torch.backends.tpu_hash",
+    "tpu_hash_sharded":
+        "distributed_membership_tpu_torch.backends.tpu_hash_sharded",
+}
 
 
 def register(name: str):
@@ -49,8 +54,8 @@ def register(name: str):
 def get_backend(name: str) -> BackendFn:
     if name not in _MODULES:
         raise NotImplementedError(
-            f"BACKEND {name!r} is not ported yet (the port runs tpu_hash; "
-            "ROADMAP.md Queue 1 item 11)")
+            f"BACKEND {name!r} is not ported yet (the port runs tpu_hash "
+            "and tpu_hash_sharded; ROADMAP.md Queue 1 item 11)")
     if name not in _REGISTRY:
         importlib.import_module(_MODULES[name])
     return _REGISTRY[name]

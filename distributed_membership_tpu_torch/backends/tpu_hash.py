@@ -184,30 +184,49 @@ def init_state(cfg: HashConfig, device) -> HashState:
     )
 
 
+def warm_view(cfg: HashConfig, view, offs):
+    """Seed ``view`` in place: node ``i`` holds nodes ``(i + offs[i, k])
+    mod N`` at heartbeat 0 in their hashed slots (unsigned max on a
+    collision) and itself in its own slot, which admission reserves."""
+    n = cfg.n
+    idx = torch.arange(n, dtype=I64, device=view.device)
+    nbrs = (idx[:, None] + offs) % n
+    _scatter_msgs(cfg, view, idx, idx[:, None].expand(nbrs.shape), nbrs,
+                  torch.zeros_like(nbrs),
+                  torch.ones(nbrs.shape, dtype=torch.bool, device=view.device))
+    view[idx, slot_of(cfg, idx, idx)] = to_bits(
+        pack_u(cfg, torch.zeros_like(idx), idx))
+    return view
+
+
 def init_state_warm(cfg: HashConfig, key: Key, device) -> HashState:
     """Every node in the group at t=0 with itself and ~S/2 random
     neighbours (JAX ``init_state_warm``)."""
     n, s = cfg.n, cfg.s
     st = init_state(cfg, device)
-    idx = torch.arange(n, dtype=I64, device=device)
-    fill = max(s // 2, 1)
-    offs = randint(key, (n, fill), 1, max(n, 2), device)
-    nbrs = (idx[:, None] + offs) % n
-    view = _scatter_msgs(cfg, st.view, idx, idx[:, None].expand(n, fill),
-                         nbrs, torch.zeros_like(nbrs),
-                         torch.ones(nbrs.shape, dtype=torch.bool,
-                                    device=device))
-    # The self slot belongs to self (admission reserves it).
-    view[idx, slot_of(cfg, idx, idx)] = to_bits(
-        pack_u(cfg, torch.zeros_like(idx), idx))
+    offs = randint(key, (n, max(s // 2, 1)), 1, max(n, 2), device)
     ones = torch.ones((n,), dtype=torch.bool, device=device)
-    return st._replace(view=view, started=ones, in_group=ones.clone())
+    return st._replace(view=warm_view(cfg, st.view, offs), started=ones,
+                       in_group=ones.clone())
 
 
 def _pack_probe_table(hb, wf, act):
     """Ack heartbeat in the high 30 bits, will-flush (bit 0) and act
     (bit 1) below: one u32 per target, one gather per tick."""
     return (((hb.to(I64) & M32) << 2) & M32) | wf.to(I64) | (act.to(I64) << 1)
+
+
+def _gathered_flush(packed):
+    return (packed & 1) != 0
+
+
+def _gathered_act(packed):
+    return (packed & 2) != 0
+
+
+def _gathered_hb(packed):
+    """The ack heartbeat back out of a :func:`_pack_probe_table` gather."""
+    return (packed >> 2).to(I32)
 
 
 def _credit_orphan_recvs(per_prober, will_flush):
@@ -218,6 +237,19 @@ def _credit_orphan_recvs(per_prober, will_flush):
     safe = torch.argmax(will_flush.to(I32)).reshape(1)
     out = torch.where(will_flush, per_prober, 0)
     return out.index_add_(0, safe, (orphan * will_flush.any()).reshape(1))
+
+
+def _credit_orphan_recvs_sharded(per_prober, will_flush_l, will_flush_g,
+                                 rows, mesh):
+    """The sharded twin of :func:`_credit_orphan_recvs`: the orphan sum is
+    the sum over shards of their local orphans, and it lands on the
+    globally first row that will flush, whichever shard owns it.  On a
+    LocalMesh ``rows`` are the global row ids of the flat layout."""
+    orphan = mesh.psum(mesh.shard_sums(torch.where(will_flush_l, 0,
+                                                   per_prober)))
+    safe_g = torch.argmax(will_flush_g.to(I32))
+    return torch.where(will_flush_l, per_prober, 0) + torch.where(
+        (rows == safe_g) & will_flush_g.any(), orphan, 0)
 
 
 def _roll(vec, shift, idx, n: int):
@@ -298,7 +330,7 @@ def make_step(cfg: HashConfig):
                           if t == plan.fail_time else recv_mask)
             tbl = _pack_probe_table(vec, will_flush, act)
             gcat = tbl[torch.cat([id2, tgt1], dim=1)]        # one gather
-            hb_ack = (gcat[:, :p_cnt] >> 2).to(I32)
+            hb_ack = _gathered_hb(gcat[:, :p_cnt])
             probe_bits1 = gcat[:, p_cnt:]
             valid2 = (ids2 != 0) & (hb_ack > 0)
             if use_drop and plan.drop_active(t - 1):
@@ -405,7 +437,7 @@ def make_step(cfg: HashConfig):
             sent_probes = p_valid.sum(1, dtype=I32) * p_red
             if cfg.count_probe_io:
                 # Probes issued at t-1 arrive now; act targets ack.
-                ack_send = v1 & ((probe_bits1 & 2) != 0)
+                ack_send = v1 & _gathered_act(probe_bits1)
                 zeros = torch.zeros((n + 1,), dtype=I32, device=dev)
                 recv_probe = zeros.index_add(
                     0, torch.where(v1, tgt1, n).reshape(-1),
@@ -415,10 +447,10 @@ def make_step(cfg: HashConfig):
                     0, torch.where(ack_send, tgt1, n).reshape(-1),
                     torch.ones((n * p_cnt,), dtype=I32, device=dev))[:n]
             else:
-                per_prober = (v1 & ((probe_bits1 & 1) != 0)).sum(
+                per_prober = (v1 & _gathered_flush(probe_bits1)).sum(
                     1, dtype=I32) * p_red
                 recv_probe = _credit_orphan_recvs(per_prober, will_flush)
-                sent_ack = (v1 & ((probe_bits1 & 2) != 0)).sum(1, dtype=I32)
+                sent_ack = (v1 & _gathered_act(probe_bits1)).sum(1, dtype=I32)
             sent_tick = sent_tick + sent_probes + sent_ack
             recv_add = recv_add + recv_probe + ack_recv_cnt
         pending_recv = pending_recv + recv_add
@@ -591,6 +623,14 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
     plan_t = plan_tensors(params, plan, seed, total, device)
     step, init = step_and_init(cfg)
     state = init(cfg, make_run_key(params, seed ^ 0x5EED), device)
+    return run_ticks(step, state, plan_t, total, collect_events, cfg.n)
+
+
+def run_ticks(step, state, plan_t: PlanTensors, total: int,
+              collect_events: bool, n: int):
+    """The tick loop of a ring step: ``(final_state, events)`` with
+    ``events`` the host-compacted per-tick planes in full event mode and
+    ``None`` in agg mode."""
     joins, removes, sent, recv = [], [], [], []
     for t in range(total):
         state, out = step(state, t, plan_t.tick_key(t), plan_t)
@@ -605,8 +645,8 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
     return state, CompactEvents(
         np.concatenate(joins) if joins else empty,
         np.concatenate(removes) if removes else empty,
-        torch.stack(sent).cpu().numpy() if sent else np.zeros((0, cfg.n)),
-        torch.stack(recv).cpu().numpy() if recv else np.zeros((0, cfg.n)),
+        torch.stack(sent).cpu().numpy() if sent else np.zeros((0, n)),
+        torch.stack(recv).cpu().numpy() if recv else np.zeros((0, n)),
         total)
 
 

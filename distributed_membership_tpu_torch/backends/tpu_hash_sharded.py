@@ -1,0 +1,477 @@
+"""``tpu_hash_sharded`` backend, ring exchange, warm join (counterpart of
+the JAX package's ``backends/tpu_hash_sharded.py``).
+
+The JAX backend shards the node rows of the ``tpu_hash`` state over a
+device mesh: shard ``d`` owns rows ``[d*L, (d+1)*L)``, runs the ring step
+on them inside ``shard_map`` and reaches the other shards through
+collectives.  The port holds the mesh on one device
+(:class:`~distributed_membership_tpu_torch.parallel.mesh.LocalMesh`): the
+state keeps the flat ``[N, ...]`` layout, every per-shard computation runs
+once over all rows, and each collective is a tensor operation on that
+layout.  With ``MESH_SHAPE`` unset the mesh has one shard, which is what a
+user runs on one card; ``MESH_SHAPE: 8`` (or ``2x4``) runs the eight-shard
+program of the JAX package's eight-device mesh, bit for bit.
+
+Per tick (``make_ring_sharded_step``), as in the JAX ring step:
+
+* the per-shard RNG plan (ops/rng_plan.py ``sharded_ring_rng``, each
+  shard's streams from ``fold_in(key, shard)``, concatenated in shard
+  order);
+* the ack candidates from one gathered probe table (``all_gather``);
+* the receive pass -- K1 (ops/fused_receive.py) over all rows, with
+  global row ids;
+* gossip as torus-product shifts ``u = b*L + c``: per shift the sender
+  masks its payload (fanout, drop coins), the block hop routes it to
+  shard ``d + b`` (``block_send``), and one pass of K4
+  (ops/fused_gossip.py ``gossip_fused_stacked``) rolls every shift's
+  payload by ``c`` rows within each shard, aligns its columns by that
+  shard's ``s1``/``s2`` and maxes it into the mailbox;
+* the probe window and the FastAgg row partials -- K3
+  (ops/fused_probe.py) over all rows -- then the message counters
+  (exact per-target histograms through ``psum_scatter``, or the prober's
+  row with the orphans re-credited to the globally first flushing row);
+* per-shard FastAgg partials, reduced once after the run
+  (:func:`reduce_fast_agg`), or per-tick event planes in full event mode.
+
+Refused with ``NotImplementedError`` naming the ROADMAP.md item: cold
+joins, the scatter exchange (the JAX ``make_sharded_step``),
+``EXCHANGE_MODE: batched``, ``PROBE_GATHER: split``, ``FOLDED`` (the
+sharded folded step), and what ``tpu_hash`` refuses (SCENARIO, TELEMETRY,
+CHECKPOINT_EVERY, MEGA_TICKS, more than 8 failed ids under EVENT_MODE
+agg; on CUDA ``VIEW_SIZE % 128 != 0`` and a pinned ``FUSED_*: 0``).
+"""
+
+from __future__ import annotations
+
+import random as _pyrandom
+import time as _time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from distributed_membership_tpu_torch.backends import RunResult, register
+from distributed_membership_tpu_torch.backends.tpu_hash import (
+    I32, I64, HashConfig, _credit_orphan_recvs_sharded, _gathered_act,
+    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, make_config,
+    pack_u, plan_fail_ids, run_ticks, warm_view)
+from distributed_membership_tpu_torch.backends.tpu_sparse import (
+    SparseTickEvents, finish_run)
+from distributed_membership_tpu_torch.config import Params
+from distributed_membership_tpu_torch.eventlog import EventLog
+from distributed_membership_tpu_torch.observability.aggregates import (
+    FastAgg, init_agg, init_fast_agg, update_fast_agg)
+from distributed_membership_tpu_torch.ops.fused_gossip import (
+    gossip_fused_stacked)
+from distributed_membership_tpu_torch.ops.fused_probe import (
+    probe_window_fused)
+from distributed_membership_tpu_torch.ops.fused_receive import receive_fused
+from distributed_membership_tpu_torch.ops.rng_plan import (
+    RingRng, sharded_ring_rng)
+from distributed_membership_tpu_torch.ops.threefry import Key, fold_in, randint
+from distributed_membership_tpu_torch.ops.view_merge import (
+    EMPTY, STRIDE, member_of, to_bits)
+from distributed_membership_tpu_torch.parallel.mesh import (
+    LocalMesh, mesh_shape)
+from distributed_membership_tpu_torch.runtime.failures import (
+    FailurePlan, PlanTensors, make_run_key, plan_tensors, resolve_plan)
+
+
+class ShardedHashState(NamedTuple):
+    """The JAX ``ShardedHashState`` leaves in their global shapes (the
+    shards' rows concatenated); u32 planes as int32 bits.  During a run in
+    agg mode ``agg`` holds per-shard FastAgg partials (``init_fast_agg(...,
+    shards=D)``); the finished run's is reduced (:func:`reduce_fast_agg`)."""
+    view: torch.Tensor          # [N, S]
+    view_ts: torch.Tensor       # [N, S]
+    started: torch.Tensor       # [N] bool
+    in_group: torch.Tensor      # [N] bool
+    failed: torch.Tensor        # [N] bool
+    self_hb: torch.Tensor       # [N] int32
+    mail: torch.Tensor          # [N, S]
+    amail: torch.Tensor         # [D, 1] placeholder (scatter exchange)
+    pmail: torch.Tensor         # [D, 1] placeholder (scatter exchange)
+    joinreq_infl: torch.Tensor  # [N] bool
+    joinrep_infl: torch.Tensor  # [N] bool
+    pending_recv: torch.Tensor  # [N] int32
+    agg: NamedTuple             # FastAgg, or the AggStats placeholder
+    probe_ids1: torch.Tensor    # [N, P] ids probed last tick (id + 1)
+    probe_ids2: torch.Tensor    # [N, P] ids probed two ticks ago
+    act_prev: torch.Tensor      # [N] bool
+
+
+def init_local_state(cfg: HashConfig, mesh: LocalMesh) -> ShardedHashState:
+    n, s, d = cfg.n, cfg.s, mesh.size
+    dev = mesh.device
+    i32 = dict(dtype=I32, device=dev)
+    b = dict(dtype=torch.bool, device=dev)
+    probe_shape = (n, cfg.probes) if cfg.probes > 0 else (d, 1)
+    return ShardedHashState(
+        view=torch.zeros((n, s), **i32),
+        view_ts=torch.zeros((n, s), **i32),
+        started=torch.zeros((n,), **b),
+        in_group=torch.zeros((n,), **b),
+        failed=torch.zeros((n,), **b),
+        self_hb=torch.zeros((n,), **i32),
+        mail=torch.zeros((n, s), **i32),
+        amail=torch.zeros((d, 1), **i32),
+        pmail=torch.zeros((d, 1), **i32),
+        joinreq_infl=torch.zeros((n,), **b),
+        joinrep_infl=torch.zeros((n,), **b),
+        pending_recv=torch.zeros((n,), **i32),
+        agg=(init_fast_agg(len(cfg.fail_ids), n, dev, shards=d)
+             if cfg.fast_agg
+             else init_agg(n, dev, rows=mesh.rows_per_shard(n))),
+        probe_ids1=torch.zeros(probe_shape, **i32),
+        probe_ids2=torch.zeros(probe_shape, **i32),
+        act_prev=torch.zeros((n,), **b),
+    )
+
+
+def init_local_state_warm(cfg: HashConfig, mesh: LocalMesh,
+                          key: Key) -> ShardedHashState:
+    """Every node in the group at t=0 with itself and ~S/2 random
+    neighbours (JAX ``init_local_state_warm``): shard ``d`` draws its rows'
+    neighbour offsets from ``fold_in(key, d)``."""
+    n, d = cfg.n, mesh.size
+    n_local = mesh.rows_per_shard(n)
+    fill = max(cfg.s // 2, 1)
+    st = init_local_state(cfg, mesh)
+    offs = torch.cat([randint(fold_in(key, me), (n_local, fill), 1,
+                              max(n, 2), mesh.device) for me in range(d)])
+    ones = torch.ones((n,), dtype=torch.bool, device=mesh.device)
+    return st._replace(view=warm_view(cfg, st.view, offs), started=ones,
+                       in_group=ones.clone())
+
+
+def _mesh_rng(key: Key, mesh: LocalMesh, **kw) -> RingRng:
+    """Every shard's plan, its per-shard streams concatenated in shard
+    order (the flat draws); the replicated shifts are drawn once."""
+    plans = [sharded_ring_rng(key, me, need_shifts=me == 0, **kw)
+             for me in range(mesh.size)]
+    if len(plans) == 1:
+        return plans[0]
+    first = plans[0]
+
+    def cat(field):
+        parts = [getattr(p, field) for p in plans]
+        return torch.cat(parts) if parts[0].numel() else parts[0]
+
+    return first._replace(
+        thin_u=cat("thin_u"), probe_u=cat("probe_u"), ack_u=cat("ack_u"),
+        gossip_u=tuple(torch.cat([p.gossip_u[j] for p in plans])
+                       for j in range(len(first.gossip_u))))
+
+
+def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
+    """``step(state, t, key, plan) -> (state, SparseTickEvents)``: the JAX
+    ``make_ring_sharded_step`` under warm join and the legacy exchange,
+    on every shard of ``mesh`` at once."""
+    n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
+    d = mesh.size
+    n_local = mesh.rows_per_shard(n)
+    k_max = min(cfg.fanout, s)
+    p_red = 1 if cfg.qp >= n else 2
+    cstride = STRIDE % s
+    # The wrapped rows' column shift equals the unwrapped one iff this.
+    single_col = (n_local * STRIDE) % s == 0
+    if p_cnt >= s:
+        raise ValueError("ring mode needs PROBES < VIEW_SIZE "
+                         f"(got {p_cnt} >= {s})")
+    use_drop = cfg.drop_prob > 0.0
+    p_drop = float(np.float32(cfg.drop_prob))
+    want_agg = cfg.fast_agg and not cfg.collect_events
+    fail_ids = cfg.fail_ids if want_agg else ()
+    rng_kw = dict(n=n, n_local=n_local, s=s, g=g, k_max=k_max,
+                  p_cnt=max(p_cnt, 0), seed_rows=min(cfg.seed_cap, n),
+                  use_drop=use_drop, cold_join=False)
+
+    def total(x):
+        return mesh.psum(mesh.shard_sums(x))
+
+    def hist(tgt, valid, weight, shard):
+        """Per-shard ``[D, N]`` histograms of ``tgt`` over the global ids
+        (the JAX step's local ``.at[].add``), for ``psum_scatter``."""
+        idx = torch.where(valid, tgt, n) + shard[:, None] * (n + 1)
+        out = torch.zeros((d * (n + 1),), dtype=I32, device=tgt.device)
+        out.index_add_(0, idx.reshape(-1), torch.full(
+            (idx.numel(),), weight, dtype=I32, device=tgt.device))
+        return out.view(d, n + 1)[:, :n]
+
+    def step(state: ShardedHashState, t: int, key: Key, plan: PlanTensors):
+        if t < 0:
+            raise ValueError("ticks start at 0")
+        dev = state.view.device
+        rows = torch.arange(n, dtype=I64, device=dev)   # global row ids
+        rng = _mesh_rng(key, mesh, device=dev, **rng_kw)
+        coins = use_drop and plan.drop_active(t)
+
+        # ---- warm join: every start tick is -1, the control plane inert
+        recv_mask = state.started & ~state.failed
+        rcol = recv_mask[:, None]
+        recv_tick = torch.where(recv_mask, state.pending_recv, 0)
+        pending_recv = torch.where(recv_mask, 0, state.pending_recv)
+
+        # ---- self refresh vectors ----
+        act = state.started & ~state.failed & state.in_group
+        self_hb = torch.where(act, state.self_hb + 2, state.self_hb)
+        self_val = to_bits(pack_u(
+            cfg, torch.where(act, state.self_hb + 1, 0), rows))
+
+        # ---- ack candidates (probes issued at t-2): one all_gather of
+        # the packed probe table, one gather on [id2, tgt1] ----
+        cand_full = torch.zeros((n, s), dtype=I32, device=dev)
+        ack_recv_cnt = torch.zeros((n,), dtype=I32, device=dev)
+        if p_cnt > 0:
+            ids2 = state.probe_ids2
+            id2 = (ids2.to(I64) - 1).clamp_min(0)
+            ids1 = state.probe_ids1
+            v1 = ids1 != 0
+            tgt1 = (ids1.to(I64) - 1).clamp_min(0)
+            vec = torch.where(state.act_prev, state.self_hb - 1, 0)
+            will_flush = (recv_mask & ~plan.fail_mask
+                          if t == plan.fail_time else recv_mask)
+            tbl_g = mesh.all_gather(_pack_probe_table(vec, will_flush, act))
+            will_flush_g = _gathered_flush(tbl_g)
+            gcat = tbl_g[torch.cat([id2, tgt1], dim=1)]
+            hb_ack = _gathered_hb(gcat[:, :p_cnt])
+            probe_bits1 = gcat[:, p_cnt:]
+            valid2 = (ids2 != 0) & (hb_ack > 0)
+            if use_drop and plan.drop_active(t - 1):
+                valid2 = valid2 & ~(rng.ack_u.reshape(n, p_cnt) < p_drop)
+            cand = torch.where(valid2, to_bits(pack_u(cfg, hb_ack, id2)), 0)
+            ptr2 = ((t - 2) * p_cnt) % s
+            cand_full[:, (ptr2 + torch.arange(p_cnt, device=dev)) % s] = cand
+            ack_recv_cnt = (valid2 & rcol).sum(1, dtype=I32)
+
+        # ---- receive (K1; row-local, so one launch covers every shard)
+        (view, view_ts, mail, join_mask, rm_ids, numfailed,
+         size) = receive_fused(n, s, cfg.tfail, cfg.tremove, STRIDE, t,
+                               state.view, state.view_ts, state.mail,
+                               cand_full, recv_mask, act, act, self_val)
+        present = view != 0
+        cur_id = torch.where(present, member_of(view, n), EMPTY)
+        difft = t - view_ts
+
+        # ---- gossip: torus-product shifts u = b*L + c (K4) ----
+        numpotential = size - 1 - numfailed
+        fresh = present & (difft < cfg.tfail)
+        k_eff = numpotential.clamp(max=cfg.fanout).clamp_min(0)
+        if g >= s:
+            keep = fresh
+        else:
+            fresh_cnt = fresh.sum(1, dtype=I32)
+            p_keep = torch.where(
+                fresh_cnt > 1,
+                (g - 1) / (fresh_cnt - 1).clamp_min(1).to(torch.float32),
+                1.0)
+            keep = fresh & ((rng.thin_u.reshape(n, s) < p_keep[:, None])
+                            | (cur_id == rows[:, None]))
+        keep = keep & act[:, None]
+        sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
+        recv_add = torch.zeros((n,), dtype=I32, device=dev)
+        if k_max > 0:
+            u = rng.shift_draw.to(I64)
+            b, c = u // n_local, u % n_local
+            # Receiver slot = sender slot + delta * STRIDE with delta = b'L
+            # + c, b' = b - D on shards me < b (block wrap), and c - L on
+            # the rows l < c (row wrap): per shard and shift.
+            me = torch.arange(d, dtype=I64, device=dev)[:, None]
+            bp = torch.where(me < b, b - d, b)
+            s1 = ((bp * n_local + c) % s * cstride % s).to(I32)
+            s2 = ((bp * n_local + c - n_local) % s * cstride % s).to(I32)
+            payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
+            for j in range(k_max):
+                m = keep & (j < k_eff)[:, None]
+                if coins:
+                    m &= ~(rng.gossip_u[j].reshape(n, s) < p_drop)
+                cnt = m.sum(1, dtype=I32)
+                sent_gossip += cnt
+                torch.mul(view, m, out=payloads[j])    # where(m, view, 0)
+                if d > 1:                      # the block hop
+                    payloads[j] = mesh.block_send(payloads[j], b[j])
+                recv_add += mesh.local_roll(mesh.block_send(cnt, b[j]), c[j])
+            mail = gossip_fused_stacked(n_local, s, k_max, single_col, mail,
+                                        payloads, c.to(I32), s1, s2)
+            del payloads
+        sent_tick = sent_gossip
+
+        # ---- SWIM round-robin probing (K3; row-local, global ids) ----
+        probe_ids1, probe_ids2 = state.probe_ids1, state.probe_ids2
+        act_prev = state.act_prev
+        pfo = None
+        if p_cnt > 0:
+            pfo = probe_window_fused(
+                n, s, p_cnt, cfg.tfail, fail_ids, False, want_agg, t,
+                (t * p_cnt) % s, 0, view, None, act,
+                rm_ids if want_agg else None)
+            window_ids = pfo["ids"]
+            p_valid = window_ids != 0
+            if coins:
+                p_valid = p_valid & ~(rng.probe_u.reshape(n, p_cnt) < p_drop)
+            probe_ids2 = probe_ids1
+            probe_ids1 = torch.where(p_valid, window_ids, 0)
+            act_prev = act
+            sent_probes = p_valid.sum(1, dtype=I32) * p_red
+            if cfg.count_probe_io:
+                # Exact per-target attribution: each shard's histograms
+                # over the global ids, summed and sliced back to owners.
+                shard = mesh.shard_of_rows(n)
+                ack_send = v1 & _gathered_act(probe_bits1)
+                recv_probe = mesh.psum_scatter(hist(tgt1, v1, p_red, shard))
+                sent_ack = mesh.psum_scatter(hist(tgt1, ack_send, 1, shard))
+            else:
+                per_prober = (v1 & _gathered_flush(probe_bits1)).sum(
+                    1, dtype=I32) * p_red
+                recv_probe = _credit_orphan_recvs_sharded(
+                    per_prober, will_flush, will_flush_g, rows, mesh)
+                sent_ack = (v1 & _gathered_act(probe_bits1)).sum(1, dtype=I32)
+            sent_tick = sent_tick + sent_probes + sent_ack
+            recv_add = recv_add + recv_probe + ack_recv_cnt
+        pending_recv = pending_recv + recv_add
+
+        failed = (state.failed | plan.fail_mask if t == plan.fail_time
+                  else state.failed)
+
+        if cfg.collect_events:
+            agg = state.agg
+            out = SparseTickEvents(
+                torch.where(join_mask, cur_id, EMPTY).to(I32), rm_ids,
+                sent_tick, recv_tick)
+        else:
+            # Per-shard partials of the probe pass's row sums.
+            rm_cnt = (pfo["rm_cnt"] if pfo is not None
+                      else (rm_ids >= 0).sum(1, dtype=I32))
+            det = None
+            if fail_ids:
+                det = (pfo["det"] if pfo is not None else torch.stack(
+                    [(rm_ids == f).sum(1, dtype=I32) for f in fail_ids]))
+            agg = update_fast_agg(
+                state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
+                rm_total_tick=mesh.shard_sums(rm_cnt),
+                det_tick=(None if det is None else det.view(
+                    len(fail_ids), d, n_local).sum(2, dtype=I32).t()),
+                any_true_rm=None if det is None else (det > 0).any(0),
+                view_ids=(cur_id if t == plan.fail_time and fail_ids
+                          else None),
+                view_present=present, fail_time=plan.fail_time,
+                holder_failed=plan.fail_mask, sent_tick=sent_tick,
+                recv_tick=recv_tick, part=mesh.shard_sums)
+            out = SparseTickEvents(total(join_mask), total(rm_cnt),
+                                   total(sent_tick), total(recv_tick))
+        new_state = ShardedHashState(
+            view, view_ts, state.started, state.in_group, failed, self_hb,
+            mail, state.amail, state.pmail, state.joinreq_infl,
+            state.joinrep_infl, pending_recv, agg, probe_ids1, probe_ids2,
+            act_prev)
+        return new_state, out
+
+    return step
+
+
+def reduce_fast_agg(agg: FastAgg, mesh: LocalMesh) -> FastAgg:
+    """Reduce per-shard FastAgg partials to the global value: sums of the
+    counts and histogram, gathers of the per-row fields."""
+    return FastAgg(
+        det_count=mesh.psum(agg.det_count),
+        trackers=mesh.psum(agg.trackers),
+        tracker_obs=mesh.all_gather(agg.tracker_obs),
+        det_obs=mesh.all_gather(agg.det_obs),
+        lat_hist=mesh.psum(agg.lat_hist),
+        join_total=mesh.psum(agg.join_total),
+        rm_total=mesh.psum(agg.rm_total),
+        sent_total=mesh.all_gather(agg.sent_total),
+        recv_total=mesh.all_gather(agg.recv_total),
+    )
+
+
+def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
+                   n_local: int, device="cpu") -> HashConfig:
+    """``tpu_hash.make_config`` plus the JAX ``sharded_config`` gates of
+    the natural layout (same messages), and the refusals of what the
+    port's sharded step does not run yet."""
+    if params.JOIN_MODE != "warm":
+        _refuse(f"JOIN_MODE {params.JOIN_MODE} (cold joins)",
+                "Queue 1 item 3")
+    if params.resolved_exchange() != "ring":
+        _refuse("the scatter exchange on tpu_hash_sharded "
+                "(make_sharded_step)", "Queue 1 item 6c")
+    if params.EXCHANGE_MODE == "batched":
+        _refuse("EXCHANGE_MODE batched (ops/exchange.py)", "Queue 1 item 6c")
+    if params.PROBE_GATHER == "split":
+        _refuse("PROBE_GATHER split", "Queue 1 item 6c")
+    if params.PROBE_IO == "approx_lag":
+        raise ValueError(
+            "PROBE_IO approx_lag is single-chip tpu_hash only (the "
+            "sharded twins keep the two-gather attribution)")
+    if params.FOLDED == 1:
+        _refuse("FOLDED on tpu_hash_sharded (the sharded folded step)",
+                "Queue 1 item 6b")
+    cfg = make_config(params, collect_events, fail_ids=fail_ids,
+                      device=device)
+    if cfg.folded:
+        _refuse("FOLDED (auto for VIEW_SIZE < 128 on CUDA) on "
+                "tpu_hash_sharded (the sharded folded step)",
+                "Queue 1 item 6b")
+    s = cfg.s
+    if params.FUSED_GOSSIP == 1 and (n_local < 8 or s % 128 != 0):
+        raise ValueError(
+            f"FUSED_GOSSIP on tpu_hash_sharded needs S % 128 == 0 "
+            f"and at least 8 rows per shard "
+            f"(got L={n_local}, S={s}); "
+            "for S < 128 it requires the FOLDED layout, which the "
+            "per-shard row count rejected")
+    if params.FUSED_RECEIVE == 1 and not (s % 128 == 0 and n_local >= 8):
+        raise ValueError(
+            f"FUSED_RECEIVE on tpu_hash_sharded needs the "
+            f"per-shard row count to support the kernel tiling "
+            f"(got L={n_local}, S={s}; need S % 128 == 0 "
+            f"and L >= 8)")
+    return cfg
+
+
+def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
+                     mesh: LocalMesh, collect_events: bool = True):
+    """Run the whole simulation on ``mesh``: ``(final_state, events)`` as
+    ``tpu_hash.run_scan``, the final agg reduced."""
+    n_local = mesh.rows_per_shard(params.EN_GPSZ)
+    cfg = sharded_config(params, collect_events, plan_fail_ids(plan),
+                         n_local, device=mesh.device)
+    total = params.TOTAL_TIME
+    params.validate_sparse_packing(total)
+    plan_t = plan_tensors(params, plan, seed, total, mesh.device)
+    state = init_local_state_warm(cfg, mesh,
+                                  make_run_key(params, seed ^ 0x5EED))
+    state, events = run_ticks(make_ring_sharded_step(cfg, mesh), state,
+                              plan_t, total, collect_events, cfg.n)
+    if not collect_events:
+        state = state._replace(agg=reduce_fast_agg(state.agg, mesh))
+    return state, events
+
+
+def resolve_mesh(params: Params, device) -> LocalMesh:
+    """The run's mesh: ``MESH_SHAPE`` when set, else one shard."""
+    return LocalMesh(mesh_shape(params), device)
+
+
+def bind_run_scan(mesh: LocalMesh):
+    """A ``run_scan``-shaped callable closed over ``mesh`` (the form
+    ``finish_run`` drives, which passes the mesh's own device)."""
+    def run_scan_bound(params, plan, seed, device, collect_events=True):
+        return run_scan_sharded(params, plan, seed, mesh, collect_events)
+    return run_scan_bound
+
+
+@register("tpu_hash_sharded")
+def run_tpu_hash_sharded(params: Params, log: Optional[EventLog] = None,
+                         seed: Optional[int] = None,
+                         device="cuda") -> RunResult:
+    t0 = _time.time()
+    seed = params.SEED if seed is None else seed
+    log = log if log is not None else EventLog()
+    plan = resolve_plan(params, _pyrandom.Random(f"app:{seed}"))
+    mesh = resolve_mesh(params, device)
+    result = finish_run(params, plan, log, bind_run_scan(mesh), t0, seed,
+                        mesh.device)
+    result.extra["mesh_size"] = mesh.size
+    return result

@@ -55,6 +55,9 @@ class Params:
     PROBE_IO: str = "auto"
     PRNG_IMPL: str = "threefry2x32"
     RNG_MODE: str = "batched"
+    MESH_SHAPE: str = ""        # tpu_hash_sharded: 'D', 'OxI' or 'SxOxI'
+    EXCHANGE_MODE: str = "-1"   # tpu_hash_sharded: -1 (legacy) | legacy
+    PROBE_GATHER: str = "packed"
     # Keys of later slices: parsed only so the backend can refuse them.
     FOLDED: int = -1
     MEGA_TICKS: int = -1
@@ -98,6 +101,8 @@ class Params:
         for key, allowed in (("EVENT_MODE", ("auto", "full", "agg")),
                              ("JOIN_MODE", ("staggered", "batch", "warm")),
                              ("EXCHANGE", ("auto", "scatter", "ring")),
+                             ("EXCHANGE_MODE", ("-1", "legacy", "batched")),
+                             ("PROBE_GATHER", ("packed", "split")),
                              ("PRNG_IMPL", ("threefry2x32", "rbg",
                                             "unsafe_rbg")),
                              ("PROBE_IO", ("auto", "exact", "approx",
@@ -113,6 +118,23 @@ class Params:
             if getattr(self, knob) not in (-1, 0, 1):
                 raise ValueError(f"{knob} must be 1 (on), 0 (off) or -1 "
                                  f"(auto), got {getattr(self, knob)!r}")
+        if self.EXCHANGE_MODE == "batched" and self.EXCHANGE == "scatter":
+            raise ValueError(
+                "EXCHANGE_MODE batched applies to the ring exchange's "
+                "gossip shifts (EXCHANGE ring/auto); the scatter lowering "
+                "has no per-shift collective round to batch")
+        if self.MESH_SHAPE:
+            parts = self.MESH_SHAPE.lower().split("x")
+            if not (1 <= len(parts) <= 3
+                    and all(p.isdigit() and int(p) > 0 for p in parts)):
+                raise ValueError(
+                    f"MESH_SHAPE must be 'D', 'OxI' or 'SxOxI' (positive "
+                    f"ints; 3-D = multi-slice torus, outermost axis over "
+                    f"DCN), got {self.MESH_SHAPE!r}")
+            if self.BACKEND != "tpu_hash_sharded":
+                raise ValueError(
+                    "MESH_SHAPE is only supported by BACKEND "
+                    f"tpu_hash_sharded (got {self.BACKEND!r})")
         if self.JOIN_MODE == "warm" and self.BACKEND not in (
                 "tpu_sparse", "tpu_hash", "tpu_hash_sharded"):
             raise ValueError(

@@ -32,13 +32,14 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 SOURCES = {"receive": "receive.cu", "gossip": "gossip.cu",
            "probe": "probe.cu", "receive_folded": "receive_folded.cu",
            "gossip_folded": "gossip_folded.cu",
-           "probe_folded": "probe_folded.cu"}
+           "probe_folded": "probe_folded.cu",
+           "gossip_stacked": "gossip_stacked.cu"}
 HEADERS = ("common.cuh", "receive_one.cuh", "probe_parts.cuh")
 
 LAUNCHES: Dict[str, int] = {
     "receive": 0, "gossip": 0, "gossip_masks": 0, "probe": 0,
     "receive_folded": 0, "gossip_folded": 0, "gossip_folded_masks": 0,
-    "probe_folded": 0}
+    "probe_folded": 0, "gossip_stacked": 0, "gossip_stacked_masks": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # ptxas report per source, last build
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "dm_gossip_folded": [_I] * 5 + [_P] * 7,
     "dm_probe_folded": [_I, _I, _U, _I, _I, _LL, _I, _P, _P, _P, _P, _I,
                         FailIds] + [_P] * 7,
+    "dm_gossip_stacked": [_LL] + [_I] * 5 + [_P] * 7,
 }
 _ENTRY = {name: f"dm_{name}" for name in SOURCES}
 

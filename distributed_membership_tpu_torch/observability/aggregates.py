@@ -36,7 +36,10 @@ class AggStats(NamedTuple):
     recv_total: torch.Tensor
 
 
-def init_agg(n: int, device) -> AggStats:
+def init_agg(n: int, device, rows: int | None = None) -> AggStats:
+    """``rows`` (default N) sizes the observer-row fields, as in the JAX
+    package (a sharded state carries one shard's rows)."""
+    rows = n if rows is None else rows
     i32 = dict(dtype=torch.int32, device=device)
     return AggStats(
         rm_count=torch.zeros((n,), **i32),
@@ -45,11 +48,11 @@ def init_agg(n: int, device) -> AggStats:
         rm_last=torch.full((n,), -1, **i32),
         join_count=torch.zeros((n,), **i32),
         trackers=torch.zeros((n,), **i32),
-        tracker_obs=torch.zeros((n,), dtype=torch.bool, device=device),
-        det_obs=torch.zeros((n,), dtype=torch.bool, device=device),
+        tracker_obs=torch.zeros((rows,), dtype=torch.bool, device=device),
+        det_obs=torch.zeros((rows,), dtype=torch.bool, device=device),
         lat_hist=torch.zeros((LAT_BINS,), **i32),
-        sent_total=torch.zeros((n,), **i32),
-        recv_total=torch.zeros((n,), **i32),
+        sent_total=torch.zeros((rows,), **i32),
+        recv_total=torch.zeros((rows,), **i32),
     )
 
 
@@ -65,16 +68,21 @@ class FastAgg(NamedTuple):
     recv_total: torch.Tensor   # [N] i32
 
 
-def init_fast_agg(n_failed: int, rows: int, device) -> FastAgg:
+def init_fast_agg(n_failed: int, rows: int, device,
+                  shards: int = 0) -> FastAgg:
+    """With ``shards`` the per-id, histogram and scalar fields carry one
+    partial per shard (a leading ``[D]`` axis), for the sharded step to
+    reduce at the end of the run; the per-row fields are flat."""
     i32 = dict(dtype=torch.int32, device=device)
+    lead = (shards,) if shards else ()
     return FastAgg(
-        det_count=torch.zeros((max(n_failed, 1),), **i32),
-        trackers=torch.zeros((max(n_failed, 1),), **i32),
+        det_count=torch.zeros(lead + (max(n_failed, 1),), **i32),
+        trackers=torch.zeros(lead + (max(n_failed, 1),), **i32),
         tracker_obs=torch.zeros((rows,), dtype=torch.bool, device=device),
         det_obs=torch.zeros((rows,), dtype=torch.bool, device=device),
-        lat_hist=torch.zeros((LAT_BINS,), **i32),
-        join_total=torch.zeros((), **i32),
-        rm_total=torch.zeros((), **i32),
+        lat_hist=torch.zeros(lead + (LAT_BINS,), **i32),
+        join_total=torch.zeros(lead, **i32),
+        rm_total=torch.zeros(lead, **i32),
         sent_total=torch.zeros((rows,), **i32),
         recv_total=torch.zeros((rows,), **i32),
     )
@@ -83,12 +91,19 @@ def init_fast_agg(n_failed: int, rows: int, device) -> FastAgg:
 def update_fast_agg(agg: FastAgg, *, t: int, fail_ids: tuple,
                     join_events, rm_total_tick, det_tick, any_true_rm,
                     view_ids, view_present, fail_time: int, holder_failed,
-                    sent_tick, recv_tick) -> FastAgg:
+                    sent_tick, recv_tick, part=None) -> FastAgg:
     """One tick (JAX ``update_fast_agg`` with the probe kernel's
     partials as ``pre``): ``det_tick`` [F] removals naming each failed id,
     ``any_true_rm`` [N] rows that removed one, ``rm_total_tick`` all
     removals.  ``t`` and ``fail_time`` are host ints, so the crash-tick
-    census is a host branch."""
+    census is a host branch.  ``part`` reduces a per-row plane to the
+    accumulators' partials: its total by default, or one sum per shard
+    (``LocalMesh.shard_sums``) for an agg of ``init_fast_agg(...,
+    shards=D)``, with ``det_tick`` ``[D, F]`` and ``rm_total_tick``
+    ``[D]`` reduced the same way."""
+    if part is None:
+        def part(x):
+            return x.sum(dtype=torch.int32)
     post = t > fail_time
     trackers, tracker_obs = agg.trackers, agg.tracker_obs
     if fail_ids:
@@ -96,8 +111,7 @@ def update_fast_agg(agg: FastAgg, *, t: int, fail_ids: tuple,
         if t == fail_time:
             live = ~holder_failed[:, None]
             holds = [view_present & (view_ids == f) for f in fail_ids]
-            trackers = torch.stack([(h & live).sum(dtype=torch.int32)
-                                    for h in holds])
+            trackers = torch.stack([part(h & live) for h in holds], dim=-1)
             tracker_obs = torch.stack([h.any(1) for h in holds]).any(0) \
                 & ~holder_failed
     else:
@@ -105,14 +119,14 @@ def update_fast_agg(agg: FastAgg, *, t: int, fail_ids: tuple,
         any_true_rm = torch.zeros_like(agg.det_obs)
     lat = min(max(t - fail_time, 0), LAT_BINS - 1)
     lat_hist = agg.lat_hist.clone()
-    lat_hist[lat] += det_tick.sum(dtype=torch.int32)
+    lat_hist[..., lat] += det_tick.sum(-1, dtype=torch.int32)
     return FastAgg(
         det_count=agg.det_count + det_tick,
         trackers=trackers,
         tracker_obs=tracker_obs,
         det_obs=agg.det_obs | (any_true_rm & post),
         lat_hist=lat_hist,
-        join_total=agg.join_total + join_events.sum(dtype=torch.int32),
+        join_total=agg.join_total + part(join_events),
         rm_total=agg.rm_total + rm_total_tick,
         sent_total=agg.sent_total + sent_tick,
         recv_total=agg.recv_total + recv_tick,

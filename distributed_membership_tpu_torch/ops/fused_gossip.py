@@ -1,4 +1,4 @@
-"""K2: circulant gossip delivery (counterpart of the JAX package's
+"""K2 and K4: circulant gossip delivery (counterpart of the JAX package's
 ``ops/fused_gossip.py``).
 
 Per shift ``r_j`` sender row ``i`` gossips to row ``(i + r_j) mod N``;
@@ -19,6 +19,14 @@ delivers sender rows with ``j < k_eff``; payload pre-masked), or
 ``masks [k_max, N, S]`` bool per-shift keep masks, sender-indexed, which
 subsume the fanout gate (used under drops; the payload is the unmasked
 view).
+
+K4 is the sharded ring step's local delivery (JAX
+``gossip_fused_stacked``): :func:`gossip_stacked_plain` and the wrapper
+:func:`gossip_fused_stacked` (CUDA kernel ``csrc/gossip_stacked.cu``)
+take K payloads that already crossed shards, and per shift roll them by
+``c_j`` rows within each shard and align their columns by that shard's
+``s1``/``s2``.  One call covers every shard of a LocalMesh
+(parallel/mesh.py); for one shard it is exactly the JAX call.
 """
 
 from __future__ import annotations
@@ -86,4 +94,91 @@ def gossip_fused(n: int, s: int, k_max: int, mail, payload, k_eff, shifts,
         p(shifts), kernels.stream_of(mail))
     kernels.check(rc, "gossip")
     kernels.LAUNCHES["gossip" if masks is None else "gossip_masks"] += 1
+    return mail
+
+
+def gossip_stacked_plain(n_local: int, s: int, k_max: int, single_col: bool,
+                         mail, payloads, c, s1, s2, masks=None):
+    """K4's plain version: the JAX sharded step's per-shift loop
+    (tpu_hash_sharded.py:711-718) on every shard of the flat layout.  For
+    shift ``j``, the payload (``payloads[j]``, or the shared
+    ``payloads[0]`` gated by ``masks[j]``) is rolled by ``c[j]`` rows
+    within each shard and by ``s1[d, j]`` columns on shard ``d`` (by
+    ``s2[d, j]`` on the shard's rows ``l < c[j]`` unless ``single_col``),
+    and maxed into mail."""
+    rows = mail.shape[0]
+    d = rows // n_local
+    dev = mail.device
+    local = torch.arange(n_local, dtype=torch.int64, device=dev)
+    cols = torch.arange(s, dtype=torch.int64, device=dev)
+    out = mail
+    for j in range(k_max):
+        send = payloads[0 if payloads.shape[0] == 1 else j]
+        if masks is not None:
+            send = torch.where(masks[j], send, 0)
+        cj = c[j].to(torch.int64)
+        rolled = send.view(d, n_local, s).index_select(1, (local - cj)
+                                                       % n_local)
+
+        def align(shift):
+            src = (cols[None, :] - shift[:, j].to(torch.int64)[:, None]) % s
+            return rolled.gather(2, src[:, None, :].expand(d, n_local, s))
+
+        delivered = align(s1)
+        if not single_col:
+            delivered = torch.where((local >= cj)[None, :, None], delivered,
+                                    align(s2))
+        out = umax(out, delivered.reshape(rows, s))
+    return out
+
+
+def gossip_fused_stacked(n_local: int, s: int, k_max: int, single_col: bool,
+                         mail, payloads, c, s1, s2, masks=None):
+    """K4 wrapper.  ``mail`` int32 u32-bit ``[N, S]`` holding ``D = N //
+    n_local`` shards; ``payloads`` ``[k_max, N, S]`` pre-masked and already
+    block-routed, or ``[1, N, S]`` shared by every shift; ``masks`` bool
+    ``[k_max, N, S]`` sender-indexed keep masks or None; ``c`` int32
+    ``[k_max]`` row shifts in ``[0, n_local)``; ``s1``/``s2`` int32 ``[D,
+    k_max]`` per-shard column shifts (``s2`` unread when ``single_col``).
+    The CUDA kernel ``csrc/gossip_stacked.cu`` for CUDA tensors (mail
+    updated in place), :func:`gossip_stacked_plain` for CPU ones."""
+    req = kernels.require
+    dev = mail.device
+    rows = mail.shape[0]
+    req(n_local > 0 and rows % n_local == 0,
+        f"gossip_stacked: mail rows ({rows}) must be a multiple of "
+        f"n_local ({n_local})")
+    d = rows // n_local
+    req(mail.shape == (rows, s) and mail.dtype == torch.int32
+        and mail.is_contiguous(),
+        f"gossip_stacked: mail must be contiguous int32 [{rows}, {s}]")
+    req(payloads.shape in ((k_max, rows, s), (1, rows, s))
+        and payloads.dtype == torch.int32 and payloads.device == dev
+        and payloads.is_contiguous(),
+        f"gossip_stacked: payloads must be contiguous int32 "
+        f"[{k_max} or 1, {rows}, {s}]")
+    req(c.shape == (k_max,) and c.dtype == torch.int32 and c.device == dev
+        and c.is_contiguous(),
+        f"gossip_stacked: c must be contiguous int32 [{k_max}]")
+    req(all(v.shape == (d, k_max) and v.dtype == torch.int32
+            and v.device == dev and v.is_contiguous() for v in (s1, s2)),
+        f"gossip_stacked: s1/s2 must be contiguous int32 [{d}, {k_max}]")
+    if masks is not None:
+        req(masks.shape == (k_max, rows, s) and masks.dtype == torch.bool
+            and masks.device == dev and masks.is_contiguous(),
+            f"gossip_stacked: masks must be contiguous bool "
+            f"[{k_max}, {rows}, {s}]")
+    if not mail.is_cuda:
+        return gossip_stacked_plain(n_local, s, k_max, single_col, mail,
+                                    payloads, c, s1, s2, masks)
+    if k_max == 0:
+        return mail
+    p = kernels.ptr
+    rc = kernels.library("gossip_stacked").dm_gossip_stacked(
+        rows, s, n_local, k_max, int(single_col), int(payloads.shape[0] == 1),
+        p(mail), p(payloads), p(masks), p(c), p(s1), p(s2),
+        kernels.stream_of(mail))
+    kernels.check(rc, "gossip_stacked")
+    kernels.LAUNCHES["gossip_stacked" if masks is None
+                     else "gossip_stacked_masks"] += 1
     return mail

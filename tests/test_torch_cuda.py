@@ -19,7 +19,7 @@ from distributed_membership_tpu_torch.ops.fused_folded import (
     folded_receive_core, gossip_folded_plain, gossip_folded_stacked,
     receive_folded_fused)
 from distributed_membership_tpu_torch.ops.fused_gossip import (
-    gossip_fused, gossip_plain)
+    gossip_fused, gossip_fused_stacked, gossip_plain, gossip_stacked_plain)
 from distributed_membership_tpu_torch.ops.fused_probe import (
     probe_folded_plain, probe_folded_window_fused, probe_plain,
     probe_window_fused)
@@ -143,7 +143,7 @@ def test_run_on_card_matches_cpu(cuda, tmp_path):
     assert kernels.LAUNCHES == {
         "receive": 80, "gossip": 0, "gossip_masks": 80, "probe": 80,
         "receive_folded": 0, "gossip_folded": 0, "gossip_folded_masks": 0,
-        "probe_folded": 0}
+        "probe_folded": 0, "gossip_stacked": 0, "gossip_stacked_masks": 0}
     run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
     for name in ("dbg.log", "stats.log", "msgcount.log"):
         assert ((tmp_path / "cuda" / name).read_bytes()
@@ -279,3 +279,65 @@ def test_folded_run_on_card_matches_cpu(cuda, tmp_path):
     assert set(got) == set(want)
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K4, the sharded step's stacked gossip.  (D, L): one shard of 4096 rows
+# (one column alignment), eight shards of 32 rows and three of 200 (two
+# alignments, per-shard shifts; 200 rows fill no whole block).
+
+STACKED_SHAPES = [(1, 4096), (8, 32), (3, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["stacked", "masks"])
+@pytest.mark.parametrize("d,n_local", STACKED_SHAPES)
+def test_gossip_stacked_kernel(cuda, d, n_local, form):
+    k_max, n = 3, d * n_local
+    single = (n_local * STRIDE) % S == 0
+    rng = np.random.default_rng(d * n_local)
+    mail = _packed(rng, n, 0.5, (n, S)).to(cuda)
+    view = _packed(rng, n, 0.8, (n, S)).to(cuda)
+    c = torch.tensor([0, n_local - 1, n_local // 3], dtype=torch.int32,
+                     device=cuda)
+    s1, s2 = (torch.from_numpy(rng.integers(0, S, size=(d, k_max),
+                                            dtype=np.int32)).to(cuda)
+              for _ in range(2))
+    if form == "masks":
+        payloads = view[None]
+        masks = _flags(rng, k_max * n * S, 0.7).reshape(k_max, n, S).to(cuda)
+    else:
+        keep = _flags(rng, k_max * n * S, 0.3).reshape(k_max, n, S).to(cuda)
+        payloads = torch.where(keep, view[None], 0)
+        masks = None
+    want = gossip_stacked_plain(n_local, S, k_max, single, mail, payloads,
+                                c, s1, s2, masks)
+    kernels.reset_launches()
+    got = gossip_fused_stacked(n_local, S, k_max, single, mail.clone(),
+                               payloads, c, s1, s2, masks)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gossip_stacked" if form == "stacked"
+                            else "gossip_stacked_masks"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_run_on_card_matches_cpu(cuda, tmp_path):
+    """The N=256 eight-shard full-event conf writes the same logs on the
+    card (K1, K4, K3) as on the CPU, each kernel once per tick."""
+    import pathlib
+
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = str(pathlib.Path(__file__).resolve().parent.parent
+               / "distributed_membership_tpu_torch" / "confs"
+               / "ring_256_s128_sharded8_drop.conf")
+    kernels.reset_launches()
+    run_conf(conf, out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive": 120, "gossip_stacked": 120, "probe": 120}
+    run_conf(conf, out_dir=str(tmp_path / "cpu"), device="cpu")
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "cuda" / name).read_bytes()
+                == (tmp_path / "cpu" / name).read_bytes()), name
