@@ -39,7 +39,9 @@ Phases (any failure exits non-zero before the final line):
                 CPU: the three logs must be byte-identical.
 Phase 2 also holds K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
-not a multiple of 128 (two column alignments, per-shard shifts).
+not a multiple of 128 (two column alignments, per-shard shifts).  For the
+gossip kernels K2 and K4 its log lines also give the bytes the tiled
+design moves (the payload once per shift) and the rate achieved on them.
 Then it prints one JSON line of kernel numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  `--only build,kernels`
 runs a subset of the phases and prints no final line; `--only profile`
@@ -148,12 +150,17 @@ def nbytes(*ts) -> int:
     return sum(x.numel() * x.element_size() for x in ts)
 
 
-def record(rows: dict, name, form, err, k_ms, p_ms, moved) -> None:
+def record(rows: dict, name, form, err, k_ms, p_ms, moved,
+           design=None) -> None:
     """Log one kernel form's numbers and keep them in ``rows``; raises if
-    the kernel disagreed with its plain version."""
+    the kernel disagreed with its plain version.  ``moved`` is what the
+    function must move (the bound's bytes); ``design``, where given, what
+    the kernel's design moves, logged with its achieved rate."""
     bound = moved / HBM_BYTES_PER_S * 1e3
+    traffic = ("" if design is None else
+               f" design_bytes={design} design_tb_s={design / k_ms / 1e9}")
     log(f"kernel {name}[{form}]: max_abs_err={err} kernel_ms={k_ms} "
-        f"plain_ms={p_ms} bound_ms={bound} ({moved} bytes) "
+        f"plain_ms={p_ms} bound_ms={bound} ({moved} bytes){traffic} "
         "library_ms=null")
     if err != 0:
         raise AssertionError(f"{name}[{form}] differs from its plain "
@@ -229,8 +236,10 @@ def phase_kernels(torch, dev) -> dict:
                                         shifts), 20)
     p_ms = cuda_ms(lambda: gossip_plain(N, S, K_MAX, mail, payload, k_eff,
                                         shifts), 3)
+    # design: the tiled kernel reads the payload and k_eff once per shift
     record(rows, "gossip_fused", "gossip", err, k_ms, p_ms,
-           2 * nbytes(mail) + nbytes(payload, k_eff, shifts))
+           2 * nbytes(mail) + nbytes(payload, k_eff, shifts),
+           2 * nbytes(mail) + K_MAX * nbytes(payload, k_eff))
 
     masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
     ref = gossip_plain(N, S, K_MAX, mail, view, None, shifts, masks)
@@ -244,7 +253,8 @@ def phase_kernels(torch, dev) -> dict:
     p_ms = cuda_ms(lambda: gossip_plain(N, S, K_MAX, mail, view, None,
                                         shifts, masks), 3)
     record(rows, "gossip_fused", "gossip_masks", err, k_ms, p_ms,
-           2 * nbytes(mail) + nbytes(view, masks, shifts))
+           2 * nbytes(mail) + nbytes(view, masks, shifts),
+           2 * nbytes(mail) + K_MAX * nbytes(view) + nbytes(masks))
     del masks, m2, payload
 
     # ---- K3 probe window: agg partials (main path) and hist ----
@@ -478,7 +488,8 @@ def phase_kernels_stacked(torch, dev) -> dict:
         N, S, K_MAX, single, mail, payloads, c, s1, s2), 3)
     # in: mail, the K payloads, the shifts; out: mail
     record(rows, "gossip_fused_stacked", "gossip_stacked", err, k_ms, p_ms,
-           2 * nbytes(mail) + nbytes(payloads, c, s1, s2))
+           2 * nbytes(mail) + nbytes(payloads, c, s1, s2),
+           2 * nbytes(mail) + nbytes(payloads))
 
     # Eight shards, L = 131000: per-shard shifts, two column alignments.
     d, n_local = 8, N // 8 - 72
@@ -513,7 +524,8 @@ def phase_kernels_stacked(torch, dev) -> dict:
     p_ms = cuda_ms(lambda: gossip_stacked_plain(
         N, S, K_MAX, single, mail, view[None], c, s1, s2, masks), 3)
     record(rows, "gossip_fused_stacked", "gossip_stacked_masks", err, k_ms,
-           p_ms, 2 * nbytes(mail) + nbytes(view, masks, c, s1, s2))
+           p_ms, 2 * nbytes(mail) + nbytes(view, masks, c, s1, s2),
+           2 * nbytes(mail) + K_MAX * nbytes(view) + nbytes(masks))
     return rows
 
 

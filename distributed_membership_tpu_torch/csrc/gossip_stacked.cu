@@ -14,102 +14,80 @@
 //
 // Bound: bytes.  The function must read mail and the K payloads (or the
 // shared payload and the masks) once and write mail once; a few integer
-// operations per entry and shift.  The TPU kernel fetched two sender row
-// blocks per output block by scalar prefetch and rebuilt the rolls with
-// sublane and lane rotates; here the kernel is output-stationary per
-// entry instead: a block owns 4 receiver rows, each thread one column of a
-// row, and for every shift it computes its sender directly -- row d*L +
-// (l - c_j) mod L, column (col - shift) mod S -- gathers it, and keeps the
-// unsigned max in a register; each mail entry is read and written once.
-// The senders of one warp are one rotated run of one payload row, so the
-// gathers stay coalesced.  c_j mod L and the rows' column shifts (reduced
-// mod S) are staged once per block in shared memory.
+// operations per entry and shift.  The pre-masked form moves exactly that,
+// (2 + K) planes; the shared form reads its one payload plane once per
+// shift, as a receiver tile's senders for different shifts are different
+// rows, so it moves (2 + K) planes plus the masks where the bound counts 3
+// plus the masks.  The kernel is the tiled body of gossip_tile.cuh: a
+// block owns R receiver rows of one shard (tiles never straddle a shard),
+// stages each shift's R sender rows -- two contiguous runs, split where
+// the shard wraps -- in shared memory by 1-D bulk copies on an mbarrier
+// ring of four stages, so several items are in flight per block while one
+// is merged, and merges them with a rotated, conflict-free read of the
+// staged rows.  The tile's shard shifts s1[d][j], s2[d][j] are read once
+// per tile.
 
-#include "common.cuh"
+#include "gossip_tile.cuh"
 
 namespace {
 
-constexpr int kCols = 128;         // threads along the slot axis
-constexpr int kRowsPerBlock = 4;   // receiver rows per block
-constexpr int kMaxShifts = 64;
+using dm_tile::Gate;
 
-__global__ void gossip_stacked_kernel(long long rows, int s, int n_local,
-                                      int k_max, bool single_col,
-                                      bool shared_payload,
-                                      unsigned* __restrict__ mail,
-                                      const unsigned* __restrict__ payloads,
-                                      const unsigned char* __restrict__ masks,
-                                      const int* __restrict__ c,
-                                      const int* __restrict__ s1,
-                                      const int* __restrict__ s2) {
-    __shared__ int sh_c[kMaxShifts];                    // c_j as given
-    __shared__ int sh_cl[kMaxShifts];                   // c_j mod L
-    __shared__ int sh_shift[kRowsPerBlock][kMaxShifts];  // per row, mod S
-    const long long row0 = static_cast<long long>(blockIdx.x) * kRowsPerBlock;
-    const int tid = threadIdx.y * kCols + threadIdx.x;
-    for (int j = tid; j < k_max; j += kCols * kRowsPerBlock) {
-        sh_c[j] = c[j];
-        sh_cl[j] = ((c[j] % n_local) + n_local) % n_local;
+template <Gate G, bool kShared>
+__global__ void __launch_bounds__(dm_tile::kThreads)
+gossip_stacked_kernel(dm_tile::TileArgs a, const int* __restrict__ c) {
+    __shared__ dm_tile::Shifts sh;
+    for (int j = threadIdx.x; j < a.k_max; j += dm_tile::kThreads) {
+        sh.c[j] = c[j];
+        sh.cl[j] = dm_tile::mod(c[j], a.n_local);
     }
-    __syncthreads();
-    for (int e = tid; e < kRowsPerBlock * k_max; e += kCols * kRowsPerBlock) {
-        const int r = e / k_max;
-        const int j = e - r * k_max;
-        const long long i = row0 + r;
-        if (i >= rows) continue;
-        const long long d = i / n_local;
-        const int l = static_cast<int>(i - d * n_local);
-        const int v = (single_col || l >= sh_c[j]) ? s1[d * k_max + j]
-                                                   : s2[d * k_max + j];
-        sh_shift[r][j] = ((v % s) + s) % s;
-    }
-    __syncthreads();
+    dm_tile::run<G, kShared>(a, sh);
+}
 
-    const long long i = row0 + threadIdx.y;
-    if (i >= rows) return;
-    const long long d = i / n_local;
-    const int l = static_cast<int>(i - d * n_local);
-    const long long shard0 = d * n_local;
-    const long long plane = rows * s;
-    for (int col = threadIdx.x; col < s; col += kCols) {
-        const long long dst = i * s + col;
-        unsigned acc = mail[dst];
-        for (int j = 0; j < k_max; ++j) {
-            int src_l = l - sh_cl[j];
-            if (src_l < 0) src_l += n_local;
-            int src_col = col - sh_shift[threadIdx.y][j];
-            if (src_col < 0) src_col += s;
-            const long long src = (shard0 + src_l) * s + src_col;
-            const long long at = static_cast<long long>(j) * plane + src;
-            if (masks != nullptr && masks[at] == 0) continue;
-            const unsigned val = payloads[shared_payload ? src : at];
-            acc = val > acc ? val : acc;
-        }
-        mail[dst] = acc;
-    }
+template <Gate G, bool kShared>
+int launch_stacked(const dm_tile::TileArgs& a, const int* c, void* stream) {
+    return dm_tile::launch<G>(&gossip_stacked_kernel<G, kShared>, a.n_tiles,
+                              stream, a, c);
 }
 
 }  // namespace
 
 // mail is [rows, s] holding rows / n_local shards; payloads is [K, rows, s],
 // or [1, rows, s] with shared_payload; masks is [K, rows, s] bytes or null;
-// c is a device [K] int32 array of row shifts, s1 and s2 device [D, K] int32
-// arrays of per-shard column shifts.  mail is updated in place.  Returns
-// cudaGetLastError().
+// c is a device [K] int32 array of row shifts (the step passes [0, n_local);
+// any int32 gives the plain version's result), s1 and s2 device [D, K]
+// int32 arrays of per-shard column shifts.  s % 128 == 0 and s <= 4096;
+// mail, payloads and masks 16-byte aligned.  mail is updated in place.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for arguments the kernel does not take.
 extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
                                  int single_col, int shared_payload,
                                  unsigned* mail, const unsigned* payloads,
                                  const unsigned char* masks, const int* c,
                                  const int* s1, const int* s2, void* stream) {
-    if (k_max > kMaxShifts || s <= 0 || n_local <= 0 || rows % n_local != 0)
+    if (k_max > dm_tile::kMaxShifts || s <= 0 || s % 128 != 0
+        || s > dm_tile::kMaxS || n_local <= 0 || rows < 0
+        || rows % n_local != 0 || rows > 0x7fffffffLL)
         return static_cast<int>(cudaErrorInvalidValue);
-    const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-    if (blocks > 0 && k_max > 0) {
-        gossip_stacked_kernel<<<static_cast<unsigned>(blocks),
-                                dim3(kCols, kRowsPerBlock), 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-            rows, s, n_local, k_max, single_col != 0, shared_payload != 0,
-            mail, payloads, masks, c, s1, s2);
-    }
-    return dm_launch_status();
+    if (rows == 0 || k_max <= 0) return dm_launch_status();
+    dm_tile::TileArgs a{};
+    a.mail = mail;
+    a.payload = payloads;
+    a.masks = masks;
+    a.s1 = s1;
+    a.s2 = s2;
+    a.plane = rows * s;
+    a.s = s;
+    a.n_local = n_local;
+    a.k_max = k_max;
+    a.tile_rows = dm_tile::kTileWords / s;
+    a.tiles_per_shard = (n_local + a.tile_rows - 1) / a.tile_rows;
+    a.n_tiles = static_cast<int>(rows / n_local) * a.tiles_per_shard;
+    a.single_col = single_col != 0;
+    if (masks != nullptr)
+        return shared_payload
+            ? launch_stacked<Gate::kMask, true>(a, c, stream)
+            : launch_stacked<Gate::kMask, false>(a, c, stream);
+    return shared_payload ? launch_stacked<Gate::kNone, true>(a, c, stream)
+                          : launch_stacked<Gate::kNone, false>(a, c, stream);
 }

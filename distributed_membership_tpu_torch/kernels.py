@@ -34,7 +34,8 @@ SOURCES = {"receive": "receive.cu", "gossip": "gossip.cu",
            "gossip_folded": "gossip_folded.cu",
            "probe_folded": "probe_folded.cu",
            "gossip_stacked": "gossip_stacked.cu"}
-HEADERS = ("common.cuh", "receive_one.cuh", "probe_parts.cuh")
+HEADERS = ("common.cuh", "receive_one.cuh", "probe_parts.cuh",
+           "gossip_tile.cuh")
 
 LAUNCHES: Dict[str, int] = {
     "receive": 0, "gossip": 0, "gossip_masks": 0, "probe": 0,

@@ -37,6 +37,21 @@ from distributed_membership_tpu_torch import kernels
 from distributed_membership_tpu_torch.ops.view_merge import STRIDE, umax
 
 
+def _require_tiles(name: str, s: int, *planes) -> None:
+    """What the tiled CUDA body (csrc/gossip_tile.cuh) takes: whole
+    128-slot rows, at most one row per 16 KiB tile, fewer than 2^31 rows,
+    and planes its bulk copies can address (16-byte aligned)."""
+    kernels.require(s % 128 == 0 and s <= 4096,
+                    f"{name}: the CUDA kernel takes S % 128 == 0 and "
+                    f"S <= 4096 (got S={s})")
+    kernels.require(planes[0].shape[0] < 2**31,
+                    f"{name}: the CUDA kernel takes fewer than 2^31 rows")
+    kernels.require(all(p.data_ptr() % 16 == 0 for p in planes
+                        if p is not None),
+                    f"{name}: mail, payload and masks must be 16-byte "
+                    "aligned")
+
+
 def gossip_plain(n: int, s: int, k_max: int, mail, payload, k_eff, shifts,
                  masks=None):
     dev = mail.device
@@ -65,7 +80,10 @@ def gossip_fused(n: int, s: int, k_max: int, mail, payload, k_eff, shifts,
                  masks=None):
     """K2 wrapper.  ``mail``/``payload`` int32 u32-bit ``[N, S]``,
     ``k_eff`` int32 ``[N]`` (ignored when ``masks`` is given), ``shifts``
-    int32 ``[k_max]`` on the device, ``masks`` bool ``[k_max, N, S]``."""
+    int32 ``[k_max]`` on the device (the ring draws ``[1, N)``; any int32
+    shift gives the plain version's result), ``masks`` bool ``[k_max, N,
+    S]``.  The CUDA kernel ``csrc/gossip.cu`` takes ``S % 128 == 0``,
+    ``S <= 4096`` and 16-byte aligned planes."""
     req = kernels.require
     dev = mail.device
     req(all(p.shape == (n, s) and p.dtype == torch.int32
@@ -85,6 +103,7 @@ def gossip_fused(n: int, s: int, k_max: int, mail, payload, k_eff, shifts,
             f"gossip: masks must be contiguous bool [{k_max}, {n}, {s}]")
     if not mail.is_cuda:
         return gossip_plain(n, s, k_max, mail, payload, k_eff, shifts, masks)
+    _require_tiles("gossip", s, mail, payload, masks)
     if k_max == 0:
         return mail
     p = kernels.ptr
@@ -138,10 +157,12 @@ def gossip_fused_stacked(n_local: int, s: int, k_max: int, single_col: bool,
     n_local`` shards; ``payloads`` ``[k_max, N, S]`` pre-masked and already
     block-routed, or ``[1, N, S]`` shared by every shift; ``masks`` bool
     ``[k_max, N, S]`` sender-indexed keep masks or None; ``c`` int32
-    ``[k_max]`` row shifts in ``[0, n_local)``; ``s1``/``s2`` int32 ``[D,
-    k_max]`` per-shard column shifts (``s2`` unread when ``single_col``).
-    The CUDA kernel ``csrc/gossip_stacked.cu`` for CUDA tensors (mail
-    updated in place), :func:`gossip_stacked_plain` for CPU ones."""
+    ``[k_max]`` row shifts (the step passes ``[0, n_local)``; any int32
+    gives the plain version's result); ``s1``/``s2`` int32 ``[D, k_max]``
+    per-shard column shifts (``s2`` unused when ``single_col``).  The
+    CUDA kernel ``csrc/gossip_stacked.cu`` for CUDA tensors (mail updated
+    in place; ``S % 128 == 0``, ``S <= 4096``, 16-byte aligned planes),
+    :func:`gossip_stacked_plain` for CPU ones."""
     req = kernels.require
     dev = mail.device
     rows = mail.shape[0]
@@ -171,6 +192,7 @@ def gossip_fused_stacked(n_local: int, s: int, k_max: int, single_col: bool,
     if not mail.is_cuda:
         return gossip_stacked_plain(n_local, s, k_max, single_col, mail,
                                     payloads, c, s1, s2, masks)
+    _require_tiles("gossip_stacked", s, mail, payloads, masks)
     if k_max == 0:
         return mail
     p = kernels.ptr

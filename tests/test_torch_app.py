@@ -134,6 +134,18 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 20
 
 
+def test_kernel_sources_all_listed():
+    """kernels.build() compiles SOURCES and names each build by a hash of
+    SOURCES and HEADERS only, so every csrc/*.cu must be a source and
+    every csrc/*.cuh a header, or editing it would not rebuild."""
+    from distributed_membership_tpu_torch import kernels
+    csrc = PKG / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(
+        kernels.SOURCES.values())
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(
+        kernels.HEADERS)
+
+
 def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     conf = tmp_path / "ring.conf"

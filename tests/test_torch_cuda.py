@@ -75,24 +75,41 @@ def test_receive_kernel(cuda, n, t):
         assert torch.equal(g, w)
 
 
+# K2 cases (N, S, shifts; k_max = len(shifts)).  The tile holds 4096 / S
+# rows (32 at S=128, 16 at S=256): N=96 takes the wrapped-row columns;
+# N=1000 ends on a ragged tile, and shifts that are not multiples of the
+# tile height split every tile's senders at the ring's wrap; k_max=8
+# wraps the four-stage ring twice per tile; shifts 0 and >= N hold the
+# kernel to the plain version outside the ring's [1, N).
+GOSSIP_CASES = [
+    (4096, 128, [1, 4095, 37]),
+    (96, 128, [1, 95, 37]),
+    (1000, 128, [1, 999, 37]),
+    (1000, 256, [1, 999, 517]),
+    (1000, 128, [613]),
+    (1000, 128, [1, 999, 37, 0, 500, 31, 33, 1007]),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["k_eff", "masks"])
-@pytest.mark.parametrize("n", [4096, 96])      # 96: wrapped-row columns
-def test_gossip_kernel(cuda, form, n):
-    k_max = 3
-    rng = np.random.default_rng(n)
-    mail = _packed(rng, n, 0.5, (n, S)).to(cuda)
-    view = _packed(rng, n, 0.8, (n, S)).to(cuda)
-    k_eff = torch.from_numpy(
-        rng.integers(0, k_max + 1, size=n, dtype=np.int32)).to(cuda)
-    masks = (_flags(rng, k_max * n * S, 0.7).reshape(k_max, n, S).to(cuda)
+@pytest.mark.parametrize("n,s,shift_list", GOSSIP_CASES)
+def test_gossip_kernel(cuda, form, n, s, shift_list):
+    k_max = len(shift_list)
+    rng = np.random.default_rng(n + s + k_max)
+    mail = _packed(rng, n, 0.5, (n, s)).to(cuda)
+    view = _packed(rng, n, 0.8, (n, s)).to(cuda)
+    k_eff_np = rng.integers(0, k_max + 1, size=n, dtype=np.int32)
+    k_eff_np[:4] = [0, k_max, 0, k_max]      # both ends on one tile
+    k_eff = torch.from_numpy(k_eff_np).to(cuda)
+    masks = (_flags(rng, k_max * n * s, 0.7).reshape(k_max, n, s).to(cuda)
              if form == "masks" else None)
     payload = view if form == "masks" else torch.where(
-        _flags(rng, n * S, 0.3).reshape(n, S).to(cuda), view, 0)
-    shifts = torch.tensor([1, n - 1, 37], dtype=torch.int32, device=cuda)
-    want = gossip_plain(n, S, k_max, mail, payload, k_eff, shifts, masks)
+        _flags(rng, n * s, 0.3).reshape(n, s).to(cuda), view, 0)
+    shifts = torch.tensor(shift_list, dtype=torch.int32, device=cuda)
+    want = gossip_plain(n, s, k_max, mail, payload, k_eff, shifts, masks)
     kernels.reset_launches()
-    got = gossip_fused(n, S, k_max, mail.clone(), payload, k_eff, shifts,
+    got = gossip_fused(n, s, k_max, mail.clone(), payload, k_eff, shifts,
                        masks=masks)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["gossip" if form == "k_eff"
@@ -282,43 +299,65 @@ def test_folded_run_on_card_matches_cpu(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# K4, the sharded step's stacked gossip.  (D, L): one shard of 4096 rows
-# (one column alignment), eight shards of 32 rows and three of 200 (two
-# alignments, per-shard shifts; 200 rows fill no whole block).
+# K4, the sharded step's stacked gossip.  (D, L, S, k_max): one shard of
+# 4096 rows (one column alignment), eight shards of 32 rows and three of
+# 200 (two alignments, per-shard shifts; 200 rows end on a ragged tile),
+# four shards of 8 rows (the gate's minimum, shorter than one tile), S=256
+# (16-row tiles), and k_max 1 and 8 (the stage ring wraps twice per tile).
+# The row shifts include 0 and L - 1.  Forms: pre-masked payloads (the
+# path), one shared payload with masks, and pre-masked payloads with masks.
 
-STACKED_SHAPES = [(1, 4096), (8, 32), (3, 200)]
+STACKED_SHAPES = [(1, 4096, 128, 3), (8, 32, 128, 3), (3, 200, 128, 3),
+                  (4, 8, 128, 3), (3, 200, 256, 3), (8, 32, 128, 1),
+                  (3, 200, 128, 8)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["stacked", "masks"])
-@pytest.mark.parametrize("d,n_local", STACKED_SHAPES)
-def test_gossip_stacked_kernel(cuda, d, n_local, form):
-    k_max, n = 3, d * n_local
-    single = (n_local * STRIDE) % S == 0
-    rng = np.random.default_rng(d * n_local)
-    mail = _packed(rng, n, 0.5, (n, S)).to(cuda)
-    view = _packed(rng, n, 0.8, (n, S)).to(cuda)
-    c = torch.tensor([0, n_local - 1, n_local // 3], dtype=torch.int32,
-                     device=cuda)
-    s1, s2 = (torch.from_numpy(rng.integers(0, S, size=(d, k_max),
+@pytest.mark.parametrize("form", ["stacked", "masks", "stacked_masks"])
+@pytest.mark.parametrize("d,n_local,s,k_max", STACKED_SHAPES)
+def test_gossip_stacked_kernel(cuda, d, n_local, s, k_max, form):
+    n = d * n_local
+    single = (n_local * STRIDE) % s == 0
+    rng = np.random.default_rng(d * n_local + s + k_max)
+    mail = _packed(rng, n, 0.5, (n, s)).to(cuda)
+    view = _packed(rng, n, 0.8, (n, s)).to(cuda)
+    c = torch.tensor([v % n_local for v in
+                      (n_local - 1, 0, n_local // 3, 1, n_local // 2, 5,
+                       n_local - 2, 3)[:k_max]],
+                     dtype=torch.int32, device=cuda)
+    s1, s2 = (torch.from_numpy(rng.integers(0, s, size=(d, k_max),
                                             dtype=np.int32)).to(cuda)
               for _ in range(2))
-    if form == "masks":
-        payloads = view[None]
-        masks = _flags(rng, k_max * n * S, 0.7).reshape(k_max, n, S).to(cuda)
-    else:
-        keep = _flags(rng, k_max * n * S, 0.3).reshape(k_max, n, S).to(cuda)
-        payloads = torch.where(keep, view[None], 0)
-        masks = None
-    want = gossip_stacked_plain(n_local, S, k_max, single, mail, payloads,
+    keep = _flags(rng, k_max * n * s, 0.3).reshape(k_max, n, s).to(cuda)
+    payloads = view[None] if form == "masks" else torch.where(
+        keep, view[None], 0)
+    masks = (None if form == "stacked" else
+             _flags(rng, k_max * n * s, 0.7).reshape(k_max, n, s).to(cuda))
+    want = gossip_stacked_plain(n_local, s, k_max, single, mail, payloads,
                                 c, s1, s2, masks)
     kernels.reset_launches()
-    got = gossip_fused_stacked(n_local, S, k_max, single, mail.clone(),
+    got = gossip_fused_stacked(n_local, s, k_max, single, mail.clone(),
                                payloads, c, s1, s2, masks)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["gossip_stacked" if form == "stacked"
                             else "gossip_stacked_masks"] == 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gossip_kernels_refuse_partial_rows(cuda):
+    """The tiled body takes whole 128-slot rows: K2 and K4 raise for
+    other S on the card (the plain versions take any S on the CPU)."""
+    n, s, k_max = 64, 64, 1
+    mail = torch.zeros((n, s), dtype=torch.int32, device=cuda)
+    shifts = torch.ones(k_max, dtype=torch.int32, device=cuda)
+    k_eff = torch.ones(n, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="S % 128"):
+        gossip_fused(n, s, k_max, mail, mail.clone(), k_eff, shifts)
+    cols = torch.zeros((1, k_max), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="S % 128"):
+        gossip_fused_stacked(n, s, k_max, True, mail, mail[None].clone(),
+                             shifts, cols, cols)
 
 
 @pytest.mark.cuda
