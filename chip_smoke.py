@@ -39,9 +39,11 @@ Phases (any failure exits non-zero before the final line):
                 CPU: the three logs must be byte-identical.
 Phase 2 also holds K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
-not a multiple of 128 (two column alignments, per-shard shifts).  For the
-gossip kernels K2 and K4 its log lines also give the bytes the tiled
-design moves (the payload once per shift) and the rate achieved on them.
+not a multiple of 128 (two column alignments, per-shard shifts), and
+times K3 a second time on a removal plane like a tick's (all -1 but 64
+removals).  For the gossip kernels K2, K4 and K6 its log lines also give
+the bytes the tiled design moves (the payload once per shift) and the
+rate achieved on them.
 Then it prints one JSON line of kernel numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  `--only build,kernels`
 runs a subset of the phases and prints no final line; `--only profile`
@@ -283,9 +285,28 @@ def phase_kernels(torch, dev) -> dict:
         rm_ids), 3)
     # in: the P window columns of view, act and the rm plane; out: P ids
     # and 1 + F counts per row
-    record(rows, "probe_window_fused", "probe", err, k_ms, p_ms,
-           N * P * 4 + nbytes(act, rm_ids) + N * P * 4
-           + N * 4 * (1 + len(fail_ids)))
+    moved = (N * P * 4 + nbytes(act, rm_ids) + N * P * 4
+             + N * 4 * (1 + len(fail_ids)))
+    record(rows, "probe_window_fused", "probe", err, k_ms, p_ms, moved)
+
+    # The same on a plane like a tick's: all -1 but a few removals of
+    # failed ids, where the kernel skips the fail-id compares.
+    rm_ids.fill_(-1)
+    hits = 64
+    rm_ids.view(-1)[T(rng.integers(0, N * S, size=hits))] = T(
+        rng.choice(np.asarray(fail_ids, np.int32), size=hits))
+    a = (N, S, P, TFAIL, fail_ids, False, True, t, 32, 0, view, None, act,
+         rm_ids)
+    ref, got = probe_plain(*a), probe_window_fused(*a)
+    torch.cuda.synchronize()
+    err = max_abs_err((got[k], ref[k]) for k in ref)
+    if int(ref["rm_cnt"].sum()) <= 0:
+        raise AssertionError("probe: the sparse plane holds no removal")
+    k_ms = cuda_ms(lambda: probe_window_fused(*a), 20)
+    p_ms = cuda_ms(lambda: probe_plain(*a), 3)
+    record(rows, "probe_window_fused", "probe_sparse", err, k_ms, p_ms,
+           moved)
+    del rm_ids
 
     ref = probe_plain(N, S, P, TFAIL, (), True, False, t, 120, 0, view,
                       view_ts, act, None)
@@ -379,8 +400,10 @@ def phase_kernels_folded(torch, dev) -> dict:
         r, FS, K_MAX, True, m2, payloads, shifts, c1, c2), 20)
     p_ms = cuda_ms(lambda: gossip_folded_plain(
         r, FS, K_MAX, True, mail, payloads, shifts, c1, c2), 3)
+    # design: the tiled body reads each payload plane once
     record(rows, "gossip_folded_stacked", "gossip_folded", err, k_ms, p_ms,
-           2 * nbytes(mail) + nbytes(payloads, shifts, c1))
+           2 * nbytes(mail) + nbytes(payloads, shifts, c1),
+           2 * nbytes(mail) + nbytes(payloads))
     del payloads
 
     masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
@@ -395,8 +418,10 @@ def phase_kernels_folded(torch, dev) -> dict:
         r, FS, K_MAX, True, m2, view[None], shifts, c1, c2, masks), 20)
     p_ms = cuda_ms(lambda: gossip_folded_plain(
         r, FS, K_MAX, True, mail, view[None], shifts, c1, c2, masks), 3)
+    # design: the shared payload once per shift
     record(rows, "gossip_folded_stacked", "gossip_folded_masks", err, k_ms,
-           p_ms, 2 * nbytes(mail) + nbytes(view, masks, shifts, c1))
+           p_ms, 2 * nbytes(mail) + nbytes(view, masks, shifts, c1),
+           2 * nbytes(mail) + K_MAX * nbytes(view) + nbytes(masks))
     del masks, m2
 
     # ---- K7 probe window: agg partials (the path) and hist ----
@@ -830,25 +855,26 @@ def main(argv=None) -> int:
     # phase 2 only (the folded step masks its payloads itself), as is
     # K4's (the sharded step masks its payloads before the block hop).
     out = []
-    for form, path, src, extra in (
-            ("receive", "main", "receive.cu", None),
-            ("gossip", "main", "gossip.cu", None),
-            ("gossip_masks", "lossy", "gossip.cu", None),
-            ("probe", "main", "probe.cu", ("probe_hist", "hist")),
-            ("receive_folded", "folded", "receive_folded.cu", None),
+    for form, path, src, extras in (
+            ("receive", "main", "receive.cu", ()),
+            ("gossip", "main", "gossip.cu", ()),
+            ("gossip_masks", "lossy", "gossip.cu", ()),
+            ("probe", "main", "probe.cu",
+             (("probe_hist", "hist"), ("probe_sparse", "sparse"))),
+            ("receive_folded", "folded", "receive_folded.cu", ()),
             ("gossip_folded", "folded", "gossip_folded.cu",
-             ("gossip_folded_masks", "masks")),
+             (("gossip_folded_masks", "masks"),)),
             ("probe_folded", "folded", "probe_folded.cu",
-             ("probe_folded_hist", "hist")),
+             (("probe_folded_hist", "hist"),)),
             ("gossip_stacked", "sharded", "gossip_stacked.cu",
-             ("gossip_stacked_masks", "masks"))):
+             (("gossip_stacked_masks", "masks"),))):
         r = dict(rows[form])
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",
                  "source": CSRC + src, "replaces": TPU_KERNEL[name],
                  "launches": paths[path]["launches"][form], **r}
-        if extra:
-            x, tag = rows[extra[0]], extra[1]
+        for x_form, tag in extras:
+            x = rows[x_form]
             entry.update({f"{tag}_ms": x["ms"],
                           f"{tag}_plain_ms": x["plain_ms"],
                           f"{tag}_bound_ms": x["bound_ms"],

@@ -28,3 +28,28 @@ __device__ __forceinline__ int dm_warp_sum(int x) {
 static inline int dm_launch_status() {
     return static_cast<int>(cudaGetLastError());
 }
+
+// The grid of a persistent kernel: as many blocks of `threads` threads
+// with `smem` bytes of dynamic shared memory as the card holds at once,
+// and at most `blocks` (> 0).  Returns 0, or the cudaError_t of a failed
+// query.
+template <typename K>
+static inline int dm_persistent_grid(K kernel, int threads, int smem,
+                                     long long blocks, unsigned* grid) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return static_cast<int>(err);
+    }
+    const long long fit = static_cast<long long>(per_sm > 0 ? per_sm : 1)
+                          * sms;
+    *grid = static_cast<unsigned>(blocks < fit ? blocks : fit);
+    return 0;
+}

@@ -72,10 +72,8 @@ extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
     a.s = s;
     a.n_local = static_cast<int>(n);
     a.k_max = k_max;
-    a.tile_rows = dm_tile::kTileWords / s;
-    a.tiles_per_shard = (a.n_local + a.tile_rows - 1) / a.tile_rows;
-    a.n_tiles = a.tiles_per_shard;
     a.single_col = single_col != 0;
+    dm_tile::set_tiles(a, 1);
     if (masks != nullptr)
         return dm_tile::launch<Gate::kMask>(&gossip_kernel<Gate::kMask>,
                                             a.n_tiles, stream, a, shifts,

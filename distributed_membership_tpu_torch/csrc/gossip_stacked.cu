@@ -29,29 +29,6 @@
 
 #include "gossip_tile.cuh"
 
-namespace {
-
-using dm_tile::Gate;
-
-template <Gate G, bool kShared>
-__global__ void __launch_bounds__(dm_tile::kThreads)
-gossip_stacked_kernel(dm_tile::TileArgs a, const int* __restrict__ c) {
-    __shared__ dm_tile::Shifts sh;
-    for (int j = threadIdx.x; j < a.k_max; j += dm_tile::kThreads) {
-        sh.c[j] = c[j];
-        sh.cl[j] = dm_tile::mod(c[j], a.n_local);
-    }
-    dm_tile::run<G, kShared>(a, sh);
-}
-
-template <Gate G, bool kShared>
-int launch_stacked(const dm_tile::TileArgs& a, const int* c, void* stream) {
-    return dm_tile::launch<G>(&gossip_stacked_kernel<G, kShared>, a.n_tiles,
-                              stream, a, c);
-}
-
-}  // namespace
-
 // mail is [rows, s] holding rows / n_local shards; payloads is [K, rows, s],
 // or [1, rows, s] with shared_payload; masks is [K, rows, s] bytes or null;
 // c is a device [K] int32 array of row shifts (the step passes [0, n_local);
@@ -65,6 +42,7 @@ extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
                                  unsigned* mail, const unsigned* payloads,
                                  const unsigned char* masks, const int* c,
                                  const int* s1, const int* s2, void* stream) {
+    using dm_tile::Gate;
     if (k_max > dm_tile::kMaxShifts || s <= 0 || s % 128 != 0
         || s > dm_tile::kMaxS || n_local <= 0 || rows < 0
         || rows % n_local != 0 || rows > 0x7fffffffLL)
@@ -80,14 +58,9 @@ extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
     a.s = s;
     a.n_local = n_local;
     a.k_max = k_max;
-    a.tile_rows = dm_tile::kTileWords / s;
-    a.tiles_per_shard = (n_local + a.tile_rows - 1) / a.tile_rows;
-    a.n_tiles = static_cast<int>(rows / n_local) * a.tiles_per_shard;
     a.single_col = single_col != 0;
-    if (masks != nullptr)
-        return shared_payload
-            ? launch_stacked<Gate::kMask, true>(a, c, stream)
-            : launch_stacked<Gate::kMask, false>(a, c, stream);
-    return shared_payload ? launch_stacked<Gate::kNone, true>(a, c, stream)
-                          : launch_stacked<Gate::kNone, false>(a, c, stream);
+    dm_tile::set_tiles(a, static_cast<int>(rows / n_local));
+    return masks != nullptr
+        ? dm_tile::launch_stacked<Gate::kMask>(a, c, shared_payload, stream)
+        : dm_tile::launch_stacked<Gate::kNone>(a, c, shared_payload, stream);
 }

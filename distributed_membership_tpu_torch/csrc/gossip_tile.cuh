@@ -1,15 +1,17 @@
-// The tiled body of the two circulant gossip kernels, K2 (gossip.cu) and
-// K4 (gossip_stacked.cu).
+// The tiled body of the three circulant gossip kernels: K2 (gossip.cu),
+// K4 (gossip_stacked.cu) and K6 (gossip_folded.cu).
 //
-// Both compute, for every shard d of L rows and every shift j < k_max,
+// All compute, for every shard d of L rows and every shift j < k_max,
 //   mail[d][l] = max(mail[d][l],
 //                    rotate(gate_j(payload_j)[d][(l - c_j) mod L], s_j(l)))
 // where rotate moves a row s columns to the right, s_j(l) is s1[d][j] for
 // the rows l >= c_j (or always, with single_col) and s2[d][j] for the
 // wrapped rows l < c_j, and the max is unsigned.  K2 is the case D = 1,
-// L = N.  The gate is none (pre-masked payloads), `j < k_eff[sender row]`
-// or `masks[j][sender entry] != 0`; the payload is one plane shared by all
-// shifts or one plane per shift.
+// L = N.  K6 is D = 1 too, on the natural [N, S] view of the folded
+// [N * S / 128, 128] planes (S | 128): c_j is the node shift thr_j and
+// s1/s2 the slot shifts c1_j/c2_j.  The gate is none (pre-masked
+// payloads), `j < k_eff[sender row]` or `masks[j][sender entry] != 0`; the
+// payload is one plane shared by all shifts or one plane per shift.
 //
 // Tile walk.  A block owns R = kTileWords / S consecutive receiver rows of
 // one shard (the last tile of a shard is ragged, so no tile straddles two
@@ -18,8 +20,14 @@
 // tile's senders are the R rows from (l0 - c_j) mod L on, at most two
 // contiguous runs split where the shard wraps; that split is also where
 // the column shift changes from s2 to s1, because receiver row c_j reads
-// sender row 0.  Each run is one span of device memory, a multiple of
-// 512 bytes (payload) or 128 bytes (masks) since S % 128 == 0.
+// sender row 0.  Each run is one span of device memory.  A bulk copy
+// takes 16-byte aligned addresses and sizes, which a run of S < 4 words
+// (payload) or S < 16 bytes (masks) per row need not have: each run is
+// widened to 16-byte bounds (its start rounded down, its end up) and the
+// stage read `lead` entries in.  A wrapped run ends at its shard's end,
+// which is aligned (L * S % 16 == 0), so the second run lands aligned
+// right behind it; the widened runs never leave the plane.  At S % 128 ==
+// 0 nothing is widened.
 //
 // Stages.  A tile is a sequence of 1 + k_max items: its own mail rows,
 // then one item per shift (the sender runs of the payload and, in the
@@ -33,9 +41,10 @@
 // One stage holds one shift, so shared memory does not grow with k_max.
 //
 // Merge.  Thread t takes the tile's words t, t + 256, ...: a warp takes 32
-// consecutive columns of one row and keeps their max in registers.  Lane
-// column c reads sender column (c - s) mod S of the staged row, a cyclic
-// rotation of 32 consecutive words, so a warp touches 32 distinct banks.
+// consecutive words (one row's columns, or 32 / S whole rows) and keeps
+// their max in registers.  Lane column c reads sender column (c - s) mod
+// S of the staged row, a cyclic rotation within each row, so a warp's 32
+// reads are 32 consecutive staged words: 32 distinct banks.
 // The mail tile is read once (the first item) and written once, from a
 // shared-memory buffer by one bulk store.  Index arithmetic inside a tile
 // is 32-bit; only the tile's base offsets are 64-bit.
@@ -50,11 +59,15 @@ namespace dm_tile {
 constexpr int kThreads = 256;
 constexpr int kTileWords = 4096;                 // R * S <= 4096: 16 KiB
 constexpr int kPerThread = kTileWords / kThreads;
-constexpr int kMaxRows = kTileWords / 128;       // R at the smallest S
+constexpr int kMaxRows = kTileWords / 128;       // R of the k_eff gate
 constexpr int kMaxShifts = 64;
 constexpr int kMaxS = kTileWords;                // R >= 1
 constexpr int kStages = 4;
 constexpr int kBarBytes = 128;                   // the stages' mbarriers
+// A stage holds a tile's words plus the widening of its runs (up to 3
+// words or 15 mask bytes before, and as many after each of two runs).
+constexpr int kStageWords = kTileWords + 32;
+constexpr int kStageMaskBytes = kTileWords + 128;
 
 enum class Gate { kNone, kKeff, kMask };
 
@@ -81,15 +94,22 @@ struct TileArgs {
 
 // Dynamic shared memory of one block: barriers, the stages' payload rows,
 // the output buffer, then the stages' mask rows or k_eff values.
+constexpr int kOutOffset = kBarBytes + kStages * kStageWords * 4;
+constexpr int kTailOffset = kOutOffset + kTileWords * 4;
 constexpr int smem_bytes(Gate g) {
-    return kBarBytes + (kStages + 1) * kTileWords * 4
-           + (g == Gate::kMask ? kStages * kTileWords : 0)
+    return kTailOffset + (g == Gate::kMask ? kStages * kStageMaskBytes : 0)
            + (g == Gate::kKeff ? kStages * kMaxRows * 4 : 0);
 }
 
 __device__ __forceinline__ int mod(int v, int m) {
     const int r = v % m;
     return r < 0 ? r + m : r;
+}
+
+// Offset of entry `e` of a plane from the 16-byte bound below it, for
+// entries of `bytes` bytes (mod 2^32 is enough: only the low bits count).
+__device__ __forceinline__ int lead_of(long long e, int bytes) {
+    return static_cast<int>(static_cast<unsigned>(e) & (16 / bytes - 1));
 }
 
 // ---- PTX wrappers: mbarrier, bulk copies, cp.async ----
@@ -205,7 +225,7 @@ __device__ __forceinline__ void stage_item(const TileArgs& a,
     const int st = k % kStages;
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + st;
     unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
-                    + st * kTileWords;
+                    + st * kStageWords;
     const int s = a.s;
     const unsigned words = static_cast<unsigned>(tl.rows * s);
     if (p == 0) {
@@ -220,7 +240,7 @@ __device__ __forceinline__ void stage_item(const TileArgs& a,
     int src0 = tl.l0 - sh.cl[j];
     if (src0 < 0) src0 += a.n_local;
     const int first = min(tl.rows, a.n_local - src0);   // rows before the wrap
-    unsigned char* tail = smem + kBarBytes + (kStages + 1) * kTileWords * 4;
+    unsigned char* tail = smem + kTailOffset;
     if (G == Gate::kKeff) {
         if (lane < tl.rows) {
             int r = src0 + lane;
@@ -231,19 +251,23 @@ __device__ __forceinline__ void stage_item(const TileArgs& a,
         cp_async_arrive(bar);
     }
     if (lane != 0) return;
+    // The runs in entries of the plane: [e0, e0 + a_words) and, past the
+    // wrap, [eb, eb + b_words), each widened to 16-byte bounds.
+    const long long e0 = (tl.base + src0) * s, eb = tl.base * s;
     const unsigned a_words = static_cast<unsigned>(first * s);
-    mbar_expect_tx(bar, words * (G == Gate::kMask ? 5 : 4));
+    const unsigned b_words = words - a_words;
     const unsigned* plane = a.payload + (kShared ? 0 : j * a.plane);
-    bulk_load(pay, plane + (tl.base + src0) * s, a_words * 4, bar);
-    if (a_words < words)
-        bulk_load(pay + a_words, plane + tl.base * s, (words - a_words) * 4,
-                  bar);
+    const int lw = lead_of(e0, 4), lm = lead_of(e0, 1);
+    const unsigned aw = (lw + a_words + 3) & ~3u, bw = (b_words + 3) & ~3u;
+    const unsigned am = (lm + a_words + 15) & ~15u, bm = (b_words + 15) & ~15u;
+    mbar_expect_tx(bar, (aw + bw) * 4 + (G == Gate::kMask ? am + bm : 0));
+    bulk_load(pay, plane + e0 - lw, aw * 4, bar);
+    if (b_words) bulk_load(pay + aw, plane + eb, bw * 4, bar);
     if (G == Gate::kMask) {
         const unsigned char* mp = a.masks + j * a.plane;
-        unsigned char* md = tail + st * kTileWords;
-        bulk_load(md, mp + (tl.base + src0) * s, a_words, bar);
-        if (a_words < words)
-            bulk_load(md + a_words, mp + tl.base * s, words - a_words, bar);
+        unsigned char* md = tail + st * kStageMaskBytes;
+        bulk_load(md, mp + e0 - lm, am, bar);
+        if (b_words) bulk_load(md + am, mp + eb, bm, bar);
     }
 }
 
@@ -255,10 +279,8 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);
     const unsigned* pay = reinterpret_cast<const unsigned*>(smem + kBarBytes);
-    unsigned* out = reinterpret_cast<unsigned*>(smem + kBarBytes)
-                    + kStages * kTileWords;
-    const unsigned char* tail = reinterpret_cast<const unsigned char*>(
-        out + kTileWords);
+    unsigned* out = reinterpret_cast<unsigned*>(smem + kOutOffset);
+    const unsigned char* tail = smem + kTailOffset;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int s = a.s;
 
@@ -277,8 +299,10 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
         for (int k = 0; k < kStages && k < n_items; ++k)
             stage_item<G, kShared>(a, sh, smem, k, lane);
 
-    // This thread's words tid + kThreads * m: row and column of m = 0.
+    // This thread's words tid + kThreads * m: row and column of m = 0,
+    // and the step from one m to the next (drow rows and dcol columns).
     const int row0 = tid / s, col0 = tid - (tid / s) * s;
+    const int drow = kThreads / s, dcol = kThreads - drow * s;
     unsigned acc[kPerThread];
     int k = 0;
     for (int t = 0; t < my_tiles; ++t) {
@@ -288,7 +312,7 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
         // Item 1 of the tile: its mail rows.
         mbar_wait(full + k % kStages, (k / kStages) & 1);
         {
-            const unsigned* m = pay + (k % kStages) * kTileWords;
+            const unsigned* m = pay + (k % kStages) * kStageWords;
 #pragma unroll
             for (int i = 0; i < kPerThread; ++i) {
                 const int e = tid + i * kThreads;
@@ -313,9 +337,14 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
             const int wrap = a.single_col ? 0
                 : static_cast<int>(w < 0 ? 0 : (w > tl.rows ? tl.rows : w));
             const int sh1 = sh.s1[j], sh2 = sh.s2[j];
+            // Where the stage's widened runs put the tile's first sender.
+            int src0 = tl.l0 - sh.cl[j];
+            if (src0 < 0) src0 += a.n_local;
+            const long long e0 = (tl.base + src0) * s;
             mbar_wait(full + st, (k / kStages) & 1);
-            const unsigned* src = pay + st * kTileWords;
-            const unsigned char* msk = tail + st * kTileWords;
+            const unsigned* src = pay + st * kStageWords + lead_of(e0, 4);
+            const unsigned char* msk = tail + st * kStageMaskBytes
+                                       + lead_of(e0, 1);
             const int* keff = reinterpret_cast<const int*>(tail)
                               + st * kMaxRows;
             int row = row0, col = col0;
@@ -331,8 +360,9 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
                     const unsigned v = keep ? src[at] : 0u;
                     acc[i] = v > acc[i] ? v : acc[i];
                 }
-                col += kThreads;
-                while (col >= s) {
+                col += dcol;
+                row += drow;
+                if (col >= s) {
                     col -= s;
                     ++row;
                 }
@@ -366,26 +396,49 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
 template <Gate G, typename... P, typename... A>
 int launch(void (*kernel)(P...), int n_tiles, void* stream, A... args) {
     const int smem = smem_bytes(G);
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel, kThreads, smem);
     if (err != cudaSuccess) {
         cudaGetLastError();
         return static_cast<int>(err);
     }
-    const long long fit = static_cast<long long>(per_sm > 0 ? per_sm : 1)
-                          * sms;
-    const unsigned grid = static_cast<unsigned>(n_tiles < fit ? n_tiles : fit);
+    unsigned grid = 0;
+    const int rc = dm_persistent_grid(kernel, kThreads, smem, n_tiles, &grid);
+    if (rc != 0) return rc;
     kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         args...);
     return dm_launch_status();
+}
+
+// Host side: the tile geometry of `a` for `shards` shards of a.n_local
+// rows (a.s and a.n_local set).
+inline void set_tiles(TileArgs& a, int shards) {
+    a.tile_rows = kTileWords / a.s;
+    a.tiles_per_shard = (a.n_local + a.tile_rows - 1) / a.tile_rows;
+    a.n_tiles = shards * a.tiles_per_shard;
+}
+
+// K4 and K6: the row shifts c[j] come from device memory, the column
+// shifts from a.s1/a.s2 ([D, k_max], read once per tile).
+template <Gate G, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+stacked_kernel(TileArgs a, const int* __restrict__ c) {
+    __shared__ Shifts sh;
+    for (int j = threadIdx.x; j < a.k_max; j += kThreads) {
+        sh.c[j] = c[j];
+        sh.cl[j] = mod(c[j], a.n_local);
+    }
+    run<G, kShared>(a, sh);
+}
+
+// Host side: stacked_kernel for one payload plane shared by every shift
+// or one plane per shift.
+template <Gate G>
+int launch_stacked(const TileArgs& a, const int* c, bool shared,
+                   void* stream) {
+    return shared
+        ? launch<G>(&stacked_kernel<G, true>, a.n_tiles, stream, a, c)
+        : launch<G>(&stacked_kernel<G, false>, a.n_tiles, stream, a, c);
 }
 
 }  // namespace dm_tile

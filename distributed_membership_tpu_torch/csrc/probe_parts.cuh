@@ -40,6 +40,19 @@ struct Buckets {
         w3 += q == 3 ? inc : 0u;
     }
 
+    // Adds eight counts below 16 packed as nibbles (bucket b in bits
+    // 4b..4b+3): the even buckets' nibbles become bytes 0-3 of `lo`, the
+    // odd ones' of `hi`, and two byte permutes spread them to the fields.
+    __device__ __forceinline__ void add_nibbles(unsigned x) {
+        const unsigned lo = x & 0x0f0f0f0fu, hi = (x >> 4) & 0x0f0f0f0fu;
+        const unsigned e01 = __byte_perm(lo, hi, 0x5410);   // b0 b2 b1 b3
+        const unsigned e23 = __byte_perm(lo, hi, 0x7632);   // b4 b6 b5 b7
+        w0 += e01 & 0x00ff00ffu;
+        w1 += (e01 >> 8) & 0x00ff00ffu;
+        w2 += e23 & 0x00ff00ffu;
+        w3 += (e23 >> 8) & 0x00ff00ffu;
+    }
+
     // Warp-sums the fields; lane 0 writes the row's eight counts.
     __device__ __forceinline__ void store(int lane, int* __restrict__ out) {
         const unsigned s0 = __reduce_add_sync(DM_FULL_MASK, w0);

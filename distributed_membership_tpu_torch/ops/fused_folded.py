@@ -19,7 +19,8 @@ natural ``[N, S]`` plane, so the plain versions here work on
 * :func:`gossip_folded_plain` -- K6's plain version, the JAX folded
   step's per-shift ``roll_slots(roll_nodes(payload_j, thr_j), c_j)``
   loop; :func:`gossip_folded_stacked` -- its wrapper, the CUDA kernel
-  ``csrc/gossip_folded.cu`` for CUDA tensors (mail updated in place).
+  ``csrc/gossip_folded.cu`` (K4's tiled body, ``csrc/gossip_tile.cuh``,
+  on one shard of N nodes) for CUDA tensors (mail updated in place).
 """
 
 from __future__ import annotations
@@ -167,6 +168,11 @@ def gossip_folded_stacked(rows: int, s: int, k_max: int, single_col: bool,
     if not mail.is_cuda:
         return gossip_folded_plain(rows, s, k_max, single_col, mail,
                                    payloads, thr, c1, c2, masks)
+    req(rows * LANES // s < 2**31
+        and all(t.data_ptr() % 16 == 0 for t in (mail, payloads, masks)
+                if t is not None),
+        "gossip_folded: the CUDA kernel takes fewer than 2^31 nodes and "
+        "16-byte aligned mail, payloads and masks")
     if k_max == 0:
         return mail
     p = kernels.ptr

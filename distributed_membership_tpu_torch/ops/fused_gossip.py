@@ -38,9 +38,9 @@ from distributed_membership_tpu_torch.ops.view_merge import STRIDE, umax
 
 
 def _require_tiles(name: str, s: int, *planes) -> None:
-    """What the tiled CUDA body (csrc/gossip_tile.cuh) takes: whole
-    128-slot rows, at most one row per 16 KiB tile, fewer than 2^31 rows,
-    and planes its bulk copies can address (16-byte aligned)."""
+    """What K2 and K4 take on the tiled CUDA body (csrc/gossip_tile.cuh):
+    whole 128-slot rows, at most one row per 16 KiB tile, fewer than 2^31
+    rows, and planes its bulk copies can address (16-byte aligned)."""
     kernels.require(s % 128 == 0 and s <= 4096,
                     f"{name}: the CUDA kernel takes S % 128 == 0 and "
                     f"S <= 4096 (got S={s})")

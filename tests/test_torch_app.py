@@ -3,7 +3,7 @@
 * Full event mode: ``dbg.log``, ``stats.log`` and ``msgcount.log`` of the
   port on ``--device cpu`` are byte-identical to the JAX package's
   ``run_conf`` on the same conf and seed (N = 256, S = 128, 5% drops).
-* Agg mode: the detection summaries are identical (N = 4096, drop-free).
+* Agg mode: the detection summaries are identical (N = 2048, drop-free).
 * The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
 * The default device is CUDA: without a GPU a run raises instead of
   running on the CPU, and what the slice does not cover is refused.
@@ -72,7 +72,7 @@ def test_full_event_logs_byte_identical(tmp_path):
 
 
 def test_agg_detection_summary_identical(tmp_path):
-    conf = (_RING.format(n=4096, drop=0, p=0, total=140, fail=60)
+    conf = (_RING.format(n=2048, drop=0, p=0, total=110, fail=50)
             + "EVENT_MODE: agg\n")
     runs = _runs(tmp_path, conf, seed=0)
     want = runs["jax"].extra["detection_summary"]

@@ -117,25 +117,53 @@ def test_gossip_kernel(cuda, form, n, s, shift_list):
     assert torch.equal(got, want)
 
 
+# K3 cases (N, S, P, ptr, row0, fail ids, removal plane).  The kernel
+# takes 8 rows per warp (1000 and 4097 end on a partial group), reads
+# 16-byte runs where S % 4 == 0 (not at S=130), and the window as runs
+# where also P % 4 == 0, ptr % 4 == 0 and it does not wrap (ptr 32 and
+# 240 do; 13, 120 at S=128 and 254 do not).  Planes: "mixed" (10%
+# removals of ids 0-7), "dense" (no -1 at all) and "empty" (all -1,
+# where the fail-id compares are skipped); the fail id -1 counts the -1
+# entries, as the plain version does.
+PROBE_CASES = [
+    (4096, 128, 16, 32, 0, (3, 5), "mixed"),
+    (4096, 128, 16, 120, 0, (3, 5), "mixed"),
+    (1000, 128, 16, 13, 77, (1,), "mixed"),
+    (4097, 256, 16, 240, 5000, tuple(range(8)), "dense"),
+    (1000, 130, 16, 120, 0, (), "empty"),
+    (4097, 128, 5, 32, 3, tuple(range(7, -1, -1)), "dense"),
+    (1000, 256, 5, 254, 0, (3,), "empty"),
+    (1000, 130, 5, 8, 1, (3, 5), "mixed"),
+    (1000, 128, 16, 64, 9, (-1, 2), "mixed"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["agg", "hist", "ids"])
-@pytest.mark.parametrize("ptr", [120, 32])
-def test_probe_kernel(cuda, mode, ptr):
-    n, t = 4096, 37
-    rng = np.random.default_rng(ptr)
-    view = _packed(rng, n, 0.7, (n, S)).to(cuda)
+@pytest.mark.parametrize("mode", ["agg", "hist", "ids", "both"])
+@pytest.mark.parametrize("n,s,p_cnt,ptr,row0,fails,plane", PROBE_CASES)
+def test_probe_kernel(cuda, mode, n, s, p_cnt, ptr, row0, fails, plane):
+    t = 37
+    ring = row0 + n + 3
+    rng = np.random.default_rng(n + s + ptr)
+    view = _packed(rng, ring, 0.7, (n, s))
+    own = torch.arange(row0 + 1, row0 + n + 1, dtype=torch.int32)
+    view = torch.where(_flags(rng, n * s, 0.05).reshape(n, s), own[:, None],
+                       view).to(cuda)          # a node's own entries
     view_ts = torch.from_numpy(
-        rng.integers(0, t + 3, size=(n, S), dtype=np.int32)).to(cuda)
+        rng.integers(0, t + 3, size=(n, s), dtype=np.int32)).to(cuda)
+    share = {"mixed": 0.1, "dense": 1.0, "empty": 0.0}[plane]
     rm = torch.from_numpy(np.where(
-        rng.random((n, S)) < 0.1, rng.integers(0, 8, size=(n, S)),
+        rng.random((n, s)) < share, rng.integers(0, 8, size=(n, s)),
         -1).astype(np.int32)).to(cuda)
     act = _flags(rng, n, 0.9).to(cuda)
-    hist, agg = mode == "hist", mode == "agg"
-    args = (16, TFAIL, (3, 5) if agg else (), hist, agg, t, ptr, 0, view,
-            view_ts if hist else None, act, rm if agg else None)
-    want = probe_plain(n, S, *args)
-    got = probe_window_fused(n, S, *args)
+    hist, agg = mode in ("hist", "both"), mode in ("agg", "both")
+    args = (p_cnt, TFAIL, fails if agg else (), hist, agg, t, ptr, row0,
+            view, view_ts if hist else None, act, rm if agg else None)
+    want = probe_plain(ring, s, *args)
+    kernels.reset_launches()
+    got = probe_window_fused(ring, s, *args)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["probe"] == 1
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
@@ -205,17 +233,36 @@ def test_receive_folded_kernel(cuda, n, s):
         assert torch.equal(g, w)
 
 
+# K6 cases (N, S, node shifts; k_max = len(shifts)) on the tiled body: a
+# tile holds 4096 / S nodes, so every N below but 4096 and 260 ends on a
+# ragged tile (N = 3 tiles + 5 plane rows); S < 4 widens the payload
+# runs and S < 16 the mask runs to 16-byte bounds; k_max 8 wraps the
+# four-stage ring twice per tile; shifts 0, -3 and >= N hold the kernel
+# to the plain version outside the ring's [1, N).
+GOSSIP_FOLDED_CASES = [
+    (4096, 16, [1, 4095, 37]),
+    (4096, 64, [1, 4095, 37]),
+    (260, 64, [1, 259, 37]),
+    (12928, 1, [1, 12927, 4099]),
+    (6464, 2, [0, 6463, 2048, 3]),
+    (3232, 4, [0, 1, 3231, 3232, 3239, 517, 1024, -3]),
+    (1616, 8, [1619]),
+    (808, 16, [0, 1, 807]),
+    (404, 32, [1, 403, 128, 3, 0, 405, 200, 7]),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["stacked", "masks"])
 @pytest.mark.parametrize("single", [True, False])
-@pytest.mark.parametrize("n,s", FOLDED_SHAPES)
-def test_gossip_folded_kernel(cuda, n, s, single, form):
-    k_max = 3
+@pytest.mark.parametrize("n,s,shift_list", GOSSIP_FOLDED_CASES)
+def test_gossip_folded_kernel(cuda, n, s, shift_list, single, form):
+    k_max = len(shift_list)
     rows = _rows(n, s)
-    rng = np.random.default_rng(n + s)
+    rng = np.random.default_rng(n + s + k_max)
     mail = _packed(rng, n, 0.5, (rows, 128)).to(cuda)
     view = _packed(rng, n, 0.8, (rows, 128)).to(cuda)
-    thr = torch.tensor([1, n - 1, 37], dtype=torch.int32, device=cuda)
+    thr = torch.tensor(shift_list, dtype=torch.int32, device=cuda)
     c1 = ((thr % s) * (STRIDE % s) % s).to(torch.int32)
     c2 = (((thr - n) % s) * (STRIDE % s) % s).to(torch.int32)
     if form == "masks":
@@ -346,8 +393,8 @@ def test_gossip_stacked_kernel(cuda, d, n_local, s, k_max, form):
 
 @pytest.mark.cuda
 def test_gossip_kernels_refuse_partial_rows(cuda):
-    """The tiled body takes whole 128-slot rows: K2 and K4 raise for
-    other S on the card (the plain versions take any S on the CPU)."""
+    """K2 and K4 take whole 128-slot rows: they raise for other S on
+    the card (the plain versions take any S on the CPU)."""
     n, s, k_max = 64, 64, 1
     mail = torch.zeros((n, s), dtype=torch.int32, device=cuda)
     shifts = torch.ones(k_max, dtype=torch.int32, device=cuda)

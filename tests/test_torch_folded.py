@@ -171,6 +171,10 @@ def test_receive_folded_wrapper_checks_arguments():
     (512, 32, 4, True, "stacked", [1, 511, 256, 3]),
     (260, 64, 3, False, "stacked", [1, 259, 130]),
     (128, 64, 3, False, "masks", [1, 127, 64]),
+    (512, 4, 3, False, "stacked", [1, 511, 37]),
+    (512, 4, 3, True, "masks", [1, 511, 37]),
+    (512, 8, 3, False, "masks", [1, 511, 130]),
+    (512, 8, 3, True, "stacked", [1, 511, 130]),
 ])
 def test_gossip_folded_matches_pallas(n, s, k_max, single, form, shifts,
                                       no_launch):

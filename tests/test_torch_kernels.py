@@ -236,34 +236,44 @@ def test_gossip_wrapper_checks_arguments():
 # K3 probe window
 
 
-def _probe_inputs(n, t, seed):
+def _probe_inputs(n, t, seed, s=S):
     rng = np.random.default_rng(seed)
-    view = _packed(rng, n, 0.7, (n, S))
+    view = _packed(rng, n, 0.7, (n, s))
     # A sprinkle of self entries (never a probe target) and of time
     # stamps after t (negative ages clamp into bucket 0).
     self_pack = (np.arange(n) + 1).astype(np.uint32)
-    view = np.where(rng.random((n, S)) < 0.05, self_pack[:, None], view)
-    view_ts = rng.integers(0, t + 3, size=(n, S), dtype=np.int32)
+    view = np.where(rng.random((n, s)) < 0.05, self_pack[:, None], view)
+    view_ts = rng.integers(0, t + 3, size=(n, s), dtype=np.int32)
     act = rng.random(n) < 0.9
-    rm = np.where(rng.random((n, S)) < 0.1,
-                  rng.integers(0, 8, size=(n, S)), -1).astype(np.int32)
+    rm = np.where(rng.random((n, s)) < 0.1,
+                  rng.integers(0, 8, size=(n, s)), -1).astype(np.int32)
     return view, view_ts, act, rm
 
 
-@pytest.mark.parametrize("n,t,ptr", [(64, 37, 80), (256, 9, 120),
-                                     (256, 100, 0), (64, 5, 127)])
+# (N, t, ptr, S, fail ids): the CUDA kernel's cases -- no fail id, all
+# eight (its compile-time counts), and S=130, whose rows it reads one
+# word at a time -- besides windows that wrap and that do not.
+@pytest.mark.parametrize("n,t,ptr,s,fail_ids", [
+    pytest.param(64, 37, 80, S, (3, 5, 7), id="64-37-80"),
+    pytest.param(256, 9, 120, S, (3, 5, 7), id="256-9-120"),
+    pytest.param(256, 100, 0, S, (3, 5, 7), id="256-100-0"),
+    pytest.param(64, 5, 127, S, (3, 5, 7), id="64-5-127"),
+    pytest.param(64, 37, 80, S, (), id="64-37-80-nofail"),
+    pytest.param(64, 37, 80, S, tuple(range(7, -1, -1)), id="64-37-80-f8"),
+    pytest.param(64, 9, 120, 130, (3, 5, 7), id="64-9-120-s130"),
+])
 @pytest.mark.parametrize("mode", ["agg", "hist"])
-def test_probe_matches_pallas(n, t, ptr, mode, no_launch):
-    p_cnt, fail_ids = 16, (3, 5, 7)
+def test_probe_matches_pallas(n, t, ptr, s, fail_ids, mode, no_launch):
+    p_cnt = 16
     want_hist, want_agg = mode == "hist", mode == "agg"
-    view, view_ts, act, rm = _probe_inputs(n, t, seed=n + t + ptr)
+    view, view_ts, act, rm = _probe_inputs(n, t, seed=n + t + ptr, s=s)
     want = jax_probe.probe_window_fused(
-        n, S, p_cnt, TFAIL, fail_ids if want_agg else (), want_hist,
+        n, s, p_cnt, TFAIL, fail_ids if want_agg else (), want_hist,
         want_agg, True, jnp.asarray(t, jnp.int32),
         jnp.asarray(ptr, jnp.int32), jnp.zeros((), jnp.int32), view,
         view_ts if want_hist else None, act, rm if want_agg else None)
     for fn in (probe_plain, probe_window_fused):
-        got = fn(n, S, p_cnt, TFAIL, fail_ids if want_agg else (),
+        got = fn(n, s, p_cnt, TFAIL, fail_ids if want_agg else (),
                  want_hist, want_agg, t, ptr, 0, _bits(view),
                  torch.from_numpy(view_ts) if want_hist else None,
                  torch.from_numpy(act),
@@ -277,8 +287,9 @@ def test_probe_matches_pallas(n, t, ptr, mode, no_launch):
         else:
             assert set(got) == {"ids", "rm_cnt", "det"}
             _eq(got["rm_cnt"], np.asarray(want["rm_cnt"])[:, 0], "rm_cnt")
-            _eq(got["det"], np.stack([np.asarray(d)[:, 0]
-                                      for d in want["det_cols"]]), "det")
+            _eq(got["det"], np.asarray([np.asarray(d)[:, 0]
+                                        for d in want["det_cols"]],
+                                       np.int32).reshape(-1, n), "det")
 
 
 def test_probe_wrapper_checks_arguments():

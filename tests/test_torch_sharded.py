@@ -16,7 +16,7 @@ and runs the wrappers' plain versions.  Compared, with tolerance 0:
   ``MESH_SHAPE`` 8, 1 and 2x4, drops on and off, PROBE_IO exact and
   approx, and with the JAX Pallas K4 (interpret) on the JAX side;
 * whole runs: byte-identical logs at N=256 on eight shards, an identical
-  detection summary at N=4096;
+  detection summary at N=2048;
 * the refusals of what the slice does not cover.
 """
 
@@ -511,7 +511,7 @@ def test_logs_byte_identical_to_jax(tmp_path):
 def test_agg_detection_summary_identical(tmp_path):
     conf = tmp_path / "agg.conf"
     conf.write_text(
-        "MAX_NNB: 4096\nSINGLE_FAILURE: 1\nDROP_MSG: 0\nMSG_DROP_PROB: 0\n"
+        "MAX_NNB: 2048\nSINGLE_FAILURE: 1\nDROP_MSG: 0\nMSG_DROP_PROB: 0\n"
         "VIEW_SIZE: 128\nGOSSIP_LEN: 32\nPROBES: 16\nFANOUT: 3\nTFAIL: 16\n"
         "TREMOVE: 40\nTOTAL_TIME: 110\nFAIL_TIME: 50\nJOIN_MODE: warm\n"
         "EXCHANGE: ring\nEVENT_MODE: agg\nBACKEND: tpu_hash_sharded\n"
