@@ -37,6 +37,20 @@ Phases (any failure exits non-zero before the final line):
  11. sharded_parity -- confs/ring_256_s128_sharded8_drop.conf (N=256, eight
                 shards of 32 rows, full events) on the card and on the
                 CPU: the three logs must be byte-identical.
+ 12. grade   -- the grader's three testcases (N=10, staggered joins, the
+                scatter exchange) through `--grade-all` on the card and on
+                the CPU: both must print "Final grade 90" and write
+                byte-identical logs; the scatter step launches no kernel,
+                and a run's final state lies on the card;
+ 13. scatter_parity -- confs/scatter_2k_s128_drop.conf (the scatter
+                exchange at N=2048 with 5% drops, probes through the hashed
+                probe mailbox) on the card and on the CPU: byte-identical
+                logs, no kernel launched;
+ 14. cold_parity -- confs/ring_256_s128_staggered_drop.conf (staggered joins
+                on the ring, 5% drops) on tpu_hash (K1, K2's masks form and
+                K3 once per tick) and its sharded twin on eight shards (K1,
+                K4, K3 once per tick), each on the card and on the CPU:
+                byte-identical logs.
 Phase 2 also holds K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
 not a multiple of 128 (two column alignments, per-shard shifts), and
@@ -69,7 +83,8 @@ TFAIL, TREMOVE = 16, 40
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "folded_lossy", "folded_parity", "sharded", "sharded_lossy",
-          "sharded_parity")
+          "sharded_parity", "grade", "scatter_parity", "cold_parity")
+LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
     "receive_fused": "distributed_membership_tpu/ops/fused_receive.py:176",
@@ -592,6 +607,110 @@ def run_path(torch, conf: str, name: str, expect: dict, out_dir: str) -> dict:
     return info
 
 
+def same_logs(a: str, b: str, what: str, need_removal: bool = True) -> None:
+    """Raise unless the run directories ``a`` and ``b`` hold byte-identical
+    logs (and, with ``need_removal``, a removal in dbg.log)."""
+    for f in LOGS:
+        x, y = (open(os.path.join(d, f), "rb").read() for d in (a, b))
+        if x != y:
+            raise AssertionError(f"{what}: {f} differs between {a} and {b}")
+        if f == "dbg.log" and need_removal and b" removed " not in x:
+            raise AssertionError(f"{what}: dbg.log holds no removal")
+
+
+def card_vs_cpu(torch, conf: str, name: str, expect: dict, out_dir: str,
+                card: str) -> dict:
+    """run_conf of a full-event conf on the card (launch counts set to 0
+    just before and read just after, and held to ``expect``) and on the
+    CPU; the logs must be byte-identical."""
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    dirs = {d: os.path.join(out_dir, f"{name}_{d}") for d in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_conf(conf, out_dir=dirs["cuda"], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches} != {expect}")
+    if not res.extra["final_state"].view.is_cuda:
+        raise AssertionError(f"{name}: the final state is not on the card")
+    t1 = time.perf_counter()
+    run_conf(conf, out_dir=dirs["cpu"], device="cpu")
+    cpu_wall = time.perf_counter() - t1
+    same_logs(dirs["cuda"], dirs["cpu"], name)
+    ticks = res.params.TOTAL_TIME
+    info = {"n": res.params.EN_GPSZ, "ticks": ticks, "wall_s": wall,
+            "ms_per_tick": wall * 1e3 / ticks, "cpu_wall_s": cpu_wall,
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": card}
+    log(f"{name}: logs byte-identical, cuda vs cpu; " + json.dumps(info))
+    return info
+
+
+def phase_grade(torch, out_dir: str, card: str, seed: int = 3) -> dict:
+    """``--grade-all`` (``application.grade_all`` on the parsed flags, as
+    ``main`` calls it) on the card and on the CPU: both grade 90, their
+    logs agree, the card run launches no kernel (the scatter step has
+    none) and its final states lie on the card."""
+    import contextlib
+    import io
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.runtime import application
+
+    walls = {}
+    launches = {}
+    results = {"cuda": [], "cpu": []}
+    for d in ("cuda", "cpu"):
+        buf = io.StringIO()
+        args = application.parser().parse_args([
+            "--grade-all", "--device", d, "--seed", str(seed),
+            "--out-dir", os.path.join(out_dir, f"grade_{d}")])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = application.grade_all(args, results[d])
+        torch.cuda.synchronize()
+        walls[d] = time.perf_counter() - t0
+        if d == "cuda":
+            launches = dict(kernels.LAUNCHES)
+        for line in buf.getvalue().splitlines():
+            log(f"grade[{d}]: {line}")
+        if rc != 0 or buf.getvalue().splitlines()[-1] != "Final grade 90":
+            raise AssertionError(f"grade: --grade-all on {d} exited {rc}")
+    if any(launches.values()):
+        raise AssertionError(f"grade: kernels launched: {launches}")
+    for scenario in application.SCENARIOS:
+        same_logs(*(os.path.join(out_dir, f"grade_{d}", scenario)
+                    for d in ("cuda", "cpu")), f"grade[{scenario}]")
+    off = [k for res, _ in results["cuda"]
+           for k, v in state_tensors(res.extra["final_state"])
+           if not v.is_cuda]
+    if off:
+        raise AssertionError(f"grade: final state leaves off the card: {off}")
+    ticks = sum(res.params.TOTAL_TIME for res, _ in results["cuda"])
+    info = {"ticks": ticks, "wall_s": walls["cuda"],
+            "ms_per_tick": walls["cuda"] * 1e3 / ticks,
+            "cpu_wall_s": walls["cpu"], "card": card}
+    log("grade: 90/90 on cuda and cpu, logs byte-identical, no kernel "
+        "launched; " + json.dumps(info))
+    return info
+
+
+def state_tensors(state):
+    """``(name, tensor)`` for every leaf of a state, its agg's too."""
+    for name, leaf in state._asdict().items():
+        if hasattr(leaf, "_asdict"):
+            yield from ((f"{name}.{k}", v) for k, v in leaf._asdict().items())
+        else:
+            yield name, leaf
+
+
 def phase_profile(torch, conf: str, name: str, out_dir: str,
                   warm: int = 3, ticks: int = 5) -> dict:
     """Where one tick's time goes at N=2^20: the whole step, its RNG plan
@@ -602,7 +721,8 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
     from distributed_membership_tpu_torch.backends import (
         tpu_hash, tpu_hash_sharded)
     from distributed_membership_tpu_torch.config import Params
-    from distributed_membership_tpu_torch.ops.rng_plan import hash_ring_rng
+    from distributed_membership_tpu_torch.ops.rng_plan import (
+        hash_ring_rng, sharded_ring_rng)
     from distributed_membership_tpu_torch.runtime import failures
 
     params = Params.from_file(conf)
@@ -619,8 +739,9 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
         state = tpu_hash_sharded.init_local_state_warm(cfg, mesh, key0)
 
         def plan_rng(key):
-            return tpu_hash_sharded._mesh_rng(
-                key, mesh, n=cfg.n, n_local=n_local, s=cfg.s, g=cfg.g,
+            return sharded_ring_rng(
+                key, range(mesh.size), n=cfg.n, n_local=n_local, s=cfg.s,
+                g=cfg.g,
                 k_max=min(cfg.fanout, cfg.s), p_cnt=cfg.probes,
                 seed_rows=min(cfg.seed_cap, cfg.n),
                 use_drop=cfg.drop_prob > 0, cold_join=False, device="cuda")
@@ -755,7 +876,7 @@ def main(argv=None) -> int:
         for d in ("cuda", "cpu"):
             run_conf(conf, out_dir=os.path.join(out_dir, f"parity_{d}"),
                      device=d)
-        for f in ("dbg.log", "stats.log", "msgcount.log"):
+        for f in LOGS:
             a, b = (open(os.path.join(out_dir, f"parity_{d}", f),
                          "rb").read()
                     for d in ("cuda", "cpu"))
@@ -843,6 +964,30 @@ def main(argv=None) -> int:
                 return fail("sharded_parity: dbg.log holds no removal")
         log("sharded_parity: N=256 eight-shard full-event logs "
             "byte-identical, cuda vs cpu")
+    if "grade" in phases:
+        t0 = time.perf_counter()
+        paths["grade"] = phase_grade(torch, out_dir, card)
+        log(f"phase grade: {time.perf_counter() - t0:.1f}s; card: {card}")
+    if "scatter_parity" in phases:
+        t0 = time.perf_counter()
+        paths["scatter_parity"] = card_vs_cpu(
+            torch, os.path.join(confs, "scatter_2k_s128_drop.conf"),
+            "scatter_parity", launches_expected(), out_dir, card)
+        log(f"phase scatter_parity: {time.perf_counter() - t0:.1f}s; "
+            f"card: {card}")
+    if "cold_parity" in phases:
+        t0 = time.perf_counter()
+        paths["cold_parity"] = card_vs_cpu(
+            torch, os.path.join(confs, "ring_256_s128_staggered_drop.conf"),
+            "cold_parity", launches_expected(
+                receive=200, gossip_masks=200, probe=200), out_dir, card)
+        paths["cold_parity_sharded"] = card_vs_cpu(
+            torch, os.path.join(
+                confs, "ring_256_s128_staggered_sharded8_drop.conf"),
+            "cold_parity_sharded", launches_expected(
+                receive=200, gossip_stacked=200, probe=200), out_dir, card)
+        log(f"phase cold_parity: {time.perf_counter() - t0:.1f}s; "
+            f"card: {card}")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):

@@ -1,23 +1,34 @@
-"""``tpu_hash`` backend, ring exchange, warm join: the port's main path
-(counterpart of the JAX package's ``backends/tpu_hash.py``).
+"""``tpu_hash`` backend: the port's main path (counterpart of the JAX
+package's ``backends/tpu_hash.py``), on the ring or the scatter exchange,
+with warm or cold (staggered, batch) joins.
 
 Node ``i`` stores member ``id`` at slot ``(id + i * STRIDE) mod S`` of a
 ``[N, S]`` table of packed u32 ``(heartbeat, id)`` entries; the mailbox
 uses the same slot map, so delivery and merge are one elementwise max,
 and occupancy is sticky (an occupied slot only takes its occupant's id).
-Per tick (``make_step``):
+Per tick of the ring exchange (``make_step``):
 
-* the join control plane and the self refresh (heartbeat + 2);
+* the join control plane (JOINREP, nodeStart with the introducer's boot
+  and the joiners' JOINREQ) and the self refresh (heartbeat + 2);
 * the ack candidates of the probe/ack gather pipeline (probes issued two
   ticks ago, answered from a one-tick-lagged heartbeat vector);
 * the receive pass -- K1 (ops/fused_receive.py);
 * gossip: entry thinning to ~G per row, then ``fanout`` circulant shifts
   delivered in one pass -- K2 (ops/fused_gossip.py), with per-shift keep
   masks when messages drop;
-* the introducer's seed burst to joiners;
+* the introducer's seed burst to joiners (with the JOINREQs, the only
+  scatter of the ring step; under warm join nobody starts during the run,
+  so the JOINREQ scatter is skipped);
 * the probe window and the aggregate partials -- K3
   (ops/fused_probe.py), then the message counters;
 * on-device aggregates (EVENT_MODE agg) or per-tick event planes (full).
+
+The scatter exchange (``make_scatter_step``, the JAX step's ``not ring``
+branches) is the reference-shaped delivery the grader's testcases resolve
+to: sampled view-occupant targets, scatter-max message delivery and the
+slot-addressed probe (``pmail``) and ack (``amail``) mailboxes.  The JAX
+package runs it with no Pallas kernel, so on CUDA it is PyTorch ops on
+CUDA tensors, with no kernel of its own.
 
 The tick loop is a Python loop: the tick ``t``, the window pointer, the
 drop window and the failure tick are host ints, so the step never waits
@@ -34,14 +45,16 @@ honoured on both devices; ``-1`` picks it on CUDA when the gates pass and
 JAX package's auto is off away from its accelerator).
 
 Refused with ``NotImplementedError`` (ROADMAP.md names the queue item):
-the scatter exchange and cold joins, SCENARIO, SHIFT_SET,
-ENFORCE_BUFFSIZE, CHECKPOINT_EVERY, MEGA_TICKS, TELEMETRY, RNG_MODE
-hoisted, PROBE_IO approx_lag/none, and more than FAST_AGG_MAX_FAILED
-failed ids under EVENT_MODE agg.  On CUDA the kernels are the path, so a
-pinned ``FUSED_*: 0`` is refused, and so is ``VIEW_SIZE % 128 != 0``
+SCENARIO, SHIFT_SET, ENFORCE_BUFFSIZE, CHECKPOINT_EVERY, MEGA_TICKS,
+TELEMETRY, RNG_MODE hoisted, PROBE_IO approx_lag/none, EVENT_MODE agg on
+the scatter exchange, and more than FAST_AGG_MAX_FAILED failed ids under
+EVENT_MODE agg.  On CUDA the ring's kernels are the path, so a pinned
+``FUSED_*: 0`` is refused there, and so are ``VIEW_SIZE % 128 != 0``
 outside the folded layout (full event mode, or a geometry the folded
-gates refuse); on the CPU the wrappers run their plain versions and
-``FUSED_*: 1`` is refused.
+gates refuse) and ``VIEW_SIZE > 4096`` (K2's one-tile rows); on the CPU
+the wrappers run their plain versions and ``FUSED_*: 1`` is refused.  On
+the scatter exchange ``FUSED_*: 1`` raises the JAX package's ValueError
+and ``-1`` resolves off on both devices.
 """
 
 from __future__ import annotations
@@ -66,10 +79,13 @@ from distributed_membership_tpu_torch.ops.fused_gossip import gossip_fused
 from distributed_membership_tpu_torch.ops.fused_probe import (
     probe_window_fused)
 from distributed_membership_tpu_torch.ops.fused_receive import receive_fused
+from distributed_membership_tpu_torch.ops.fused_gossip import MAX_TILE_S
 from distributed_membership_tpu_torch.ops.rng_plan import hash_ring_rng
-from distributed_membership_tpu_torch.ops.threefry import Key, randint
+from distributed_membership_tpu_torch.ops.sampling import sample_k_indices
+from distributed_membership_tpu_torch.ops.threefry import (
+    Key, randint, split, uniform, uniform_at)
 from distributed_membership_tpu_torch.ops.view_merge import (
-    EMPTY, M32, STRIDE, as_u32, member_of, to_bits)
+    EMPTY, M32, STRIDE, as_u32, hash_slot, member_of, to_bits)
 from distributed_membership_tpu_torch.runtime.failures import (
     FailurePlan, PlanTensors, make_run_key, plan_tensors, resolve_plan)
 
@@ -97,15 +113,15 @@ class HashState(NamedTuple):
     failed: torch.Tensor        # [N] bool
     self_hb: torch.Tensor       # [N] int32
     mail: torch.Tensor          # [N, S] receiver-slot-mapped mailbox
-    amail: torch.Tensor         # [1, 1] placeholder (scatter exchange)
-    pmail: torch.Tensor         # [1, 1] placeholder (scatter exchange)
+    amail: torch.Tensor         # [N, S] ack mailbox (scatter), ring [1, 1]
+    pmail: torch.Tensor         # [N, Qp] probe mailbox (scatter), ring [1, 1]
     joinreq_infl: torch.Tensor  # [N] bool
     joinrep_infl: torch.Tensor  # [N] bool
     pending_recv: torch.Tensor  # [N] int32
     agg: NamedTuple             # FastAgg (agg mode) or AggStats placeholder
-    probe_ids1: torch.Tensor    # [N, P] ids probed last tick (id + 1)
-    probe_ids2: torch.Tensor    # [N, P] ids probed two ticks ago
-    act_prev: torch.Tensor      # [N] bool act mask of the previous tick
+    probe_ids1: torch.Tensor    # [N, P] ids probed last tick (ring; id + 1)
+    probe_ids2: torch.Tensor    # [N, P] ids probed two ticks ago (ring)
+    act_prev: torch.Tensor      # [N] bool act mask of last tick (ring)
     wf_prev: torch.Tensor       # [1] placeholder (PROBE_IO approx_lag)
 
 
@@ -122,6 +138,8 @@ class HashConfig:
     qp: int = 16           # scatter-mode probe mailbox width (sets p_red)
     seed_cap: int = SEED_CAP
     collect_events: bool = True
+    exchange: str = "ring"  # 'ring' (make_step) or 'scatter'
+    cold_join: bool = False  # JOIN_MODE staggered or batch
     fail_ids: tuple = ()   # static failed ids for the FastAgg path
     fast_agg: bool = False
     count_probe_io: bool = True
@@ -139,29 +157,45 @@ def pack_u(cfg: HashConfig, hb, member):
     return ((hb.to(I64) & M32) * cfg.n + (member.to(I64) & M32) + 1) & M32
 
 
-def _scatter_msgs(cfg: HashConfig, plane, rows, local_tgt, msg_id, msg_hb,
-                  msg_valid):
-    """Max-combine messages into the mailboxes of ``rows`` (distinct
-    global row ids) in place; message ``k`` goes to ``rows[local_tgt[k]]``
-    at its slot there.  Only those rows are widened."""
-    s = plane.shape[1]
-    r = rows.shape[0]
-    tgt = rows[local_tgt]
-    addr = torch.where(msg_valid, local_tgt * s + slot_of(cfg, tgt, msg_id),
-                       r * s)
+def _scatter_msgs(cfg: HashConfig, mail, tgt, msg_id, msg_hb, msg_valid,
+                  node=None):
+    """Max-combine messages into receiver-slot-mapped mailboxes (the JAX
+    ``_scatter_msgs``): message ``k`` lands at row ``tgt[k]``, slot
+    ``slot_of(node[k], msg_id[k])`` with ``node`` the receiver's global id
+    (``tgt`` itself unless ``mail`` holds a subset of the rows); invalid
+    ones go to the sink address ``rows*S``, which is dropped.  Returns a
+    new plane."""
+    r, s = mail.shape
+    tgt = tgt.to(I64)
+    msg_id = msg_id.to(I64)
+    node = tgt if node is None else node
+    addr = torch.where(msg_valid, tgt * s + slot_of(cfg, node, msg_id), r * s)
     val = torch.where(msg_valid, pack_u(cfg, msg_hb, msg_id), 0)
-    sub = torch.cat([as_u32(plane.index_select(0, rows)).reshape(-1),
-                     torch.zeros((1,), dtype=I64, device=plane.device)])
-    sub.scatter_reduce_(0, addr.reshape(-1), val.reshape(-1), "amax")
-    plane.index_copy_(0, rows, to_bits(sub[:-1].reshape(r, s)))
-    return plane
+    flat = torch.cat([as_u32(mail).reshape(-1),
+                      torch.zeros((1,), dtype=I64, device=mail.device)])
+    flat.scatter_reduce_(0, addr.reshape(-1), val.reshape(-1), "amax")
+    return to_bits(flat[:-1].reshape(r, s))
+
+
+def _scatter_rows(cfg: HashConfig, plane, rows, local_tgt, msg_id, msg_hb,
+                  msg_valid):
+    """:func:`_scatter_msgs` into the mailboxes of ``rows`` (distinct
+    global row ids) in place; message ``k`` goes to ``rows[local_tgt[k]]``.
+    Only those rows are widened."""
+    sub = _scatter_msgs(cfg, plane.index_select(0, rows), local_tgt, msg_id,
+                        msg_hb, msg_valid, node=rows[local_tgt])
+    return plane.index_copy_(0, rows, sub)
 
 
 def init_state(cfg: HashConfig, device) -> HashState:
+    """The all-zero cold state (JAX ``init_state``): the scatter
+    exchange's ack and probe mailboxes are ``[N, S]`` and ``[N, Qp]``, the
+    ring's gather pipeline replaces them with placeholders."""
     n, s = cfg.n, cfg.s
+    ring = cfg.exchange == "ring"
     i32 = dict(dtype=I32, device=device)
     b = dict(dtype=torch.bool, device=device)
-    probe_shape = (n, cfg.probes) if cfg.probes > 0 else (1, 1)
+    probe_shape = (n, cfg.probes) if ring and cfg.probes > 0 else (1, 1)
     return HashState(
         view=torch.zeros((n, s), **i32),
         view_ts=torch.zeros((n, s), **i32),
@@ -170,8 +204,8 @@ def init_state(cfg: HashConfig, device) -> HashState:
         failed=torch.zeros((n,), **b),
         self_hb=torch.zeros((n,), **i32),
         mail=torch.zeros((n, s), **i32),
-        amail=torch.zeros((1, 1), **i32),
-        pmail=torch.zeros((1, 1), **i32),
+        amail=torch.zeros((n, s) if not ring else (1, 1), **i32),
+        pmail=torch.zeros((n, cfg.qp) if not ring else (1, 1), **i32),
         joinreq_infl=torch.zeros((n,), **b),
         joinrep_infl=torch.zeros((n,), **b),
         pending_recv=torch.zeros((n,), **i32),
@@ -179,9 +213,15 @@ def init_state(cfg: HashConfig, device) -> HashState:
              else init_agg(n, device)),
         probe_ids1=torch.zeros(probe_shape, **i32),
         probe_ids2=torch.zeros(probe_shape, **i32),
-        act_prev=torch.zeros((n,), **b),
+        act_prev=torch.zeros((n,) if ring else (1,), **b),
         wf_prev=torch.zeros((1,), **b),
     )
+
+
+def init_state_cold(cfg: HashConfig, key: Key, device) -> HashState:
+    """Cold joins start from the all-zero state; ``key`` is unused (the
+    ``init(cfg, key, device)`` form of :func:`step_and_init`)."""
+    return init_state(cfg, device)
 
 
 def warm_view(cfg: HashConfig, view, offs):
@@ -191,7 +231,7 @@ def warm_view(cfg: HashConfig, view, offs):
     n = cfg.n
     idx = torch.arange(n, dtype=I64, device=view.device)
     nbrs = (idx[:, None] + offs) % n
-    _scatter_msgs(cfg, view, idx, idx[:, None].expand(nbrs.shape), nbrs,
+    _scatter_rows(cfg, view, idx, idx[:, None].expand(nbrs.shape), nbrs,
                   torch.zeros_like(nbrs),
                   torch.ones(nbrs.shape, dtype=torch.bool, device=view.device))
     view[idx, slot_of(cfg, idx, idx)] = to_bits(
@@ -258,10 +298,132 @@ def _roll(vec, shift, idx, n: int):
     return vec.index_select(0, (idx - shift.to(I64)) % n)
 
 
+def _count_at(tgt, valid, weight, n: int):
+    """``[N]`` int32 per-target counts: ``weight`` (a scalar or a tensor
+    of ``tgt``'s shape) added at each valid ``tgt`` (the JAX ``.at[].add``
+    into a sink row)."""
+    w = torch.as_tensor(weight, dtype=I32, device=tgt.device).expand(
+        tgt.shape)
+    out = torch.zeros((n + 1,), dtype=I32, device=tgt.device)
+    out.index_add_(0, torch.where(valid, tgt, n).reshape(-1),
+                   w.reshape(-1))
+    return out[:n]
+
+
+class JoinPlane(NamedTuple):
+    """One tick's join control plane and self-refresh vectors (all
+    ``[N]``), as every step of the JAX package computes them."""
+    recv_mask: torch.Tensor     # started, past its start tick, not failed
+    recv_tick: torch.Tensor     # pending receives flushed this tick
+    pending_recv: torch.Tensor  # after the flush, JOINREPs and JOINREQs
+    in_group: torch.Tensor
+    joinrep_infl: torch.Tensor
+    joinreq_infl: torch.Tensor
+    seeds: torch.Tensor         # joiners whose JOINREQ the introducer reads
+    n_seeds: torch.Tensor       # [] int32
+    sent_req: torch.Tensor
+    sent_rep: torch.Tensor
+    started: torch.Tensor
+    joiner_req: torch.Tensor    # JOINREQs sent this tick (and not dropped)
+    act: torch.Tensor
+    self_on: torch.Tensor       # act, or the introducer's boot tick
+    self_hb: torch.Tensor
+    own_hb: torch.Tensor        # the heartbeat this tick's messages carry
+    self_val: torch.Tensor      # packed self entry (int32 bits)
+
+
+def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
+               ctrl_kept=None) -> JoinPlane:
+    """JOINREP delivery, nodeStart (the introducer boots its group, the
+    others send a JOINREQ) and the double heartbeat increment
+    (MP1Node.cpp:126-163,226-251,412-415).  ``ctrl_kept`` is the ``[2,
+    N]`` control-message keep mask (row 0 JOINREQ, row 1 JOINREP) under
+    drops, None when nothing drops.  ``idx`` holds the global row ids of
+    the flat layout.  Under warm join every start tick is -1, so nobody
+    starts and no JOINREQ is sent."""
+    intro = INTRODUCER_INDEX
+    start = plan.start_ticks
+    is_intro = idx == intro
+    recv_mask = state.started & (start < t) & ~state.failed
+    recv_tick = torch.where(recv_mask, state.pending_recv, 0)
+    pending_recv = torch.where(recv_mask, 0, state.pending_recv)
+    in_group = state.in_group | (state.joinrep_infl & recv_mask)
+    joinrep_infl = state.joinrep_infl & ~recv_mask
+    intro_recv = recv_mask[intro]
+    seeds = state.joinreq_infl & intro_recv
+    joinreq_infl = state.joinreq_infl & ~intro_recv
+    rep_ok = seeds if ctrl_kept is None else seeds & ctrl_kept[1]
+    joinrep_infl = joinrep_infl | rep_ok
+    sent_rep = torch.where(is_intro & intro_recv, rep_ok.sum(dtype=I32), 0)
+    pending_recv = pending_recv + rep_ok.to(I32)
+
+    # ---- nodeStart ----
+    start_now = start == t
+    started = state.started | start_now
+    boot = start_now[intro]
+    in_group = in_group | (is_intro & boot)
+    joiner_req = start_now & ~is_intro
+    if ctrl_kept is not None:
+        joiner_req = joiner_req & ctrl_kept[0]
+    joinreq_infl = joinreq_infl | joiner_req
+    pending_recv = pending_recv + torch.where(
+        is_intro, joiner_req.sum(dtype=I32), 0)
+
+    # ---- self refresh (double heartbeat increment) ----
+    act = started & (start < t) & ~state.failed & in_group
+    own_hb = state.self_hb + 1
+    return JoinPlane(
+        recv_mask, recv_tick, pending_recv, in_group, joinrep_infl,
+        joinreq_infl, seeds, seeds.sum(dtype=I32), joiner_req.to(I32),
+        sent_rep, started, joiner_req, act, act | (is_intro & boot),
+        torch.where(act, state.self_hb + 2, state.self_hb), own_hb,
+        to_bits(pack_u(cfg, torch.where(act, own_hb, 0), idx)))
+
+
+def joinreq_to_intro(cfg: HashConfig, mail, joiner_req, idx):
+    """This tick's JOINREQs (hb 0, the joiner's id) into the introducer's
+    mailbox row, in place; only that row is widened."""
+    zeros = torch.zeros_like(idx)
+    return _scatter_rows(cfg, mail, idx[INTRODUCER_INDEX:][:1], zeros, idx,
+                         zeros, joiner_req)
+
+
+def seed_burst(cfg: HashConfig, mail, view, fresh_intro, seeds,
+               burst_on, burst_drop=None):
+    """The introducer's burst of its fresh view row to this tick's seeded
+    joiners (MP1Node.cpp:240-242): the first ``min(seed_cap, N)`` seeds in
+    index order (``lax.top_k`` ties go lowest index first, hence the
+    stable sort), ``burst_drop`` the ``[cap, S]`` dropped mask or None.
+    Updates ``mail`` in place; returns ``(mail, seed_idx, seed_valid,
+    burst_valid)``."""
+    n, s = cfg.n, cfg.s
+    intro = INTRODUCER_INDEX
+    cap = min(cfg.seed_cap, n)
+    dev = mail.device
+    seed_idx = torch.sort(seeds.to(I32), descending=True,
+                          stable=True).indices[:cap]
+    seed_valid = seeds[seed_idx] & burst_on
+    burst_valid = seed_valid[:, None] & fresh_intro[None, :]
+    if burst_drop is not None:
+        burst_valid = burst_valid & ~burst_drop
+    iv = as_u32(view[intro])
+    ipres = iv > 0
+    intro_id = torch.where(ipres, ((iv - 1) & M32) % n, EMPTY)
+    intro_hb = torch.where(ipres, ((iv - 1) & M32) // n, -1)
+    local = torch.arange(cap, dtype=I64, device=dev)[:, None].expand(cap, s)
+    mail = _scatter_rows(cfg, mail, seed_idx, local,
+                         intro_id[None, :].expand(cap, s),
+                         intro_hb[None, :].expand(cap, s), burst_valid)
+    return mail, seed_idx, seed_valid, burst_valid
+
+
 def make_step(cfg: HashConfig):
-    """``step(state, t, key, plan) -> (state, SparseTickEvents)`` for the
-    ring exchange under warm join; ``t`` is a host int, ``key`` the tick's
-    threefry key, ``plan`` the run's PlanTensors."""
+    """``step(state, t, key, plan) -> (state, SparseTickEvents)``; ``t`` is
+    a host int, ``key`` the tick's threefry key, ``plan`` the run's
+    PlanTensors.  The ring exchange is built here, the scatter exchange by
+    :func:`make_scatter_step`."""
+    if cfg.exchange != "ring":
+        return make_scatter_step(cfg)
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
     intro = INTRODUCER_INDEX
     k_max = min(cfg.fanout, s)
@@ -290,30 +452,12 @@ def make_step(cfg: HashConfig):
         drop_active = plan.drop_active(t)
         coins = use_drop and drop_active
 
-        # ---- join control plane (warm join: every node started at -1,
-        # so nothing starts during the run and no JOINREQ is sent) ----
-        recv_mask = state.started & ~state.failed
+        # ---- join control plane, nodeStart, self refresh ----
+        jp = join_plane(cfg, state, t, plan, idx,
+                        ~(rng.ctrl_u.reshape(2, n) < p_drop) if coins
+                        else None)
+        recv_mask, act, recv_tick = jp.recv_mask, jp.act, jp.recv_tick
         rcol = recv_mask[:, None]
-        recv_tick = torch.where(recv_mask, state.pending_recv, 0)
-        pending_recv = torch.where(recv_mask, 0, state.pending_recv)
-        in_group = state.in_group | (state.joinrep_infl & recv_mask)
-        joinrep_infl = state.joinrep_infl & ~recv_mask
-        seeds = state.joinreq_infl & recv_mask[intro]
-        joinreq_infl = state.joinreq_infl & ~recv_mask[intro]
-        rep_ok = seeds
-        if coins:
-            rep_ok = seeds & ~(rng.ctrl_u.reshape(2, n)[1] < p_drop)
-        joinrep_infl = joinrep_infl | rep_ok
-        n_seeds = seeds.sum(dtype=I32)
-        sent_rep = torch.where(
-            (idx == intro) & recv_mask[intro], rep_ok.sum(dtype=I32), 0)
-        pending_recv = pending_recv + rep_ok.to(I32)
-
-        # ---- self refresh (double heartbeat increment) ----
-        act = state.started & ~state.failed & in_group
-        self_hb = torch.where(act, state.self_hb + 2, state.self_hb)
-        self_val = to_bits(pack_u(
-            cfg, torch.where(act, state.self_hb + 1, 0), idx))
 
         # ---- ack candidates: probes issued at t-2, answered with the
         # target's heartbeat at t-1 (0 if it was not act) ----
@@ -345,7 +489,10 @@ def make_step(cfg: HashConfig):
         (view, view_ts, mail, join_mask, rm_ids, numfailed,
          size) = receive_fused(n, s, cfg.tfail, cfg.tremove, STRIDE, t,
                                state.view, state.view_ts, state.mail,
-                               cand_full, recv_mask, act, act, self_val)
+                               cand_full, recv_mask, act, jp.self_on,
+                               jp.self_val)
+        if cfg.cold_join:
+            mail = joinreq_to_intro(cfg, mail, jp.joiner_req, idx)
         present = view != 0
         difft = t - view_ts
 
@@ -354,7 +501,8 @@ def make_step(cfg: HashConfig):
         fresh = present & (difft < cfg.tfail)
         is_self_slot = present & (member_of(view, n) == idx[:, None])
         seed_burst_on = act[intro]
-        n_seeds_row = torch.where((idx == intro) & seed_burst_on, n_seeds, 0)
+        n_seeds_row = torch.where((idx == intro) & seed_burst_on, jp.n_seeds,
+                                  0)
         k_eff = (numpotential.clamp(max=cfg.fanout)
                  - n_seeds_row).clamp_min(0).to(I32)
         if g >= s:
@@ -393,27 +541,13 @@ def make_step(cfg: HashConfig):
                 recv_add += _roll(cnt, shifts[j], idx, n)
             mail = gossip_fused(n, s, k_max, mail, view, k_eff, shifts,
                                 masks=masks)
-        sent_tick = sent_gossip + sent_rep
+        sent_tick = sent_gossip + jp.sent_req + jp.sent_rep
 
-        # ---- introducer burst to this tick's joiners (full fresh view);
-        # top_k ties go lowest index first, hence the stable sort ----
+        # ---- introducer burst to this tick's joiners (full fresh view) --
         cap = min(cfg.seed_cap, n)
-        seed_idx = torch.sort(seeds.to(I32), descending=True,
-                              stable=True).indices[:cap]
-        seed_valid = seeds[seed_idx] & seed_burst_on
-        burst_valid = seed_valid[:, None] & fresh[intro][None, :]
-        if coins:
-            burst_valid = burst_valid & ~(rng.burst_u.reshape(cap, s)
-                                          < p_drop)
-        iv = as_u32(view[intro])
-        ipres = iv > 0
-        intro_id = torch.where(ipres, ((iv - 1) & M32) % n, EMPTY)
-        intro_hb = torch.where(ipres, ((iv - 1) & M32) // n, -1)
-        local = torch.arange(cap, dtype=I64, device=dev)[:, None].expand(
-            cap, s)
-        mail = _scatter_msgs(cfg, mail, seed_idx, local,
-                             intro_id[None, :].expand(cap, s),
-                             intro_hb[None, :].expand(cap, s), burst_valid)
+        mail, seed_idx, seed_valid, burst_valid = seed_burst(
+            cfg, mail, view, fresh[intro], jp.seeds, seed_burst_on,
+            (rng.burst_u.reshape(cap, s) < p_drop) if coins else None)
         sent_tick[intro] += burst_valid.sum(dtype=I32)
         recv_add.index_add_(0, seed_idx, burst_valid.sum(1, dtype=I32)
                             * seed_valid.to(I32))
@@ -438,14 +572,8 @@ def make_step(cfg: HashConfig):
             if cfg.count_probe_io:
                 # Probes issued at t-1 arrive now; act targets ack.
                 ack_send = v1 & _gathered_act(probe_bits1)
-                zeros = torch.zeros((n + 1,), dtype=I32, device=dev)
-                recv_probe = zeros.index_add(
-                    0, torch.where(v1, tgt1, n).reshape(-1),
-                    torch.full((n * p_cnt,), p_red, dtype=I32, device=dev)
-                )[:n]
-                sent_ack = zeros.index_add(
-                    0, torch.where(ack_send, tgt1, n).reshape(-1),
-                    torch.ones((n * p_cnt,), dtype=I32, device=dev))[:n]
+                recv_probe = _count_at(tgt1, v1, p_red, n)
+                sent_ack = _count_at(tgt1, ack_send, 1, n)
             else:
                 per_prober = (v1 & _gathered_flush(probe_bits1)).sum(
                     1, dtype=I32) * p_red
@@ -453,7 +581,7 @@ def make_step(cfg: HashConfig):
                 sent_ack = (v1 & _gathered_act(probe_bits1)).sum(1, dtype=I32)
             sent_tick = sent_tick + sent_probes + sent_ack
             recv_add = recv_add + recv_probe + ack_recv_cnt
-        pending_recv = pending_recv + recv_add
+        pending_recv = jp.pending_recv + recv_add
 
         failed = (state.failed | plan.fail_mask if t == plan.fail_time
                   else state.failed)
@@ -479,12 +607,198 @@ def make_step(cfg: HashConfig):
                                    pfo["rm_cnt"].sum(dtype=I32),
                                    sent_tick.sum(dtype=I32),
                                    recv_tick.sum(dtype=I32))
-        new_state = HashState(view, view_ts, state.started, in_group,
-                              failed, self_hb, mail, state.amail,
-                              state.pmail, joinreq_infl, joinrep_infl,
+        new_state = HashState(view, view_ts, jp.started, jp.in_group,
+                              failed, jp.self_hb, mail, state.amail,
+                              state.pmail, jp.joinreq_infl, jp.joinrep_infl,
                               pending_recv, agg, probe_ids1, probe_ids2,
                               act_prev, state.wf_prev)
         return new_state, out
+
+    return step
+
+
+def _admit(n: int, self_mask, idx, view, incoming):
+    """Sticky admit-or-refresh (JAX ``make_admit``) on int64 planes
+    holding u32 values: an occupied slot takes only its occupant's id, an
+    empty one the incoming winner, and the self slot only the node's own
+    id."""
+    in_id = ((incoming - 1) & M32) % n
+    matches = in_id == ((view - 1) & M32) % n
+    ok = ((self_mask & (in_id == idx[:, None]))
+          | (~self_mask & ((view == 0) | matches)))
+    take = (incoming > 0) & ok
+    return torch.where(take, torch.maximum(view, incoming), view)
+
+
+def make_scatter_step(cfg: HashConfig):
+    """The scatter exchange (the JAX ``make_step``'s ``not ring``
+    branches): the amail and mail merge by sticky admission, the JOINREQ
+    scatter, gossip to ``k_eff`` sampled view occupants with ``G`` sampled
+    entries each, the seed burst, and SWIM probes through the hashed
+    probe mailbox (``pmail``, twice when ``Qp < N``) answered into the ack
+    mailbox (``amail``).  Its random streams are the JAX ones: the tick key
+    split 8 ways, ``bernoulli(k, p, shape)`` as ``uniform(k, shape) <
+    f32(p)``.  Full event mode only."""
+    n, s, g, p_cnt, qp = cfg.n, cfg.s, cfg.g, cfg.probes, cfg.qp
+    intro = INTRODUCER_INDEX
+    k_max = min(cfg.fanout, s)
+    p_red = 1 if qp >= n else 2
+    use_drop = cfg.drop_prob > 0.0
+    p_drop = float(np.float32(cfg.drop_prob))
+    cap = min(cfg.seed_cap, n)
+
+    def step(state: HashState, t: int, key: Key, plan: PlanTensors):
+        if t < 0:
+            raise ValueError("ticks start at 0")
+        dev = state.view.device
+        idx = torch.arange(n, dtype=I64, device=dev)
+        (k_targets, k_entries, k_drop, k_ctrl, k_drop_p, _k_shifts,
+         _k_ack1, _k_ack2) = split(key, 8)
+        coins = use_drop and plan.drop_active(t)
+
+        def dropped(k, shape):
+            return uniform(k, shape, dev) < p_drop
+
+        jp = join_plane(cfg, state, t, plan, idx,
+                        ~dropped(k_ctrl, (2, n)) if coins else None)
+        recv_mask, act = jp.recv_mask, jp.act
+        rcol = recv_mask[:, None]
+
+        # ---- receive: acks, then gossip, by sticky admission ----
+        self_slot = slot_of(cfg, idx, idx)
+        self_mask = (torch.arange(s, device=dev)[None, :]
+                     == self_slot[:, None])
+        v0 = as_u32(state.view)
+        view = torch.where(rcol, _admit(n, self_mask, idx, v0,
+                                        as_u32(state.amail)), v0)
+        view = torch.where(rcol, _admit(n, self_mask, idx, view,
+                                        as_u32(state.mail)), view)
+        changed = view > v0
+        view_ts = torch.where(changed, t, state.view_ts)
+        mail = torch.where(rcol, 0, state.mail)
+        amail = torch.where(rcol, 0, state.amail)
+        join_ids = torch.where(changed & (v0 == 0),
+                               ((view - 1) & M32) % n, EMPTY).to(I32)
+        # The probe mailbox holds bare prober ids (id + 1, 0 = empty).
+        ack_valid = (state.pmail != 0) & rcol
+        pmail = torch.where(rcol, 0, state.pmail)
+        mail = _scatter_msgs(cfg, mail, torch.full_like(idx, intro), idx,
+                             torch.zeros_like(idx), jp.joiner_req)
+
+        # ---- self refresh, then the TFAIL / TREMOVE sweep ----
+        view[idx, self_slot] = torch.where(
+            jp.self_on, as_u32(jp.self_val), view[idx, self_slot])
+        view_ts[idx, self_slot] = torch.where(
+            jp.self_on, t, view_ts[idx, self_slot])
+        present = view > 0
+        cur_id = torch.where(present, ((view - 1) & M32) % n, EMPTY)
+        cur_hb = torch.where(present, ((view - 1) & M32) // n, -1)
+        difft = t - view_ts
+        stale = present & (difft >= cfg.tfail) & act[:, None]
+        numfailed = stale.sum(1, dtype=I32)
+        removes = stale & (difft >= cfg.tremove)
+        rm_ids = torch.where(removes, cur_id, EMPTY).to(I32)
+        view = to_bits(torch.where(removes, 0, view))
+        present = present & ~removes
+        size = present.sum(1, dtype=I32)
+
+        # ---- gossip to sampled view occupants ----
+        numpotential = size - 1 - numfailed
+        fresh = present & (difft < cfg.tfail)
+        is_self_slot = cur_id == idx[:, None]
+        seed_burst_on = act[intro]
+        n_seeds_row = torch.where((idx == intro) & seed_burst_on, jp.n_seeds,
+                                  0)
+        k_eff = (numpotential.clamp(max=cfg.fanout)
+                 - n_seeds_row).clamp_min(0)
+        eligible = fresh & ~is_self_slot & act[:, None]
+        in_seed = jp.seeds[cur_id[intro].clamp_min(0)] & present[intro]
+        eligible[intro] &= ~in_seed
+        tgt_slot, tgt_valid = sample_k_indices(
+            uniform(k_targets, (n, s), dev), eligible, k_eff, k_max)
+        tgt = cur_id.gather(1, tgt_slot)
+        if g >= s:
+            e_ids, e_hbs, e_valid = cur_id, cur_hb, fresh
+        else:
+            scores = torch.where(is_self_slot, -1.0,
+                                 uniform(k_entries, (n, s), dev))
+            scores = torch.where(fresh, scores, 2.0)
+            e_idx = torch.sort(-scores, dim=1, descending=True,
+                               stable=True).indices[:, :g]
+            e_valid = fresh.gather(1, e_idx)
+            e_ids = cur_id.gather(1, e_idx)
+            e_hbs = cur_hb.gather(1, e_idx)
+        g_eff = e_ids.shape[1]
+        msg_valid = tgt_valid[:, :, None] & e_valid[:, None, :]
+        k_drop_f, k_drop_s = split(k_drop) if use_drop else (None, k_drop)
+        if coins:
+            msg_valid = msg_valid & ~dropped(k_drop_f, (n, k_max, g_eff))
+        shape3 = (n, k_max, g_eff)
+        mail = _scatter_msgs(cfg, mail, tgt[:, :, None].expand(shape3),
+                             e_ids[:, None, :].expand(shape3),
+                             e_hbs[:, None, :].expand(shape3), msg_valid)
+        sent_tick = (msg_valid.sum((1, 2), dtype=I32) + jp.sent_req
+                     + jp.sent_rep)
+        recv_add = _count_at(tgt, tgt_valid, msg_valid.sum(2, dtype=I32), n)
+
+        # ---- introducer burst to this tick's joiners (full fresh view) --
+        mail, seed_idx, seed_valid, burst_valid = seed_burst(
+            cfg, mail, view, fresh[intro], jp.seeds, seed_burst_on,
+            dropped(k_drop_s, (cap, s)) if coins else None)
+        sent_tick[intro] += burst_valid.sum(dtype=I32)
+        recv_add.index_add_(0, seed_idx, burst_valid.sum(1, dtype=I32)
+                            * seed_valid.to(I32))
+
+        # ---- SWIM round-robin probes into the hashed probe mailbox ----
+        # Only the window's P columns can probe and only the acks due can
+        # ack, so both run on those entries alone: the JAX step's [N, S]
+        # and [N, Qp] planes send nothing elsewhere, and element i of a
+        # coin draw depends on i alone.
+        if p_cnt > 0:
+            cols = (t * p_cnt + torch.arange(p_cnt, device=dev)) % s
+            p_valid = (present[:, cols] & ~is_self_slot[:, cols]
+                       & act[:, None])
+            p_tgt = cur_id[:, cols]
+            due = (ack_valid & act[:, None]).reshape(-1).nonzero().squeeze(1)
+            if coins:
+                kd1, kd2 = split(k_drop_p)
+                p_valid &= ~(uniform_at(kd1, idx[:, None] * s + cols[None, :])
+                             < p_drop)
+                due = due[~(uniform_at(kd2, due) < p_drop)]
+            own_id_p = idx[:, None].expand(n, p_cnt)
+            pval = torch.where(p_valid, own_id_p + 1, 0).reshape(-1)
+            flat = torch.cat([as_u32(pmail).reshape(-1),
+                              torch.zeros((1,), dtype=I64, device=dev)])
+            for c in range(p_red):
+                paddr = p_tgt * qp + hash_slot(own_id_p, t + c * 0x2545F49,
+                                               qp, n)
+                flat.scatter_reduce_(
+                    0, torch.where(p_valid, paddr, n * qp).reshape(-1),
+                    pval, "amax")
+            pmail = to_bits(flat[:-1].reshape(n, qp))
+            mail = _scatter_msgs(cfg, mail, p_tgt, own_id_p,
+                                 jp.own_hb[:, None].expand(n, p_cnt), p_valid)
+            # Ack: my (id, current hb) into each prober's ack mailbox.
+            acker = due // qp
+            prober = as_u32(state.pmail).reshape(-1)[due] - 1
+            sent = torch.ones_like(due, dtype=torch.bool)
+            amail = _scatter_msgs(cfg, amail, prober, acker,
+                                  jp.own_hb[acker], sent)
+            sent_tick = (sent_tick + p_valid.sum(1, dtype=I32) * p_red
+                         + _count_at(acker, sent, 1, n))
+            recv_add = (recv_add + _count_at(p_tgt, p_valid, p_red, n)
+                        + _count_at(prober, sent, 1, n))
+
+        failed = (state.failed | plan.fail_mask if t == plan.fail_time
+                  else state.failed)
+        new_state = HashState(
+            view, view_ts, jp.started, jp.in_group, failed,
+            jp.self_hb, mail, amail, pmail, jp.joinreq_infl,
+            jp.joinrep_infl, jp.pending_recv + recv_add, state.agg,
+            state.probe_ids1, state.probe_ids2, state.act_prev,
+            state.wf_prev)
+        return new_state, SparseTickEvents(join_ids, rm_ids, sent_tick,
+                                           jp.recv_tick)
 
     return step
 
@@ -527,25 +841,35 @@ def _folded_gates(params: Params, n: int, s: int, collect_events: bool,
 
 def make_config(params: Params, collect_events: bool = True,
                 fail_ids: tuple = (), device="cpu") -> HashConfig:
-    """The ring subset of the JAX ``make_config`` (natural or folded
-    layout), with the refusals of the ported slices (module
+    """The JAX ``make_config`` for the ported layouts (natural or folded
+    ring, scatter), with the refusals of the ported slices (module
     docstring)."""
     n = params.EN_GPSZ
     s = params.VIEW_SIZE if params.VIEW_SIZE > 0 else n
     g = params.GOSSIP_LEN if params.GOSSIP_LEN > 0 else s
+    exchange = params.resolved_exchange()
+    ring = exchange == "ring"
     on_cuda = torch.device(device).type == "cuda"
-    fast_agg = not collect_events and len(fail_ids) <= FAST_AGG_MAX_FAILED
+    fast_agg = (not collect_events and ring
+                and len(fail_ids) <= FAST_AGG_MAX_FAILED)
     why_not_folded = _folded_gates(params, n, s, collect_events, fast_agg,
                                    kernels=on_cuda)
     if params.FOLDED == 1 and why_not_folded:
         raise ValueError(why_not_folded)
     folded = params.FOLDED == 1 or (params.FOLDED == -1 and on_cuda
                                     and s < 128 and not why_not_folded)
-    if params.JOIN_MODE != "warm":
-        _refuse(f"JOIN_MODE {params.JOIN_MODE} (cold joins)",
-                "Queue 1 item 3")
-    if params.resolved_exchange() != "ring":
-        _refuse("the scatter exchange", "Queue 1 item 3")
+    knobs = {k: getattr(params, k)
+             for k in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE")}
+    if not ring:
+        # The JAX gates, word for word; -1 resolves off (the scatter step
+        # has no kernel in either package).
+        if knobs["FUSED_RECEIVE"] == 1:
+            raise ValueError("FUSED_RECEIVE requires the ring exchange")
+        if knobs["FUSED_GOSSIP"] == 1:
+            raise ValueError("FUSED_GOSSIP requires the ring exchange")
+        if knobs["FUSED_PROBE"] == 1:
+            raise ValueError(
+                "FUSED_PROBE requires the ring exchange with PROBES > 0")
     for key, bad, item in (
             ("SCENARIO", bool(params.SCENARIO), "Queue 1 item 5"),
             ("SHIFT_SET", params.SHIFT_SET != 0, "Queue 1 item 9"),
@@ -561,25 +885,30 @@ def make_config(params: Params, collect_events: bool = True,
              params.PROBE_IO in ("approx_lag", "none"), "Queue 1 item 9")):
         if bad:
             _refuse(key, item)
+    if not collect_events and not ring:
+        _refuse("EVENT_MODE agg on the scatter exchange (the scatter-based "
+                "AggStats update)", "Queue 1 item 9")
     if not collect_events and not fast_agg:
         _refuse(f"EVENT_MODE agg with more than {FAST_AGG_MAX_FAILED} failed "
                 "ids (the scatter-based AggStats update)", "Queue 1 item 9")
-    if n < 4:
+    if ring and n < 4:
         raise ValueError("the ring step's packed probe table needs N >= 4")
-    knobs = {k: getattr(params, k)
-             for k in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE")}
-    if on_cuda:
+    if on_cuda and ring:
         if s % 128 != 0 and not folded:
             _refuse(f"VIEW_SIZE {s} on CUDA outside FOLDED (the natural "
                     "kernels take VIEW_SIZE % 128 == 0; S < 128 runs on the "
                     f"folded layout in EVENT_MODE agg, here: "
                     f"{why_not_folded or 'FOLDED: 0'})", "Queue 1 item 9")
+        if s > MAX_TILE_S and not folded:
+            _refuse(f"VIEW_SIZE {s} on CUDA (the gossip kernels' tiled body "
+                    f"takes rows of at most {MAX_TILE_S} slots, one row per "
+                    "tile)", "Queue 1 item 9")
         pinned_off = [k for k, v in knobs.items() if v == 0]
         if pinned_off:
             _refuse(f"{'/'.join(pinned_off)}: 0 on CUDA (the kernels are "
                     "the path there; the plain versions run on CPU tensors "
                     "only)", "Queue 1 item 9")
-    else:
+    elif not on_cuda:
         pinned_on = [k for k, v in knobs.items() if v == 1]
         if pinned_on:
             _refuse(f"{'/'.join(pinned_on)}: 1 on the CPU (it pins the CUDA "
@@ -590,7 +919,9 @@ def make_config(params: Params, collect_events: bool = True,
         fanout=params.FANOUT, drop_prob=params.effective_drop_prob(),
         probes=params.PROBES,
         qp=n if n <= 1024 else max(128, 32 * params.PROBES),
+        seed_cap=n if params.JOIN_MODE == "batch" else SEED_CAP,
         collect_events=collect_events,
+        exchange=exchange, cold_join=params.JOIN_MODE != "warm",
         fail_ids=tuple(int(f) for f in fail_ids) if fast_agg else (),
         fast_agg=fast_agg,
         count_probe_io=probe_attribution_exact(params),
@@ -598,13 +929,14 @@ def make_config(params: Params, collect_events: bool = True,
 
 
 def step_and_init(cfg: HashConfig):
-    """``(step, init_warm)`` for the config's layout (the JAX
-    ``_get_step_and_init``)."""
+    """``(step, init)`` for the config's layout and join mode (the JAX
+    ``_get_step_and_init``); ``init(cfg, key, device)``."""
     if cfg.folded:
         from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
             init_state_warm_folded, make_folded_step)
         return make_folded_step(cfg), init_state_warm_folded
-    return make_step(cfg), init_state_warm
+    return make_step(cfg), (init_state_cold if cfg.cold_join
+                            else init_state_warm)
 
 
 def plan_fail_ids(plan: FailurePlan) -> tuple:

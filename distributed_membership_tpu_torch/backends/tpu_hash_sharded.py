@@ -1,5 +1,5 @@
-"""``tpu_hash_sharded`` backend, ring exchange, warm join (counterpart of
-the JAX package's ``backends/tpu_hash_sharded.py``).
+"""``tpu_hash_sharded`` backend, ring exchange, warm or cold joins
+(counterpart of the JAX package's ``backends/tpu_hash_sharded.py``).
 
 The JAX backend shards the node rows of the ``tpu_hash`` state over a
 device mesh: shard ``d`` owns rows ``[d*L, (d+1)*L)``, runs the ring step
@@ -17,6 +17,12 @@ Per tick (``make_ring_sharded_step``), as in the JAX ring step:
 * the per-shard RNG plan (ops/rng_plan.py ``sharded_ring_rng``, each
   shard's streams from ``fold_in(key, shard)``, concatenated in shard
   order);
+* under cold joins, the join control plane (tpu_hash.py ``join_plane``).
+  The JAX step computes it replicated on every shard from the shared
+  tick key, with one ``all_gather`` of the in-flight JOINREQ bits and the
+  introducer's row broadcast by ``psum`` for the seed burst; on the flat
+  layout those collectives are the identity, so it is the single-chip
+  computation with the sharded step's replicated coin streams;
 * the ack candidates from one gathered probe table (``all_gather``);
 * the receive pass -- K1 (ops/fused_receive.py) over all rows, with
   global row ids;
@@ -33,8 +39,9 @@ Per tick (``make_ring_sharded_step``), as in the JAX ring step:
 * per-shard FastAgg partials, reduced once after the run
   (:func:`reduce_fast_agg`), or per-tick event planes in full event mode.
 
-Refused with ``NotImplementedError`` naming the ROADMAP.md item: cold
-joins, the scatter exchange (the JAX ``make_sharded_step``),
+Refused with ``NotImplementedError`` naming the ROADMAP.md item: the
+scatter exchange (the JAX ``make_sharded_step``, which ``EXCHANGE: auto``
+picks under cold joins),
 ``EXCHANGE_MODE: batched``, ``PROBE_GATHER: split``, ``FOLDED`` (the
 sharded folded step), and what ``tpu_hash`` refuses (SCENARIO, TELEMETRY,
 CHECKPOINT_EVERY, MEGA_TICKS, more than 8 failed ids under EVENT_MODE
@@ -50,11 +57,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from distributed_membership_tpu_torch.addressing import INTRODUCER_INDEX
 from distributed_membership_tpu_torch.backends import RunResult, register
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     I32, I64, HashConfig, _credit_orphan_recvs_sharded, _gathered_act,
-    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, make_config,
-    pack_u, plan_fail_ids, run_ticks, warm_view)
+    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, join_plane,
+    joinreq_to_intro, make_config, pack_u, plan_fail_ids, run_ticks,
+    seed_burst, warm_view)
 from distributed_membership_tpu_torch.backends.tpu_sparse import (
     SparseTickEvents, finish_run)
 from distributed_membership_tpu_torch.config import Params
@@ -66,8 +75,7 @@ from distributed_membership_tpu_torch.ops.fused_gossip import (
 from distributed_membership_tpu_torch.ops.fused_probe import (
     probe_window_fused)
 from distributed_membership_tpu_torch.ops.fused_receive import receive_fused
-from distributed_membership_tpu_torch.ops.rng_plan import (
-    RingRng, sharded_ring_rng)
+from distributed_membership_tpu_torch.ops.rng_plan import sharded_ring_rng
 from distributed_membership_tpu_torch.ops.threefry import Key, fold_in, randint
 from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, STRIDE, member_of, to_bits)
@@ -144,30 +152,13 @@ def init_local_state_warm(cfg: HashConfig, mesh: LocalMesh,
                        in_group=ones.clone())
 
 
-def _mesh_rng(key: Key, mesh: LocalMesh, **kw) -> RingRng:
-    """Every shard's plan, its per-shard streams concatenated in shard
-    order (the flat draws); the replicated shifts are drawn once."""
-    plans = [sharded_ring_rng(key, me, need_shifts=me == 0, **kw)
-             for me in range(mesh.size)]
-    if len(plans) == 1:
-        return plans[0]
-    first = plans[0]
-
-    def cat(field):
-        parts = [getattr(p, field) for p in plans]
-        return torch.cat(parts) if parts[0].numel() else parts[0]
-
-    return first._replace(
-        thin_u=cat("thin_u"), probe_u=cat("probe_u"), ack_u=cat("ack_u"),
-        gossip_u=tuple(torch.cat([p.gossip_u[j] for p in plans])
-                       for j in range(len(first.gossip_u))))
-
-
 def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     """``step(state, t, key, plan) -> (state, SparseTickEvents)``: the JAX
-    ``make_ring_sharded_step`` under warm join and the legacy exchange,
-    on every shard of ``mesh`` at once."""
+    ``make_ring_sharded_step`` (``cold_join`` under JOIN_MODE staggered
+    or batch) with the legacy exchange, on every shard of ``mesh`` at
+    once."""
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
+    intro = INTRODUCER_INDEX
     d = mesh.size
     n_local = mesh.rows_per_shard(n)
     k_max = min(cfg.fanout, s)
@@ -184,7 +175,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     fail_ids = cfg.fail_ids if want_agg else ()
     rng_kw = dict(n=n, n_local=n_local, s=s, g=g, k_max=k_max,
                   p_cnt=max(p_cnt, 0), seed_rows=min(cfg.seed_cap, n),
-                  use_drop=use_drop, cold_join=False)
+                  use_drop=use_drop, cold_join=cfg.cold_join)
 
     def total(x):
         return mesh.psum(mesh.shard_sums(x))
@@ -203,20 +194,15 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             raise ValueError("ticks start at 0")
         dev = state.view.device
         rows = torch.arange(n, dtype=I64, device=dev)   # global row ids
-        rng = _mesh_rng(key, mesh, device=dev, **rng_kw)
+        rng = sharded_ring_rng(key, range(d), device=dev, **rng_kw)
         coins = use_drop and plan.drop_active(t)
 
-        # ---- warm join: every start tick is -1, the control plane inert
-        recv_mask = state.started & ~state.failed
+        # ---- join control plane (inert under warm join), self refresh
+        jp = join_plane(cfg, state, t, plan, rows,
+                        ~(rng.ctrl_u.reshape(2, n) < p_drop)
+                        if coins and cfg.cold_join else None)
+        recv_mask, act, recv_tick = jp.recv_mask, jp.act, jp.recv_tick
         rcol = recv_mask[:, None]
-        recv_tick = torch.where(recv_mask, state.pending_recv, 0)
-        pending_recv = torch.where(recv_mask, 0, state.pending_recv)
-
-        # ---- self refresh vectors ----
-        act = state.started & ~state.failed & state.in_group
-        self_hb = torch.where(act, state.self_hb + 2, state.self_hb)
-        self_val = to_bits(pack_u(
-            cfg, torch.where(act, state.self_hb + 1, 0), rows))
 
         # ---- ack candidates (probes issued at t-2): one all_gather of
         # the packed probe table, one gather on [id2, tgt1] ----
@@ -248,7 +234,10 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         (view, view_ts, mail, join_mask, rm_ids, numfailed,
          size) = receive_fused(n, s, cfg.tfail, cfg.tremove, STRIDE, t,
                                state.view, state.view_ts, state.mail,
-                               cand_full, recv_mask, act, act, self_val)
+                               cand_full, recv_mask, act, jp.self_on,
+                               jp.self_val)
+        if cfg.cold_join:
+            mail = joinreq_to_intro(cfg, mail, jp.joiner_req, rows)
         present = view != 0
         cur_id = torch.where(present, member_of(view, n), EMPTY)
         difft = t - view_ts
@@ -257,6 +246,10 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         numpotential = size - 1 - numfailed
         fresh = present & (difft < cfg.tfail)
         k_eff = numpotential.clamp(max=cfg.fanout).clamp_min(0)
+        if cfg.cold_join:
+            # Seeded joiners take gossip slots on the introducer's row.
+            k_eff = (k_eff - torch.where((rows == intro) & act, jp.n_seeds,
+                                         0)).clamp_min(0)
         if g >= s:
             keep = fresh
         else:
@@ -294,7 +287,18 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             mail = gossip_fused_stacked(n_local, s, k_max, single_col, mail,
                                         payloads, c.to(I32), s1, s2)
             del payloads
-        sent_tick = sent_gossip
+        sent_tick = sent_gossip + jp.sent_req + jp.sent_rep
+        if cfg.cold_join:
+            # The introducer's burst (its row broadcast, delivered by each
+            # seed's owner), with the replicated burst coins.
+            cap = min(cfg.seed_cap, n)
+            mail, seed_idx, seed_valid, burst_valid = seed_burst(
+                cfg, mail, view, fresh[intro], jp.seeds, act[intro],
+                (rng.burst_u.reshape(cap, s) < p_drop) if coins else None)
+            sent_tick = sent_tick + torch.where(
+                (rows == intro) & act, burst_valid.sum(dtype=I32), 0)
+            recv_add.index_add_(0, seed_idx, burst_valid.sum(1, dtype=I32)
+                                * seed_valid.to(I32))
 
         # ---- SWIM round-robin probing (K3; row-local, global ids) ----
         probe_ids1, probe_ids2 = state.probe_ids1, state.probe_ids2
@@ -328,7 +332,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 sent_ack = (v1 & _gathered_act(probe_bits1)).sum(1, dtype=I32)
             sent_tick = sent_tick + sent_probes + sent_ack
             recv_add = recv_add + recv_probe + ack_recv_cnt
-        pending_recv = pending_recv + recv_add
+        pending_recv = jp.pending_recv + recv_add
 
         failed = (state.failed | plan.fail_mask if t == plan.fail_time
                   else state.failed)
@@ -360,9 +364,9 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             out = SparseTickEvents(total(join_mask), total(rm_cnt),
                                    total(sent_tick), total(recv_tick))
         new_state = ShardedHashState(
-            view, view_ts, state.started, state.in_group, failed, self_hb,
-            mail, state.amail, state.pmail, state.joinreq_infl,
-            state.joinrep_infl, pending_recv, agg, probe_ids1, probe_ids2,
+            view, view_ts, jp.started, jp.in_group, failed, jp.self_hb,
+            mail, state.amail, state.pmail, jp.joinreq_infl,
+            jp.joinrep_infl, pending_recv, agg, probe_ids1, probe_ids2,
             act_prev)
         return new_state, out
 
@@ -390,9 +394,6 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
     """``tpu_hash.make_config`` plus the JAX ``sharded_config`` gates of
     the natural layout (same messages), and the refusals of what the
     port's sharded step does not run yet."""
-    if params.JOIN_MODE != "warm":
-        _refuse(f"JOIN_MODE {params.JOIN_MODE} (cold joins)",
-                "Queue 1 item 3")
     if params.resolved_exchange() != "ring":
         _refuse("the scatter exchange on tpu_hash_sharded "
                 "(make_sharded_step)", "Queue 1 item 6c")
@@ -440,8 +441,9 @@ def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
     total = params.TOTAL_TIME
     params.validate_sparse_packing(total)
     plan_t = plan_tensors(params, plan, seed, total, mesh.device)
-    state = init_local_state_warm(cfg, mesh,
-                                  make_run_key(params, seed ^ 0x5EED))
+    state = (init_local_state(cfg, mesh) if cfg.cold_join
+             else init_local_state_warm(cfg, mesh,
+                                        make_run_key(params, seed ^ 0x5EED)))
     state, events = run_ticks(make_ring_sharded_step(cfg, mesh), state,
                               plan_t, total, collect_events, cfg.n)
     if not collect_events:

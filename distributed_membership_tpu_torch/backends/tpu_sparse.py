@@ -46,9 +46,13 @@ def compact_tick(t: int, ids: torch.Tensor) -> np.ndarray:
 
 
 def events_to_log(params, plan, events: CompactEvents, log) -> None:
-    """Reconstruct dbg.log from the compacted events (warm join: every
-    node starts in the group, so no join-control lines are logged)."""
+    """Reconstruct dbg.log from the compacted events (the JAX
+    ``events_to_log``).  Cold joins add each node's start line in
+    descending index order and the introducer's ``@@time`` line every 500
+    ticks; under warm join every node starts in the group, so neither is
+    logged."""
     n = params.EN_GPSZ
+    starts = [params.start_tick(i) for i in range(n)]
     for i in range(n):
         log.log(i + 1, 0, "APP")
     join_by_tick: dict = {}
@@ -57,11 +61,22 @@ def events_to_log(params, plan, events: CompactEvents, log) -> None:
     remove_by_tick: dict = {}
     for t, i, j in events.removes:
         remove_by_tick.setdefault(int(t), []).append((int(i), int(j)))
+    intro_failed = (plan.fail_time is not None
+                    and INTRODUCER_INDEX in plan.failed_indices)
+    warm = params.JOIN_MODE == "warm"
     for t in range(events.total):
+        if not warm:
+            for i in range(n - 1, -1, -1):
+                if starts[i] == t:
+                    log.log(i + 1, t, "Starting up group..."
+                            if i == INTRODUCER_INDEX else "Trying to join...")
         for i, j in join_by_tick.get(t, ()):
             log.node_add(i + 1, j + 1, t)
         for i, j in remove_by_tick.get(t, ()):
             log.node_remove(i + 1, j + 1, t)
+        if (not warm and t % 500 == 0 and t > starts[INTRODUCER_INDEX]
+                and not (intro_failed and t > plan.fail_time)):
+            log.log(INTRODUCER_INDEX + 1, t, f"@@time={t}")
         if plan.fail_time == t:
             log_failures(plan, log, t)
 

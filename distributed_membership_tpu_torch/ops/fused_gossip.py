@@ -36,14 +36,18 @@ import torch
 from distributed_membership_tpu_torch import kernels
 from distributed_membership_tpu_torch.ops.view_merge import STRIDE, umax
 
+# The widest row the tiled body takes: one 128-slot-aligned row per 16 KiB
+# tile (csrc/gossip_tile.cuh).
+MAX_TILE_S = 4096
+
 
 def _require_tiles(name: str, s: int, *planes) -> None:
     """What K2 and K4 take on the tiled CUDA body (csrc/gossip_tile.cuh):
     whole 128-slot rows, at most one row per 16 KiB tile, fewer than 2^31
     rows, and planes its bulk copies can address (16-byte aligned)."""
-    kernels.require(s % 128 == 0 and s <= 4096,
+    kernels.require(s % 128 == 0 and s <= MAX_TILE_S,
                     f"{name}: the CUDA kernel takes S % 128 == 0 and "
-                    f"S <= 4096 (got S={s})")
+                    f"S <= {MAX_TILE_S} (got S={s})")
     kernels.require(planes[0].shape[0] < 2**31,
                     f"{name}: the CUDA kernel takes fewer than 2^31 rows")
     kernels.require(all(p.data_ptr() % 16 == 0 for p in planes

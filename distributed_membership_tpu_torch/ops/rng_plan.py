@@ -13,7 +13,9 @@ Drop coins are kept as float32 uniforms: ``bernoulli(k, p)`` is
 
 The sharded ring step draws per shard (:func:`sharded_ring_rng`): its
 per-shard streams, concatenated in shard order, are the flat draws the
-step reads on the ``[N, ...]`` layout.
+step reads on the ``[N, ...]`` layout.  Each stream is drawn for every
+shard in one pass (``uniform_keys``), as the JAX package's batched mode
+vmaps same-size draws.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from distributed_membership_tpu_torch.ops.threefry import (
-    Key, fold_in, randint, split, uniform)
+    Key, fold_in, randint, split, uniform, uniform_keys)
 
 
 class RingRng(NamedTuple):
@@ -70,36 +72,37 @@ def hash_ring_rng(key: Key, *, n: int, s: int, g: int, k_max: int,
     )
 
 
-def sharded_ring_rng(key: Key, me: int, *, n: int, n_local: int, s: int,
-                     g: int, k_max: int, p_cnt: int, seed_rows: int,
-                     use_drop: bool, cold_join: bool, device,
-                     need_shifts: bool = True) -> RingRng:
-    """One shard's plan for the sharded ring step (JAX
-    ``sharded_ring_rng``): the per-shard streams come from
-    ``split(fold_in(key, me), 4)`` as ``(k_entries, k_probe_drop, k_ack2,
-    k_dropg)`` and are drawn over the shard's ``L = n_local`` rows; the
-    replicated ones from the tick key: the gossip shifts at ``fold_in(key,
-    0x517F)``, drawn in ``[1, N)``, and with ``cold_join`` the control and
-    burst coins at ``0xC281`` and ``0xB125``.  The shifts are the same on
-    every shard, so a caller drawing shard after shard may skip them
-    (``need_shifts=False`` leaves ``shift_draw`` empty)."""
-    k_entries, k_probe_drop, k_ack2, k_dropg = split(fold_in(key, me), 4)
+def sharded_ring_rng(key: Key, shards: range, *, n: int, n_local: int,
+                     s: int, g: int, k_max: int, p_cnt: int, seed_rows: int,
+                     use_drop: bool, cold_join: bool, device) -> RingRng:
+    """The plan of the shards ``shards`` for the sharded ring step (JAX
+    ``sharded_ring_rng``, shard by shard, concatenated in shard order):
+    shard ``me``'s streams come from ``split(fold_in(key, me), 4)`` as
+    ``(k_entries, k_probe_drop, k_ack2, k_dropg)`` and are drawn over its
+    ``L = n_local`` rows; the replicated ones, drawn once, from the tick
+    key: the gossip shifts at ``fold_in(key, 0x517F)``, drawn in ``[1,
+    N)``, and with ``cold_join`` the control and burst coins at
+    ``0xC281`` and ``0xB125``."""
+    per = [split(fold_in(key, me), 4) for me in shards]
     empty = torch.zeros((0,), dtype=torch.float32, device=device)
-    shift_draw = (randint(fold_in(key, 0x517F), (k_max,), 1, max(n, 2),
-                          device) if need_shifts
-                  else torch.zeros((0,), dtype=torch.int32, device=device))
-    thin_u = uniform(k_entries, (n_local * s,), device) if g < s else empty
+
+    def draw(stream: int, numel: int, j=None):
+        return uniform_keys([k[stream] if j is None else fold_in(k[stream], j)
+                             for k in per], numel, device)
+
+    shift_draw = randint(fold_in(key, 0x517F), (k_max,), 1, max(n, 2),
+                         device)
+    thin_u = draw(0, n_local * s) if g < s else empty
     if not use_drop:
         return RingRng(shift_draw, thin_u, (), empty, empty, empty, empty)
     probe_u = ack_u = empty
     if p_cnt > 0:
-        probe_u = uniform(k_probe_drop, (n_local * p_cnt,), device)
-        ack_u = uniform(k_ack2, (n_local * p_cnt,), device)
+        probe_u = draw(1, n_local * p_cnt)
+        ack_u = draw(2, n_local * p_cnt)
     return RingRng(
         shift_draw=shift_draw,
         thin_u=thin_u,
-        gossip_u=tuple(uniform(fold_in(k_dropg, j), (n_local * s,), device)
-                       for j in range(k_max)),
+        gossip_u=tuple(draw(3, n_local * s, j) for j in range(k_max)),
         ctrl_u=(uniform(fold_in(key, 0xC281), (2 * n,), device) if cold_join
                 else empty),
         burst_u=(uniform(fold_in(key, 0xB125), (seed_rows * s,), device)

@@ -15,7 +15,11 @@ device.  Bulk draws (``random_bits``, ``uniform``, ``randint``) run on
 masked by ``& 0xFFFFFFFF`` (CPU PyTorch has no u32 arithmetic).
 
 The round function is written once with plain operators, so the same
-code hashes Python ints and int64 tensors.
+code hashes Python ints and int64 tensors, keys included: one pass over
+a ``[K, numel]`` counter grid with a ``[K, 1]`` key column draws K keys'
+streams at once (``uniform_keys``, the JAX package's vmapped draws).
+Element ``i`` of a draw depends on ``i`` and the key only, so a draw can
+also be taken at chosen elements (``uniform_at``).
 """
 
 from __future__ import annotations
@@ -86,16 +90,50 @@ def random_bits(key: Key, numel: int, device) -> torch.Tensor:
     if numel >= 1 << 32:
         raise ValueError(f"draw of {numel} elements exceeds the u32 count")
     lo = torch.arange(numel, dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return _bits_at(key[0], key[1], lo)
+
+
+def _bits_at(k0, k1, lo: torch.Tensor) -> torch.Tensor:
+    """The bits of elements ``lo`` (< 2^32, so the count's high word is
+    0) under the key words ``k0``/``k1`` (ints, or tensors broadcasting
+    against ``lo``)."""
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return b0.bitwise_xor_(b1)
 
 
-def uniform(key: Key, shape, device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top
-    23 bits become the mantissa of a float in [1, 2), minus 1."""
-    bits = random_bits(key, math.prod(shape), device)
+def _unit(bits: torch.Tensor) -> torch.Tensor:
+    """u32 bits -> float32 on [0, 1): the top 23 bits become the mantissa
+    of a float in [1, 2), minus 1 (``jax.random.uniform``)."""
     bits = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
-    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: Key, shape, device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 on [0, 1)."""
+    return _unit(random_bits(key, math.prod(shape), device)).reshape(shape)
+
+
+def uniform_at(key: Key, idx: torch.Tensor) -> torch.Tensor:
+    """Elements ``idx`` (int64, any shape, each < 2^32) of the flat draw
+    ``uniform(key, ...)``, on ``idx``'s device."""
+    return _unit(_bits_at(key[0], key[1], idx))
+
+
+def uniform_keys(keys, numel: int, device) -> torch.Tensor:
+    """``torch.cat([uniform(k, (numel,)) for k in keys])`` in one pass
+    over a ``[len(keys), numel]`` grid.  The key words reach the device
+    as fills, so nothing is copied from the host."""
+    if len(keys) == 1:
+        return uniform(keys[0], (numel,), device)
+    if numel >= 1 << 32:
+        raise ValueError(f"draw of {numel} elements exceeds the u32 count")
+
+    def column(word):
+        return torch.stack([torch.full((), k[word], dtype=torch.int64,
+                                       device=device) for k in keys])[:, None]
+
+    lo = torch.arange(numel, dtype=torch.int64, device=device)[None, :]
+    return _unit(_bits_at(column(0), column(1), lo)).reshape(-1)
 
 
 def randint(key: Key, shape, minval: int, maxval: int, device) -> torch.Tensor:

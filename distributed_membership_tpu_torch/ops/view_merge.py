@@ -35,3 +35,24 @@ def member_of(bits: torch.Tensor, n: int) -> torch.Tensor:
     """``(packed - 1) % n`` in u32 arithmetic (0 - 1 wraps to 2^32 - 1),
     as int64."""
     return ((as_u32(bits) - 1) & M32) % n
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """The JAX ``mix32`` (lowbias32-style finalizer) on int64 tensors
+    holding u32 values; every product is taken mod 2^32."""
+    x = x & M32
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & M32
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & M32
+    return x ^ (x >> 16)
+
+
+def hash_slot(msg_id: torch.Tensor, salt: int, qsz: int,
+              n_pad: int) -> torch.Tensor:
+    """Per-receiver mailbox slot for a message about ``msg_id`` (int64,
+    non-negative), as the JAX ``hash_slot``: ``(id + salt) % qsz`` when
+    ``qsz >= n_pad`` (injective), else the :func:`mix32` of ``id + 0x9E3779B9
+    * salt`` in u32 arithmetic, mod ``qsz``."""
+    if qsz >= n_pad:
+        return (msg_id + salt) % qsz
+    salted = (msg_id + ((0x9E3779B9 * (salt & M32)) & M32)) & M32
+    return mix32(salted) % qsz

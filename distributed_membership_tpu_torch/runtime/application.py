@@ -4,21 +4,36 @@
 The run's device is explicit.  The default is ``cuda``: without a GPU
 the run raises rather than quietly running on the CPU; ``--device cpu``
 runs the plain versions of the kernels.
+
+``--grade-all`` runs the reference's three grading scenarios
+(``testcases/``) and prints the /90 total, as Grader_verbose.sh does;
+``--grade SCENARIO`` grades one run.  The testcases name the reference's
+``emul`` backend, which the port does not have (ROADMAP.md Queue 1 item
+11), so ``--grade-all`` runs ``tpu_hash`` unless ``--backend`` says
+otherwise.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 
 import torch
 
 from distributed_membership_tpu_torch.backends import RunResult, get_backend
 from distributed_membership_tpu_torch.config import Params
 from distributed_membership_tpu_torch.eventlog import EventLog
+from distributed_membership_tpu_torch.grader import SCENARIO_GRADERS
 from distributed_membership_tpu_torch.observability.metrics import (
     write_msgcount)
+
+SCENARIOS = ("singlefailure", "multifailure", "msgdropsinglefailure")
+SCENARIO_TITLES = ("Single Failure Scenario", "Multi Failure Scenario",
+                   "Message Drop Single Failure Scenario")
+GRADE_BACKEND = "tpu_hash"
 
 
 def resolve_device(device) -> torch.device:
@@ -34,9 +49,14 @@ def resolve_device(device) -> torch.device:
 
 
 def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
-             device="cuda") -> RunResult:
+             device="cuda", backend: str | None = None) -> RunResult:
+    """Run one conf and write its logs; ``backend`` overrides the conf's
+    ``BACKEND`` (validated after the override, as the JAX package does)."""
     dev = resolve_device(device)
-    params = Params.from_file(conf_path)
+    params = Params.from_file(conf_path, validate=False)
+    if backend is not None:
+        params.BACKEND = backend
+    params.validate()
     log = EventLog(out_dir)
     result = get_backend(params.BACKEND)(params, log, seed=seed, device=dev)
     result.log.flush(out_dir)
@@ -45,22 +65,106 @@ def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
     return result
 
 
-def main(argv=None) -> int:
+def default_testcases_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "testcases")
+
+
+def run_scenario_graded(scenario: str, testdir: str, backend, seed,
+                        out_dir: str, device="cuda"):
+    """Run one grading scenario and grade its dbg.log."""
+    result = run_conf(os.path.join(testdir, f"{scenario}.conf"), seed=seed,
+                      out_dir=out_dir, device=device, backend=backend)
+    grade = SCENARIO_GRADERS[scenario](result.log.dbg_text(),
+                                       result.params.EN_GPSZ)
+    return result, grade
+
+
+def grade_all(args, results: list | None = None) -> int:
+    """Run the three grading scenarios and print the /90 total
+    (Grader_verbose.sh:27-196's build-run-score loop); 0 iff it is 90.
+    ``results``, where given, receives each scenario's ``(RunResult,
+    ScenarioResult)``."""
+    testdir = args.testcases or default_testcases_dir()
+    backend = args.backend or GRADE_BACKEND
+    total = 0
+    print("============================================")
+    print("Grading Started")
+    print("============================================")
+    for scenario, title in zip(SCENARIOS, SCENARIO_TITLES):
+        print(title)
+        print("============================")
+        if args.out_dir is None:
+            with tempfile.TemporaryDirectory() as tmp:
+                res, g = run_scenario_graded(scenario, testdir, backend,
+                                             args.seed, tmp, args.device)
+        else:
+            res, g = run_scenario_graded(
+                scenario, testdir, backend, args.seed,
+                os.path.join(args.out_dir, scenario), args.device)
+        if results is not None:
+            results.append((res, g))
+        print(f"Checking Join.................."
+              f"{g.join_pts}/{g.join_max}")
+        print(f"Checking Completeness.........."
+              f"{g.completeness_pts}/{g.completeness_max}")
+        if g.accuracy_max:
+            print(f"Checking Accuracy.............."
+                  f"{g.accuracy_pts}/{g.accuracy_max}")
+        print("============================================")
+        total += g.points
+    print(f"Final grade {total}")
+    return 0 if total == 90 else 1
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m distributed_membership_tpu_torch",
         description="Gossip membership simulator, PyTorch/CUDA port "
-                    "(tpu_hash ring exchange, warm join)")
-    ap.add_argument("conf", help="testcase .conf file")
+                    "(tpu_hash and tpu_hash_sharded)")
+    ap.add_argument("conf", nargs="?", default=None,
+                    help="testcase .conf file; omit with --grade-all")
+    ap.add_argument("--backend", default=None,
+                    help="override BACKEND from the conf (the port runs "
+                         "tpu_hash and tpu_hash_sharded); --grade-all "
+                         f"defaults to {GRADE_BACKEND}, because the "
+                         "testcases' default emul is not ported (ROADMAP.md "
+                         "Queue 1 item 11)")
+    ap.add_argument("--grade-all", action="store_true",
+                    help="run all three grading scenarios and print the /90 "
+                         "total (Grader_verbose.sh's build-run-score loop); "
+                         "exit code 0 iff the grade is 90")
+    ap.add_argument("--grade", metavar="SCENARIO", default=None,
+                    choices=sorted(SCENARIO_GRADERS),
+                    help="grade the run with the grading oracle; exit code "
+                         "0 iff it passes")
+    ap.add_argument("--testcases", default=None,
+                    help="directory holding the three scenario .conf files "
+                         "(default: testcases/ at the repo root)")
     ap.add_argument("--seed", type=int, default=None)
-    ap.add_argument("--out-dir", default=".")
+    ap.add_argument("--out-dir", default=None,
+                    help="directory for the logs (default: the current "
+                         "directory; with --grade-all, one subdirectory "
+                         "per scenario, and none kept when omitted)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the GPU with the CUDA kernels (default) "
                          "or on the CPU with their plain versions")
     ap.add_argument("--json", action="store_true",
                     help="print a JSON summary line")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = parser()
     args = ap.parse_args(argv)
-    result = run_conf(args.conf, seed=args.seed, out_dir=args.out_dir,
-                      device=args.device)
+    if args.grade_all:
+        resolve_device(args.device)
+        return grade_all(args)
+    if args.conf is None:
+        ap.error("conf is required unless --grade-all is given")
+    result = run_conf(args.conf, seed=args.seed,
+                      out_dir=args.out_dir or ".", device=args.device,
+                      backend=args.backend)
     p = result.params
     summary = {
         "backend": p.BACKEND,
@@ -75,12 +179,20 @@ def main(argv=None) -> int:
     }
     if "detection_summary" in result.extra:
         summary["detection"] = result.extra["detection_summary"]
+    g = None
+    if args.grade:
+        g = SCENARIO_GRADERS[args.grade](result.log.dbg_text(),
+                                         result.params.EN_GPSZ)
+        summary["grade"] = {"points": g.points, "max": g.max_points,
+                            "join": g.join_ok,
+                            "completeness": g.completeness_pts,
+                            "accuracy": g.accuracy_pts}
     if args.json:
         print(json.dumps(summary))
     else:
         for k, v in summary.items():
             print(f"{k}: {v}")
-    return 0
+    return 1 if g is not None and not g.passed else 0
 
 
 if __name__ == "__main__":

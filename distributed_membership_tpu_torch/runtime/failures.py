@@ -73,6 +73,7 @@ class PlanTensors:
     loop branches on them without a device sync); ``fail_mask`` lives on
     the run's device."""
     root: threefry.Key
+    start_ticks: torch.Tensor    # [N] int32 tick each node starts, -1 warm
     fail_mask: torch.Tensor      # [N] bool
     fail_time: int               # -1 = never
     drop_lo: int
@@ -96,6 +97,8 @@ def plan_tensors(params: Params, plan: FailurePlan, seed: int, total: int,
         fail_time = plan.fail_time
     return PlanTensors(
         root=make_run_key(params, seed),
+        start_ticks=torch.tensor([params.start_tick(i) for i in range(n)],
+                                 dtype=torch.int32, device=device),
         fail_mask=fail_mask.to(device),
         fail_time=fail_time,
         drop_lo=(plan.drop_start if plan.drop_start is not None

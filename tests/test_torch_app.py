@@ -102,6 +102,8 @@ def test_port_imports_no_jax():
     """Neither the port nor chip_smoke.py imports JAX or any module of
     the JAX package: statically (every import statement, including those
     inside functions) and at run time (a fresh interpreter)."""
+    assert {PKG / "grader.py", PKG / "ops" / "sampling.py",
+            PKG / "runtime" / "application.py"} <= set(_port_sources())
     for path in _port_sources():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -158,7 +160,7 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    "JOIN_MODE: staggered\n", "EXCHANGE: scatter\n", "SHIFT_SET: 4\n", "ENFORCE_BUFFSIZE: 1\n", "CHECKPOINT_EVERY: 10\n",
+    "SHIFT_SET: 4\n", "ENFORCE_BUFFSIZE: 1\n", "CHECKPOINT_EVERY: 10\n",
     "MEGA_TICKS: 4\n", "TELEMETRY: scalars\n", "RNG_MODE: hoisted\n",
     "PROBE_IO: approx_lag\n", "PROBE_IO: none\n"])
 def test_outside_the_slice_is_refused(extra):
@@ -225,6 +227,21 @@ def test_folded_auto_resolution():
     # refuse the view size, naming why FOLDED does not apply.
     with pytest.raises(NotImplementedError, match="FOLDED requires agg"):
         make_config(p, True, device="cuda")
+
+
+def test_wide_views_refused_on_cuda():
+    """K2 and K4 take rows of at most 4096 slots on the card: a natural
+    ring conf past that is refused at make_config, naming its queue item,
+    not at the first gossip launch.  The CPU runs the plain versions."""
+    base = _RING.format(n=64, drop=0, p=0, total=10, fail=5).replace(
+        "PROBES: 16", "PROBES: 0")
+    wide = Params.from_text(base.replace("VIEW_SIZE: 128", "VIEW_SIZE: 4224"))
+    with pytest.raises(NotImplementedError,
+                       match=r"VIEW_SIZE 4224 on CUDA.*Queue 1 item 9"):
+        make_config(wide, device="cuda")
+    assert make_config(wide, device="cpu").s == 4224
+    assert make_config(Params.from_text(base.replace(
+        "VIEW_SIZE: 128", "VIEW_SIZE: 4096")), device="cuda").s == 4096
 
 
 def test_refusals_on_the_card_and_off():

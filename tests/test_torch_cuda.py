@@ -427,3 +427,52 @@ def test_sharded_run_on_card_matches_cpu(cuda, tmp_path):
     for name in ("dbg.log", "stats.log", "msgcount.log"):
         assert ((tmp_path / "cuda" / name).read_bytes()
                 == (tmp_path / "cpu" / name).read_bytes()), name
+
+
+# ---------------------------------------------------------------------------
+# The grader regime on the card: the scatter exchange (no kernel) and cold
+# joins on the ring (K1-K3).
+
+@pytest.mark.cuda
+def test_grade_all_on_card_matches_cpu(cuda, tmp_path, capsys):
+    """--grade-all on the card grades 90 and writes the CPU run's logs;
+    the scatter step launches no kernel."""
+    from distributed_membership_tpu_torch.runtime import application
+
+    kernels.reset_launches()
+    assert application.main(["--grade-all", "--seed", "3", "--out-dir",
+                             str(tmp_path / "cuda")]) == 0
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert application.main(["--grade-all", "--device", "cpu", "--seed",
+                             "3", "--out-dir", str(tmp_path / "cpu")]) == 0
+    assert capsys.readouterr().out.count("Final grade 90") == 2
+    for scenario in ("singlefailure", "multifailure",
+                     "msgdropsinglefailure"):
+        for name in ("dbg.log", "stats.log", "msgcount.log"):
+            assert ((tmp_path / "cuda" / scenario / name).read_bytes()
+                    == (tmp_path / "cpu" / scenario / name).read_bytes()), (
+                        scenario, name)
+
+
+@pytest.mark.cuda
+def test_cold_join_ring_on_card_matches_cpu(cuda, tmp_path):
+    """Staggered joins on the N=256, S=128 ring with 5% drops: K1, K2's
+    masks form and K3 once per tick, and the CPU run's logs."""
+    import pathlib
+
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = str(pathlib.Path(__file__).resolve().parent.parent
+               / "distributed_membership_tpu_torch" / "confs"
+               / "ring_256_s128_staggered_drop.conf")
+    kernels.reset_launches()
+    res = run_conf(conf, out_dir=str(tmp_path / "cuda"), device="cuda")
+    ticks = res.params.TOTAL_TIME
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive": ticks, "gossip_masks": ticks, "probe": ticks}
+    assert res.extra["final_state"].view.is_cuda
+    run_conf(conf, out_dir=str(tmp_path / "cpu"), device="cpu")
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "cuda" / name).read_bytes()
+                == (tmp_path / "cpu" / name).read_bytes()), name

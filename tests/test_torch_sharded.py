@@ -275,7 +275,7 @@ def test_sharded_ring_rng_matches_jax(me, use_drop, cold):
     kw = dict(n=256, n_local=32, s=S, g=32, k_max=3, p_cnt=16, seed_rows=8,
               use_drop=use_drop, cold_join=cold)
     want = jax_rng_plan.sharded_ring_rng(jk, me, **kw)
-    got = sharded_ring_rng(_key(jk), me, device="cpu", **kw)
+    got = sharded_ring_rng(_key(jk), range(me, me + 1), device="cpu", **kw)
     _eq(got.shift_draw, want.shift_draw, "shift_draw")
     for name in ("thin_u", "ctrl_u", "burst_u", "probe_u", "ack_u"):
         w = np.asarray(getattr(want, name))
@@ -285,10 +285,18 @@ def test_sharded_ring_rng_matches_jax(me, use_drop, cold):
     for j, g in enumerate(got.gossip_u):
         _eq(g.numpy().view(np.uint32),
             np.asarray(want.gossip_u[j]).view(np.uint32), f"gossip_u[{j}]")
-    rest = sharded_ring_rng(_key(jk), me, device="cpu", need_shifts=False,
-                            **kw)
-    assert rest.shift_draw.numel() == 0
-    assert torch.equal(rest.thin_u, got.thin_u)
+    # Every shard of the mesh at once: the per-shard streams in shard
+    # order, the replicated ones once.
+    mesh_plan = sharded_ring_rng(_key(jk), range(8), device="cpu", **kw)
+    ones = [sharded_ring_rng(_key(jk), range(d, d + 1), device="cpu", **kw)
+            for d in range(8)]
+    for name in ("thin_u", "probe_u", "ack_u"):
+        assert torch.equal(getattr(mesh_plan, name),
+                           torch.cat([getattr(o, name) for o in ones])), name
+    for j, g in enumerate(mesh_plan.gossip_u):
+        assert torch.equal(g, torch.cat([o.gossip_u[j] for o in ones]))
+    for name in ("shift_draw", "ctrl_u", "burst_u"):
+        assert torch.equal(getattr(mesh_plan, name), getattr(got, name))
 
 
 @pytest.mark.parametrize("shape", [(8,), (2, 4)])
@@ -536,7 +544,6 @@ _REF = _BASE.format(n=64, tremove=40, mesh=8) + _NODROP
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("JOIN_MODE: staggered\n", "Queue 1 item 3"),
     ("EXCHANGE: scatter\n", "Queue 1 item 6c"),
     ("EXCHANGE_MODE: batched\n", "Queue 1 item 6c"),
     ("PROBE_GATHER: split\n", "Queue 1 item 6c"),
