@@ -51,18 +51,41 @@ Phases (any failure exits non-zero before the final line):
                 K3 once per tick) and its sharded twin on eight shards (K1,
                 K4, K3 once per tick), each on the card and on the CPU:
                 byte-identical logs.
+ 15. sharded_folded -- run_conf on confs/ring_1m_s16_folded_sharded.conf (the
+                S=16 geometry at N=2^20 on tpu_hash_sharded, one shard,
+                FOLDED: 1, drop-free, 160 ticks): K5-K7 once per tick, no
+                false removal, at least one detection;
+ 16. sharded_folded_lossy -- confs/ring_1m_s16_folded_sharded8_drop.conf:
+                eight shards, 5% drops, 64 ticks, TELEMETRY hist: K5, K6
+                (one eight-shard launch) and K7's hist form once per tick,
+                and the timeline reconciles with the detection summary;
+ 17. sharded_folded_parity -- confs/ring_16k_s16_folded_sharded8_drop.conf
+                (N=2^14, eight shards, 5% drops, TELEMETRY hist) on the card
+                and on the CPU: the summary, every final-state leaf and
+                every timeline series identical;
+ 18. telemetry -- confs/ring_1m_s128_hist.conf (the main path's geometry
+                with TELEMETRY hist, 96 ticks, crash at tick 24): K3's hist
+                form once per tick, the timeline reconciles with the
+                summary; then confs/ring_256_s128_drop.conf with TELEMETRY
+                hist on the card against the CPU: its logs equal the CPU's
+                with TELEMETRY off, its timeline the CPU's with hist.
 Phase 2 also holds K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
-not a multiple of 128 (two column alignments, per-shard shifts), and
-times K3 a second time on a removal plane like a tick's (all -1 but 64
-removals).  For the gossip kernels K2, K4 and K6 its log lines also give
-the bytes the tiled design moves (the payload once per shift) and the
-rate achieved on them.
+not a multiple of 128 (two column alignments, per-shard shifts); K6 on
+eight shards of 2^17 nodes in one launch, and on short shards at S=2 and
+S=4 (one to eight plane rows each); and times K3 a second time on a
+removal plane like a tick's (all -1 but 64 removals), and K3 and K7 in
+the form the TELEMETRY hist paths run (hist and agg partials at once).
+For the gossip kernels K2, K4 and K6 its log lines also give the bytes
+the tiled design moves (the payload once per shift) and the rate
+achieved on them.
 Then it prints one JSON line of kernel numbers, the card's name and power
 limit, and last {"ok": true, "device": {...}}.  `--only build,kernels`
 runs a subset of the phases and prints no final line; `--only profile`
-splits one tick of each 1M conf into its RNG draw, kernels and the rest
-and prints a torch.profiler summary with the device's busy share.  Run
+splits one tick of each 1M conf into its RNG draw, kernels and the rest,
+prints a torch.profiler summary with the device's busy share and the
+device span of each protocol phase (the dm_* record_function ranges),
+and times the 1M natural tick with TELEMETRY hist against off.  Run
 outputs (logs, profiler tables) go to --out-dir (default smoke_out/).
 """
 
@@ -83,7 +106,9 @@ TFAIL, TREMOVE = 16, 40
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "folded_lossy", "folded_parity", "sharded", "sharded_lossy",
-          "sharded_parity", "grade", "scatter_parity", "cold_parity")
+          "sharded_parity", "grade", "scatter_parity", "cold_parity",
+          "sharded_folded", "sharded_folded_lossy", "sharded_folded_parity",
+          "telemetry")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
@@ -321,6 +346,23 @@ def phase_kernels(torch, dev) -> dict:
     p_ms = cuda_ms(lambda: probe_plain(*a), 3)
     record(rows, "probe_window_fused", "probe_sparse", err, k_ms, p_ms,
            moved)
+
+    # The form the TELEMETRY hist path runs: hist and agg partials in one
+    # pass, on the tick-like removal plane.
+    a = (N, S, P, TFAIL, fail_ids, True, True, t, 32, 0, view, view_ts, act,
+         rm_ids)
+    ref, got = probe_plain(*a), probe_window_fused(*a)
+    torch.cuda.synchronize()
+    if set(got) != set(ref):
+        raise AssertionError(f"probe outputs {sorted(got)}")
+    err = max_abs_err((got[k], ref[k]) for k in ref)
+    k_ms = cuda_ms(lambda: probe_window_fused(*a), 20)
+    p_ms = cuda_ms(lambda: probe_plain(*a), 3)
+    # in: view and view_ts (every entry's staleness), act, the rm plane;
+    # out: P ids, 2 x 8 bucket counts and 1 + F counts per row
+    record(rows, "probe_window_fused", "probe_hist", err, k_ms, p_ms,
+           nbytes(view, view_ts, act, rm_ids) + N * P * 4 + N * 2 * 8 * 4
+           + N * 4 * (1 + len(fail_ids)))
     del rm_ids
 
     ref = probe_plain(N, S, P, TFAIL, (), True, False, t, 120, 0, view,
@@ -337,7 +379,7 @@ def phase_kernels(torch, dev) -> dict:
     p_ms = cuda_ms(lambda: probe_plain(
         N, S, P, TFAIL, (), True, False, t, 120, 0, view, view_ts, act,
         None), 3)
-    record(rows, "probe_window_fused", "probe_hist", err, k_ms, p_ms,
+    record(rows, "probe_window_fused", "probe_hist_only", err, k_ms, p_ms,
            nbytes(view, view_ts, act) + N * P * 4 + N * 2 * 8 * 4)
     return rows
 
@@ -439,6 +481,58 @@ def phase_kernels_folded(torch, dev) -> dict:
            2 * nbytes(mail) + K_MAX * nbytes(view) + nbytes(masks))
     del masks, m2
 
+    # ---- K6 on eight shards in one launch (the sharded folded step):
+    # node shifts within a shard, per-shard slot shifts ----
+    d, n_local = 8, N // 8
+    krng = np.random.default_rng(20264)
+    thr = T(np.asarray([n_local - 1, 0, 54321], np.int32))
+    s1 = T(krng.integers(0, FS, size=(d, K_MAX)).astype(np.int32))
+    s2 = T(krng.integers(0, FS, size=(d, K_MAX)).astype(np.int32))
+    payloads = torch.where(
+        T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3), view[None],
+        0)
+    err = 0
+    for single in (True, False):
+        ref = gossip_folded_plain(r, FS, K_MAX, single, mail, payloads, thr,
+                                  s1, s2, n_local=n_local)
+        got = gossip_folded_stacked(r, FS, K_MAX, single, mail.clone(),
+                                    payloads, thr, s1, s2, n_local=n_local)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([(got, ref)]))
+    del ref, got
+    m2 = mail.clone()
+    k_ms = cuda_ms(lambda: gossip_folded_stacked(
+        r, FS, K_MAX, True, m2, payloads, thr, s1, s2, n_local=n_local), 20)
+    p_ms = cuda_ms(lambda: gossip_folded_plain(
+        r, FS, K_MAX, True, mail, payloads, thr, s1, s2, n_local=n_local), 3)
+    record(rows, "gossip_folded_stacked", "gossip_folded_shards", err, k_ms,
+           p_ms, 2 * nbytes(mail) + nbytes(payloads, thr, s1, s2),
+           2 * nbytes(mail) + nbytes(payloads))
+    del payloads, m2
+    # Short shards at S=2 and S=4 (one to eight plane rows each), where
+    # the runs widened to 16-byte bounds reach a shard's edge.
+    err = 0
+    for fs, nl in ((2, 64), (2, 512), (4, 32), (4, 256)):
+        rr = d * nl * fs // 128
+        m = T(packed(krng, d * nl, 0.5, 200, (rr, 128)))
+        pay = T(packed(krng, d * nl, 0.8, 200, (K_MAX, rr, 128)))
+        th = T(np.asarray([nl - 1, 0, 5 % nl], np.int32))
+        a1 = T(krng.integers(0, fs, size=(d, K_MAX)).astype(np.int32))
+        a2 = T(krng.integers(0, fs, size=(d, K_MAX)).astype(np.int32))
+        for single in (True, False):
+            ref = gossip_folded_plain(rr, fs, K_MAX, single, m, pay, th, a1,
+                                      a2, n_local=nl)
+            got = gossip_folded_stacked(rr, fs, K_MAX, single, m.clone(),
+                                        pay, th, a1, a2, n_local=nl)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([(got, ref)]))
+    log(f"kernel gossip_folded_stacked[short_shards]: D={d} S=2,4 "
+        f"max_abs_err={err}")
+    if err != 0:
+        raise AssertionError("gossip_folded_stacked on short shards differs "
+                             "from its plain version")
+    rows["gossip_folded_shards"]["short_shards_max_abs_err"] = err
+
     # ---- K7 probe window: agg partials (the path) and hist ----
     fail_ids = (3, 777777, N - 1)
     rm = np.full(shape, -1, np.int32)
@@ -475,8 +569,15 @@ def phase_kernels_folded(torch, dev) -> dict:
     err, a = probe_err(True, False, FS - 1)
     k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
-    record(rows, "probe_folded_window_fused", "probe_folded_hist", err,
+    record(rows, "probe_folded_window_fused", "probe_folded_hist_only", err,
            k_ms, p_ms, nbytes(view, view_ts, act, view) + r * 2 * 8 * 4)
+    # The form the TELEMETRY hist paths run: hist and agg partials at once.
+    err, a = probe_err(True, True, FS - 1)
+    k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
+    p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
+    record(rows, "probe_folded_window_fused", "probe_folded_hist", err,
+           k_ms, p_ms, nbytes(view, view_ts, act, rm_ids, view) + r * 128
+           + r * 2 * 8 * 4 + r * 4 * (1 + len(fail_ids)))
     return rows
 
 
@@ -578,7 +679,8 @@ def launches_expected(**nonzero) -> dict:
 
 def run_path(torch, conf: str, name: str, expect: dict, out_dir: str) -> dict:
     """Drive run_conf once on the card, with every launch count set to 0
-    just before and read just after."""
+    just before and read just after.  A conf with TELEMETRY must give a
+    timeline that reconciles with its detection summary."""
     from distributed_membership_tpu_torch import kernels
     from distributed_membership_tpu_torch.runtime.application import run_conf
 
@@ -601,10 +703,40 @@ def run_path(torch, conf: str, name: str, expect: dict, out_dir: str) -> dict:
         "detection": {k: v for k, v in det.items()
                       if k != "latency_hist_nonzero"},
     }
+    if "timeline" in result.extra:
+        info["timeline"] = reconcile(name, result)
     log(f"main[{name}]: " + json.dumps(info))
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches} != {expect}")
     return info
+
+
+def reconcile(name: str, result) -> dict:
+    """The per-tick series of a TELEMETRY run against its detection
+    summary: joins, removals, detections and message totals must sum to
+    the summary's, and the hist tier's latency mass to its detections.
+    Returns the series' totals."""
+    series = result.extra["timeline"]
+    det = result.extra["detection_summary"]
+    if series["ticks"] != result.params.TOTAL_TIME:
+        raise AssertionError(f"{name}: timeline has {series['ticks']} ticks")
+    n_det = det.get("detections_total", 0)
+    want = {"joins": det["joins_total"],
+            "removals": det["false_removals"] + n_det,
+            "detections": n_det, "msgs_sent": det["msgs_sent"],
+            "msgs_recv": det["msgs_recv"]}
+    if "h_latency" in series:
+        want["h_latency"] = n_det
+    got = {k: int(series[k].sum()) for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: timeline sums {got} != summary {want}")
+    totals = {k: int(series[k].sum()) for k in
+              ("joins", "removals", "detections", "dropped", "probe_acks",
+               "gossip_rows")}
+    totals["suspected_peak"] = int(series["suspected"].max())
+    log(f"{name}: timeline reconciles with the detection summary: "
+        + json.dumps(totals))
+    return totals
 
 
 def same_logs(a: str, b: str, what: str, need_removal: bool = True) -> None:
@@ -649,6 +781,94 @@ def card_vs_cpu(torch, conf: str, name: str, expect: dict, out_dir: str,
             "card": card}
     log(f"{name}: logs byte-identical, cuda vs cpu; " + json.dumps(info))
     return info
+
+
+def state_parity(torch, conf: str, name: str, out_dir: str,
+                 card: str) -> None:
+    """run_conf of an agg-mode conf on the card and on the CPU: the
+    detection summaries, every leaf of the final states and, under
+    TELEMETRY, every timeline series must be identical."""
+    import numpy as np
+
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    walls, res = {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[d] = run_conf(conf, out_dir=os.path.join(out_dir, f"{name}_{d}"),
+                          device=d)
+        walls[d] = time.perf_counter() - t0
+    summ = {d: r.extra["detection_summary"] for d, r in res.items()}
+    if summ["cuda"] != summ["cpu"]:
+        raise AssertionError(f"{name}: detection summaries differ: {summ}")
+    leaves = {d: state_to_numpy(r.extra["final_state"])
+              for d, r in res.items()}
+    if leaves["cuda"].keys() != leaves["cpu"].keys():
+        raise AssertionError(f"{name}: state leaves differ")
+    for leaf, want in leaves["cpu"].items():
+        got = leaves["cuda"][leaf]
+        if got.shape != want.shape or (got != want).any():
+            raise AssertionError(f"{name}: final state leaf {leaf} differs "
+                                 "between cuda and cpu")
+    if summ["cpu"].get("detections_total", 0) <= 0:
+        raise AssertionError(f"{name}: no detection")
+    what = f"{len(leaves['cpu'])} final-state leaves"
+    if "timeline" in res["cpu"].extra:
+        series = {d: r.extra["timeline"] for d, r in res.items()}
+        if series["cuda"].keys() != series["cpu"].keys() or any(
+                not np.array_equal(series["cuda"][k], series["cpu"][k])
+                for k in series["cpu"]):
+            raise AssertionError(f"{name}: timelines differ between cuda "
+                                 "and cpu")
+        reconcile(name, res["cuda"])
+        what += f", {len(series['cpu'])} timeline series"
+    log(f"{name}: N={res['cpu'].params.EN_GPSZ} detection summary, {what} "
+        f"identical, cuda vs cpu; " + json.dumps(
+            {"wall_s": walls["cuda"], "cpu_wall_s": walls["cpu"],
+             "ms_per_tick": walls["cuda"] * 1e3 / res["cpu"].params.TOTAL_TIME,
+             "card": card}))
+
+
+def telemetry_parity(torch, conf: str, out_dir: str, card: str) -> None:
+    """A full-event conf with TELEMETRY hist on the card (K3's hist form
+    once per tick) against the CPU: its three logs equal the CPU run's
+    with TELEMETRY off (the recorder leaves the trajectory alone), and its
+    timeline equals the CPU run's with TELEMETRY hist."""
+    import numpy as np
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    dirs = {k: os.path.join(out_dir, f"telemetry_{k}")
+            for k in ("cuda_hist", "cpu_off", "cpu_hist")}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = {"cuda_hist": run_conf(conf, out_dir=dirs["cuda_hist"],
+                                 device="cuda", telemetry="hist")}
+    torch.cuda.synchronize()
+    ticks = res["cuda_hist"].params.TOTAL_TIME
+    expect = launches_expected(receive=ticks, gossip_masks=ticks,
+                               probe_hist=ticks)
+    if dict(kernels.LAUNCHES) != expect:
+        raise AssertionError(f"telemetry: launches {dict(kernels.LAUNCHES)} "
+                             f"!= {expect}")
+    res["cpu_off"] = run_conf(conf, out_dir=dirs["cpu_off"], device="cpu",
+                              telemetry="off")
+    res["cpu_hist"] = run_conf(conf, out_dir=dirs["cpu_hist"], device="cpu",
+                               telemetry="hist")
+    same_logs(dirs["cuda_hist"], dirs["cpu_off"], "telemetry")
+    a, b = (res[k].extra["timeline"] for k in ("cuda_hist", "cpu_hist"))
+    if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k])
+                                   for k in a):
+        raise AssertionError("telemetry: the card's timeline differs from "
+                             "the CPU's")
+    if "timeline" in res["cpu_off"].extra or int(a["dropped"].sum()) <= 0:
+        raise AssertionError("telemetry: TELEMETRY off recorded a timeline, "
+                             "or the hist run counted no drop")
+    log(f"telemetry: N={res['cpu_off'].params.EN_GPSZ} full-event logs with "
+        "TELEMETRY hist on the card == TELEMETRY off on the CPU; timelines "
+        f"identical, cuda vs cpu ({len(a)} series); card: {card}")
 
 
 def phase_grade(torch, out_dir: str, card: str, seed: int = 3) -> dict:
@@ -712,20 +932,24 @@ def state_tensors(state):
 
 
 def phase_profile(torch, conf: str, name: str, out_dir: str,
-                  warm: int = 3, ticks: int = 5) -> dict:
+                  warm: int = 3, ticks: int = 5, telemetry=None) -> dict:
     """Where one tick's time goes at N=2^20: the whole step, its RNG plan
     alone (CUDA events), and a torch.profiler window over ``ticks`` steps
-    (device kernel time by name, device busy share of the wall)."""
+    (device kernel time by name, device busy share of the wall, and the
+    device span of each protocol-phase range ``dm_*``).  ``telemetry``
+    overrides the conf's TELEMETRY."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_membership_tpu_torch.backends import (
-        tpu_hash, tpu_hash_sharded)
+        tpu_hash, tpu_hash_folded, tpu_hash_sharded)
     from distributed_membership_tpu_torch.config import Params
     from distributed_membership_tpu_torch.ops.rng_plan import (
         hash_ring_rng, sharded_ring_rng)
     from distributed_membership_tpu_torch.runtime import failures
 
     params = Params.from_file(conf)
+    if telemetry is not None:
+        params.TELEMETRY = telemetry
     plan = failures.make_plan(params, random.Random("app:0"))
     fail_ids = tpu_hash.plan_fail_ids(plan)
     pt = failures.plan_tensors(params, plan, 0, params.TOTAL_TIME, "cuda")
@@ -735,8 +959,13 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
         n_local = mesh.rows_per_shard(params.EN_GPSZ)
         cfg = tpu_hash_sharded.sharded_config(params, False, fail_ids,
                                               n_local, device="cuda")
-        step = tpu_hash_sharded.make_ring_sharded_step(cfg, mesh)
-        state = tpu_hash_sharded.init_local_state_warm(cfg, mesh, key0)
+        if cfg.folded:
+            step = tpu_hash_folded.make_ring_sharded_folded_step(cfg, mesh)
+            state = tpu_hash_folded.init_local_state_warm_folded(cfg, mesh,
+                                                                 key0)
+        else:
+            step = tpu_hash_sharded.make_ring_sharded_step(cfg, mesh)
+            state = tpu_hash_sharded.init_local_state_warm(cfg, mesh, key0)
 
         def plan_rng(key):
             return sharded_ring_rng(
@@ -778,7 +1007,19 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel: dict = {}
+    phase_span: dict = {}
     for e in prof.events():
+        if e.name.startswith("dm_"):
+            # A phase range, per tick, by its span on the card's timeline
+            # from the first to the last kernel launched inside it (the
+            # csrc kernels included; the host side's op-attributed device
+            # time misses kernels launched through ctypes).  A range is
+            # not a kernel, so it stays out of the kernel sums.
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                phase_span[e.name] = (phase_span.get(e.name, 0.0)
+                                      + e.time_range.elapsed_us() / 1e3
+                                      / ticks)
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms, cnt = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
@@ -786,10 +1027,12 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
     dev_ms = sum(ms for ms, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     info = {"step_ms": step_ms, "rng_ms": rng_ms,
+            "telemetry": params.TELEMETRY,
             "profiled_ticks": ticks, "wall_ms": wall_us / 1e3,
             "device_ms": dev_ms,
             "device_busy_share": dev_ms * 1e3 / wall_us,
             "kernel_launches": sum(c for _, c in per_kernel.values()),
+            "phase_span_ms_per_tick": dict(sorted(phase_span.items())),
             "top_device_ms": [[k[:70], ms, c] for k, (ms, c) in top]}
     log(f"profile[{name}]: " + json.dumps(info))
     with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as fh:
@@ -848,10 +1091,25 @@ def main(argv=None) -> int:
     if "profile" in phases:
         for name in ("ring_1m_s128", "ring_1m_s128_drop",
                      "ring_1m_s16_folded", "ring_1m_s16_folded_drop",
-                     "ring_1m_s128_sharded", "ring_1m_s128_sharded8_drop"):
+                     "ring_1m_s128_sharded", "ring_1m_s128_sharded8_drop",
+                     "ring_1m_s16_folded_sharded",
+                     "ring_1m_s16_folded_sharded8_drop"):
             phase_profile(torch, os.path.join(confs, name + ".conf"), name,
                           out_dir)
             torch.cuda.empty_cache()
+        # The recorder's cost: the natural 1M tick with TELEMETRY hist
+        # against off, back to back.
+        hist = {}
+        for tier in ("off", "hist", "off", "hist"):
+            info = phase_profile(
+                torch, os.path.join(confs, "ring_1m_s128_hist.conf"),
+                f"ring_1m_s128_telemetry_{tier}", out_dir, telemetry=tier)
+            hist.setdefault(tier, []).append(info["step_ms"])
+            torch.cuda.empty_cache()
+        log("profile[telemetry_cost]: " + json.dumps(
+            {"step_ms_off": hist["off"], "step_ms_hist": hist["hist"],
+             "hist_minus_off_ms": (sum(hist["hist"]) - sum(hist["off"]))
+             / 2, "card": card}))
     paths = {}
     if "main" in phases:
         paths["main"] = run_path(
@@ -904,29 +1162,9 @@ def main(argv=None) -> int:
             return fail("folded_lossy path: no detection")
         torch.cuda.empty_cache()
     if "folded_parity" in phases:
-        from distributed_membership_tpu_torch.convert import state_to_numpy
-        from distributed_membership_tpu_torch.runtime.application import (
-            run_conf)
-        conf = os.path.join(confs, "ring_16k_s16_folded_drop.conf")
-        res = {d: run_conf(conf, out_dir=os.path.join(out_dir,
-                                                      f"folded_parity_{d}"),
-                           device=d) for d in ("cuda", "cpu")}
-        summ = {d: r.extra["detection_summary"] for d, r in res.items()}
-        if summ["cuda"] != summ["cpu"]:
-            return fail(f"folded_parity: detection summaries differ: {summ}")
-        leaves = {d: state_to_numpy(r.extra["final_state"])
-                  for d, r in res.items()}
-        if leaves["cuda"].keys() != leaves["cpu"].keys():
-            return fail("folded_parity: state leaves differ")
-        for name, want in leaves["cpu"].items():
-            got = leaves["cuda"][name]
-            if got.shape != want.shape or (got != want).any():
-                return fail(f"folded_parity: final state leaf {name} "
-                            "differs between cuda and cpu")
-        if summ["cpu"].get("detections_total", 0) <= 0:
-            return fail("folded_parity: no detection")
-        log(f"folded_parity: N=2^14 detection summary and {len(leaves['cpu'])}"
-            " final-state leaves identical, cuda vs cpu")
+        state_parity(torch, os.path.join(confs,
+                                         "ring_16k_s16_folded_drop.conf"),
+                     "folded_parity", out_dir, card)
     if "sharded" in phases:
         paths["sharded"] = run_path(
             torch, os.path.join(confs, "ring_1m_s128_sharded.conf"),
@@ -988,36 +1226,81 @@ def main(argv=None) -> int:
                 receive=200, gossip_stacked=200, probe=200), out_dir, card)
         log(f"phase cold_parity: {time.perf_counter() - t0:.1f}s; "
             f"card: {card}")
+    if "sharded_folded" in phases:
+        paths["sharded_folded"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s16_folded_sharded.conf"),
+            "sharded_folded", launches_expected(
+                receive_folded=160, gossip_folded=160, probe_folded=160),
+            out_dir)
+        det = paths["sharded_folded"]["detection"]
+        if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
+            return fail(f"sharded_folded path detection summary: {det}")
+        torch.cuda.empty_cache()
+    if "sharded_folded_lossy" in phases:
+        paths["sharded_folded_lossy"] = run_path(
+            torch, os.path.join(confs,
+                                "ring_1m_s16_folded_sharded8_drop.conf"),
+            "sharded_folded_lossy", launches_expected(
+                receive_folded=64, gossip_folded=64, probe_folded_hist=64),
+            out_dir)
+        if paths["sharded_folded_lossy"]["detection"].get(
+                "detections_total", 0) <= 0:
+            return fail("sharded_folded_lossy path: no detection")
+        torch.cuda.empty_cache()
+    if "sharded_folded_parity" in phases:
+        state_parity(torch, os.path.join(
+            confs, "ring_16k_s16_folded_sharded8_drop.conf"),
+            "sharded_folded_parity", out_dir, card)
+    if "telemetry" in phases:
+        t0 = time.perf_counter()
+        paths["telemetry"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_hist.conf"), "telemetry",
+            launches_expected(receive=96, gossip=96, probe_hist=96), out_dir)
+        det = paths["telemetry"]["detection"]
+        if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
+            return fail(f"telemetry path detection summary: {det}")
+        torch.cuda.empty_cache()
+        telemetry_parity(torch, os.path.join(confs, "ring_256_s128_drop.conf"),
+                         out_dir, card)
+        log(f"phase telemetry: {time.perf_counter() - t0:.1f}s; card: {card}")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):
         log(f"partial run ({sorted(phases)}): no result line")
         return 0
     # One entry per kernel form on a path; `launches` from the path that
-    # drives it (K2's masks form runs under drops).  Forms no path runs
-    # ride their kernel's entry: the probe kernels' hist forms serve
-    # TELEMETRY, which the port refuses, and K6's masks form is held in
-    # phase 2 only (the folded step masks its payloads itself), as is
-    # K4's (the sharded step masks its payloads before the block hop).
+    # drives it, read under the form's launch key (K6's eight-shard form
+    # runs on sharded_folded_lossy and counts as gossip_folded there).
+    # Forms no path runs ride their kernel's entry: K6's masks form is
+    # held in phase 2 only (the folded steps mask their payloads
+    # themselves), as is K4's (the sharded step masks its payloads before
+    # the block hop).
     out = []
-    for form, path, src, extras in (
-            ("receive", "main", "receive.cu", ()),
-            ("gossip", "main", "gossip.cu", ()),
-            ("gossip_masks", "lossy", "gossip.cu", ()),
-            ("probe", "main", "probe.cu",
-             (("probe_hist", "hist"), ("probe_sparse", "sparse"))),
-            ("receive_folded", "folded", "receive_folded.cu", ()),
-            ("gossip_folded", "folded", "gossip_folded.cu",
+    for form, path, key, src, extras in (
+            ("receive", "main", "receive", "receive.cu", ()),
+            ("gossip", "main", "gossip", "gossip.cu", ()),
+            ("gossip_masks", "lossy", "gossip_masks", "gossip.cu", ()),
+            ("probe", "main", "probe", "probe.cu",
+             (("probe_sparse", "sparse"),)),
+            ("probe_hist", "telemetry", "probe_hist", "probe.cu",
+             (("probe_hist_only", "hist_only"),)),
+            ("receive_folded", "folded", "receive_folded",
+             "receive_folded.cu", ()),
+            ("gossip_folded", "folded", "gossip_folded", "gossip_folded.cu",
              (("gossip_folded_masks", "masks"),)),
-            ("probe_folded", "folded", "probe_folded.cu",
-             (("probe_folded_hist", "hist"),)),
-            ("gossip_stacked", "sharded", "gossip_stacked.cu",
-             (("gossip_stacked_masks", "masks"),))):
+            ("gossip_folded_shards", "sharded_folded_lossy", "gossip_folded",
+             "gossip_folded.cu", ()),
+            ("probe_folded", "folded", "probe_folded", "probe_folded.cu", ()),
+            ("probe_folded_hist", "sharded_folded_lossy",
+             "probe_folded_hist", "probe_folded.cu",
+             (("probe_folded_hist_only", "hist_only"),)),
+            ("gossip_stacked", "sharded", "gossip_stacked",
+             "gossip_stacked.cu", (("gossip_stacked_masks", "masks"),))):
         r = dict(rows[form])
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",
                  "source": CSRC + src, "replaces": TPU_KERNEL[name],
-                 "launches": paths[path]["launches"][form], **r}
+                 "launches": paths[path]["launches"][key], **r}
         for x_form, tag in extras:
             x = rows[x_form]
             entry.update({f"{tag}_ms": x["ms"],

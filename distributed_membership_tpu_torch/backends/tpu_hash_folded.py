@@ -18,19 +18,30 @@ for bit at the same seed, and runs three kernels:
   (ops/fused_probe.py).
 
 It mirrors the JAX ``make_folded_step`` for the ring exchange under warm
-join in EVENT_MODE agg; TELEMETRY and SCENARIO stay refused by
-``tpu_hash.make_config`` (ROADMAP.md Queue 1 items 4 and 5).  The JAX
-step's join machinery is inert under warm join and omitted, as there.
+join in EVENT_MODE agg, with the flight recorder (``TELEMETRY``, K7's hist
+partials) and the protocol-phase ranges of the natural step; SCENARIO
+stays refused by ``tpu_hash.make_config`` (ROADMAP.md Queue 1 item 5).
+The JAX step's join machinery is inert under warm join and omitted, as
+there.
+
+The same step on a LocalMesh (parallel/mesh.py) is the sharded folded
+step (JAX ``make_ring_sharded_folded_step``, ``tpu_hash_sharded`` with
+``FOLDED``): the per-shard random streams, gossip as torus-product shifts
+(the block hop on the folded planes, then one K6 launch over every
+shard), FastAgg partials per shard, and the warm init
+:func:`init_local_state_warm_folded`.  One shard of N nodes is the
+single-chip step.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from distributed_membership_tpu_torch.backends.tpu_hash import (
-    HashState, _credit_orphan_recvs, _pack_probe_table, _roll,
-    init_state_warm, pack_u)
+    HashState, _count_at, _credit_orphan_recvs, _pack_probe_table, _roll,
+    init_state_warm, pack_u, tick_telemetry)
 from distributed_membership_tpu_torch.backends.tpu_sparse import (
     SparseTickEvents)
 from distributed_membership_tpu_torch.observability.aggregates import (
@@ -40,12 +51,17 @@ from distributed_membership_tpu_torch.ops.fused_folded import (
     roll_slots)
 from distributed_membership_tpu_torch.ops.fused_probe import (
     probe_folded_window_fused)
-from distributed_membership_tpu_torch.ops.rng_plan import hash_ring_rng
+from distributed_membership_tpu_torch.observability.timeline import (
+    PHASE_ACK, PHASE_AGG, PHASE_COLLECTIVE, PHASE_GOSSIP, PHASE_PROBE,
+    PHASE_RECEIVE, PHASE_TELEMETRY)
+from distributed_membership_tpu_torch.ops.rng_plan import (
+    hash_ring_rng, sharded_ring_rng)
 from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, STRIDE, member_of, to_bits)
 
 __all__ = ["folded_supported", "roll_nodes", "roll_slots",
-           "init_state_warm_folded", "make_folded_step"]
+           "init_state_warm_folded", "init_local_state_warm_folded",
+           "make_folded_step", "make_ring_sharded_folded_step"]
 
 I32 = torch.int32
 I64 = torch.int64
@@ -68,9 +84,31 @@ def init_state_warm_folded(cfg, key, device) -> HashState:
                        probe_ids2=fold(st.probe_ids2))
 
 
-def make_folded_step(cfg):
+def init_local_state_warm_folded(cfg, mesh, key):
+    """The sharded warm state (``tpu_hash_sharded.init_local_state_warm``:
+    per-shard offsets, FastAgg partials per shard), reshaped (the JAX
+    ``init_local_state_warm_folded``)."""
+    from distributed_membership_tpu_torch.backends.tpu_hash_sharded import (
+        init_local_state_warm)
+    st = init_local_state_warm(cfg, mesh, key)
+    fold = lambda x: x.reshape(-1, LANES)  # noqa: E731
+    return st._replace(view=fold(st.view), view_ts=fold(st.view_ts),
+                       mail=fold(st.mail), probe_ids1=fold(st.probe_ids1),
+                       probe_ids2=fold(st.probe_ids2))
+
+
+def make_folded_step(cfg, mesh=None):
     """``step(state, t, key, plan) -> (state, SparseTickEvents)`` on
-    folded state, with the arguments of ``tpu_hash.make_step``."""
+    folded state, with the arguments of ``tpu_hash.make_step``; under
+    ``cfg.telemetry`` the events come paired with the tick's packed
+    record, as there.  With ``mesh`` (a LocalMesh of D shards of L rows)
+    it is the sharded folded step (JAX ``make_ring_sharded_folded_step``)
+    on the flat layout: per-shard random streams, gossip as torus-product
+    shifts ``u = b*L + c`` -- the block hop to shard ``d + b`` on the
+    payloads, then one D-shard K6 launch that rolls every shift by ``c``
+    within each shard and aligns its slots by that shard's column shifts
+    -- and FastAgg partials per shard.  One shard is the single-chip
+    step, whose shifts are ``b = 0, c = u``."""
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
     rows = n * s // LANES
     k_max = min(cfg.fanout, s)
@@ -78,17 +116,34 @@ def make_folded_step(cfg):
     p_drop = float(np.float32(cfg.drop_prob))  # coins: uniform < f32(p)
     p_red = 1 if cfg.qp >= n else 2
     cstride = STRIDE % s
-    single_col = (n * STRIDE) % s == 0
+    d = 1 if mesh is None else mesh.size
+    n_local = n if mesh is None else mesh.rows_per_shard(n)
+    # The wrapped rows' slot shift equals the unwrapped one iff this.
+    single_col = (n_local * STRIDE) % s == 0
     fail_ids = cfg.fail_ids
+    want_hist = cfg.telemetry_hist
+    if mesh is None:
+        def plan_rng(key, dev):
+            return hash_ring_rng(key, n=n, s=s, g=g, k_max=k_max,
+                                 p_cnt=p_cnt, seed_rows=min(cfg.seed_cap, n),
+                                 use_drop=use_drop, need_ctrl=False,
+                                 need_burst=False, device=dev)
+        part = None
+    else:
+        def plan_rng(key, dev):
+            return sharded_ring_rng(key, range(d), n=n, n_local=n_local, s=s,
+                                    g=g, k_max=k_max, p_cnt=p_cnt,
+                                    seed_rows=min(cfg.seed_cap, n),
+                                    use_drop=use_drop, cold_join=False,
+                                    device=dev)
+        part = mesh.shard_sums
 
-    def step(state: HashState, t: int, key, plan):
+    def step(state, t: int, key, plan):
         dev = state.view.device
         idx = torch.arange(n, dtype=I64, device=dev)
-        rng = hash_ring_rng(key, n=n, s=s, g=g, k_max=k_max, p_cnt=p_cnt,
-                            seed_rows=min(cfg.seed_cap, n),
-                            use_drop=use_drop, need_ctrl=False,
-                            need_burst=False, device=dev)
+        rng = plan_rng(key, dev)
         coins = use_drop and plan.drop_active(t)
+        dropped = [] if cfg.telemetry else None
 
         # ---- warm join: every node started before tick 0 ----
         recv_mask = state.started & ~state.failed
@@ -100,42 +155,52 @@ def make_folded_step(cfg):
             cfg, torch.where(act, state.self_hb + 1, 0), idx))
 
         # ---- ack candidates of the probes issued at t-2 (P-folded
-        # probe state is the [N, P] bytes) ----
-        ids1 = state.probe_ids1.view(n, p_cnt)
-        ids2 = state.probe_ids2.view(n, p_cnt)
-        id2 = (ids2.to(I64) - 1).clamp_min(0)
-        tgt1 = (ids1.to(I64) - 1).clamp_min(0)
-        v1 = ids1 != 0
-        vec = torch.where(state.act_prev, state.self_hb - 1, 0)
-        will_flush = (recv_mask & ~plan.fail_mask if t == plan.fail_time
-                      else recv_mask)
-        tbl = _pack_probe_table(vec, will_flush, act)
-        gcat = tbl[torch.cat([id2, tgt1], dim=1)]            # one gather
-        hb_ack = (gcat[:, :p_cnt] >> 2).to(I32)
-        bits1 = gcat[:, p_cnt:]
-        valid2 = (ids2 != 0) & (hb_ack > 0)
-        if use_drop and plan.drop_active(t - 1):
-            valid2 = valid2 & ~(rng.ack_u.view(n, p_cnt) < p_drop)
-        cand = torch.zeros((n, s), dtype=I32, device=dev)
-        cand[:, :p_cnt] = torch.where(valid2, to_bits(pack_u(cfg, hb_ack,
-                                                             id2)), 0)
-        cand_sf = roll_slots(cand.view(rows, LANES), ((t - 2) * p_cnt) % s, s)
-        ack_recv_cnt = (valid2 & recv_mask[:, None]).sum(1, dtype=I32)
+        # probe state is the [N, P] bytes; the probe table is the one
+        # all_gather of the sharded step) ----
+        with record_function(PHASE_ACK):
+            ids1 = state.probe_ids1.view(n, p_cnt)
+            ids2 = state.probe_ids2.view(n, p_cnt)
+            id2 = (ids2.to(I64) - 1).clamp_min(0)
+            tgt1 = (ids1.to(I64) - 1).clamp_min(0)
+            v1 = ids1 != 0
+            vec = torch.where(state.act_prev, state.self_hb - 1, 0)
+            will_flush = (recv_mask & ~plan.fail_mask if t == plan.fail_time
+                          else recv_mask)
+            tbl = _pack_probe_table(vec, will_flush, act)
+            gcat = tbl[torch.cat([id2, tgt1], dim=1)]        # one gather
+            hb_ack = (gcat[:, :p_cnt] >> 2).to(I32)
+            bits1 = gcat[:, p_cnt:]
+            valid2 = (ids2 != 0) & (hb_ack > 0)
+            if use_drop and plan.drop_active(t - 1):
+                coin = rng.ack_u.view(n, p_cnt) < p_drop
+                if dropped is not None:
+                    dropped.append((valid2 & coin).sum(dtype=I32))
+                valid2 = valid2 & ~coin
+            cand = torch.zeros((n, s), dtype=I32, device=dev)
+            cand[:, :p_cnt] = torch.where(
+                valid2, to_bits(pack_u(cfg, hb_ack, id2)), 0)
+            cand_sf = roll_slots(cand.view(rows, LANES),
+                                 ((t - 2) * p_cnt) % s, s)
+            ack_recv_cnt = (valid2 & recv_mask[:, None]).sum(1, dtype=I32)
 
         # ---- receive (K5); the caller reduces the stale plane ----
-        (view, view_ts, mail, join_mask, rm_ids,
-         stale) = receive_folded_fused(
-            n, s, cfg.tfail, cfg.tremove, STRIDE, t, state.view,
-            state.view_ts, state.mail, cand_sf, recv_mask, act, self_val)
+        with record_function(PHASE_RECEIVE):
+            (view, view_ts, mail, join_mask, rm_ids,
+             stale) = receive_folded_fused(
+                n, s, cfg.tfail, cfg.tremove, STRIDE, t, state.view,
+                state.view_ts, state.mail, cand_sf, recv_mask, act,
+                self_val)
         vn = view.view(n, s)
         present = vn != 0
+        difft = t - view_ts.view(n, s)
         numfailed = stale.view(n, s).sum(1, dtype=I32)
         size = present.sum(1, dtype=I32)
         cur_id = torch.where(present, member_of(vn, n), EMPTY)
 
-        # ---- gossip: per-shift payloads, drop coins applied here (K6) --
+        # ---- gossip: per-shift payloads, drop coins applied here; the
+        # block hop, then K6 ----
         numpotential = size - 1 - numfailed
-        fresh = present & ((t - view_ts.view(n, s)) < cfg.tfail)
+        fresh = present & (difft < cfg.tfail)
         k_eff = numpotential.clamp(max=cfg.fanout).clamp_min(0)
         if g >= s:
             keep = fresh
@@ -148,70 +213,94 @@ def make_folded_step(cfg):
             keep = fresh & ((rng.thin_u.view(n, s) < p_keep[:, None])
                             | (cur_id == idx[:, None]))
         keep = keep & act[:, None]
-        shifts = rng.shift_draw
+        u = rng.shift_draw.to(I64)
+        b, c = u // n_local, u % n_local
+        # Receiver slot = sender slot + delta * STRIDE with delta = b'L +
+        # c, b' = b - D on the shards me < b (block wrap), and c - L on the
+        # rows l < c (row wrap): per shard and shift.
+        me = torch.arange(d, dtype=I64, device=dev)[:, None]
+        bp = torch.where(me < b, b - d, b)
+        s1 = ((bp * n_local + c) % s * cstride % s).to(I32)
+        s2 = ((bp * n_local + c - n_local) % s * cstride % s).to(I32)
         sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
         recv_add = torch.zeros((n,), dtype=I32, device=dev)
-        payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
-        for j in range(k_max):
-            m = keep & (j < k_eff)[:, None]
-            if coins:
-                m = m & ~(rng.gossip_u[j].view(n, s) < p_drop)
-            payloads[j] = torch.where(m, vn, 0)
-            cnt = m.sum(1, dtype=I32)
-            sent_gossip += cnt
-            recv_add += _roll(cnt, shifts[j], idx, n)
-        r = shifts.to(I64)
-        c1 = ((r % s) * cstride % s).to(I32)
-        c2 = (torch.zeros_like(c1) if single_col
-              else (((r - n) % s) * cstride % s).to(I32))
-        mail = gossip_folded_stacked(rows, s, k_max, single_col, mail,
-                                     payloads.view(k_max, rows, LANES),
-                                     shifts, c1, c2)
+        with record_function(PHASE_GOSSIP):
+            payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
+            for j in range(k_max):
+                m = keep & (j < k_eff)[:, None]
+                if coins:
+                    coin = rng.gossip_u[j].view(n, s) < p_drop
+                    if dropped is not None:
+                        dropped.append((m & coin).sum(dtype=I32))
+                    m = m & ~coin
+                cnt = m.sum(1, dtype=I32)
+                sent_gossip += cnt
+                torch.mul(vn, m, out=payloads[j])      # where(m, view, 0)
+                if mesh is None:
+                    recv_add += _roll(cnt, c[j], idx, n)
+                    continue
+                with record_function(PHASE_COLLECTIVE):   # the block hop
+                    if d > 1:
+                        payloads[j] = mesh.block_send(payloads[j], b[j])
+                    recv_add += mesh.local_roll(mesh.block_send(cnt, b[j]),
+                                                c[j])
+            mail = gossip_folded_stacked(
+                rows, s, k_max, single_col, mail,
+                payloads.view(k_max, rows, LANES), c.to(I32), s1, s2,
+                n_local=n_local)
+            del payloads
 
         # ---- SWIM probes from the window (K7), coins in [N, P] space ----
-        pfo = probe_folded_window_fused(
-            n, s, p_cnt, cfg.tfail, fail_ids, False, True, t,
-            (t * p_cnt) % s, 0, view, None, act, rm_ids)
-        window = pfo["ids"].view(n, s)[:, :p_cnt]
-        p_valid = window != 0
-        if coins:
-            p_valid = p_valid & ~(rng.probe_u.view(n, p_cnt) < p_drop)
-        probe_ids1 = torch.where(p_valid, window, 0).reshape(-1, LANES)
-        sent_probes = p_valid.sum(1, dtype=I32) * p_red
-        if cfg.count_probe_io:
-            ack_send = v1 & ((bits1 & 2) != 0)
-            zeros = torch.zeros((n + 1,), dtype=I32, device=dev)
-            recv_probe = zeros.index_add(
-                0, torch.where(v1, tgt1, n).reshape(-1),
-                torch.full((n * p_cnt,), p_red, dtype=I32, device=dev))[:n]
-            sent_ack = zeros.index_add(
-                0, torch.where(ack_send, tgt1, n).reshape(-1),
-                torch.ones((n * p_cnt,), dtype=I32, device=dev))[:n]
-        else:
-            per_prober = (v1 & ((bits1 & 1) != 0)).sum(1, dtype=I32) * p_red
-            recv_probe = _credit_orphan_recvs(per_prober, will_flush)
-            sent_ack = (v1 & ((bits1 & 2) != 0)).sum(1, dtype=I32)
+        with record_function(PHASE_PROBE):
+            pfo = probe_folded_window_fused(
+                n, s, p_cnt, cfg.tfail, fail_ids, want_hist, True, t,
+                (t * p_cnt) % s, 0, view, view_ts if want_hist else None,
+                act, rm_ids)
+            window = pfo["ids"].view(n, s)[:, :p_cnt]
+            p_valid = window != 0
+            if coins:
+                coin = rng.probe_u.view(n, p_cnt) < p_drop
+                if dropped is not None:
+                    dropped.append((p_valid & coin).sum(dtype=I32))
+                p_valid = p_valid & ~coin
+            probe_ids1 = torch.where(p_valid, window, 0).reshape(-1, LANES)
+            sent_probes = p_valid.sum(1, dtype=I32) * p_red
+            # Per-target counts over the global ids: on the flat layout
+            # the sharded step's psum_scatter of per-shard histograms.
+            if cfg.count_probe_io:
+                recv_probe = _count_at(tgt1, v1, p_red, n)
+                sent_ack = _count_at(tgt1, v1 & ((bits1 & 2) != 0), 1, n)
+            else:
+                per_prober = (v1 & ((bits1 & 1) != 0)).sum(
+                    1, dtype=I32) * p_red
+                recv_probe = _credit_orphan_recvs(per_prober, will_flush)
+                sent_ack = (v1 & ((bits1 & 2) != 0)).sum(1, dtype=I32)
         sent_tick = sent_gossip + sent_probes + sent_ack
         pending_recv = pending_recv + recv_add + recv_probe + ack_recv_cnt
 
         failed = (state.failed | plan.fail_mask if t == plan.fail_time
                   else state.failed)
-        # FastAgg on per-node [N, S] views, from K7's partials.
-        rm_total = pfo["rm_cnt"].sum(dtype=I32)
-        det_tick = any_true_rm = None
-        if fail_ids:
-            det_tick = torch.stack([d.sum(dtype=I32)
-                                    for d in pfo["det_cols"]])
-            any_true_rm = pfo["det_any"].view(n, s).any(1)
-        agg = update_fast_agg(
-            state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
-            rm_total_tick=rm_total, det_tick=det_tick,
-            any_true_rm=any_true_rm,
-            view_ids=cur_id if t == plan.fail_time and fail_ids else None,
-            view_present=present, fail_time=plan.fail_time,
-            holder_failed=plan.fail_mask, sent_tick=sent_tick,
-            recv_tick=recv_tick)
-        out = SparseTickEvents(join_mask.sum(dtype=I32), rm_total,
+        # FastAgg on per-node [N, S] views, from K7's partials (per shard
+        # with a mesh).
+        with record_function(PHASE_AGG):
+            det_tick = any_true_rm = None
+            if fail_ids:
+                det_tick = torch.stack([dc.view(d, -1).sum(1, dtype=I32)
+                                        for dc in pfo["det_cols"]], dim=1)
+                if mesh is None:
+                    det_tick = det_tick[0]
+                any_true_rm = pfo["det_any"].view(n, s).any(1)
+            rm_cnt = pfo["rm_cnt"]
+            agg = update_fast_agg(
+                state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
+                rm_total_tick=(rm_cnt.sum(dtype=I32) if mesh is None
+                               else mesh.shard_sums(rm_cnt)),
+                det_tick=det_tick, any_true_rm=any_true_rm,
+                view_ids=cur_id if t == plan.fail_time and fail_ids else None,
+                view_present=present, fail_time=plan.fail_time,
+                holder_failed=plan.fail_mask, sent_tick=sent_tick,
+                recv_tick=recv_tick, part=part)
+        out = SparseTickEvents(join_mask.sum(dtype=I32), rm_cnt.sum(dtype=I32),
                                sent_tick.sum(dtype=I32),
                                recv_tick.sum(dtype=I32))
         new_state = state._replace(
@@ -219,6 +308,19 @@ def make_folded_step(cfg):
             mail=mail, pending_recv=pending_recv, agg=agg,
             probe_ids1=probe_ids1, probe_ids2=state.probe_ids1,
             act_prev=act)
-        return new_state, out
+        if not cfg.telemetry:
+            return new_state, out
+        with record_function(PHASE_TELEMETRY):
+            rec = tick_telemetry(
+                cfg, state.agg, agg, out, dropped, act=act,
+                numfailed=numfailed, ack_recv_cnt=ack_recv_cnt,
+                sent_gossip=sent_gossip, difft=difft, present=present,
+                size=size, t=t, fail_time=plan.fail_time, pfo=pfo)
+        return new_state, (out, rec)
 
     return step
+
+
+def make_ring_sharded_folded_step(cfg, mesh):
+    """The sharded folded step on ``mesh`` (:func:`make_folded_step`)."""
+    return make_folded_step(cfg, mesh)

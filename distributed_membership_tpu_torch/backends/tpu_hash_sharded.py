@@ -37,39 +37,54 @@ Per tick (``make_ring_sharded_step``), as in the JAX ring step:
   (exact per-target histograms through ``psum_scatter``, or the prober's
   row with the orphans re-credited to the globally first flushing row);
 * per-shard FastAgg partials, reduced once after the run
-  (:func:`reduce_fast_agg`), or per-tick event planes in full event mode.
+  (:func:`reduce_fast_agg`), or per-tick event planes in full event mode;
+* under ``TELEMETRY`` the flight recorder's record of the tick, over all
+  rows (the JAX step's psums are sums over the flat layout).
+
+``FOLDED`` runs the sharded folded step (backends/tpu_hash_folded.py
+``make_ring_sharded_folded_step``, K5-K7 over every shard) behind the JAX
+``sharded_config`` gates on the per-shard rows.
 
 Refused with ``NotImplementedError`` naming the ROADMAP.md item: the
 scatter exchange (the JAX ``make_sharded_step``, which ``EXCHANGE: auto``
 picks under cold joins),
-``EXCHANGE_MODE: batched``, ``PROBE_GATHER: split``, ``FOLDED`` (the
-sharded folded step), and what ``tpu_hash`` refuses (SCENARIO, TELEMETRY,
-CHECKPOINT_EVERY, MEGA_TICKS, more than 8 failed ids under EVENT_MODE
-agg; on CUDA ``VIEW_SIZE % 128 != 0`` and a pinned ``FUSED_*: 0``).
+``EXCHANGE_MODE: batched``, ``PROBE_GATHER: split``, and what
+``tpu_hash`` refuses (SCENARIO, CHECKPOINT_EVERY, MEGA_TICKS, RNG_MODE
+hoisted, more than 8 failed ids under EVENT_MODE agg; on CUDA
+``VIEW_SIZE % 128 != 0`` outside the folded layout, fewer than 8 plane
+rows per shard on it, and a pinned ``FUSED_*: 0``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import random as _pyrandom
 import time as _time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from distributed_membership_tpu_torch.addressing import INTRODUCER_INDEX
 from distributed_membership_tpu_torch.backends import RunResult, register
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     I32, I64, HashConfig, _credit_orphan_recvs_sharded, _gathered_act,
-    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, join_plane,
-    joinreq_to_intro, make_config, pack_u, plan_fail_ids, run_ticks,
-    seed_burst, warm_view)
+    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse,
+    count_ctrl_dropped, join_plane, joinreq_to_intro, make_config, pack_u,
+    plan_fail_ids, run_ticks, seed_burst, tick_telemetry, warm_view)
+from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
+    folded_supported, init_local_state_warm_folded,
+    make_ring_sharded_folded_step)
 from distributed_membership_tpu_torch.backends.tpu_sparse import (
     SparseTickEvents, finish_run)
 from distributed_membership_tpu_torch.config import Params
 from distributed_membership_tpu_torch.eventlog import EventLog
 from distributed_membership_tpu_torch.observability.aggregates import (
     FastAgg, init_agg, init_fast_agg, update_fast_agg)
+from distributed_membership_tpu_torch.observability.timeline import (
+    PHASE_ACK, PHASE_AGG, PHASE_COLLECTIVE, PHASE_GOSSIP, PHASE_PROBE,
+    PHASE_RECEIVE, PHASE_TELEMETRY)
 from distributed_membership_tpu_torch.ops.fused_gossip import (
     gossip_fused_stacked)
 from distributed_membership_tpu_torch.ops.fused_probe import (
@@ -172,6 +187,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     use_drop = cfg.drop_prob > 0.0
     p_drop = float(np.float32(cfg.drop_prob))
     want_agg = cfg.fast_agg and not cfg.collect_events
+    want_hist = cfg.telemetry_hist and p_cnt > 0
     fail_ids = cfg.fail_ids if want_agg else ()
     rng_kw = dict(n=n, n_local=n_local, s=s, g=g, k_max=k_max,
                   p_cnt=max(p_cnt, 0), seed_rows=min(cfg.seed_cap, n),
@@ -196,11 +212,17 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         rows = torch.arange(n, dtype=I64, device=dev)   # global row ids
         rng = sharded_ring_rng(key, range(d), device=dev, **rng_kw)
         coins = use_drop and plan.drop_active(t)
+        # The coins that kill a message this tick, counted for TELEMETRY
+        # (each replicated coin once, as the JAX step's local slices).
+        dropped = [] if cfg.telemetry else None
 
         # ---- join control plane (inert under warm join), self refresh
+        ctrl_drop = (rng.ctrl_u.reshape(2, n) < p_drop
+                     if coins and cfg.cold_join else None)
         jp = join_plane(cfg, state, t, plan, rows,
-                        ~(rng.ctrl_u.reshape(2, n) < p_drop)
-                        if coins and cfg.cold_join else None)
+                        None if ctrl_drop is None else ~ctrl_drop)
+        if dropped is not None and ctrl_drop is not None:
+            dropped.append(count_ctrl_dropped(jp, plan, t, rows, ctrl_drop))
         recv_mask, act, recv_tick = jp.recv_mask, jp.act, jp.recv_tick
         rcol = recv_mask[:, None]
 
@@ -209,33 +231,41 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         cand_full = torch.zeros((n, s), dtype=I32, device=dev)
         ack_recv_cnt = torch.zeros((n,), dtype=I32, device=dev)
         if p_cnt > 0:
-            ids2 = state.probe_ids2
-            id2 = (ids2.to(I64) - 1).clamp_min(0)
-            ids1 = state.probe_ids1
-            v1 = ids1 != 0
-            tgt1 = (ids1.to(I64) - 1).clamp_min(0)
-            vec = torch.where(state.act_prev, state.self_hb - 1, 0)
-            will_flush = (recv_mask & ~plan.fail_mask
-                          if t == plan.fail_time else recv_mask)
-            tbl_g = mesh.all_gather(_pack_probe_table(vec, will_flush, act))
-            will_flush_g = _gathered_flush(tbl_g)
-            gcat = tbl_g[torch.cat([id2, tgt1], dim=1)]
-            hb_ack = _gathered_hb(gcat[:, :p_cnt])
-            probe_bits1 = gcat[:, p_cnt:]
-            valid2 = (ids2 != 0) & (hb_ack > 0)
-            if use_drop and plan.drop_active(t - 1):
-                valid2 = valid2 & ~(rng.ack_u.reshape(n, p_cnt) < p_drop)
-            cand = torch.where(valid2, to_bits(pack_u(cfg, hb_ack, id2)), 0)
-            ptr2 = ((t - 2) * p_cnt) % s
-            cand_full[:, (ptr2 + torch.arange(p_cnt, device=dev)) % s] = cand
-            ack_recv_cnt = (valid2 & rcol).sum(1, dtype=I32)
+            with record_function(PHASE_ACK):
+                ids2 = state.probe_ids2
+                id2 = (ids2.to(I64) - 1).clamp_min(0)
+                ids1 = state.probe_ids1
+                v1 = ids1 != 0
+                tgt1 = (ids1.to(I64) - 1).clamp_min(0)
+                vec = torch.where(state.act_prev, state.self_hb - 1, 0)
+                will_flush = (recv_mask & ~plan.fail_mask
+                              if t == plan.fail_time else recv_mask)
+                tbl_g = mesh.all_gather(_pack_probe_table(vec, will_flush,
+                                                          act))
+                will_flush_g = _gathered_flush(tbl_g)
+                gcat = tbl_g[torch.cat([id2, tgt1], dim=1)]
+                hb_ack = _gathered_hb(gcat[:, :p_cnt])
+                probe_bits1 = gcat[:, p_cnt:]
+                valid2 = (ids2 != 0) & (hb_ack > 0)
+                if use_drop and plan.drop_active(t - 1):
+                    coin = rng.ack_u.reshape(n, p_cnt) < p_drop
+                    if dropped is not None:
+                        dropped.append((valid2 & coin).sum(dtype=I32))
+                    valid2 = valid2 & ~coin
+                cand = torch.where(valid2, to_bits(pack_u(cfg, hb_ack, id2)),
+                                   0)
+                ptr2 = ((t - 2) * p_cnt) % s
+                cand_full[:, (ptr2 + torch.arange(p_cnt, device=dev))
+                          % s] = cand
+                ack_recv_cnt = (valid2 & rcol).sum(1, dtype=I32)
 
         # ---- receive (K1; row-local, so one launch covers every shard)
-        (view, view_ts, mail, join_mask, rm_ids, numfailed,
-         size) = receive_fused(n, s, cfg.tfail, cfg.tremove, STRIDE, t,
-                               state.view, state.view_ts, state.mail,
-                               cand_full, recv_mask, act, jp.self_on,
-                               jp.self_val)
+        with record_function(PHASE_RECEIVE):
+            (view, view_ts, mail, join_mask, rm_ids, numfailed,
+             size) = receive_fused(n, s, cfg.tfail, cfg.tremove, STRIDE, t,
+                                   state.view, state.view_ts, state.mail,
+                                   cand_full, recv_mask, act, jp.self_on,
+                                   jp.self_val)
         if cfg.cold_join:
             mail = joinreq_to_intro(cfg, mail, jp.joiner_req, rows)
         present = view != 0
@@ -273,28 +303,40 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             bp = torch.where(me < b, b - d, b)
             s1 = ((bp * n_local + c) % s * cstride % s).to(I32)
             s2 = ((bp * n_local + c - n_local) % s * cstride % s).to(I32)
-            payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
-            for j in range(k_max):
-                m = keep & (j < k_eff)[:, None]
-                if coins:
-                    m &= ~(rng.gossip_u[j].reshape(n, s) < p_drop)
-                cnt = m.sum(1, dtype=I32)
-                sent_gossip += cnt
-                torch.mul(view, m, out=payloads[j])    # where(m, view, 0)
-                if d > 1:                      # the block hop
-                    payloads[j] = mesh.block_send(payloads[j], b[j])
-                recv_add += mesh.local_roll(mesh.block_send(cnt, b[j]), c[j])
-            mail = gossip_fused_stacked(n_local, s, k_max, single_col, mail,
-                                        payloads, c.to(I32), s1, s2)
-            del payloads
+            with record_function(PHASE_GOSSIP):
+                payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
+                for j in range(k_max):
+                    m = keep & (j < k_eff)[:, None]
+                    if coins:
+                        coin = rng.gossip_u[j].reshape(n, s) < p_drop
+                        if dropped is not None:
+                            dropped.append((m & coin).sum(dtype=I32))
+                        m &= ~coin
+                    cnt = m.sum(1, dtype=I32)
+                    sent_gossip += cnt
+                    torch.mul(view, m, out=payloads[j])  # where(m, view, 0)
+                    with record_function(PHASE_COLLECTIVE):  # the block hop
+                        if d > 1:
+                            payloads[j] = mesh.block_send(payloads[j], b[j])
+                        recv_add += mesh.local_roll(
+                            mesh.block_send(cnt, b[j]), c[j])
+                mail = gossip_fused_stacked(n_local, s, k_max, single_col,
+                                            mail, payloads, c.to(I32), s1,
+                                            s2)
+                del payloads
         sent_tick = sent_gossip + jp.sent_req + jp.sent_rep
         if cfg.cold_join:
             # The introducer's burst (its row broadcast, delivered by each
             # seed's owner), with the replicated burst coins.
             cap = min(cfg.seed_cap, n)
+            burst_drop = ((rng.burst_u.reshape(cap, s) < p_drop) if coins
+                          else None)
             mail, seed_idx, seed_valid, burst_valid = seed_burst(
                 cfg, mail, view, fresh[intro], jp.seeds, act[intro],
-                (rng.burst_u.reshape(cap, s) < p_drop) if coins else None)
+                burst_drop)
+            if dropped is not None and coins:
+                dropped.append((seed_valid[:, None] & fresh[intro][None, :]
+                                & burst_drop).sum(dtype=I32))
             sent_tick = sent_tick + torch.where(
                 (rows == intro) & act, burst_valid.sum(dtype=I32), 0)
             recv_add.index_add_(0, seed_idx, burst_valid.sum(1, dtype=I32)
@@ -305,33 +347,42 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         act_prev = state.act_prev
         pfo = None
         if p_cnt > 0:
-            pfo = probe_window_fused(
-                n, s, p_cnt, cfg.tfail, fail_ids, False, want_agg, t,
-                (t * p_cnt) % s, 0, view, None, act,
-                rm_ids if want_agg else None)
-            window_ids = pfo["ids"]
-            p_valid = window_ids != 0
-            if coins:
-                p_valid = p_valid & ~(rng.probe_u.reshape(n, p_cnt) < p_drop)
-            probe_ids2 = probe_ids1
-            probe_ids1 = torch.where(p_valid, window_ids, 0)
-            act_prev = act
-            sent_probes = p_valid.sum(1, dtype=I32) * p_red
-            if cfg.count_probe_io:
-                # Exact per-target attribution: each shard's histograms
-                # over the global ids, summed and sliced back to owners.
-                shard = mesh.shard_of_rows(n)
-                ack_send = v1 & _gathered_act(probe_bits1)
-                recv_probe = mesh.psum_scatter(hist(tgt1, v1, p_red, shard))
-                sent_ack = mesh.psum_scatter(hist(tgt1, ack_send, 1, shard))
-            else:
-                per_prober = (v1 & _gathered_flush(probe_bits1)).sum(
-                    1, dtype=I32) * p_red
-                recv_probe = _credit_orphan_recvs_sharded(
-                    per_prober, will_flush, will_flush_g, rows, mesh)
-                sent_ack = (v1 & _gathered_act(probe_bits1)).sum(1, dtype=I32)
-            sent_tick = sent_tick + sent_probes + sent_ack
-            recv_add = recv_add + recv_probe + ack_recv_cnt
+            with record_function(PHASE_PROBE):
+                pfo = probe_window_fused(
+                    n, s, p_cnt, cfg.tfail, fail_ids, want_hist, want_agg,
+                    t, (t * p_cnt) % s, 0, view,
+                    view_ts if want_hist else None, act,
+                    rm_ids if want_agg else None)
+                window_ids = pfo["ids"]
+                p_valid = window_ids != 0
+                if coins:
+                    coin = rng.probe_u.reshape(n, p_cnt) < p_drop
+                    if dropped is not None:
+                        dropped.append((p_valid & coin).sum(dtype=I32))
+                    p_valid = p_valid & ~coin
+                probe_ids2 = probe_ids1
+                probe_ids1 = torch.where(p_valid, window_ids, 0)
+                act_prev = act
+                sent_probes = p_valid.sum(1, dtype=I32) * p_red
+                if cfg.count_probe_io:
+                    # Exact per-target attribution: each shard's
+                    # histograms over the global ids, summed and sliced
+                    # back to owners.
+                    shard = mesh.shard_of_rows(n)
+                    ack_send = v1 & _gathered_act(probe_bits1)
+                    recv_probe = mesh.psum_scatter(hist(tgt1, v1, p_red,
+                                                        shard))
+                    sent_ack = mesh.psum_scatter(hist(tgt1, ack_send, 1,
+                                                      shard))
+                else:
+                    per_prober = (v1 & _gathered_flush(probe_bits1)).sum(
+                        1, dtype=I32) * p_red
+                    recv_probe = _credit_orphan_recvs_sharded(
+                        per_prober, will_flush, will_flush_g, rows, mesh)
+                    sent_ack = (v1 & _gathered_act(probe_bits1)).sum(
+                        1, dtype=I32)
+                sent_tick = sent_tick + sent_probes + sent_ack
+                recv_add = recv_add + recv_probe + ack_recv_cnt
         pending_recv = jp.pending_recv + recv_add
 
         failed = (state.failed | plan.fail_mask if t == plan.fail_time
@@ -343,32 +394,42 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 torch.where(join_mask, cur_id, EMPTY).to(I32), rm_ids,
                 sent_tick, recv_tick)
         else:
-            # Per-shard partials of the probe pass's row sums.
-            rm_cnt = (pfo["rm_cnt"] if pfo is not None
-                      else (rm_ids >= 0).sum(1, dtype=I32))
-            det = None
-            if fail_ids:
-                det = (pfo["det"] if pfo is not None else torch.stack(
-                    [(rm_ids == f).sum(1, dtype=I32) for f in fail_ids]))
-            agg = update_fast_agg(
-                state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
-                rm_total_tick=mesh.shard_sums(rm_cnt),
-                det_tick=(None if det is None else det.view(
-                    len(fail_ids), d, n_local).sum(2, dtype=I32).t()),
-                any_true_rm=None if det is None else (det > 0).any(0),
-                view_ids=(cur_id if t == plan.fail_time and fail_ids
-                          else None),
-                view_present=present, fail_time=plan.fail_time,
-                holder_failed=plan.fail_mask, sent_tick=sent_tick,
-                recv_tick=recv_tick, part=mesh.shard_sums)
-            out = SparseTickEvents(total(join_mask), total(rm_cnt),
-                                   total(sent_tick), total(recv_tick))
+            with record_function(PHASE_AGG):
+                # Per-shard partials of the probe pass's row sums.
+                rm_cnt = (pfo["rm_cnt"] if pfo is not None
+                          else (rm_ids >= 0).sum(1, dtype=I32))
+                det = None
+                if fail_ids:
+                    det = (pfo["det"] if pfo is not None else torch.stack(
+                        [(rm_ids == f).sum(1, dtype=I32) for f in fail_ids]))
+                agg = update_fast_agg(
+                    state.agg, t=t, fail_ids=fail_ids,
+                    join_events=join_mask,
+                    rm_total_tick=mesh.shard_sums(rm_cnt),
+                    det_tick=(None if det is None else det.view(
+                        len(fail_ids), d, n_local).sum(2, dtype=I32).t()),
+                    any_true_rm=None if det is None else (det > 0).any(0),
+                    view_ids=(cur_id if t == plan.fail_time and fail_ids
+                              else None),
+                    view_present=present, fail_time=plan.fail_time,
+                    holder_failed=plan.fail_mask, sent_tick=sent_tick,
+                    recv_tick=recv_tick, part=mesh.shard_sums)
+                out = SparseTickEvents(total(join_mask), total(rm_cnt),
+                                       total(sent_tick), total(recv_tick))
         new_state = ShardedHashState(
             view, view_ts, jp.started, jp.in_group, failed, jp.self_hb,
             mail, state.amail, state.pmail, jp.joinreq_infl,
             jp.joinrep_infl, pending_recv, agg, probe_ids1, probe_ids2,
             act_prev)
-        return new_state, out
+        if not cfg.telemetry:
+            return new_state, out
+        with record_function(PHASE_TELEMETRY):
+            rec = tick_telemetry(
+                cfg, state.agg, agg, out, dropped, act=act,
+                numfailed=numfailed, ack_recv_cnt=ack_recv_cnt,
+                sent_gossip=sent_gossip, difft=difft, present=present,
+                size=size, t=t, fail_time=plan.fail_time, pfo=pfo)
+        return new_state, (out, rec)
 
     return step
 
@@ -391,9 +452,14 @@ def reduce_fast_agg(agg: FastAgg, mesh: LocalMesh) -> FastAgg:
 
 def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
                    n_local: int, device="cpu") -> HashConfig:
-    """``tpu_hash.make_config`` plus the JAX ``sharded_config`` gates of
-    the natural layout (same messages), and the refusals of what the
-    port's sharded step does not run yet."""
+    """``tpu_hash.make_config`` plus the JAX ``sharded_config`` gates on
+    the per-shard rows (same messages), and the refusals of what the
+    port's sharded steps do not run yet.  Where the rows of a shard do
+    not fold, a pinned ``FOLDED: 1`` raises and ``-1`` falls back to the
+    natural layout, as in the JAX package; on CUDA the natural kernels
+    then need ``VIEW_SIZE % 128 == 0``, and the folded kernels at least 8
+    plane rows per shard (the JAX package runs its unfused folded path
+    below that, which the port runs on the CPU only)."""
     if params.resolved_exchange() != "ring":
         _refuse("the scatter exchange on tpu_hash_sharded "
                 "(make_sharded_step)", "Queue 1 item 6c")
@@ -405,16 +471,32 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
         raise ValueError(
             "PROBE_IO approx_lag is single-chip tpu_hash only (the "
             "sharded twins keep the two-gather attribution)")
-    if params.FOLDED == 1:
-        _refuse("FOLDED on tpu_hash_sharded (the sharded folded step)",
-                "Queue 1 item 6b")
     cfg = make_config(params, collect_events, fail_ids=fail_ids,
                       device=device)
-    if cfg.folded:
-        _refuse("FOLDED (auto for VIEW_SIZE < 128 on CUDA) on "
-                "tpu_hash_sharded (the sharded folded step)",
-                "Queue 1 item 6b")
+    on_cuda = torch.device(device).type == "cuda"
     s = cfg.s
+    if cfg.folded and not folded_supported(n_local, s, cfg.probes):
+        if params.FOLDED == 1:
+            raise ValueError(
+                f"FOLDED on tpu_hash_sharded needs the per-shard row "
+                f"count to fold (L={n_local}, S={s}, P={cfg.probes}: "
+                "L must be a multiple of 128/S and 128/P)")
+        cfg = dataclasses.replace(cfg, folded=False)
+        if on_cuda and s % 128 != 0:
+            _refuse(f"VIEW_SIZE {s} on CUDA outside FOLDED (the natural "
+                    "kernels take VIEW_SIZE % 128 == 0; the per-shard rows "
+                    f"do not fold: L={n_local}, S={s}, P={cfg.probes})",
+                    "Queue 1 item 9")
+    if cfg.folded:
+        if on_cuda and (n_local * s) // 128 < 8:
+            msg = (f"FOLDED FUSED_* on tpu_hash_sharded needs at least 8 "
+                   f"local plane rows (L*S/128 >= 8; got L={n_local}, "
+                   f"S={s})")
+            if params.FUSED_RECEIVE == 1 or params.FUSED_GOSSIP == 1:
+                raise ValueError(msg)
+            _refuse(f"{msg}: the unfused folded path runs on CPU tensors "
+                    "only", "Queue 1 item 9")
+        return cfg
     if params.FUSED_GOSSIP == 1 and (n_local < 8 or s % 128 != 0):
         raise ValueError(
             f"FUSED_GOSSIP on tpu_hash_sharded needs S % 128 == 0 "
@@ -432,20 +514,27 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
 
 
 def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
-                     mesh: LocalMesh, collect_events: bool = True):
+                     mesh: LocalMesh, collect_events: bool = True,
+                     telemetry=None):
     """Run the whole simulation on ``mesh``: ``(final_state, events)`` as
-    ``tpu_hash.run_scan``, the final agg reduced."""
+    ``tpu_hash.run_scan``, the final agg reduced; the natural or the
+    folded sharded step, as the config resolves."""
     n_local = mesh.rows_per_shard(params.EN_GPSZ)
     cfg = sharded_config(params, collect_events, plan_fail_ids(plan),
                          n_local, device=mesh.device)
     total = params.TOTAL_TIME
     params.validate_sparse_packing(total)
     plan_t = plan_tensors(params, plan, seed, total, mesh.device)
-    state = (init_local_state(cfg, mesh) if cfg.cold_join
-             else init_local_state_warm(cfg, mesh,
-                                        make_run_key(params, seed ^ 0x5EED)))
-    state, events = run_ticks(make_ring_sharded_step(cfg, mesh), state,
-                              plan_t, total, collect_events, cfg.n)
+    key = make_run_key(params, seed ^ 0x5EED)
+    if cfg.folded:
+        step = make_ring_sharded_folded_step(cfg, mesh)
+        state = init_local_state_warm_folded(cfg, mesh, key)
+    else:
+        step = make_ring_sharded_step(cfg, mesh)
+        state = (init_local_state(cfg, mesh) if cfg.cold_join
+                 else init_local_state_warm(cfg, mesh, key))
+    state, events = run_ticks(step, state, plan_t, total, collect_events,
+                              cfg, telemetry)
     if not collect_events:
         state = state._replace(agg=reduce_fast_agg(state.agg, mesh))
     return state, events
@@ -459,8 +548,10 @@ def resolve_mesh(params: Params, device) -> LocalMesh:
 def bind_run_scan(mesh: LocalMesh):
     """A ``run_scan``-shaped callable closed over ``mesh`` (the form
     ``finish_run`` drives, which passes the mesh's own device)."""
-    def run_scan_bound(params, plan, seed, device, collect_events=True):
-        return run_scan_sharded(params, plan, seed, mesh, collect_events)
+    def run_scan_bound(params, plan, seed, device, collect_events=True,
+                       telemetry=None):
+        return run_scan_sharded(params, plan, seed, mesh, collect_events,
+                                telemetry)
     return run_scan_bound
 
 

@@ -4,6 +4,8 @@ reconstruction from events, and the run tail."""
 
 from __future__ import annotations
 
+import json
+import os
 import time as _time
 from typing import NamedTuple
 
@@ -14,6 +16,8 @@ from distributed_membership_tpu_torch.addressing import INTRODUCER_INDEX
 from distributed_membership_tpu_torch.backends import RunResult
 from distributed_membership_tpu_torch.observability.aggregates import (
     detection_summary)
+from distributed_membership_tpu_torch.observability.timeline import (
+    TimelineRecorder)
 from distributed_membership_tpu_torch.runtime.failures import log_failures
 
 SEED_CAP = 8  # max JOINREQs the introducer answers with a burst per tick
@@ -84,10 +88,17 @@ def events_to_log(params, plan, events: CompactEvents, log) -> None:
 def finish_run(params, plan, log, run_scan_fn, t0: float, seed: int,
                device) -> RunResult:
     """Run the tick loop in the resolved event mode, then either rebuild
-    dbg.log (full) or summarize the on-device aggregates (agg)."""
+    dbg.log (full) or summarize the on-device aggregates (agg).  Under
+    ``TELEMETRY: scalars|hist`` the per-tick series land in
+    ``extra["timeline"]`` and, with ``TELEMETRY_DIR``, in its
+    ``timeline.jsonl`` (and in agg mode the detection summary in its
+    ``summary.json``)."""
     aggregate = params.resolved_event_mode() == "agg"
+    recorder = (TimelineRecorder(params.TELEMETRY_DIR or None)
+                if params.TELEMETRY in ("scalars", "hist") else None)
     final_state, events = run_scan_fn(params, plan, seed, device,
-                                      collect_events=not aggregate)
+                                      collect_events=not aggregate,
+                                      telemetry=recorder)
     failed = plan.failed_indices if plan.fail_time is not None else []
     if aggregate:
         if plan.fail_time is not None:
@@ -109,6 +120,15 @@ def finish_run(params, plan, log, run_scan_fn, t0: float, seed: int,
         sent = events.sent.T
         recv = events.recv.T
         extra = {"final_state": final_state}
+    if recorder is not None:
+        extra["timeline"] = recorder.series()
+        extra["timeline_path"] = recorder.path
+        if params.TELEMETRY_DIR and aggregate:
+            # The detection verdicts beside the series they reconcile
+            # with, for scripts/run_report.py.
+            with open(os.path.join(params.TELEMETRY_DIR, "summary.json"),
+                      "w") as fh:
+                json.dump(extra["detection_summary"], fh, indent=1)
     return RunResult(
         params=params, log=log, sent=sent, recv=recv,
         failed_indices=failed, fail_time=plan.fail_time,

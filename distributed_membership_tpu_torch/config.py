@@ -58,13 +58,14 @@ class Params:
     MESH_SHAPE: str = ""        # tpu_hash_sharded: 'D', 'OxI' or 'SxOxI'
     EXCHANGE_MODE: str = "-1"   # tpu_hash_sharded: -1 (legacy) | legacy
     PROBE_GATHER: str = "packed"
-    # Keys of later slices: parsed only so the backend can refuse them.
     FOLDED: int = -1
+    TELEMETRY: str = "off"      # off | scalars | hist (the flight recorder)
+    TELEMETRY_DIR: str = ""     # where timeline.jsonl goes; '' = memory only
+    # Keys of later slices: parsed only so the backend can refuse them.
     MEGA_TICKS: int = -1
     SHIFT_SET: int = 0
     ENFORCE_BUFFSIZE: int = 0
     CHECKPOINT_EVERY: int = 0
-    TELEMETRY: str = "off"
     SCENARIO: str = ""
 
     def parse(self, text: str, validate: bool = True) -> "Params":
@@ -118,6 +119,18 @@ class Params:
             if getattr(self, knob) not in (-1, 0, 1):
                 raise ValueError(f"{knob} must be 1 (on), 0 (off) or -1 "
                                  f"(auto), got {getattr(self, knob)!r}")
+        if self.TELEMETRY in ("scalars", "hist"):
+            # Only the ring steps emit the per-tick series.
+            if self.BACKEND not in ("tpu_hash", "tpu_hash_sharded"):
+                raise ValueError(
+                    f"TELEMETRY {self.TELEMETRY} is implemented by the "
+                    "ring backends only (tpu_hash, tpu_hash_sharded; "
+                    f"got BACKEND {self.BACKEND!r})")
+            if self.resolved_exchange() != "ring":
+                raise ValueError(
+                    f"TELEMETRY {self.TELEMETRY} requires the ring "
+                    "exchange (the scatter lowering keeps the default "
+                    "program)")
         if self.EXCHANGE_MODE == "batched" and self.EXCHANGE == "scatter":
             raise ValueError(
                 "EXCHANGE_MODE batched applies to the ring exchange's "

@@ -6,9 +6,9 @@ the aggregate leaves) and the JAX dtypes (u32 planes as ``uint32``);
 ``state_from_numpy`` builds the port's state from such a dict, e.g. the
 leaves of a JAX state (a ``ShardedHashState`` when the leaves have no
 ``wf_prev``, which only the single-chip state carries).  Both copy, so
-neither side aliases the other.  A folded state
-(backends/tpu_hash_folded.py) has the same leaves with folded shapes; both
-directions keep whatever shape a leaf has.
+neither side aliases the other.  A folded state, single-chip or sharded
+(backends/tpu_hash_folded.py), has the same leaves with folded shapes;
+both directions keep whatever shape a leaf has.
 """
 
 from __future__ import annotations

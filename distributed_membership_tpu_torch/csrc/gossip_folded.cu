@@ -15,8 +15,11 @@
 // shared payload and the masks) once and write mail once; a few integer
 // operations per entry and shift.  The folded [rows, 128] planes are the
 // bytes of the natural [N, S] planes (S | 128), so K6 is K4's function
-// on one shard of N rows: node shift thr_j, slot shifts c1_j / c2_j.  The
-// kernel is the tiled body of gossip_tile.cuh (see there): a block owns
+// on the natural view: D shards of n_local nodes (one shard of N on the
+// single-chip step), node shift thr_j within a shard, slot shifts
+// c1[d][j] / c2[d][j] per shard; the JAX sharded folded step calls its
+// kernel once per shard, this kernel takes every shard in one launch.
+// The kernel is the tiled body of gossip_tile.cuh (see there): a block owns
 // 4096 / S receiver nodes, stages each shift's sender nodes -- two
 // contiguous runs, split at the ring's wrap, widened to 16-byte bounds
 // where S < 4 -- in shared memory by 1-D bulk copies on an mbarrier ring
@@ -26,22 +29,27 @@
 
 #include "gossip_tile.cuh"
 
-// mail is [rows, 128]; payloads is [K, rows, 128], or [1, rows, 128] with
-// shared_payload; masks is [K, rows, 128] bytes or null; thr, c1 and c2
-// are device [K] int32 arrays (any int32 gives the plain version's
-// result).  S divides 128 and rows * 128 / S < 2^31; mail, payloads and
-// masks 16-byte aligned.  mail is updated in place.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments the kernel does not take.
-extern "C" int dm_gossip_folded(int rows, int s, int k_max, int single_col,
-                                int shared_payload, unsigned* mail,
-                                const unsigned* payloads,
+// mail is [rows, 128] holding the nodes of D = rows * 128 / (s * n_local)
+// shards of n_local nodes, each whole plane rows (n_local * s % 128 == 0);
+// payloads is [K, rows, 128], or [1, rows, 128] with shared_payload; masks
+// is [K, rows, 128] bytes or null; thr is a device [K] int32 array of node
+// shifts within a shard, c1 and c2 device [D, K] int32 arrays of per-shard
+// slot shifts (any int32 gives the plain version's result).  S divides
+// 128 and rows * 128 / S < 2^31; mail, payloads and masks 16-byte
+// aligned.  mail is updated in place.  Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for arguments the kernel does not
+// take.
+extern "C" int dm_gossip_folded(int rows, int s, int n_local, int k_max,
+                                int single_col, int shared_payload,
+                                unsigned* mail, const unsigned* payloads,
                                 const unsigned char* masks, const int* thr,
                                 const int* c1, const int* c2, void* stream) {
     using dm_tile::Gate;
     const long long plane = static_cast<long long>(rows) * 128;
     if (k_max > dm_tile::kMaxShifts || s <= 0 || 128 % s != 0 || rows < 0
-        || plane / s > 0x7fffffffLL)
+        || plane / s > 0x7fffffffLL || n_local <= 0
+        || (plane / s) % n_local != 0
+        || (static_cast<long long>(n_local) * s) % 128 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (rows == 0 || k_max <= 0) return dm_launch_status();
     dm_tile::TileArgs a{};
@@ -52,10 +60,12 @@ extern "C" int dm_gossip_folded(int rows, int s, int k_max, int single_col,
     a.s2 = c2;
     a.plane = plane;
     a.s = s;
-    a.n_local = static_cast<int>(plane / s);
+    a.n_local = n_local;
     a.k_max = k_max;
     a.single_col = single_col != 0;
-    dm_tile::set_tiles(a, 1);
+    // Tiles never straddle a shard, and every shard ends on a plane row,
+    // so a wrapped run's second half lands 16-byte aligned.
+    dm_tile::set_tiles(a, static_cast<int>(plane / s / n_local));
     return masks != nullptr
         ? dm_tile::launch_stacked<Gate::kMask>(a, thr, shared_payload, stream)
         : dm_tile::launch_stacked<Gate::kNone>(a, thr, shared_payload,

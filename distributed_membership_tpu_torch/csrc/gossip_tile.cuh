@@ -7,9 +7,9 @@
 // where rotate moves a row s columns to the right, s_j(l) is s1[d][j] for
 // the rows l >= c_j (or always, with single_col) and s2[d][j] for the
 // wrapped rows l < c_j, and the max is unsigned.  K2 is the case D = 1,
-// L = N.  K6 is D = 1 too, on the natural [N, S] view of the folded
-// [N * S / 128, 128] planes (S | 128): c_j is the node shift thr_j and
-// s1/s2 the slot shifts c1_j/c2_j.  The gate is none (pre-masked
+// L = N.  K6 runs on the natural [N, S] view of the folded
+// [N * S / 128, 128] planes (S | 128), D shards of whole plane rows: c_j
+// is the node shift thr_j and s1/s2 the slot shifts c1/c2.  The gate is none (pre-masked
 // payloads), `j < k_eff[sender row]` or `masks[j][sender entry] != 0`; the
 // payload is one plane shared by all shifts or one plane per shift.
 //

@@ -8,9 +8,11 @@ compiled in parallel, one ``nvcc`` each.  The libraries are loaded with
 entry point returns ``cudaGetLastError()`` after its launch, which
 :func:`check` turns into an exception.
 
-``LAUNCHES`` counts the kernel launches of each wrapper; a wrapper adds
-one where it launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels.
+``LAUNCHES`` counts the kernel launches of each wrapper, per operand form
+(the probe kernels' form with the TELEMETRY hist partials counts as
+``probe_hist`` / ``probe_folded_hist``); a wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ HEADERS = ("common.cuh", "receive_one.cuh", "probe_parts.cuh",
 
 LAUNCHES: Dict[str, int] = {
     "receive": 0, "gossip": 0, "gossip_masks": 0, "probe": 0,
-    "receive_folded": 0, "gossip_folded": 0, "gossip_folded_masks": 0,
-    "probe_folded": 0, "gossip_stacked": 0, "gossip_stacked_masks": 0}
+    "probe_hist": 0, "receive_folded": 0, "gossip_folded": 0,
+    "gossip_folded_masks": 0, "probe_folded": 0, "probe_folded_hist": 0,
+    "gossip_stacked": 0, "gossip_stacked_masks": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # ptxas report per source, last build
@@ -59,7 +62,7 @@ _SIGNATURES = {
     "dm_probe": [_I, _I, _U, _I, _I, _I, _LL, _I, _P, _P, _P, _P, _I,
                  FailIds] + [_P] * 6,
     "dm_receive_folded": [_I, _U, _I, _I, _I, _I, _LL, _I] + [_P] * 11,
-    "dm_gossip_folded": [_I] * 5 + [_P] * 7,
+    "dm_gossip_folded": [_I] * 6 + [_P] * 7,
     "dm_probe_folded": [_I, _I, _U, _I, _I, _LL, _I, _P, _P, _P, _P, _I,
                         FailIds] + [_P] * 7,
     "dm_gossip_stacked": [_LL] + [_I] * 5 + [_P] * 7,

@@ -18,9 +18,12 @@ natural ``[N, S]`` plane, so the plain versions here work on
   vectors, not as pre-broadcast planes.
 * :func:`gossip_folded_plain` -- K6's plain version, the JAX folded
   step's per-shift ``roll_slots(roll_nodes(payload_j, thr_j), c_j)``
-  loop; :func:`gossip_folded_stacked` -- its wrapper, the CUDA kernel
+  loop on each shard of a mesh (K4's plain version on the natural view);
+  :func:`gossip_folded_stacked` -- its wrapper, the CUDA kernel
   ``csrc/gossip_folded.cu`` (K4's tiled body, ``csrc/gossip_tile.cuh``,
-  on one shard of N nodes) for CUDA tensors (mail updated in place).
+  on D shards of ``n_local`` nodes, one launch for all of them) for CUDA
+  tensors (mail updated in place).  One shard is the single-chip step's
+  call; the JAX sharded folded step calls its kernel once per shard.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ from __future__ import annotations
 import torch
 
 from distributed_membership_tpu_torch import kernels
+from distributed_membership_tpu_torch.ops.fused_gossip import (
+    gossip_stacked_plain)
 from distributed_membership_tpu_torch.ops.fused_receive import (
     receive_planes)
-from distributed_membership_tpu_torch.ops.view_merge import umax
 
 LANES = 128
 
@@ -116,50 +120,68 @@ def receive_folded_fused(n: int, s: int, tfail: int, tremove: int,
 
 
 def gossip_folded_plain(rows: int, s: int, k_max: int, single_col: bool,
-                        mail, payloads, thr, c1, c2, masks=None):
-    """K6's plain version: per shift ``j`` (payload ``j``, or the shared
-    payload ``0`` gated by ``masks[j]``) deliver ``roll_slots(roll_nodes(
-    payload, thr_j), c_j)`` with ``c_j = c1_j`` for receiver nodes ``>=
-    thr_j`` (or always, when ``single_col``) and ``c2_j`` below, and max
-    it into mail."""
-    f = LANES // s
-    node = torch.arange(rows * f, dtype=torch.int64, device=mail.device)
-    out = mail
-    for j in range(k_max):
-        send = payloads[0 if payloads.shape[0] == 1 else j]
-        if masks is not None:
-            send = torch.where(masks[j], send, 0)
-        rolled = roll_nodes(send, thr[j], f, s)
-        delivered = roll_slots(rolled, c1[j], s)
-        if not single_col:
-            wrapped = roll_slots(rolled, c2[j], s)
-            delivered = torch.where((node >= thr[j])[:, None],
-                                    delivered.view(-1, s),
-                                    wrapped.view(-1, s)).view(rows, LANES)
-        out = umax(out, delivered)
-    return out
+                        mail, payloads, thr, c1, c2, masks=None,
+                        n_local=None):
+    """K6's plain version: the JAX folded step's per-shift
+    ``roll_slots(roll_nodes(payload_j, thr_j), c_j)`` loop, on each of the
+    ``D = rows * 128 / S / n_local`` shards of ``n_local`` nodes (all of
+    them one shard when ``n_local`` is None).  Per shift ``j`` the payload
+    (``payloads[j]``, or the shared ``payloads[0]`` gated by ``masks[j]``)
+    is rolled by ``thr_j`` nodes within each shard and by ``c_j`` slots,
+    ``c_j = c1[d, j]`` on shard ``d``'s nodes ``>= thr_j`` (or all of
+    them, when ``single_col``) and ``c2[d, j]`` below, and maxed into
+    mail.  The folded planes are the natural ``[N, S]`` bytes, so this is
+    K4's plain version (ops/fused_gossip.py) on that view."""
+    n = rows * (LANES // s)
+    n_local = n if n_local is None else n_local
+    flat = lambda x: x.view(x.shape[0], n, s)  # noqa: E731
+    out = gossip_stacked_plain(
+        n_local, s, k_max, single_col, mail.view(n, s), flat(payloads), thr,
+        c1.view(-1, k_max), c2.view(-1, k_max),
+        None if masks is None else flat(masks))
+    return out.view(rows, LANES)
 
 
 def gossip_folded_stacked(rows: int, s: int, k_max: int, single_col: bool,
-                          mail, payloads, thr, c1, c2, masks=None):
-    """K6 wrapper.  ``mail`` int32 u32-bit ``[rows, 128]``; ``payloads``
-    ``[k_max, rows, 128]`` pre-masked, or ``[1, rows, 128]`` shared by
-    every shift; ``masks`` bool ``[k_max, rows, 128]`` sender-indexed keep
-    masks or None; ``thr``/``c1``/``c2`` int32 ``[k_max]`` on the device
-    (node shift and slot shifts, ``c2`` unread when ``single_col``)."""
+                          mail, payloads, thr, c1, c2, masks=None,
+                          n_local=None):
+    """K6 wrapper.  ``mail`` int32 u32-bit ``[rows, 128]`` holding ``D``
+    shards of ``n_local`` nodes (whole plane rows each; one shard of all
+    ``rows * 128 / S`` nodes when ``n_local`` is None); ``payloads``
+    ``[k_max, rows, 128]`` pre-masked (on a mesh, already block-routed),
+    or ``[1, rows, 128]`` shared by every shift; ``masks`` bool ``[k_max,
+    rows, 128]`` sender-indexed keep masks or None; ``thr`` int32
+    ``[k_max]`` node shifts within a shard; ``c1``/``c2`` int32 ``[D,
+    k_max]`` per-shard slot shifts (``[k_max]`` for one shard; ``c2``
+    unread when ``single_col``).  All on one device; the CUDA kernel
+    ``csrc/gossip_folded.cu`` for CUDA tensors (mail updated in place, all
+    shards in one launch), :func:`gossip_folded_plain` for CPU ones."""
     req = kernels.require
     dev = mail.device
     req(0 < s < LANES and LANES % s == 0,
         f"gossip_folded: S must divide {LANES} (got {s})")
     _check_planes("gossip_folded", (mail,), rows, dev)
+    nodes = rows * (LANES // s)
+    n_local = nodes if n_local is None else n_local
+    req(n_local > 0 and nodes % n_local == 0
+        and (n_local * s) % LANES == 0,
+        f"gossip_folded: n_local ({n_local}) must divide the {nodes} nodes "
+        f"in whole plane rows (n_local * S % {LANES} == 0)")
+    shards = nodes // n_local
     req(payloads.shape in ((k_max, rows, LANES), (1, rows, LANES))
         and payloads.dtype == torch.int32 and payloads.device == dev
         and payloads.is_contiguous(),
         f"gossip_folded: payloads must be contiguous int32 "
         f"[{k_max} or 1, {rows}, {LANES}]")
-    req(all(v.shape == (k_max,) and v.dtype == torch.int32
-            and v.device == dev and v.is_contiguous() for v in (thr, c1, c2)),
-        f"gossip_folded: thr/c1/c2 must be contiguous int32 [{k_max}]")
+    req(thr.shape == (k_max,) and thr.dtype == torch.int32
+        and thr.device == dev and thr.is_contiguous(),
+        f"gossip_folded: thr must be contiguous int32 [{k_max}]")
+    req(all(v.shape in ((shards, k_max),) + (((k_max,),) if shards == 1
+                                              else ())
+            and v.dtype == torch.int32 and v.device == dev
+            and v.is_contiguous() for v in (c1, c2)),
+        f"gossip_folded: c1/c2 must be contiguous int32 [{shards}, "
+        f"{k_max}]")
     if masks is not None:
         req(masks.shape == (k_max, rows, LANES) and masks.dtype == torch.bool
             and masks.device == dev and masks.is_contiguous(),
@@ -167,8 +189,8 @@ def gossip_folded_stacked(rows: int, s: int, k_max: int, single_col: bool,
             f"[{k_max}, {rows}, {LANES}]")
     if not mail.is_cuda:
         return gossip_folded_plain(rows, s, k_max, single_col, mail,
-                                   payloads, thr, c1, c2, masks)
-    req(rows * LANES // s < 2**31
+                                   payloads, thr, c1, c2, masks, n_local)
+    req(nodes < 2**31
         and all(t.data_ptr() % 16 == 0 for t in (mail, payloads, masks)
                 if t is not None),
         "gossip_folded: the CUDA kernel takes fewer than 2^31 nodes and "
@@ -177,7 +199,7 @@ def gossip_folded_stacked(rows: int, s: int, k_max: int, single_col: bool,
         return mail
     p = kernels.ptr
     rc = kernels.library("gossip_folded").dm_gossip_folded(
-        rows, s, k_max, int(single_col), int(payloads.shape[0] == 1),
+        rows, s, n_local, k_max, int(single_col), int(payloads.shape[0] == 1),
         p(mail), p(payloads), p(masks), p(thr), p(c1), p(c2),
         kernels.stream_of(mail))
     kernels.check(rc, "gossip_folded")

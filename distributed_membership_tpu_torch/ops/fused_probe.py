@@ -128,7 +128,7 @@ def probe_window_fused(n: int, s: int, p_cnt: int, tfail: int,
         p(out["ids"]), p(out.get("stale_rows")), p(out.get("susp_rows")),
         p(out.get("rm_cnt")), p(out.get("det")), kernels.stream_of(view))
     kernels.check(rc, "probe")
-    kernels.LAUNCHES["probe"] += 1
+    kernels.LAUNCHES["probe_hist" if want_hist else "probe"] += 1
     return out
 
 
@@ -228,5 +228,6 @@ def probe_folded_window_fused(n: int, s: int, p_cnt: int, tfail: int,
         p(out.get("susp_rows")), p(out.get("rm_cnt")), p(det), p(det_any),
         kernels.stream_of(view))
     kernels.check(rc, "probe_folded")
-    kernels.LAUNCHES["probe_folded"] += 1
+    kernels.LAUNCHES["probe_folded_hist" if want_hist
+                     else "probe_folded"] += 1
     return out

@@ -49,13 +49,19 @@ def resolve_device(device) -> torch.device:
 
 
 def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
-             device="cuda", backend: str | None = None) -> RunResult:
-    """Run one conf and write its logs; ``backend`` overrides the conf's
-    ``BACKEND`` (validated after the override, as the JAX package does)."""
+             device="cuda", backend: str | None = None,
+             telemetry: str | None = None,
+             telemetry_dir: str | None = None) -> RunResult:
+    """Run one conf and write its logs; ``backend``, ``telemetry`` and
+    ``telemetry_dir`` override the conf's ``BACKEND``, ``TELEMETRY`` and
+    ``TELEMETRY_DIR`` (validated after the overrides, as the JAX package
+    does)."""
     dev = resolve_device(device)
     params = Params.from_file(conf_path, validate=False)
-    if backend is not None:
-        params.BACKEND = backend
+    for key, value in (("BACKEND", backend), ("TELEMETRY", telemetry),
+                       ("TELEMETRY_DIR", telemetry_dir)):
+        if value is not None:
+            setattr(params, key, value)
     params.validate()
     log = EventLog(out_dir)
     result = get_backend(params.BACKEND)(params, log, seed=seed, device=dev)
@@ -149,6 +155,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the GPU with the CUDA kernels (default) "
                          "or on the CPU with their plain versions")
+    ap.add_argument("--telemetry", default=None,
+                    choices=["off", "scalars", "hist"],
+                    help="TELEMETRY conf key: 'scalars' arms the flight "
+                         "recorder's per-tick series on the ring steps, "
+                         "'hist' adds its histograms "
+                         "(observability/timeline.py)")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="TELEMETRY_DIR conf key: directory for "
+                         "timeline.jsonl and, in EVENT_MODE agg, "
+                         "summary.json (render with scripts/run_report.py)")
     ap.add_argument("--json", action="store_true",
                     help="print a JSON summary line")
     return ap
@@ -164,7 +180,8 @@ def main(argv=None) -> int:
         ap.error("conf is required unless --grade-all is given")
     result = run_conf(args.conf, seed=args.seed,
                       out_dir=args.out_dir or ".", device=args.device,
-                      backend=args.backend)
+                      backend=args.backend, telemetry=args.telemetry,
+                      telemetry_dir=args.telemetry_dir)
     p = result.params
     summary = {
         "backend": p.BACKEND,
@@ -179,6 +196,8 @@ def main(argv=None) -> int:
     }
     if "detection_summary" in result.extra:
         summary["detection"] = result.extra["detection_summary"]
+    if result.extra.get("timeline_path"):
+        summary["timeline_path"] = result.extra["timeline_path"]
     g = None
     if args.grade:
         g = SCENARIO_GRADERS[args.grade](result.log.dbg_text(),

@@ -161,13 +161,31 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     "SHIFT_SET: 4\n", "ENFORCE_BUFFSIZE: 1\n", "CHECKPOINT_EVERY: 10\n",
-    "MEGA_TICKS: 4\n", "TELEMETRY: scalars\n", "RNG_MODE: hoisted\n",
+    "MEGA_TICKS: 4\n", "RNG_MODE: hoisted\n",
     "PROBE_IO: approx_lag\n", "PROBE_IO: none\n"])
 def test_outside_the_slice_is_refused(extra):
     p = Params.from_text(_RING.format(n=64, drop=0, p=0, total=10, fail=5)
                          + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         make_config(p, device="cpu")
+
+
+@pytest.mark.parametrize("tier", ["scalars", "hist"])
+@pytest.mark.parametrize("extra", ["EXCHANGE: scatter\n",
+                                   "BACKEND: tpu_sparse\n"])
+def test_telemetry_off_the_ring_raises_as_jax(tier, extra):
+    """TELEMETRY needs a ring step: the JAX package's ValueError, word for
+    word, at conf validation."""
+    from distributed_membership_tpu.config import Params as JaxParams
+    conf = (_RING.format(n=64, drop=0, p=0, total=10, fail=5)
+            + f"TELEMETRY: {tier}\n" + extra)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with pytest.raises(ValueError) as want:
+            JaxParams.from_text(conf)
+    with pytest.raises(ValueError, match="TELEMETRY") as got:
+        Params.from_text(conf)
+    assert str(got.value) == str(want.value)
 
 
 _FOLDED = ("MAX_NNB: {n}\nSINGLE_FAILURE: 1\nDROP_MSG: 0\n"

@@ -163,7 +163,7 @@ def test_probe_kernel(cuda, mode, n, s, p_cnt, ptr, row0, fails, plane):
     kernels.reset_launches()
     got = probe_window_fused(ring, s, *args)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["probe"] == 1
+    assert kernels.LAUNCHES["probe_hist" if hist else "probe"] == 1
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
@@ -187,8 +187,9 @@ def test_run_on_card_matches_cpu(cuda, tmp_path):
     run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
     assert kernels.LAUNCHES == {
         "receive": 80, "gossip": 0, "gossip_masks": 80, "probe": 80,
-        "receive_folded": 0, "gossip_folded": 0, "gossip_folded_masks": 0,
-        "probe_folded": 0, "gossip_stacked": 0, "gossip_stacked_masks": 0}
+        "probe_hist": 0, "receive_folded": 0, "gossip_folded": 0,
+        "gossip_folded_masks": 0, "probe_folded": 0, "probe_folded_hist": 0,
+        "gossip_stacked": 0, "gossip_stacked_masks": 0}
     run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
     for name in ("dbg.log", "stats.log", "msgcount.log"):
         assert ((tmp_path / "cuda" / name).read_bytes()
@@ -476,3 +477,114 @@ def test_cold_join_ring_on_card_matches_cpu(cuda, tmp_path):
     for name in ("dbg.log", "stats.log", "msgcount.log"):
         assert ((tmp_path / "cuda" / name).read_bytes()
                 == (tmp_path / "cpu" / name).read_bytes()), name
+
+
+# ---------------------------------------------------------------------------
+# K6 on D shards in one launch (the sharded folded step).  (D, L, S, k_max):
+# eight shards of 8 plane rows at S=16; at S=2 and S=4 shards of one and
+# of a few plane rows, where the runs widened to 16-byte bounds reach a
+# shard's edge; three shards (L*STRIDE % S != 0: two alignments).  The
+# node shifts include 0 and L - 1.
+
+GOSSIP_FOLDED_SHARDS = [(8, 64, 16, 3), (8, 64, 2, 3), (8, 512, 2, 3),
+                        (8, 32, 4, 3), (3, 96, 4, 3), (3, 40, 16, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["stacked", "masks", "stacked_masks"])
+@pytest.mark.parametrize("d,n_local,s,k_max", GOSSIP_FOLDED_SHARDS)
+def test_gossip_folded_shards_kernel(cuda, d, n_local, s, k_max, form):
+    n = d * n_local
+    rows = n * s // 128
+    single = (n_local * STRIDE) % s == 0
+    rng = np.random.default_rng(d * n_local + s + k_max)
+    mail = _packed(rng, n, 0.5, (rows, 128)).to(cuda)
+    view = _packed(rng, n, 0.8, (rows, 128)).to(cuda)
+    thr = torch.tensor([v % n_local for v in (n_local - 1, 0, 5)[:k_max]],
+                       dtype=torch.int32, device=cuda)
+    c1, c2 = (torch.from_numpy(rng.integers(0, s, size=(d, k_max),
+                                            dtype=np.int32)).to(cuda)
+              for _ in range(2))
+    keep = _flags(rng, k_max * rows * 128, 0.3).reshape(
+        k_max, rows, 128).to(cuda)
+    payloads = view[None] if form == "masks" else torch.where(
+        keep, view[None], 0)
+    masks = (None if form == "stacked" else _flags(
+        rng, k_max * rows * 128, 0.7).reshape(k_max, rows, 128).to(cuda))
+    want = gossip_folded_plain(rows, s, k_max, single, mail, payloads, thr,
+                               c1, c2, masks, n_local=n_local)
+    kernels.reset_launches()
+    got = gossip_folded_stacked(rows, s, k_max, single, mail.clone(),
+                                payloads, thr, c1, c2, masks,
+                                n_local=n_local)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gossip_folded" if form == "stacked"
+                            else "gossip_folded_masks"] == 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, mail)
+
+
+def _timelines_equal(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.cuda
+def test_sharded_folded_run_on_card_matches_cpu(cuda, tmp_path):
+    """A sharded folded run (eight shards of 512 nodes, S=16, 5% drops,
+    TELEMETRY hist) ends in the CPU run's state, detection summary and
+    timeline, with K5, K6 and K7's hist form once per tick."""
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = tmp_path / "shf.conf"
+    conf.write_text(
+        "MAX_NNB: 4096\nSINGLE_FAILURE: 1\nDROP_MSG: 1\n"
+        "MSG_DROP_PROB: 0.05\nDROP_START: 0\nDROP_STOP: 80\n"
+        "VIEW_SIZE: 16\nGOSSIP_LEN: 4\nPROBES: 2\nFANOUT: 3\nTFAIL: 16\n"
+        "TREMOVE: 40\nTOTAL_TIME: 80\nFAIL_TIME: 10\nJOIN_MODE: warm\n"
+        "EXCHANGE: ring\nEVENT_MODE: agg\nBACKEND: tpu_hash_sharded\n"
+        "MESH_SHAPE: 8\nFOLDED: 1\nTELEMETRY: hist\n")
+    kernels.reset_launches()
+    card = run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive_folded": 80, "gossip_folded": 80, "probe_folded_hist": 80}
+    cpu = run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
+    assert (card.extra["detection_summary"]
+            == cpu.extra["detection_summary"])
+    assert card.extra["detection_summary"]["detections_total"] > 0
+    want = state_to_numpy(cpu.extra["final_state"])
+    got = state_to_numpy(card.extra["final_state"])
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    _timelines_equal(card.extra["timeline"], cpu.extra["timeline"])
+
+
+@pytest.mark.cuda
+def test_telemetry_run_on_card_matches_cpu(cuda, tmp_path):
+    """TELEMETRY hist on the natural ring (full events, 5% drops): K3's
+    hist form once per tick, the CPU run's logs and timeline."""
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = tmp_path / "ring.conf"
+    conf.write_text(
+        "MAX_NNB: 256\nSINGLE_FAILURE: 1\nDROP_MSG: 1\nMSG_DROP_PROB: 0.05\n"
+        "DROP_START: 20\nDROP_STOP: 60\nVIEW_SIZE: 128\nGOSSIP_LEN: 32\n"
+        "PROBES: 16\nFANOUT: 3\nTFAIL: 16\nTREMOVE: 40\nTOTAL_TIME: 80\n"
+        "FAIL_TIME: 10\nJOIN_MODE: warm\nEXCHANGE: ring\n"
+        "BACKEND: tpu_hash\nTELEMETRY: hist\n")
+    kernels.reset_launches()
+    card = run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive": 80, "gossip_masks": 80, "probe_hist": 80}
+    cpu = run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "cuda" / name).read_bytes()
+                == (tmp_path / "cpu" / name).read_bytes()), name
+    _timelines_equal(card.extra["timeline"], cpu.extra["timeline"])
+    assert card.extra["timeline"]["dropped"].sum() > 0

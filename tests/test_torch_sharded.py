@@ -17,7 +17,7 @@ and runs the wrappers' plain versions.  Compared, with tolerance 0:
   approx, and with the JAX Pallas K4 (interpret) on the JAX side;
 * whole runs: byte-identical logs at N=256 on eight shards, an identical
   detection summary at N=2048;
-* the refusals of what the slice does not cover.
+* the refusals of what the port does not run yet.
 """
 
 import pathlib
@@ -547,10 +547,9 @@ _REF = _BASE.format(n=64, tremove=40, mesh=8) + _NODROP
     ("EXCHANGE: scatter\n", "Queue 1 item 6c"),
     ("EXCHANGE_MODE: batched\n", "Queue 1 item 6c"),
     ("PROBE_GATHER: split\n", "Queue 1 item 6c"),
-    ("FOLDED: 1\n", "Queue 1 item 6b"),
-    ("TELEMETRY: scalars\n", "Queue 1 item 4"),
     ("CHECKPOINT_EVERY: 10\n", "Queue 1 item 4"),
     ("MEGA_TICKS: 4\n", "Queue 1 item 4"),
+    ("RNG_MODE: hoisted\n", "Queue 1 item 4"),
     ("SCENARIO: x.json\n", "Queue 1 item 5"),
 ])
 def test_outside_the_slice_is_refused(extra, item):
@@ -571,8 +570,11 @@ def test_gates_and_messages_match_jax():
     folded16 = (_REF.replace("VIEW_SIZE: 128", "VIEW_SIZE: 16")
                 .replace("GOSSIP_LEN: 32", "GOSSIP_LEN: 4")
                 .replace("PROBES: 16", "PROBES: 2") + "EVENT_MODE: agg\n")
-    # FOLDED auto on CUDA at S < 128 would pick the sharded folded step.
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    # FOLDED auto on CUDA at S < 128 picks the folded layout globally,
+    # but L=8 rows do not fold at P=2 (128/P = 64): the natural layout,
+    # whose kernels refuse S < 128 on CUDA.
+    with pytest.raises(NotImplementedError,
+                       match=r"VIEW_SIZE 16 on CUDA.*Queue 1 item 9"):
         sh.sharded_config(Params.from_text(folded16), False, (3,), 8,
                           device="cuda")
     for extra, n_local in (("FUSED_GOSSIP: 1\n", 4),
