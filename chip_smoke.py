@@ -69,7 +69,27 @@ Phases (any failure exits non-zero before the final line):
                 summary; then confs/ring_256_s128_drop.conf with TELEMETRY
                 hist on the card against the CPU: its logs equal the CPU's
                 with TELEMETRY off, its timeline the CPU's with hist.
-Phase 2 also holds K4 (the sharded step's stacked gossip) in both operand
+ 19. scenario -- confs/ring_1m_s128_partition.conf (the main path's
+                geometry, 160 ticks, TELEMETRY scalars, the halves
+                partitioned over (40, 100], then healed): K1, K2's masks
+                form and K3 once per tick, the timeline reconciles, and
+                the oracle's partition entry and invariants are printed;
+ 20. scenario_folded -- confs/ring_1m_s16_folded_churn.conf (the folded
+                S=16 geometry, 160 ticks: crash, restart, a 20% link flake
+                between the halves, a delay window): K5-K7 once per tick,
+                the restarted nodes rejoin, detections > 0;
+ 21. scenario_sharded -- confs/ring_1m_s128_sharded8_partition.conf (eight
+                shards, 64 ticks, a cut inside a shard, a 10% one-way
+                flake): K1, K4 and K3 once per tick;
+ 22. scenario_parity -- confs/ring_256_s128_scenario.conf (N=256, every
+                event kind, full events) on the card and on the CPU: the
+                three logs and the oracle report identical; then
+                confs/ring_16k_s16_folded_sharded8_scenario.conf (N=2^14,
+                eight shards, folded, TELEMETRY scalars): the summary,
+                every final-state leaf, every series and the report
+                identical.
+Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
+runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
 not a multiple of 128 (two column alignments, per-shard shifts); K6 on
 eight shards of 2^17 nodes in one launch, and on short shards at S=2 and
@@ -85,7 +105,10 @@ runs a subset of the phases and prints no final line; `--only profile`
 splits one tick of each 1M conf into its RNG draw, kernels and the rest,
 prints a torch.profiler summary with the device's busy share and the
 device span of each protocol phase (the dm_* record_function ranges),
-and times the 1M natural tick with TELEMETRY hist against off.  Run
+times the 1M natural tick with TELEMETRY hist against off, and profiles
+the two 1M single-chip scenario confs on ticks inside their windows.
+The scenario confs name their SCENARIO file relative to the repository
+root, so the script runs from there.  Run
 outputs (logs, profiler tables) go to --out-dir (default smoke_out/).
 """
 
@@ -108,7 +131,8 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "folded_lossy", "folded_parity", "sharded", "sharded_lossy",
           "sharded_parity", "grade", "scatter_parity", "cold_parity",
           "sharded_folded", "sharded_folded_lossy", "sharded_folded_parity",
-          "telemetry")
+          "telemetry", "scenario", "scenario_folded", "scenario_sharded",
+          "scenario_parity")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
@@ -257,9 +281,37 @@ def phase_kernels(torch, dev) -> dict:
     del v2, ts2, m2
     # in: view, view_ts, mail, cand and the row vectors; out: view,
     # view_ts, mail, rm_ids (4 B) and join (1 B) per slot, two [N] counts
-    record(rows, "receive_fused", "receive", err, k_ms, p_ms,
-           nbytes(view, view_ts, mail, cand, recv, act, self_on, self_pack)
-           + nbytes(view, view_ts, mail) + N * S * 5 + N * 8)
+    k1_bytes = (nbytes(view, view_ts, mail, cand, recv, act, self_on,
+                       self_pack) + nbytes(view, view_ts, mail) + N * S * 5
+                + N * 8)
+    record(rows, "receive_fused", "receive", err, k_ms, p_ms, k1_bytes)
+
+    # K1's admit_mask form: a random half of the slots admit.
+    admit = T((rng.random(shape, dtype=np.float32) < 0.5).astype(np.int32))
+    ref = receive_core(N, S, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail,
+                       *args, admit_mask=admit)
+    got = receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t, view.clone(),
+                        view_ts.clone(), mail.clone(), *args,
+                        admit_mask=admit)
+    torch.cuda.synchronize()
+    err = max_abs_err(zip(got, ref))
+    open_ = receive_core(N, S, TFAIL, TREMOVE, STRIDE, t, view, view_ts,
+                         mail, *args)
+    if torch.equal(open_[0], ref[0]):
+        raise AssertionError("receive_admit: the admit plane changed nothing")
+    del ref, got, open_
+    v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
+    k_ms = cuda_ms(lambda: receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t,
+                                         v2, ts2, m2, *args,
+                                         admit_mask=admit), 20)
+    p_ms = cuda_ms(lambda: receive_core(N, S, TFAIL, TREMOVE, STRIDE, t,
+                                        view, view_ts, mail, *args,
+                                        admit_mask=admit), 3)
+    del v2, ts2, m2
+    # K1's bytes and one int32 [N, S] plane read
+    record(rows, "receive_fused", "receive_admit", err, k_ms, p_ms,
+           k1_bytes + nbytes(admit))
+    del admit
 
     # ---- K2 gossip, both operand forms ----
     payload = torch.where(T(rng.random(shape, dtype=np.float32) < 0.3),
@@ -705,10 +757,32 @@ def run_path(torch, conf: str, name: str, expect: dict, out_dir: str) -> dict:
     }
     if "timeline" in result.extra:
         info["timeline"] = reconcile(name, result)
+    if "scenario_report" in result.extra:
+        info["scenario"] = oracle_digest(result.extra["scenario_report"])
     log(f"main[{name}]: " + json.dumps(info))
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches} != {expect}")
     return info
+
+
+def oracle_digest(report: dict) -> dict:
+    """The scenario oracle's verdicts (scenario/oracle.py): its basis, the
+    partition, crash and restart entries, the final census and each
+    invariant's pass/fail."""
+    return {"basis": report["basis"], "partitions": report["partitions"],
+            "crashes": report["crashes"], "restarts": report["restarts"],
+            "final": report.get("final"),
+            "invariants": {k: v["ok"]
+                           for k, v in report["invariants"].items()},
+            "violations": report["violations"]}
+
+
+def same_report(res: dict, name: str) -> None:
+    """Raise unless the card's and the CPU's scenario reports are equal."""
+    reps = {d: r.extra.get("scenario_report") for d, r in res.items()}
+    if reps["cuda"] is None or reps["cuda"] != reps["cpu"]:
+        raise AssertionError(f"{name}: scenario reports differ between "
+                             "cuda and cpu (or are missing)")
 
 
 def reconcile(name: str, result) -> dict:
@@ -771,9 +845,11 @@ def card_vs_cpu(torch, conf: str, name: str, expect: dict, out_dir: str,
     if not res.extra["final_state"].view.is_cuda:
         raise AssertionError(f"{name}: the final state is not on the card")
     t1 = time.perf_counter()
-    run_conf(conf, out_dir=dirs["cpu"], device="cpu")
+    cpu = run_conf(conf, out_dir=dirs["cpu"], device="cpu")
     cpu_wall = time.perf_counter() - t1
     same_logs(dirs["cuda"], dirs["cpu"], name)
+    if "scenario_report" in cpu.extra:
+        same_report({"cuda": res, "cpu": cpu}, name)
     ticks = res.params.TOTAL_TIME
     info = {"n": res.params.EN_GPSZ, "ticks": ticks, "wall_s": wall,
             "ms_per_tick": wall * 1e3 / ticks, "cpu_wall_s": cpu_wall,
@@ -814,6 +890,9 @@ def state_parity(torch, conf: str, name: str, out_dir: str,
     if summ["cpu"].get("detections_total", 0) <= 0:
         raise AssertionError(f"{name}: no detection")
     what = f"{len(leaves['cpu'])} final-state leaves"
+    if "scenario_report" in res["cpu"].extra:
+        same_report(res, name)
+        what += ", the scenario report"
     if "timeline" in res["cpu"].extra:
         series = {d: r.extra["timeline"] for d, r in res.items()}
         if series["cuda"].keys() != series["cpu"].keys() or any(
@@ -932,12 +1011,14 @@ def state_tensors(state):
 
 
 def phase_profile(torch, conf: str, name: str, out_dir: str,
-                  warm: int = 3, ticks: int = 5, telemetry=None) -> dict:
+                  warm: int = 3, ticks: int = 5, telemetry=None,
+                  t0: int = 0) -> dict:
     """Where one tick's time goes at N=2^20: the whole step, its RNG plan
     alone (CUDA events), and a torch.profiler window over ``ticks`` steps
     (device kernel time by name, device busy share of the wall, and the
     device span of each protocol-phase range ``dm_*``).  ``telemetry``
-    overrides the conf's TELEMETRY."""
+    overrides the conf's TELEMETRY; the warm state steps from tick ``t0``
+    (inside a scenario's windows)."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_membership_tpu_torch.backends import (
@@ -950,15 +1031,17 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
     params = Params.from_file(conf)
     if telemetry is not None:
         params.TELEMETRY = telemetry
-    plan = failures.make_plan(params, random.Random("app:0"))
+    plan = failures.resolve_plan(params, random.Random("app:0"))
     fail_ids = tpu_hash.plan_fail_ids(plan)
+    scenario = tpu_hash.plan_scenario(plan)
     pt = failures.plan_tensors(params, plan, 0, params.TOTAL_TIME, "cuda")
     key0 = failures.make_run_key(params, 0 ^ 0x5EED)
     if params.BACKEND == "tpu_hash_sharded":
         mesh = tpu_hash_sharded.resolve_mesh(params, "cuda")
         n_local = mesh.rows_per_shard(params.EN_GPSZ)
         cfg = tpu_hash_sharded.sharded_config(params, False, fail_ids,
-                                              n_local, device="cuda")
+                                              n_local, device="cuda",
+                                              scenario=scenario)
         if cfg.folded:
             step = tpu_hash_folded.make_ring_sharded_folded_step(cfg, mesh)
             state = tpu_hash_folded.init_local_state_warm_folded(cfg, mesh,
@@ -973,10 +1056,12 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
                 g=cfg.g,
                 k_max=min(cfg.fanout, cfg.s), p_cnt=cfg.probes,
                 seed_rows=min(cfg.seed_cap, cfg.n),
-                use_drop=cfg.drop_prob > 0, cold_join=False, device="cuda")
+                use_drop=tpu_hash.uses_drop(cfg), cold_join=False,
+                device="cuda")
     else:
         cfg = tpu_hash.make_config(params, collect_events=False,
-                                   fail_ids=fail_ids, device="cuda")
+                                   fail_ids=fail_ids, device="cuda",
+                                   scenario=scenario)
         step, init = tpu_hash.step_and_init(cfg)
         state = init(cfg, key0, "cuda")
 
@@ -985,10 +1070,10 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
                 key, n=cfg.n, s=cfg.s, g=cfg.g,
                 k_max=min(cfg.fanout, cfg.s), p_cnt=cfg.probes,
                 seed_rows=min(cfg.seed_cap, cfg.n),
-                use_drop=cfg.drop_prob > 0, need_ctrl=not cfg.folded,
+                use_drop=tpu_hash.uses_drop(cfg), need_ctrl=not cfg.folded,
                 need_burst=not cfg.folded, device="cuda")
-    t = 0
-    for t in range(warm):
+    t = t0
+    for t in range(t0, t0 + warm):
         state, _ = step(state, t, pt.tick_key(t), pt)
 
     def one_tick():
@@ -1001,11 +1086,11 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        w0 = time.perf_counter()
         for _ in range(ticks):
             one_tick()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - w0) * 1e6
     per_kernel: dict = {}
     phase_span: dict = {}
     for e in prof.events():
@@ -1027,7 +1112,7 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
     dev_ms = sum(ms for ms, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     info = {"step_ms": step_ms, "rng_ms": rng_ms,
-            "telemetry": params.TELEMETRY,
+            "telemetry": params.TELEMETRY, "first_tick": t0,
             "profiled_ticks": ticks, "wall_ms": wall_us / 1e3,
             "device_ms": dev_ms,
             "device_busy_share": dev_ms * 1e3 / wall_us,
@@ -1065,8 +1150,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = nvidia_smi()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    out_dir = args.out_dir
+    out_dir = os.path.abspath(args.out_dir)
     os.makedirs(out_dir, exist_ok=True)
+    os.chdir(REPO)       # the scenario confs' SCENARIO paths start here
     t_start = time.perf_counter()
 
     secs = kernels.build(ptxas_report=True)
@@ -1105,6 +1191,15 @@ def main(argv=None) -> int:
                 torch, os.path.join(confs, "ring_1m_s128_hist.conf"),
                 f"ring_1m_s128_telemetry_{tier}", out_dir, telemetry=tier)
             hist.setdefault(tier, []).append(info["step_ms"])
+            torch.cuda.empty_cache()
+        # The scenario ticks inside their windows: the partition (K2's
+        # masks form and the cut at every send site) against
+        # ring_1m_s128, the link flakes' per-row probabilities against
+        # ring_1m_s16_folded_drop.
+        for name, first in (("ring_1m_s128_partition", 50),
+                            ("ring_1m_s16_folded_churn", 110)):
+            phase_profile(torch, os.path.join(confs, name + ".conf"), name,
+                          out_dir, t0=first)
             torch.cuda.empty_cache()
         log("profile[telemetry_cost]: " + json.dumps(
             {"step_ms_off": hist["off"], "step_ms_hist": hist["hist"],
@@ -1263,6 +1358,61 @@ def main(argv=None) -> int:
         telemetry_parity(torch, os.path.join(confs, "ring_256_s128_drop.conf"),
                          out_dir, card)
         log(f"phase telemetry: {time.perf_counter() - t0:.1f}s; card: {card}")
+    if "scenario" in phases:
+        paths["scenario"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_partition.conf"),
+            "scenario", launches_expected(receive=160, gossip_masks=160,
+                                          probe=160), out_dir)
+        sc = paths["scenario"]["scenario"]
+        part = sc["partitions"][0] if sc["partitions"] else {}
+        if sc["basis"] != "telemetry" or part.get("removals_during", 0) <= 0:
+            return fail(f"scenario: oracle report {sc}")
+        log("scenario: partition " + json.dumps(
+            {k: part.get(k) for k in ("removals_during", "refill_joins",
+                                      "unhealed_removals",
+                                      "reconverged_tick")})
+            + " invariants " + json.dumps(sc["invariants"])
+            + f"; card: {card}")
+        torch.cuda.empty_cache()
+    if "scenario_folded" in phases:
+        paths["scenario_folded"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s16_folded_churn.conf"),
+            "scenario_folded", launches_expected(
+                receive_folded=160, gossip_folded=160, probe_folded=160),
+            out_dir)
+        info = paths["scenario_folded"]
+        sc = info["scenario"]
+        if (info["detection"].get("detections_total", 0) <= 0
+                or [r.get("rejoined") for r in sc["restarts"]] != [True]):
+            return fail(f"scenario_folded: {info['detection']} {sc}")
+        log("scenario_folded: restarts " + json.dumps(sc["restarts"])
+            + " crashes " + json.dumps(sc["crashes"]) + " invariants "
+            + json.dumps(sc["invariants"]) + f"; card: {card}")
+        torch.cuda.empty_cache()
+    if "scenario_sharded" in phases:
+        paths["scenario_sharded"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_sharded8_partition.conf"),
+            "scenario_sharded", launches_expected(
+                receive=64, gossip_stacked=64, probe=64), out_dir)
+        sc = paths["scenario_sharded"]["scenario"]
+        if not sc["partitions"] or sc["partitions"][0].get(
+                "removals_during", 0) <= 0:
+            return fail(f"scenario_sharded: oracle report {sc}")
+        log("scenario_sharded: partition " + json.dumps(sc["partitions"])
+            + " invariants " + json.dumps(sc["invariants"])
+            + f"; card: {card}")
+        torch.cuda.empty_cache()
+    if "scenario_parity" in phases:
+        t0 = time.perf_counter()
+        paths["scenario_parity"] = card_vs_cpu(
+            torch, os.path.join(confs, "ring_256_s128_scenario.conf"),
+            "scenario_parity", launches_expected(
+                receive=80, gossip_masks=80, probe=80), out_dir, card)
+        state_parity(torch, os.path.join(
+            confs, "ring_16k_s16_folded_sharded8_scenario.conf"),
+            "scenario_parity_sharded_folded", out_dir, card)
+        log(f"phase scenario_parity: {time.perf_counter() - t0:.1f}s; "
+            f"card: {card}")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):
@@ -1274,10 +1424,12 @@ def main(argv=None) -> int:
     # Forms no path runs ride their kernel's entry: K6's masks form is
     # held in phase 2 only (the folded steps mask their payloads
     # themselves), as is K4's (the sharded step masks its payloads before
-    # the block hop).
+    # the block hop).  K1's admit form has an entry of its own, with the
+    # main path's count of it: 0, as no step passes the plane.
     out = []
     for form, path, key, src, extras in (
             ("receive", "main", "receive", "receive.cu", ()),
+            ("receive_admit", "main", "receive_admit", "receive.cu", ()),
             ("gossip", "main", "gossip", "gossip.cu", ()),
             ("gossip_masks", "lossy", "gossip_masks", "gossip.cu", ()),
             ("probe", "main", "probe", "probe.cu",

@@ -54,8 +54,17 @@ honoured on both devices; ``-1`` picks it on CUDA when the gates pass and
 ``S < 128``, and the natural layout otherwise (always on the CPU, as the
 JAX package's auto is off away from its accelerator).
 
+``SCENARIO`` (scenario/compile.py) runs on the ring step of every layout:
+a legacy-shaped schedule lowers to the usual FailurePlan (on the scatter
+exchange too); a general one rides PlanTensors, and each tick's
+activation is read on the host (:func:`tick_faults`) while its masks are
+tensor operations -- the delay window's held rows, partition cuts and
+link-flake drop probabilities at every send site, and the end-of-tick
+crash/leave/restart transitions (:func:`restart_wipe`).  The JAX
+package's gates hold (ring exchange only, no ENFORCE_BUFFSIZE).
+
 Refused with ``NotImplementedError`` (ROADMAP.md names the queue item):
-SCENARIO, SHIFT_SET, ENFORCE_BUFFSIZE, CHECKPOINT_EVERY, MEGA_TICKS,
+SHIFT_SET, ENFORCE_BUFFSIZE, CHECKPOINT_EVERY, MEGA_TICKS,
 RNG_MODE hoisted, PROBE_IO approx_lag/none, EVENT_MODE agg on
 the scatter exchange, and more than FAST_AGG_MAX_FAILED failed ids under
 EVENT_MODE agg.  On CUDA the ring's kernels are the path, so a pinned
@@ -103,6 +112,9 @@ from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, M32, STRIDE, as_u32, hash_slot, member_of, to_bits)
 from distributed_membership_tpu_torch.runtime.failures import (
     FailurePlan, PlanTensors, make_run_key, plan_tensors, resolve_plan)
+from distributed_membership_tpu_torch.scenario.compile import (
+    cross_group, cut_active, cuts_at, delayed_mask, site_drop_prob,
+    updown_masks)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -161,6 +173,17 @@ class HashConfig:
     folded: bool = False   # [N*S/128, 128] planes (tpu_hash_folded.py)
     telemetry: bool = False       # TELEMETRY scalars (or hist)
     telemetry_hist: bool = False  # TELEMETRY hist
+    # General-path scenario (scenario/compile.py ScenarioStatic): which
+    # hook sites the ring steps run; its plan arrays ride PlanTensors.
+    scenario: object = None
+
+
+def uses_drop(cfg: HashConfig) -> bool:
+    """Whether the ring steps draw drop coins: a conf drop probability,
+    or a scenario with drop windows or link flakes (whose coins are drawn
+    on every tick, at the probability the tick's windows give)."""
+    return cfg.drop_prob > 0.0 or (cfg.scenario is not None
+                                   and cfg.scenario.has_drop)
 
 
 def slot_of(cfg: HashConfig, node, member):
@@ -350,18 +373,22 @@ class JoinPlane(NamedTuple):
 
 
 def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
-               ctrl_kept=None) -> JoinPlane:
+               ctrl_kept=None, held=None) -> JoinPlane:
     """JOINREP delivery, nodeStart (the introducer boots its group, the
     others send a JOINREQ) and the double heartbeat increment
     (MP1Node.cpp:126-163,226-251,412-415).  ``ctrl_kept`` is the ``[2,
     N]`` control-message keep mask (row 0 JOINREQ, row 1 JOINREP) under
-    drops, None when nothing drops.  ``idx`` holds the global row ids of
-    the flat layout.  Under warm join every start tick is -1, so nobody
-    starts and no JOINREQ is sent."""
+    drops, None when nothing drops.  ``held`` masks the rows a scenario's
+    delay window holds (no delivery; ``act`` does not depend on it), or
+    None.  ``idx`` holds the global row ids of the flat layout.  Under
+    warm join every start tick is -1, so nobody starts and no JOINREQ is
+    sent."""
     intro = INTRODUCER_INDEX
     start = plan.start_ticks
     is_intro = idx == intro
     recv_mask = state.started & (start < t) & ~state.failed
+    if held is not None:
+        recv_mask = recv_mask & ~held
     recv_tick = torch.where(recv_mask, state.pending_recv, 0)
     pending_recv = torch.where(recv_mask, 0, state.pending_recv)
     in_group = state.in_group | (state.joinrep_infl & recv_mask)
@@ -443,6 +470,101 @@ def count_ctrl_dropped(jp: JoinPlane, plan: PlanTensors, t: int, idx,
             + (joiners & ctrl_drop[0]).sum(dtype=I32))
 
 
+class TickFaults(NamedTuple):
+    """One tick's fault plan, read on the host: the legacy crash and drop
+    window, or a general scenario's activation (scenario/compile.py).
+    Masks are ``[N]`` over the global row ids, None where inactive."""
+    down: Optional[torch.Tensor]   # crash/leave at the end of the tick
+    up: Optional[torch.Tensor]     # restart at the end of the tick
+    held: Optional[torch.Tensor]   # inbound delivery held (delay window)
+    cuts: Optional[np.ndarray]     # active partition's cuts at t
+    cuts_prev: Optional[np.ndarray]  # ... at t - 1 (the ack leg)
+    prob: object                   # prob(tt, src, dst): coin threshold
+
+
+def tick_faults(plan: PlanTensors, t: int, rows, n: int,
+                p_drop: float) -> TickFaults:
+    """The fault plan of tick ``t`` for ``rows`` (the global ids of the
+    flat layout).  ``prob(tt, src, dst)`` is the drop probability of a
+    message sent at tick ``tt`` (a float32 value, or a tensor over
+    ``src``/``dst`` under link flakes); a coin drops where ``u < prob``,
+    so a probability of 0.0 needs no coin.  It is 0.0 wherever the step
+    draws no coin stream (:func:`uses_drop` false: no conf drop
+    probability, no scenario window or flake)."""
+    scn, static = plan.scenario, plan.scenario_static
+    if scn is None:
+        return TickFaults(None, None, None, None, None,
+                          lambda tt, src=None, dst=None: (
+                              p_drop if plan.drop_active(tt) else 0.0))
+    down, up = (updown_masks(scn, t, rows) if static.has_updown
+                else (None, None))
+
+    def active_cuts(tt):
+        if not static.n_parts:
+            return None
+        cuts = cuts_at(scn, tt, n)
+        return cuts if cut_active(cuts, n) else None
+    return TickFaults(
+        down, up, delayed_mask(scn, t, rows) if static.n_delays else None,
+        active_cuts(t), active_cuts(t - 1),
+        lambda tt, src, dst: site_drop_prob(static, scn, tt, src, dst))
+
+
+def no_coin(p) -> bool:
+    """A probability that drops nothing (``u < 0.0`` never holds)."""
+    return isinstance(p, float) and p == 0.0
+
+
+def coin_at(u, p):
+    """The drop coin ``u < p`` with ``p`` a float or a tensor that
+    broadcasts against ``u`` from the left (a per-row ``[R]`` probability
+    against ``[R, S]`` coins)."""
+    if torch.is_tensor(p) and p.dim() < u.dim():
+        p = p.reshape(p.shape + (1,) * (u.dim() - p.dim()))
+    return u < p
+
+
+def will_flush_of(plan: PlanTensors, t: int, recv_mask, f: TickFaults):
+    """Rows whose pending receives flush at t+1: under a scenario this
+    tick's down/up transitions stop them, else the legacy crash does."""
+    if plan.scenario is not None:
+        return recv_mask if f.down is None else recv_mask & ~(f.down | f.up)
+    return (recv_mask & ~plan.fail_mask if t == plan.fail_time
+            else recv_mask)
+
+
+def failed_after(plan: PlanTensors, t: int, failed, f: TickFaults):
+    """The failed mask after the end-of-tick transitions."""
+    if plan.scenario is not None:
+        return failed if f.down is None else (failed | f.down) & ~f.up
+    return failed | plan.fail_mask if t == plan.fail_time else failed
+
+
+def restart_wipe(state, f: TickFaults, t: int, n: int, p_cnt: int):
+    """A restart at the end of tick ``t`` brings its rows back as a fresh
+    incarnation: view, view_ts, mail, pending receives and the probe
+    pipeline cleared, the heartbeat raised to at least ``2 * (t + 1)``.
+    Planes of any layout are wiped through their ``[N, -1]`` view."""
+    up = f.up
+    if up is None:
+        return state
+    col = up[:, None]
+
+    def wipe(x):
+        return torch.where(col, 0, x.view(n, -1)).view(x.shape)
+    fields = dict(
+        view=wipe(state.view), view_ts=wipe(state.view_ts),
+        mail=wipe(state.mail),
+        pending_recv=torch.where(up, 0, state.pending_recv),
+        self_hb=torch.where(up, state.self_hb.clamp_min(2 * (t + 1)),
+                            state.self_hb))
+    if p_cnt > 0:
+        fields.update(probe_ids1=wipe(state.probe_ids1),
+                      probe_ids2=wipe(state.probe_ids2),
+                      act_prev=state.act_prev & ~up)
+    return state._replace(**fields)
+
+
 def tick_telemetry(cfg: HashConfig, agg_before, agg, out: SparseTickEvents,
                    dropped: list, *, act, numfailed, ack_recv_cnt,
                    sent_gossip, difft, present, size, t: int,
@@ -487,7 +609,11 @@ def make_step(cfg: HashConfig):
     """``step(state, t, key, plan) -> (state, SparseTickEvents)``; ``t`` is
     a host int, ``key`` the tick's threefry key, ``plan`` the run's
     PlanTensors.  The ring exchange is built here, the scatter exchange by
-    :func:`make_scatter_step`."""
+    :func:`make_scatter_step`.  Under a general scenario (``cfg.scenario``)
+    every hook site of the JAX step runs: the delay window's held rows,
+    partition cuts and link-flake probabilities at each send site (the
+    ack leg at t-1), K2's masks form whenever partitions or flakes exist,
+    and the end-of-tick crash/leave/restart transitions."""
     if cfg.exchange != "ring":
         return make_scatter_step(cfg)
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
@@ -499,12 +625,16 @@ def make_step(cfg: HashConfig):
     if p_cnt >= s:
         raise ValueError(f"ring mode needs PROBES < VIEW_SIZE "
                          f"(got {p_cnt} >= {s})")
-    use_drop = cfg.drop_prob > 0.0
-    # Every drop coin is `uniform < f32(p)`.
+    use_drop = uses_drop(cfg)
+    # Every legacy drop coin is `uniform < f32(p)`.
     p_drop = float(np.float32(cfg.drop_prob))
     want_agg = cfg.fast_agg and not cfg.collect_events
     want_hist = cfg.telemetry_hist and p_cnt > 0
     fail_ids = cfg.fail_ids if want_agg else ()
+    scn = cfg.scenario
+    # Partitions and flakes mask every shift: K2's masks form throughout.
+    gossip_masks = use_drop or (scn is not None
+                                and bool(scn.n_parts or scn.n_flakes))
 
     def step(state: HashState, t: int, key: Key, plan: PlanTensors):
         if t < 0:
@@ -516,16 +646,27 @@ def make_step(cfg: HashConfig):
                             seed_rows=min(cfg.seed_cap, n),
                             use_drop=use_drop, need_ctrl=True,
                             need_burst=True, device=dev)
-        drop_active = plan.drop_active(t)
-        coins = use_drop and drop_active
+        f = tick_faults(plan, t, idx, n, p_drop)
         # The coins that kill a message this tick, counted for TELEMETRY.
         dropped = [] if cfg.telemetry else None
 
         # ---- join control plane, nodeStart, self refresh ----
-        ctrl_drop = rng.ctrl_u.reshape(2, n) < p_drop if coins else None
+        # (Under warm join nobody starts or asks to join: no control
+        # message exists, so none is masked.)
+        ctrl_drop = None
+        if cfg.cold_join:
+            p_ctrl = [f.prob(t, idx, intro), f.prob(t, intro, idx)]
+            if not all(no_coin(p) for p in p_ctrl):
+                ctrl_drop = torch.stack([
+                    coin_at(u, p) for u, p in
+                    zip(rng.ctrl_u.reshape(2, n), p_ctrl)])
+            if f.cuts is not None:
+                cut = cross_group(f.cuts, idx, intro)[None, :]
+                ctrl_drop = (cut.expand(2, n) if ctrl_drop is None
+                             else ctrl_drop | cut)
         jp = join_plane(cfg, state, t, plan, idx,
-                        None if ctrl_drop is None else ~ctrl_drop)
-        if dropped is not None and coins and cfg.cold_join:
+                        None if ctrl_drop is None else ~ctrl_drop, f.held)
+        if dropped is not None and use_drop and ctrl_drop is not None:
             dropped.append(count_ctrl_dropped(jp, plan, t, idx, ctrl_drop))
         recv_mask, act, recv_tick = jp.recv_mask, jp.act, jp.recv_tick
         rcol = recv_mask[:, None]
@@ -542,15 +683,18 @@ def make_step(cfg: HashConfig):
                 ids1 = state.probe_ids1
                 v1 = ids1 != 0
                 tgt1 = (ids1.to(I64) - 1).clamp_min(0)
-                will_flush = (recv_mask & ~plan.fail_mask
-                              if t == plan.fail_time else recv_mask)
+                will_flush = will_flush_of(plan, t, recv_mask, f)
                 tbl = _pack_probe_table(vec, will_flush, act)
                 gcat = tbl[torch.cat([id2, tgt1], dim=1)]    # one gather
                 hb_ack = _gathered_hb(gcat[:, :p_cnt])
                 probe_bits1 = gcat[:, p_cnt:]
                 valid2 = (ids2 != 0) & (hb_ack > 0)
-                if use_drop and plan.drop_active(t - 1):
-                    coin = rng.ack_u.reshape(n, p_cnt) < p_drop
+                if f.cuts_prev is not None:
+                    # The ack crossed target -> prober during tick t-1.
+                    valid2 &= ~cross_group(f.cuts_prev, id2, idx[:, None])
+                p_ack = f.prob(t - 1, id2, idx[:, None])
+                if not no_coin(p_ack):
+                    coin = coin_at(rng.ack_u.reshape(n, p_cnt), p_ack)
                     if dropped is not None:
                         dropped.append((valid2 & coin).sum(dtype=I32))
                     valid2 = valid2 & ~coin
@@ -597,7 +741,7 @@ def make_step(cfg: HashConfig):
         sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
         recv_add = torch.zeros((n,), dtype=I32, device=dev)
         with record_function(PHASE_GOSSIP):
-            if k_max > 0 and not use_drop:
+            if k_max > 0 and not gossip_masks:
                 # Payload is nonzero exactly where keep holds, so a row's
                 # message count per shift is its kept count under the
                 # fanout.
@@ -613,8 +757,13 @@ def make_step(cfg: HashConfig):
                                     device=dev)
                 for j in range(k_max):
                     m = keep & (j < k_eff)[:, None]
-                    if coins:
-                        coin = rng.gossip_u[j].reshape(n, s) < p_drop
+                    # Shift j sends row i to row (i + shift) mod n.
+                    dst = (idx + shifts[j]) % n
+                    if f.cuts is not None:
+                        m &= ~cross_group(f.cuts, idx, dst)[:, None]
+                    p_g = f.prob(t, idx, dst)
+                    if not no_coin(p_g):
+                        coin = coin_at(rng.gossip_u[j].reshape(n, s), p_g)
                         if dropped is not None:
                             dropped.append((m & coin).sum(dtype=I32))
                         m &= ~coin
@@ -628,13 +777,27 @@ def make_step(cfg: HashConfig):
 
         # ---- introducer burst to this tick's joiners (full fresh view) --
         cap = min(cfg.seed_cap, n)
-        burst_drop = (rng.burst_u.reshape(cap, s) < p_drop) if coins else None
+        burst_drop = None
+        if cfg.cold_join:
+            seed_rows = torch.sort(jp.seeds.to(I32), descending=True,
+                                   stable=True).indices[:cap]
+            if f.cuts is not None:
+                burst_drop = cross_group(f.cuts, intro,
+                                         seed_rows)[:, None].expand(cap, s)
+            p_b = f.prob(t, intro, seed_rows)
+            if not no_coin(p_b):
+                burst_coin = coin_at(rng.burst_u.reshape(cap, s), p_b)
+                if dropped is not None:
+                    live = (jp.seeds[seed_rows] & seed_burst_on)[:, None] \
+                        & fresh[intro][None, :]
+                    if burst_drop is not None:
+                        live &= ~burst_drop
+                    dropped.append((live & burst_coin).sum(dtype=I32))
+                burst_drop = (burst_coin if burst_drop is None
+                              else burst_drop | burst_coin)
         mail, seed_idx, seed_valid, burst_valid = seed_burst(
             cfg, mail, view, fresh[intro], jp.seeds, seed_burst_on,
             burst_drop)
-        if dropped is not None and coins and cfg.cold_join:
-            dropped.append((seed_valid[:, None] & fresh[intro][None, :]
-                            & burst_drop).sum(dtype=I32))
         sent_tick[intro] += burst_valid.sum(dtype=I32)
         recv_add.index_add_(0, seed_idx, burst_valid.sum(1, dtype=I32)
                             * seed_valid.to(I32))
@@ -652,8 +815,13 @@ def make_step(cfg: HashConfig):
                     rm_ids if want_agg else None)
                 window_ids = pfo["ids"]
                 p_valid = window_ids != 0
-                if coins:
-                    coin = rng.probe_u.reshape(n, p_cnt) < p_drop
+                w_id = (window_ids.to(I64) - 1).clamp_min(0)
+                if f.cuts is not None:
+                    p_valid = p_valid & ~cross_group(f.cuts, idx[:, None],
+                                                     w_id)
+                p_pr = f.prob(t, idx[:, None], w_id)
+                if not no_coin(p_pr):
+                    coin = coin_at(rng.probe_u.reshape(n, p_cnt), p_pr)
                     if dropped is not None:
                         dropped.append((p_valid & coin).sum(dtype=I32))
                     p_valid = p_valid & ~coin
@@ -675,9 +843,6 @@ def make_step(cfg: HashConfig):
                 sent_tick = sent_tick + sent_probes + sent_ack
                 recv_add = recv_add + recv_probe + ack_recv_cnt
         pending_recv = jp.pending_recv + recv_add
-
-        failed = (state.failed | plan.fail_mask if t == plan.fail_time
-                  else state.failed)
 
         if cfg.collect_events:
             agg = state.agg
@@ -701,11 +866,14 @@ def make_step(cfg: HashConfig):
                                        pfo["rm_cnt"].sum(dtype=I32),
                                        sent_tick.sum(dtype=I32),
                                        recv_tick.sum(dtype=I32))
-        new_state = HashState(view, view_ts, jp.started, jp.in_group,
-                              failed, jp.self_hb, mail, state.amail,
-                              state.pmail, jp.joinreq_infl, jp.joinrep_infl,
-                              pending_recv, agg, probe_ids1, probe_ids2,
-                              act_prev, state.wf_prev)
+        # End-of-tick crash/leave/restart transitions: after the agg fold,
+        # which reads this tick's views.
+        new_state = restart_wipe(HashState(
+            view, view_ts, jp.started, jp.in_group,
+            failed_after(plan, t, state.failed, f), jp.self_hb, mail,
+            state.amail, state.pmail, jp.joinreq_infl, jp.joinrep_infl,
+            pending_recv, agg, probe_ids1, probe_ids2, act_prev,
+            state.wf_prev), f, t, n, p_cnt)
         if not cfg.telemetry:
             return new_state, out
         with record_function(PHASE_TELEMETRY):
@@ -942,15 +1110,29 @@ def _folded_gates(params: Params, n: int, s: int, collect_events: bool,
 
 
 def make_config(params: Params, collect_events: bool = True,
-                fail_ids: tuple = (), device="cpu") -> HashConfig:
+                fail_ids: tuple = (), device="cpu",
+                scenario=None) -> HashConfig:
     """The JAX ``make_config`` for the ported layouts (natural or folded
     ring, scatter), with the refusals of the ported slices (module
-    docstring)."""
+    docstring).  ``scenario`` is a general scenario's ScenarioStatic."""
     n = params.EN_GPSZ
     s = params.VIEW_SIZE if params.VIEW_SIZE > 0 else n
     g = params.GOSSIP_LEN if params.GOSSIP_LEN > 0 else s
     exchange = params.resolved_exchange()
     ring = exchange == "ring"
+    if scenario is not None:
+        # The JAX package's gates, word for word.
+        if not ring:
+            raise ValueError(
+                "SCENARIO files with restart/partition/link_flake "
+                "events require the ring exchange on the hash backends "
+                "(EXCHANGE ring / the warm-join auto regime); the "
+                "scatter lowering runs legacy-shaped scenarios only")
+        if params.ENFORCE_BUFFSIZE:
+            raise ValueError(
+                "SCENARIO general events and ENFORCE_BUFFSIZE are "
+                "incompatible (the sequential send budget does not "
+                "model the per-shift partition/flake masks)")
     on_cuda = torch.device(device).type == "cuda"
     fast_agg = (not collect_events and ring
                 and len(fail_ids) <= FAST_AGG_MAX_FAILED)
@@ -973,7 +1155,6 @@ def make_config(params: Params, collect_events: bool = True,
             raise ValueError(
                 "FUSED_PROBE requires the ring exchange with PROBES > 0")
     for key, bad, item in (
-            ("SCENARIO", bool(params.SCENARIO), "Queue 1 item 5"),
             ("SHIFT_SET", params.SHIFT_SET != 0, "Queue 1 item 9"),
             ("ENFORCE_BUFFSIZE", params.ENFORCE_BUFFSIZE != 0,
              "Queue 1 item 9"),
@@ -1028,7 +1209,8 @@ def make_config(params: Params, collect_events: bool = True,
         count_probe_io=probe_attribution_exact(params),
         folded=folded,
         telemetry=params.TELEMETRY in ("scalars", "hist"),
-        telemetry_hist=params.TELEMETRY == "hist")
+        telemetry_hist=params.TELEMETRY == "hist",
+        scenario=scenario)
 
 
 def step_and_init(cfg: HashConfig):
@@ -1046,6 +1228,11 @@ def plan_fail_ids(plan: FailurePlan) -> tuple:
     return tuple(plan.failed_indices) if plan.fail_time is not None else ()
 
 
+def plan_scenario(plan: FailurePlan):
+    """The general scenario's ScenarioStatic, or None."""
+    return None if plan.scenario is None else plan.scenario.static
+
+
 def run_scan(params: Params, plan: FailurePlan, seed: int, device,
              collect_events: bool = True, total_time: Optional[int] = None,
              telemetry=None):
@@ -1055,7 +1242,7 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
     run's per-tick series under ``TELEMETRY: scalars|hist`` (one segment,
     ``t0 = 0``)."""
     cfg = make_config(params, collect_events, fail_ids=plan_fail_ids(plan),
-                      device=device)
+                      device=device, scenario=plan_scenario(plan))
     total = total_time if total_time is not None else params.TOTAL_TIME
     params.validate_sparse_packing(total)
     plan_t = plan_tensors(params, plan, seed, total, device)

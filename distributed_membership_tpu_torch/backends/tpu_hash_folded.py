@@ -19,10 +19,11 @@ for bit at the same seed, and runs three kernels:
 
 It mirrors the JAX ``make_folded_step`` for the ring exchange under warm
 join in EVENT_MODE agg, with the flight recorder (``TELEMETRY``, K7's hist
-partials) and the protocol-phase ranges of the natural step; SCENARIO
-stays refused by ``tpu_hash.make_config`` (ROADMAP.md Queue 1 item 5).
-The JAX step's join machinery is inert under warm join and omitted, as
-there.
+partials), the protocol-phase ranges of the natural step and the
+scenario engine's hooks (backends/tpu_hash.py ``tick_faults``): per-node
+masks and probabilities broadcast over each node's slots, so the payloads
+stay pre-masked and K6 stays pure data movement.  The JAX step's join
+machinery is inert under warm join and omitted, as there.
 
 The same step on a LocalMesh (parallel/mesh.py) is the sharded folded
 step (JAX ``make_ring_sharded_folded_step``, ``tpu_hash_sharded`` with
@@ -41,7 +42,8 @@ from torch.profiler import record_function
 
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     HashState, _count_at, _credit_orphan_recvs, _pack_probe_table, _roll,
-    init_state_warm, pack_u, tick_telemetry)
+    coin_at, failed_after, init_state_warm, no_coin, pack_u, restart_wipe,
+    tick_faults, tick_telemetry, uses_drop, will_flush_of)
 from distributed_membership_tpu_torch.backends.tpu_sparse import (
     SparseTickEvents)
 from distributed_membership_tpu_torch.observability.aggregates import (
@@ -58,6 +60,7 @@ from distributed_membership_tpu_torch.ops.rng_plan import (
     hash_ring_rng, sharded_ring_rng)
 from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, STRIDE, member_of, to_bits)
+from distributed_membership_tpu_torch.scenario.compile import cross_group
 
 __all__ = ["folded_supported", "roll_nodes", "roll_slots",
            "init_state_warm_folded", "init_local_state_warm_folded",
@@ -112,7 +115,7 @@ def make_folded_step(cfg, mesh=None):
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
     rows = n * s // LANES
     k_max = min(cfg.fanout, s)
-    use_drop = cfg.drop_prob > 0.0
+    use_drop = uses_drop(cfg)
     p_drop = float(np.float32(cfg.drop_prob))  # coins: uniform < f32(p)
     p_red = 1 if cfg.qp >= n else 2
     cstride = STRIDE % s
@@ -142,14 +145,16 @@ def make_folded_step(cfg, mesh=None):
         dev = state.view.device
         idx = torch.arange(n, dtype=I64, device=dev)
         rng = plan_rng(key, dev)
-        coins = use_drop and plan.drop_active(t)
+        f = tick_faults(plan, t, idx, n, p_drop)
         dropped = [] if cfg.telemetry else None
 
-        # ---- warm join: every node started before tick 0 ----
-        recv_mask = state.started & ~state.failed
+        # ---- warm join: every node started before tick 0; a delay
+        # window holds delivery, and act keeps the ungated mask ----
+        live = state.started & ~state.failed
+        recv_mask = live if f.held is None else live & ~f.held
         recv_tick = torch.where(recv_mask, state.pending_recv, 0)
         pending_recv = torch.where(recv_mask, 0, state.pending_recv)
-        act = recv_mask & state.in_group
+        act = live & state.in_group
         self_hb = torch.where(act, state.self_hb + 2, state.self_hb)
         self_val = to_bits(pack_u(
             cfg, torch.where(act, state.self_hb + 1, 0), idx))
@@ -164,15 +169,18 @@ def make_folded_step(cfg, mesh=None):
             tgt1 = (ids1.to(I64) - 1).clamp_min(0)
             v1 = ids1 != 0
             vec = torch.where(state.act_prev, state.self_hb - 1, 0)
-            will_flush = (recv_mask & ~plan.fail_mask if t == plan.fail_time
-                          else recv_mask)
+            will_flush = will_flush_of(plan, t, recv_mask, f)
             tbl = _pack_probe_table(vec, will_flush, act)
             gcat = tbl[torch.cat([id2, tgt1], dim=1)]        # one gather
             hb_ack = (gcat[:, :p_cnt] >> 2).to(I32)
             bits1 = gcat[:, p_cnt:]
             valid2 = (ids2 != 0) & (hb_ack > 0)
-            if use_drop and plan.drop_active(t - 1):
-                coin = rng.ack_u.view(n, p_cnt) < p_drop
+            if f.cuts_prev is not None:
+                # The ack crossed target -> prober during tick t-1.
+                valid2 &= ~cross_group(f.cuts_prev, id2, idx[:, None])
+            p_ack = f.prob(t - 1, id2, idx[:, None])
+            if not no_coin(p_ack):
+                coin = coin_at(rng.ack_u.view(n, p_cnt), p_ack)
                 if dropped is not None:
                     dropped.append((valid2 & coin).sum(dtype=I32))
                 valid2 = valid2 & ~coin
@@ -228,8 +236,13 @@ def make_folded_step(cfg, mesh=None):
             payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
             for j in range(k_max):
                 m = keep & (j < k_eff)[:, None]
-                if coins:
-                    coin = rng.gossip_u[j].view(n, s) < p_drop
+                # Shift u sends global row i to (i + u) mod n.
+                dst = (idx + u[j]) % n
+                if f.cuts is not None:
+                    m = m & ~cross_group(f.cuts, idx, dst)[:, None]
+                p_g = f.prob(t, idx, dst)
+                if not no_coin(p_g):
+                    coin = coin_at(rng.gossip_u[j].view(n, s), p_g)
                     if dropped is not None:
                         dropped.append((m & coin).sum(dtype=I32))
                     m = m & ~coin
@@ -258,8 +271,12 @@ def make_folded_step(cfg, mesh=None):
                 act, rm_ids)
             window = pfo["ids"].view(n, s)[:, :p_cnt]
             p_valid = window != 0
-            if coins:
-                coin = rng.probe_u.view(n, p_cnt) < p_drop
+            w_id = (window.to(I64) - 1).clamp_min(0)
+            if f.cuts is not None:
+                p_valid = p_valid & ~cross_group(f.cuts, idx[:, None], w_id)
+            p_pr = f.prob(t, idx[:, None], w_id)
+            if not no_coin(p_pr):
+                coin = coin_at(rng.probe_u.view(n, p_cnt), p_pr)
                 if dropped is not None:
                     dropped.append((p_valid & coin).sum(dtype=I32))
                 p_valid = p_valid & ~coin
@@ -277,9 +294,6 @@ def make_folded_step(cfg, mesh=None):
                 sent_ack = (v1 & ((bits1 & 2) != 0)).sum(1, dtype=I32)
         sent_tick = sent_gossip + sent_probes + sent_ack
         pending_recv = pending_recv + recv_add + recv_probe + ack_recv_cnt
-
-        failed = (state.failed | plan.fail_mask if t == plan.fail_time
-                  else state.failed)
         # FastAgg on per-node [N, S] views, from K7's partials (per shard
         # with a mesh).
         with record_function(PHASE_AGG):
@@ -303,11 +317,13 @@ def make_folded_step(cfg, mesh=None):
         out = SparseTickEvents(join_mask.sum(dtype=I32), rm_cnt.sum(dtype=I32),
                                sent_tick.sum(dtype=I32),
                                recv_tick.sum(dtype=I32))
-        new_state = state._replace(
-            view=view, view_ts=view_ts, failed=failed, self_hb=self_hb,
+        # End-of-tick crash/leave/restart transitions, after the agg fold.
+        new_state = restart_wipe(state._replace(
+            view=view, view_ts=view_ts,
+            failed=failed_after(plan, t, state.failed, f), self_hb=self_hb,
             mail=mail, pending_recv=pending_recv, agg=agg,
             probe_ids1=probe_ids1, probe_ids2=state.probe_ids1,
-            act_prev=act)
+            act_prev=act), f, t, n, p_cnt)
         if not cfg.telemetry:
             return new_state, out
         with record_function(PHASE_TELEMETRY):

@@ -49,7 +49,7 @@ Refused with ``NotImplementedError`` naming the ROADMAP.md item: the
 scatter exchange (the JAX ``make_sharded_step``, which ``EXCHANGE: auto``
 picks under cold joins),
 ``EXCHANGE_MODE: batched``, ``PROBE_GATHER: split``, and what
-``tpu_hash`` refuses (SCENARIO, CHECKPOINT_EVERY, MEGA_TICKS, RNG_MODE
+``tpu_hash`` refuses (CHECKPOINT_EVERY, MEGA_TICKS, RNG_MODE
 hoisted, more than 8 failed ids under EVENT_MODE agg; on CUDA
 ``VIEW_SIZE % 128 != 0`` outside the folded layout, fewer than 8 plane
 rows per shard on it, and a pinned ``FUSED_*: 0``).
@@ -70,9 +70,11 @@ from distributed_membership_tpu_torch.addressing import INTRODUCER_INDEX
 from distributed_membership_tpu_torch.backends import RunResult, register
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     I32, I64, HashConfig, _credit_orphan_recvs_sharded, _gathered_act,
-    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse,
-    count_ctrl_dropped, join_plane, joinreq_to_intro, make_config, pack_u,
-    plan_fail_ids, run_ticks, seed_burst, tick_telemetry, warm_view)
+    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, coin_at,
+    count_ctrl_dropped, failed_after, join_plane, joinreq_to_intro,
+    make_config, no_coin, pack_u, plan_fail_ids, plan_scenario,
+    restart_wipe, run_ticks, seed_burst, tick_faults, tick_telemetry,
+    uses_drop, warm_view, will_flush_of)
 from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
     folded_supported, init_local_state_warm_folded,
     make_ring_sharded_folded_step)
@@ -98,6 +100,7 @@ from distributed_membership_tpu_torch.parallel.mesh import (
     LocalMesh, mesh_shape)
 from distributed_membership_tpu_torch.runtime.failures import (
     FailurePlan, PlanTensors, make_run_key, plan_tensors, resolve_plan)
+from distributed_membership_tpu_torch.scenario.compile import cross_group
 
 
 class ShardedHashState(NamedTuple):
@@ -184,7 +187,12 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     if p_cnt >= s:
         raise ValueError("ring mode needs PROBES < VIEW_SIZE "
                          f"(got {p_cnt} >= {s})")
-    use_drop = cfg.drop_prob > 0.0
+    if cfg.scenario is not None and cfg.cold_join:
+        raise ValueError(
+            "SCENARIO general events on tpu_hash_sharded require "
+            "JOIN_MODE warm (the cold-join control plane does not "
+            "model partitions/flakes)")
+    use_drop = uses_drop(cfg)
     p_drop = float(np.float32(cfg.drop_prob))
     want_agg = cfg.fast_agg and not cfg.collect_events
     want_hist = cfg.telemetry_hist and p_cnt > 0
@@ -211,16 +219,20 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         dev = state.view.device
         rows = torch.arange(n, dtype=I64, device=dev)   # global row ids
         rng = sharded_ring_rng(key, range(d), device=dev, **rng_kw)
+        # The scenario's tensors are replicated on every shard: each
+        # shard's rows read them elementwise, with no collective.
+        f = tick_faults(plan, t, rows, n, p_drop)
         coins = use_drop and plan.drop_active(t)
         # The coins that kill a message this tick, counted for TELEMETRY
         # (each replicated coin once, as the JAX step's local slices).
         dropped = [] if cfg.telemetry else None
 
         # ---- join control plane (inert under warm join), self refresh
+        # (cold joins run the legacy plan only: the gate above)
         ctrl_drop = (rng.ctrl_u.reshape(2, n) < p_drop
                      if coins and cfg.cold_join else None)
         jp = join_plane(cfg, state, t, plan, rows,
-                        None if ctrl_drop is None else ~ctrl_drop)
+                        None if ctrl_drop is None else ~ctrl_drop, f.held)
         if dropped is not None and ctrl_drop is not None:
             dropped.append(count_ctrl_dropped(jp, plan, t, rows, ctrl_drop))
         recv_mask, act, recv_tick = jp.recv_mask, jp.act, jp.recv_tick
@@ -238,8 +250,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 v1 = ids1 != 0
                 tgt1 = (ids1.to(I64) - 1).clamp_min(0)
                 vec = torch.where(state.act_prev, state.self_hb - 1, 0)
-                will_flush = (recv_mask & ~plan.fail_mask
-                              if t == plan.fail_time else recv_mask)
+                will_flush = will_flush_of(plan, t, recv_mask, f)
                 tbl_g = mesh.all_gather(_pack_probe_table(vec, will_flush,
                                                           act))
                 will_flush_g = _gathered_flush(tbl_g)
@@ -247,8 +258,12 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 hb_ack = _gathered_hb(gcat[:, :p_cnt])
                 probe_bits1 = gcat[:, p_cnt:]
                 valid2 = (ids2 != 0) & (hb_ack > 0)
-                if use_drop and plan.drop_active(t - 1):
-                    coin = rng.ack_u.reshape(n, p_cnt) < p_drop
+                if f.cuts_prev is not None:
+                    # The ack crossed target -> prober during tick t-1.
+                    valid2 &= ~cross_group(f.cuts_prev, id2, rows[:, None])
+                p_ack = f.prob(t - 1, id2, rows[:, None])
+                if not no_coin(p_ack):
+                    coin = coin_at(rng.ack_u.reshape(n, p_cnt), p_ack)
                     if dropped is not None:
                         dropped.append((valid2 & coin).sum(dtype=I32))
                     valid2 = valid2 & ~coin
@@ -307,8 +322,13 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
                 for j in range(k_max):
                     m = keep & (j < k_eff)[:, None]
-                    if coins:
-                        coin = rng.gossip_u[j].reshape(n, s) < p_drop
+                    # Shift u sends global row i to (i + u) mod n.
+                    dst = (rows + u[j]) % n
+                    if f.cuts is not None:
+                        m &= ~cross_group(f.cuts, rows, dst)[:, None]
+                    p_g = f.prob(t, rows, dst)
+                    if not no_coin(p_g):
+                        coin = coin_at(rng.gossip_u[j].reshape(n, s), p_g)
                         if dropped is not None:
                             dropped.append((m & coin).sum(dtype=I32))
                         m &= ~coin
@@ -355,8 +375,13 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                     rm_ids if want_agg else None)
                 window_ids = pfo["ids"]
                 p_valid = window_ids != 0
-                if coins:
-                    coin = rng.probe_u.reshape(n, p_cnt) < p_drop
+                w_id = (window_ids.to(I64) - 1).clamp_min(0)
+                if f.cuts is not None:
+                    p_valid = p_valid & ~cross_group(f.cuts, rows[:, None],
+                                                     w_id)
+                p_pr = f.prob(t, rows[:, None], w_id)
+                if not no_coin(p_pr):
+                    coin = coin_at(rng.probe_u.reshape(n, p_cnt), p_pr)
                     if dropped is not None:
                         dropped.append((p_valid & coin).sum(dtype=I32))
                     p_valid = p_valid & ~coin
@@ -384,9 +409,6 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 sent_tick = sent_tick + sent_probes + sent_ack
                 recv_add = recv_add + recv_probe + ack_recv_cnt
         pending_recv = jp.pending_recv + recv_add
-
-        failed = (state.failed | plan.fail_mask if t == plan.fail_time
-                  else state.failed)
 
         if cfg.collect_events:
             agg = state.agg
@@ -416,11 +438,13 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                     recv_tick=recv_tick, part=mesh.shard_sums)
                 out = SparseTickEvents(total(join_mask), total(rm_cnt),
                                        total(sent_tick), total(recv_tick))
-        new_state = ShardedHashState(
-            view, view_ts, jp.started, jp.in_group, failed, jp.self_hb,
-            mail, state.amail, state.pmail, jp.joinreq_infl,
-            jp.joinrep_infl, pending_recv, agg, probe_ids1, probe_ids2,
-            act_prev)
+        # End-of-tick crash/leave/restart transitions, after the agg fold.
+        new_state = restart_wipe(ShardedHashState(
+            view, view_ts, jp.started, jp.in_group,
+            failed_after(plan, t, state.failed, f), jp.self_hb, mail,
+            state.amail, state.pmail, jp.joinreq_infl, jp.joinrep_infl,
+            pending_recv, agg, probe_ids1, probe_ids2, act_prev),
+            f, t, n, p_cnt)
         if not cfg.telemetry:
             return new_state, out
         with record_function(PHASE_TELEMETRY):
@@ -451,7 +475,7 @@ def reduce_fast_agg(agg: FastAgg, mesh: LocalMesh) -> FastAgg:
 
 
 def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
-                   n_local: int, device="cpu") -> HashConfig:
+                   n_local: int, device="cpu", scenario=None) -> HashConfig:
     """``tpu_hash.make_config`` plus the JAX ``sharded_config`` gates on
     the per-shard rows (same messages), and the refusals of what the
     port's sharded steps do not run yet.  Where the rows of a shard do
@@ -472,7 +496,7 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
             "PROBE_IO approx_lag is single-chip tpu_hash only (the "
             "sharded twins keep the two-gather attribution)")
     cfg = make_config(params, collect_events, fail_ids=fail_ids,
-                      device=device)
+                      device=device, scenario=scenario)
     on_cuda = torch.device(device).type == "cuda"
     s = cfg.s
     if cfg.folded and not folded_supported(n_local, s, cfg.probes):
@@ -521,7 +545,8 @@ def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
     folded sharded step, as the config resolves."""
     n_local = mesh.rows_per_shard(params.EN_GPSZ)
     cfg = sharded_config(params, collect_events, plan_fail_ids(plan),
-                         n_local, device=mesh.device)
+                         n_local, device=mesh.device,
+                         scenario=plan_scenario(plan))
     total = params.TOTAL_TIME
     params.validate_sparse_packing(total)
     plan_t = plan_tensors(params, plan, seed, total, mesh.device)

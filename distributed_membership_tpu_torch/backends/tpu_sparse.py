@@ -1,6 +1,7 @@
 """The parts of the JAX package's ``backends/tpu_sparse.py`` the hash
 backend shares: the per-tick event record, the seed-burst cap, dbg.log
-reconstruction from events, and the run tail."""
+reconstruction from events, and the run tail (with the scenario oracle's
+report)."""
 
 from __future__ import annotations
 
@@ -92,7 +93,8 @@ def finish_run(params, plan, log, run_scan_fn, t0: float, seed: int,
     ``TELEMETRY: scalars|hist`` the per-tick series land in
     ``extra["timeline"]`` and, with ``TELEMETRY_DIR``, in its
     ``timeline.jsonl`` (and in agg mode the detection summary in its
-    ``summary.json``)."""
+    ``summary.json``).  A general scenario's oracle report lands in
+    ``extra["scenario_report"]`` and ``TELEMETRY_DIR/scenario.json``."""
     aggregate = params.resolved_event_mode() == "agg"
     recorder = (TimelineRecorder(params.TELEMETRY_DIR or None)
                 if params.TELEMETRY in ("scalars", "hist") else None)
@@ -120,6 +122,23 @@ def finish_run(params, plan, log, run_scan_fn, t0: float, seed: int,
         sent = events.sent.T
         recv = events.recv.T
         extra = {"final_state": final_state}
+    if plan.scenario is not None:
+        # The scenario oracle (scenario/oracle.py): the run graded against
+        # its schedule from what it recorded -- the telemetry series, else
+        # the dbg.log events -- and its final state; beside the timeline
+        # as scenario.json.
+        from distributed_membership_tpu_torch.scenario.oracle import (
+            scenario_report)
+        report = scenario_report(
+            plan.scenario, params, final_state=final_state,
+            summary=extra.get("detection_summary"),
+            timeline=recorder.series() if recorder is not None else None,
+            dbg_text=log.dbg_text() if not aggregate else None)
+        extra["scenario_report"] = report
+        if params.TELEMETRY_DIR:
+            with open(os.path.join(params.TELEMETRY_DIR, "scenario.json"),
+                      "w") as fh:
+                json.dump(report, fh, indent=1)
     if recorder is not None:
         extra["timeline"] = recorder.series()
         extra["timeline_path"] = recorder.path

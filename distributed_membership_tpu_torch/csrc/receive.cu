@@ -15,6 +15,12 @@
 // row (S = 128 -> four u32 per lane, one 16-byte load per plane), and
 // the row counts are warp reductions, so nothing but the outputs
 // reaches device memory.
+//
+// The optional admit plane (int32 [rows, S], JAX `receive_fused`'s
+// `admit_mask` operand) is a second instantiation of the same kernel:
+// one more 16-byte load per lane and step, where a 0 entry suppresses
+// that slot's delivered mail.  A null plane launches the form without
+// it, the same code as before the operand existed.
 
 #include "receive_one.cuh"
 
@@ -22,6 +28,7 @@ namespace {
 
 constexpr int kRowsPerBlock = 8;   // one warp per row
 
+template <bool kAdmit>
 __global__ void receive_kernel(int t, unsigned n, int s, int tfail,
                                int tremove, int stride_mod,
                                long long row0, int rows,
@@ -33,6 +40,7 @@ __global__ void receive_kernel(int t, unsigned n, int s, int tfail,
                                const unsigned char* __restrict__ act,
                                const unsigned char* __restrict__ self_on,
                                const unsigned* __restrict__ self_pack,
+                               const int* __restrict__ admit,
                                unsigned char* __restrict__ join,
                                int* __restrict__ rm_ids,
                                int* __restrict__ numfailed,
@@ -62,12 +70,14 @@ __global__ void receive_kernel(int t, unsigned n, int s, int tfail,
         int4 ts = *reinterpret_cast<const int4*>(view_ts + off);
         uint4 m = *reinterpret_cast<const uint4*>(mail + off);
         const uint4 cd = *reinterpret_cast<const uint4*>(cand + off);
+        int4 ad = make_int4(1, 1, 1, 1);
+        if (kAdmit) ad = *reinterpret_cast<const int4*>(admit + off);
         uchar4 jn;
         int4 rm;
-        receive_one(r, c0 + 0, v.x, ts.x, m.x, cd.x, jn.x, rm.x, stale_cnt, size_cnt);
-        receive_one(r, c0 + 1, v.y, ts.y, m.y, cd.y, jn.y, rm.y, stale_cnt, size_cnt);
-        receive_one(r, c0 + 2, v.z, ts.z, m.z, cd.z, jn.z, rm.z, stale_cnt, size_cnt);
-        receive_one(r, c0 + 3, v.w, ts.w, m.w, cd.w, jn.w, rm.w, stale_cnt, size_cnt);
+        receive_one(r, c0 + 0, v.x, ts.x, m.x, cd.x, jn.x, rm.x, stale_cnt, size_cnt, ad.x != 0);
+        receive_one(r, c0 + 1, v.y, ts.y, m.y, cd.y, jn.y, rm.y, stale_cnt, size_cnt, ad.y != 0);
+        receive_one(r, c0 + 2, v.z, ts.z, m.z, cd.z, jn.z, rm.z, stale_cnt, size_cnt, ad.z != 0);
+        receive_one(r, c0 + 3, v.w, ts.w, m.w, cd.w, jn.w, rm.w, stale_cnt, size_cnt, ad.w != 0);
         *reinterpret_cast<uint4*>(view + off) = v;
         *reinterpret_cast<int4*>(view_ts + off) = ts;
         *reinterpret_cast<uint4*>(mail + off) = m;
@@ -85,7 +95,8 @@ __global__ void receive_kernel(int t, unsigned n, int s, int tfail,
 }  // namespace
 
 // S must be a multiple of 128 and every plane contiguous and 16-byte
-// aligned (the Python wrapper checks both).  Returns cudaGetLastError().
+// aligned (the Python wrapper checks both); `admit` may be null.
+// Returns cudaGetLastError().
 extern "C" int dm_receive(int t, unsigned n, int s, int tfail, int tremove,
                           int stride, long long row0, int rows,
                           unsigned* view, int* view_ts, unsigned* mail,
@@ -94,14 +105,16 @@ extern "C" int dm_receive(int t, unsigned n, int s, int tfail, int tremove,
                           const unsigned char* self_on,
                           const unsigned* self_pack, unsigned char* join,
                           int* rm_ids, int* numfailed, int* size,
-                          void* stream) {
+                          const int* admit, void* stream) {
     const int stride_mod = static_cast<int>((1LL + stride) % s);
     const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
     if (blocks > 0) {
-        receive_kernel<<<blocks, kRowsPerBlock * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+        auto kernel = admit != nullptr ? receive_kernel<true>
+                                       : receive_kernel<false>;
+        kernel<<<blocks, kRowsPerBlock * 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
             t, n, s, tfail, tremove, stride_mod, row0, rows, view, view_ts,
-            mail, cand, recv, act, self_on, self_pack, join, rm_ids,
+            mail, cand, recv, act, self_on, self_pack, admit, join, rm_ids,
             numfailed, size);
     }
     return dm_launch_status();

@@ -18,21 +18,25 @@ struct RowCtx {
     unsigned spack;     // packed self entry
 };
 
+// ``admit`` false suppresses this entry's delivered mail, as if it had not
+// arrived: it neither admits nor refreshes (the mailbox still clears).
 __device__ __forceinline__ void receive_one(const RowCtx& r, int col,
                                             unsigned& v, int& ts,
                                             unsigned& m, unsigned cand,
                                             unsigned char& join, int& rm,
-                                            int& stale_cnt, int& size_cnt) {
+                                            int& stale_cnt, int& size_cnt,
+                                            bool admit = true) {
     const bool self_mask = col == r.self_slot;
     const unsigned v0 = v;
     const bool prev_present = v0 > 0u;
+    const unsigned m_in = admit ? m : 0u;
     // Sticky admission: the self slot admits only the node's own id; an
     // occupied slot only its occupant's id; an empty slot anything.
-    const unsigned in_id = dm_member(m, r.n);
+    const unsigned in_id = dm_member(m_in, r.n);
     const bool ok = self_mask ? (in_id == r.node)
                               : (!prev_present || in_id == dm_member(v0, r.n));
     unsigned nv = v0;
-    if (r.recv && m > 0u && ok && m > v0) nv = m;
+    if (r.recv && m_in > 0u && ok && m_in > v0) nv = m_in;
     int nts = ts;
     const bool changed = nv > v0;
     if (changed) nts = r.t;

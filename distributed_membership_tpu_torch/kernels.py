@@ -10,7 +10,8 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, per operand form
 (the probe kernels' form with the TELEMETRY hist partials counts as
-``probe_hist`` / ``probe_folded_hist``); a wrapper adds one where it
+``probe_hist`` / ``probe_folded_hist``, K1's with an admit plane as
+``receive_admit``); a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels.
 """
@@ -40,7 +41,7 @@ HEADERS = ("common.cuh", "receive_one.cuh", "probe_parts.cuh",
            "gossip_tile.cuh")
 
 LAUNCHES: Dict[str, int] = {
-    "receive": 0, "gossip": 0, "gossip_masks": 0, "probe": 0,
+    "receive": 0, "receive_admit": 0, "gossip": 0, "gossip_masks": 0, "probe": 0,
     "probe_hist": 0, "receive_folded": 0, "gossip_folded": 0,
     "gossip_folded_masks": 0, "probe_folded": 0, "probe_folded_hist": 0,
     "gossip_stacked": 0, "gossip_stacked_masks": 0}
@@ -57,7 +58,7 @@ class FailIds(ctypes.Structure):
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_uint
 _SIGNATURES = {
-    "dm_receive": [_I, _U, _I, _I, _I, _I, _LL, _I] + [_P] * 13,
+    "dm_receive": [_I, _U, _I, _I, _I, _I, _LL, _I] + [_P] * 14,
     "dm_gossip": [_U, _I, _I, _I, _I] + [_P] * 6,
     "dm_probe": [_I, _I, _U, _I, _I, _I, _LL, _I, _P, _P, _P, _P, _I,
                  FailIds] + [_P] * 6,

@@ -9,6 +9,13 @@
 * :func:`receive_fused` -- the wrapper: the CUDA kernel
   ``csrc/receive.cu`` for CUDA tensors, the plain version for CPU ones.
 
+Both take the JAX kernel's optional ``admit_mask`` (``[rows, S]``, 0 =
+suppress): a slot whose entry is 0 treats its delivered mail as not
+delivered this tick, so it neither admits nor refreshes, while the
+mailbox still clears where the row receives.  No ring step passes it, in
+either package; the CUDA kernel runs it as a second instantiation
+(counted as ``receive_admit``).
+
 Packed planes are int32 tensors holding u32 bits (ops/view_merge.py).
 The kernel updates ``view``, ``view_ts`` and ``mail`` in place and
 returns them; the plain version returns new tensors.  Callers treat the
@@ -26,9 +33,10 @@ from distributed_membership_tpu_torch.ops.view_merge import (
 
 def receive_planes(n: int, s: int, tfail: int, tremove: int, stride: int,
                    t: int, view, view_ts, mail, cand, recv_mask, act,
-                   self_on, self_pack, row0: int = 0):
+                   self_on, self_pack, row0: int = 0, admit_mask=None):
     """The elementwise pass on an ``[rows, S]`` plane (``row0`` is the
-    first row's global node id).  Returns ``(view, view_ts, mail_cleared,
+    first row's global node id; ``admit_mask``, nonzero = admit, gates
+    the delivered mail).  Returns ``(view, view_ts, mail_cleared,
     join_mask, rm_ids, stale)`` with ``stale`` the pre-remove TFAIL mask;
     the natural and the folded receive (ops/fused_folded.py) reduce it
     their own way."""
@@ -42,6 +50,8 @@ def receive_planes(n: int, s: int, tfail: int, tremove: int, stride: int,
 
     v = as_u32(view)
     m = as_u32(mail)
+    if admit_mask is not None:
+        m = torch.where(admit_mask != 0, m, 0)
     c = as_u32(cand)
     prev_present = v > 0
     # --- admit gossip mail (sticky admission) ---
@@ -82,14 +92,15 @@ def receive_planes(n: int, s: int, tfail: int, tremove: int, stride: int,
 
 def receive_core(n: int, s: int, tfail: int, tremove: int, stride: int,
                  t: int, view, view_ts, mail, cand, recv_mask, act,
-                 self_on, self_pack, row0: int = 0):
+                 self_on, self_pack, row0: int = 0, admit_mask=None):
     """Plain version.  ``view``/``mail``/``cand``/``self_pack`` are int32
     u32-bit planes, ``view_ts`` int32, the masks bool ``[rows]``; ``row0``
-    is the first row's global node id.  Returns ``(view, view_ts,
+    is the first row's global node id; ``admit_mask`` an optional
+    ``[rows, S]`` plane (nonzero = admit).  Returns ``(view, view_ts,
     mail_cleared, join_mask, rm_ids, numfailed, size)``."""
     view, view_ts, mail_cleared, join_mask, rm_ids, stale = receive_planes(
         n, s, tfail, tremove, stride, t, view, view_ts, mail, cand,
-        recv_mask, act, self_on, self_pack, row0)
+        recv_mask, act, self_on, self_pack, row0, admit_mask)
     return (view, view_ts, mail_cleared, join_mask, rm_ids,
             stale.sum(1, dtype=torch.int32),
             (view != 0).sum(1, dtype=torch.int32))
@@ -97,11 +108,13 @@ def receive_core(n: int, s: int, tfail: int, tremove: int, stride: int,
 
 def receive_fused(n: int, s: int, tfail: int, tremove: int, stride: int,
                   t: int, view, view_ts, mail, cand, recv_mask, act,
-                  self_on, self_pack, row0: int = 0):
+                  self_on, self_pack, row0: int = 0, admit_mask=None):
     """K1 wrapper: the CUDA kernel for CUDA tensors (in place on
-    ``view``/``view_ts``/``mail``), :func:`receive_core` for CPU ones."""
+    ``view``/``view_ts``/``mail``), :func:`receive_core` for CPU ones.
+    ``admit_mask``, where given, is an int32 ``[rows, S]`` plane."""
     rows = view.shape[0]
-    planes = (view, view_ts, mail, cand)
+    planes = (view, view_ts, mail, cand) + (
+        () if admit_mask is None else (admit_mask,))
     vecs = (recv_mask, act, self_on, self_pack)
     req = kernels.require
     req(all(p.shape == (rows, s) and p.dtype == torch.int32
@@ -117,7 +130,7 @@ def receive_fused(n: int, s: int, tfail: int, tremove: int, stride: int,
     if not view.is_cuda:
         return receive_core(n, s, tfail, tremove, stride, t, view, view_ts,
                             mail, cand, recv_mask, act, self_on, self_pack,
-                            row0)
+                            row0, admit_mask)
     req(s % 128 == 0, f"receive kernel needs S % 128 == 0 (got {s})")
     req(all(p.data_ptr() % 16 == 0 for p in planes),
         "receive kernel reads 16-byte vectors: planes must be 16-byte "
@@ -131,7 +144,9 @@ def receive_fused(n: int, s: int, tfail: int, tremove: int, stride: int,
     rc = kernels.library("receive").dm_receive(
         t, n, s, tfail, tremove, stride, row0, rows, p(view), p(view_ts),
         p(mail), p(cand), p(recv_mask), p(act), p(self_on), p(self_pack),
-        p(join), p(rm_ids), p(numfailed), p(size), kernels.stream_of(view))
+        p(join), p(rm_ids), p(numfailed), p(size), p(admit_mask),
+        kernels.stream_of(view))
     kernels.check(rc, "receive")
-    kernels.LAUNCHES["receive"] += 1
+    kernels.LAUNCHES["receive" if admit_mask is None
+                     else "receive_admit"] += 1
     return view, view_ts, mail, join, rm_ids, numfailed, size

@@ -51,15 +51,17 @@ def resolve_device(device) -> torch.device:
 def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
              device="cuda", backend: str | None = None,
              telemetry: str | None = None,
-             telemetry_dir: str | None = None) -> RunResult:
-    """Run one conf and write its logs; ``backend``, ``telemetry`` and
-    ``telemetry_dir`` override the conf's ``BACKEND``, ``TELEMETRY`` and
-    ``TELEMETRY_DIR`` (validated after the overrides, as the JAX package
-    does)."""
+             telemetry_dir: str | None = None,
+             scenario: str | None = None) -> RunResult:
+    """Run one conf and write its logs; ``backend``, ``telemetry``,
+    ``telemetry_dir`` and ``scenario`` override the conf's ``BACKEND``,
+    ``TELEMETRY``, ``TELEMETRY_DIR`` and ``SCENARIO`` (validated after the
+    overrides, as the JAX package does)."""
     dev = resolve_device(device)
     params = Params.from_file(conf_path, validate=False)
     for key, value in (("BACKEND", backend), ("TELEMETRY", telemetry),
-                       ("TELEMETRY_DIR", telemetry_dir)):
+                       ("TELEMETRY_DIR", telemetry_dir),
+                       ("SCENARIO", scenario)):
         if value is not None:
             setattr(params, key, value)
     params.validate()
@@ -165,6 +167,12 @@ def parser() -> argparse.ArgumentParser:
                     help="TELEMETRY_DIR conf key: directory for "
                          "timeline.jsonl and, in EVENT_MODE agg, "
                          "summary.json (render with scripts/run_report.py)")
+    ap.add_argument("--scenario", default=None, metavar="FILE",
+                    help="SCENARIO conf key: a declarative chaos-schedule "
+                         "JSON file (crash/restart/leave/partition/"
+                         "link_flake/one_way_flake/delay_window/"
+                         "drop_window events -- scenario/ package; "
+                         "examples in scenarios/ at the repo root)")
     ap.add_argument("--json", action="store_true",
                     help="print a JSON summary line")
     return ap
@@ -181,7 +189,8 @@ def main(argv=None) -> int:
     result = run_conf(args.conf, seed=args.seed,
                       out_dir=args.out_dir or ".", device=args.device,
                       backend=args.backend, telemetry=args.telemetry,
-                      telemetry_dir=args.telemetry_dir)
+                      telemetry_dir=args.telemetry_dir,
+                      scenario=args.scenario)
     p = result.params
     summary = {
         "backend": p.BACKEND,
@@ -196,6 +205,8 @@ def main(argv=None) -> int:
     }
     if "detection_summary" in result.extra:
         summary["detection"] = result.extra["detection_summary"]
+    if "scenario_report" in result.extra:
+        summary["scenario"] = result.extra["scenario_report"]
     if result.extra.get("timeline_path"):
         summary["timeline_path"] = result.extra["timeline_path"]
     g = None

@@ -103,7 +103,11 @@ def test_port_imports_no_jax():
     the JAX package: statically (every import statement, including those
     inside functions) and at run time (a fresh interpreter)."""
     assert {PKG / "grader.py", PKG / "ops" / "sampling.py",
-            PKG / "runtime" / "application.py"} <= set(_port_sources())
+            PKG / "runtime" / "application.py",
+            PKG / "scenario" / "schema.py", PKG / "scenario" / "compile.py",
+            PKG / "scenario" / "oracle.py",
+            PKG / "observability" / "latency_dist.py"} <= set(
+                _port_sources())
     for path in _port_sources():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -285,11 +289,13 @@ def test_refusals_on_the_card_and_off():
                     fail_ids=tuple(range(9)), device="cpu")
     # Other PRNG implementations have no portable stream.
     from distributed_membership_tpu_torch.runtime.failures import (
-        make_run_key, resolve_plan)
+        make_run_key)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_run_key(Params.from_text(base + "PRNG_IMPL: rbg\n"), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        resolve_plan(Params.from_text(base + "SCENARIO: x.json\n"), None)
+    # A scenario runs, but not with the checkpoints of item 4.
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        make_config(Params.from_text(base + "SCENARIO: x.json\n"
+                                     "CHECKPOINT_EVERY: 5\n"), device="cpu")
     from distributed_membership_tpu_torch.backends import get_backend
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_backend("tpu_sparse")

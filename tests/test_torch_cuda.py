@@ -75,6 +75,39 @@ def test_receive_kernel(cuda, n, t):
         assert torch.equal(g, w)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(4096, 45), (1000, 3)])
+def test_receive_admit_kernel(cuda, n, t):
+    """K1's admit_mask form (an int32 [N, S] plane, 0 = suppress the
+    delivered mail) against its plain version, and the mask bites."""
+    rng = np.random.default_rng(3 * n + t)
+    view = _packed(rng, n, 0.7, (n, S))
+    view_ts = torch.from_numpy(
+        rng.integers(0, t + 1, size=(n, S), dtype=np.int32))
+    mail = _packed(rng, n, 0.4, (n, S))
+    cand = torch.where(_flags(rng, n * S, 0.5).reshape(n, S), view,
+                       _packed(rng, n, 0.1, (n, S)))
+    act = _flags(rng, n, 0.9)
+    self_on = act & _flags(rng, n, 0.95)
+    spack = _packed(rng, n, 1.0, (n,)) * self_on
+    args = [x.to(cuda) for x in (view, view_ts, mail, cand,
+                                 _flags(rng, n, 0.9), act, self_on, spack)]
+    admit = _flags(rng, n * S, 0.5).reshape(n, S).to(torch.int32).to(cuda)
+    want = receive_core(n, S, TFAIL, TREMOVE, STRIDE, t, *args,
+                        admit_mask=admit)
+    kernels.reset_launches()
+    got = receive_fused(n, S, TFAIL, TREMOVE, STRIDE, t,
+                        *(a.clone() for a in args), admit_mask=admit)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["receive_admit"] == 1
+    assert kernels.LAUNCHES["receive"] == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    open_ = receive_fused(n, S, TFAIL, TREMOVE, STRIDE, t,
+                          *(a.clone() for a in args))
+    assert not torch.equal(open_[0], got[0])
+
+
 # K2 cases (N, S, shifts; k_max = len(shifts)).  The tile holds 4096 / S
 # rows (32 at S=128, 16 at S=256): N=96 takes the wrapped-row columns;
 # N=1000 ends on a ragged tile, and shifts that are not multiples of the
@@ -186,8 +219,8 @@ def test_run_on_card_matches_cpu(cuda, tmp_path):
     kernels.reset_launches()
     run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
     assert kernels.LAUNCHES == {
-        "receive": 80, "gossip": 0, "gossip_masks": 80, "probe": 80,
-        "probe_hist": 0, "receive_folded": 0, "gossip_folded": 0,
+        "receive": 80, "receive_admit": 0, "gossip": 0, "gossip_masks": 80,
+        "probe": 80, "probe_hist": 0, "receive_folded": 0, "gossip_folded": 0,
         "gossip_folded_masks": 0, "probe_folded": 0, "probe_folded_hist": 0,
         "gossip_stacked": 0, "gossip_stacked_masks": 0}
     run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
@@ -588,3 +621,47 @@ def test_telemetry_run_on_card_matches_cpu(cuda, tmp_path):
                 == (tmp_path / "cpu" / name).read_bytes()), name
     _timelines_equal(card.extra["timeline"], cpu.extra["timeline"])
     assert card.extra["timeline"]["dropped"].sum() > 0
+
+
+@pytest.mark.cuda
+def test_scenario_run_on_card_matches_cpu(cuda, tmp_path):
+    """An N=256 full-event run under a scenario with every event kind:
+    the card's three logs and its oracle report equal the CPU's; K1, K2's
+    masks form and K3 once per tick."""
+    import json
+
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    scn = tmp_path / "mixed.json"
+    scn.write_text(json.dumps({"name": "mixed", "events": [
+        {"kind": "partition", "start": 10, "stop": 30,
+         "groups": [[0, 100], [100, 256]]},
+        {"kind": "crash", "time": 5, "range": [20, 28]},
+        {"kind": "restart", "time": 35, "range": [20, 24]},
+        {"kind": "leave", "time": 12, "nodes": [200]},
+        {"kind": "link_flake", "start": 20, "stop": 50, "src": [0, 128],
+         "dst": [128, 256], "drop_prob": 0.11},
+        {"kind": "one_way_flake", "start": 40, "stop": 45,
+         "src": [128, 256], "dst": [0, 64]},
+        {"kind": "drop_window", "start": 15, "stop": 40, "drop_prob": 0.02},
+        {"kind": "delay_window", "start": 25, "stop": 33,
+         "dst": [50, 90]}]}))
+    conf = tmp_path / "ring.conf"
+    conf.write_text(
+        "MAX_NNB: 256\nSINGLE_FAILURE: 1\nVIEW_SIZE: 128\nGOSSIP_LEN: 32\n"
+        "PROBES: 16\nFANOUT: 3\nTFAIL: 16\nTREMOVE: 40\nTOTAL_TIME: 80\n"
+        "JOIN_MODE: warm\nEXCHANGE: ring\nBACKEND: tpu_hash\n"
+        f"SCENARIO: {scn}\n")
+    kernels.reset_launches()
+    card = run_conf(str(conf), out_dir=str(tmp_path / "cuda"),
+                    device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive": 80, "gossip_masks": 80, "probe": 80}
+    cpu = run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "cuda" / name).read_bytes()
+                == (tmp_path / "cpu" / name).read_bytes()), name
+    assert card.extra["scenario_report"] == cpu.extra["scenario_report"]
+    assert card.extra["scenario_report"]["partitions"][0][
+        "removals_during"] > 0

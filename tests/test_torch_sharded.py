@@ -550,7 +550,7 @@ _REF = _BASE.format(n=64, tremove=40, mesh=8) + _NODROP
     ("CHECKPOINT_EVERY: 10\n", "Queue 1 item 4"),
     ("MEGA_TICKS: 4\n", "Queue 1 item 4"),
     ("RNG_MODE: hoisted\n", "Queue 1 item 4"),
-    ("SCENARIO: x.json\n", "Queue 1 item 5"),
+    ("SCENARIO: x.json\nCHECKPOINT_EVERY: 10\n", "Queue 1 item 4"),
 ])
 def test_outside_the_slice_is_refused(extra, item):
     p = Params.from_text(_REF + extra)

@@ -389,7 +389,7 @@ def test_auto_folded_downgrades_per_shard():
 
 @pytest.mark.parametrize("extra,match", [
     ("EXCHANGE_MODE: batched\n", "Queue 1 item 6c"),
-    ("SCENARIO: x.json\n", "Queue 1 item 5"),
+    ("SCENARIO: x.json\nCHECKPOINT_EVERY: 10\n", "Queue 1 item 4"),
 ])
 def test_sharded_folded_refusals(extra, match):
     with pytest.raises(NotImplementedError, match=match):
