@@ -88,6 +88,28 @@ Phases (any failure exits non-zero before the final line):
                 eight shards, folded, TELEMETRY scalars): the summary,
                 every final-state leaf, every series and the report
                 identical.
+ 23. checkpoint -- confs/ring_1m_s128_ckpt.conf (the main path in 40-tick
+                segments, TELEMETRY scalars): with no directory, then with
+                snapshots under --out-dir killed at tick 100
+                (DM_CRASH_AT_TICK; the manifest at 120) and resumed; each
+                run's summary equals main's, every kernel once per tick
+                driven; prints the free disk, the snapshot bytes, each
+                segment's device_sync_s/flush_s/ckpt_wait_s (runlog.jsonl)
+                and ticks/s against main;
+ 24. checkpoint_sharded_folded -- confs/ring_1m_s16_folded_sharded8_drop.conf
+                in 16-tick segments, killed at 40 (the manifest at 48) and
+                resumed: summary and timeline equal sharded_folded_lossy's;
+ 25. mega    -- confs/ring_1m_s16_folded_mega.conf (the folded path in
+                8-tick blocks with the packed carry): summary equals
+                folded's; prints ms/tick against folded and carry_bytes;
+ 26. hoisted -- confs/ring_1m_s128_hoisted.conf (RNG_MODE hoisted, 8-tick
+                segments): summary equals main's; prints ms/tick, launches
+                per tick and the peak device memory;
+ 27. checkpoint_parity -- confs/ring_256_s128_drop.conf and
+                confs/ring_256_s128_scenario.conf killed on the card and
+                resumed on the CPU, and the reverse: the three logs and
+                the oracle report byte-identical to the CPU's
+                uninterrupted run.
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -132,7 +154,8 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "sharded_parity", "grade", "scatter_parity", "cold_parity",
           "sharded_folded", "sharded_folded_lossy", "sharded_folded_parity",
           "telemetry", "scenario", "scenario_folded", "scenario_sharded",
-          "scenario_parity")
+          "scenario_parity", "checkpoint", "checkpoint_sharded_folded",
+          "mega", "hoisted", "checkpoint_parity")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
@@ -729,10 +752,17 @@ def launches_expected(**nonzero) -> dict:
     return {k: nonzero.get(k, 0) for k in kernels.LAUNCHES}
 
 
-def run_path(torch, conf: str, name: str, expect: dict, out_dir: str) -> dict:
+SERIES = {}                     # path name -> its run's timeline series
+
+
+def run_path(torch, conf: str, name: str, expect: dict, out_dir: str,
+             ticks: int | None = None, carry: bool = False, **kw) -> dict:
     """Drive run_conf once on the card, with every launch count set to 0
-    just before and read just after.  A conf with TELEMETRY must give a
-    timeline that reconciles with its detection summary."""
+    just before and read just after; ``kw`` are run_conf's overrides and
+    ``ticks`` the ticks the run drives (a resumed run's rest; default
+    TOTAL_TIME).  A conf with TELEMETRY must give a timeline that
+    reconciles with its detection summary.  With ``carry`` the final
+    state's block-boundary bytes (ops/megakernel.py) are recorded."""
     from distributed_membership_tpu_torch import kernels
     from distributed_membership_tpu_torch.runtime.application import run_conf
 
@@ -740,29 +770,296 @@ def run_path(torch, conf: str, name: str, expect: dict, out_dir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    result = run_conf(conf, out_dir=os.path.join(out_dir, name), device="cuda")
+    result = run_conf(conf, out_dir=os.path.join(out_dir, name),
+                      device="cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     p = result.params
+    ticks = p.TOTAL_TIME if ticks is None else ticks
     det = result.extra["detection_summary"]
     info = {
-        "ticks": p.TOTAL_TIME, "n": p.EN_GPSZ, "wall_s": wall,
-        "ticks_per_s": p.TOTAL_TIME / wall,
-        "node_ticks_per_s": p.EN_GPSZ * p.TOTAL_TIME / wall,
+        "ticks": ticks, "n": p.EN_GPSZ, "wall_s": wall,
+        "ticks_per_s": ticks / wall,
+        "node_ticks_per_s": p.EN_GPSZ * ticks / wall,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches,
         "detection": {k: v for k, v in det.items()
                       if k != "latency_hist_nonzero"},
     }
+    if carry:
+        from distributed_membership_tpu_torch.ops.megakernel import (
+            carry_bytes)
+        info["carry_bytes"] = carry_bytes(result.extra["final_state"])
     if "timeline" in result.extra:
         info["timeline"] = reconcile(name, result)
+        SERIES[name] = result.extra["timeline"]
     if "scenario_report" in result.extra:
         info["scenario"] = oracle_digest(result.extra["scenario_report"])
     log(f"main[{name}]: " + json.dumps(info))
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches} != {expect}")
     return info
+
+
+def run_killed(torch, conf: str, name: str, expect: dict, out_dir: str,
+               crash_at: int, **kw) -> float:
+    """run_conf on the card with ``DM_CRASH_AT_TICK=crash_at``: it must
+    raise the injected crash, having launched ``expect``.  Returns the
+    wall seconds."""
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    os.environ[ck.CRASH_ENV] = str(crash_at)
+    t0 = time.perf_counter()
+    try:
+        run_conf(conf, out_dir=os.path.join(out_dir, name), device="cuda",
+                 **kw)
+    except RuntimeError as e:
+        if "injected crash" not in str(e):
+            raise
+        log(f"{name}: {e}")
+    else:
+        raise AssertionError(f"{name}: the injected crash did not happen")
+    finally:
+        del os.environ[ck.CRASH_ENV]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches} != {expect}")
+    return wall
+
+
+def twin(torch, paths: dict, name: str, conf: str, expect: dict,
+         out_dir: str) -> dict:
+    """The uninterrupted per-tick path a new path is held to: the run of
+    its earlier phase, or (on a partial run) one made now."""
+    if name not in paths:
+        paths[name] = run_path(torch, conf, name, expect, out_dir)
+    return paths[name]
+
+
+def same_detection(name: str, got: dict, want: dict, what: str) -> None:
+    if got["detection"] != want["detection"]:
+        raise AssertionError(f"{name}: detection summary {got['detection']}"
+                             f" != {what}'s {want['detection']}")
+
+
+def same_series(name: str, twin_name: str) -> None:
+    import numpy as np
+    a, b = SERIES[name], SERIES[twin_name]
+    if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k])
+                                   for k in a):
+        raise AssertionError(f"{name}: timeline differs from {twin_name}'s")
+
+
+def runlog_segments(tl_dir: str) -> list:
+    """``chunked_run``'s per-segment records in ``tl_dir``."""
+    from distributed_membership_tpu_torch.observability.runlog import (
+        read_events)
+    return [{k: r[k] for k in ("t0", "t1", "device_sync_s", "flush_s",
+                               "ckpt_wait_s")}
+            for r in read_events(os.path.join(tl_dir, "runlog.jsonl"),
+                                 kinds=("segment",))]
+
+
+def phase_checkpoint(torch, confs: str, paths: dict, out_dir: str,
+                     card: str) -> dict:
+    """The main path's conf in 40-tick segments (TELEMETRY scalars): with
+    no directory, then with snapshots, killed at 100 (the manifest at
+    120) and resumed; each equals the main path's detection summary,
+    with every kernel once per tick."""
+    import shutil
+
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    main = twin(torch, paths, "main", os.path.join(confs, "ring_1m_s128.conf"),
+                launches_expected(receive=160, gossip=160, probe=160),
+                out_dir)
+    conf = os.path.join(confs, "ring_1m_s128_ckpt.conf")
+    free = shutil.disk_usage(out_dir).free
+    log(f"checkpoint: {free / 2**30:.1f} GiB free under {out_dir}")
+    tl = {k: os.path.join(out_dir, f"checkpoint_{k}_tl")
+          for k in ("nodir", "dir")}
+    ckdir = os.path.join(out_dir, "checkpoint_ck")
+    for d in list(tl.values()) + [ckdir]:
+        shutil.rmtree(d, ignore_errors=True)
+
+    def per_tick(n):
+        return launches_expected(receive=n, gossip=n, probe=n)
+
+    nodir = run_path(torch, conf, "checkpoint", per_tick(160), out_dir,
+                     telemetry_dir=tl["nodir"])
+    same_detection("checkpoint", nodir, main, "main")
+    killed_s = run_killed(torch, conf, "checkpoint_killed", per_tick(120),
+                          out_dir, 100, checkpoint_dir=ckdir,
+                          telemetry_dir=tl["dir"])
+    if ck.manifest_tick(ckdir) != 120:
+        raise AssertionError(f"checkpoint: manifest at "
+                             f"{ck.manifest_tick(ckdir)}, not 120")
+    snaps = {f: os.path.getsize(os.path.join(ckdir, f))
+             for f in sorted(os.listdir(ckdir)) if f.endswith(".npz")}
+    resumed = run_path(torch, conf, "checkpoint_resumed", per_tick(40),
+                       out_dir, ticks=40, checkpoint_dir=ckdir, resume=True,
+                       telemetry_dir=tl["dir"])
+    same_detection("checkpoint_resumed", resumed, main, "main")
+    info = {"card": card, "free_disk_gib": free / 2**30,
+            "launches": nodir["launches"], "snapshot_bytes": snaps,
+            "ticks_per_s": {"main": main["ticks_per_s"],
+                            "chunked_no_dir": nodir["ticks_per_s"],
+                            "killed_with_snapshots": 120 / killed_s,
+                            "resumed_with_snapshot":
+                                resumed["ticks_per_s"]},
+            "segments_no_dir": runlog_segments(tl["nodir"]),
+            "segments_with_dir": runlog_segments(tl["dir"])}
+    info["pull_s"] = snapshot_pull(torch, conf)
+    log("checkpoint: " + json.dumps(info))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return info
+
+
+def snapshot_pull(torch, conf: str) -> dict:
+    """Seconds to copy the conf's warm carry from the card to the host,
+    in turns: into fresh pageable arrays (``convert.carry_leaves``) and
+    into ``chunked_run``'s two pinned sets (the first use of each set
+    allocates it)."""
+    from distributed_membership_tpu_torch.backends import tpu_hash
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.convert import carry_leaves
+    from distributed_membership_tpu_torch.ops.megakernel import carry_bytes
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    from distributed_membership_tpu_torch.runtime.failures import (
+        make_run_key)
+
+    params = Params.from_file(conf)
+    cfg = tpu_hash.make_config(params, False, fail_ids=(0,), device="cuda")
+    carry = tpu_hash.init_state_warm(cfg, make_run_key(params, 1), "cuda")
+    host = ck._HostCopies()
+    out = {"pageable": [], "pinned_first": [], "pinned": []}
+    for kind in ("pageable", "pinned_first", "pinned_first", "pinned",
+                 "pinned", "pageable"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = (carry_leaves(carry) if kind == "pageable"
+                  else host.pull(carry))
+        out[kind].append(time.perf_counter() - t0)
+        del leaves
+    out["bytes"] = carry_bytes(carry)["full"]
+    del carry, host
+    return out
+
+
+def phase_checkpoint_sharded_folded(torch, confs: str, paths: dict,
+                                    out_dir: str, card: str) -> dict:
+    """The eight-shard folded lossy path (TELEMETRY hist) in 16-tick
+    segments, killed at 40 (the manifest at 48) and resumed: its summary
+    and timeline equal the sharded_folded_lossy path's."""
+    import shutil
+
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    conf = os.path.join(confs, "ring_1m_s16_folded_sharded8_drop.conf")
+
+    def per_tick(n):
+        return launches_expected(receive_folded=n, gossip_folded=n,
+                                 probe_folded_hist=n)
+
+    lossy = twin(torch, paths, "sharded_folded_lossy", conf, per_tick(64),
+                 out_dir)
+    tl = os.path.join(out_dir, "checkpoint_sharded_folded_tl")
+    ckdir = os.path.join(out_dir, "checkpoint_sharded_folded_ck")
+    for d in (tl, ckdir):
+        shutil.rmtree(d, ignore_errors=True)
+    killed_s = run_killed(torch, conf, "checkpoint_sharded_folded_killed",
+                          per_tick(48), out_dir, 40, checkpoint_every=16,
+                          checkpoint_dir=ckdir, telemetry_dir=tl)
+    if ck.manifest_tick(ckdir) != 48:
+        raise AssertionError("checkpoint_sharded_folded: manifest at "
+                             f"{ck.manifest_tick(ckdir)}, not 48")
+    resumed = run_path(torch, conf, "checkpoint_sharded_folded",
+                       per_tick(16), out_dir, ticks=16, checkpoint_every=16,
+                       checkpoint_dir=ckdir, resume=True, telemetry_dir=tl)
+    same_detection("checkpoint_sharded_folded", resumed, lossy,
+                   "sharded_folded_lossy")
+    same_series("checkpoint_sharded_folded", "sharded_folded_lossy")
+    info = {"card": card, "launches": per_tick(64), "ticks_per_s": {
+        "sharded_folded_lossy": lossy["ticks_per_s"],
+        "killed_with_snapshots": 48 / killed_s,
+        "resumed": resumed["ticks_per_s"]},
+        "snapshot_bytes": {f: os.path.getsize(os.path.join(ckdir, f))
+                           for f in sorted(os.listdir(ckdir))
+                           if f.endswith(".npz")},
+        "segments": runlog_segments(tl)}
+    log("checkpoint_sharded_folded: summary and timeline equal "
+        "sharded_folded_lossy's; " + json.dumps(info))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return info
+
+
+def checkpoint_parity(torch, conf: str, name: str, every: int, kill: int,
+                      expect_tick: dict, out_dir: str) -> dict:
+    """A full-event conf killed on the card and resumed on the CPU, and
+    killed on the CPU and resumed on the card: the three logs (and the
+    scenario report) equal the CPU's uninterrupted run.  The card's runs
+    launch each kernel of ``expect_tick`` once per tick they drive."""
+    import shutil
+
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    ref_dir = os.path.join(out_dir, f"{name}_ref")
+    ref = run_conf(conf, out_dir=ref_dir, device="cpu")
+    total = ref.params.TOTAL_TIME
+    mark = -(-kill // every) * every
+
+    def expect(n):
+        return launches_expected(**{k: n for k in expect_tick})
+
+    walls = {}
+    for killer, resumer in (("cuda", "cpu"), ("cpu", "cuda")):
+        tag = f"{name}_{killer}_to_{resumer}"
+        ckdir = os.path.join(out_dir, f"{tag}_ck")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        kw = dict(checkpoint_every=every, checkpoint_dir=ckdir)
+        if killer == "cuda":
+            walls[tag + "_killed"] = run_killed(
+                torch, conf, f"{tag}_killed", expect(mark), out_dir, kill,
+                **kw)
+        else:
+            os.environ[ck.CRASH_ENV] = str(kill)
+            try:
+                run_conf(conf, out_dir=os.path.join(out_dir, f"{tag}_killed"),
+                         device="cpu", **kw)
+                raise AssertionError(f"{tag}: no injected crash")
+            except RuntimeError as e:
+                if "injected crash" not in str(e):
+                    raise
+            finally:
+                del os.environ[ck.CRASH_ENV]
+        if ck.manifest_tick(ckdir) != mark:
+            raise AssertionError(f"{tag}: manifest at "
+                                 f"{ck.manifest_tick(ckdir)}, not {mark}")
+        out = os.path.join(out_dir, f"{tag}_resumed")
+        from distributed_membership_tpu_torch import kernels
+        kernels.reset_launches()
+        res = run_conf(conf, out_dir=out, device=resumer, resume=True, **kw)
+        launches = dict(kernels.LAUNCHES)
+        want = expect(total - mark) if resumer == "cuda" else expect(0)
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches} != {want}")
+        same_logs(ref_dir, out, tag)
+        if res.extra.get("scenario_report") != ref.extra.get(
+                "scenario_report"):
+            raise AssertionError(f"{tag}: scenario report differs")
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"{name}: killed at {kill} (manifest {mark}) on the card and "
+        "resumed on the CPU, and the reverse: logs"
+        + (" and scenario report" if "scenario_report" in ref.extra else "")
+        + " byte-identical to the CPU's uninterrupted run; "
+        + json.dumps(walls))
+    return walls
 
 
 def oracle_digest(report: dict) -> dict:
@@ -1413,6 +1710,67 @@ def main(argv=None) -> int:
             "scenario_parity_sharded_folded", out_dir, card)
         log(f"phase scenario_parity: {time.perf_counter() - t0:.1f}s; "
             f"card: {card}")
+    if "checkpoint" in phases:
+        t0 = time.perf_counter()
+        paths["checkpoint"] = phase_checkpoint(torch, confs, paths, out_dir,
+                                               card)
+        torch.cuda.empty_cache()
+        log(f"phase checkpoint: {time.perf_counter() - t0:.1f}s")
+    if "checkpoint_sharded_folded" in phases:
+        t0 = time.perf_counter()
+        paths["checkpoint_sharded_folded"] = phase_checkpoint_sharded_folded(
+            torch, confs, paths, out_dir, card)
+        torch.cuda.empty_cache()
+        log(f"phase checkpoint_sharded_folded: "
+            f"{time.perf_counter() - t0:.1f}s")
+    if "mega" in phases:
+        per_tick = launches_expected(receive_folded=160, gossip_folded=160,
+                                     probe_folded=160)
+        folded = twin(torch, paths, "folded",
+                      os.path.join(confs, "ring_1m_s16_folded.conf"),
+                      per_tick, out_dir)
+        paths["mega"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s16_folded_mega.conf"),
+            "mega", per_tick, out_dir, carry=True)
+        same_detection("mega", paths["mega"], folded, "folded")
+        log("mega: MEGA_TICKS 8, MEGA_PACK 1 == folded; " + json.dumps(
+            {"ms_per_tick": 1e3 / paths["mega"]["ticks_per_s"],
+             "folded_ms_per_tick": 1e3 / folded["ticks_per_s"],
+             "carry_bytes": paths["mega"]["carry_bytes"],
+             "block_boundaries": 160 // 8, "card": card}))
+        torch.cuda.empty_cache()
+    if "hoisted" in phases:
+        per_tick = launches_expected(receive=160, gossip=160, probe=160)
+        main_info = twin(torch, paths, "main",
+                         os.path.join(confs, "ring_1m_s128.conf"), per_tick,
+                         out_dir)
+        paths["hoisted"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_hoisted.conf"),
+            "hoisted", per_tick, out_dir)
+        same_detection("hoisted", paths["hoisted"], main_info, "main")
+        log("hoisted: RNG_MODE hoisted (8-tick segments) == main; "
+            + json.dumps({
+                "ms_per_tick": 1e3 / paths["hoisted"]["ticks_per_s"],
+                "main_ms_per_tick": 1e3 / main_info["ticks_per_s"],
+                "launches_per_tick": {
+                    k: v / 160 for k, v in
+                    paths["hoisted"]["launches"].items() if v},
+                "peak_mem_gib": paths["hoisted"]["peak_mem_gib"],
+                "main_peak_mem_gib": main_info["peak_mem_gib"],
+                "card": card}))
+        torch.cuda.empty_cache()
+    if "checkpoint_parity" in phases:
+        t0 = time.perf_counter()
+        paths["checkpoint_parity"] = checkpoint_parity(
+            torch, os.path.join(confs, "ring_256_s128_drop.conf"),
+            "checkpoint_parity", 20, 70, ("receive", "gossip_masks", "probe"),
+            out_dir)
+        paths["checkpoint_parity_scenario"] = checkpoint_parity(
+            torch, os.path.join(confs, "ring_256_s128_scenario.conf"),
+            "checkpoint_parity_scenario", 20, 50,
+            ("receive", "gossip_masks", "probe"), out_dir)
+        log(f"phase checkpoint_parity: {time.perf_counter() - t0:.1f}s; "
+            f"card: {card}")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):
@@ -1452,7 +1810,11 @@ def main(argv=None) -> int:
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",
                  "source": CSRC + src, "replaces": TPU_KERNEL[name],
-                 "launches": paths[path]["launches"][key], **r}
+                 "launches": paths[path]["launches"][key], **r,
+                 "launches_by_path": {
+                     p: info["launches"][key] for p, info in paths.items()
+                     if isinstance(info, dict) and "launches" in info
+                     and info["launches"].get(key)}}
         for x_form, tag in extras:
             x = rows[x_form]
             entry.update({f"{tag}_ms": x["ms"],

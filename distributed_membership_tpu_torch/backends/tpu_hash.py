@@ -63,11 +63,17 @@ link-flake drop probabilities at every send site, and the end-of-tick
 crash/leave/restart transitions (:func:`restart_wipe`).  The JAX
 package's gates hold (ring exchange only, no ENFORCE_BUFFSIZE).
 
+``CHECKPOINT_EVERY`` runs the tick loop in segments through
+runtime/checkpoint.py (snapshots, ``RESUME``, the run log);
+``RNG_MODE: hoisted`` draws each segment's RNG plans before its first
+tick, and ``MEGA_TICKS`` runs T-tick blocks with the shrunk carry
+(ops/megakernel.py).  Neither changes the trajectory.
+
 Refused with ``NotImplementedError`` (ROADMAP.md names the queue item):
-SHIFT_SET, ENFORCE_BUFFSIZE, CHECKPOINT_EVERY, MEGA_TICKS,
-RNG_MODE hoisted, PROBE_IO approx_lag/none, EVENT_MODE agg on
-the scatter exchange, and more than FAST_AGG_MAX_FAILED failed ids under
-EVENT_MODE agg.  On CUDA the ring's kernels are the path, so a pinned
+SHIFT_SET, ENFORCE_BUFFSIZE, SERVICE_PORT, PROBE_IO approx_lag/none,
+EVENT_MODE agg on the scatter exchange, and more than
+FAST_AGG_MAX_FAILED failed ids under EVENT_MODE agg.  On CUDA the
+ring's kernels are the path, so a pinned
 ``FUSED_*: 0`` is refused there, and so are ``VIEW_SIZE % 128 != 0``
 outside the folded layout (full event mode, or a geometry the folded
 gates refuse) and ``VIEW_SIZE > 4096`` (K2's one-tile rows); on the CPU
@@ -104,7 +110,10 @@ from distributed_membership_tpu_torch.ops.fused_probe import (
     probe_window_fused)
 from distributed_membership_tpu_torch.ops.fused_receive import receive_fused
 from distributed_membership_tpu_torch.ops.fused_gossip import MAX_TILE_S
-from distributed_membership_tpu_torch.ops.rng_plan import hash_ring_rng
+from distributed_membership_tpu_torch.ops.megakernel import (
+    PACK_SAFE_TICKS, mega_ticks, pack_fits)
+from distributed_membership_tpu_torch.ops.rng_plan import (
+    hash_ring_rng_keys)
 from distributed_membership_tpu_torch.ops.sampling import sample_k_indices
 from distributed_membership_tpu_torch.ops.threefry import (
     Key, randint, split, uniform, uniform_at)
@@ -176,6 +185,9 @@ class HashConfig:
     # General-path scenario (scenario/compile.py ScenarioStatic): which
     # hook sites the ring steps run; its plan arrays ride PlanTensors.
     scenario: object = None
+    rng_mode: str = "batched"     # 'hoisted': a segment's plans pre-drawn
+    mega_ticks: int = 0           # T-tick blocks (ops/megakernel.py)
+    mega_pack: bool = False       # the 16-bit shrunk block carry
 
 
 def uses_drop(cfg: HashConfig) -> bool:
@@ -605,10 +617,25 @@ def tick_telemetry(cfg: HashConfig, agg_before, agg, out: SparseTickEvents,
         dropped=drop_tick, stale=stale, susp=susp))
 
 
+def ring_rng_plans(cfg: HashConfig, keys, device) -> list:
+    """The single-chip ring step's RingRng for each tick key of ``keys``
+    (the JAX ``_ring_rng_builder``), each stream drawn for all keys in
+    one pass: the per-tick draw is one key, ``RNG_MODE: hoisted`` a
+    segment's keys.  The natural step draws the control and burst coins,
+    the folded step neither."""
+    return hash_ring_rng_keys(
+        keys, n=cfg.n, s=cfg.s, g=cfg.g, k_max=min(cfg.fanout, cfg.s),
+        p_cnt=max(cfg.probes, 0), seed_rows=min(cfg.seed_cap, cfg.n),
+        use_drop=uses_drop(cfg), need_ctrl=not cfg.folded,
+        need_burst=not cfg.folded, device=device)
+
+
 def make_step(cfg: HashConfig):
-    """``step(state, t, key, plan) -> (state, SparseTickEvents)``; ``t`` is
-    a host int, ``key`` the tick's threefry key, ``plan`` the run's
-    PlanTensors.  The ring exchange is built here, the scatter exchange by
+    """``step(state, t, key, plan, rng=None) -> (state,
+    SparseTickEvents)``; ``t`` is a host int, ``key`` the tick's threefry
+    key, ``plan`` the run's PlanTensors, ``rng`` the tick's pre-drawn
+    RingRng (``RNG_MODE: hoisted``), else drawn from ``key``.  The ring
+    exchange is built here, the scatter exchange by
     :func:`make_scatter_step`.  Under a general scenario (``cfg.scenario``)
     every hook site of the JAX step runs: the delay window's held rows,
     partition cuts and link-flake probabilities at each send site (the
@@ -636,16 +663,14 @@ def make_step(cfg: HashConfig):
     gossip_masks = use_drop or (scn is not None
                                 and bool(scn.n_parts or scn.n_flakes))
 
-    def step(state: HashState, t: int, key: Key, plan: PlanTensors):
+    def step(state: HashState, t: int, key: Key, plan: PlanTensors,
+             rng=None):
         if t < 0:
             raise ValueError("ticks start at 0")
         dev = state.view.device
         idx = torch.arange(n, dtype=I64, device=dev)
-        rng = hash_ring_rng(key, n=n, s=s, g=g, k_max=k_max,
-                            p_cnt=max(p_cnt, 0),
-                            seed_rows=min(cfg.seed_cap, n),
-                            use_drop=use_drop, need_ctrl=True,
-                            need_burst=True, device=dev)
+        if rng is None:
+            rng = ring_rng_plans(cfg, [key], dev)[0]
         f = tick_faults(plan, t, idx, n, p_drop)
         # The coins that kill a message this tick, counted for TELEMETRY.
         dropped = [] if cfg.telemetry else None
@@ -1154,17 +1179,37 @@ def make_config(params: Params, collect_events: bool = True,
         if knobs["FUSED_PROBE"] == 1:
             raise ValueError(
                 "FUSED_PROBE requires the ring exchange with PROBES > 0")
+    # Multi-tick blocks: auto (-1) resolves off, as the JAX package's
+    # does away from a TPU; its gates, word for word.
+    mega = max(params.MEGA_TICKS, 0)
+    if mega > 0 and not ring:
+        raise ValueError(
+            "MEGA_TICKS requires the ring exchange (the scatter "
+            "lowering keeps the per-tick scan)")
+    mega_pack = params.MEGA_PACK
+    if mega_pack == -1:
+        mega_pack = int(mega > 1 and pack_fits(params.TOTAL_TIME))
+    elif mega_pack == 1:
+        if mega <= 1:
+            raise ValueError(
+                "MEGA_PACK: 1 requires MEGA_TICKS >= 2 (resolved "
+                f"T={mega}: no T-block boundary exists to shrink)")
+        if not pack_fits(params.TOTAL_TIME):
+            raise ValueError(
+                f"MEGA_PACK: 1 cannot prove the 16-bit carry bound for "
+                f"TOTAL_TIME={params.TOTAL_TIME} (heartbeats/timestamps "
+                f"must stay under 2**16 after the +1 sentinel offset: "
+                f"at most {PACK_SAFE_TICKS} ticks — "
+                "ops/megakernel.PACK_SAFE_TICKS); use MEGA_PACK 0 or "
+                "-1 (auto widens to the full-width carry)")
     for key, bad, item in (
             ("SHIFT_SET", params.SHIFT_SET != 0, "Queue 1 item 9"),
             ("ENFORCE_BUFFSIZE", params.ENFORCE_BUFFSIZE != 0,
              "Queue 1 item 9"),
-            ("CHECKPOINT_EVERY", params.CHECKPOINT_EVERY > 0,
-             "Queue 1 item 4"),
-            ("MEGA_TICKS", params.MEGA_TICKS > 0, "Queue 1 item 4"),
-            ("RNG_MODE hoisted", params.RNG_MODE == "hoisted",
-             "Queue 1 item 4"),
             (f"PROBE_IO {params.PROBE_IO}",
-             params.PROBE_IO in ("approx_lag", "none"), "Queue 1 item 9")):
+             params.PROBE_IO in ("approx_lag", "none"), "Queue 1 item 9"),
+            ("SERVICE_PORT (the service daemon)", params.SERVICE_PORT >= 0,
+             "Queue 1 item 10")):
         if bad:
             _refuse(key, item)
     if not collect_events and not ring:
@@ -1210,7 +1255,25 @@ def make_config(params: Params, collect_events: bool = True,
         folded=folded,
         telemetry=params.TELEMETRY in ("scalars", "hist"),
         telemetry_hist=params.TELEMETRY == "hist",
-        scenario=scenario)
+        scenario=scenario,
+        rng_mode=params.RNG_MODE if ring else "scattered",
+        mega_ticks=mega, mega_pack=bool(mega_pack))
+
+
+def resolve_mega_pack(cfg: HashConfig, params: Params,
+                      total: int) -> HashConfig:
+    """Re-prove the shrunk-carry bound for the run's effective length
+    (JAX ``resolve_mega_pack``): auto widens to the full-width carry, a
+    pinned ``MEGA_PACK: 1`` raises."""
+    if not cfg.mega_pack or pack_fits(total):
+        return cfg
+    if params.MEGA_PACK == 1:
+        raise ValueError(
+            f"MEGA_PACK: 1 cannot prove the 16-bit carry bound for the "
+            f"effective run length {total} (at most {PACK_SAFE_TICKS} "
+            "ticks — ops/megakernel.PACK_SAFE_TICKS); use MEGA_PACK 0 "
+            "or -1 (auto widens to the full-width carry)")
+    return dataclasses.replace(cfg, mega_pack=False)
 
 
 def step_and_init(cfg: HashConfig):
@@ -1238,52 +1301,98 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
              telemetry=None):
     """Run the whole simulation; returns ``(final_state, events)`` with
     ``events`` the host-compacted per-tick planes in full event mode and
-    ``None`` in agg mode.  ``telemetry``, a TimelineRecorder, receives the
-    run's per-tick series under ``TELEMETRY: scalars|hist`` (one segment,
-    ``t0 = 0``)."""
+    the per-tick ``[T]`` totals (a SparseTickEvents of int32 arrays) in
+    agg mode.  ``telemetry``, a TimelineRecorder, receives the per-tick
+    series under ``TELEMETRY: scalars|hist``: once, ``t0 = 0``, or per
+    segment under ``CHECKPOINT_EVERY`` (runtime/checkpoint.py
+    ``chunked_run``, which also writes and resumes snapshots)."""
     cfg = make_config(params, collect_events, fail_ids=plan_fail_ids(plan),
                       device=device, scenario=plan_scenario(plan))
     total = total_time if total_time is not None else params.TOTAL_TIME
     params.validate_sparse_packing(total)
+    cfg = resolve_mega_pack(cfg, params, total)
     plan_t = plan_tensors(params, plan, seed, total, device)
     step, init = step_and_init(cfg)
-    state = init(cfg, make_run_key(params, seed ^ 0x5EED), device)
-    return run_ticks(step, state, plan_t, total, collect_events, cfg,
+    key = make_run_key(params, seed ^ 0x5EED)
+    if params.CHECKPOINT_EVERY > 0:
+        from distributed_membership_tpu_torch.runtime.checkpoint import (
+            chunked_run)
+        return chunked_run(
+            params, seed, total, device=device,
+            init_carry=lambda: init(cfg, key, device),
+            segment_fn=lambda st, a, b: run_segment(step, st, plan_t, a, b,
+                                                    cfg),
+            collect_events=collect_events, telemetry=telemetry,
+            with_series=cfg.telemetry)
+    return run_ticks(step, init(cfg, key, device), plan_t, total, cfg,
                      telemetry)
 
 
-def run_ticks(step, state, plan_t: PlanTensors, total: int,
-              collect_events: bool, cfg: HashConfig, telemetry=None):
-    """The tick loop of a ring step: ``(final_state, events)`` with
-    ``events`` the host-compacted per-tick planes in full event mode and
-    ``None`` in agg mode.  Under ``cfg.telemetry`` each tick's packed
-    record stays on the device; the records are stacked once after the
-    last tick, copied to the host in one transfer and flushed to
-    ``telemetry`` (a TimelineRecorder, or None to drop them)."""
-    joins, removes, sent, recv, recs = [], [], [], [], []
-    for t in range(total):
-        state, out = step(state, t, plan_t.tick_key(t), plan_t)
+def run_segment(step, state, plan_t: PlanTensors, a: int, b: int,
+                cfg: HashConfig):
+    """Ticks ``[a, b)`` of a ring step: ``(state, events, series)``.
+
+    ``events`` is the segment's host form: the compacted planes (a
+    CompactEvents of absolute ticks) in full event mode, the ``[b - a]``
+    int32 totals (join, rm, sent, recv) in agg mode, stacked on the
+    device and copied once.  ``series`` is the flight recorder's
+    unpacked series of the segment under ``cfg.telemetry``, else None:
+    each tick's packed record stays on the device until the segment
+    ends.  Under ``RNG_MODE: hoisted`` the segment's RNG plans are drawn
+    before its first tick, one pass per stream
+    (:func:`ring_rng_plans`); under ``MEGA_TICKS`` the ticks run in
+    T-tick blocks (ops/megakernel.py)."""
+    joins, removes, sent, recv, totals, recs = [], [], [], [], [], []
+    plans = None
+    if cfg.rng_mode == "hoisted":
+        if cfg.exchange != "ring":
+            raise ValueError("RNG_MODE hoisted requires the ring exchange")
+        plans = ring_rng_plans(cfg, [plan_t.tick_key(t)
+                                     for t in range(a, b)],
+                               state.view.device)
+
+    def tick(state, t: int):
+        kw = {} if plans is None else {"rng": plans[t - a]}
+        state, out = step(state, t, plan_t.tick_key(t), plan_t, **kw)
         if cfg.telemetry:
             out, rec = out
             recs.append(rec)
-        if collect_events:
+        if cfg.collect_events:
             joins.append(compact_tick(t, out.join_ids))
             removes.append(compact_tick(t, out.rm_ids))
             sent.append(out.sent)
             recv.append(out.recv)
-    if recs and telemetry is not None:
-        telemetry.flush(unpack_series(torch.stack(recs).cpu().numpy(),
-                                      cfg.telemetry_hist), 0)
-    if not collect_events:
-        return state, None
-    n = cfg.n
+        else:
+            totals.append(torch.stack(tuple(out)))
+        return state
+
+    state = mega_ticks(tick, state, a, b, cfg.mega_ticks, cfg.mega_pack)
+    series = (unpack_series(torch.stack(recs).cpu().numpy(),
+                            cfg.telemetry_hist) if recs else None)
+    if not cfg.collect_events:
+        cols = (torch.stack(totals).cpu().numpy().T if totals
+                else np.zeros((4, 0), np.int32))
+        return state, SparseTickEvents(*(np.ascontiguousarray(c)
+                                         for c in cols)), series
     empty = np.zeros((0, 3), np.int64)
+    zeros = np.zeros((0, cfg.n), np.int32)
     return state, CompactEvents(
         np.concatenate(joins) if joins else empty,
         np.concatenate(removes) if removes else empty,
-        torch.stack(sent).cpu().numpy() if sent else np.zeros((0, n)),
-        torch.stack(recv).cpu().numpy() if recv else np.zeros((0, n)),
-        total)
+        torch.stack(sent).cpu().numpy() if sent else zeros,
+        torch.stack(recv).cpu().numpy() if recv else zeros,
+        b - a), series
+
+
+def run_ticks(step, state, plan_t: PlanTensors, total: int,
+              cfg: HashConfig, telemetry=None):
+    """The whole run as one segment (:func:`run_segment`): ``(final_state,
+    events)``, with the series flushed to ``telemetry`` (a
+    TimelineRecorder, or None to drop them) at ``t0 = 0``."""
+    state, events, series = run_segment(step, state, plan_t, 0, total, cfg)
+    if series is not None and telemetry is not None:
+        telemetry.flush(series, 0)
+    return state, events
 
 
 @register("tpu_hash")

@@ -43,7 +43,7 @@ from torch.profiler import record_function
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     HashState, _count_at, _credit_orphan_recvs, _pack_probe_table, _roll,
     coin_at, failed_after, init_state_warm, no_coin, pack_u, restart_wipe,
-    tick_faults, tick_telemetry, uses_drop, will_flush_of)
+    ring_rng_plans, tick_faults, tick_telemetry, uses_drop, will_flush_of)
 from distributed_membership_tpu_torch.backends.tpu_sparse import (
     SparseTickEvents)
 from distributed_membership_tpu_torch.observability.aggregates import (
@@ -56,8 +56,7 @@ from distributed_membership_tpu_torch.ops.fused_probe import (
 from distributed_membership_tpu_torch.observability.timeline import (
     PHASE_ACK, PHASE_AGG, PHASE_COLLECTIVE, PHASE_GOSSIP, PHASE_PROBE,
     PHASE_RECEIVE, PHASE_TELEMETRY)
-from distributed_membership_tpu_torch.ops.rng_plan import (
-    hash_ring_rng, sharded_ring_rng)
+from distributed_membership_tpu_torch.ops.rng_plan import sharded_ring_rng
 from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, STRIDE, member_of, to_bits)
 from distributed_membership_tpu_torch.scenario.compile import cross_group
@@ -101,8 +100,8 @@ def init_local_state_warm_folded(cfg, mesh, key):
 
 
 def make_folded_step(cfg, mesh=None):
-    """``step(state, t, key, plan) -> (state, SparseTickEvents)`` on
-    folded state, with the arguments of ``tpu_hash.make_step``; under
+    """``step(state, t, key, plan, rng=None) -> (state, SparseTickEvents)``
+    on folded state, with the arguments of ``tpu_hash.make_step``; under
     ``cfg.telemetry`` the events come paired with the tick's packed
     record, as there.  With ``mesh`` (a LocalMesh of D shards of L rows)
     it is the sharded folded step (JAX ``make_ring_sharded_folded_step``)
@@ -127,10 +126,7 @@ def make_folded_step(cfg, mesh=None):
     want_hist = cfg.telemetry_hist
     if mesh is None:
         def plan_rng(key, dev):
-            return hash_ring_rng(key, n=n, s=s, g=g, k_max=k_max,
-                                 p_cnt=p_cnt, seed_rows=min(cfg.seed_cap, n),
-                                 use_drop=use_drop, need_ctrl=False,
-                                 need_burst=False, device=dev)
+            return ring_rng_plans(cfg, [key], dev)[0]
         part = None
     else:
         def plan_rng(key, dev):
@@ -141,10 +137,11 @@ def make_folded_step(cfg, mesh=None):
                                     device=dev)
         part = mesh.shard_sums
 
-    def step(state, t: int, key, plan):
+    def step(state, t: int, key, plan, rng=None):
         dev = state.view.device
         idx = torch.arange(n, dtype=I64, device=dev)
-        rng = plan_rng(key, dev)
+        if rng is None:
+            rng = plan_rng(key, dev)
         f = tick_faults(plan, t, idx, n, p_drop)
         dropped = [] if cfg.telemetry else None
 

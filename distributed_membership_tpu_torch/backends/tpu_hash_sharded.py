@@ -37,7 +37,9 @@ Per tick (``make_ring_sharded_step``), as in the JAX ring step:
   (exact per-target histograms through ``psum_scatter``, or the prober's
   row with the orphans re-credited to the globally first flushing row);
 * per-shard FastAgg partials, reduced once after the run
-  (:func:`reduce_fast_agg`), or per-tick event planes in full event mode;
+  (:func:`reduce_fast_agg`), or after each segment under
+  ``CHECKPOINT_EVERY`` (runtime/checkpoint.py; ``MEGA_TICKS`` blocks
+  too), or per-tick event planes in full event mode;
 * under ``TELEMETRY`` the flight recorder's record of the tick, over all
   rows (the JAX step's psums are sums over the flat layout).
 
@@ -49,8 +51,7 @@ Refused with ``NotImplementedError`` naming the ROADMAP.md item: the
 scatter exchange (the JAX ``make_sharded_step``, which ``EXCHANGE: auto``
 picks under cold joins),
 ``EXCHANGE_MODE: batched``, ``PROBE_GATHER: split``, and what
-``tpu_hash`` refuses (CHECKPOINT_EVERY, MEGA_TICKS, RNG_MODE
-hoisted, more than 8 failed ids under EVENT_MODE agg; on CUDA
+``tpu_hash`` refuses (more than 8 failed ids under EVENT_MODE agg; on CUDA
 ``VIEW_SIZE % 128 != 0`` outside the folded layout, fewer than 8 plane
 rows per shard on it, and a pinned ``FUSED_*: 0``).
 """
@@ -73,8 +74,8 @@ from distributed_membership_tpu_torch.backends.tpu_hash import (
     _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, coin_at,
     count_ctrl_dropped, failed_after, join_plane, joinreq_to_intro,
     make_config, no_coin, pack_u, plan_fail_ids, plan_scenario,
-    restart_wipe, run_ticks, seed_burst, tick_faults, tick_telemetry,
-    uses_drop, warm_view, will_flush_of)
+    resolve_mega_pack, restart_wipe, run_segment, run_ticks, seed_burst,
+    tick_faults, tick_telemetry, uses_drop, warm_view, will_flush_of)
 from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
     folded_supported, init_local_state_warm_folded,
     make_ring_sharded_folded_step)
@@ -537,32 +538,76 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
     return cfg
 
 
+def expand_fast_agg(agg: FastAgg, mesh: LocalMesh) -> FastAgg:
+    """The global FastAgg (:func:`reduce_fast_agg`'s form) as per-shard
+    partials: shard 0's partial holds the global value and the others
+    zeros.  Every field is a sum or an or over the shards, so reducing
+    the result gives the global value back."""
+    def lead(x):
+        out = x.new_zeros((mesh.size,) + tuple(x.shape))
+        out[0] = x
+        return out
+
+    return agg._replace(det_count=lead(agg.det_count),
+                        trackers=lead(agg.trackers),
+                        lat_hist=lead(agg.lat_hist),
+                        join_total=lead(agg.join_total),
+                        rm_total=lead(agg.rm_total))
+
+
 def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
                      mesh: LocalMesh, collect_events: bool = True,
                      telemetry=None):
     """Run the whole simulation on ``mesh``: ``(final_state, events)`` as
     ``tpu_hash.run_scan``, the final agg reduced; the natural or the
-    folded sharded step, as the config resolves."""
+    folded sharded step, as the config resolves.  Under
+    ``CHECKPOINT_EVERY`` the carry between segments holds the reduced
+    global FastAgg, as the JAX package's chunked carry does: each segment
+    expands it to shard partials (:func:`expand_fast_agg`) and reduces
+    them at its end."""
     n_local = mesh.rows_per_shard(params.EN_GPSZ)
     cfg = sharded_config(params, collect_events, plan_fail_ids(plan),
                          n_local, device=mesh.device,
                          scenario=plan_scenario(plan))
     total = params.TOTAL_TIME
     params.validate_sparse_packing(total)
+    cfg = resolve_mega_pack(cfg, params, total)
     plan_t = plan_tensors(params, plan, seed, total, mesh.device)
     key = make_run_key(params, seed ^ 0x5EED)
     if cfg.folded:
         step = make_ring_sharded_folded_step(cfg, mesh)
-        state = init_local_state_warm_folded(cfg, mesh, key)
+
+        def init():
+            return init_local_state_warm_folded(cfg, mesh, key)
     else:
         step = make_ring_sharded_step(cfg, mesh)
-        state = (init_local_state(cfg, mesh) if cfg.cold_join
-                 else init_local_state_warm(cfg, mesh, key))
-    state, events = run_ticks(step, state, plan_t, total, collect_events,
-                              cfg, telemetry)
-    if not collect_events:
-        state = state._replace(agg=reduce_fast_agg(state.agg, mesh))
-    return state, events
+
+        def init():
+            return (init_local_state(cfg, mesh) if cfg.cold_join
+                    else init_local_state_warm(cfg, mesh, key))
+
+    def reduced(state):
+        return (state if collect_events else
+                state._replace(agg=reduce_fast_agg(state.agg, mesh)))
+
+    if params.CHECKPOINT_EVERY > 0:
+        from distributed_membership_tpu_torch.runtime.checkpoint import (
+            chunked_run)
+
+        def segment_fn(state, a, b):
+            if not collect_events:
+                state = state._replace(agg=expand_fast_agg(state.agg, mesh))
+            state, events, series = run_segment(step, state, plan_t, a, b,
+                                                cfg)
+            return reduced(state), events, series
+
+        return chunked_run(
+            params, seed, total, device=mesh.device,
+            init_carry=lambda: reduced(init()), segment_fn=segment_fn,
+            collect_events=collect_events, telemetry=telemetry,
+            with_series=cfg.telemetry)
+    state, events = run_ticks(step, init(), plan_t, total, cfg, telemetry)
+    return reduced(state), events
 
 
 def resolve_mesh(params: Params, device) -> LocalMesh:

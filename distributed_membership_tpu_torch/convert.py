@@ -9,9 +9,18 @@ leaves of a JAX state (a ``ShardedHashState`` when the leaves have no
 neither side aliases the other.  A folded state, single-chip or sharded
 (backends/tpu_hash_folded.py), has the same leaves with folded shapes;
 both directions keep whatever shape a leaf has.
+
+The carry of a checkpoint (runtime/checkpoint.py) is these leaves in the
+JAX flatten order -- the state's fields in order, the aggregate's fields
+inline -- as the npz members ``c0..cK``: :func:`carry_leaves` copies a
+state to that list, :func:`carry_from_leaves` builds one from it on a
+device, and :func:`leaf_specs` gives the names, shapes and dtypes a
+resume checks.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,21 +30,52 @@ from distributed_membership_tpu_torch.backends.tpu_hash_sharded import (
     ShardedHashState)
 from distributed_membership_tpu_torch.observability.aggregates import (
     AggStats, FastAgg)
+from distributed_membership_tpu_torch.ops.megakernel import named_leaves
 
 U32_LEAVES = frozenset({"view", "mail", "amail", "pmail", "probe_ids1",
                         "probe_ids2"})
 
 
+class LeafSpec(NamedTuple):
+    name: str
+    shape: tuple
+    dtype: np.dtype
+
+
+def _dtype(name: str, x: torch.Tensor) -> np.dtype:
+    return (np.dtype(np.uint32) if name in U32_LEAVES
+            else np.dtype(torch.empty((), dtype=x.dtype).numpy().dtype))
+
+
+def leaf_specs(state) -> list:
+    """The LeafSpec of every leaf, in the JAX flatten order; nothing is
+    copied."""
+    return [LeafSpec(name, tuple(x.shape), _dtype(name, x))
+            for name, x in named_leaves(state)]
+
+
+def _host(name: str, x: torch.Tensor) -> np.ndarray:
+    """A host copy of a leaf in its JAX dtype (a CUDA tensor's ``cpu()``
+    is already a copy)."""
+    arr = x.cpu().numpy() if x.is_cuda else x.numpy().copy()
+    return arr.view(np.uint32) if name in U32_LEAVES else arr
+
+
 def state_to_numpy(state) -> dict:
-    out = {}
-    for name, leaf in state._asdict().items():
-        if name == "agg":
-            for field, x in leaf._asdict().items():
-                out[f"agg.{field}"] = x.cpu().numpy().copy()
-            continue
-        arr = leaf.cpu().numpy().copy()
-        out[name] = arr.view(np.uint32) if name in U32_LEAVES else arr
-    return out
+    return {name: _host(name, x) for name, x in named_leaves(state)}
+
+
+def carry_leaves(state) -> list:
+    """The state's leaves on the host, in the JAX flatten order and
+    dtypes: a checkpoint's ``c0..cK``."""
+    return [_host(name, x) for name, x in named_leaves(state)]
+
+
+def carry_from_leaves(template, leaves: list, device):
+    """A state of ``template``'s types from ``carry_leaves``-ordered host
+    arrays, on ``device``."""
+    names = [name for name, _ in named_leaves(template)]
+    return state_from_numpy(dict(zip(names, leaves)), device)
 
 
 def state_from_numpy(leaves: dict, device="cpu"):

@@ -15,7 +15,8 @@ The sharded ring step draws per shard (:func:`sharded_ring_rng`): its
 per-shard streams, concatenated in shard order, are the flat draws the
 step reads on the ``[N, ...]`` layout.  Each stream is drawn for every
 shard in one pass (``uniform_keys``), as the JAX package's batched mode
-vmaps same-size draws.
+vmaps same-size draws.  :func:`hash_ring_rng_keys` draws the plans of
+many ticks the same way, one pass per stream (``RNG_MODE: hoisted``).
 """
 
 from __future__ import annotations
@@ -48,28 +49,64 @@ def hash_ring_rng(key: Key, *, n: int, s: int, g: int, k_max: int,
     (``need_ctrl``/``need_burst``); the folded step reads neither, and
     their keys are separate, so leaving them out changes no other
     stream."""
-    (_k_targets, k_entries, k_drop, k_ctrl, _k_drop_p, k_shifts,
-     k_ack1, k_ack2) = split(key, 8)
+    return hash_ring_rng_keys(
+        [key], n=n, s=s, g=g, k_max=k_max, p_cnt=p_cnt,
+        seed_rows=seed_rows, use_drop=use_drop, need_ctrl=need_ctrl,
+        need_burst=need_burst, device=device)[0]
+
+
+# Elements per pass of a multi-key draw: the threefry's int64 working
+# set is ~24 bytes per element, so a pass stays under ~24 GiB.
+HOIST_PASS_ELEMENTS = 1 << 30
+
+
+def _draw_keys(keys, numel: int, device) -> list:
+    """``[uniform(k, (numel,)) for k in keys]``, one pass per group of
+    keys of at most HOIST_PASS_ELEMENTS elements."""
+    per = max(1, HOIST_PASS_ELEMENTS // max(numel, 1))
+    out = []
+    for i in range(0, len(keys), per):
+        group = keys[i:i + per]
+        out.extend(uniform_keys(group, numel, device).view(len(group),
+                                                           numel).unbind(0))
+    return out
+
+
+def hash_ring_rng_keys(keys, *, n: int, s: int, g: int, k_max: int,
+                       p_cnt: int, seed_rows: int, use_drop: bool,
+                       need_ctrl: bool, need_burst: bool,
+                       device) -> list:
+    """:func:`hash_ring_rng` for each key of ``keys``, each stream drawn
+    for every key in one pass (``uniform_keys``): the per-tick plans of a
+    whole segment at once, for ``RNG_MODE: hoisted`` (the JAX
+    ``vmap(_ring_rng_builder(...))`` over the segment's keys).  One key
+    is the per-tick draw."""
+    k = len(keys)
+    subs = [split(key, 8) for key in keys]
     empty = torch.zeros((0,), dtype=torch.float32, device=device)
-    shift_draw = randint(k_shifts, (k_max,), 1, max(n, 2), device)
-    thin_u = uniform(k_entries, (n * s,), device) if g < s else empty
+
+    def draw(stream: int, numel: int, j=None) -> list:
+        ks = [sk[stream] if j is None else fold_in(sk[stream], j)
+              for sk in subs]
+        return _draw_keys(ks, numel, device)
+
+    shift_draw = [randint(sk[5], (k_max,), 1, max(n, 2), device)
+                  for sk in subs]
+    thin_u = draw(1, n * s) if g < s else [empty] * k
     if not use_drop:
-        return RingRng(shift_draw, thin_u, (), empty, empty, empty, empty)
-    probe_u = ack_u = empty
+        return [RingRng(shift_draw[i], thin_u[i], (), empty, empty, empty,
+                        empty) for i in range(k)]
+    probe_u = ack_u = [empty] * k
     if p_cnt > 0:
-        probe_u = uniform(k_ack1, (n * p_cnt,), device)
-        ack_u = uniform(k_ack2, (n * p_cnt,), device)
-    return RingRng(
-        shift_draw=shift_draw,
-        thin_u=thin_u,
-        gossip_u=tuple(uniform(fold_in(k_drop, j), (n * s,), device)
-                       for j in range(k_max)),
-        ctrl_u=uniform(k_ctrl, (2 * n,), device) if need_ctrl else empty,
-        burst_u=(uniform(k_drop, (seed_rows * s,), device) if need_burst
-                 else empty),
-        probe_u=probe_u,
-        ack_u=ack_u,
-    )
+        probe_u = draw(6, n * p_cnt)
+        ack_u = draw(7, n * p_cnt)
+    gossip_u = [draw(2, n * s, j) for j in range(k_max)]
+    ctrl_u = draw(3, 2 * n) if need_ctrl else [empty] * k
+    burst_u = draw(2, seed_rows * s) if need_burst else [empty] * k
+    return [RingRng(shift_draw=shift_draw[i], thin_u=thin_u[i],
+                    gossip_u=tuple(gu[i] for gu in gossip_u),
+                    ctrl_u=ctrl_u[i], burst_u=burst_u[i],
+                    probe_u=probe_u[i], ack_u=ack_u[i]) for i in range(k)]
 
 
 def sharded_ring_rng(key: Key, shards: range, *, n: int, n_local: int,

@@ -50,16 +50,24 @@ def resolve_device(device) -> torch.device:
 
 def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
              device="cuda", backend: str | None = None,
+             checkpoint_every: int | None = None,
+             checkpoint_dir: str | None = None,
+             resume: bool | None = None,
              telemetry: str | None = None,
              telemetry_dir: str | None = None,
              scenario: str | None = None) -> RunResult:
-    """Run one conf and write its logs; ``backend``, ``telemetry``,
-    ``telemetry_dir`` and ``scenario`` override the conf's ``BACKEND``,
-    ``TELEMETRY``, ``TELEMETRY_DIR`` and ``SCENARIO`` (validated after the
-    overrides, as the JAX package does)."""
+    """Run one conf and write its logs; each given override wins over
+    its conf key (``BACKEND``, ``CHECKPOINT_EVERY``, ``CHECKPOINT_DIR``,
+    ``RESUME``, ``TELEMETRY``, ``TELEMETRY_DIR``, ``SCENARIO``), and the
+    result is validated after them, as the JAX package's
+    ``apply_overrides`` and ``run_conf`` do."""
     dev = resolve_device(device)
     params = Params.from_file(conf_path, validate=False)
-    for key, value in (("BACKEND", backend), ("TELEMETRY", telemetry),
+    for key, value in (("BACKEND", backend),
+                       ("CHECKPOINT_EVERY", checkpoint_every),
+                       ("CHECKPOINT_DIR", checkpoint_dir),
+                       ("RESUME", None if resume is None else int(resume)),
+                       ("TELEMETRY", telemetry),
                        ("TELEMETRY_DIR", telemetry_dir),
                        ("SCENARIO", scenario)):
         if value is not None:
@@ -157,6 +165,18 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the GPU with the CUDA kernels (default) "
                          "or on the CPU with their plain versions")
+    ap.add_argument("--checkpoint-every", type=int, default=None,
+                    metavar="TICKS",
+                    help="CHECKPOINT_EVERY conf key: run the tick loop in "
+                         "TICKS-tick segments (runtime/checkpoint.py)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="CHECKPOINT_DIR conf key: directory for the "
+                         "snapshots and MANIFEST.json, readable by either "
+                         "package")
+    ap.add_argument("--resume", action="store_true", default=None,
+                    help="resume bit for bit from --checkpoint-dir's latest "
+                         "checkpoint (checked against this config and "
+                         "seed; a fresh start when there is none)")
     ap.add_argument("--telemetry", default=None,
                     choices=["off", "scalars", "hist"],
                     help="TELEMETRY conf key: 'scalars' arms the flight "
@@ -165,8 +185,9 @@ def parser() -> argparse.ArgumentParser:
                          "(observability/timeline.py)")
     ap.add_argument("--telemetry-dir", default=None,
                     help="TELEMETRY_DIR conf key: directory for "
-                         "timeline.jsonl and, in EVENT_MODE agg, "
-                         "summary.json (render with scripts/run_report.py)")
+                         "timeline.jsonl, runlog.jsonl (chunked runs) and, "
+                         "in EVENT_MODE agg, summary.json (render with "
+                         "scripts/run_report.py)")
     ap.add_argument("--scenario", default=None, metavar="FILE",
                     help="SCENARIO conf key: a declarative chaos-schedule "
                          "JSON file (crash/restart/leave/partition/"
@@ -188,7 +209,10 @@ def main(argv=None) -> int:
         ap.error("conf is required unless --grade-all is given")
     result = run_conf(args.conf, seed=args.seed,
                       out_dir=args.out_dir or ".", device=args.device,
-                      backend=args.backend, telemetry=args.telemetry,
+                      backend=args.backend,
+                      checkpoint_every=args.checkpoint_every,
+                      checkpoint_dir=args.checkpoint_dir,
+                      resume=args.resume, telemetry=args.telemetry,
                       telemetry_dir=args.telemetry_dir,
                       scenario=args.scenario)
     p = result.params

@@ -103,6 +103,8 @@ def test_port_imports_no_jax():
     the JAX package: statically (every import statement, including those
     inside functions) and at run time (a fresh interpreter)."""
     assert {PKG / "grader.py", PKG / "ops" / "sampling.py",
+            PKG / "ops" / "megakernel.py", PKG / "runtime" / "checkpoint.py",
+            PKG / "observability" / "runlog.py",
             PKG / "runtime" / "application.py",
             PKG / "scenario" / "schema.py", PKG / "scenario" / "compile.py",
             PKG / "scenario" / "oracle.py",
@@ -164,14 +166,27 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    "SHIFT_SET: 4\n", "ENFORCE_BUFFSIZE: 1\n", "CHECKPOINT_EVERY: 10\n",
-    "MEGA_TICKS: 4\n", "RNG_MODE: hoisted\n",
+    "SHIFT_SET: 4\n", "ENFORCE_BUFFSIZE: 1\n",
+    "CHECKPOINT_EVERY: 10\nSERVICE_PORT: 0\n",
     "PROBE_IO: approx_lag\n", "PROBE_IO: none\n"])
 def test_outside_the_slice_is_refused(extra):
     p = Params.from_text(_RING.format(n=64, drop=0, p=0, total=10, fail=5)
                          + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         make_config(p, device="cpu")
+
+
+@pytest.mark.parametrize("extra,want", [
+    ("CHECKPOINT_EVERY: 10\n", ("batched", 0, False)),
+    ("CHECKPOINT_EVERY: 10\nMEGA_TICKS: 5\n", ("batched", 5, True)),
+    ("CHECKPOINT_EVERY: 10\nRNG_MODE: hoisted\n", ("hoisted", 0, False))])
+def test_item4_keys_resolve(extra, want):
+    """Queue 1 item 4 is ported: the checkpoint, block and hoisting keys
+    resolve into the config (auto packs within the 16-bit bound)."""
+    p = Params.from_text(_RING.format(n=64, drop=0, p=0, total=10, fail=5)
+                         + extra)
+    cfg = make_config(p, device="cpu")
+    assert (cfg.rng_mode, cfg.mega_ticks, cfg.mega_pack) == want
 
 
 @pytest.mark.parametrize("tier", ["scalars", "hist"])
@@ -292,10 +307,10 @@ def test_refusals_on_the_card_and_off():
         make_run_key)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_run_key(Params.from_text(base + "PRNG_IMPL: rbg\n"), 0)
-    # A scenario runs, but not with the checkpoints of item 4.
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_config(Params.from_text(base + "SCENARIO: x.json\n"
-                                     "CHECKPOINT_EVERY: 5\n"), device="cpu")
+    # A scenario runs with the checkpoints of item 4 too.
+    assert make_config(Params.from_text(base + "SCENARIO: x.json\n"
+                                        "CHECKPOINT_EVERY: 5\n"),
+                       device="cpu").exchange == "ring"
     from distributed_membership_tpu_torch.backends import get_backend
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_backend("tpu_sparse")

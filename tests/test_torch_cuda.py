@@ -665,3 +665,78 @@ def test_scenario_run_on_card_matches_cpu(cuda, tmp_path):
     assert card.extra["scenario_report"] == cpu.extra["scenario_report"]
     assert card.extra["scenario_report"]["partitions"][0][
         "removals_during"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints across devices, T-tick blocks and hoisting on the card.
+
+def _confs():
+    import pathlib
+    return (pathlib.Path(__file__).resolve().parent.parent
+            / "distributed_membership_tpu_torch" / "confs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("killer,resumer", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_resume_across_devices(cuda, tmp_path, monkeypatch,
+                                          killer, resumer):
+    """ring_256_s128_drop in 20-tick segments killed at 70 (the manifest
+    at 80) on one device and resumed on the other: the three logs equal
+    the CPU's uninterrupted run; the card drives each kernel once per
+    tick it runs."""
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = str(_confs() / "ring_256_s128_drop.conf")
+    run_conf(conf, out_dir=str(tmp_path / "ref"), device="cpu")
+    kw = dict(checkpoint_every=20, checkpoint_dir=str(tmp_path / "ck"))
+    monkeypatch.setenv(ck.CRASH_ENV, "70")
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="injected crash at tick 80"):
+        run_conf(conf, out_dir=str(tmp_path / "a"), device=killer, **kw)
+    monkeypatch.delenv(ck.CRASH_ENV)
+    run_conf(conf, out_dir=str(tmp_path / "b"), device=resumer, resume=True,
+             **kw)
+    n = 80 if killer == "cuda" else 40
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive": n, "gossip_masks": n, "probe": n}
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "b" / name).read_bytes()
+                == (tmp_path / "ref" / name).read_bytes()), name
+
+
+def _agg_conf(tmp_path, extra):
+    conf = tmp_path / "ring.conf"
+    conf.write_text(
+        "MAX_NNB: 4096\nSINGLE_FAILURE: 1\nDROP_MSG: 1\nMSG_DROP_PROB: 0.1\n"
+        "DROP_START: 10\nDROP_STOP: 50\nGOSSIP_LEN: 4\nPROBES: 2\n"
+        "FANOUT: 3\nTFAIL: 16\nTREMOVE: 64\nTOTAL_TIME: 60\nFAIL_TIME: 30\n"
+        "VIEW_SIZE: 16\nJOIN_MODE: warm\nEVENT_MODE: agg\nEXCHANGE: ring\n"
+        "FOLDED: 1\nTELEMETRY: hist\nBACKEND: tpu_hash\n" + extra)
+    return str(conf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    "CHECKPOINT_EVERY: 24\nMEGA_TICKS: 8\nMEGA_PACK: 1\n",
+    "CHECKPOINT_EVERY: 12\nRNG_MODE: hoisted\nMEGA_TICKS: 4\n"],
+    ids=["mega", "hoisted"])
+def test_blocked_and_hoisted_runs_on_card_match_cpu(cuda, tmp_path, extra):
+    """The folded step (N=4096, S=16, drops, TELEMETRY hist) in packed
+    8-tick blocks, and hoisted in 4-tick blocks, on the card: the
+    detection summary and every series equal the CPU's per-tick run; K5,
+    K6 and K7 once per tick."""
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    cpu = run_conf(_agg_conf(tmp_path, ""), out_dir=str(tmp_path / "cpu"),
+                   device="cpu")
+    kernels.reset_launches()
+    card = run_conf(_agg_conf(tmp_path, extra),
+                    out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive_folded": 60, "gossip_folded": 60, "probe_folded_hist": 60}
+    assert (card.extra["detection_summary"]
+            == cpu.extra["detection_summary"])
+    _timelines_equal(card.extra["timeline"], cpu.extra["timeline"])

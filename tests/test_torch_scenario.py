@@ -542,13 +542,18 @@ def test_refusals_match_jax(tmp_path, case):
 
 
 def test_checkpoint_with_scenario_names_its_item(tmp_path):
+    """Queue 1 item 4 is ported: a scenario run with CHECKPOINT_EVERY
+    (segments of 10 ticks) gives the unchunked run's logs and report."""
     path = write_scenario(tmp_path, _oracle_events(256))
-    _, pp = _params(_GATE.replace("TOTAL_TIME: 40", "TOTAL_TIME: 90")
-                    + "JOIN_MODE: warm\nEXCHANGE: ring\n"
-                    "BACKEND: tpu_hash\nCHECKPOINT_EVERY: 10\n"
-                    f"SCENARIO: {path}\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        get_backend("tpu_hash")(pp, seed=0, device="cpu")
+    text = (_GATE.replace("TOTAL_TIME: 40", "TOTAL_TIME: 90")
+            + "JOIN_MODE: warm\nEXCHANGE: ring\nBACKEND: tpu_hash\n"
+            f"SCENARIO: {path}\n")
+    runs = [get_backend("tpu_hash")(_params(text + extra)[1], seed=0,
+                                    device="cpu")
+            for extra in ("", "CHECKPOINT_EVERY: 10\n")]
+    assert runs[1].log.dbg_text() == runs[0].log.dbg_text()
+    assert runs[1].extra["scenario_report"] == runs[0].extra[
+        "scenario_report"]
 
 
 def test_cli_scenario_flag_wins_over_the_conf(tmp_path):

@@ -547,15 +547,34 @@ _REF = _BASE.format(n=64, tremove=40, mesh=8) + _NODROP
     ("EXCHANGE: scatter\n", "Queue 1 item 6c"),
     ("EXCHANGE_MODE: batched\n", "Queue 1 item 6c"),
     ("PROBE_GATHER: split\n", "Queue 1 item 6c"),
-    ("CHECKPOINT_EVERY: 10\n", "Queue 1 item 4"),
-    ("MEGA_TICKS: 4\n", "Queue 1 item 4"),
-    ("RNG_MODE: hoisted\n", "Queue 1 item 4"),
-    ("SCENARIO: x.json\nCHECKPOINT_EVERY: 10\n", "Queue 1 item 4"),
+    ("CHECKPOINT_EVERY: 10\nSERVICE_PORT: 0\n", "Queue 1 item 10"),
 ])
 def test_outside_the_slice_is_refused(extra, item):
     p = Params.from_text(_REF + extra)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         sh.sharded_config(p, True, (3,), 8, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    "CHECKPOINT_EVERY: 10\n", "CHECKPOINT_EVERY: 8\nMEGA_TICKS: 4\n",
+    "SCENARIO: x.json\nCHECKPOINT_EVERY: 10\n"])
+def test_item4_keys_resolve(extra):
+    """Queue 1 item 4 is ported on the sharded steps: the checkpoint and
+    block keys resolve as in the JAX package's sharded_config."""
+    p = Params.from_text(_REF + extra)
+    cfg = sh.sharded_config(p, True, (3,), 8, device="cpu")
+    assert (cfg.mega_ticks, cfg.mega_pack) == (
+        (4, True) if "MEGA" in extra else (0, False))
+
+
+def test_hoisted_is_refused_as_jax():
+    """RNG_MODE hoisted is single-chip: the JAX package's ValueError."""
+    conf = _REF + "CHECKPOINT_EVERY: 10\nRNG_MODE: hoisted\n"
+    with pytest.raises(ValueError) as want:
+        JaxParams.from_text(conf)
+    with pytest.raises(ValueError, match="single-chip") as got:
+        Params.from_text(conf)
+    assert str(got.value) == str(want.value)
 
 
 def test_more_failed_ids_than_fast_agg_is_refused():

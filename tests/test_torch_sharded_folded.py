@@ -389,12 +389,21 @@ def test_auto_folded_downgrades_per_shard():
 
 @pytest.mark.parametrize("extra,match", [
     ("EXCHANGE_MODE: batched\n", "Queue 1 item 6c"),
-    ("SCENARIO: x.json\nCHECKPOINT_EVERY: 10\n", "Queue 1 item 4"),
+    ("PROBE_GATHER: split\n", "Queue 1 item 6c"),
 ])
 def test_sharded_folded_refusals(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         sh.sharded_config(Params.from_text(_conf(extra=extra)), False, (3,),
                           64, device="cpu")
+
+
+def test_sharded_folded_scenario_checkpoints_resolve():
+    """A scenario with checkpoints and T-tick blocks (Queue 1 item 4) on
+    the sharded folded step."""
+    cfg = sh.sharded_config(Params.from_text(_conf(
+        extra="SCENARIO: x.json\nCHECKPOINT_EVERY: 16\nMEGA_TICKS: 8\n")),
+        False, (3,), 64, device="cpu")
+    assert cfg.folded and (cfg.mega_ticks, cfg.mega_pack) == (8, True)
 
 
 def test_cold_joins_refused_as_jax():
