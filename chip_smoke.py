@@ -110,6 +110,33 @@ Phases (any failure exits non-zero before the final line):
                 resumed on the CPU, and the reverse: the three logs and
                 the oracle report byte-identical to the CPU's
                 uninterrupted run.
+ 28. legacy  -- the legacy threefry stream (threefry.partitionable(False),
+                as JAX_THREEFRY_PARTITIONABLE=0 sets it): the main path
+                for 40 ticks; confs/ring_256_s128_drop.conf card vs CPU
+                (byte-identical logs); 2^20 (and 2^20 + 1) legacy bits
+                card == CPU;
+ 29. multi   -- confs/ring_1m_s128_multi.conf (524,288 failed ids, the
+                AggStats path, 64 ticks): K1-K3 once per tick, detections
+                and no false removal; confs/ring_16k_s128_sharded8_multi.conf
+                (eight shards, 20-tick segments, merge_agg); N=2048 card vs
+                CPU (summary and every final-state leaf);
+ 30. shift_set -- confs/ring_1m_s128_shiftset.conf (SHIFT_SET 16, 40 ticks,
+                the table's shifts through K2) and its folded S=16 twin
+                (K6); N=256 with SHIFT_SET 16 card vs CPU;
+ 31. buffsize -- ENFORCE_BUFFSIZE (EN_BUFFSIZE 30000) with cold joins card vs
+                CPU at N=256 (staggered) and N=4096 (batch), and 20 ticks at
+                N=2^20 through K2's masks form;
+ 32. approx_lag -- the main path's geometry for 40 ticks with PROBE_IO
+                approx_lag in 20-tick segments: its summary (run totals
+                included) equals PROBE_IO exact's; PROBE_IO none for 20
+                ticks; N=256 approx_lag card vs CPU;
+ 33. wide    -- confs/ring_16k_full.conf (VIEW_SIZE 0: S = N = 16384, 80
+                ticks): K2's wide-row form once per tick, detections and no
+                false removal; its eight-shard twin (K4's wide-row form, 40
+                ticks); N=4352 full view card vs CPU (14 ticks, TFAIL 4,
+                TREMOVE 8).  Phase 2 holds K2 and
+                K4's wide forms and K1 and K3 at N = S = 16384 against
+                their plain versions.
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -155,7 +182,8 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "sharded_folded", "sharded_folded_lossy", "sharded_folded_parity",
           "telemetry", "scenario", "scenario_folded", "scenario_sharded",
           "scenario_parity", "checkpoint", "checkpoint_sharded_folded",
-          "mega", "hoisted", "checkpoint_parity")
+          "mega", "hoisted", "checkpoint_parity", "legacy", "multi",
+          "shift_set", "buffsize", "approx_lag", "wide")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
@@ -237,6 +265,23 @@ def packed(rng, n, occ, hb_hi, shape):
 
 def nbytes(*ts) -> int:
     return sum(x.numel() * x.element_size() for x in ts)
+
+
+def conf_variant(conf: str, out_dir: str, name: str, **keys) -> str:
+    """A copy of ``conf`` in ``out_dir`` with the conf keys ``keys`` set
+    (each replaces its line, or is appended); returns its path."""
+    lines = [ln for ln in open(conf).read().splitlines()
+             if ln.split(":")[0].strip() not in keys]
+    lines += [f"{k}: {v}" for k, v in keys.items()]
+    path = os.path.join(out_dir, name + ".conf")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def conf_ticks(conf: str) -> int:
+    from distributed_membership_tpu_torch.config import Params
+    return Params.from_file(conf, validate=False).TOTAL_TIME
 
 
 def record(rows: dict, name, form, err, k_ms, p_ms, moved,
@@ -745,6 +790,196 @@ def phase_kernels_stacked(torch, dev) -> dict:
     return rows
 
 
+def packed_dev(torch, gen, n, occ, hb_hi, shape):
+    """:func:`packed` drawn on the card (a 2^28-entry plane is too big to
+    draw on the host quickly)."""
+    dev = gen.device
+    ids = torch.randint(0, n, shape, generator=gen, device=dev,
+                        dtype=torch.int64)
+    hbs = torch.randint(0, hb_hi, shape, generator=gen, device=dev,
+                        dtype=torch.int64)
+    keep = torch.rand(shape, generator=gen, device=dev) < occ
+    val = torch.where(keep, (hbs * n + ids + 1) & 0xFFFFFFFF, 0)
+    return torch.where(val >= 1 << 31, val - (1 << 32), val).to(torch.int32)
+
+
+def phase_kernels_wide(torch, dev) -> dict:
+    """Phase 2, rows wider than one 16 KiB tile: K2's and K4's wide-row
+    forms (both operand forms each; K2 also at a ragged N whose wrapped
+    rows take the second column alignment, K4 also on eight shards of
+    1000 rows) and K1 and K3 at N = S = 16384, the wide path's full
+    view, against their plain versions; returns one record per form."""
+    from distributed_membership_tpu_torch.ops.fused_gossip import (
+        gossip_fused, gossip_fused_stacked, gossip_plain,
+        gossip_stacked_plain)
+    from distributed_membership_tpu_torch.ops.fused_probe import (
+        probe_plain, probe_window_fused)
+    from distributed_membership_tpu_torch.ops.fused_receive import (
+        receive_core, receive_fused)
+    from distributed_membership_tpu_torch.ops.view_merge import STRIDE
+
+    nw = sw = 1 << 14
+    t = 90
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20264)
+    shape = (nw, sw)
+    rand = lambda *sh: torch.rand(sh, generator=gen, device=dev)  # noqa
+    view = packed_dev(torch, gen, nw, 0.7, 2 * t + 2, shape)
+    mail = packed_dev(torch, gen, nw, 0.4, 2 * t + 4, shape)
+    rows = {}
+
+    def k2(form, payload, k_eff, masks, shift_sets, n=nw, s=sw):
+        err = 0
+        m, v = mail[:n, :s].contiguous(), payload[:n, :s].contiguous()
+        ke = None if k_eff is None else k_eff[:n].contiguous()
+        mk = None if masks is None else masks[:, :n, :s].contiguous()
+        for sh in shift_sets:
+            shifts = torch.tensor(sh, dtype=torch.int32, device=dev)
+            ref = gossip_plain(n, s, K_MAX, m, v, ke, shifts, mk)
+            got = gossip_fused(n, s, K_MAX, m.clone(), v, ke, shifts,
+                               masks=mk)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([(got, ref)]))
+            del ref, got
+        return err, m, v, ke, mk, shifts
+
+    payload = torch.where(rand(*shape) < 0.3, view, 0)
+    k_eff = torch.randint(0, K_MAX + 1, (nw,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    err, m, v, ke, _, shifts = k2("k_eff", payload, k_eff, None,
+                                  ([1, nw - 1, 5000], [777, 8192, 12345]))
+    # A ragged N: (N * STRIDE) % S != 0, the wrapped rows' alignment.
+    err_r = k2("k_eff", payload, k_eff, None, ([3, 9000, 4999],),
+               n=9001, s=8192)[0]
+    m2 = m.clone()
+    k_ms = cuda_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, ke, shifts),
+                   5)
+    p_ms = cuda_ms(lambda: gossip_plain(nw, sw, K_MAX, m, v, ke, shifts), 2)
+    record(rows, "gossip_fused", "gossip_wide", max(err, err_r), k_ms, p_ms,
+           2 * nbytes(m) + nbytes(v, ke, shifts),
+           2 * nbytes(m) + K_MAX * nbytes(v, ke))
+    rows["gossip_wide"]["ragged_max_abs_err"] = err_r
+    del payload, v, m2
+    masks = rand(K_MAX, *shape) < 0.3
+    err, m, v, _, mk, shifts = k2("masks", view, None, masks,
+                                  ([1, nw - 1, 5000],))
+    m2 = m.clone()
+    k_ms = cuda_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, None, shifts,
+                                        masks=mk), 5)
+    p_ms = cuda_ms(lambda: gossip_plain(nw, sw, K_MAX, m, v, None, shifts,
+                                        mk), 2)
+    record(rows, "gossip_fused", "gossip_wide_masks", err, k_ms, p_ms,
+           2 * nbytes(m) + nbytes(v, mk, shifts),
+           2 * nbytes(m) + K_MAX * nbytes(v) + nbytes(mk))
+    del m2, mk
+
+    # ---- K4 wide: one shard of N rows, and eight ragged shards ----
+    def shifts4(d, n_local, seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        ri = lambda hi, sh: torch.randint(0, hi, sh, generator=g,  # noqa
+                                          device=dev, dtype=torch.int32)
+        return ri(n_local, (K_MAX,)), ri(sw, (d, K_MAX)), ri(sw, (d, K_MAX))
+
+    payloads = torch.where(rand(K_MAX, *shape) < 0.3, view[None], 0)
+    c, s1, s2 = shifts4(1, nw, 1)
+    single = (nw * STRIDE) % sw == 0
+    ref = gossip_stacked_plain(nw, sw, K_MAX, single, mail, payloads, c, s1,
+                               s2)
+    got = gossip_fused_stacked(nw, sw, K_MAX, single, mail.clone(), payloads,
+                               c, s1, s2)
+    torch.cuda.synchronize()
+    err = max_abs_err([(got, ref)])
+    del ref, got
+    d8, l8 = 8, 1000
+    c8, s18, s28 = shifts4(d8, l8, 2)
+    sub = payloads[:, :d8 * l8].contiguous()
+    ref = gossip_stacked_plain(l8, sw, K_MAX, False, mail[:d8 * l8], sub,
+                               c8, s18, s28)
+    got = gossip_fused_stacked(l8, sw, K_MAX, False,
+                               mail[:d8 * l8].clone(), sub, c8, s18, s28)
+    torch.cuda.synchronize()
+    err8 = max_abs_err([(got, ref)])
+    del ref, got, sub
+    m2 = mail.clone()
+    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+        nw, sw, K_MAX, single, m2, payloads, c, s1, s2), 5)
+    p_ms = cuda_ms(lambda: gossip_stacked_plain(
+        nw, sw, K_MAX, single, mail, payloads, c, s1, s2), 2)
+    record(rows, "gossip_fused_stacked", "gossip_stacked_wide",
+           max(err, err8), k_ms, p_ms,
+           2 * nbytes(mail) + nbytes(payloads, c, s1, s2),
+           2 * nbytes(mail) + nbytes(payloads))
+    rows["gossip_stacked_wide"]["two_col_max_abs_err"] = err8
+    del payloads
+    ref = gossip_stacked_plain(nw, sw, K_MAX, single, mail, view[None], c,
+                               s1, s2, masks)
+    got = gossip_fused_stacked(nw, sw, K_MAX, single, mail.clone(),
+                               view[None], c, s1, s2, masks)
+    torch.cuda.synchronize()
+    err = max_abs_err([(got, ref)])
+    del ref, got
+    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+        nw, sw, K_MAX, single, m2, view[None], c, s1, s2, masks), 5)
+    p_ms = cuda_ms(lambda: gossip_stacked_plain(
+        nw, sw, K_MAX, single, mail, view[None], c, s1, s2, masks), 2)
+    record(rows, "gossip_fused_stacked", "gossip_stacked_wide_masks", err,
+           k_ms, p_ms, 2 * nbytes(mail) + nbytes(view, masks, c, s1, s2),
+           2 * nbytes(mail) + K_MAX * nbytes(view) + nbytes(masks))
+    del masks, m2
+    torch.cuda.empty_cache()
+
+    # ---- K1 and K3 at S = 16384 ----
+    view_ts = torch.randint(0, t + 1, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+    cand = torch.where(rand(*shape) < 0.1,
+                       packed_dev(torch, gen, nw, 1.0, 2 * t + 4, shape), 0)
+    recv, act = rand(nw) < 0.95, rand(nw) < 0.95
+    self_on = act & (rand(nw) < 0.98)
+    own_hb = torch.randint(1, 2 * t + 3, (nw,), generator=gen, device=dev)
+    self_pack = ((own_hb * nw + torch.arange(nw, device=dev) + 1)
+                 .to(torch.int32) * self_on.to(torch.int32))
+    args = (cand, recv, act, self_on, self_pack)
+    ref = receive_core(nw, sw, TFAIL, TREMOVE, STRIDE, t, view, view_ts,
+                       mail, *args)
+    got = receive_fused(nw, sw, TFAIL, TREMOVE, STRIDE, t, view.clone(),
+                        view_ts.clone(), mail.clone(), *args)
+    torch.cuda.synchronize()
+    err = max_abs_err(zip(got, ref))
+    rm_ids = ref[4]
+    del got
+    v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
+    k_ms = cuda_ms(lambda: receive_fused(nw, sw, TFAIL, TREMOVE, STRIDE, t,
+                                         v2, ts2, m2, *args), 5)
+    p_ms = cuda_ms(lambda: receive_core(nw, sw, TFAIL, TREMOVE, STRIDE, t,
+                                        view, view_ts, mail, *args), 2)
+    del v2, ts2, m2
+    record(rows, "receive_fused", "receive_wide", err, k_ms, p_ms,
+           nbytes(view, view_ts, mail, cand, recv, act, self_on, self_pack)
+           + nbytes(view, view_ts, mail) + nw * sw * 5 + nw * 8)
+    del cand, ref
+    fail_ids = (3, 7777, nw - 1)
+    err = 0
+    for ptr in (sw - 8, 32):               # wrapping and inner window
+        ref = probe_plain(nw, sw, P, TFAIL, fail_ids, True, True, t, ptr, 0,
+                          view, view_ts, act, rm_ids)
+        got = probe_window_fused(nw, sw, P, TFAIL, fail_ids, True, True, t,
+                                 ptr, 0, view, view_ts, act, rm_ids)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err((got[k], ref[k]) for k in ref))
+    k_ms = cuda_ms(lambda: probe_window_fused(
+        nw, sw, P, TFAIL, fail_ids, True, True, t, 32, 0, view, view_ts,
+        act, rm_ids), 5)
+    p_ms = cuda_ms(lambda: probe_plain(
+        nw, sw, P, TFAIL, fail_ids, True, True, t, 32, 0, view, view_ts,
+        act, rm_ids), 2)
+    # in: view, view_ts and rm_ids, act; out: P ids and the row partials
+    record(rows, "probe_window_fused", "probe_wide", err, k_ms, p_ms,
+           nbytes(view, view_ts, rm_ids, act)
+           + sum(nbytes(x) for x in got.values()))
+    return rows
+
+
 def launches_expected(**nonzero) -> dict:
     """The launch counts of a path: ``nonzero`` and 0 for every other
     kernel form."""
@@ -1247,6 +1482,31 @@ def telemetry_parity(torch, conf: str, out_dir: str, card: str) -> None:
         f"identical, cuda vs cpu ({len(a)} series); card: {card}")
 
 
+def phase_legacy(torch, paths: dict, main_conf: str, drop256: str,
+                 lossy256: dict, out_dir: str, card: str) -> None:
+    """The legacy threefry stream: the main path for 40 ticks, the N=256
+    lossy conf card vs CPU, and legacy bits of 2^20 and 2^20 + 1 elements
+    card == CPU."""
+    from distributed_membership_tpu_torch.ops import threefry
+
+    with threefry.partitionable(False):
+        paths["legacy"] = run_path(
+            torch, conf_variant(main_conf, out_dir, "legacy_1m",
+                                TOTAL_TIME=40, FAIL_TIME=8),
+            "legacy", launches_expected(receive=40, gossip=40, probe=40),
+            out_dir)
+        torch.cuda.empty_cache()
+        paths["legacy_parity"] = card_vs_cpu(torch, drop256, "legacy_parity",
+                                             lossy256, out_dir, card)
+        key = threefry.fold_in(threefry.prng_key(2026), 7)
+        for n in (1 << 20, (1 << 20) + 1):
+            got = threefry.random_bits(key, n, "cuda").cpu()
+            if not torch.equal(got, threefry.random_bits(key, n, "cpu")):
+                raise AssertionError(f"legacy bits of {n} elements differ "
+                                     "between cuda and cpu")
+        log("legacy: 2^20 and 2^20 + 1 legacy bits identical, cuda vs cpu")
+
+
 def phase_grade(torch, out_dir: str, card: str, seed: int = 3) -> dict:
     """``--grade-all`` (``application.grade_all`` on the parsed flags, as
     ``main`` calls it) on the card and on the CPU: both grade 90, their
@@ -1467,6 +1727,8 @@ def main(argv=None) -> int:
         rows.update(phase_kernels_folded(torch, dev))
         torch.cuda.empty_cache()
         rows.update(phase_kernels_stacked(torch, dev))
+        torch.cuda.empty_cache()
+        rows.update(phase_kernels_wide(torch, dev))
         torch.cuda.empty_cache()
         log(f"phase kernels: {time.perf_counter() - t0:.1f}s")
 
@@ -1771,6 +2033,137 @@ def main(argv=None) -> int:
             ("receive", "gossip_masks", "probe"), out_dir)
         log(f"phase checkpoint_parity: {time.perf_counter() - t0:.1f}s; "
             f"card: {card}")
+    main_conf = os.path.join(confs, "ring_1m_s128.conf")
+    drop256 = os.path.join(confs, "ring_256_s128_drop.conf")
+    t256 = conf_ticks(drop256)
+    lossy256 = launches_expected(receive=t256, gossip_masks=t256,
+                                 probe=t256)
+    if "legacy" in phases:
+        t0 = time.perf_counter()
+        phase_legacy(torch, paths, main_conf, drop256, lossy256, out_dir,
+                     card)
+        log(f"phase legacy: {time.perf_counter() - t0:.1f}s; card: {card}")
+    if "multi" in phases:
+        t0 = time.perf_counter()
+        paths["multi"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_multi.conf"), "multi",
+            launches_expected(receive=64, gossip=64, probe=64), out_dir)
+        det = paths["multi"]["detection"]
+        if (det["false_removals"] != 0 or det.get("detections_total", 0) <= 0
+                or det.get("failed_nodes") != N // 2):
+            return fail(f"multi path detection summary: {det}")
+        torch.cuda.empty_cache()
+        paths["multi_sharded"] = run_path(
+            torch, os.path.join(confs, "ring_16k_s128_sharded8_multi.conf"),
+            "multi_sharded", launches_expected(
+                receive=80, gossip_stacked=80, probe=80), out_dir)
+        if paths["multi_sharded"]["detection"].get("detections_total",
+                                                   0) <= 0:
+            return fail("multi_sharded: no detection")
+        state_parity(torch, conf_variant(
+            os.path.join(confs, "ring_1m_s128_multi.conf"), out_dir,
+            "multi_2k", MAX_NNB=2048), "multi_parity", out_dir, card)
+        log(f"phase multi: {time.perf_counter() - t0:.1f}s; card: {card}")
+    if "shift_set" in phases:
+        t0 = time.perf_counter()
+        paths["shift_set"] = run_path(
+            torch, os.path.join(confs, "ring_1m_s128_shiftset.conf"),
+            "shift_set", launches_expected(receive=40, gossip=40, probe=40),
+            out_dir)
+        torch.cuda.empty_cache()
+        paths["shift_set_folded"] = run_path(
+            torch, conf_variant(os.path.join(confs, "ring_1m_s16_folded.conf"),
+                                out_dir, "shift_set_folded", SHIFT_SET=16,
+                                TOTAL_TIME=40, FAIL_TIME=8),
+            "shift_set_folded", launches_expected(
+                receive_folded=40, gossip_folded=40, probe_folded=40),
+            out_dir)
+        torch.cuda.empty_cache()
+        paths["shift_set_parity"] = card_vs_cpu(
+            torch, conf_variant(drop256, out_dir, "shift_set_256",
+                                SHIFT_SET=16),
+            "shift_set_parity", lossy256, out_dir, card)
+        log(f"phase shift_set: {time.perf_counter() - t0:.1f}s; card: {card}")
+    if "buffsize" in phases:
+        t0 = time.perf_counter()
+        cold = os.path.join(confs, "ring_256_s128_staggered_drop.conf")
+        tc = conf_ticks(cold)
+        budget = dict(ENFORCE_BUFFSIZE=1, EN_BUFFSIZE=30000)
+        paths["buffsize_parity"] = card_vs_cpu(
+            torch, conf_variant(cold, out_dir, "buffsize_256", **budget),
+            "buffsize_parity", launches_expected(
+                receive=tc, gossip_masks=tc, probe=tc), out_dir, card)
+        paths["buffsize_parity_4k"] = card_vs_cpu(
+            torch, conf_variant(cold, out_dir, "buffsize_4k", MAX_NNB=4096,
+                                JOIN_MODE="batch", TOTAL_TIME=100,
+                                FAIL_TIME=40, **budget),
+            "buffsize_parity_4k", launches_expected(
+                receive=100, gossip_masks=100, probe=100), out_dir, card)
+        paths["buffsize"] = run_path(
+            torch, conf_variant(main_conf, out_dir, "buffsize_1m",
+                                TOTAL_TIME=20, FAIL_TIME=8, **budget),
+            "buffsize", launches_expected(receive=20, gossip_masks=20,
+                                          probe=20), out_dir)
+        torch.cuda.empty_cache()
+        log(f"phase buffsize: {time.perf_counter() - t0:.1f}s; card: {card}")
+    if "approx_lag" in phases:
+        t0 = time.perf_counter()
+        per40 = launches_expected(receive=40, gossip=40, probe=40)
+        lag = dict(TOTAL_TIME=40, FAIL_TIME=8)
+        paths["approx_lag"] = run_path(
+            torch, conf_variant(main_conf, out_dir, "approx_lag_1m",
+                                PROBE_IO="approx_lag", CHECKPOINT_EVERY=20,
+                                **lag), "approx_lag", per40, out_dir)
+        torch.cuda.empty_cache()
+        paths["approx_lag_exact"] = run_path(
+            torch, conf_variant(main_conf, out_dir, "exact_1m",
+                                PROBE_IO="exact", **lag),
+            "approx_lag_exact", per40, out_dir)
+        # Same trajectory, same run totals; only the attribution flag
+        # differs.
+        got, want = ({k: v for k, v in paths[x]["detection"].items()
+                      if k != "approx_probe_attribution"}
+                     for x in ("approx_lag", "approx_lag_exact"))
+        if got != want:
+            return fail(f"approx_lag: summary {got} != exact's {want}")
+        log("approx_lag: run totals and summary equal PROBE_IO exact's; "
+            + json.dumps({k: got[k] for k in ("msgs_sent", "msgs_recv")}))
+        torch.cuda.empty_cache()
+        paths["probe_io_none"] = run_path(
+            torch, conf_variant(main_conf, out_dir, "probe_io_none_1m",
+                                PROBE_IO="none", TOTAL_TIME=20),
+            "probe_io_none", launches_expected(receive=20, gossip=20,
+                                               probe=20), out_dir)
+        torch.cuda.empty_cache()
+        paths["approx_lag_parity"] = card_vs_cpu(
+            torch, conf_variant(drop256, out_dir, "approx_lag_256",
+                                PROBE_IO="approx_lag"),
+            "approx_lag_parity", lossy256, out_dir, card)
+        log(f"phase approx_lag: {time.perf_counter() - t0:.1f}s; "
+            f"card: {card}")
+    if "wide" in phases:
+        t0 = time.perf_counter()
+        full = os.path.join(confs, "ring_16k_full.conf")
+        paths["wide"] = run_path(
+            torch, full, "wide", launches_expected(
+                receive=80, gossip_wide=80, probe=80), out_dir)
+        det = paths["wide"]["detection"]
+        if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
+            return fail(f"wide path detection summary: {det}")
+        torch.cuda.empty_cache()
+        paths["wide_sharded"] = run_path(
+            torch, conf_variant(full, out_dir, "wide_sharded8",
+                                BACKEND="tpu_hash_sharded", MESH_SHAPE=8,
+                                TOTAL_TIME=40),
+            "wide_sharded", launches_expected(
+                receive=40, gossip_stacked_wide=40, probe=40), out_dir)
+        torch.cuda.empty_cache()
+        # Short timeouts, so that the CPU's 14 ticks of 4352^2 slots see
+        # detections (~3 s a tick there).
+        state_parity(torch, conf_variant(
+            full, out_dir, "wide_4352", MAX_NNB=4352, TOTAL_TIME=14,
+            FAIL_TIME=2, TFAIL=4, TREMOVE=8), "wide_parity", out_dir, card)
+        log(f"phase wide: {time.perf_counter() - t0:.1f}s; card: {card}")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):
@@ -1805,7 +2198,13 @@ def main(argv=None) -> int:
              "probe_folded_hist", "probe_folded.cu",
              (("probe_folded_hist_only", "hist_only"),)),
             ("gossip_stacked", "sharded", "gossip_stacked",
-             "gossip_stacked.cu", (("gossip_stacked_masks", "masks"),))):
+             "gossip_stacked.cu", (("gossip_stacked_masks", "masks"),)),
+            ("gossip_wide", "wide", "gossip_wide", "gossip.cu",
+             (("gossip_wide_masks", "masks"),)),
+            ("gossip_stacked_wide", "wide_sharded", "gossip_stacked_wide",
+             "gossip_stacked.cu", (("gossip_stacked_wide_masks", "masks"),)),
+            ("receive_wide", "wide", "receive", "receive.cu", ()),
+            ("probe_wide", "wide", "probe", "probe.cu", ())):
         r = dict(rows[form])
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",

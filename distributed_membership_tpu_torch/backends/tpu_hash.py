@@ -69,17 +69,36 @@ runtime/checkpoint.py (snapshots, ``RESUME``, the run log);
 tick, and ``MEGA_TICKS`` runs T-tick blocks with the shrunk carry
 (ops/megakernel.py).  Neither changes the trajectory.
 
-Refused with ``NotImplementedError`` (ROADMAP.md names the queue item):
-SHIFT_SET, ENFORCE_BUFFSIZE, SERVICE_PORT, PROBE_IO approx_lag/none,
-EVENT_MODE agg on the scatter exchange, and more than
-FAST_AGG_MAX_FAILED failed ids under EVENT_MODE agg.  On CUDA the
-ring's kernels are the path, so a pinned
-``FUSED_*: 0`` is refused there, and so are ``VIEW_SIZE % 128 != 0``
-outside the folded layout (full event mode, or a geometry the folded
-gates refuse) and ``VIEW_SIZE > 4096`` (K2's one-tile rows); on the CPU
-the wrappers run their plain versions and ``FUSED_*: 1`` is refused.  On
-the scatter exchange ``FUSED_*: 1`` raises the JAX package's ValueError
-and ``-1`` resolves off on both devices.
+The ring step's options, each as the JAX step computes it:
+
+* ``EVENT_MODE: agg`` with more than FAST_AGG_MAX_FAILED failed ids, or on
+  the scatter exchange: the scatter-based ``AggStats`` update
+  (observability/aggregates.py ``update_agg``);
+* ``SHIFT_SET: K``: the gossip shifts are a static K-table
+  (:func:`shift_table`) indexed by the tick's draw.  The JAX step
+  delivers them through static-roll branches equal to its dynamic roll;
+  here the table's shifts feed K2 (any shift vector), so a pinned
+  ``FUSED_GOSSIP: 1`` raises the JAX package's ValueError and ``-1``
+  takes K2;
+* ``ENFORCE_BUFFSIZE``: a per-tick global send budget of ``EN_BUFFSIZE``
+  messages (:class:`SendBudget`), consumed in the JAX step's order -- join
+  control, gossip shift by shift, the seed burst, probes -- with the
+  budgeted gossip masks delivered by K2's masks form (the merge is a
+  max, so applying them in one launch is exact);
+* ``PROBE_IO: none`` (probe-recv and ack-send counters zeroed) and
+  ``approx_lag`` (the counter bits ride the ack gather one tick late,
+  ``wf_prev`` carries the will-flush mask, and the final tick's ack
+  sends are added to the run totals once: :func:`lag_tail`).
+
+Refused by design: ``SERVICE_PORT`` with ``NotImplementedError``
+(ROADMAP.md Queue 1 item 10).  On CUDA the ring's kernels are the path,
+so a pinned ``FUSED_*: 0`` is refused there (the plain versions run on
+CPU tensors only), and so is ``VIEW_SIZE % 128 != 0`` outside the
+folded layout (full event mode, or a geometry the folded gates refuse),
+which the natural kernels do not take; on the CPU the wrappers run their
+plain versions and ``FUSED_*: 1`` is refused.  On the scatter exchange
+``FUSED_*: 1`` raises the JAX package's ValueError and ``-1`` resolves
+off on both devices.
 """
 
 from __future__ import annotations
@@ -100,7 +119,8 @@ from distributed_membership_tpu_torch.backends.tpu_sparse import (
 from distributed_membership_tpu_torch.config import Params
 from distributed_membership_tpu_torch.eventlog import EventLog
 from distributed_membership_tpu_torch.observability.aggregates import (
-    FAST_AGG_MAX_FAILED, init_agg, init_fast_agg, update_fast_agg)
+    FAST_AGG_MAX_FAILED, init_agg, init_fast_agg, update_agg,
+    update_fast_agg)
 from distributed_membership_tpu_torch.observability.timeline import (
     PHASE_ACK, PHASE_AGG, PHASE_GOSSIP, PHASE_PROBE, PHASE_RECEIVE,
     PHASE_TELEMETRY, TickTelemetry, build_tick_hist, pack_tick,
@@ -109,7 +129,6 @@ from distributed_membership_tpu_torch.ops.fused_gossip import gossip_fused
 from distributed_membership_tpu_torch.ops.fused_probe import (
     probe_window_fused)
 from distributed_membership_tpu_torch.ops.fused_receive import receive_fused
-from distributed_membership_tpu_torch.ops.fused_gossip import MAX_TILE_S
 from distributed_membership_tpu_torch.ops.megakernel import (
     PACK_SAFE_TICKS, mega_ticks, pack_fits)
 from distributed_membership_tpu_torch.ops.rng_plan import (
@@ -158,7 +177,8 @@ class HashState(NamedTuple):
     probe_ids1: torch.Tensor    # [N, P] ids probed last tick (ring; id + 1)
     probe_ids2: torch.Tensor    # [N, P] ids probed two ticks ago (ring)
     act_prev: torch.Tensor      # [N] bool act mask of last tick (ring)
-    wf_prev: torch.Tensor       # [1] placeholder (PROBE_IO approx_lag)
+    wf_prev: torch.Tensor       # [N] bool will-flush of the last tick
+    #                             (PROBE_IO approx_lag), else [1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +208,10 @@ class HashConfig:
     rng_mode: str = "batched"     # 'hoisted': a segment's plans pre-drawn
     mega_ticks: int = 0           # T-tick blocks (ops/megakernel.py)
     mega_pack: bool = False       # the 16-bit shrunk block carry
+    probe_io_none: bool = False   # PROBE_IO none: no probe-recv/ack-send
+    probe_io_lag: bool = False    # PROBE_IO approx_lag
+    send_budget: int = 0          # ENFORCE_BUFFSIZE: EN_BUFFSIZE, else 0
+    shift_set: int = 0            # SHIFT_SET: K-table gossip shifts
 
 
 def uses_drop(cfg: HashConfig) -> bool:
@@ -202,6 +226,67 @@ def slot_of(cfg: HashConfig, node, member):
     """``(member + node * STRIDE) mod S`` computed modularly (the naive
     product overflows int32 above ~271k nodes)."""
     return (member % cfg.s + (node % cfg.s) * (STRIDE % cfg.s)) % cfg.s
+
+
+def shift_table(n: int, k: int) -> tuple:
+    """The static gossip-shift candidates of ``SHIFT_SET: K`` (JAX
+    ``shift_table``): golden-ratio-spread values in [1, n), entry 0 the
+    shift 1, so the union of the K circulants holds the full ring cycle."""
+    tab = tuple(1 + (h * 2654435761) % (n - 1) for h in range(k))
+    # K distinct shifts is what the uniform K-way draw means; a change of
+    # the formula must fail here, not skew the shift distribution.
+    assert len(set(tab)) == k, (
+        f"shift_table({n}, {k}) produced duplicate shifts: {tab}")
+    return tab
+
+
+def table_shifts(tables: dict, table: tuple, draw, dtype):
+    """SHIFT_SET: the shifts ``table[draw]`` (``draw`` the tick's int32
+    index draw) on the draw's device; ``tables`` caches the table there,
+    so a tick copies nothing from the host."""
+    dev = draw.device
+    if dev not in tables:
+        tables[dev] = torch.tensor(table, dtype=dtype, device=dev)
+    return tables[dev][draw.to(I64)]
+
+
+class SendBudget:
+    """One tick's global send budget (``ENFORCE_BUFFSIZE``, the JAX step's
+    ``_budget_take``): messages are accepted in traversal order, row
+    major, until ``budget`` are spent, and what comes later in the tick
+    is dropped.  ``used`` is an int32 device scalar, so no call waits on
+    the device."""
+
+    def __init__(self, budget: int, device):
+        self.budget = budget
+        self.used = torch.zeros((), dtype=I32, device=device)
+
+    def take(self, mask):
+        """``mask`` with the messages past the budget cleared.  A 2-D
+        mask takes the JAX row-count/clip form (equal to a flat cumsum
+        over the rows in order)."""
+        if mask.dim() == 1:
+            csum = torch.cumsum(mask.to(I32), 0, dtype=I32) + self.used
+            kept = mask & (csum <= self.budget)
+            self.used = self.used + kept.sum(dtype=I32)
+            return kept
+        cnt0 = mask.sum(1, dtype=I32)
+        starts = self.used + torch.cumsum(cnt0, 0, dtype=I32) - cnt0
+        allowed = (self.budget - starts).clamp_min(0).minimum(cnt0)
+        kept = mask & (torch.cumsum(mask.to(I32), 1, dtype=I32)
+                       <= allowed[:, None])
+        self.used = self.used + allowed.sum(dtype=I32)
+        return kept
+
+    def take_probes(self, p_valid, p_red: int):
+        """Probes after everything else, ``p_red`` wire messages each; a
+        probe is accepted only whole."""
+        pc = p_valid.sum(1, dtype=I32) * p_red
+        starts = self.used + torch.cumsum(pc, 0, dtype=I32) - pc
+        accepted = (self.budget - starts).clamp_min(0).minimum(pc) // p_red
+        self.used = self.used + (accepted * p_red).sum(dtype=I32)
+        return p_valid & (torch.cumsum(p_valid.to(I32), 1, dtype=I32)
+                          <= accepted[:, None])
 
 
 def pack_u(cfg: HashConfig, hb, member):
@@ -266,7 +351,7 @@ def init_state(cfg: HashConfig, device) -> HashState:
         probe_ids1=torch.zeros(probe_shape, **i32),
         probe_ids2=torch.zeros(probe_shape, **i32),
         act_prev=torch.zeros((n,) if ring else (1,), **b),
-        wf_prev=torch.zeros((1,), **b),
+        wf_prev=torch.zeros((n,) if cfg.probe_io_lag else (1,), **b),
     )
 
 
@@ -385,7 +470,7 @@ class JoinPlane(NamedTuple):
 
 
 def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
-               ctrl_kept=None, held=None) -> JoinPlane:
+               ctrl_kept=None, held=None, budget=None) -> JoinPlane:
     """JOINREP delivery, nodeStart (the introducer boots its group, the
     others send a JOINREQ) and the double heartbeat increment
     (MP1Node.cpp:126-163,226-251,412-415).  ``ctrl_kept`` is the ``[2,
@@ -394,7 +479,9 @@ def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
     delay window holds (no delivery; ``act`` does not depend on it), or
     None.  ``idx`` holds the global row ids of the flat layout.  Under
     warm join every start tick is -1, so nobody starts and no JOINREQ is
-    sent."""
+    sent.  ``budget`` (a SendBudget or None) takes the JOINREPs, then the
+    JOINREQs; one it drops is dropped for good (the reference never
+    retries a join)."""
     intro = INTRODUCER_INDEX
     start = plan.start_ticks
     is_intro = idx == intro
@@ -409,6 +496,8 @@ def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
     seeds = state.joinreq_infl & intro_recv
     joinreq_infl = state.joinreq_infl & ~intro_recv
     rep_ok = seeds if ctrl_kept is None else seeds & ctrl_kept[1]
+    if budget is not None:
+        rep_ok = budget.take(rep_ok)
     joinrep_infl = joinrep_infl | rep_ok
     sent_rep = torch.where(is_intro & intro_recv, rep_ok.sum(dtype=I32), 0)
     pending_recv = pending_recv + rep_ok.to(I32)
@@ -421,6 +510,8 @@ def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
     joiner_req = start_now & ~is_intro
     if ctrl_kept is not None:
         joiner_req = joiner_req & ctrl_kept[0]
+    if budget is not None:
+        joiner_req = budget.take(joiner_req)
     joinreq_infl = joinreq_infl | joiner_req
     pending_recv = pending_recv + torch.where(
         is_intro, joiner_req.sum(dtype=I32), 0)
@@ -445,12 +536,13 @@ def joinreq_to_intro(cfg: HashConfig, mail, joiner_req, idx):
 
 
 def seed_burst(cfg: HashConfig, mail, view, fresh_intro, seeds,
-               burst_on, burst_drop=None):
+               burst_on, burst_drop=None, budget=None):
     """The introducer's burst of its fresh view row to this tick's seeded
     joiners (MP1Node.cpp:240-242): the first ``min(seed_cap, N)`` seeds in
     index order (``lax.top_k`` ties go lowest index first, hence the
-    stable sort), ``burst_drop`` the ``[cap, S]`` dropped mask or None.
-    Updates ``mail`` in place; returns ``(mail, seed_idx, seed_valid,
+    stable sort), ``burst_drop`` the ``[cap, S]`` dropped mask or None,
+    ``budget`` a SendBudget (one message per entry) or None.  Updates
+    ``mail`` in place; returns ``(mail, seed_idx, seed_valid,
     burst_valid)``."""
     n, s = cfg.n, cfg.s
     intro = INTRODUCER_INDEX
@@ -462,6 +554,8 @@ def seed_burst(cfg: HashConfig, mail, view, fresh_intro, seeds,
     burst_valid = seed_valid[:, None] & fresh_intro[None, :]
     if burst_drop is not None:
         burst_valid = burst_valid & ~burst_drop
+    if budget is not None:
+        burst_valid = budget.take(burst_valid)
     iv = as_u32(view[intro])
     ipres = iv > 0
     intro_id = torch.where(ipres, ((iv - 1) & M32) % n, EMPTY)
@@ -627,7 +721,7 @@ def ring_rng_plans(cfg: HashConfig, keys, device) -> list:
         keys, n=cfg.n, s=cfg.s, g=cfg.g, k_max=min(cfg.fanout, cfg.s),
         p_cnt=max(cfg.probes, 0), seed_rows=min(cfg.seed_cap, cfg.n),
         use_drop=uses_drop(cfg), need_ctrl=not cfg.folded,
-        need_burst=not cfg.folded, device=device)
+        need_burst=not cfg.folded, device=device, shift_set=cfg.shift_set)
 
 
 def make_step(cfg: HashConfig):
@@ -659,9 +753,13 @@ def make_step(cfg: HashConfig):
     want_hist = cfg.telemetry_hist and p_cnt > 0
     fail_ids = cfg.fail_ids if want_agg else ()
     scn = cfg.scenario
-    # Partitions and flakes mask every shift: K2's masks form throughout.
-    gossip_masks = use_drop or (scn is not None
-                                and bool(scn.n_parts or scn.n_flakes))
+    track_budget = cfg.send_budget > 0
+    # Partitions, flakes and the send budget mask every shift: K2's masks
+    # form throughout.
+    gossip_masks = use_drop or track_budget or (
+        scn is not None and bool(scn.n_parts or scn.n_flakes))
+    table = shift_table(n, cfg.shift_set) if cfg.shift_set else None
+    tables = {}                 # the SHIFT_SET table on each device
 
     def step(state: HashState, t: int, key: Key, plan: PlanTensors,
              rng=None):
@@ -672,6 +770,9 @@ def make_step(cfg: HashConfig):
         if rng is None:
             rng = ring_rng_plans(cfg, [key], dev)[0]
         f = tick_faults(plan, t, idx, n, p_drop)
+        # Consumed in the JAX step's order: join control, gossip, the
+        # seed burst, probes.
+        budget = SendBudget(cfg.send_budget, dev) if track_budget else None
         # The coins that kill a message this tick, counted for TELEMETRY.
         dropped = [] if cfg.telemetry else None
 
@@ -690,7 +791,8 @@ def make_step(cfg: HashConfig):
                 ctrl_drop = (cut.expand(2, n) if ctrl_drop is None
                              else ctrl_drop | cut)
         jp = join_plane(cfg, state, t, plan, idx,
-                        None if ctrl_drop is None else ~ctrl_drop, f.held)
+                        None if ctrl_drop is None else ~ctrl_drop, f.held,
+                        budget)
         if dropped is not None and use_drop and ctrl_drop is not None:
             dropped.append(count_ctrl_dropped(jp, plan, t, idx, ctrl_drop))
         recv_mask, act, recv_tick = jp.recv_mask, jp.act, jp.recv_tick
@@ -700,6 +802,7 @@ def make_step(cfg: HashConfig):
         # target's heartbeat at t-1 (0 if it was not act) ----
         cand_full = torch.zeros((n, s), dtype=I32, device=dev)
         ack_recv_cnt = torch.zeros((n,), dtype=I32, device=dev)
+        will_flush = will_flush_of(plan, t, recv_mask, f)
         if p_cnt > 0:
             with record_function(PHASE_ACK):
                 ids2 = state.probe_ids2
@@ -708,11 +811,19 @@ def make_step(cfg: HashConfig):
                 ids1 = state.probe_ids1
                 v1 = ids1 != 0
                 tgt1 = (ids1.to(I64) - 1).clamp_min(0)
-                will_flush = will_flush_of(plan, t, recv_mask, f)
-                tbl = _pack_probe_table(vec, will_flush, act)
-                gcat = tbl[torch.cat([id2, tgt1], dim=1)]    # one gather
-                hb_ack = _gathered_hb(gcat[:, :p_cnt])
-                probe_bits1 = gcat[:, p_cnt:]
+                if cfg.probe_io_lag:
+                    # The counter bits of the probes issued at t-2 ride the
+                    # ack gather: last tick's will-flush and act.
+                    lag_bits = _pack_probe_table(vec, state.wf_prev,
+                                                 state.act_prev)[id2]
+                    hb_ack = _gathered_hb(lag_bits)
+                elif cfg.probe_io_none:
+                    hb_ack = vec[id2]
+                else:
+                    tbl = _pack_probe_table(vec, will_flush, act)
+                    gcat = tbl[torch.cat([id2, tgt1], dim=1)]  # one gather
+                    hb_ack = _gathered_hb(gcat[:, :p_cnt])
+                    probe_bits1 = gcat[:, p_cnt:]
                 valid2 = (ids2 != 0) & (hb_ack > 0)
                 if f.cuts_prev is not None:
                     # The ack crossed target -> prober during tick t-1.
@@ -762,7 +873,8 @@ def make_step(cfg: HashConfig):
             u = rng.thin_u.reshape(n, s)
             keep = fresh & ((u < p_keep[:, None]) | is_self_slot)
         keep = keep & act[:, None]
-        shifts = rng.shift_draw
+        shifts = (rng.shift_draw if table is None
+                  else table_shifts(tables, table, rng.shift_draw, I32))
         sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
         recv_add = torch.zeros((n,), dtype=I32, device=dev)
         with record_function(PHASE_GOSSIP):
@@ -792,6 +904,8 @@ def make_step(cfg: HashConfig):
                         if dropped is not None:
                             dropped.append((m & coin).sum(dtype=I32))
                         m &= ~coin
+                    if budget is not None:
+                        m = budget.take(m)
                     masks[j] = m
                     cnt = m.sum(1, dtype=I32)
                     sent_gossip += cnt
@@ -822,7 +936,7 @@ def make_step(cfg: HashConfig):
                               else burst_drop | burst_coin)
         mail, seed_idx, seed_valid, burst_valid = seed_burst(
             cfg, mail, view, fresh[intro], jp.seeds, seed_burst_on,
-            burst_drop)
+            burst_drop, budget)
         sent_tick[intro] += burst_valid.sum(dtype=I32)
         recv_add.index_add_(0, seed_idx, burst_valid.sum(1, dtype=I32)
                             * seed_valid.to(I32))
@@ -850,6 +964,10 @@ def make_step(cfg: HashConfig):
                     if dropped is not None:
                         dropped.append((p_valid & coin).sum(dtype=I32))
                     p_valid = p_valid & ~coin
+                if budget is not None:
+                    # A budget-dropped probe is never recorded, as a
+                    # coin-dropped one.
+                    p_valid = budget.take_probes(p_valid, p_red)
                 probe_ids2 = probe_ids1
                 probe_ids1 = torch.where(p_valid, window_ids, 0)
                 act_prev = act
@@ -859,6 +977,19 @@ def make_step(cfg: HashConfig):
                     ack_send = v1 & _gathered_act(probe_bits1)
                     recv_probe = _count_at(tgt1, v1, p_red, n)
                     sent_ack = _count_at(tgt1, ack_send, 1, n)
+                elif cfg.probe_io_none:
+                    recv_probe = sent_ack = torch.zeros_like(sent_probes)
+                elif cfg.probe_io_lag:
+                    # Arrivals at t-1 counted from last tick's bits; the
+                    # recvs go straight into this tick's stream, where the
+                    # exact count's pending flush lands.
+                    v2 = ids2 != 0
+                    recv_probe = torch.zeros_like(sent_probes)
+                    recv_tick = recv_tick + (
+                        v2 & _gathered_flush(lag_bits)).sum(
+                            1, dtype=I32) * p_red
+                    sent_ack = (v2 & _gathered_act(lag_bits)).sum(
+                        1, dtype=I32)
                 else:
                     per_prober = (v1 & _gathered_flush(probe_bits1)).sum(
                         1, dtype=I32) * p_red
@@ -874,21 +1005,41 @@ def make_step(cfg: HashConfig):
             join_ids = torch.where(join_mask & present, member_of(view, n),
                                    EMPTY).to(I32)
             out = SparseTickEvents(join_ids, rm_ids, sent_tick, recv_tick)
+        elif not want_agg:
+            with record_function(PHASE_AGG):
+                cur_id = torch.where(present, member_of(view, n), EMPTY)
+                join_ids = torch.where(join_mask, cur_id, EMPTY)
+                agg = update_agg(
+                    state.agg, t=t, join_ids=join_ids, rm_ids=rm_ids,
+                    view_ids=cur_id, view_present=present,
+                    fail_mask=plan.fail_mask, fail_time=plan.fail_time,
+                    sent_tick=sent_tick, recv_tick=recv_tick)
+                out = SparseTickEvents((join_ids != EMPTY).sum(dtype=I32),
+                                       (rm_ids != EMPTY).sum(dtype=I32),
+                                       sent_tick.sum(dtype=I32),
+                                       recv_tick.sum(dtype=I32))
         else:
             with record_function(PHASE_AGG):
-                det = pfo["det"] if fail_ids else None
+                # K3's row partials, or (with no probes, so no K3) the
+                # same sums over the removal plane.
+                rm_cnt = (pfo["rm_cnt"] if pfo is not None
+                          else (rm_ids >= 0).sum(1, dtype=I32))
+                det = None
+                if fail_ids:
+                    det = (pfo["det"] if pfo is not None else torch.stack(
+                        [(rm_ids == f).sum(1, dtype=I32) for f in fail_ids]))
                 view_ids = (torch.where(present, member_of(view, n), EMPTY)
                             if t == plan.fail_time and fail_ids else None)
                 agg = update_fast_agg(
                     state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
-                    rm_total_tick=pfo["rm_cnt"].sum(dtype=I32),
+                    rm_total_tick=rm_cnt.sum(dtype=I32),
                     det_tick=None if det is None else det.sum(1, dtype=I32),
                     any_true_rm=None if det is None else (det > 0).any(0),
                     view_ids=view_ids, view_present=present,
                     fail_time=plan.fail_time, holder_failed=plan.fail_mask,
                     sent_tick=sent_tick, recv_tick=recv_tick)
                 out = SparseTickEvents((join_mask & present).sum(dtype=I32),
-                                       pfo["rm_cnt"].sum(dtype=I32),
+                                       rm_cnt.sum(dtype=I32),
                                        sent_tick.sum(dtype=I32),
                                        recv_tick.sum(dtype=I32))
         # End-of-tick crash/leave/restart transitions: after the agg fold,
@@ -898,7 +1049,8 @@ def make_step(cfg: HashConfig):
             failed_after(plan, t, state.failed, f), jp.self_hb, mail,
             state.amail, state.pmail, jp.joinreq_infl, jp.joinrep_infl,
             pending_recv, agg, probe_ids1, probe_ids2, act_prev,
-            state.wf_prev), f, t, n, p_cnt)
+            will_flush if cfg.probe_io_lag else state.wf_prev),
+            f, t, n, p_cnt)
         if not cfg.telemetry:
             return new_state, out
         with record_function(PHASE_TELEMETRY):
@@ -933,7 +1085,7 @@ def make_scatter_step(cfg: HashConfig):
     probe mailbox (``pmail``, twice when ``Qp < N``) answered into the ack
     mailbox (``amail``).  Its random streams are the JAX ones: the tick key
     split 8 ways, ``bernoulli(k, p, shape)`` as ``uniform(k, shape) <
-    f32(p)``.  Full event mode only."""
+    f32(p)``.  In EVENT_MODE agg the events fold into ``AggStats``."""
     n, s, g, p_cnt, qp = cfg.n, cfg.s, cfg.g, cfg.probes, cfg.qp
     intro = INTRODUCER_INDEX
     k_max = min(cfg.fanout, s)
@@ -1057,9 +1209,9 @@ def make_scatter_step(cfg: HashConfig):
             due = (ack_valid & act[:, None]).reshape(-1).nonzero().squeeze(1)
             if coins:
                 kd1, kd2 = split(k_drop_p)
-                p_valid &= ~(uniform_at(kd1, idx[:, None] * s + cols[None, :])
-                             < p_drop)
-                due = due[~(uniform_at(kd2, due) < p_drop)]
+                p_valid &= ~(uniform_at(kd1, idx[:, None] * s + cols[None, :],
+                                        n * s) < p_drop)
+                due = due[~(uniform_at(kd2, due, n * qp) < p_drop)]
             own_id_p = idx[:, None].expand(n, p_cnt)
             pval = torch.where(p_valid, own_id_p + 1, 0).reshape(-1)
             flat = torch.cat([as_u32(pmail).reshape(-1),
@@ -1086,14 +1238,24 @@ def make_scatter_step(cfg: HashConfig):
 
         failed = (state.failed | plan.fail_mask if t == plan.fail_time
                   else state.failed)
+        agg = state.agg
+        out = SparseTickEvents(join_ids, rm_ids, sent_tick, jp.recv_tick)
+        if not cfg.collect_events:
+            agg = update_agg(
+                agg, t=t, join_ids=join_ids, rm_ids=rm_ids, view_ids=cur_id,
+                view_present=present, fail_mask=plan.fail_mask,
+                fail_time=plan.fail_time, sent_tick=sent_tick,
+                recv_tick=jp.recv_tick)
+            out = SparseTickEvents(*(x.sum(dtype=I32) for x in (
+                join_ids != EMPTY, rm_ids != EMPTY, sent_tick,
+                jp.recv_tick)))
         new_state = HashState(
             view, view_ts, jp.started, jp.in_group, failed,
             jp.self_hb, mail, amail, pmail, jp.joinreq_infl,
-            jp.joinrep_infl, jp.pending_recv + recv_add, state.agg,
+            jp.joinrep_infl, jp.pending_recv + recv_add, agg,
             state.probe_ids1, state.probe_ids2, state.act_prev,
             state.wf_prev)
-        return new_state, SparseTickEvents(join_ids, rm_ids, sent_tick,
-                                           jp.recv_tick)
+        return new_state, out
 
     return step
 
@@ -1101,6 +1263,11 @@ def make_scatter_step(cfg: HashConfig):
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
                               f"{item})")
+
+
+def _refuse_on(what: str, why: str) -> None:
+    """A refusal by design: ``what`` cannot run here, for ``why``."""
+    raise NotImplementedError(f"{what}: {why}")
 
 
 def _folded_gates(params: Params, n: int, s: int, collect_events: bool,
@@ -1158,15 +1325,23 @@ def make_config(params: Params, collect_events: bool = True,
                 "SCENARIO general events and ENFORCE_BUFFSIZE are "
                 "incompatible (the sequential send budget does not "
                 "model the per-shift partition/flake masks)")
+    if params.PROBE_IO == "approx_lag" and not ring:
+        raise ValueError(
+            "PROBE_IO approx_lag requires EXCHANGE ring (scatter keeps "
+            "exact slot-addressed counters)")
     on_cuda = torch.device(device).type == "cuda"
     fast_agg = (not collect_events and ring
                 and len(fail_ids) <= FAST_AGG_MAX_FAILED)
+    send_budget = params.EN_BUFFSIZE if params.ENFORCE_BUFFSIZE else 0
     why_not_folded = _folded_gates(params, n, s, collect_events, fast_agg,
                                    kernels=on_cuda)
     if params.FOLDED == 1 and why_not_folded:
         raise ValueError(why_not_folded)
-    folded = params.FOLDED == 1 or (params.FOLDED == -1 and on_cuda
-                                    and s < 128 and not why_not_folded)
+    # Auto keeps the folded layout off where a pinned FOLDED would raise
+    # (the budget, approx_lag: JAX gates below and in step_and_init).
+    folded = params.FOLDED == 1 or (
+        params.FOLDED == -1 and on_cuda and s < 128 and not why_not_folded
+        and not send_budget and params.PROBE_IO != "approx_lag")
     knobs = {k: getattr(params, k)
              for k in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE")}
     if not ring:
@@ -1202,45 +1377,68 @@ def make_config(params: Params, collect_events: bool = True,
                 f"at most {PACK_SAFE_TICKS} ticks — "
                 "ops/megakernel.PACK_SAFE_TICKS); use MEGA_PACK 0 or "
                 "-1 (auto widens to the full-width carry)")
-    for key, bad, item in (
-            ("SHIFT_SET", params.SHIFT_SET != 0, "Queue 1 item 9"),
-            ("ENFORCE_BUFFSIZE", params.ENFORCE_BUFFSIZE != 0,
-             "Queue 1 item 9"),
-            (f"PROBE_IO {params.PROBE_IO}",
-             params.PROBE_IO in ("approx_lag", "none"), "Queue 1 item 9"),
-            ("SERVICE_PORT (the service daemon)", params.SERVICE_PORT >= 0,
-             "Queue 1 item 10")):
-        if bad:
-            _refuse(key, item)
-    if not collect_events and not ring:
-        _refuse("EVENT_MODE agg on the scatter exchange (the scatter-based "
-                "AggStats update)", "Queue 1 item 9")
-    if not collect_events and not fast_agg:
-        _refuse(f"EVENT_MODE agg with more than {FAST_AGG_MAX_FAILED} failed "
-                "ids (the scatter-based AggStats update)", "Queue 1 item 9")
+    # The JAX gates of SHIFT_SET and ENFORCE_BUFFSIZE, word for word.  A
+    # pinned FUSED_GOSSIP: 1 conflicts with both there, though K2 takes
+    # the table's shifts and the budgeted masks here (auto takes K2).
+    fused_g = knobs["FUSED_GOSSIP"] == 1
+    if params.SHIFT_SET:
+        if not ring:
+            raise ValueError("SHIFT_SET requires the ring exchange")
+        if params.BACKEND != "tpu_hash":
+            raise ValueError(
+                "SHIFT_SET is single-chip tpu_hash only (the sharded "
+                "step's local rolls + collectives are a different "
+                "lowering; measure the mitigation single-chip first)")
+        if fused_g:
+            raise ValueError(
+                "SHIFT_SET and FUSED_GOSSIP are incompatible (the "
+                "Pallas kernel rolls in VMEM — dynamic shifts are not "
+                "its bottleneck)")
+        if n <= params.SHIFT_SET:
+            raise ValueError(
+                f"SHIFT_SET ({params.SHIFT_SET}) must be < N ({n})")
+    if send_budget:
+        if not ring:
+            raise ValueError(
+                "ENFORCE_BUFFSIZE on tpu_hash requires the ring exchange "
+                "(the emul backends enforce the cap natively; the scatter "
+                "lowering does not model it — README fidelity notes)")
+        if params.BACKEND == "tpu_hash_sharded":
+            raise ValueError(
+                "ENFORCE_BUFFSIZE is not modeled on tpu_hash_sharded "
+                "(its scatter exchange bounds per-destination buckets "
+                "instead — bucket_capacity; README fidelity notes)")
+        if folded:
+            raise ValueError(
+                "ENFORCE_BUFFSIZE is not modeled on the FOLDED layout")
+        if fused_g:
+            raise ValueError(
+                "ENFORCE_BUFFSIZE and FUSED_GOSSIP are incompatible (the "
+                "budget is a per-slot send mask; the natural-layout kernel "
+                "applies its fanout mask in-kernel)")
+    if params.SERVICE_PORT >= 0:
+        _refuse("SERVICE_PORT (the service daemon)", "Queue 1 item 10")
     if ring and n < 4:
         raise ValueError("the ring step's packed probe table needs N >= 4")
     if on_cuda and ring:
         if s % 128 != 0 and not folded:
-            _refuse(f"VIEW_SIZE {s} on CUDA outside FOLDED (the natural "
-                    "kernels take VIEW_SIZE % 128 == 0; S < 128 runs on the "
-                    f"folded layout in EVENT_MODE agg, here: "
-                    f"{why_not_folded or 'FOLDED: 0'})", "Queue 1 item 9")
-        if s > MAX_TILE_S and not folded:
-            _refuse(f"VIEW_SIZE {s} on CUDA (the gossip kernels' tiled body "
-                    f"takes rows of at most {MAX_TILE_S} slots, one row per "
-                    "tile)", "Queue 1 item 9")
+            _refuse_on(
+                f"VIEW_SIZE {s} on CUDA outside FOLDED",
+                "the natural kernels take whole 128-slot rows (VIEW_SIZE "
+                "% 128 == 0); S < 128 runs on the folded layout in "
+                "EVENT_MODE agg, here: "
+                f"{why_not_folded or 'FOLDED: 0'}")
         pinned_off = [k for k, v in knobs.items() if v == 0]
         if pinned_off:
-            _refuse(f"{'/'.join(pinned_off)}: 0 on CUDA (the kernels are "
-                    "the path there; the plain versions run on CPU tensors "
-                    "only)", "Queue 1 item 9")
+            _refuse_on(f"{'/'.join(pinned_off)}: 0 on CUDA",
+                       "the kernels are the path there; the plain versions "
+                       "run on CPU tensors only")
     elif not on_cuda:
         pinned_on = [k for k, v in knobs.items() if v == 1]
         if pinned_on:
-            _refuse(f"{'/'.join(pinned_on)}: 1 on the CPU (it pins the CUDA "
-                    "kernels, which run only on the card; use -1 or 0)",
-                    "Queue 1 item 9")
+            _refuse_on(f"{'/'.join(pinned_on)}: 1 on the CPU",
+                       "it pins the CUDA kernels, which run only on the "
+                       "card; use -1 or 0")
     return HashConfig(
         n=n, s=s, g=min(g, s), tfail=params.TFAIL, tremove=params.TREMOVE,
         fanout=params.FANOUT, drop_prob=params.effective_drop_prob(),
@@ -1257,7 +1455,10 @@ def make_config(params: Params, collect_events: bool = True,
         telemetry_hist=params.TELEMETRY == "hist",
         scenario=scenario,
         rng_mode=params.RNG_MODE if ring else "scattered",
-        mega_ticks=mega, mega_pack=bool(mega_pack))
+        mega_ticks=mega, mega_pack=bool(mega_pack),
+        probe_io_none=params.PROBE_IO == "none",
+        probe_io_lag=params.PROBE_IO == "approx_lag",
+        send_budget=send_budget, shift_set=params.SHIFT_SET)
 
 
 def resolve_mega_pack(cfg: HashConfig, params: Params,
@@ -1279,6 +1480,11 @@ def resolve_mega_pack(cfg: HashConfig, params: Params,
 def step_and_init(cfg: HashConfig):
     """``(step, init)`` for the config's layout and join mode (the JAX
     ``_get_step_and_init``); ``init(cfg, key, device)``."""
+    if cfg.folded and cfg.probe_io_lag:
+        raise ValueError(
+            "PROBE_IO approx_lag requires the natural layout "
+            "(FOLDED: 0) — the folded step keeps the two-gather "
+            "attribution")
     if cfg.folded:
         from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
             init_state_warm_folded, make_folded_step)
@@ -1314,6 +1520,10 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
     plan_t = plan_tensors(params, plan, seed, total, device)
     step, init = step_and_init(cfg)
     key = make_run_key(params, seed ^ 0x5EED)
+    finalize = None
+    if cfg.probe_io_lag and cfg.probes > 0:
+        def finalize(state, events):
+            return lag_tail(cfg, state, events)
     if params.CHECKPOINT_EVERY > 0:
         from distributed_membership_tpu_torch.runtime.checkpoint import (
             chunked_run)
@@ -1323,9 +1533,34 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
             segment_fn=lambda st, a, b: run_segment(step, st, plan_t, a, b,
                                                     cfg),
             collect_events=collect_events, telemetry=telemetry,
-            with_series=cfg.telemetry)
-    return run_ticks(step, init(cfg, key, device), plan_t, total, cfg,
-                     telemetry)
+            with_series=cfg.telemetry, finalize=finalize)
+    state, events = run_ticks(step, init(cfg, key, device), plan_t, total,
+                              cfg, telemetry)
+    if finalize is not None and total > 0:
+        state, events = finalize(state, events)
+    return state, events
+
+
+def lag_tail(cfg: HashConfig, state: HashState, events):
+    """``PROBE_IO: approx_lag``'s run-total epilogue (the JAX runner's lag
+    tail and its chunked ``finalize``): the lagged counters cover the ack
+    sends of arrivals up to the second-to-last tick; the last tick's (the
+    probes in the final ``probe_ids2``, answered where ``act_prev``
+    holds) are added to the last tick's sends and, in agg mode, to the
+    per-node totals, so run totals equal exact mode's.  Recvs need none:
+    exact mode's last arrivals strand in ``pending_recv``.  The
+    telemetry series keeps its per-tick counters."""
+    ids2 = state.probe_ids2
+    corr = ((ids2 != 0) & state.act_prev[(ids2.to(I64) - 1).clamp_min(0)]
+            ).sum(1, dtype=I32)
+    sent = np.array(events.sent, copy=True)
+    if cfg.collect_events:
+        sent[-1] += corr.cpu().numpy()
+    else:
+        state = state._replace(agg=state.agg._replace(
+            sent_total=state.agg.sent_total + corr))
+        sent[-1] += int(corr.sum())
+    return state, events._replace(sent=sent)
 
 
 def run_segment(step, state, plan_t: PlanTensors, a: int, b: int,

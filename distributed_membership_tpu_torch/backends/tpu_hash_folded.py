@@ -23,7 +23,10 @@ partials), the protocol-phase ranges of the natural step and the
 scenario engine's hooks (backends/tpu_hash.py ``tick_faults``): per-node
 masks and probabilities broadcast over each node's slots, so the payloads
 stay pre-masked and K6 stays pure data movement.  The JAX step's join
-machinery is inert under warm join and omitted, as there.
+machinery is inert under warm join and omitted, as there.  ``SHIFT_SET``
+(single chip) takes its shifts from the static table
+(``tpu_hash.shift_table``) and delivers them through K6 as the dynamic
+ones; ``PROBE_IO: none`` zeroes the probe-recv and ack-send counters.
 
 The same step on a LocalMesh (parallel/mesh.py) is the sharded folded
 step (JAX ``make_ring_sharded_folded_step``, ``tpu_hash_sharded`` with
@@ -43,7 +46,8 @@ from torch.profiler import record_function
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     HashState, _count_at, _credit_orphan_recvs, _pack_probe_table, _roll,
     coin_at, failed_after, init_state_warm, no_coin, pack_u, restart_wipe,
-    ring_rng_plans, tick_faults, tick_telemetry, uses_drop, will_flush_of)
+    ring_rng_plans, shift_table, table_shifts, tick_faults, tick_telemetry,
+    uses_drop, will_flush_of)
 from distributed_membership_tpu_torch.backends.tpu_sparse import (
     SparseTickEvents)
 from distributed_membership_tpu_torch.observability.aggregates import (
@@ -124,6 +128,10 @@ def make_folded_step(cfg, mesh=None):
     single_col = (n_local * STRIDE) % s == 0
     fail_ids = cfg.fail_ids
     want_hist = cfg.telemetry_hist
+    # SHIFT_SET (single chip): the draw indexes the static table, whose
+    # shifts go to K6 as the dynamic ones do.
+    table = shift_table(n, cfg.shift_set) if cfg.shift_set else None
+    tables = {}
     if mesh is None:
         def plan_rng(key, dev):
             return ring_rng_plans(cfg, [key], dev)[0]
@@ -168,7 +176,9 @@ def make_folded_step(cfg, mesh=None):
             vec = torch.where(state.act_prev, state.self_hb - 1, 0)
             will_flush = will_flush_of(plan, t, recv_mask, f)
             tbl = _pack_probe_table(vec, will_flush, act)
-            gcat = tbl[torch.cat([id2, tgt1], dim=1)]        # one gather
+            # One gather; PROBE_IO none reads no counter bits.
+            gcat = tbl[id2 if cfg.probe_io_none
+                       else torch.cat([id2, tgt1], dim=1)]
             hb_ack = (gcat[:, :p_cnt] >> 2).to(I32)
             bits1 = gcat[:, p_cnt:]
             valid2 = (ids2 != 0) & (hb_ack > 0)
@@ -218,7 +228,8 @@ def make_folded_step(cfg, mesh=None):
             keep = fresh & ((rng.thin_u.view(n, s) < p_keep[:, None])
                             | (cur_id == idx[:, None]))
         keep = keep & act[:, None]
-        u = rng.shift_draw.to(I64)
+        u = (rng.shift_draw.to(I64) if table is None
+             else table_shifts(tables, table, rng.shift_draw, I64))
         b, c = u // n_local, u % n_local
         # Receiver slot = sender slot + delta * STRIDE with delta = b'L +
         # c, b' = b - D on the shards me < b (block wrap), and c - L on the
@@ -284,6 +295,8 @@ def make_folded_step(cfg, mesh=None):
             if cfg.count_probe_io:
                 recv_probe = _count_at(tgt1, v1, p_red, n)
                 sent_ack = _count_at(tgt1, v1 & ((bits1 & 2) != 0), 1, n)
+            elif cfg.probe_io_none:
+                recv_probe = sent_ack = torch.zeros_like(sent_probes)
             else:
                 per_prober = (v1 & ((bits1 & 1) != 0)).sum(
                     1, dtype=I32) * p_red

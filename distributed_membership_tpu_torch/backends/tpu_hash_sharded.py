@@ -47,13 +47,19 @@ Per tick (``make_ring_sharded_step``), as in the JAX ring step:
 ``make_ring_sharded_folded_step``, K5-K7 over every shard) behind the JAX
 ``sharded_config`` gates on the per-shard rows.
 
+``EVENT_MODE: agg`` with more than 8 failed ids folds into ``AggStats``
+over all rows (the JAX step's per-shard partials and their reduction in
+one update), started from zero per segment and merged under
+``CHECKPOINT_EVERY``; ``PROBE_IO: none`` zeroes the probe-recv and
+ack-send counters.  ``PROBE_IO approx_lag``, ``SHIFT_SET`` and
+``ENFORCE_BUFFSIZE`` raise the JAX package's ValueErrors.
+
 Refused with ``NotImplementedError`` naming the ROADMAP.md item: the
 scatter exchange (the JAX ``make_sharded_step``, which ``EXCHANGE: auto``
-picks under cold joins),
-``EXCHANGE_MODE: batched``, ``PROBE_GATHER: split``, and what
-``tpu_hash`` refuses (more than 8 failed ids under EVENT_MODE agg; on CUDA
-``VIEW_SIZE % 128 != 0`` outside the folded layout, fewer than 8 plane
-rows per shard on it, and a pinned ``FUSED_*: 0``).
+picks under cold joins), ``EXCHANGE_MODE: batched`` and ``PROBE_GATHER:
+split`` (item 6c).  Refused by design, as on ``tpu_hash``: on CUDA
+``VIEW_SIZE % 128 != 0`` outside the folded layout, fewer than 8 folded
+plane rows per shard, and a pinned ``FUSED_*: 0``.
 """
 
 from __future__ import annotations
@@ -71,7 +77,8 @@ from distributed_membership_tpu_torch.addressing import INTRODUCER_INDEX
 from distributed_membership_tpu_torch.backends import RunResult, register
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     I32, I64, HashConfig, _credit_orphan_recvs_sharded, _gathered_act,
-    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, coin_at,
+    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, _refuse_on,
+    coin_at,
     count_ctrl_dropped, failed_after, join_plane, joinreq_to_intro,
     make_config, no_coin, pack_u, plan_fail_ids, plan_scenario,
     resolve_mega_pack, restart_wipe, run_segment, run_ticks, seed_burst,
@@ -84,7 +91,8 @@ from distributed_membership_tpu_torch.backends.tpu_sparse import (
 from distributed_membership_tpu_torch.config import Params
 from distributed_membership_tpu_torch.eventlog import EventLog
 from distributed_membership_tpu_torch.observability.aggregates import (
-    FastAgg, init_agg, init_fast_agg, update_fast_agg)
+    FastAgg, init_agg, init_fast_agg, merge_agg, update_agg,
+    update_fast_agg)
 from distributed_membership_tpu_torch.observability.timeline import (
     PHASE_ACK, PHASE_AGG, PHASE_COLLECTIVE, PHASE_GOSSIP, PHASE_PROBE,
     PHASE_RECEIVE, PHASE_TELEMETRY)
@@ -146,8 +154,13 @@ def init_local_state(cfg: HashConfig, mesh: LocalMesh) -> ShardedHashState:
         joinreq_infl=torch.zeros((n,), **b),
         joinrep_infl=torch.zeros((n,), **b),
         pending_recv=torch.zeros((n,), **i32),
+        # FastAgg: per-shard partials.  AggStats in agg mode: the global
+        # value (on the flat layout the sum, min/max and gathers of the
+        # JAX step's per-shard partials are one update over all rows).
+        # Full event mode carries one shard's never-updated placeholder.
         agg=(init_fast_agg(len(cfg.fail_ids), n, dev, shards=d)
-             if cfg.fast_agg
+             if cfg.fast_agg else
+             init_agg(n, dev) if not cfg.collect_events
              else init_agg(n, dev, rows=mesh.rows_per_shard(n))),
         probe_ids1=torch.zeros(probe_shape, **i32),
         probe_ids2=torch.zeros(probe_shape, **i32),
@@ -400,6 +413,8 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                                                         shard))
                     sent_ack = mesh.psum_scatter(hist(tgt1, ack_send, 1,
                                                       shard))
+                elif cfg.probe_io_none:
+                    recv_probe = sent_ack = torch.zeros_like(sent_probes)
                 else:
                     per_prober = (v1 & _gathered_flush(probe_bits1)).sum(
                         1, dtype=I32) * p_red
@@ -416,6 +431,19 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             out = SparseTickEvents(
                 torch.where(join_mask, cur_id, EMPTY).to(I32), rm_ids,
                 sent_tick, recv_tick)
+        elif not want_agg:
+            # AggStats: the JAX step's per-shard partials reduced (psum,
+            # pmin/pmax, all_gather) are the one update over every row.
+            with record_function(PHASE_AGG):
+                join_ids = torch.where(join_mask, cur_id, EMPTY)
+                agg = update_agg(
+                    state.agg, t=t, join_ids=join_ids, rm_ids=rm_ids,
+                    view_ids=cur_id, view_present=present,
+                    fail_mask=plan.fail_mask, fail_time=plan.fail_time,
+                    sent_tick=sent_tick, recv_tick=recv_tick)
+                out = SparseTickEvents(total(join_ids != EMPTY),
+                                       total(rm_ids != EMPTY),
+                                       total(sent_tick), total(recv_tick))
         else:
             with record_function(PHASE_AGG):
                 # Per-shard partials of the probe pass's row sums.
@@ -492,12 +520,12 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
         _refuse("EXCHANGE_MODE batched (ops/exchange.py)", "Queue 1 item 6c")
     if params.PROBE_GATHER == "split":
         _refuse("PROBE_GATHER split", "Queue 1 item 6c")
-    if params.PROBE_IO == "approx_lag":
+    cfg = make_config(params, collect_events, fail_ids=fail_ids,
+                      device=device, scenario=scenario)
+    if cfg.probe_io_lag:
         raise ValueError(
             "PROBE_IO approx_lag is single-chip tpu_hash only (the "
             "sharded twins keep the two-gather attribution)")
-    cfg = make_config(params, collect_events, fail_ids=fail_ids,
-                      device=device, scenario=scenario)
     on_cuda = torch.device(device).type == "cuda"
     s = cfg.s
     if cfg.folded and not folded_supported(n_local, s, cfg.probes):
@@ -508,10 +536,10 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
                 "L must be a multiple of 128/S and 128/P)")
         cfg = dataclasses.replace(cfg, folded=False)
         if on_cuda and s % 128 != 0:
-            _refuse(f"VIEW_SIZE {s} on CUDA outside FOLDED (the natural "
-                    "kernels take VIEW_SIZE % 128 == 0; the per-shard rows "
-                    f"do not fold: L={n_local}, S={s}, P={cfg.probes})",
-                    "Queue 1 item 9")
+            _refuse_on(f"VIEW_SIZE {s} on CUDA outside FOLDED",
+                       "the natural kernels take whole 128-slot rows "
+                       "(VIEW_SIZE % 128 == 0); the per-shard rows do not "
+                       f"fold: L={n_local}, S={s}, P={cfg.probes}")
     if cfg.folded:
         if on_cuda and (n_local * s) // 128 < 8:
             msg = (f"FOLDED FUSED_* on tpu_hash_sharded needs at least 8 "
@@ -519,8 +547,8 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
                    f"S={s})")
             if params.FUSED_RECEIVE == 1 or params.FUSED_GOSSIP == 1:
                 raise ValueError(msg)
-            _refuse(f"{msg}: the unfused folded path runs on CPU tensors "
-                    "only", "Queue 1 item 9")
+            _refuse_on(msg, "the unfused folded path runs on CPU tensors "
+                       "only")
         return cfg
     if params.FUSED_GOSSIP == 1 and (n_local < 8 or s % 128 != 0):
         raise ValueError(
@@ -562,9 +590,10 @@ def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
     ``tpu_hash.run_scan``, the final agg reduced; the natural or the
     folded sharded step, as the config resolves.  Under
     ``CHECKPOINT_EVERY`` the carry between segments holds the reduced
-    global FastAgg, as the JAX package's chunked carry does: each segment
-    expands it to shard partials (:func:`expand_fast_agg`) and reduces
-    them at its end."""
+    global aggregates, as the JAX package's chunked carry does: each
+    segment expands a FastAgg to shard partials (:func:`expand_fast_agg`)
+    and reduces them at its end, or starts an AggStats from zero and
+    merges it into the carried one (``merge_agg``)."""
     n_local = mesh.rows_per_shard(params.EN_GPSZ)
     cfg = sharded_config(params, collect_events, plan_fail_ids(plan),
                          n_local, device=mesh.device,
@@ -587,7 +616,7 @@ def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
                     else init_local_state_warm(cfg, mesh, key))
 
     def reduced(state):
-        return (state if collect_events else
+        return (state if collect_events or not cfg.fast_agg else
                 state._replace(agg=reduce_fast_agg(state.agg, mesh)))
 
     if params.CHECKPOINT_EVERY > 0:
@@ -595,10 +624,17 @@ def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
             chunked_run)
 
         def segment_fn(state, a, b):
-            if not collect_events:
-                state = state._replace(agg=expand_fast_agg(state.agg, mesh))
+            carried = state.agg
+            if cfg.fast_agg and not collect_events:
+                state = state._replace(agg=expand_fast_agg(carried, mesh))
+            elif not collect_events:
+                # The JAX segment: AggStats from zero, merged with the
+                # carried accumulator after the segment.
+                state = state._replace(agg=init_agg(cfg.n, mesh.device))
             state, events, series = run_segment(step, state, plan_t, a, b,
                                                 cfg)
+            if not (cfg.fast_agg or collect_events):
+                state = state._replace(agg=merge_agg(carried, state.agg))
             return reduced(state), events, series
 
         return chunked_run(

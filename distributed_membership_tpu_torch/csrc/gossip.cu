@@ -28,11 +28,10 @@ namespace {
 
 using dm_tile::Gate;
 
-template <Gate G>
-__global__ void __launch_bounds__(dm_tile::kThreads)
-gossip_kernel(dm_tile::TileArgs a, const int* __restrict__ shifts,
-              int cstride) {
-    __shared__ dm_tile::Shifts sh;
+// The per-shift row and column shifts of the ring's shifts r_j.
+__device__ __forceinline__ void ring_shifts(const dm_tile::TileArgs& a,
+                                            const int* __restrict__ shifts,
+                                            int cstride, dm_tile::Shifts& sh) {
     const long long n = a.n_local, s = a.s;
     for (int j = threadIdx.x; j < a.k_max; j += dm_tile::kThreads) {
         const long long r = shifts[j];
@@ -41,7 +40,26 @@ gossip_kernel(dm_tile::TileArgs a, const int* __restrict__ shifts,
         sh.s1[j] = static_cast<int>((((r % s) + s) % s * cstride) % s);
         sh.s2[j] = static_cast<int>(((((r - n) % s) + s) % s * cstride) % s);
     }
+}
+
+template <Gate G>
+__global__ void __launch_bounds__(dm_tile::kThreads)
+gossip_kernel(dm_tile::TileArgs a, const int* __restrict__ shifts,
+              int cstride) {
+    __shared__ dm_tile::Shifts sh;
+    ring_shifts(a, shifts, cstride, sh);
     dm_tile::run<G, true>(a, sh);
+}
+
+// Rows wider than one tile (S > 4096): the wide-row body.
+template <Gate G>
+__global__ void __launch_bounds__(dm_tile::kThreads)
+gossip_wide_kernel(dm_tile::TileArgs a, const int* __restrict__ shifts,
+                   int cstride) {
+    __shared__ dm_tile::Shifts sh;
+    ring_shifts(a, shifts, cstride, sh);
+    __syncthreads();
+    dm_tile::run_wide<G, true>(a, sh);
 }
 
 }  // namespace
@@ -50,9 +68,9 @@ gossip_kernel(dm_tile::TileArgs a, const int* __restrict__ shifts,
 // non-null; shifts is a device [k_max] int32 array (the ring draws values
 // in [1, n); any int32 shift gives the plain version's result: the sender
 // row is taken mod n, and each receiver row i picks s1 or s2 by i >= r as
-// drawn, as the plain version does).  s % 128 == 0 and s <= 4096; mail,
-// payload and masks 16-byte aligned.  mail
-// is updated in place.  Returns cudaGetLastError() after the launch, or
+// drawn, as the plain version does).  s % 128 == 0 (the tiled body for s
+// <= 4096, the wide-row body above); mail, payload and masks 16-byte
+// aligned.  mail is updated in place.  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
                          int single_col, unsigned* mail,
@@ -60,7 +78,7 @@ extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
                          const unsigned char* masks, const int* shifts,
                          void* stream) {
     if (k_max > dm_tile::kMaxShifts || s <= 0 || s % 128 != 0
-        || s > dm_tile::kMaxS || n > 0x7fffffffu)
+        || n > 0x7fffffffu)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0 || k_max <= 0) return dm_launch_status();
     dm_tile::TileArgs a{};
@@ -73,6 +91,12 @@ extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
     a.n_local = static_cast<int>(n);
     a.k_max = k_max;
     a.single_col = single_col != 0;
+    if (s > dm_tile::kMaxS)
+        return masks != nullptr
+            ? dm_tile::launch_wide(&gossip_wide_kernel<Gate::kMask>, a.plane,
+                                   stream, a, shifts, cstride)
+            : dm_tile::launch_wide(&gossip_wide_kernel<Gate::kKeff>, a.plane,
+                                   stream, a, shifts, cstride);
     dm_tile::set_tiles(a, 1);
     if (masks != nullptr)
         return dm_tile::launch<Gate::kMask>(&gossip_kernel<Gate::kMask>,

@@ -33,8 +33,9 @@
 // or [1, rows, s] with shared_payload; masks is [K, rows, s] bytes or null;
 // c is a device [K] int32 array of row shifts (the step passes [0, n_local);
 // any int32 gives the plain version's result), s1 and s2 device [D, K]
-// int32 arrays of per-shard column shifts.  s % 128 == 0 and s <= 4096;
-// mail, payloads and masks 16-byte aligned.  mail is updated in place.
+// int32 arrays of per-shard column shifts.  s % 128 == 0 (rows wider than
+// 4096 take the wide-row body of gossip_tile.cuh); mail, payloads and masks
+// 16-byte aligned.  mail is updated in place.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for arguments the kernel does not take.
 extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
@@ -44,7 +45,7 @@ extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
                                  const int* s1, const int* s2, void* stream) {
     using dm_tile::Gate;
     if (k_max > dm_tile::kMaxShifts || s <= 0 || s % 128 != 0
-        || s > dm_tile::kMaxS || n_local <= 0 || rows < 0
+        || n_local <= 0 || rows < 0
         || rows % n_local != 0 || rows > 0x7fffffffLL)
         return static_cast<int>(cudaErrorInvalidValue);
     if (rows == 0 || k_max <= 0) return dm_launch_status();
@@ -59,7 +60,8 @@ extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
     a.n_local = n_local;
     a.k_max = k_max;
     a.single_col = single_col != 0;
-    dm_tile::set_tiles(a, static_cast<int>(rows / n_local));
+    if (s <= dm_tile::kMaxS)
+        dm_tile::set_tiles(a, static_cast<int>(rows / n_local));
     return masks != nullptr
         ? dm_tile::launch_stacked<Gate::kMask>(a, c, shared_payload, stream)
         : dm_tile::launch_stacked<Gate::kNone>(a, c, shared_payload, stream);

@@ -48,6 +48,17 @@
 // The mail tile is read once (the first item) and written once, from a
 // shared-memory buffer by one bulk store.  Index arithmetic inside a tile
 // is 32-bit; only the tile's base offsets are 64-bit.
+//
+// Wide rows.  A tile holds at least one row, so the tiled body takes S <=
+// kTileWords.  Wider rows (S % 128 == 0 and S > 4096: the full membership
+// list past 4096 nodes) take `run_wide`, a simple body with the same
+// arithmetic and no staging: each thread owns mail words e, e + the grid's
+// threads, ..., and per shift reads its sender word straight from device
+// memory (row (l - c_j) mod L of its shard, column (c - s_j(l)) mod S), so
+// a warp's 32 reads are 32 consecutive words of one sender row, split at
+// most once where the column rotation wraps.  It moves what the tiled body
+// moves, (2 + k_max) planes plus the gates, through L2 instead of shared
+// memory.  All its indices are 64-bit.
 #pragma once
 
 #include <cstdint>
@@ -391,6 +402,65 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
     if (tid == 0) bulk_wait();
 }
 
+// The wide-row body (see the header): every mail word of the D shards of
+// a.n_local rows, a.plane words in all.  `sh` holds c and cl, and s1/s2
+// unless a.s1 is given ([D, k_max], read per word and shift).
+template <Gate G, bool kShared>
+__device__ __forceinline__ void run_wide(const TileArgs& a,
+                                         const Shifts& sh) {
+    const long long s = a.s, n_local = a.n_local;
+    const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x
+                       + threadIdx.x;
+         e < a.plane; e += step) {
+        const long long row = e / s;
+        const int col = static_cast<int>(e - row * s);
+        const int d = static_cast<int>(row / n_local);
+        const long long base = d * n_local;
+        const int l = static_cast<int>(row - base);
+        unsigned acc = a.mail[e];
+        for (int j = 0; j < a.k_max; ++j) {
+            int src = l - sh.cl[j];
+            if (src < 0) src += a.n_local;
+            const bool unwrapped = a.single_col || l >= sh.c[j];
+            int shift;
+            if (a.s1 != nullptr) {
+                const int at = d * a.k_max + j;
+                shift = mod(unwrapped ? a.s1[at] : a.s2[at], a.s);
+            } else {
+                shift = unwrapped ? sh.s1[j] : sh.s2[j];
+            }
+            int sc = col - shift;
+            if (sc < 0) sc += a.s;
+            const long long at = (base + src) * s + sc;
+            bool keep = true;
+            if (G == Gate::kMask) keep = a.masks[j * a.plane + at] != 0;
+            if (G == Gate::kKeff) keep = j < a.k_eff[base + src];
+            if (keep) {
+                const unsigned v = a.payload[(kShared ? 0 : j * a.plane)
+                                             + at];
+                acc = v > acc ? v : acc;
+            }
+        }
+        a.mail[e] = acc;
+    }
+}
+
+// Host side: launch a wide-row `kernel` (no dynamic shared memory) on as
+// many blocks as the card holds at once, at most one per kThreads words.
+template <typename... P, typename... A>
+int launch_wide(void (*kernel)(P...), long long words, void* stream,
+                A... args) {
+    unsigned grid = 0;
+    const int rc = dm_persistent_grid(kernel, kThreads, 0,
+                                      (words + kThreads - 1) / kThreads,
+                                      &grid);
+    if (rc != 0) return rc;
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        args...);
+    return dm_launch_status();
+}
+
 // Host side: launch `kernel` on a grid of as many blocks as the card holds
 // at once (at most one per tile), with smem_bytes(G) of shared memory.
 template <Gate G, typename... P, typename... A>
@@ -431,11 +501,32 @@ stacked_kernel(TileArgs a, const int* __restrict__ c) {
     run<G, kShared>(a, sh);
 }
 
-// Host side: stacked_kernel for one payload plane shared by every shift
-// or one plane per shift.
+// K4 on rows wider than one tile: run_wide with the column shifts read
+// from a.s1/a.s2.
+template <Gate G, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+stacked_wide_kernel(TileArgs a, const int* __restrict__ c) {
+    __shared__ Shifts sh;
+    for (int j = threadIdx.x; j < a.k_max; j += kThreads) {
+        sh.c[j] = c[j];
+        sh.cl[j] = mod(c[j], a.n_local);
+    }
+    __syncthreads();
+    run_wide<G, kShared>(a, sh);
+}
+
+// Host side: stacked_kernel (stacked_wide_kernel when a row is wider than
+// a tile) for one payload plane shared by every shift or one plane per
+// shift.
 template <Gate G>
 int launch_stacked(const TileArgs& a, const int* c, bool shared,
                    void* stream) {
+    if (a.s > kMaxS)
+        return shared
+            ? launch_wide(&stacked_wide_kernel<G, true>, a.plane, stream,
+                          a, c)
+            : launch_wide(&stacked_wide_kernel<G, false>, a.plane, stream,
+                          a, c);
     return shared
         ? launch<G>(&stacked_kernel<G, true>, a.n_tiles, stream, a, c)
         : launch<G>(&stacked_kernel<G, false>, a.n_tiles, stream, a, c);

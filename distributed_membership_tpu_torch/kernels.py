@@ -11,7 +11,8 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 ``LAUNCHES`` counts the kernel launches of each wrapper, per operand form
 (the probe kernels' form with the TELEMETRY hist partials counts as
 ``probe_hist`` / ``probe_folded_hist``, K1's with an admit plane as
-``receive_admit``); a wrapper adds one where it
+``receive_admit``, K2's and K4's wide-row body as ``gossip_wide`` and
+``gossip_stacked_wide``); a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels.
 """
@@ -44,7 +45,9 @@ LAUNCHES: Dict[str, int] = {
     "receive": 0, "receive_admit": 0, "gossip": 0, "gossip_masks": 0, "probe": 0,
     "probe_hist": 0, "receive_folded": 0, "gossip_folded": 0,
     "gossip_folded_masks": 0, "probe_folded": 0, "probe_folded_hist": 0,
-    "gossip_stacked": 0, "gossip_stacked_masks": 0}
+    "gossip_stacked": 0, "gossip_stacked_masks": 0, "gossip_wide": 0,
+    "gossip_wide_masks": 0, "gossip_stacked_wide": 0,
+    "gossip_stacked_wide_masks": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # ptxas report per source, last build

@@ -1,13 +1,19 @@
 """On-device event aggregates for scale runs (the JAX package's
-``observability/aggregates.py``, FastAgg path).
+``observability/aggregates.py``).
 
 At 1M nodes the per-tick event planes cannot be kept, so a run folds
-them into O(N) accumulators: per-failed-id detection counts, the
-tracker census at the failure tick, distinct-observer flags, the
-detection-latency histogram and message totals.  Everything the
-detection summary reports is computed from these on the host at the
-end.  ``AggStats`` exists only as the placeholder that full event mode
-carries in the state (its scatter-based update is not ported).
+them into O(N) accumulators: detection counts, the tracker census at the
+failure tick, distinct-observer flags, the detection-latency histogram
+and message totals.  Everything the detection summary reports is
+computed from these on the host at the end.
+
+Two forms, as in the JAX package: ``FastAgg`` for a static failed set of
+at most ``FAST_AGG_MAX_FAILED`` ids (per-id elementwise work, fed by the
+probe kernels' partials), and ``AggStats`` for any failed set (per-id
+``[N]`` counts, each tick's events added by id with one int32
+``index_add_`` per event plane; integer adds are order-free, so the
+counts are exact on any device).  Full event mode carries an
+``AggStats`` it never updates.
 """
 
 from __future__ import annotations
@@ -54,6 +60,90 @@ def init_agg(n: int, device, rows: int | None = None) -> AggStats:
         sent_total=torch.zeros((rows,), **i32),
         recv_total=torch.zeros((rows,), **i32),
     )
+
+
+# Sink slots of a count: most entries of an event plane are empty, and
+# adding them all at one sink address serialises the card's atomics.
+_SINKS = 1024
+
+
+def _count_by_id(ids: torch.Tensor, mask: torch.Tensor, n: int):
+    """``[n]`` int32 counts of the ids where ``mask`` holds (the JAX
+    ``count_by_id``: a scatter-add whose masked-out entries go to sink
+    slots that are dropped, spread over ``_SINKS`` of them)."""
+    flat = mask.reshape(-1)
+    spread = torch.arange(flat.numel(), device=ids.device) & (_SINKS - 1)
+    sel = torch.where(flat, ids.reshape(-1).to(torch.int64), n + spread)
+    out = torch.zeros((n + _SINKS,), dtype=torch.int32, device=ids.device)
+    out.index_add_(0, sel, torch.ones(sel.shape, dtype=torch.int32,
+                                      device=ids.device))
+    return out[:n]
+
+
+def update_agg(agg: AggStats, *, t: int, join_ids, rm_ids, view_ids,
+               view_present, fail_mask, fail_time: int, sent_tick,
+               recv_tick, holder_failed=None) -> AggStats:
+    """One tick (JAX ``update_agg``): ``join_ids``/``rm_ids`` ``[rows, M]``
+    member ids (``EMPTY`` = none), ``view_ids``/``view_present`` the
+    post-merge view, read at ``t == fail_time`` for the tracker census;
+    ``fail_mask`` ``[N]`` by member id, ``holder_failed`` (default
+    ``fail_mask``) by observer row.  ``t`` and ``fail_time`` are host
+    ints, so the census is a host branch."""
+    n = agg.rm_count.shape[0]
+    if holder_failed is None:
+        holder_failed = fail_mask
+    rm_mask = rm_ids >= 0
+    rm_add = _count_by_id(rm_ids, rm_mask, n)
+    removed_any = rm_add > 0
+    rm_first = torch.where(removed_any, agg.rm_first.clamp(max=t),
+                           agg.rm_first)
+    rm_last = torch.where(removed_any, agg.rm_last.clamp(min=t),
+                          agg.rm_last)
+    join_count = agg.join_count + _count_by_id(join_ids, join_ids >= 0, n)
+    trackers, tracker_obs = agg.trackers, agg.tracker_obs
+    if t == fail_time:
+        # Dead holders (and their self entries) are no completeness
+        # denominator.
+        live_holder = ~holder_failed[:, None]
+        holds_failed = view_present & fail_mask[
+            view_ids.to(torch.int64).clamp_min(0)]
+        trackers = _count_by_id(view_ids, view_present & live_holder, n)
+        tracker_obs = holds_failed.any(1) & ~holder_failed
+    # True detections: removals naming a crashed id strictly after the
+    # crash; earlier removals of it are false positives.
+    true_rm = rm_mask & fail_mask[rm_ids.to(torch.int64).clamp_min(0)]
+    if not t > fail_time:
+        true_rm = torch.zeros_like(true_rm)
+    lat = min(max(t - fail_time, 0), LAT_BINS - 1)
+    lat_hist = agg.lat_hist.clone()
+    lat_hist[lat] += true_rm.sum(dtype=torch.int32)
+    return AggStats(
+        rm_count=agg.rm_count + rm_add,
+        det_count=agg.det_count + _count_by_id(rm_ids, true_rm, n),
+        rm_first=rm_first, rm_last=rm_last, join_count=join_count,
+        trackers=trackers, tracker_obs=tracker_obs,
+        det_obs=agg.det_obs | true_rm.any(1), lat_hist=lat_hist,
+        sent_total=agg.sent_total + sent_tick,
+        recv_total=agg.recv_total + recv_tick)
+
+
+def merge_agg(a: AggStats, b: AggStats) -> AggStats:
+    """Merge two AggStats of disjoint tick ranges of one run (JAX
+    ``merge_agg``, on tensors): sums, ors, and the first/last removal
+    ticks as min/max (their init values are the identities); the census
+    is taken in one range only, zero elsewhere, so ``+`` is exact."""
+    return AggStats(
+        rm_count=a.rm_count + b.rm_count,
+        det_count=a.det_count + b.det_count,
+        rm_first=torch.minimum(a.rm_first, b.rm_first),
+        rm_last=torch.maximum(a.rm_last, b.rm_last),
+        join_count=a.join_count + b.join_count,
+        trackers=a.trackers + b.trackers,
+        tracker_obs=a.tracker_obs | b.tracker_obs,
+        det_obs=a.det_obs | b.det_obs,
+        lat_hist=a.lat_hist + b.lat_hist,
+        sent_total=a.sent_total + b.sent_total,
+        recv_total=a.recv_total + b.recv_total)
 
 
 class FastAgg(NamedTuple):
@@ -189,6 +279,26 @@ def fast_summary(agg: FastAgg, fail_ids, fail_time) -> dict:
     return out
 
 
-def detection_summary(agg: FastAgg, fail_mask: np.ndarray, fail_time) -> dict:
-    fail_ids = tuple(np.nonzero(np.asarray(fail_mask, bool))[0])
-    return fast_summary(agg, fail_ids, fail_time)
+def detection_summary(agg, fail_mask: np.ndarray, fail_time) -> dict:
+    """The detection summary of either aggregate form (JAX
+    ``detection_summary``, same keys and criteria)."""
+    if isinstance(agg, FastAgg):
+        fail_ids = tuple(np.nonzero(np.asarray(fail_mask, bool))[0])
+        return fast_summary(agg, fail_ids, fail_time)
+    agg = AggStats(*(x.cpu().numpy() for x in agg))
+    fail_mask = np.asarray(fail_mask, bool)
+    out = {
+        "n": agg.rm_count.shape[0],
+        "joins_total": int(agg.join_count.sum()),
+        # Every removal that is not a true detection is false.
+        "false_removals": int(agg.rm_count.sum() - agg.det_count.sum()),
+        "msgs_sent": int(agg.sent_total.sum()),
+        "msgs_recv": int(agg.recv_total.sum()),
+    }
+    if fail_time is not None and fail_mask.any():
+        failed = np.nonzero(fail_mask)[0]
+        out.update(_completeness_stats(
+            agg.trackers[failed], agg.det_count[failed], agg.tracker_obs,
+            agg.det_obs, int(fail_mask.sum()), int(agg.lat_hist.sum())))
+        out.update(latency_stats(agg.lat_hist))
+    return out

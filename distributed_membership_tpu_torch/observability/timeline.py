@@ -16,9 +16,12 @@ and appends it to ``<TELEMETRY_DIR>/timeline.jsonl``.
 Field semantics (int32 per tick): ``live`` active nodes; ``suspected``
 view entries past TFAIL; ``joins`` admissions into empty slots;
 ``removals`` TREMOVE evictions; ``detections`` true detections (the
-FastAgg delta, 0 in full event mode); ``msgs_sent`` / ``msgs_recv`` wire
-messages sent / delivered into the receive stream; ``dropped`` messages
-killed by drop coins; ``probe_acks`` acks applied; ``gossip_rows`` view
+aggregate's delta, 0 in full event mode); ``msgs_sent`` / ``msgs_recv``
+wire messages sent / delivered into the receive stream (``PROBE_IO
+approx_lag``'s final-tick ack-send epilogue applies to run totals only,
+not this series); ``dropped`` messages killed by drop coins (budget drops
+under ENFORCE_BUFFSIZE are not counted here); ``probe_acks`` acks
+applied; ``gossip_rows`` view
 entries carried by gossip payloads.  Histograms (edges in
 ``HIST_BUCKETS``): ``h_staleness`` ``t - view_ts`` of present entries in
 8 buckets of 8 ticks; ``h_suspicion`` the age past TFAIL, the same

@@ -37,17 +37,22 @@ from distributed_membership_tpu_torch import kernels
 from distributed_membership_tpu_torch.ops.view_merge import STRIDE, umax
 
 # The widest row the tiled body takes: one 128-slot-aligned row per 16 KiB
-# tile (csrc/gossip_tile.cuh).
+# tile (csrc/gossip_tile.cuh).  Wider rows take the wide-row body.
 MAX_TILE_S = 4096
 
 
+def wide_form(s: int) -> bool:
+    """Whether K2/K4 run their wide-row body (rows wider than a tile)."""
+    return s > MAX_TILE_S
+
+
 def _require_tiles(name: str, s: int, *planes) -> None:
-    """What K2 and K4 take on the tiled CUDA body (csrc/gossip_tile.cuh):
-    whole 128-slot rows, at most one row per 16 KiB tile, fewer than 2^31
-    rows, and planes its bulk copies can address (16-byte aligned)."""
-    kernels.require(s % 128 == 0 and s <= MAX_TILE_S,
-                    f"{name}: the CUDA kernel takes S % 128 == 0 and "
-                    f"S <= {MAX_TILE_S} (got S={s})")
+    """What K2 and K4 take on CUDA (csrc/gossip_tile.cuh): whole 128-slot
+    rows (the tiled body up to MAX_TILE_S slots, the wide-row body past
+    it), fewer than 2^31 rows, and planes the bulk copies can address
+    (16-byte aligned)."""
+    kernels.require(s % 128 == 0,
+                    f"{name}: the CUDA kernel takes S % 128 == 0 (got S={s})")
     kernels.require(planes[0].shape[0] < 2**31,
                     f"{name}: the CUDA kernel takes fewer than 2^31 rows")
     kernels.require(all(p.data_ptr() % 16 == 0 for p in planes
@@ -86,8 +91,8 @@ def gossip_fused(n: int, s: int, k_max: int, mail, payload, k_eff, shifts,
     ``k_eff`` int32 ``[N]`` (ignored when ``masks`` is given), ``shifts``
     int32 ``[k_max]`` on the device (the ring draws ``[1, N)``; any int32
     shift gives the plain version's result), ``masks`` bool ``[k_max, N,
-    S]``.  The CUDA kernel ``csrc/gossip.cu`` takes ``S % 128 == 0``,
-    ``S <= 4096`` and 16-byte aligned planes."""
+    S]``.  The CUDA kernel ``csrc/gossip.cu`` takes ``S % 128 == 0`` and
+    16-byte aligned planes (its wide-row body past ``MAX_TILE_S``)."""
     req = kernels.require
     dev = mail.device
     req(all(p.shape == (n, s) and p.dtype == torch.int32
@@ -116,7 +121,8 @@ def gossip_fused(n: int, s: int, k_max: int, mail, payload, k_eff, shifts,
         p(payload), None if masks is not None else p(k_eff), p(masks),
         p(shifts), kernels.stream_of(mail))
     kernels.check(rc, "gossip")
-    kernels.LAUNCHES["gossip" if masks is None else "gossip_masks"] += 1
+    kernels.LAUNCHES[("gossip_wide" if wide_form(s) else "gossip")
+                     + ("_masks" if masks is not None else "")] += 1
     return mail
 
 
@@ -165,7 +171,8 @@ def gossip_fused_stacked(n_local: int, s: int, k_max: int, single_col: bool,
     gives the plain version's result); ``s1``/``s2`` int32 ``[D, k_max]``
     per-shard column shifts (``s2`` unused when ``single_col``).  The
     CUDA kernel ``csrc/gossip_stacked.cu`` for CUDA tensors (mail updated
-    in place; ``S % 128 == 0``, ``S <= 4096``, 16-byte aligned planes),
+    in place; ``S % 128 == 0``, 16-byte aligned planes; the wide-row body
+    past ``MAX_TILE_S``),
     :func:`gossip_stacked_plain` for CPU ones."""
     req = kernels.require
     dev = mail.device
@@ -205,6 +212,7 @@ def gossip_fused_stacked(n_local: int, s: int, k_max: int, single_col: bool,
         p(mail), p(payloads), p(masks), p(c), p(s1), p(s2),
         kernels.stream_of(mail))
     kernels.check(rc, "gossip_stacked")
-    kernels.LAUNCHES["gossip_stacked" if masks is None
-                     else "gossip_stacked_masks"] += 1
+    kernels.LAUNCHES[("gossip_stacked_wide" if wide_form(s)
+                      else "gossip_stacked")
+                     + ("_masks" if masks is not None else "")] += 1
     return mail

@@ -11,6 +11,9 @@ port simply draws each request on its own.
 Drop coins are kept as float32 uniforms: ``bernoulli(k, p)`` is
 ``uniform(k) < f32(p)``, compared at the use site.
 
+Every draw follows the stream of ops/threefry.py in force (partitionable
+or legacy), as the JAX package's follow jax's flag.
+
 The sharded ring step draws per shard (:func:`sharded_ring_rng`): its
 per-shard streams, concatenated in shard order, are the flat draws the
 step reads on the ``[N, ...]`` layout.  Each stream is drawn for every
@@ -43,16 +46,18 @@ class RingRng(NamedTuple):
 
 def hash_ring_rng(key: Key, *, n: int, s: int, g: int, k_max: int,
                   p_cnt: int, seed_rows: int, use_drop: bool,
-                  need_ctrl: bool, need_burst: bool, device) -> RingRng:
-    """The single-chip ring step's plan (JAX ``hash_ring_rng`` with
-    ``shift_set=0``).  The natural step draws the control and burst coins
+                  need_ctrl: bool, need_burst: bool, device,
+                  shift_set: int = 0) -> RingRng:
+    """The single-chip ring step's plan (JAX ``hash_ring_rng``).  The
+    natural step draws the control and burst coins
     (``need_ctrl``/``need_burst``); the folded step reads neither, and
     their keys are separate, so leaving them out changes no other
-    stream."""
+    stream.  With ``shift_set`` K the shift draw is K-table indices in
+    ``[0, K)`` (``SHIFT_SET``)."""
     return hash_ring_rng_keys(
         [key], n=n, s=s, g=g, k_max=k_max, p_cnt=p_cnt,
         seed_rows=seed_rows, use_drop=use_drop, need_ctrl=need_ctrl,
-        need_burst=need_burst, device=device)[0]
+        need_burst=need_burst, device=device, shift_set=shift_set)[0]
 
 
 # Elements per pass of a multi-key draw: the threefry's int64 working
@@ -75,7 +80,7 @@ def _draw_keys(keys, numel: int, device) -> list:
 def hash_ring_rng_keys(keys, *, n: int, s: int, g: int, k_max: int,
                        p_cnt: int, seed_rows: int, use_drop: bool,
                        need_ctrl: bool, need_burst: bool,
-                       device) -> list:
+                       device, shift_set: int = 0) -> list:
     """:func:`hash_ring_rng` for each key of ``keys``, each stream drawn
     for every key in one pass (``uniform_keys``): the per-tick plans of a
     whole segment at once, for ``RNG_MODE: hoisted`` (the JAX
@@ -90,8 +95,8 @@ def hash_ring_rng_keys(keys, *, n: int, s: int, g: int, k_max: int,
               for sk in subs]
         return _draw_keys(ks, numel, device)
 
-    shift_draw = [randint(sk[5], (k_max,), 1, max(n, 2), device)
-                  for sk in subs]
+    lo, hi = (0, shift_set) if shift_set else (1, max(n, 2))
+    shift_draw = [randint(sk[5], (k_max,), lo, hi, device) for sk in subs]
     thin_u = draw(1, n * s) if g < s else [empty] * k
     if not use_drop:
         return [RingRng(shift_draw[i], thin_u[i], (), empty, empty, empty,

@@ -2,10 +2,28 @@
 
 Every random stream of the ring step comes from ``jax.random`` in the
 JAX package, so per-tick parity with it is only possible if the port
-reproduces those bits exactly.  This module ports the pieces the slice
-needs from jax 0.9 (``_src/prng.py`` threefry2x32 and its
-``jax_threefry_partitionable=True`` split/bits; ``_src/random.py``
-``_uniform`` and ``_randint``), under JAX's default 32-bit mode.
+reproduces those bits exactly.  This module ports the pieces the port
+needs from jax 0.9 (``_src/prng.py`` threefry2x32 with both of its
+streams; ``_src/random.py`` ``_uniform`` and ``_randint``), under JAX's
+default 32-bit mode.
+
+Two streams, as jax has (its ``jax_threefry_partitionable`` flag):
+
+* partitionable (jax 0.9's default): element ``i`` of a draw hashes the
+  count pair ``(0, i)`` and XORs the two output words; ``split(key, num)``
+  hashes ``(0, i)`` for key ``i``.  Element ``i`` depends on ``i`` alone.
+* legacy: a draw of ``n`` elements hashes the pairs ``(i, i + h)``, ``h =
+  ceil(n / 2)`` (an odd ``n`` pads its last pair with a zero count and
+  drops that pad's output), and concatenates the pairs' first words, then
+  their second words; ``split(key, num)`` is the draw of ``2 * num`` counts
+  read as ``num`` key pairs.  Element ``i`` depends on ``n`` too, so a
+  draw taken at chosen elements (:func:`uniform_at`) needs its count.
+
+``fold_in`` is the same in both.  The module's stream starts from the
+environment variable jax itself reads, ``JAX_THREEFRY_PARTITIONABLE``
+(parsed as jax parses a boolean flag; unset means True, as in jax 0.9),
+so one setting drives both packages; :func:`partitionable` switches it
+for a block, as ``jax.threefry_partitionable`` does.
 
 Representation: a key is a pair of Python ints ``(k0, k1)``, each a u32.
 Key derivation (``prng_key``, ``fold_in``, ``split``) is scalar work and
@@ -18,13 +36,13 @@ The round function is written once with plain operators, so the same
 code hashes Python ints and int64 tensors, keys included: one pass over
 a ``[K, numel]`` counter grid with a ``[K, 1]`` key column draws K keys'
 streams at once (``uniform_keys``, the JAX package's vmapped draws).
-Element ``i`` of a draw depends on ``i`` and the key only, so a draw can
-also be taken at chosen elements (``uniform_at``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 from typing import Tuple
 
 import torch
@@ -34,6 +52,37 @@ Key = Tuple[int, int]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+
+
+def _bool_env(name: str, default: bool) -> bool:
+    """A boolean environment variable as jax's ``bool_env`` reads it."""
+    val = os.getenv(name, str(default)).lower()
+    if val in ("y", "yes", "t", "true", "on", "1"):
+        return True
+    if val in ("n", "no", "f", "false", "off", "0"):
+        return False
+    raise ValueError(f"invalid truth value {val!r} for environment {name!r}")
+
+
+# The stream in force: jax's own flag, read from the same variable.
+_PARTITIONABLE = _bool_env("JAX_THREEFRY_PARTITIONABLE", True)
+
+
+def is_partitionable() -> bool:
+    """Whether draws follow the partitionable stream (else the legacy)."""
+    return _PARTITIONABLE
+
+
+@contextlib.contextmanager
+def partitionable(flag: bool):
+    """Draw from the partitionable stream (True) or the legacy one (False)
+    inside the block, as ``with jax.threefry_partitionable(flag)``."""
+    global _PARTITIONABLE
+    prev, _PARTITIONABLE = _PARTITIONABLE, bool(flag)
+    try:
+        yield
+    finally:
+        _PARTITIONABLE = prev
 
 
 def threefry2x32(k0: int, k1: int, x0, x1):
@@ -75,30 +124,67 @@ def fold_in(key: Key, data: int) -> Key:
 
 
 def split(key: Key, num: int = 2) -> list:
-    """``jax.random.split`` on the partitionable stream (the fold-like
-    split): key ``i`` is the hash of the count pair ``(0, i)``."""
-    return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+    """``jax.random.split``: on the partitionable stream key ``i`` is the
+    hash of the count pair ``(0, i)``; on the legacy one the ``2 * num``
+    counts hash as the pairs ``(i, i + num)``, whose first words then
+    second words, read two at a time, are the keys."""
+    if _PARTITIONABLE:
+        return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+    pairs = [threefry2x32(key[0], key[1], i, i + num) for i in range(num)]
+    words = [w0 for w0, _ in pairs] + [w1 for _, w1 in pairs]
+    return [(words[2 * i], words[2 * i + 1]) for i in range(num)]
+
+
+def _check_size(numel: int) -> None:
+    """Counts are u32.  The legacy stream also splits its key into blocks
+    from 2^32 - 1 elements on (jax's ``nblocks`` path), which no draw
+    below this guard reaches."""
+    if numel >= (1 << 32 if _PARTITIONABLE else M32):
+        raise ValueError(f"draw of {numel} elements exceeds the u32 count")
 
 
 def random_bits(key: Key, numel: int, device) -> torch.Tensor:
     """32 random bits per element, flat ``[numel]`` int64 holding u32.
-
-    Partitionable stream: element ``i`` hashes the 64-bit count ``i``
-    split into ``(hi, lo)`` words and XORs the two output words.  A
-    shape's draw is its flat draw reshaped, so callers pass the element
+    A shape's draw is its flat draw reshaped, so callers pass the element
     count only."""
-    if numel >= 1 << 32:
-        raise ValueError(f"draw of {numel} elements exceeds the u32 count")
-    lo = torch.arange(numel, dtype=torch.int64, device=device)
-    return _bits_at(key[0], key[1], lo)
+    _check_size(numel)
+    if _PARTITIONABLE:
+        lo = torch.arange(numel, dtype=torch.int64, device=device)
+        return _bits_at(key[0], key[1], lo, numel)
+    return _legacy_rows(key[0], key[1], 1, numel, device).reshape(-1)
 
 
-def _bits_at(k0, k1, lo: torch.Tensor) -> torch.Tensor:
-    """The bits of elements ``lo`` (< 2^32, so the count's high word is
-    0) under the key words ``k0``/``k1`` (ints, or tensors broadcasting
-    against ``lo``)."""
-    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
-    return b0.bitwise_xor_(b1)
+def _legacy_rows(k0, k1, rows: int, numel: int, device) -> torch.Tensor:
+    """The legacy stream's ``[rows, numel]`` draws under key words that
+    broadcast against a ``[rows, 1]`` column: each row hashes its ``h``
+    pairs ``(i, i + h)`` once and lays out their first words, then their
+    second words (an odd draw's last pair ends in the zero pad)."""
+    h = (numel + 1) // 2
+    x0 = torch.arange(h, dtype=torch.int64, device=device)
+    x1 = x0 + h
+    if numel % 2:
+        x1[-1] = 0
+    x0, x1 = x0[None, :].expand(rows, h), x1[None, :].expand(rows, h)
+    w0, w1 = threefry2x32(k0, k1, x0, x1)
+    return torch.cat([w0, w1], dim=1)[:, :numel]
+
+
+def _bits_at(k0, k1, lo: torch.Tensor, numel: int) -> torch.Tensor:
+    """The bits of elements ``lo`` (each < ``numel`` < 2^32) of a
+    ``numel``-element draw under the key words ``k0``/``k1`` (ints, or
+    tensors broadcasting against ``lo``)."""
+    if _PARTITIONABLE:
+        b0, b1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+        return b0.bitwise_xor_(b1)
+    # Element i is word 0 of the pair (i, i + h) below h, else word 1 of
+    # the pair (i - h, i); the odd draw's pad count is 0.
+    h = (numel + 1) // 2
+    first = lo < h
+    x0 = torch.where(first, lo, lo - h)
+    x1 = torch.where(first, lo + h, lo)
+    x1 = torch.where(x1 >= numel, 0, x1)
+    b0, b1 = threefry2x32(k0, k1, x0, x1)
+    return torch.where(first, b0, b1)
 
 
 def _unit(bits: torch.Tensor) -> torch.Tensor:
@@ -113,27 +199,31 @@ def uniform(key: Key, shape, device) -> torch.Tensor:
     return _unit(random_bits(key, math.prod(shape), device)).reshape(shape)
 
 
-def uniform_at(key: Key, idx: torch.Tensor) -> torch.Tensor:
-    """Elements ``idx`` (int64, any shape, each < 2^32) of the flat draw
-    ``uniform(key, ...)``, on ``idx``'s device."""
-    return _unit(_bits_at(key[0], key[1], idx))
+def uniform_at(key: Key, idx: torch.Tensor, numel: int) -> torch.Tensor:
+    """Elements ``idx`` (int64, any shape, each < ``numel``) of the flat
+    draw ``uniform(key, (numel,))``, on ``idx``'s device."""
+    _check_size(numel)
+    return _unit(_bits_at(key[0], key[1], idx, numel))
 
 
 def uniform_keys(keys, numel: int, device) -> torch.Tensor:
     """``torch.cat([uniform(k, (numel,)) for k in keys])`` in one pass
-    over a ``[len(keys), numel]`` grid.  The key words reach the device
-    as fills, so nothing is copied from the host."""
+    over a ``[len(keys), numel]`` grid (``[len(keys), ceil(numel / 2)]``
+    pairs on the legacy stream).  The key words reach the device as
+    fills, so nothing is copied from the host."""
     if len(keys) == 1:
         return uniform(keys[0], (numel,), device)
-    if numel >= 1 << 32:
-        raise ValueError(f"draw of {numel} elements exceeds the u32 count")
+    _check_size(numel)
 
     def column(word):
         return torch.stack([torch.full((), k[word], dtype=torch.int64,
                                        device=device) for k in keys])[:, None]
 
+    if not _PARTITIONABLE:
+        return _unit(_legacy_rows(column(0), column(1), len(keys), numel,
+                                  device)).reshape(-1)
     lo = torch.arange(numel, dtype=torch.int64, device=device)[None, :]
-    return _unit(_bits_at(column(0), column(1), lo)).reshape(-1)
+    return _unit(_bits_at(column(0), column(1), lo, numel)).reshape(-1)
 
 
 def randint(key: Key, shape, minval: int, maxval: int, device) -> torch.Tensor:

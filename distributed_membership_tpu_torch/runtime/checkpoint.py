@@ -337,7 +337,7 @@ class RunInterrupted(RuntimeError):
 
 def chunked_run(params: Params, seed: int, total: int, *, device,
                 init_carry, segment_fn, collect_events: bool,
-                telemetry=None, with_series: bool = False):
+                telemetry=None, with_series: bool = False, finalize=None):
     """Run ticks ``[0, total)`` in ``CHECKPOINT_EVERY``-tick segments.
 
     ``init_carry()`` builds the fresh carry on ``device``;
@@ -349,6 +349,11 @@ def chunked_run(params: Params, seed: int, total: int, *, device,
     or None) with ``t0 = a``.  The carry's snapshot is copied to the
     host only with ``CHECKPOINT_DIR``; its write overlaps the next
     segment, with a barrier at the following boundary.
+
+    ``finalize(carry, events) -> (carry, events)``, when given, runs once
+    after the last segment, also on a resume that finds the run complete
+    (``PROBE_IO: approx_lag``'s epilogue); the snapshots stay as they
+    were before it, so a resumed run applies it exactly once.
 
     Returns ``(final_carry, events)`` with the whole run's events, equal
     to the unchunked run's."""
@@ -482,8 +487,12 @@ def chunked_run(params: Params, seed: int, total: int, *, device,
                      tick_start=int(start))
 
     if collect_events:
-        return carry, acc
-    if acc is None:          # zero-length run
+        events = acc
+    elif acc is None:        # zero-length run
         return carry, SparseTickEvents(*(np.zeros((0,), np.int32)
                                          for _ in range(4)))
-    return carry, SparseTickEvents(*acc)
+    else:
+        events = SparseTickEvents(*acc)
+    if finalize is not None and total > 0:
+        carry, events = finalize(carry, events)
+    return carry, events

@@ -87,9 +87,10 @@ def make_run_key(params: Params, seed: int) -> threefry.Key:
     """Root key of the run.  Only threefry2x32 has a portable stream."""
     if params.PRNG_IMPL != "threefry2x32":
         raise NotImplementedError(
-            f"PRNG_IMPL {params.PRNG_IMPL} draws from XLA's hardware RNG, "
-            "which has no portable stream; the port runs threefry2x32 only "
-            "(ROADMAP.md Queue 1 item 8)")
+            f"PRNG_IMPL {params.PRNG_IMPL}: it draws from XLA's hardware "
+            "RNG, whose bits no other implementation can reproduce, so it "
+            "has no portable stream; the port runs threefry2x32 (either "
+            "stream, JAX_THREEFRY_PARTITIONABLE) only")
     return threefry.prng_key(seed)
 
 

@@ -222,7 +222,9 @@ def test_run_on_card_matches_cpu(cuda, tmp_path):
         "receive": 80, "receive_admit": 0, "gossip": 0, "gossip_masks": 80,
         "probe": 80, "probe_hist": 0, "receive_folded": 0, "gossip_folded": 0,
         "gossip_folded_masks": 0, "probe_folded": 0, "probe_folded_hist": 0,
-        "gossip_stacked": 0, "gossip_stacked_masks": 0}
+        "gossip_stacked": 0, "gossip_stacked_masks": 0, "gossip_wide": 0,
+        "gossip_wide_masks": 0, "gossip_stacked_wide": 0,
+        "gossip_stacked_wide_masks": 0}
     run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
     for name in ("dbg.log", "stats.log", "msgcount.log"):
         assert ((tmp_path / "cuda" / name).read_bytes()
@@ -740,3 +742,141 @@ def test_blocked_and_hoisted_runs_on_card_match_cpu(cuda, tmp_path, extra):
     assert (card.extra["detection_summary"]
             == cpu.extra["detection_summary"])
     _timelines_equal(card.extra["timeline"], cpu.extra["timeline"])
+
+
+# Rows wider than one 16 KiB tile: K2's and K4's wide-row body.  Ragged N
+# (not a multiple of anything the kernel tiles by), and N * STRIDE % S != 0
+# except at N = S, so the wrapped rows take the second column alignment.
+WIDE_CASES = [(301, 4224), (77, 8192), (40, 16384), (16384 // 64, 16384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["k_eff", "masks"])
+@pytest.mark.parametrize("n,s", WIDE_CASES)
+def test_gossip_kernel_wide_rows(cuda, form, n, s):
+    k_max = 3
+    rng = np.random.default_rng(n + s)
+    mail = _packed(rng, n, 0.5, (n, s)).to(cuda)
+    view = _packed(rng, n, 0.8, (n, s)).to(cuda)
+    k_eff = torch.from_numpy(rng.integers(0, k_max + 1, size=n,
+                                          dtype=np.int32)).to(cuda)
+    masks = (_flags(rng, k_max * n * s, 0.7).reshape(k_max, n, s).to(cuda)
+             if form == "masks" else None)
+    payload = view if form == "masks" else torch.where(
+        _flags(rng, n * s, 0.3).reshape(n, s).to(cuda), view, 0)
+    shifts = torch.tensor([1, n - 1, n // 3], dtype=torch.int32,
+                          device=cuda)
+    want = gossip_plain(n, s, k_max, mail, payload, k_eff, shifts, masks)
+    kernels.reset_launches()
+    got = gossip_fused(n, s, k_max, mail.clone(), payload, k_eff, shifts,
+                       masks=masks)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gossip_wide" if form == "k_eff"
+                            else "gossip_wide_masks"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["stacked", "masks"])
+@pytest.mark.parametrize("d,n_local,s", [(1, 301, 4224), (3, 77, 8192),
+                                         (8, 5, 16384)])
+def test_gossip_stacked_kernel_wide_rows(cuda, form, d, n_local, s):
+    k_max = 3
+    n = d * n_local
+    single = (n_local * STRIDE) % s == 0
+    rng = np.random.default_rng(d * n_local + s)
+    mail = _packed(rng, n, 0.5, (n, s)).to(cuda)
+    view = _packed(rng, n, 0.8, (n, s)).to(cuda)
+    c = torch.tensor([n_local - 1, 0, n_local // 3], dtype=torch.int32,
+                     device=cuda)
+    s1, s2 = (torch.from_numpy(rng.integers(0, s, size=(d, k_max),
+                                            dtype=np.int32)).to(cuda)
+              for _ in range(2))
+    payloads = view[None] if form == "masks" else torch.where(
+        _flags(rng, k_max * n * s, 0.3).reshape(k_max, n, s).to(cuda),
+        view[None], 0)
+    masks = (None if form == "stacked" else
+             _flags(rng, k_max * n * s, 0.7).reshape(k_max, n, s).to(cuda))
+    want = gossip_stacked_plain(n_local, s, k_max, single, mail, payloads,
+                                c, s1, s2, masks)
+    kernels.reset_launches()
+    got = gossip_fused_stacked(n_local, s, k_max, single, mail.clone(),
+                               payloads, c, s1, s2, masks)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gossip_stacked_wide" if form == "stacked"
+                            else "gossip_stacked_wide_masks"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 1 << 20, (1 << 20) + 1])
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_threefry_bits_card_equal_cpu(cuda, n, partitionable):
+    """Both threefry streams draw the same bits on the card as on the
+    CPU (int64 arithmetic masked to u32 on either device)."""
+    from distributed_membership_tpu_torch.ops import threefry
+    key = threefry.fold_in(threefry.prng_key(2026), n)
+    with threefry.partitionable(partitionable):
+        got = threefry.random_bits(key, n, cuda).cpu()
+        want = threefry.random_bits(key, n, "cpu")
+        idx = torch.arange(0, n, max(n // 97, 1))
+        at = threefry.uniform_at(key, idx.to(cuda), n).cpu()
+        at_cpu = threefry.uniform_at(key, idx, n)
+    assert torch.equal(got, want)
+    assert torch.equal(at, at_cpu)
+
+
+@pytest.mark.cuda
+def test_update_agg_card_equal_cpu(cuda):
+    """One AggStats tick (the census tick and a later one) on the card
+    equals the CPU's: the int32 index_add counts are order-free."""
+    from distributed_membership_tpu_torch.observability.aggregates import (
+        init_agg, update_agg)
+    n, m = 4096, 128
+    rng = np.random.default_rng(7)
+    fail_np = np.zeros(n, bool)
+    fail_np[rng.choice(n, n // 2, replace=False)] = True
+
+    def ids(p):
+        x = rng.integers(0, n, size=(n, m), dtype=np.int64)
+        return torch.from_numpy(np.where(rng.random((n, m)) < p, x,
+                                         -1).astype(np.int32))
+    tick = dict(join_ids=ids(0.05), rm_ids=ids(0.1), view_ids=ids(0.7),
+                sent_tick=torch.from_numpy(rng.integers(
+                    0, 100, n, dtype=np.int32)),
+                recv_tick=torch.from_numpy(rng.integers(
+                    0, 100, n, dtype=np.int32)))
+    tick["view_present"] = tick["view_ids"] >= 0
+    out = {}
+    for dev in ("cpu", cuda):
+        agg = init_agg(n, dev)
+        kw = {k: v.to(dev) for k, v in tick.items()}
+        fail = torch.from_numpy(fail_np).to(dev)
+        for t in (8, 9):
+            agg = update_agg(agg, t=t, fail_mask=fail, fail_time=8, **kw)
+        out[str(dev)] = [x.cpu() for x in agg]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(got, want)
+    assert int(out["cpu"][1].sum()) > 0     # true detections at t = 9
+
+
+@pytest.mark.cuda
+def test_send_budget_card_equal_cpu(cuda):
+    """ENFORCE_BUFFSIZE's cumsum forms (1-D, row-count/clip, probes) on
+    the card equal the CPU's."""
+    from distributed_membership_tpu_torch.backends.tpu_hash import (
+        SendBudget)
+    rng = np.random.default_rng(11)
+    masks = [torch.from_numpy(rng.random(4096) < 0.3),
+             torch.from_numpy(rng.random((4096, 128)) < 0.4),
+             torch.from_numpy(rng.random((4096, 128)) < 0.4)]
+    probes = torch.from_numpy(rng.random((4096, 16)) < 0.8)
+    out = {}
+    for dev in ("cpu", cuda):
+        b = SendBudget(250000, dev)
+        kept = [b.take(m.to(dev)).cpu() for m in masks]
+        kept.append(b.take_probes(probes.to(dev), 2).cpu())
+        out[str(dev)] = kept + [b.used.cpu()]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(got, want)
+    assert int(out["cpu"][-1]) == 250000      # the budget bound

@@ -178,9 +178,16 @@ def test_scatter_fused_off_on_both_devices(testcases_dir, value, device):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_scatter_agg_mode_still_refused(testcases_dir, device):
+    """EVENT_MODE agg on the scatter exchange resolves to the AggStats
+    path on both devices, as the JAX package's config does."""
     p = _testcase_params(testcases_dir, "EVENT_MODE: agg\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_config(p, collect_events=False, fail_ids=(3,), device=device)
+    cfg = make_config(p, collect_events=False, fail_ids=(3,), device=device)
+    jcfg = jax_hash.make_config(
+        _testcase_params(testcases_dir, "EVENT_MODE: agg\n", jax=True),
+        collect_events=False, fail_ids=(3,))
+    assert (cfg.exchange, cfg.fast_agg, cfg.collect_events) == (
+        jcfg.exchange, jcfg.fast_agg, jcfg.collect_events) == (
+        "scatter", False, False)
 
 
 def test_sharded_scatter_still_refused(testcases_dir):

@@ -578,9 +578,16 @@ def test_hoisted_is_refused_as_jax():
 
 
 def test_more_failed_ids_than_fast_agg_is_refused():
+    """More than 8 failed ids under EVENT_MODE agg resolve to the AggStats
+    path, as in the JAX package's sharded_config."""
     p = Params.from_text(_REF + "EVENT_MODE: agg\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        sh.sharded_config(p, False, tuple(range(9)), 8, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jp = JaxParams.from_text(_REF + "EVENT_MODE: agg\n")
+    from distributed_membership_tpu.backends import tpu_hash_sharded as jsh
+    want = jsh.sharded_config(jp, False, tuple(range(9)), None, 32)
+    got = sh.sharded_config(p, False, tuple(range(9)), 8, device="cpu")
+    assert got.fast_agg == want.fast_agg is False
 
 
 def test_gates_and_messages_match_jax():
@@ -593,7 +600,8 @@ def test_gates_and_messages_match_jax():
     # but L=8 rows do not fold at P=2 (128/P = 64): the natural layout,
     # whose kernels refuse S < 128 on CUDA.
     with pytest.raises(NotImplementedError,
-                       match=r"VIEW_SIZE 16 on CUDA.*Queue 1 item 9"):
+                       match=r"VIEW_SIZE 16 on CUDA outside FOLDED: the "
+                       r"natural kernels take whole 128-slot rows"):
         sh.sharded_config(Params.from_text(folded16), False, (3,), 8,
                           device="cuda")
     for extra, n_local in (("FUSED_GOSSIP: 1\n", 4),
