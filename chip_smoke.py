@@ -137,6 +137,41 @@ Phases (any failure exits non-zero before the final line):
                 TREMOVE 8).  Phase 2 holds K2 and
                 K4's wide forms and K1 and K3 at N = S = 16384 against
                 their plain versions.
+ 34. folded_probes0 -- confs/ring_1m_s16_folded_probes0.conf (the folded
+                S=16 path with PROBES 0, the Params default; 120 ticks):
+                K5 and K6 once per tick and K7 never, detections > 0; its
+                N=2^14 lossy twin card vs CPU (summary and every leaf);
+ 35. serve   -- confs/ring_1m_s128_serve.conf (the main path's geometry,
+                40 ticks in 10-tick segments) batch, then served by the
+                service daemon (service/daemon.py, in this process) under
+                four query threads reading /v1/census and /v1/member/<i>
+                (one request every 20 ms each) and a /metrics scraper:
+                K1-K3 once per tick, the summary equals the batch run's;
+                prints ms/tick served against batch, the hook's host pull
+                per publishing boundary, each derive's mode and ms, the
+                boundaries the publisher skipped, the daemon's query
+                p50/p99 and the peak device memory;
+ 36. serve_inject -- confs/ring_4k_s128_serve_inject.conf (N=4096, full
+                events): a crash injected over POST /v1/events while the
+                engine is parked at boundary 0, uninterrupted; the same
+                run stopped over POST /v1/admin/shutdown at 30, resumed
+                served with --resume and stopped at 60, then resumed
+                headless through run_conf: the three logs and
+                timeline.jsonl byte-identical to the uninterrupted run and
+                to the CPU's served run with the same injection;
+ 37. serve_sharded -- confs/ring_16k_s128_sharded8_serve.conf (eight
+                shards, N=2^14, full events) served with the crash
+                injected at boundary 0: K1, K4 and K3 once per tick, logs
+                and timeline byte-identical to the CPU's run of the union
+                scenario (the same event as a SCENARIO file);
+ 38. serve_replicas -- confs/ring_16k_s128_serve_replicas.conf (N=2^14,
+                two read-replica processes on a four-slot shm ring) under
+                four closed-loop client processes on the replicas: each
+                replica's /v1/census equals the daemon's at ticks 0 and
+                60, the summary equals the batch run's, and no ring
+                segment of this process is left in /dev/shm after the
+                shutdown; prints ms/tick served against batch and the
+                replicas' query rate.
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -183,7 +218,8 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "telemetry", "scenario", "scenario_folded", "scenario_sharded",
           "scenario_parity", "checkpoint", "checkpoint_sharded_folded",
           "mega", "hoisted", "checkpoint_parity", "legacy", "multi",
-          "shift_set", "buffsize", "approx_lag", "wide")
+          "shift_set", "buffsize", "approx_lag", "wide", "folded_probes0",
+          "serve", "serve_inject", "serve_sharded", "serve_replicas")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
@@ -1682,6 +1718,738 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
     return info
 
 
+# ---------------------------------------------------------------------------
+# The service daemon (phases serve*): the engine in this (main) thread,
+# HTTP clients on threads or in processes
+
+QUERY_PAUSE_S = 0.02            # a paced query thread's pause
+CLIENT_CODE = """
+import http.client, random, sys
+port, n = int(sys.argv[1]), int(sys.argv[2])
+rng, count = random.Random(port), 0
+conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+try:
+    while True:
+        path = ("/v1/census" if count % 2 else
+                f"/v1/member/{rng.randrange(n)}")
+        conn.request("GET", path)
+        conn.getresponse().read()
+        count += 1
+        if count % 1000 == 0:
+            print(count, flush=True)
+except (OSError, http.client.HTTPException):
+    pass
+"""
+
+
+def http_get(port: int, path: str, method: str = "GET", body=None):
+    """``(status, body bytes)`` of one request to 127.0.0.1:``port``."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def http_json(port: int, path: str, method: str = "GET", body=None):
+    code, data = http_get(port, path, method, body)
+    return code, json.loads(data)
+
+
+def wait_health(port: int, pred, timeout: float = 600) -> dict:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            code, h = http_json(port, "/healthz")
+            if code == 200 and pred(h):
+                return h
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise TimeoutError("the daemon's health never met the predicate")
+
+
+def serve_in_process(torch, params, out_dir: str, script, device="cuda",
+                     gates=None):
+    """``service.daemon.serve_run(params)`` in this (main) thread, with
+    ``script(port)`` on a client thread; the daemon always gets its
+    shutdown.  ``gates`` ({tick: threading.Event}) park the engine after
+    the boundary hook of those ticks until the script sets them.  Returns
+    ``(rc, script's result, got)``: ``got`` holds the run's ControlState
+    (``state``), its RunResult (``result``, a completed run only), the
+    engine's wall seconds (``engine_s``, run_conf's backend tail with
+    its boundary hooks), the last boundary's carry (``carry``), each
+    published snapshot's ``derive_info`` (``derives``) and the
+    ``(tick, start, end)`` clock spans of the hooks (``hooks``) and the
+    derives (``publishes``)."""
+    import threading
+
+    from distributed_membership_tpu_torch.service import daemon
+    from distributed_membership_tpu_torch.service.snapshot import Snapshot
+
+    gates = gates or {}
+    box, got = {}, {}
+    orig_hook, orig_run = daemon._make_hook, daemon._run_backend
+
+    def make_hook(state):
+        got["state"] = state
+        hook = orig_hook(state)
+
+        def gated(carry, tick):
+            t0 = time.perf_counter()
+            upd = hook(carry, tick)
+            got["hooks"].append((tick, t0, time.perf_counter()))
+            got["carry"] = carry
+            if tick in gates:
+                gates[tick].wait(timeout=600)
+            return upd
+        return gated
+
+    def run_backend(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            got["result"] = orig_run(*a, **kw)
+        finally:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            got["engine_end"] = time.perf_counter()
+            got["engine_s"] = got["engine_end"] - t0
+        return got["result"]
+
+    got["derives"], got["hooks"], got["publishes"] = [], [], []
+    orig_pre = Snapshot.precompute
+
+    def precompute(snap, prev=None):
+        t0 = time.perf_counter()
+        orig_pre(snap, prev)
+        got["derives"].append(snap.derive_info)
+        got["publishes"].append((snap.tick, t0, time.perf_counter()))
+
+    beacon = os.path.join(out_dir, daemon.SERVICE_JSON)
+    os.makedirs(out_dir, exist_ok=True)
+    if os.path.exists(beacon):
+        os.unlink(beacon)
+
+    def port():
+        while True:
+            try:
+                return json.load(open(beacon))["port"]
+            except (OSError, ValueError, KeyError):
+                time.sleep(0.05)
+
+    def client():
+        try:
+            box["result"] = script(port())
+        except BaseException as e:      # re-raised on the main thread
+            box["error"] = e
+        finally:
+            for g in gates.values():
+                g.set()
+            try:
+                http_get(port(), "/v1/admin/shutdown", "POST", {})
+            except OSError:
+                pass
+
+    daemon._make_hook, daemon._run_backend = make_hook, run_backend
+    Snapshot.precompute = precompute
+    t = threading.Thread(target=client, daemon=True, name="smoke-client")
+    t.start()
+    try:
+        rc = daemon.serve_run(params, out_dir=out_dir, device=device)
+    finally:
+        daemon._make_hook, daemon._run_backend = orig_hook, orig_run
+        Snapshot.precompute = orig_pre
+    t.join(timeout=120)
+    if "error" in box:
+        raise box["error"]
+    if t.is_alive():
+        raise AssertionError("the service client thread is wedged")
+    return rc, box.get("result"), got
+
+
+def query_threads(port: int, n: int, stop, count: list, pause=0.0,
+                  lat=None):
+    """Four query threads in this process: /v1/census and
+    /v1/member/<i> in turn, closed-loop (or one request every ``pause``
+    seconds each), until ``stop``; 503 (no snapshot yet) is fine, any
+    other failure code raises in the caller.  ``lat`` gets each
+    request's ``(start, seconds, path)``."""
+    import random
+    import threading
+
+    def one(k):
+        rng = random.Random(k)
+        i = 0
+        while not stop.wait(pause):
+            path = ("/v1/census" if i % 2 else
+                    f"/v1/member/{rng.randrange(n)}")
+            t0 = time.perf_counter()
+            try:
+                code, _ = http_get(port, path)
+            except OSError:
+                continue
+            if lat is not None:
+                lat.append((t0, time.perf_counter() - t0, path))
+            if code not in (200, 503):
+                count.append(("error", path, code))
+            count.append(code)
+            i += 1
+    threads = [threading.Thread(target=one, args=(k,), daemon=True)
+               for k in range(4)]
+    for th in threads:
+        th.start()
+    return threads
+
+
+def served_params(conf: str, **keys):
+    """The conf's Params for a served run, validated, with ``keys``."""
+    from distributed_membership_tpu_torch.config import Params
+    params = Params.from_file(conf, validate=False)
+    for k, v in keys.items():
+        setattr(params, k, v)
+    params.validate()
+    return params
+
+
+def phase_folded_probes0(torch, confs: str, paths: dict, out_dir: str,
+                         card: str) -> None:
+    """The folded path with PROBES 0: K5 and K6 once per tick, no K7;
+    its N=2^14 lossy twin card vs CPU."""
+    conf = os.path.join(confs, "ring_1m_s16_folded_probes0.conf")
+    ticks = conf_ticks(conf)
+    paths["folded_probes0"] = run_path(
+        torch, conf, "folded_probes0", launches_expected(
+            receive_folded=ticks, gossip_folded=ticks), out_dir)
+    info = paths["folded_probes0"]
+    if info["detection"].get("detections_total", 0) <= 0:
+        raise AssertionError(f"folded_probes0: no detection {info}")
+    log("folded_probes0: " + json.dumps(
+        {"ms_per_tick": 1e3 / info["ticks_per_s"],
+         "launches_per_tick": {k: v / ticks for k, v in
+                               info["launches"].items() if v},
+         "card": card}))
+    torch.cuda.empty_cache()
+    state_parity(torch, conf_variant(
+        os.path.join(confs, "ring_16k_s16_folded_drop.conf"), out_dir,
+        "folded_probes0_16k", PROBES=0), "folded_probes0_parity", out_dir,
+        card)
+
+
+def served_case(torch, params, out_dir: str, pause: float) -> tuple:
+    """``params`` served on the card under four query threads (closed-
+    loop, or paced by ``pause``) and a /metrics scraper every 0.5 s, with
+    every launch count set to 0 just before; -> ``(launches, got, info)``
+    where ``info`` holds what the case measured."""
+    import threading
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.observability.metricsbus import (
+        parse_text)
+    from distributed_membership_tpu_torch.service import api
+
+    lat = []
+
+    def script(port):
+        stop, codes, scrapes = threading.Event(), [], []
+        threads = query_threads(port, params.EN_GPSZ, stop, codes, pause,
+                                lat)
+
+        def scrape():
+            while not stop.wait(0.5):
+                code, text = http_get(port, "/metrics")
+                scrapes.append(code)
+        scraper = threading.Thread(target=scrape, daemon=True)
+        scraper.start()
+        h = wait_health(port, lambda h: h["status"] == "complete")
+        stop.set()
+        for th in threads + [scraper]:
+            th.join(timeout=60)
+        bad = [c for c in codes if isinstance(c, tuple)]
+        if bad or set(scrapes) - {200}:
+            raise AssertionError(f"serve: failed queries {bad[:5]} "
+                                 f"scrapes {sorted(set(scrapes))}")
+        code, text = http_get(port, "/metrics")
+        census = http_json(port, "/v1/census")[1]
+        return h, parse_text(text.decode()), census, len(codes)
+
+    # Where a slow query waited: gaps of a thread that only sleeps 1 ms
+    # (every thread waited for the GIL then) and long idle holds of the
+    # query gate, each as (start, ms).
+    gaps, holds, done = [], [], threading.Event()
+
+    def ticker():
+        last = time.perf_counter()
+        while not done.wait(0.001):
+            now = time.perf_counter()
+            if now - last > 0.02:
+                gaps.append((last, (now - last) * 1e3))
+            last = now
+
+    class TimedGate(api.QueryGate):
+        def leave(self, t0):
+            start = time.perf_counter()
+            super().leave(t0)
+            hold = time.perf_counter() - start
+            if hold > 0.02:
+                holds.append((start + hold, hold * 1e3))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    tick_thread = threading.Thread(target=ticker, daemon=True)
+    tick_thread.start()
+    orig_gate, api.QueryGate = api.QueryGate, TimedGate
+    t0 = time.perf_counter()
+    try:
+        rc, (h, metrics, census, queries), got = serve_in_process(
+            torch, params, out_dir, script)
+    finally:
+        api.QueryGate = orig_gate
+        done.set()
+        tick_thread.join()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"serve: rc {rc}")
+    got["gil_gaps"], got["gate_holds"] = gaps, holds
+    state = got["state"]
+    ticks = params.TOTAL_TIME
+    info = {
+        "load": ("closed-loop" if not pause else
+                 f"paced, {pause} s between a thread's requests"),
+        "served_ms_per_tick": got["engine_s"] * 1e3 / ticks,
+        "host_pull_s_per_publish": state.pull_s / state.pulls,
+        "host_pulls": state.pulls,
+        "derives": [{"mode": d["mode"], "ms": d["ms"]}
+                    for d in got["derives"]],
+        "boundaries_published": state.publisher.publishes,
+        "publisher_skipped": state.pulls - state.publisher.publishes,
+        "queries": queries,
+        "queries_per_s": queries / wall,
+        "query_p50_ms": metrics.get(("dm_query_p50_ms", ())),
+        "query_p99_ms": metrics.get(("dm_query_p99_ms", ())),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "census": census}
+    info.update(latency_tail(lat, got))
+    return launches, got, info
+
+
+def latency_tail(lat: list, got: dict) -> dict:
+    """The query threads' own p50/p99 (every request, from the client):
+    of those that started while the engine ran (from its first boundary
+    hook) and of those after it, while the publisher drains; and where
+    the slowest tenth of a percent of them ran: the share that
+    overlapped a boundary hook or a derive, and the ten slowest with
+    their start against the run's first hook."""
+    if not lat:
+        return {}
+    t_first = got["hooks"][0][1] if got["hooks"] else lat[0][0]
+
+    def pct(rows):
+        ms = sorted(x[1] * 1e3 for x in rows)
+        return ms and {"requests": len(ms), "p50_ms": ms[len(ms) // 2],
+                       "p99_ms": ms[min(len(ms) - 1, int(len(ms) * 0.99))],
+                       "max_ms": ms[-1]}
+
+    def during(t0, secs, spans):
+        return any(a < t0 + secs and t0 < b for _, a, b in spans)
+    slow = sorted(lat, key=lambda x: -x[1])[:max(len(lat) // 1000, 10)]
+    return {
+        "client_engine_running": pct([x for x in lat if t_first <= x[0]
+                                      < got["engine_end"]]),
+        "client_after_run": pct([x for x in lat
+                                 if x[0] >= got["engine_end"]]),
+        "slowest": len(slow),
+        "slowest_in_hook": sum(during(t, d, got["hooks"]) for t, d, _ in slow),
+        "slowest_in_derive": sum(during(t, d, got["publishes"])
+                                 for t, d, _ in slow),
+        "slowest_in_gil_gap": sum(during(t, d, [
+            (0, a, a + ms / 1e3) for a, ms in got["gil_gaps"]])
+            for t, d, _ in slow),
+        "slowest_in_gate_hold": sum(during(t, d, [
+            (0, b - ms / 1e3, b) for b, ms in got["gate_holds"]])
+            for t, d, _ in slow),
+        "gil_gaps_over_20ms": [(round(a - t_first, 3), round(ms, 1))
+                               for a, ms in got["gil_gaps"]][:40],
+        "gate_holds_over_20ms": [(round(b - t_first, 3), round(ms, 1))
+                                 for b, ms in got["gate_holds"]][:40],
+        "slowest10": [(round(t - t_first, 3), round(d * 1e3, 1), p[:10])
+                      for t, d, p in slow[:10]],
+        "hooks": [(k, round(a - t_first, 3), round(b - a, 3))
+                  for k, a, b in got["hooks"]],
+        "derive_spans": [(k, round(a - t_first, 3), round(b - a, 3))
+                         for k, a, b in got["publishes"]]}
+
+
+def gil_case(torch, conf: str, out_dir: str, mode: str,
+             window_s: float = 15.0) -> dict:
+    """The engine's ms/tick while four closed-loop query threads in its
+    process read for up to ``window_s``, with the daemon's query gate
+    (``mode`` "gated") or without it ("ungated"), or with no query
+    thread ("idle"): the gate's reason, measured."""
+    import threading
+
+    from distributed_membership_tpu_torch.service import api
+
+    class Ungated:
+        def __init__(self, live):
+            pass
+
+        def enter(self):
+            return 0.0
+
+        def leave(self, t0):
+            pass
+
+    params = served_params(conf, TOTAL_TIME=40, CHECKPOINT_EVERY=2,
+                           TELEMETRY="off")
+    gates = {0: threading.Event()}
+
+    def script(port):
+        wait_health(port, lambda h: h["snapshot_tick"] == 0)
+        stop, codes = threading.Event(), []
+        threads = ([] if mode == "idle" else
+                   query_threads(port, params.EN_GPSZ, stop, codes))
+        t0 = time.perf_counter()
+        gates[0].set()
+        h = wait_health(port, lambda h: h["status"] == "complete"
+                        or time.perf_counter() - t0 > window_s)
+        secs = time.perf_counter() - t0
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        return h["tick"], secs, len(codes)
+
+    orig = api.QueryGate
+    if mode == "ungated":
+        api.QueryGate = Ungated
+    try:
+        rc, (tick, secs, queries), _ = serve_in_process(
+            torch, params, out_dir, script, "cuda", gates)
+    finally:
+        api.QueryGate = orig
+    if rc != 0 or tick <= 0:
+        raise AssertionError(f"serve[gil]: rc {rc}, tick {tick}")
+    return {"mode": mode, "ticks": tick,
+            "ms_per_tick": secs * 1e3 / tick, "queries": queries,
+            "queries_per_s": queries / secs}
+
+
+def pull_times(torch, carry) -> dict:
+    """One boundary's six fields off the card: the pageable ``cpu()``
+    pull against the pinned staging pull the hook makes and the copy-out
+    the publisher makes, on the same carry, each timed twice."""
+    from distributed_membership_tpu_torch.service import daemon
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    staging = daemon.SnapshotStaging()
+    out = {"pageable_s": [], "pinned_s": [], "copy_out_s": []}
+    for _ in range(2):
+        out["pageable_s"].append(timed(lambda: daemon.pull_snapshot(carry))[1])
+        pulled, secs = timed(lambda: staging.pull(carry))
+        out["pinned_s"].append(secs)
+        out["copy_out_s"].append(timed(pulled.arrays)[1])
+    out["bytes"] = sum(getattr(carry, k).numel()
+                       * getattr(carry, k).element_size()
+                       for k in daemon.SNAPSHOT_FIELDS)
+    return out
+
+
+def phase_serve(torch, confs: str, out_dir: str, card: str) -> dict:
+    """The 1M S=128 conf batch, then served under four closed-loop query
+    threads and a scraper, then under four paced ones; the hook's pull
+    against a pageable one; at N=4096 the engine under closed-loop
+    threads with the query gate and without it."""
+    conf = os.path.join(confs, "ring_1m_s128_serve.conf")
+    ticks = conf_ticks(conf)
+    expect = launches_expected(receive=ticks, gossip=ticks, probe=ticks)
+    batch = run_path(torch, conf, "serve_batch", expect, out_dir)
+    torch.cuda.empty_cache()
+    params = served_params(conf)
+    n = params.EN_GPSZ
+    want = dict(batch["detection"])
+    info = {"ticks": ticks, "n": n,
+            "batch_ms_per_tick": 1e3 / batch["ticks_per_s"],
+            "batch_peak_mem_gib": batch["peak_mem_gib"], "card": card}
+    for case, pause in (("closed_loop", 0.0), ("paced", QUERY_PAUSE_S)):
+        launches, got, info[case] = served_case(
+            torch, params, os.path.join(out_dir, f"serve_{case}"), pause)
+        if launches != expect:
+            raise AssertionError(f"serve[{case}]: launches {launches}")
+        det = got["result"].extra["detection_summary"]
+        if {k: v for k, v in det.items()
+                if k != "latency_hist_nonzero"} != want:
+            raise AssertionError(f"serve[{case}]: summary {det} != "
+                                 f"batch's {want}")
+        census = info[case]["census"]
+        if census["tick"] != ticks or census["n"] != n:
+            raise AssertionError(f"serve[{case}]: final census {census}")
+        if case == "paced":
+            info["pull"] = pull_times(torch, got["carry"])
+        del got
+        torch.cuda.empty_cache()
+    small = os.path.join(confs, "ring_4k_s128_serve_inject.conf")
+    info["gil_4k"] = [gil_case(torch, small, os.path.join(
+        out_dir, f"serve_gil_{m}"), m) for m in ("idle", "gated", "ungated")]
+    log("serve: summary == batch's; " + json.dumps(info))
+    torch.cuda.empty_cache()
+    return info
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def phase_serve_inject(torch, confs: str, out_dir: str, card: str) -> dict:
+    """An injected crash, uninterrupted; stopped over HTTP, resumed
+    served, stopped again, resumed headless; the CPU's served run."""
+    import threading
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    conf = os.path.join(confs, "ring_4k_s128_serve_inject.conf")
+    event = {"kind": "crash", "time": 40, "nodes": [3]}
+    root = os.path.join(out_dir, "serve_inject")
+
+    def dirs(tag):
+        return dict(CHECKPOINT_DIR=os.path.join(root, f"{tag}_ck"),
+                    TELEMETRY_DIR=os.path.join(root, f"{tag}_tl"))
+
+    def inject(stop_too):
+        def script(port):
+            wait_health(port, lambda h: h["snapshot_tick"] is not None)
+            code, reply = http_json(port, "/v1/events", "POST", event)
+            if code != 202 or reply["apply_at_tick"] != 30:
+                raise AssertionError(f"serve_inject: POST {code} {reply}")
+            if stop_too:
+                http_get(port, "/v1/admin/shutdown", "POST", {})
+            gates[0].set()
+            if not stop_too:
+                return wait_health(port, lambda h: h["status"] == "complete")
+        return script
+
+    walls, counts = {}, {}
+    runs = (("a", "cuda", False), ("a_cpu", "cpu", False),
+            ("b", "cuda", True))
+    for tag, device, stop_too in runs:
+        gates = {0: threading.Event()}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, _, got = serve_in_process(
+            torch, served_params(conf, **dirs(tag)),
+            os.path.join(root, tag), inject(stop_too), device, gates)
+        walls[tag] = time.perf_counter() - t0
+        counts[tag] = dict(kernels.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"serve_inject[{tag}]: rc {rc}")
+    if ck.manifest_tick(dirs("b")["CHECKPOINT_DIR"]) != 30:
+        raise AssertionError("serve_inject: the stop did not land at 30")
+    # Resume served; a stop asked at the resumed boundary 30 lands at 60.
+    gates = {30: threading.Event()}
+
+    def stop_at_60(port):
+        wait_health(port, lambda h: h["snapshot_tick"] == 30)
+        http_get(port, "/v1/admin/shutdown", "POST", {})
+        gates[30].set()
+
+    kernels.reset_launches()
+    rc, _, _ = serve_in_process(
+        torch, served_params(conf, RESUME=1, **dirs("b")),
+        os.path.join(root, "b"), stop_at_60, "cuda", gates)
+    counts["b2"] = dict(kernels.LAUNCHES)
+    if rc != 0 or ck.manifest_tick(dirs("b")["CHECKPOINT_DIR"]) != 60:
+        raise AssertionError("serve_inject: the resumed stop missed 60")
+    kernels.reset_launches()
+    run_conf(conf, out_dir=os.path.join(root, "b"), device="cuda",
+             checkpoint_dir=dirs("b")["CHECKPOINT_DIR"], resume=True,
+             telemetry_dir=dirs("b")["TELEMETRY_DIR"])
+    counts["b3"] = dict(kernels.LAUNCHES)
+    # A crash alone masks no shift: K2's k_eff form throughout.
+    for tag, ticks in (("a", 120), ("a_cpu", 0), ("b", 30), ("b2", 30),
+                       ("b3", 60)):
+        if counts[tag] != launches_expected(receive=ticks, gossip=ticks,
+                                            probe=ticks):
+            raise AssertionError(f"serve_inject[{tag}]: launches "
+                                 f"{counts[tag]}")
+    files = [(f, f) for f in LOGS] + [(os.path.join("..", "{}_tl",
+                                                    "timeline.jsonl"),
+                                       "timeline.jsonl")]
+    for rel, what in files:
+        got = {tag: _read(os.path.join(root, tag, rel.format(tag)))
+               for tag in ("a", "a_cpu", "b")}
+        if not got["a"] == got["a_cpu"] == got["b"]:
+            raise AssertionError(f"serve_inject: {what} differs")
+    if b" removed " not in _read(os.path.join(root, "a", "dbg.log")):
+        raise AssertionError("serve_inject: the injected crash was not "
+                             "detected")
+    info = {"walls_s": walls, "launch_counts": {
+        t: {k: v for k, v in c.items() if v} for t, c in counts.items()},
+        "card": card}
+    log("serve_inject: logs and timeline.jsonl byte-identical: served "
+        "uninterrupted (card), served on the CPU, and stopped/resumed "
+        "served/resumed headless (card); " + json.dumps(info))
+    return info
+
+
+def phase_serve_sharded(torch, confs: str, out_dir: str, card: str) -> dict:
+    """Eight shards served, a crash injected at boundary 0, against the
+    CPU's run of the union scenario."""
+    import threading
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    conf = os.path.join(confs, "ring_16k_s128_sharded8_serve.conf")
+    ticks = conf_ticks(conf)
+    event = {"kind": "crash", "time": 40, "nodes": [3]}
+    root = os.path.join(out_dir, "serve_sharded")
+    gates = {0: threading.Event()}
+
+    def script(port):
+        wait_health(port, lambda h: h["snapshot_tick"] is not None)
+        code, reply = http_json(port, "/v1/events", "POST", event)
+        if code != 202:
+            raise AssertionError(f"serve_sharded: POST {code} {reply}")
+        gates[0].set()
+        return wait_health(port, lambda h: h["status"] == "complete")
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc, h, got = serve_in_process(
+        torch, served_params(conf,
+                             TELEMETRY_DIR=os.path.join(root, "live_tl")),
+        os.path.join(root, "live"), script, "cuda", gates)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    expect = launches_expected(receive=ticks, gossip_stacked=ticks,
+                               probe=ticks)
+    if rc != 0 or launches != expect or h["applied_events"] != 1:
+        raise AssertionError(f"serve_sharded: rc {rc} launches {launches}")
+    union = os.path.join(root, "union.json")
+    with open(union, "w") as fh:
+        json.dump({"name": "union", "events": [event]}, fh)
+    t1 = time.perf_counter()
+    run_conf(conf_variant(conf, out_dir, "serve_sharded_twin",
+                          SERVICE_PORT=-1),
+             out_dir=os.path.join(root, "twin"), device="cpu",
+             scenario=union, telemetry_dir=os.path.join(root, "twin_tl"))
+    cpu_wall = time.perf_counter() - t1
+    same_logs(os.path.join(root, "live"), os.path.join(root, "twin"),
+              "serve_sharded")
+    if (_read(os.path.join(root, "live_tl", "timeline.jsonl"))
+            != _read(os.path.join(root, "twin_tl", "timeline.jsonl"))):
+        raise AssertionError("serve_sharded: timeline.jsonl differs")
+    info = {"n": got["state"].params.EN_GPSZ, "shards": 8, "ticks": ticks,
+            "wall_s": wall,
+            "cpu_twin_wall_s": cpu_wall,
+            "mesh_size": got["result"].extra["mesh_size"], "card": card}
+    log("serve_sharded: the live injection == the CPU's union-scenario "
+        "twin (logs, timeline.jsonl); " + json.dumps(info))
+    return info
+
+
+def phase_serve_replicas(torch, confs: str, out_dir: str,
+                         card: str) -> dict:
+    """Two read replicas under four closed-loop client processes."""
+    import threading
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.service import shm_ring
+
+    conf = os.path.join(confs, "ring_16k_s128_serve_replicas.conf")
+    ticks = conf_ticks(conf)
+    expect = launches_expected(receive=ticks, gossip=ticks, probe=ticks)
+    batch = run_path(torch, conf, "serve_replicas_batch", expect, out_dir)
+    params = served_params(conf)
+    gates = {0: threading.Event()}
+    box = {}
+
+    def same_census(port, reps, tick):
+        want = None
+        for rp in reps:
+            deadline = time.monotonic() + 120
+            while True:
+                code, h = http_json(rp, "/healthz")
+                if code == 200 and h["snapshot_tick"] == tick:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"replica {rp} never reached "
+                                         f"tick {tick}")
+                time.sleep(0.05)
+            got = http_get(rp, "/v1/census")
+            want = want or http_get(port, "/v1/census")
+            if got != want or json.loads(got[1])["tick"] != tick:
+                raise AssertionError(f"replica {rp}: census {got} != the "
+                                     f"daemon's {want}")
+
+    def script(port):
+        h = wait_health(port, lambda h: h.get("replicas")
+                        and h.get("snapshot_tick") == 0)
+        reps = [r["port"] for r in h["replicas"]]
+        same_census(port, reps, 0)
+        clients = [subprocess.Popen(
+            [sys.executable, "-c", CLIENT_CODE, str(reps[k % len(reps)]),
+             str(params.EN_GPSZ)], stdout=subprocess.PIPE, text=True)
+            for k in range(4)]
+        try:
+            # From the release of the boundary-0 park to the run's end.
+            t0 = time.perf_counter()
+            gates[0].set()
+            wait_health(port, lambda h: h["status"] == "complete")
+            box["served_s"] = time.perf_counter() - t0
+            same_census(port, reps, ticks)
+            beacons = [json.load(open(os.path.join(
+                out_dir, "serve_replicas", f"replica_{i}.json")))
+                for i in range(len(reps))]
+        finally:
+            for c in clients:
+                c.terminate()
+            for c in clients:
+                c.wait(timeout=30)
+        return reps, beacons
+
+    kernels.reset_launches()
+    rc, (reps, beacons), got = serve_in_process(
+        torch, params, os.path.join(out_dir, "serve_replicas"), script,
+        "cuda", gates)
+    launches = dict(kernels.LAUNCHES)
+    if rc != 0 or launches != expect:
+        raise AssertionError(f"serve_replicas: rc {rc} launches {launches}")
+    det = got["result"].extra["detection_summary"]
+    if {k: v for k, v in det.items()
+            if k != "latency_hist_nonzero"} != batch["detection"]:
+        raise AssertionError("serve_replicas: summary differs from batch")
+    mine = f"dmring_{os.getpid():x}_"
+    left = [s for s in shm_ring.stale_segments() if s.startswith(mine)]
+    if left:
+        raise AssertionError(f"serve_replicas: /dev/shm keeps {left}")
+    info = {"n": params.EN_GPSZ, "ticks": ticks, "replicas": len(reps),
+            "served_ms_per_tick": box["served_s"] * 1e3 / ticks,
+            "batch_ms_per_tick": 1e3 / batch["ticks_per_s"],
+            "replica_queries": [b.get("queries") for b in beacons],
+            "replica_qps": [b.get("qps") for b in beacons],
+            "replica_p50_ms": [b.get("p50_ms") for b in beacons],
+            "replica_p99_ms": [b.get("p99_ms") for b in beacons],
+            "card": card}
+    log("serve_replicas: each replica's census == the daemon's at ticks 0 "
+        f"and {ticks}; summary == batch's; no ring left in /dev/shm; "
+        + json.dumps(info))
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=os.path.join(REPO, "smoke_out"),
@@ -2164,6 +2932,25 @@ def main(argv=None) -> int:
             full, out_dir, "wide_4352", MAX_NNB=4352, TOTAL_TIME=14,
             FAIL_TIME=2, TFAIL=4, TREMOVE=8), "wide_parity", out_dir, card)
         log(f"phase wide: {time.perf_counter() - t0:.1f}s; card: {card}")
+    if "folded_probes0" in phases:
+        t0 = time.perf_counter()
+        phase_folded_probes0(torch, confs, paths, out_dir, card)
+        log(f"phase folded_probes0: {time.perf_counter() - t0:.1f}s; "
+            f"card: {card}")
+    for name, phase in (
+            ("serve", lambda: phase_serve(torch, confs, out_dir, card)),
+            ("serve_inject", lambda: phase_serve_inject(torch, confs,
+                                                        out_dir, card)),
+            ("serve_sharded", lambda: phase_serve_sharded(torch, confs,
+                                                          out_dir, card)),
+            ("serve_replicas", lambda: phase_serve_replicas(
+                torch, confs, out_dir, card))):
+        if name in phases:
+            t0 = time.perf_counter()
+            paths[name + "_info"] = phase()
+            torch.cuda.empty_cache()
+            log(f"phase {name}: {time.perf_counter() - t0:.1f}s; "
+                f"card: {card}")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):

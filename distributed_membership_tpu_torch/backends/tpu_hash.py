@@ -90,8 +90,11 @@ The ring step's options, each as the JAX step computes it:
   ``wf_prev`` carries the will-flush mask, and the final tick's ack
   sends are added to the run totals once: :func:`lag_tail`).
 
-Refused by design: ``SERVICE_PORT`` with ``NotImplementedError``
-(ROADMAP.md Queue 1 item 10).  On CUDA the ring's kernels are the path,
+``SERVICE_PORT`` runs the step under the service daemon
+(service/daemon.py), which drives :func:`segment_runner`'s runner and
+swaps in the runner of a merged plan on a live injection; auto
+``FOLDED`` stays off there, as in the JAX package (the snapshot reads
+the natural carry).  On CUDA the ring's kernels are the path,
 so a pinned ``FUSED_*: 0`` is refused there (the plain versions run on
 CPU tensors only), and so is ``VIEW_SIZE % 128 != 0`` outside the
 folded layout (full event mode, or a geometry the folded gates refuse),
@@ -106,7 +109,7 @@ from __future__ import annotations
 import dataclasses
 import random as _pyrandom
 import time as _time
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -1293,9 +1296,9 @@ def _folded_gates(params: Params, n: int, s: int, collect_events: bool,
     if kernels and (n * s) // 128 < 8:
         return (f"FOLDED FUSED_* kernels need at least 8 plane rows "
                 f"(N*VIEW_SIZE/128 >= 8; got N={n}, S={s})")
-    # The folded step always runs the probe traversal (K7 or its plain
-    # version), so the JAX FUSED_PROBE gate holds on both devices.
-    if not 0 < p_cnt < s:
+    # The folded step runs the probe traversal (K7 or its plain version)
+    # only with probes, so the JAX FUSED_PROBE gate holds where P > 0.
+    if p_cnt > 0 and not p_cnt < s:
         return (f"FUSED_PROBE needs 0 < PROBES < VIEW_SIZE "
                 f"(got PROBES={p_cnt}, S={s})")
     return None
@@ -1338,12 +1341,17 @@ def make_config(params: Params, collect_events: bool = True,
     if params.FOLDED == 1 and why_not_folded:
         raise ValueError(why_not_folded)
     # Auto keeps the folded layout off where a pinned FOLDED would raise
-    # (the budget, approx_lag: JAX gates below and in step_and_init).
+    # (the budget, approx_lag: JAX gates below and in step_and_init) and
+    # under the service, whose snapshot reads the natural carry.
     folded = params.FOLDED == 1 or (
         params.FOLDED == -1 and on_cuda and s < 128 and not why_not_folded
-        and not send_budget and params.PROBE_IO != "approx_lag")
+        and not send_budget and params.PROBE_IO != "approx_lag"
+        and params.SERVICE_PORT < 0)
     knobs = {k: getattr(params, k)
              for k in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE")}
+    if ring and knobs["FUSED_PROBE"] == 1 and params.PROBES <= 0:
+        raise ValueError(
+            "FUSED_PROBE requires the ring exchange with PROBES > 0")
     if not ring:
         # The JAX gates, word for word; -1 resolves off (the scatter step
         # has no kernel in either package).
@@ -1416,8 +1424,8 @@ def make_config(params: Params, collect_events: bool = True,
                 "ENFORCE_BUFFSIZE and FUSED_GOSSIP are incompatible (the "
                 "budget is a per-slot send mask; the natural-layout kernel "
                 "applies its fanout mask in-kernel)")
-    if params.SERVICE_PORT >= 0:
-        _refuse("SERVICE_PORT (the service daemon)", "Queue 1 item 10")
+    if params.FLEET_PORT >= 0:
+        _refuse("FLEET_PORT (the fleet controller)", "Queue 1 item 10d")
     if ring and n < 4:
         raise ValueError("the ring step's packed probe table needs N >= 4")
     if on_cuda and ring:
@@ -1502,6 +1510,43 @@ def plan_scenario(plan: FailurePlan):
     return None if plan.scenario is None else plan.scenario.static
 
 
+class SegmentRunner(NamedTuple):
+    """A run's config, step, carry init and plan tensors (the JAX
+    ``_get_segment_runner`` with the init beside it), built by
+    :func:`segment_runner`: :func:`run_scan` drives it, and the service
+    daemon's live injection builds another from the merged plan at a
+    boundary and swaps its :meth:`segment` in (service/daemon.py), so
+    both build the runner the same way."""
+    cfg: HashConfig
+    step: Callable
+    init: Callable           # init(cfg, key, device)
+    plan_t: PlanTensors
+    key: Key
+    device: object
+
+    def init_carry(self):
+        return self.init(self.cfg, self.key, self.device)
+
+    def segment(self, state, a: int, b: int):
+        """``chunked_run``'s ``segment_fn``: ticks ``[a, b)``."""
+        return run_segment(self.step, state, self.plan_t, a, b, self.cfg)
+
+
+def segment_runner(params: Params, plan: FailurePlan, seed: int, device,
+                   collect_events: bool, total: int) -> SegmentRunner:
+    """The :class:`SegmentRunner` of ``plan``: the config ``make_config``
+    resolves for it (its general scenario included), its step and init,
+    and its plan tensors over ``total`` ticks."""
+    cfg = make_config(params, collect_events, fail_ids=plan_fail_ids(plan),
+                      device=device, scenario=plan_scenario(plan))
+    params.validate_sparse_packing(total)
+    cfg = resolve_mega_pack(cfg, params, total)
+    step, init = step_and_init(cfg)
+    return SegmentRunner(cfg, step, init,
+                         plan_tensors(params, plan, seed, total, device),
+                         make_run_key(params, seed ^ 0x5EED), device)
+
+
 def run_scan(params: Params, plan: FailurePlan, seed: int, device,
              collect_events: bool = True, total_time: Optional[int] = None,
              telemetry=None):
@@ -1512,14 +1557,10 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
     series under ``TELEMETRY: scalars|hist``: once, ``t0 = 0``, or per
     segment under ``CHECKPOINT_EVERY`` (runtime/checkpoint.py
     ``chunked_run``, which also writes and resumes snapshots)."""
-    cfg = make_config(params, collect_events, fail_ids=plan_fail_ids(plan),
-                      device=device, scenario=plan_scenario(plan))
     total = total_time if total_time is not None else params.TOTAL_TIME
-    params.validate_sparse_packing(total)
-    cfg = resolve_mega_pack(cfg, params, total)
-    plan_t = plan_tensors(params, plan, seed, total, device)
-    step, init = step_and_init(cfg)
-    key = make_run_key(params, seed ^ 0x5EED)
+    runner = segment_runner(params, plan, seed, device, collect_events,
+                            total)
+    cfg = runner.cfg
     finalize = None
     if cfg.probe_io_lag and cfg.probes > 0:
         def finalize(state, events):
@@ -1529,13 +1570,11 @@ def run_scan(params: Params, plan: FailurePlan, seed: int, device,
             chunked_run)
         return chunked_run(
             params, seed, total, device=device,
-            init_carry=lambda: init(cfg, key, device),
-            segment_fn=lambda st, a, b: run_segment(step, st, plan_t, a, b,
-                                                    cfg),
+            init_carry=runner.init_carry, segment_fn=runner.segment,
             collect_events=collect_events, telemetry=telemetry,
             with_series=cfg.telemetry, finalize=finalize)
-    state, events = run_ticks(step, init(cfg, key, device), plan_t, total,
-                              cfg, telemetry)
+    state, events = run_ticks(runner.step, runner.init_carry(),
+                              runner.plan_t, total, cfg, telemetry)
     if finalize is not None and total > 0:
         state, events = finalize(state, events)
     return state, events

@@ -15,7 +15,10 @@ for bit at the same seed, and runs three kernels:
 * K6 ``gossip_folded_stacked`` with the per-shift payloads masked here,
   drop coins included (ops/fused_folded.py);
 * K7 ``probe_folded_window_fused`` with the FastAgg partials
-  (ops/fused_probe.py).
+  (ops/fused_probe.py); with ``PROBES: 0`` (the ``Params`` default) no
+  probe traversal runs, the probe state keeps the JAX ``(1, 1)``
+  placeholders, and FastAgg sums the removal plane itself
+  (``folded_agg_partials``).
 
 It mirrors the JAX ``make_folded_step`` for the ring exchange under warm
 join in EVENT_MODE agg, with the flight recorder (``TELEMETRY``, K7's hist
@@ -56,7 +59,7 @@ from distributed_membership_tpu_torch.ops.fused_folded import (
     LANES, gossip_folded_stacked, receive_folded_fused, roll_nodes,
     roll_slots)
 from distributed_membership_tpu_torch.ops.fused_probe import (
-    probe_folded_window_fused)
+    folded_agg_partials, probe_folded_window_fused)
 from distributed_membership_tpu_torch.observability.timeline import (
     PHASE_ACK, PHASE_AGG, PHASE_COLLECTIVE, PHASE_GOSSIP, PHASE_PROBE,
     PHASE_RECEIVE, PHASE_TELEMETRY)
@@ -81,13 +84,20 @@ def folded_supported(n: int, s: int, probes: int) -> bool:
                                  and n % (LANES // probes) == 0)))
 
 
+def _fold_state(cfg, st):
+    """``st``'s planes reshaped to ``[-1, 128]``; with no probes the
+    probe state keeps its ``(1, 1)`` placeholders, as the JAX folded
+    runners size them."""
+    fold = lambda x: x.reshape(-1, LANES)  # noqa: E731
+    probes = {} if cfg.probes <= 0 else dict(
+        probe_ids1=fold(st.probe_ids1), probe_ids2=fold(st.probe_ids2))
+    return st._replace(view=fold(st.view), view_ts=fold(st.view_ts),
+                       mail=fold(st.mail), **probes)
+
+
 def init_state_warm_folded(cfg, key, device) -> HashState:
     """The natural warm state (``tpu_hash.init_state_warm``), reshaped."""
-    st = init_state_warm(cfg, key, device)
-    fold = lambda x: x.reshape(-1, LANES)  # noqa: E731
-    return st._replace(view=fold(st.view), view_ts=fold(st.view_ts),
-                       mail=fold(st.mail), probe_ids1=fold(st.probe_ids1),
-                       probe_ids2=fold(st.probe_ids2))
+    return _fold_state(cfg, init_state_warm(cfg, key, device))
 
 
 def init_local_state_warm_folded(cfg, mesh, key):
@@ -96,11 +106,7 @@ def init_local_state_warm_folded(cfg, mesh, key):
     ``init_local_state_warm_folded``)."""
     from distributed_membership_tpu_torch.backends.tpu_hash_sharded import (
         init_local_state_warm)
-    st = init_local_state_warm(cfg, mesh, key)
-    fold = lambda x: x.reshape(-1, LANES)  # noqa: E731
-    return st._replace(view=fold(st.view), view_ts=fold(st.view_ts),
-                       mail=fold(st.mail), probe_ids1=fold(st.probe_ids1),
-                       probe_ids2=fold(st.probe_ids2))
+    return _fold_state(cfg, init_local_state_warm(cfg, mesh, key))
 
 
 def make_folded_step(cfg, mesh=None):
@@ -166,37 +172,41 @@ def make_folded_step(cfg, mesh=None):
 
         # ---- ack candidates of the probes issued at t-2 (P-folded
         # probe state is the [N, P] bytes; the probe table is the one
-        # all_gather of the sharded step) ----
-        with record_function(PHASE_ACK):
-            ids1 = state.probe_ids1.view(n, p_cnt)
-            ids2 = state.probe_ids2.view(n, p_cnt)
-            id2 = (ids2.to(I64) - 1).clamp_min(0)
-            tgt1 = (ids1.to(I64) - 1).clamp_min(0)
-            v1 = ids1 != 0
-            vec = torch.where(state.act_prev, state.self_hb - 1, 0)
-            will_flush = will_flush_of(plan, t, recv_mask, f)
-            tbl = _pack_probe_table(vec, will_flush, act)
-            # One gather; PROBE_IO none reads no counter bits.
-            gcat = tbl[id2 if cfg.probe_io_none
-                       else torch.cat([id2, tgt1], dim=1)]
-            hb_ack = (gcat[:, :p_cnt] >> 2).to(I32)
-            bits1 = gcat[:, p_cnt:]
-            valid2 = (ids2 != 0) & (hb_ack > 0)
-            if f.cuts_prev is not None:
-                # The ack crossed target -> prober during tick t-1.
-                valid2 &= ~cross_group(f.cuts_prev, id2, idx[:, None])
-            p_ack = f.prob(t - 1, id2, idx[:, None])
-            if not no_coin(p_ack):
-                coin = coin_at(rng.ack_u.view(n, p_cnt), p_ack)
-                if dropped is not None:
-                    dropped.append((valid2 & coin).sum(dtype=I32))
-                valid2 = valid2 & ~coin
-            cand = torch.zeros((n, s), dtype=I32, device=dev)
-            cand[:, :p_cnt] = torch.where(
-                valid2, to_bits(pack_u(cfg, hb_ack, id2)), 0)
-            cand_sf = roll_slots(cand.view(rows, LANES),
-                                 ((t - 2) * p_cnt) % s, s)
-            ack_recv_cnt = (valid2 & recv_mask[:, None]).sum(1, dtype=I32)
+        # all_gather of the sharded step); none with no probes ----
+        will_flush = will_flush_of(plan, t, recv_mask, f)
+        cand_sf = torch.zeros((rows, LANES), dtype=I32, device=dev)
+        ack_recv_cnt = torch.zeros((n,), dtype=I32, device=dev)
+        if p_cnt > 0:
+            with record_function(PHASE_ACK):
+                ids1 = state.probe_ids1.view(n, p_cnt)
+                ids2 = state.probe_ids2.view(n, p_cnt)
+                id2 = (ids2.to(I64) - 1).clamp_min(0)
+                tgt1 = (ids1.to(I64) - 1).clamp_min(0)
+                v1 = ids1 != 0
+                vec = torch.where(state.act_prev, state.self_hb - 1, 0)
+                tbl = _pack_probe_table(vec, will_flush, act)
+                # One gather; PROBE_IO none reads no counter bits.
+                gcat = tbl[id2 if cfg.probe_io_none
+                           else torch.cat([id2, tgt1], dim=1)]
+                hb_ack = (gcat[:, :p_cnt] >> 2).to(I32)
+                bits1 = gcat[:, p_cnt:]
+                valid2 = (ids2 != 0) & (hb_ack > 0)
+                if f.cuts_prev is not None:
+                    # The ack crossed target -> prober during tick t-1.
+                    valid2 &= ~cross_group(f.cuts_prev, id2, idx[:, None])
+                p_ack = f.prob(t - 1, id2, idx[:, None])
+                if not no_coin(p_ack):
+                    coin = coin_at(rng.ack_u.view(n, p_cnt), p_ack)
+                    if dropped is not None:
+                        dropped.append((valid2 & coin).sum(dtype=I32))
+                    valid2 = valid2 & ~coin
+                cand = torch.zeros((n, s), dtype=I32, device=dev)
+                cand[:, :p_cnt] = torch.where(
+                    valid2, to_bits(pack_u(cfg, hb_ack, id2)), 0)
+                cand_sf = roll_slots(cand.view(rows, LANES),
+                                     ((t - 2) * p_cnt) % s, s)
+                ack_recv_cnt = (valid2 & recv_mask[:, None]).sum(
+                    1, dtype=I32)
 
         # ---- receive (K5); the caller reduces the stale plane ----
         with record_function(PHASE_RECEIVE):
@@ -271,42 +281,56 @@ def make_folded_step(cfg, mesh=None):
                 n_local=n_local)
             del payloads
 
-        # ---- SWIM probes from the window (K7), coins in [N, P] space ----
-        with record_function(PHASE_PROBE):
-            pfo = probe_folded_window_fused(
-                n, s, p_cnt, cfg.tfail, fail_ids, want_hist, True, t,
-                (t * p_cnt) % s, 0, view, view_ts if want_hist else None,
-                act, rm_ids)
-            window = pfo["ids"].view(n, s)[:, :p_cnt]
-            p_valid = window != 0
-            w_id = (window.to(I64) - 1).clamp_min(0)
-            if f.cuts is not None:
-                p_valid = p_valid & ~cross_group(f.cuts, idx[:, None], w_id)
-            p_pr = f.prob(t, idx[:, None], w_id)
-            if not no_coin(p_pr):
-                coin = coin_at(rng.probe_u.view(n, p_cnt), p_pr)
-                if dropped is not None:
-                    dropped.append((p_valid & coin).sum(dtype=I32))
-                p_valid = p_valid & ~coin
-            probe_ids1 = torch.where(p_valid, window, 0).reshape(-1, LANES)
-            sent_probes = p_valid.sum(1, dtype=I32) * p_red
-            # Per-target counts over the global ids: on the flat layout
-            # the sharded step's psum_scatter of per-shard histograms.
-            if cfg.count_probe_io:
-                recv_probe = _count_at(tgt1, v1, p_red, n)
-                sent_ack = _count_at(tgt1, v1 & ((bits1 & 2) != 0), 1, n)
-            elif cfg.probe_io_none:
-                recv_probe = sent_ack = torch.zeros_like(sent_probes)
-            else:
-                per_prober = (v1 & ((bits1 & 1) != 0)).sum(
-                    1, dtype=I32) * p_red
-                recv_probe = _credit_orphan_recvs(per_prober, will_flush)
-                sent_ack = (v1 & ((bits1 & 2) != 0)).sum(1, dtype=I32)
-        sent_tick = sent_gossip + sent_probes + sent_ack
-        pending_recv = pending_recv + recv_add + recv_probe + ack_recv_cnt
+        # ---- SWIM probes from the window (K7), coins in [N, P] space;
+        # none with no probes ----
+        pfo = None
+        probe_ids1, probe_ids2 = state.probe_ids1, state.probe_ids2
+        act_prev = state.act_prev
+        sent_tick = sent_gossip
+        if p_cnt > 0:
+            with record_function(PHASE_PROBE):
+                pfo = probe_folded_window_fused(
+                    n, s, p_cnt, cfg.tfail, fail_ids, want_hist, True, t,
+                    (t * p_cnt) % s, 0, view,
+                    view_ts if want_hist else None, act, rm_ids)
+                window = pfo["ids"].view(n, s)[:, :p_cnt]
+                p_valid = window != 0
+                w_id = (window.to(I64) - 1).clamp_min(0)
+                if f.cuts is not None:
+                    p_valid = p_valid & ~cross_group(f.cuts, idx[:, None],
+                                                     w_id)
+                p_pr = f.prob(t, idx[:, None], w_id)
+                if not no_coin(p_pr):
+                    coin = coin_at(rng.probe_u.view(n, p_cnt), p_pr)
+                    if dropped is not None:
+                        dropped.append((p_valid & coin).sum(dtype=I32))
+                    p_valid = p_valid & ~coin
+                new_ids1 = torch.where(p_valid, window, 0).reshape(-1,
+                                                                   LANES)
+                sent_probes = p_valid.sum(1, dtype=I32) * p_red
+                # Per-target counts over the global ids: on the flat layout
+                # the sharded step's psum_scatter of per-shard histograms.
+                if cfg.count_probe_io:
+                    recv_probe = _count_at(tgt1, v1, p_red, n)
+                    sent_ack = _count_at(tgt1, v1 & ((bits1 & 2) != 0), 1,
+                                         n)
+                elif cfg.probe_io_none:
+                    recv_probe = sent_ack = torch.zeros_like(sent_probes)
+                else:
+                    per_prober = (v1 & ((bits1 & 1) != 0)).sum(
+                        1, dtype=I32) * p_red
+                    recv_probe = _credit_orphan_recvs(per_prober, will_flush)
+                    sent_ack = (v1 & ((bits1 & 2) != 0)).sum(1, dtype=I32)
+            probe_ids1, probe_ids2, act_prev = new_ids1, probe_ids1, act
+            sent_tick = sent_tick + sent_probes + sent_ack
+            recv_add = recv_add + recv_probe
+        pending_recv = pending_recv + recv_add + ack_recv_cnt
         # FastAgg on per-node [N, S] views, from K7's partials (per shard
-        # with a mesh).
+        # with a mesh), or with no probes (so no K7) the same sums over the
+        # removal plane.
         with record_function(PHASE_AGG):
+            if pfo is None:
+                pfo = folded_agg_partials(rm_ids, fail_ids)
             det_tick = any_true_rm = None
             if fail_ids:
                 det_tick = torch.stack([dc.view(d, -1).sum(1, dtype=I32)
@@ -332,8 +356,8 @@ def make_folded_step(cfg, mesh=None):
             view=view, view_ts=view_ts,
             failed=failed_after(plan, t, state.failed, f), self_hb=self_hb,
             mail=mail, pending_recv=pending_recv, agg=agg,
-            probe_ids1=probe_ids1, probe_ids2=state.probe_ids1,
-            act_prev=act), f, t, n, p_cnt)
+            probe_ids1=probe_ids1, probe_ids2=probe_ids2,
+            act_prev=act_prev), f, t, n, p_cnt)
         if not cfg.telemetry:
             return new_state, out
         with record_function(PHASE_TELEMETRY):

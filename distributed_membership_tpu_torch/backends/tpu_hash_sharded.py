@@ -67,7 +67,7 @@ from __future__ import annotations
 import dataclasses
 import random as _pyrandom
 import time as _time
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -583,25 +583,56 @@ def expand_fast_agg(agg: FastAgg, mesh: LocalMesh) -> FastAgg:
                         rm_total=lead(agg.rm_total))
 
 
-def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
-                     mesh: LocalMesh, collect_events: bool = True,
-                     telemetry=None):
-    """Run the whole simulation on ``mesh``: ``(final_state, events)`` as
-    ``tpu_hash.run_scan``, the final agg reduced; the natural or the
-    folded sharded step, as the config resolves.  Under
-    ``CHECKPOINT_EVERY`` the carry between segments holds the reduced
-    global aggregates, as the JAX package's chunked carry does: each
-    segment expands a FastAgg to shard partials (:func:`expand_fast_agg`)
-    and reduces them at its end, or starts an AggStats from zero and
-    merges it into the carried one (``merge_agg``)."""
+class ShardedSegmentRunner(NamedTuple):
+    """The sharded twin of ``tpu_hash.SegmentRunner`` (the JAX
+    ``tpu_hash_sharded._get_segment_runner`` with its init), built by
+    :func:`sharded_segment_runner` for :func:`run_scan_sharded` and for
+    the service daemon's live injection on the run's own mesh."""
+    cfg: HashConfig
+    step: Callable
+    init: Callable           # init() -> the per-shard carry
+    plan_t: PlanTensors
+    mesh: LocalMesh
+    collect_events: bool
+
+    def reduced(self, state):
+        """The carry with a FastAgg reduced to its global form."""
+        if self.collect_events or not self.cfg.fast_agg:
+            return state
+        return state._replace(agg=reduce_fast_agg(state.agg, self.mesh))
+
+    def init_carry(self):
+        return self.reduced(self.init())
+
+    def segment(self, state, a: int, b: int):
+        """``chunked_run``'s ``segment_fn``: ticks ``[a, b)`` from a
+        carry that holds the reduced global aggregates, as the JAX
+        chunked carry does: a FastAgg is expanded to shard partials
+        (:func:`expand_fast_agg`) and reduced at the end, an AggStats
+        starts from zero and is merged into the carried one."""
+        cfg, carried = self.cfg, state.agg
+        if cfg.fast_agg and not self.collect_events:
+            state = state._replace(agg=expand_fast_agg(carried, self.mesh))
+        elif not self.collect_events:
+            state = state._replace(agg=init_agg(cfg.n, self.mesh.device))
+        state, events, series = run_segment(self.step, state, self.plan_t,
+                                            a, b, cfg)
+        if not (cfg.fast_agg or self.collect_events):
+            state = state._replace(agg=merge_agg(carried, state.agg))
+        return self.reduced(state), events, series
+
+
+def sharded_segment_runner(params: Params, plan: FailurePlan, seed: int,
+                           mesh: LocalMesh, collect_events: bool,
+                           total: int) -> ShardedSegmentRunner:
+    """The runner of ``plan`` on ``mesh``: the natural or the folded
+    sharded step, as the config resolves."""
     n_local = mesh.rows_per_shard(params.EN_GPSZ)
     cfg = sharded_config(params, collect_events, plan_fail_ids(plan),
                          n_local, device=mesh.device,
                          scenario=plan_scenario(plan))
-    total = params.TOTAL_TIME
     params.validate_sparse_packing(total)
     cfg = resolve_mega_pack(cfg, params, total)
-    plan_t = plan_tensors(params, plan, seed, total, mesh.device)
     key = make_run_key(params, seed ^ 0x5EED)
     if cfg.folded:
         step = make_ring_sharded_folded_step(cfg, mesh)
@@ -614,36 +645,33 @@ def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
         def init():
             return (init_local_state(cfg, mesh) if cfg.cold_join
                     else init_local_state_warm(cfg, mesh, key))
+    return ShardedSegmentRunner(
+        cfg, step, init, plan_tensors(params, plan, seed, total,
+                                      mesh.device),
+        mesh, collect_events)
 
-    def reduced(state):
-        return (state if collect_events or not cfg.fast_agg else
-                state._replace(agg=reduce_fast_agg(state.agg, mesh)))
 
+def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
+                     mesh: LocalMesh, collect_events: bool = True,
+                     telemetry=None):
+    """Run the whole simulation on ``mesh``: ``(final_state, events)`` as
+    ``tpu_hash.run_scan``, the final agg reduced.  Under
+    ``CHECKPOINT_EVERY`` the segments run through ``chunked_run``
+    (:meth:`ShardedSegmentRunner.segment`)."""
+    total = params.TOTAL_TIME
+    runner = sharded_segment_runner(params, plan, seed, mesh,
+                                    collect_events, total)
     if params.CHECKPOINT_EVERY > 0:
         from distributed_membership_tpu_torch.runtime.checkpoint import (
             chunked_run)
-
-        def segment_fn(state, a, b):
-            carried = state.agg
-            if cfg.fast_agg and not collect_events:
-                state = state._replace(agg=expand_fast_agg(carried, mesh))
-            elif not collect_events:
-                # The JAX segment: AggStats from zero, merged with the
-                # carried accumulator after the segment.
-                state = state._replace(agg=init_agg(cfg.n, mesh.device))
-            state, events, series = run_segment(step, state, plan_t, a, b,
-                                                cfg)
-            if not (cfg.fast_agg or collect_events):
-                state = state._replace(agg=merge_agg(carried, state.agg))
-            return reduced(state), events, series
-
         return chunked_run(
             params, seed, total, device=mesh.device,
-            init_carry=lambda: reduced(init()), segment_fn=segment_fn,
+            init_carry=runner.init_carry, segment_fn=runner.segment,
             collect_events=collect_events, telemetry=telemetry,
-            with_series=cfg.telemetry)
-    state, events = run_ticks(step, init(), plan_t, total, cfg, telemetry)
-    return reduced(state), events
+            with_series=runner.cfg.telemetry)
+    state, events = run_ticks(runner.step, runner.init(), runner.plan_t,
+                              total, runner.cfg, telemetry)
+    return runner.reduced(state), events
 
 
 def resolve_mesh(params: Params, device) -> LocalMesh:

@@ -25,9 +25,10 @@ _KNOWN_BACKENDS = ("emul", "emul_native", "tpu", "tpu_sharded", "tpu_sparse",
 class Params:
     """Every field of the JAX package's ``Params``, with its defaults, so
     that a checkpoint's ``params_identity`` (runtime/checkpoint.py) is the
-    same text in both packages.  The service and fleet keys are carried
-    for that identity only; nothing in the port reads them (ROADMAP.md
-    Queue 1 item 10)."""
+    same text in both packages.  The service keys configure the service
+    daemon (service/daemon.py); the fleet keys are carried for that
+    identity and their gates, and ``FLEET_PORT`` is refused (the fleet
+    controller, ROADMAP.md Queue 1 item 10d)."""
     # --- legacy keys (Params.cpp:22-25) ---
     MAX_NNB: int = 10
     SINGLE_FAILURE: int = 1

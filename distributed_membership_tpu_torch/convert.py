@@ -54,7 +54,7 @@ def leaf_specs(state) -> list:
             for name, x in named_leaves(state)]
 
 
-def _host(name: str, x: torch.Tensor) -> np.ndarray:
+def host_leaf(name: str, x: torch.Tensor) -> np.ndarray:
     """A host copy of a leaf in its JAX dtype (a CUDA tensor's ``cpu()``
     is already a copy)."""
     arr = x.cpu().numpy() if x.is_cuda else x.numpy().copy()
@@ -62,13 +62,13 @@ def _host(name: str, x: torch.Tensor) -> np.ndarray:
 
 
 def state_to_numpy(state) -> dict:
-    return {name: _host(name, x) for name, x in named_leaves(state)}
+    return {name: host_leaf(name, x) for name, x in named_leaves(state)}
 
 
 def carry_leaves(state) -> list:
     """The state's leaves on the host, in the JAX flatten order and
     dtypes: a checkpoint's ``c0..cK``."""
-    return [_host(name, x) for name, x in named_leaves(state)]
+    return [host_leaf(name, x) for name, x in named_leaves(state)]
 
 
 def carry_from_leaves(template, leaves: list, device):

@@ -150,12 +150,21 @@ def probe_folded_plain(n: int, s: int, p_cnt: int, tfail: int,
         out["stale_rows"] = _bucket_rows(difft, pres)
         out["susp_rows"] = _bucket_rows(difft - tfail, pres & (difft >= tfail))
     if want_agg:
-        out["rm_cnt"] = (rm_ids >= 0).sum(1, keepdim=True, dtype=torch.int32)
-        hits = [rm_ids == f for f in fail_ids]
-        out["det_cols"] = tuple(h.sum(1, keepdim=True, dtype=torch.int32)
-                                for h in hits)
-        if hits:
-            out["det_any"] = torch.stack(hits).any(0)
+        out.update(folded_agg_partials(rm_ids, fail_ids))
+    return out
+
+
+def folded_agg_partials(rm_ids, fail_ids: tuple) -> dict:
+    """K7's FastAgg partials of a folded removal plane ``[rows, 128]``:
+    ``rm_cnt`` and one ``det_cols`` entry per failed id (``[rows, 1]``
+    each) and ``det_any`` (``[rows, 128]``, with failed ids).  The folded
+    step sums these itself where it runs no K7 (``PROBES: 0``)."""
+    out = {"rm_cnt": (rm_ids >= 0).sum(1, keepdim=True, dtype=torch.int32)}
+    hits = [rm_ids == f for f in fail_ids]
+    out["det_cols"] = tuple(h.sum(1, keepdim=True, dtype=torch.int32)
+                            for h in hits)
+    if hits:
+        out["det_any"] = torch.stack(hits).any(0)
     return out
 
 

@@ -5,6 +5,13 @@ The run's device is explicit.  The default is ``cuda``: without a GPU
 the run raises rather than quietly running on the CPU; ``--device cpu``
 runs the plain versions of the kernels.
 
+``--serve`` (with ``--port``) runs the conf under the service daemon
+(service/daemon.py): queries and live injection over HTTP between the
+``CHECKPOINT_EVERY``-tick segments.  A ``RESUME`` with a
+``CHECKPOINT_DIR`` replays the served run's journal of injected events,
+served or not (``resume_journal_run``).  ``--fleet`` (the fleet
+controller) is not ported yet (ROADMAP.md Queue 1 item 10d).
+
 ``--grade-all`` runs the reference's three grading scenarios
 (``testcases/``) and prints the /90 total, as Grader_verbose.sh does;
 ``--grade SCENARIO`` grades one run.  The testcases name the reference's
@@ -48,21 +55,17 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
-             device="cuda", backend: str | None = None,
-             checkpoint_every: int | None = None,
-             checkpoint_dir: str | None = None,
-             resume: bool | None = None,
-             telemetry: str | None = None,
-             telemetry_dir: str | None = None,
-             scenario: str | None = None) -> RunResult:
-    """Run one conf and write its logs; each given override wins over
-    its conf key (``BACKEND``, ``CHECKPOINT_EVERY``, ``CHECKPOINT_DIR``,
-    ``RESUME``, ``TELEMETRY``, ``TELEMETRY_DIR``, ``SCENARIO``), and the
-    result is validated after them, as the JAX package's
-    ``apply_overrides`` and ``run_conf`` do."""
-    dev = resolve_device(device)
-    params = Params.from_file(conf_path, validate=False)
+def apply_overrides(params: Params, backend: str | None = None,
+                    checkpoint_every: int | None = None,
+                    checkpoint_dir: str | None = None,
+                    resume: bool | None = None,
+                    telemetry: str | None = None,
+                    telemetry_dir: str | None = None,
+                    scenario: str | None = None) -> Params:
+    """Each given override wins over its conf key (``BACKEND``,
+    ``CHECKPOINT_EVERY``, ``CHECKPOINT_DIR``, ``RESUME``, ``TELEMETRY``,
+    ``TELEMETRY_DIR``, ``SCENARIO``), as the JAX package's
+    ``apply_overrides``; the caller validates after them."""
     for key, value in (("BACKEND", backend),
                        ("CHECKPOINT_EVERY", checkpoint_every),
                        ("CHECKPOINT_DIR", checkpoint_dir),
@@ -72,9 +75,39 @@ def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
                        ("SCENARIO", scenario)):
         if value is not None:
             setattr(params, key, value)
+    return params
+
+
+def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
+             device="cuda", backend: str | None = None,
+             checkpoint_every: int | None = None,
+             checkpoint_dir: str | None = None,
+             resume: bool | None = None,
+             telemetry: str | None = None,
+             telemetry_dir: str | None = None,
+             scenario: str | None = None) -> RunResult:
+    """Run one conf and write its logs; the overrides
+    (:func:`apply_overrides`) are applied, then the result validated, as
+    the JAX package's ``run_conf`` does.  A ``RESUME`` with a
+    ``CHECKPOINT_DIR`` first replays a served run's journal of injected
+    events, if there is one (``service.daemon.resume_journal_run``)."""
+    dev = resolve_device(device)
+    params = Params.from_file(conf_path, validate=False)
+    apply_overrides(params, backend=backend,
+                    checkpoint_every=checkpoint_every,
+                    checkpoint_dir=checkpoint_dir, resume=resume,
+                    telemetry=telemetry, telemetry_dir=telemetry_dir,
+                    scenario=scenario)
     params.validate()
     log = EventLog(out_dir)
-    result = get_backend(params.BACKEND)(params, log, seed=seed, device=dev)
+    result = None
+    if params.RESUME and params.CHECKPOINT_DIR:
+        from distributed_membership_tpu_torch.service.daemon import (
+            resume_journal_run)
+        result = resume_journal_run(params, log, seed, dev)
+    if result is None:
+        result = get_backend(params.BACKEND)(params, log, seed=seed,
+                                             device=dev)
     result.log.flush(out_dir)
     if not result.extra.get("aggregate"):
         write_msgcount(result, out_dir)
@@ -194,6 +227,20 @@ def parser() -> argparse.ArgumentParser:
                          "link_flake/one_way_flake/delay_window/"
                          "drop_window events -- scenario/ package; "
                          "examples in scenarios/ at the repo root)")
+    ap.add_argument("--serve", action="store_true",
+                    help="run as the membership control-plane daemon "
+                         "(service/ package): serve liveness queries and "
+                         "live fault injection over HTTP between the "
+                         "segments; requires --checkpoint-every (or the "
+                         "conf's CHECKPOINT_EVERY) and a ring-family "
+                         "backend")
+    ap.add_argument("--port", type=int, default=None, metavar="P",
+                    help="SERVICE_PORT conf key: port for --serve "
+                         "(0 = ephemeral, written to "
+                         "<out-dir>/service.json; default ephemeral)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="the fleet controller (fleet/ package): not "
+                         "ported yet (ROADMAP.md Queue 1 item 10d)")
     ap.add_argument("--json", action="store_true",
                     help="print a JSON summary line")
     return ap
@@ -205,8 +252,28 @@ def main(argv=None) -> int:
     if args.grade_all:
         resolve_device(args.device)
         return grade_all(args)
-    if args.conf is None:
-        ap.error("conf is required unless --grade-all is given")
+    if args.serve and args.fleet:
+        ap.error("--serve and --fleet are mutually exclusive (submit "
+                 "the run to the fleet instead)")
+    if args.conf is None and not args.fleet:
+        ap.error("conf is required unless --grade-all or --fleet is "
+                 "given")
+    if args.port is not None and not (args.serve or args.fleet):
+        ap.error("--port requires --serve or --fleet")
+    if args.fleet:
+        raise NotImplementedError(
+            "--fleet (the fleet controller, fleet/) is not ported yet "
+            "(ROADMAP.md Queue 1 item 10d)")
+    if args.serve:
+        from distributed_membership_tpu_torch.service.daemon import (
+            serve_conf)
+        return serve_conf(
+            args.conf, port=args.port, out_dir=args.out_dir or ".",
+            device=args.device, seed=args.seed, backend=args.backend,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+            telemetry=args.telemetry, telemetry_dir=args.telemetry_dir,
+            scenario=args.scenario)
     result = run_conf(args.conf, seed=args.seed,
                       out_dir=args.out_dir or ".", device=args.device,
                       backend=args.backend,

@@ -25,7 +25,10 @@ first segment start ``a >= k``, after the in-flight write is durable.
 ``{tick, total, ts}`` at every boundary.  SIGTERM and SIGINT stop the
 run at the next boundary with :class:`RunInterrupted`, the boundary's
 snapshot durable.  With ``TELEMETRY_DIR`` the segments are logged to
-``runlog.jsonl`` (observability/runlog.py).
+``runlog.jsonl`` (observability/runlog.py).  :class:`boundary_hook`
+installs the service daemon's hook (service/daemon.py), called with the
+carry before the first segment and at every boundary: it publishes
+snapshots, swaps in the runner of a merged plan, and asks for a stop.
 """
 
 from __future__ import annotations
@@ -325,14 +328,49 @@ class _HostCopies:
 
 
 class RunInterrupted(RuntimeError):
-    """A SIGTERM/SIGINT stopped :func:`chunked_run` at a segment boundary.
-    The boundary is durable when this raises (the writer has finished
-    and the manifest names ``tick``), so ``RESUME: 1`` continues from
-    ``tick`` bit for bit."""
+    """A SIGTERM/SIGINT, or a boundary hook's ``stop``, stopped
+    :func:`chunked_run` at a segment boundary.  The boundary is durable
+    when this raises (the writer has finished and the manifest names
+    ``tick``), so ``RESUME: 1`` continues from ``tick`` bit for bit."""
 
     def __init__(self, message: str, tick: int):
         super().__init__(message)
         self.tick = int(tick)
+
+
+# One process-wide boundary hook (the service daemon runs one engine per
+# process).  ``hook(carry, tick)`` is called on the engine thread with
+# the DEVICE carry once before the first segment (with the start tick, a
+# resumed carry included) and again at every boundary after the
+# checkpoint hand-off; whatever it keeps of the carry it copies itself
+# (service/daemon.py pulls the snapshot's six fields).  It returns None
+# or a dict steering the remaining segments:
+#
+#   ``segment_fn``  a replacement ``segment_fn(carry, a, b)``, used from
+#                   the next segment on (the daemon's live injection
+#                   rebuilds it from the merged plan:
+#                   ``backends.tpu_hash.segment_runner``)
+#   ``stop``        truthy: stop before the next segment (raises
+#                   :class:`RunInterrupted` after the writer barrier)
+_BOUNDARY_HOOK: Optional[Callable] = None
+
+
+class boundary_hook:
+    """Context manager installing the process-wide boundary hook."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def __enter__(self):
+        global _BOUNDARY_HOOK
+        self._prev = _BOUNDARY_HOOK
+        _BOUNDARY_HOOK = self.fn
+        return self
+
+    def __exit__(self, *exc):
+        global _BOUNDARY_HOOK
+        _BOUNDARY_HOOK = self._prev
+        return False
 
 
 def chunked_run(params: Params, seed: int, total: int, *, device,
@@ -403,6 +441,19 @@ def chunked_run(params: Params, seed: int, total: int, *, device,
                      tick_start=int(start), resumed=bool(start > 0),
                      checkpoint_dir=ckpt_dir or "")
 
+    def _apply_hook(tick):
+        """Run the boundary hook; take the segment runner it returns.
+        -> True when it asks for a stop."""
+        nonlocal segment_fn
+        if _BOUNDARY_HOOK is None:
+            return False
+        upd = _BOUNDARY_HOOK(carry, int(tick))
+        if not upd:
+            return False
+        if "segment_fn" in upd:
+            segment_fn = upd["segment_fn"]
+        return bool(upd.get("stop"))
+
     # SIGTERM/SIGINT only set a flag, read at the next boundary (signals
     # install from the main thread only).
     stop_signal: list = []
@@ -416,21 +467,25 @@ def chunked_run(params: Params, seed: int, total: int, *, device,
             except (ValueError, OSError):   # pragma: no cover
                 pass
 
-    def _stop_at_boundary(tick):
-        if not stop_signal or tick >= total:
+    def _stop_at_boundary(tick, hook_stop):
+        if not (stop_signal or hook_stop) or tick >= total:
             return
         _await_writer()     # boundary `tick` is durable before we raise
         if runlog is not None:
             runlog.event("interrupted", tick=int(tick),
-                         signal=int(stop_signal[0]),
+                         signal=int(stop_signal[0]) if stop_signal else 0,
                          durable_tick=int(manifest_tick(ckpt_dir) or 0))
+        why = (f"signal {stop_signal[0]}" if stop_signal
+               else "stop requested")
         raise RunInterrupted(
-            f"run stopped at segment boundary {tick} "
-            f"(signal {stop_signal[0]}); last durable checkpoint: "
-            f"{manifest_tick(ckpt_dir) or 'none'}", tick)
+            f"run stopped at segment boundary {tick} ({why}); last "
+            f"durable checkpoint: {manifest_tick(ckpt_dir) or 'none'}",
+            tick)
 
     try:
-        _stop_at_boundary(start)
+        # The pre-run hook call: the first snapshot (a resume's restored
+        # carry included).
+        _stop_at_boundary(start, _apply_hook(start))
         for a in range(start, total, every):
             if crash_at is not None and a >= crash_at:
                 _await_writer()
@@ -472,7 +527,10 @@ def chunked_run(params: Params, seed: int, total: int, *, device,
                     flush_s=round(
                         time.perf_counter() - t_sync - ckpt_wait_s, 4),
                     ckpt_wait_s=round(ckpt_wait_s, 4))
-            _stop_at_boundary(b)
+            # After the checkpoint hand-off: the hook sees the state the
+            # manifest will name, and a runner it returns takes effect
+            # from the next segment.
+            _stop_at_boundary(b, _apply_hook(b))
         _await_writer()
     finally:
         for s, h in orig_handlers.items():

@@ -108,8 +108,16 @@ def test_port_imports_no_jax():
             PKG / "runtime" / "application.py",
             PKG / "scenario" / "schema.py", PKG / "scenario" / "compile.py",
             PKG / "scenario" / "oracle.py",
-            PKG / "observability" / "latency_dist.py"} <= set(
-                _port_sources())
+            PKG / "observability" / "latency_dist.py",
+            PKG / "observability" / "metricsbus.py",
+            PKG / "observability" / "beacon.py",
+            PKG / "observability" / "spans.py",
+            PKG / "observability" / "watchdog.py",
+            PKG / "service" / "__init__.py", PKG / "service" / "api.py",
+            PKG / "service" / "daemon.py", PKG / "service" / "events.py",
+            PKG / "service" / "replica.py",
+            PKG / "service" / "shm_ring.py",
+            PKG / "service" / "snapshot.py"} <= set(_port_sources())
     for path in _port_sources():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -170,24 +178,21 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
     "CHECKPOINT_EVERY: 10\nSERVICE_PORT: 0\n",
     "PROBE_IO: approx_lag\n", "PROBE_IO: none\n"])
 def test_outside_the_slice_is_refused(extra):
-    """SERVICE_PORT (the service daemon, Queue 1 item 10) is refused; the
-    ring-step options resolve into the config as the JAX package's do."""
+    """The ring-step options and SERVICE_PORT (the service daemon, Queue 1
+    item 10b, now ported) resolve into the config as the JAX package's
+    do."""
     from distributed_membership_tpu.backends import tpu_hash as jax_hash
     from distributed_membership_tpu.config import Params as JaxParams
     conf = _RING.format(n=64, drop=0, p=0, total=10, fail=5) + extra
     p = Params.from_text(conf)
-    if "SERVICE_PORT" in extra:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 10"):
-            make_config(p, device="cpu")
-        return
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         jcfg = jax_hash.make_config(JaxParams.from_text(conf))
     for device in ("cpu", "cuda"):
         cfg = make_config(p, device=device)
         for field in ("shift_set", "send_budget", "probe_io_none",
-                      "probe_io_lag", "count_probe_io"):
+                      "probe_io_lag", "count_probe_io", "n", "s",
+                      "collect_events", "folded"):
             assert getattr(cfg, field) == getattr(jcfg, field), field
 
 

@@ -880,3 +880,124 @@ def test_send_budget_card_equal_cpu(cuda):
     for got, want in zip(out[str(cuda)], out["cpu"]):
         assert torch.equal(got, want)
     assert int(out["cpu"][-1]) == 250000      # the budget bound
+
+
+@pytest.mark.cuda
+def test_folded_probes0_run_on_card_matches_cpu(cuda, tmp_path):
+    """The folded layout with PROBES 0: K5 and K6 once per tick and no K7;
+    the CPU run's detection summary and final state."""
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = tmp_path / "p0.conf"
+    conf.write_text(
+        "MAX_NNB: 4096\nSINGLE_FAILURE: 1\nDROP_MSG: 1\n"
+        "MSG_DROP_PROB: 0.05\nDROP_START: 0\nDROP_STOP: 80\n"
+        "VIEW_SIZE: 16\nGOSSIP_LEN: 4\nPROBES: 0\nFANOUT: 3\nTFAIL: 16\n"
+        "TREMOVE: 32\nTOTAL_TIME: 80\nFAIL_TIME: 10\nJOIN_MODE: warm\n"
+        "EXCHANGE: ring\nEVENT_MODE: agg\nBACKEND: tpu_hash\nFOLDED: 1\n")
+    kernels.reset_launches()
+    card = run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive_folded": 80, "gossip_folded": 80}
+    cpu = run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
+    assert (card.extra["detection_summary"]
+            == cpu.extra["detection_summary"])
+    assert card.extra["detection_summary"]["detections_total"] > 0
+    want = state_to_numpy(cpu.extra["final_state"])
+    got = state_to_numpy(card.extra["final_state"])
+    assert set(got) == set(want) and got["probe_ids1"].shape == (1, 1)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+_SERVED = ("MAX_NNB: 4096\nSINGLE_FAILURE: 1\nDROP_MSG: 0\nMSG_DROP_PROB: 0\n"
+           "VIEW_SIZE: 128\nGOSSIP_LEN: 32\nPROBES: 16\nFANOUT: 3\n"
+           "TFAIL: 8\nTREMOVE: 32\nTOTAL_TIME: 80\nFAIL_TIME: 10\n"
+           "JOIN_MODE: warm\nEXCHANGE: ring\nEVENT_MODE: full\n"
+           "BACKEND: tpu_hash\nCHECKPOINT_EVERY: 20\nSERVICE_PORT: 0\n")
+
+
+def _serve(conf, out_dir, device):
+    """``serve_run`` in this thread; a client thread waits for the run's
+    end and asks for the shutdown.  Returns the exit code."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.service import daemon
+
+    out_dir.mkdir()
+    beacon = out_dir / daemon.SERVICE_JSON
+
+    def client():
+        while not beacon.exists():
+            time.sleep(0.05)
+        port = json.loads(beacon.read_text())["port"]
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(base + "/healthz") as r:
+                if json.loads(r.read())["status"] == "complete":
+                    break
+            time.sleep(0.05)
+        urllib.request.urlopen(urllib.request.Request(
+            base + "/v1/admin/shutdown", data=b"{}", method="POST")).read()
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    rc = daemon.serve_run(Params.from_file(str(conf)), out_dir=str(out_dir),
+                          device=device)
+    t.join(timeout=60)
+    assert not t.is_alive()
+    return rc
+
+
+@pytest.mark.cuda
+def test_served_run_on_card_matches_cpu(cuda, tmp_path):
+    """A served N=4096 run (full events, 20-tick segments) on the card
+    writes the CPU's served logs, with K1-K3 once per tick."""
+    conf = tmp_path / "served.conf"
+    conf.write_text(_SERVED)
+    kernels.reset_launches()
+    assert _serve(conf, tmp_path / "cuda", "cuda") == 0
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive": 80, "gossip": 80, "probe": 80}
+    assert _serve(conf, tmp_path / "cpu", "cpu") == 0
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "cuda" / name).read_bytes()
+                == (tmp_path / "cpu" / name).read_bytes()), name
+    assert b" removed " in (tmp_path / "cuda" / "dbg.log").read_bytes()
+
+
+@pytest.mark.cuda
+def test_published_arrays_intact_after_two_boundaries(cuda, tmp_path,
+                                                      monkeypatch):
+    """The host arrays a CUDA carry's pinned staging sets are copied out
+    to (view as uint32, view_ts as int32) are never written again: every
+    boundary's arrays, read after the run's later boundaries (and the
+    staging sets' reuse), equal what was pulled."""
+    from distributed_membership_tpu_torch.service import daemon
+
+    pulled = []
+    orig = daemon.pull_snapshot
+
+    def keep(carry):
+        assert not carry.view.is_cuda and carry.view.is_pinned()
+        host = orig(carry)
+        pulled.append((host, {k: v.copy() for k, v in vars(host).items()}))
+        return host
+    monkeypatch.setattr(daemon, "pull_snapshot", keep)
+    conf = tmp_path / "served.conf"
+    conf.write_text(_SERVED)
+    assert _serve(conf, tmp_path / "cuda", "cuda") == 0
+    assert len(pulled) == 5         # ticks 0, 20, 40, 60, 80
+    for host, copy in pulled:
+        assert host.view.dtype == np.uint32
+        assert host.view_ts.dtype == np.int32
+        for k, v in copy.items():
+            np.testing.assert_array_equal(getattr(host, k), v, err_msg=k)
+    assert not np.array_equal(pulled[0][1]["view"], pulled[2][1]["view"])

@@ -550,7 +550,18 @@ _REF = _BASE.format(n=64, tremove=40, mesh=8) + _NODROP
     ("CHECKPOINT_EVERY: 10\nSERVICE_PORT: 0\n", "Queue 1 item 10"),
 ])
 def test_outside_the_slice_is_refused(extra, item):
+    """What the sharded steps do not run yet is refused with its Queue 1
+    item; SERVICE_PORT (item 10, the service daemon, now ported)
+    resolves into the JAX package's sharded config."""
     p = Params.from_text(_REF + extra)
+    if item == "Queue 1 item 10":
+        want = jax_sh.sharded_config(JaxParams.from_text(_REF + extra), True,
+                                     (3,), None, 8)
+        got = sh.sharded_config(p, True, (3,), 8, device="cpu")
+        for field in ("n", "s", "g", "probes", "collect_events", "folded",
+                      "fast_agg", "count_probe_io", "exchange"):
+            assert getattr(got, field) == getattr(want, field), field
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         sh.sharded_config(p, True, (3,), 8, device="cpu")
 
