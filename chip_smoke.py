@@ -172,6 +172,41 @@ Phases (any failure exits non-zero before the final line):
                 segment of this process is left in /dev/shm after the
                 shutdown; prints ms/tick served against batch and the
                 replicas' query rate.
+ 39. reshard -- elastic resharding (elastic/reshard.py) on the card, two
+                arms.  Scale in, folded: the eight-shard checkpoint that
+                checkpoint_sharded_folded's killed run left at tick 48,
+                resharded in place to MESH_SHAPE 4x2 (the codec round trip
+                on the card) and resumed with --mesh-shape 4x2: summary,
+                detection summary and timeline series equal to a 4x2 twin
+                chunked at 16 from tick 0; K5, K6 and K7 (hist) once per
+                resumed tick.  Scale out, natural: ring_1m_s128_sharded
+                (one shard) at 64 ticks with the crash at 24, killed at 40
+                (manifest at 48), its 1.77 GB checkpoint resharded to
+                MESH_SHAPE 8 and resumed: K1, K4 and K3 once per resumed
+                tick, detections and no false removal (D shards draw from
+                per-shard streams, so this is its own run, not an
+                eight-shard run's twin); the same at N=2^14, resumed on
+                the card and on the CPU from the same resharded
+                checkpoint: detection summary and final state equal.
+                Prints each arm's carry bytes (full and packed), codec
+                and redistribution seconds, the reshard's wall, its peak
+                device memory and the resumed ticks/s against the twin's
+                (the killed one-shard run's for the natural arm);
+ 40. fleet   -- the fleet controller as a subprocess (python -m
+                distributed_membership_tpu_torch fleet.conf --fleet,
+                FLEET_MAX_CONCURRENCY 2, FLEET_MIGRATE_ON death; workers on
+                the card): ring_1m_s128_serve.conf SIGKILLed after its
+                first durable boundary (journaled migrating -> requeued,
+                trigger death, relaunched, finished: its logs and summary
+                equal the serve phase's batch run), and
+                ring_16k_s128_sharded8_serve.conf with serve_sharded's
+                crash as an inline scenario, its answers through the fleet
+                equal to the worker's own while it runs, then drained with
+                POST /v1/runs/s8/migrate (trigger manual): its logs equal
+                serve_sharded's.  Each worker holds the card's device
+                files while it runs.  Prints the seconds from the SIGKILL
+                to the relaunch, downtime_ticks, resume_tick, the fleet's
+                /metrics union scraped once and the phase's wall time.
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -219,7 +254,8 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "scenario_parity", "checkpoint", "checkpoint_sharded_folded",
           "mega", "hoisted", "checkpoint_parity", "legacy", "multi",
           "shift_set", "buffsize", "approx_lag", "wide", "folded_probes0",
-          "serve", "serve_inject", "serve_sharded", "serve_replicas")
+          "serve", "serve_inject", "serve_sharded", "serve_replicas",
+          "reshard", "fleet")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
@@ -1024,16 +1060,19 @@ def launches_expected(**nonzero) -> dict:
 
 
 SERIES = {}                     # path name -> its run's timeline series
+PATH_INFO = {}                  # path name -> run_path's record of it
 
 
 def run_path(torch, conf: str, name: str, expect: dict, out_dir: str,
-             ticks: int | None = None, carry: bool = False, **kw) -> dict:
+             ticks: int | None = None, carry: bool = False,
+             digest: bool = False, **kw) -> dict:
     """Drive run_conf once on the card, with every launch count set to 0
     just before and read just after; ``kw`` are run_conf's overrides and
     ``ticks`` the ticks the run drives (a resumed run's rest; default
     TOTAL_TIME).  A conf with TELEMETRY must give a timeline that
     reconciles with its detection summary.  With ``carry`` the final
-    state's block-boundary bytes (ops/megakernel.py) are recorded."""
+    state's block-boundary bytes (ops/megakernel.py) are recorded, with
+    ``digest`` its checkpoint state hash (runtime/checkpoint.py)."""
     from distributed_membership_tpu_torch import kernels
     from distributed_membership_tpu_torch.runtime.application import run_conf
 
@@ -1062,12 +1101,19 @@ def run_path(torch, conf: str, name: str, expect: dict, out_dir: str,
         from distributed_membership_tpu_torch.ops.megakernel import (
             carry_bytes)
         info["carry_bytes"] = carry_bytes(result.extra["final_state"])
+    if digest:
+        from distributed_membership_tpu_torch.convert import carry_leaves
+        from distributed_membership_tpu_torch.runtime.checkpoint import (
+            state_hash)
+        info["state_hash"] = state_hash(carry_leaves(
+            result.extra["final_state"]))
     if "timeline" in result.extra:
         info["timeline"] = reconcile(name, result)
         SERIES[name] = result.extra["timeline"]
     if "scenario_report" in result.extra:
         info["scenario"] = oracle_digest(result.extra["scenario_report"])
     log(f"main[{name}]: " + json.dumps(info))
+    PATH_INFO[name] = info
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches} != {expect}")
     return info
@@ -1249,6 +1295,10 @@ def phase_checkpoint_sharded_folded(torch, confs: str, paths: dict,
     if ck.manifest_tick(ckdir) != 48:
         raise AssertionError("checkpoint_sharded_folded: manifest at "
                              f"{ck.manifest_tick(ckdir)}, not 48")
+    # The reshard phase's scale-in source: this boundary, kept before the
+    # resume below moves the manifest on (snapshots hard-linked: the
+    # writer replaces and unlinks, never rewrites, a file).
+    keep_boundary(ckdir, tl, os.path.join(out_dir, "reshard_folded"))
     resumed = run_path(torch, conf, "checkpoint_sharded_folded",
                        per_tick(16), out_dir, ticks=16, checkpoint_every=16,
                        checkpoint_dir=ckdir, resume=True, telemetry_dir=tl)
@@ -1267,6 +1317,22 @@ def phase_checkpoint_sharded_folded(torch, confs: str, paths: dict,
         "sharded_folded_lossy's; " + json.dumps(info))
     shutil.rmtree(ckdir, ignore_errors=True)
     return info
+
+
+def keep_boundary(ckdir: str, tl: str, dest: str) -> None:
+    """A copy of a killed run's durable boundary at ``dest``: ``ck/``
+    (npz snapshots hard-linked, the manifest copied) and ``tl/`` (its
+    telemetry files copied: the recorder appends to them in place)."""
+    import shutil
+    shutil.rmtree(dest, ignore_errors=True)
+    os.makedirs(os.path.join(dest, "ck"))
+    for f in os.listdir(ckdir):
+        src, dst = os.path.join(ckdir, f), os.path.join(dest, "ck", f)
+        if f.endswith(".npz"):
+            os.link(src, dst)
+        else:
+            shutil.copy2(src, dst)
+    shutil.copytree(tl, os.path.join(dest, "tl"))
 
 
 def checkpoint_parity(torch, conf: str, name: str, every: int, kill: int,
@@ -2087,7 +2153,7 @@ def latency_tail(lat: list, got: dict) -> dict:
 
 
 def gil_case(torch, conf: str, out_dir: str, mode: str,
-             window_s: float = 15.0) -> dict:
+             window_s: float = 10.0) -> dict:
     """The engine's ms/tick while four closed-loop query threads in its
     process read for up to ``window_s``, with the daemon's query gate
     (``mode`` "gated") or without it ("ungated"), or with no query
@@ -2450,6 +2516,418 @@ def phase_serve_replicas(torch, confs: str, out_dir: str,
     return info
 
 
+def reshard_arm(torch, src: str, to_shape: str) -> dict:
+    """The port's ``reshard`` of the checkpoint in ``src`` to
+    ``to_shape``, in place, with the codec round trip on the card; its
+    stats with the peak device memory it took."""
+    from distributed_membership_tpu_torch.elastic.reshard import reshard
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = reshard([src], [src], to_mesh_shape=to_shape, device="cuda")
+    torch.cuda.synchronize()
+    stats["peak_device_bytes"] = torch.cuda.max_memory_allocated() - base
+    return stats
+
+
+def phase_reshard(torch, confs: str, out_dir: str, card: str) -> dict:
+    """Scale in, folded: the eight-shard lossy hist checkpoint at tick 48
+    (kept by checkpoint_sharded_folded) resharded to 4x2 and resumed
+    with --mesh-shape 4x2, against a 4x2 twin chunked from tick 0 (mesh
+    shapes differ in their per-shard RNG plan, so the twin is the target
+    shape's run).  Scale out, natural: the one-shard S=128 path killed at
+    40 (manifest at 48) resharded to 8 and resumed; at 2^14 the card's
+    resume equals the CPU's."""
+    import shutil
+
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    info = {"card": card}
+
+    def per_tick(n, **kinds):
+        return launches_expected(**{k: n for k in kinds})
+
+    # Scale in, folded (K5, K6's D-shard launch, K7 hist).
+    conf = os.path.join(confs, "ring_1m_s16_folded_sharded8_drop.conf")
+    folded = dict(receive_folded=1, gossip_folded=1, probe_folded_hist=1)
+    root = os.path.join(out_dir, "reshard_folded")
+    src, tl = os.path.join(root, "ck"), os.path.join(root, "tl")
+    if ck.manifest_tick(src) != 48:       # a partial run: make it now
+        shutil.rmtree(root, ignore_errors=True)
+        run_killed(torch, conf, "reshard_folded_killed",
+                   per_tick(48, **folded), out_dir, 40, checkpoint_every=16,
+                   checkpoint_dir=src, telemetry_dir=tl)
+    arm = {"from": "8", "to": "4x2", "reshard": reshard_arm(torch, src,
+                                                           "4x2")}
+    torch.cuda.empty_cache()
+    resumed = run_path(torch, conf, "reshard_folded", per_tick(16, **folded),
+                       out_dir, ticks=16, checkpoint_every=16,
+                       checkpoint_dir=src, resume=True, telemetry_dir=tl,
+                       mesh_shape="4x2")
+    torch.cuda.empty_cache()
+    twin_tl = os.path.join(root, "twin_tl")
+    shutil.rmtree(twin_tl, ignore_errors=True)
+    twin_info = run_path(torch, conf, "reshard_folded_twin",
+                         per_tick(64, **folded), out_dir,
+                         checkpoint_every=16, telemetry_dir=twin_tl,
+                         mesh_shape="4x2")
+    same_detection("reshard_folded", resumed, twin_info, "its 4x2 twin")
+    same_series("reshard_folded", "reshard_folded_twin")
+    if (_read(os.path.join(tl, "summary.json"))
+            != _read(os.path.join(twin_tl, "summary.json"))):
+        raise AssertionError("reshard_folded: summary.json differs from "
+                             "the 4x2 twin's")
+    arm.update(ticks_per_s=resumed["ticks_per_s"],
+               twin_ticks_per_s=twin_info["ticks_per_s"],
+               launches={k: v for k, v in resumed["launches"].items() if v},
+               peak_mem_gib=resumed["peak_mem_gib"])
+    info["scale_in_folded"] = arm
+    torch.cuda.empty_cache()
+
+    # Scale out, natural S=128 (K1, K4, K3).  A run on D shards draws
+    # from per-shard streams, so one resumed at D=8 from a D=1 boundary
+    # is its own run: at 2^20 it is held to its launches and detections
+    # (its speed against the killed D=1 run's), and at 2^14 the card's
+    # resume to the CPU's resume of the same resharded checkpoint.
+    natural = dict(receive=1, gossip_stacked=1, probe=1)
+    base = os.path.join(confs, "ring_1m_s128_sharded.conf")
+    for tag, n in (("natural", None), ("natural_16k", 1 << 14)):
+        keys = dict(TOTAL_TIME=64, FAIL_TIME=24)
+        if n:
+            keys["MAX_NNB"] = n
+        conf = conf_variant(base, out_dir, f"reshard_{tag}", **keys)
+        src = os.path.join(out_dir, f"reshard_{tag}_ck")
+        shutil.rmtree(src, ignore_errors=True)
+        killed_s = run_killed(torch, conf, f"reshard_{tag}_killed",
+                              per_tick(48, **natural), out_dir, 40,
+                              checkpoint_every=16, checkpoint_dir=src)
+        if ck.manifest_tick(src) != 48:
+            raise AssertionError(f"reshard_{tag}: manifest at "
+                                 f"{ck.manifest_tick(src)}, not 48")
+        torch.cuda.empty_cache()
+        arm = {"from": "1", "to": "8", "killed_ticks_per_s": 48 / killed_s,
+               "reshard": reshard_arm(torch, src, "8")}
+        torch.cuda.empty_cache()
+        if n:
+            cpu_src = src + "_cpu"
+            shutil.rmtree(cpu_src, ignore_errors=True)
+            shutil.copytree(src, cpu_src)
+        resumed = run_path(torch, conf, f"reshard_{tag}",
+                           per_tick(16, **natural), out_dir, ticks=16,
+                           digest=True, checkpoint_every=16,
+                           checkpoint_dir=src, resume=True, mesh_shape="8")
+        det = resumed["detection"]
+        if det["false_removals"] != 0 or det.get("detections_total",
+                                                  0) <= 0:
+            raise AssertionError(f"reshard_{tag}: detection summary {det}")
+        if ck.load_manifest(src)["state_hash"] != resumed["state_hash"]:
+            raise AssertionError(f"reshard_{tag}: the tick-64 snapshot is "
+                                 "not the final state")
+        torch.cuda.empty_cache()
+        arm.update(ticks_per_s=resumed["ticks_per_s"],
+                   launches={k: v for k, v in resumed["launches"].items()
+                             if v},
+                   peak_mem_gib=resumed["peak_mem_gib"])
+        if n:
+            from distributed_membership_tpu_torch.convert import (
+                carry_leaves)
+            from distributed_membership_tpu_torch.runtime.application import (
+                run_conf)
+            t0 = time.perf_counter()
+            cpu = run_conf(conf, out_dir=os.path.join(out_dir,
+                                                      f"reshard_{tag}_cpu"),
+                           device="cpu", checkpoint_every=16,
+                           checkpoint_dir=cpu_src, resume=True,
+                           mesh_shape="8")
+            arm["cpu_resume_s"] = time.perf_counter() - t0
+            cpu_det = {k: v for k, v in
+                       cpu.extra["detection_summary"].items()
+                       if k != "latency_hist_nonzero"}
+            if (cpu_det != det or ck.state_hash(carry_leaves(
+                    cpu.extra["final_state"])) != resumed["state_hash"]):
+                raise AssertionError(f"reshard_{tag}: the card's resume "
+                                     "differs from the CPU's")
+            shutil.rmtree(cpu_src, ignore_errors=True)
+        info[f"scale_out_{tag}"] = arm
+        shutil.rmtree(src, ignore_errors=True)
+    log("reshard: folded 8 -> 4x2 resumed == its 4x2 twin (summary, "
+        "detection, series); natural 1 -> 8 resumed on the card == on the "
+        "CPU at 2^14 (detection, final state); " + json.dumps(info))
+    return info
+
+
+FLEET_CONF = "FLEET_MAX_CONCURRENCY: 2\nFLEET_MIGRATE_ON: death\n"
+
+
+def fleet_rows(root: str, run_id: str) -> list:
+    from distributed_membership_tpu_torch.fleet.registry import (
+        JOURNAL_NAME, FleetJournal)
+    return [r for r in FleetJournal(os.path.join(root, JOURNAL_NAME)).read()
+            if r.get("run_id") == run_id and r.get("kind") == "state"]
+
+
+def holds_card(pid: int) -> bool:
+    """Does process ``pid`` hold the card's device files open?"""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def compute_apps() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` rows."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def phase_fleet(torch, confs: str, out_dir: str, card: str) -> dict:
+    """The fleet controller as a subprocess (``--fleet``, workers on the
+    card, FLEET_MAX_CONCURRENCY 2, FLEET_MIGRATE_ON death): a 1M served
+    run SIGKILLed after its first durable boundary (migrated, trigger
+    death) and an eight-shard run at N=2^14 queried through the fleet's
+    proxy and drained over POST .../migrate (trigger manual); each
+    finishes with the logs of the in-process card run of its conf."""
+    import shutil
+    import signal
+
+    from distributed_membership_tpu_torch.observability import metricsbus
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    t_phase = time.perf_counter()
+    root = os.path.join(out_dir, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    conf_1m = os.path.join(confs, "ring_1m_s128_serve.conf")
+    conf_s8 = os.path.join(confs, "ring_16k_s128_sharded8_serve.conf")
+    event = {"kind": "crash", "time": 40, "nodes": [3]}
+    # The in-process card runs the fleet's runs must equal: the serve
+    # phase's batch run and serve_sharded's live run (a partial run makes
+    # them now: the batch run, and the union-scenario run on the card).
+    ref_1m = os.path.join(out_dir, "serve_batch")
+    if "serve_batch" not in PATH_INFO:
+        t = conf_ticks(conf_1m)
+        run_path(torch, conf_1m, "serve_batch", launches_expected(
+            receive=t, gossip=t, probe=t), out_dir)
+    batch_det = json.loads(json.dumps(PATH_INFO["serve_batch"]["detection"]))
+    ref_s8 = os.path.join(out_dir, "serve_sharded", "live")
+    if not os.path.exists(os.path.join(ref_s8, "dbg.log")):
+        union = os.path.join(out_dir, "fleet_union.json")
+        with open(union, "w") as fh:
+            json.dump({"name": "union", "events": [event]}, fh)
+        ref_s8 = os.path.join(out_dir, "fleet_s8_twin")
+        run_conf(conf_variant(conf_s8, out_dir, "fleet_s8_twin",
+                              SERVICE_PORT=-1), out_dir=ref_s8,
+                 device="cuda", scenario=union)
+    torch.cuda.empty_cache()
+    fconf = os.path.join(root, "fleet.conf")
+    with open(fconf, "w") as fh:
+        fh.write(FLEET_CONF)
+    logf = open(os.path.join(root, "controller.log"), "ab")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_membership_tpu_torch", fconf,
+         "--fleet", "--out-dir", root], cwd=REPO, stdout=logf,
+        stderr=subprocess.STDOUT)
+    logf.close()
+    info = {"card": card}
+    on_card, apps, smi_at = {}, [], [0.0]
+
+    def sample():
+        """Which running workers hold the card's device files; every
+        second, nvidia-smi's compute apps (kept when their count grows).
+        nvidia-smi may name processes by another pid namespace's ids, so
+        the check is the worker's own open /dev/nvidia* files."""
+        for rid, row in runs().items():
+            pid = row.get("pid")
+            if pid and row["state"] == "running" and holds_card(pid):
+                on_card.setdefault(rid, set()).add(pid)
+        if time.monotonic() - smi_at[0] > 1.0:
+            smi_at[0] = time.monotonic()
+            rows = compute_apps()
+            if len(rows) > len(apps[-1] if apps else []):
+                apps.append(rows)
+
+    def runs():
+        code, doc = http_json(port, "/v1/runs")
+        return {r["run_id"]: r for r in doc["runs"]}
+
+    def wait(pred, what, timeout=600, every=0.1):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"fleet: the controller exited "
+                                     f"{proc.returncode}")
+            got = pred()
+            if got:
+                return got
+            sample()
+            time.sleep(every)
+        raise TimeoutError(f"fleet: {what} never happened: {runs()}")
+
+    try:
+        port = None
+        deadline = time.monotonic() + 120
+        while port is None and time.monotonic() < deadline:
+            try:
+                doc = json.load(open(os.path.join(root, "fleet.json")))
+                if doc.get("pid") == proc.pid:
+                    port = int(doc["port"])
+            except (OSError, ValueError, KeyError):
+                time.sleep(0.05)
+        if port is None:
+            raise AssertionError("fleet: no fleet.json from the controller")
+        apps.append(compute_apps())          # before any worker
+        for rid, conf, extra in (
+                ("r1m", conf_1m, {}),
+                ("s8", conf_s8, {"scenario": {"name": "union",
+                                              "events": [event]}})):
+            code, ack = http_json(port, "/v1/runs", "POST", dict(
+                conf=open(conf).read(), run_id=rid, **extra))
+            if code != 202 or ack["mode"] != "serve":
+                raise AssertionError(f"fleet: submit {rid}: {code} {ack}")
+        # The eight-shard run: its answers through the fleet equal the
+        # worker's own while it runs, then it is drained at a boundary.
+        wport = wait(lambda: read_service_port(root, "s8", runs()),
+                     "s8's service port", every=0.02)
+        wait(lambda: all(http_get(wport, p)[0] == 200
+                         for p in ("/v1/census", "/v1/timeline")),
+             "s8's first snapshot and timeline rows", every=0.01)
+        compared = {}
+        for path in ("/v1/census", "/v1/member/3", "/v1/timeline",
+                     "/v1/nonexistent"):
+            for _ in range(200):
+                d1 = http_get(wport, path)
+                got = http_get(port, "/v1/runs/s8" + path)
+                if d1 == http_get(wport, path):
+                    if got != d1:
+                        raise AssertionError(f"fleet: {path} through the "
+                                             f"fleet {got} != direct {d1}")
+                    compared[path] = d1[0]
+                    break
+        if compared != {"/v1/census": 200, "/v1/member/3": 200,
+                        "/v1/timeline": 200, "/v1/nonexistent": 404}:
+            raise AssertionError(f"fleet: proxy comparisons {compared}")
+        ck_s8 = os.path.join(root, "s8", "ck")
+        wait(lambda: (ck.manifest_tick(ck_s8) or 0) >= 30,
+             "s8's boundary 30", every=0.001)
+        code, reply = http_json(port, "/v1/runs/s8/migrate", "POST", {})
+        if code != 202:
+            raise AssertionError(f"fleet: migrate s8: {code} {reply}")
+        # The 1M run: SIGKILL its worker after its first durable boundary.
+        ck_1m = os.path.join(root, "r1m", "ck")
+        wait(lambda: (ck.manifest_tick(ck_1m) or 0) >= 10,
+             "r1m's boundary 10", every=0.01)
+        pid = runs()["r1m"]["pid"]
+        sample()
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.time()
+        wait(lambda: runs()["r1m"].get("pid") not in (None, pid),
+             "r1m's relaunch", every=0.05)
+        t_relaunch = time.time()
+        wait(lambda: runs()["r1m"].get("port"), "r1m's relaunched port")
+        code, text = http_get(port, "/metrics")
+        union = metricsbus.parse_text(text.decode())
+        wait(lambda: all(r["state"] == "done" for r in runs().values()),
+             "both runs done", timeout=900, every=0.5)
+        listing = runs()
+    finally:
+        try:
+            http_get(port, "/v1/admin/shutdown", "POST", {})
+        except (OSError, TypeError):
+            pass
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    rows = {rid: fleet_rows(root, rid) for rid in ("r1m", "s8")}
+    trans = {rid: [(r["state"], r.get("trigger")) for r in rs]
+             for rid, rs in rows.items()}
+    for rid, trigger in (("r1m", "death"), ("s8", "manual")):
+        for st in ("migrating", "requeued"):
+            if (st, trigger) not in trans[rid]:
+                raise AssertionError(f"fleet: {rid} journaled {trans[rid]}")
+    req = next(r for r in rows["r1m"] if r["state"] == "requeued")
+    relaunch = next(r for r in rows["r1m"] if r["state"] == "running"
+                    and r["ts"] > req["ts"])
+    if sorted(on_card) != ["r1m", "s8"]:
+        raise AssertionError(f"fleet: workers seen on the card: {on_card}")
+    for rid, ref in (("r1m", ref_1m), ("s8", ref_s8)):
+        names = ("dbg.log", "stats.log") + (("msgcount.log",)
+                                            if rid == "s8" else ())
+        for name in names:
+            if (_read(os.path.join(root, rid, name))
+                    != _read(os.path.join(ref, name))):
+                raise AssertionError(f"fleet: {rid}/{name} differs from "
+                                     f"the card run in {ref}")
+    det = json.load(open(os.path.join(root, "r1m", "summary.json")))
+    det.pop("latency_hist_nonzero", None)
+    if det != batch_det:
+        raise AssertionError(f"fleet: r1m summary {det} != {batch_det}")
+    info.update({
+        "wall_s": time.perf_counter() - t_phase,
+        "sigkill_to_relaunch_s": t_relaunch - t_kill,
+        "journal_kill_to_relaunch_s": relaunch["ts"] - t_kill,
+        "downtime_ticks": req["from_tick"] - req["resume_tick"],
+        "from_tick": req["from_tick"], "resume_tick": req["resume_tick"],
+        "s8_resume_tick": next(r for r in rows["s8"]
+                               if r["state"] == "requeued")["resume_tick"],
+        "proxy_compared": compared,
+        "workers_on_card": {k: sorted(v) for k, v in on_card.items()},
+        "compute_apps": apps,
+        "metrics_union": {f"{n}{dict(lb)}": v for (n, lb), v in
+                          sorted(union.items())
+                          if n.startswith(("dm_fleet_", "dm_engine_tick",
+                                           "dm_tick_rate"))},
+        "metrics_samples": len(union),
+        "runs": {rid: {k: r.get(k) for k in ("state", "tick", "migrations",
+                                              "last_trigger")}
+                 for rid, r in listing.items()}})
+    log("fleet: r1m migrated (death) and s8 drained (manual), each equal "
+        "to its card run; " + json.dumps(info))
+    return info
+
+
+def read_service_port(root: str, run_id: str, listing: dict):
+    """The worker's own port, from its service.json (pid-checked), once
+    it runs."""
+    row = listing.get(run_id, {})
+    if row.get("state") != "running" or not row.get("pid"):
+        return None
+    try:
+        doc = json.load(open(os.path.join(root, run_id, "service.json")))
+    except (OSError, ValueError):
+        return None
+    return int(doc["port"]) if doc.get("pid") == row["pid"] else None
+
+
+def check_no_jax() -> int:
+    """Import the port's entry points, the elastic and fleet modules
+    included, and check that nothing of JAX or the JAX package came with
+    them; -> the count of the port's modules loaded."""
+    import importlib
+    for name in ("runtime.application", "elastic.reshard", "elastic.migrate",
+                 "fleet.placement", "fleet.registry", "fleet.scheduler",
+                 "fleet.daemon", "sweeps.fleet_submit", "service.daemon"):
+        importlib.import_module("distributed_membership_tpu_torch." + name)
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "distributed_membership_tpu")]
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
+    return len([m for m in sys.modules
+                if m.startswith("distributed_membership_tpu_torch")])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=os.path.join(REPO, "smoke_out"),
@@ -2480,6 +2958,8 @@ def main(argv=None) -> int:
     os.chdir(REPO)       # the scenario confs' SCENARIO paths start here
     t_start = time.perf_counter()
 
+    log(f"imports: {check_no_jax()} modules of the port, elastic and "
+        "fleet included; none of jax or the JAX package")
     secs = kernels.build(ptxas_report=True)
     log(f"build: {secs:.1f}s (nvcc, sm_90a, one process per source)")
     for name, text in kernels.BUILD_LOG.items():
@@ -2944,7 +3424,9 @@ def main(argv=None) -> int:
             ("serve_sharded", lambda: phase_serve_sharded(torch, confs,
                                                           out_dir, card)),
             ("serve_replicas", lambda: phase_serve_replicas(
-                torch, confs, out_dir, card))):
+                torch, confs, out_dir, card)),
+            ("reshard", lambda: phase_reshard(torch, confs, out_dir, card)),
+            ("fleet", lambda: phase_fleet(torch, confs, out_dir, card))):
         if name in phases:
             t0 = time.perf_counter()
             paths[name + "_info"] = phase()

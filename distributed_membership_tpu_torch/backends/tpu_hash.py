@@ -1424,8 +1424,6 @@ def make_config(params: Params, collect_events: bool = True,
                 "ENFORCE_BUFFSIZE and FUSED_GOSSIP are incompatible (the "
                 "budget is a per-slot send mask; the natural-layout kernel "
                 "applies its fanout mask in-kernel)")
-    if params.FLEET_PORT >= 0:
-        _refuse("FLEET_PORT (the fleet controller)", "Queue 1 item 10d")
     if ring and n < 4:
         raise ValueError("the ring step's packed probe table needs N >= 4")
     if on_cuda and ring:

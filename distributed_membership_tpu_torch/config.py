@@ -26,9 +26,9 @@ class Params:
     """Every field of the JAX package's ``Params``, with its defaults, so
     that a checkpoint's ``params_identity`` (runtime/checkpoint.py) is the
     same text in both packages.  The service keys configure the service
-    daemon (service/daemon.py); the fleet keys are carried for that
-    identity and their gates, and ``FLEET_PORT`` is refused (the fleet
-    controller, ROADMAP.md Queue 1 item 10d)."""
+    daemon (service/daemon.py); the fleet keys configure the fleet
+    controller (fleet/daemon.py ``fleet_conf``, which alone reads them),
+    and a run conf that sets them runs as it does without them."""
     # --- legacy keys (Params.cpp:22-25) ---
     MAX_NNB: int = 10
     SINGLE_FAILURE: int = 1

@@ -9,8 +9,11 @@ runs the plain versions of the kernels.
 (service/daemon.py): queries and live injection over HTTP between the
 ``CHECKPOINT_EVERY``-tick segments.  A ``RESUME`` with a
 ``CHECKPOINT_DIR`` replays the served run's journal of injected events,
-served or not (``resume_journal_run``).  ``--fleet`` (the fleet
-controller) is not ported yet (ROADMAP.md Queue 1 item 10d).
+served or not (``resume_journal_run``).  ``--fleet`` runs the fleet
+controller (fleet/daemon.py ``fleet_conf``): runs submitted over HTTP
+become worker subprocesses on ``--device``.  ``--mesh-shape`` overrides
+``MESH_SHAPE``, the way a checkpoint resharded by elastic/reshard.py
+resumes on its new shape.
 
 ``--grade-all`` runs the reference's three grading scenarios
 (``testcases/``) and prints the /90 total, as Grader_verbose.sh does;
@@ -61,18 +64,22 @@ def apply_overrides(params: Params, backend: str | None = None,
                     resume: bool | None = None,
                     telemetry: str | None = None,
                     telemetry_dir: str | None = None,
-                    scenario: str | None = None) -> Params:
+                    scenario: str | None = None,
+                    mesh_shape: str | None = None) -> Params:
     """Each given override wins over its conf key (``BACKEND``,
     ``CHECKPOINT_EVERY``, ``CHECKPOINT_DIR``, ``RESUME``, ``TELEMETRY``,
-    ``TELEMETRY_DIR``, ``SCENARIO``), as the JAX package's
-    ``apply_overrides``; the caller validates after them."""
+    ``TELEMETRY_DIR``, ``SCENARIO``, ``MESH_SHAPE``), as the JAX
+    package's ``apply_overrides``; the caller validates after them.
+    ``MESH_SHAPE`` is part of the checkpoint identity, so a resume on a
+    new shape needs an explicit reshard first (elastic/reshard.py)."""
     for key, value in (("BACKEND", backend),
                        ("CHECKPOINT_EVERY", checkpoint_every),
                        ("CHECKPOINT_DIR", checkpoint_dir),
                        ("RESUME", None if resume is None else int(resume)),
                        ("TELEMETRY", telemetry),
                        ("TELEMETRY_DIR", telemetry_dir),
-                       ("SCENARIO", scenario)):
+                       ("SCENARIO", scenario),
+                       ("MESH_SHAPE", mesh_shape)):
         if value is not None:
             setattr(params, key, value)
     return params
@@ -85,7 +92,8 @@ def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
              resume: bool | None = None,
              telemetry: str | None = None,
              telemetry_dir: str | None = None,
-             scenario: str | None = None) -> RunResult:
+             scenario: str | None = None,
+             mesh_shape: str | None = None) -> RunResult:
     """Run one conf and write its logs; the overrides
     (:func:`apply_overrides`) are applied, then the result validated, as
     the JAX package's ``run_conf`` does.  A ``RESUME`` with a
@@ -97,7 +105,7 @@ def run_conf(conf_path: str, seed: int | None = None, out_dir: str = ".",
                     checkpoint_every=checkpoint_every,
                     checkpoint_dir=checkpoint_dir, resume=resume,
                     telemetry=telemetry, telemetry_dir=telemetry_dir,
-                    scenario=scenario)
+                    scenario=scenario, mesh_shape=mesh_shape)
     params.validate()
     log = EventLog(out_dir)
     result = None
@@ -221,6 +229,13 @@ def parser() -> argparse.ArgumentParser:
                          "timeline.jsonl, runlog.jsonl (chunked runs) and, "
                          "in EVENT_MODE agg, summary.json (render with "
                          "scripts/run_report.py)")
+    ap.add_argument("--mesh-shape", default=None, metavar="SHAPE",
+                    help="MESH_SHAPE conf key ('D', 'OxI' or 'SxOxI'; "
+                         "tpu_hash_sharded only).  Resuming onto a "
+                         "shape different from the checkpoint's "
+                         "requires an explicit reshard first "
+                         "(python -m distributed_membership_tpu_torch."
+                         "elastic.reshard)")
     ap.add_argument("--scenario", default=None, metavar="FILE",
                     help="SCENARIO conf key: a declarative chaos-schedule "
                          "JSON file (crash/restart/leave/partition/"
@@ -237,10 +252,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--port", type=int, default=None, metavar="P",
                     help="SERVICE_PORT conf key: port for --serve "
                          "(0 = ephemeral, written to "
-                         "<out-dir>/service.json; default ephemeral)")
+                         "<out-dir>/service.json; default ephemeral); "
+                         "with --fleet it is the FLEET_PORT instead")
     ap.add_argument("--fleet", action="store_true",
-                    help="the fleet controller (fleet/ package): not "
-                         "ported yet (ROADMAP.md Queue 1 item 10d)")
+                    help="run the fleet controller (fleet/ package): a "
+                         "control plane scheduling many runs submitted "
+                         "over HTTP (POST /v1/runs) into subprocess "
+                         "workers on --device, proxying each run's "
+                         "--serve surface under /v1/runs/<id>/.  conf is "
+                         "optional and read for FLEET_* keys only")
     ap.add_argument("--json", action="store_true",
                     help="print a JSON summary line")
     return ap
@@ -261,9 +281,10 @@ def main(argv=None) -> int:
     if args.port is not None and not (args.serve or args.fleet):
         ap.error("--port requires --serve or --fleet")
     if args.fleet:
-        raise NotImplementedError(
-            "--fleet (the fleet controller, fleet/) is not ported yet "
-            "(ROADMAP.md Queue 1 item 10d)")
+        from distributed_membership_tpu_torch.fleet.daemon import (
+            fleet_conf)
+        return fleet_conf(args.conf, port=args.port,
+                          out_dir=args.out_dir or ".", device=args.device)
     if args.serve:
         from distributed_membership_tpu_torch.service.daemon import (
             serve_conf)
@@ -274,14 +295,23 @@ def main(argv=None) -> int:
             checkpoint_dir=args.checkpoint_dir, resume=args.resume,
             telemetry=args.telemetry, telemetry_dir=args.telemetry_dir,
             scenario=args.scenario)
-    result = run_conf(args.conf, seed=args.seed,
-                      out_dir=args.out_dir or ".", device=args.device,
-                      backend=args.backend,
-                      checkpoint_every=args.checkpoint_every,
-                      checkpoint_dir=args.checkpoint_dir,
-                      resume=args.resume, telemetry=args.telemetry,
-                      telemetry_dir=args.telemetry_dir,
-                      scenario=args.scenario)
+    from distributed_membership_tpu_torch.runtime.checkpoint import (
+        RunInterrupted)
+    try:
+        result = run_conf(args.conf, seed=args.seed,
+                          out_dir=args.out_dir or ".", device=args.device,
+                          backend=args.backend,
+                          checkpoint_every=args.checkpoint_every,
+                          checkpoint_dir=args.checkpoint_dir,
+                          resume=args.resume, telemetry=args.telemetry,
+                          telemetry_dir=args.telemetry_dir,
+                          scenario=args.scenario,
+                          mesh_shape=args.mesh_shape)
+    except RunInterrupted as e:
+        # A SIGTERM/SIGINT stopped the chunked driver at a durable
+        # boundary (the fleet's pause and drain): say where to resume.
+        print(f"interrupted: {e} — rerun with --resume to continue")
+        return 0
     p = result.params
     summary = {
         "backend": p.BACKEND,

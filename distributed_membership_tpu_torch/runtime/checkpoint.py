@@ -22,7 +22,8 @@ written by either package resumes in the other.
 Fault injection: ``DM_CRASH_AT_TICK=k`` raises ``RuntimeError`` at the
 first segment start ``a >= k``, after the in-flight write is durable.
 ``DM_RUN_STATE_FILE`` names a JSON file rewritten atomically with
-``{tick, total, ts}`` at every boundary.  SIGTERM and SIGINT stop the
+``{tick, total, ts}`` at every boundary (read back by
+:func:`read_run_state`).  SIGTERM and SIGINT stop the
 run at the next boundary with :class:`RunInterrupted`, the boundary's
 snapshot durable.  With ``TELEMETRY_DIR`` the segments are logged to
 ``runlog.jsonl`` (observability/runlog.py).  :class:`boundary_hook`
@@ -50,7 +51,7 @@ from distributed_membership_tpu_torch.backends.tpu_sparse import (
     CompactEvents, SparseTickEvents)
 from distributed_membership_tpu_torch.config import Params
 from distributed_membership_tpu_torch.convert import (
-    carry_from_leaves, carry_leaves, leaf_specs)
+    carry_from_leaves, carry_leaves, host_leaf, leaf_specs)
 from distributed_membership_tpu_torch.observability.runlog import (
     maybe_runlog)
 from distributed_membership_tpu_torch.ops.megakernel import named_leaves
@@ -218,9 +219,26 @@ def _save_checkpoint(ckpt_dir: str, base: dict, tick: int,
     _atomic_write(_manifest_path(ckpt_dir), _write_manifest)
 
 
-def _load_for_resume(ckpt_dir: str, base: dict, template_specs: list):
+def _placeholder(a: np.ndarray, tmpl: np.ndarray) -> bool:
+    """Is ``a`` a per-device placeholder the run's own ``tmpl`` stands
+    for: the same dtype, both filled with one and the same value?"""
+    if a.dtype != tmpl.dtype or a.size == 0 or tmpl.size == 0:
+        return False
+    v = a.reshape(-1)[0]
+    return bool((a == v).all() and (tmpl == v).all())
+
+
+def _load_for_resume(ckpt_dir: str, base: dict, template_specs: list,
+                     template_leaf: Callable):
     """``(tick, carry leaves, payload)`` from the latest checkpoint, or
-    None when there is none.  A manifest of a different run raises."""
+    None when there is none.  A manifest of a different run raises.
+
+    ``template_leaf(i)`` is the fresh carry's leaf ``i`` on the host.  A stored leaf whose shape differs from it is taken as the
+    run's own when both are placeholders of one fill value: the sharded
+    step's ``[D, 1]`` scatter mailboxes (and its other never-written
+    per-device leaves) keep the writer's shard count D, so a checkpoint
+    resharded onto another D (elastic/reshard.py) resumes.  The JAX
+    package refuses such a resume (ROADMAP.md Queue 3)."""
     manifest = load_manifest(ckpt_dir)
     if manifest is None:
         return None
@@ -237,6 +255,7 @@ def _load_for_resume(ckpt_dir: str, base: dict, template_specs: list):
         raise ValueError(
             f"RESUME: checkpoint file {path!r} named by the manifest is "
             f"unreadable ({e})") from e
+    adopted = {}
     with npz as data:
         leaves = []
         for i, tmpl in enumerate(template_specs):
@@ -247,7 +266,11 @@ def _load_for_resume(ckpt_dir: str, base: dict, template_specs: list):
                     f"{i} (truncated or from an incompatible code "
                     "version)")
             a = data[key]
-            if a.shape != tuple(tmpl.shape) or a.dtype != tmpl.dtype:
+            mine = (template_leaf(i) if a.shape != tuple(tmpl.shape)
+                    else None)
+            if mine is not None and _placeholder(a, mine):
+                adopted[i] = mine
+            elif a.shape != tuple(tmpl.shape) or a.dtype != tmpl.dtype:
                 raise ValueError(
                     f"RESUME: carry leaf {i} shape/dtype mismatch "
                     f"({a.shape}/{a.dtype} on disk vs "
@@ -262,6 +285,8 @@ def _load_for_resume(ckpt_dir: str, base: dict, template_specs: list):
             f"RESUME: state hash mismatch for {path!r} (manifest "
             f"{manifest['state_hash'][:12]}…, file {got[:12]}…) — "
             "checkpoint is corrupt")
+    for i, leaf in adopted.items():
+        leaves[i] = leaf
     return int(manifest["tick"]), leaves, payload
 
 
@@ -296,6 +321,14 @@ def _state_reporter(total: int) -> Optional[Callable[[int], None]]:
             except OSError:
                 pass
     return report
+
+
+def read_run_state(path: str) -> Optional[dict]:
+    """The ``DM_RUN_STATE_FILE`` beacon's current value, or None when it
+    is absent or torn (the fleet scheduler's progress reader)."""
+    from distributed_membership_tpu_torch.observability.beacon import (
+        read_beacon)
+    return read_beacon(path)
 
 
 class _HostCopies:
@@ -407,7 +440,9 @@ def chunked_run(params: Params, seed: int, total: int, *, device,
     start = 0
     acc = _empty_compact(params.EN_GPSZ) if collect_events else None
     if params.RESUME and ckpt_dir:
-        loaded = _load_for_resume(ckpt_dir, base, leaf_specs(carry))
+        named = named_leaves(carry)
+        loaded = _load_for_resume(ckpt_dir, base, leaf_specs(carry),
+                                  lambda i: host_leaf(*named[i]))
         if loaded is not None:
             start, leaves, payload = loaded
             carry = carry_from_leaves(carry, leaves, device)

@@ -12,8 +12,8 @@ The route logic lives in module-level functions (:func:`route_get`,
 :func:`route_post`) that take the ControlState and a path with any
 mount prefix ALREADY STRIPPED — so the same handlers answer the
 single-run daemon's bare paths (``/v1/census``), the read replicas',
-and, in the JAX package, its fleet controller's prefixed ones (the
-fleet is ROADMAP.md Queue 1 item 10d in this port).
+and the fleet controller's prefixed ones (fleet/daemon.py proxies
+``/v1/runs/<id>/...`` to a worker daemon's handlers).
 
 Endpoints (README "Service"):
 

@@ -117,7 +117,13 @@ def test_port_imports_no_jax():
             PKG / "service" / "daemon.py", PKG / "service" / "events.py",
             PKG / "service" / "replica.py",
             PKG / "service" / "shm_ring.py",
-            PKG / "service" / "snapshot.py"} <= set(_port_sources())
+            PKG / "service" / "snapshot.py",
+            PKG / "elastic" / "__init__.py", PKG / "elastic" / "reshard.py",
+            PKG / "elastic" / "migrate.py", PKG / "fleet" / "__init__.py",
+            PKG / "fleet" / "placement.py", PKG / "fleet" / "registry.py",
+            PKG / "fleet" / "scheduler.py", PKG / "fleet" / "daemon.py",
+            PKG / "sweeps" / "__init__.py",
+            PKG / "sweeps" / "fleet_submit.py"} <= set(_port_sources())
     for path in _port_sources():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):

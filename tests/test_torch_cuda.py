@@ -1001,3 +1001,207 @@ def test_published_arrays_intact_after_two_boundaries(cuda, tmp_path,
         for k, v in copy.items():
             np.testing.assert_array_equal(getattr(host, k), v, err_msg=k)
     assert not np.array_equal(pulled[0][1]["view"], pulled[2][1]["view"])
+
+
+# ---------------------------------------------------------------------------
+# Elastic resharding (elastic/reshard.py) and the fleet on the card
+
+
+def _carry_leaves(rng, n=300, s=12):
+    """Carry-like host leaves: bool planes and vectors (sizes that do not
+    fill a 32-bit word), int32 stamps inside and at the edge of the u16
+    lanes, a uint32 plane, scalars."""
+    return [rng.random((n, s)) < 0.5, rng.random(n + 5) < 0.3,
+            np.array(True),
+            rng.integers(-1, 65535, (n, s - 1)).astype(np.int32),
+            np.array([[-1, 65534, 7]], np.int32),
+            np.array([[-2, 5, 6]], np.int32),
+            rng.integers(0, 2**32, (n, s), dtype=np.uint64).astype(np.uint32),
+            np.int32(40), rng.random(n).astype(np.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack16", [False, True])
+def test_reshard_codec_on_card_equals_cpu(cuda, pack16):
+    """The boundary codec's round trip on the card: the packed words of
+    every bit and u16 lane equal the CPU's, and the reshard's byte counts
+    too."""
+    from distributed_membership_tpu_torch.elastic import reshard as rs
+    from distributed_membership_tpu_torch.ops import megakernel as mk
+    leaves = _carry_leaves(np.random.default_rng(5))
+    got = rs._codec_roundtrip(leaves, pack16, 200, cuda)
+    want = rs._codec_roundtrip(leaves, pack16, 200, torch.device("cpu"))
+    for k in ("carry_bytes_full", "carry_bytes_packed"):
+        assert got[k] == want[k], k
+    assert got["carry_bytes_packed"] < got["carry_bytes_full"]
+    for leaf in leaves:
+        x = torch.from_numpy(np.asarray(leaf))
+        if x.dtype == torch.bool:
+            pack, unpack = mk._pack_bits, mk._unpack_bits
+        elif pack16 and x.dtype == torch.int32 and x.ndim >= 1 \
+                and mk.fits16(leaf):
+            pack, unpack = mk._pack_u16, mk._unpack_u16
+        else:
+            continue
+        words = pack(x.to(cuda))
+        assert torch.equal(words.cpu(), pack(x))
+        assert torch.equal(unpack(words, x.shape).cpu(), x)
+
+
+@pytest.mark.cuda
+def test_reshard_on_card_writes_the_cpus_files(cuda, tmp_path):
+    """A reshard with the codec on the card writes the files of the same
+    reshard on the CPU (the npz members byte for byte, the manifest but
+    for its stamps)."""
+    import json
+
+    from distributed_membership_tpu_torch.elastic.reshard import reshard
+    from distributed_membership_tpu_torch.runtime.checkpoint import (
+        CKPT_VERSION, MANIFEST_NAME, load_manifest, state_hash)
+    leaves = _carry_leaves(np.random.default_rng(6))
+    src = tmp_path / "src"
+    src.mkdir()
+    fname = "ckpt_00000040.npz"
+    np.savez(src / fname, **{f"c{i}": a for i, a in enumerate(leaves)},
+             e_hist=np.arange(5))
+    params = {"EN_GPSZ": 300, "MESH_SHAPE": "4", "FOLDED": 0}
+    (src / MANIFEST_NAME).write_text(json.dumps({
+        "version": CKPT_VERSION, "tick": 40, "file": fname,
+        "state_hash": state_hash(leaves), "seed": 1,
+        "params_text": json.dumps(params, sort_keys=True),
+        "backend": "tpu_hash_sharded", "total_time": 200,
+        "process_count": 1, "checkpoints": []}))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        dst = tmp_path / dev
+        stats = reshard([str(src)], [str(dst)], to_mesh_shape="2x3",
+                        pack16=True, device=dev)
+        m = load_manifest(str(dst))
+        for k in ("wrote_at",):
+            m.pop(k)
+        for r in m["reshard"]:
+            r.pop("ts")
+        with np.load(dst / m["file"]) as npz:
+            out[dev] = (m, {k: (npz[k].dtype, npz[k].tobytes())
+                            for k in npz.files},
+                        {k: v for k, v in stats.items()
+                         if not k.endswith("seconds")})
+    assert out["cuda"] == out["cpu"]
+
+
+_SHARDED_RESHARD = """MAX_NNB: 256
+SINGLE_FAILURE: 1
+DROP_MSG: 1
+MSG_DROP_PROB: 0.05
+VIEW_SIZE: 128
+GOSSIP_LEN: 32
+PROBES: 16
+FANOUT: 3
+TFAIL: 8
+TREMOVE: 32
+TOTAL_TIME: 80
+FAIL_TIME: 20
+JOIN_MODE: warm
+EXCHANGE: ring
+EVENT_MODE: full
+BACKEND: tpu_hash_sharded
+MESH_SHAPE: 8
+"""
+
+
+@pytest.mark.cuda
+def test_resharded_resume_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """Eight shards killed on the card at 30 (the manifest at 40),
+    resharded on the card to 4x2 and resumed there with mesh_shape
+    "4x2": K1, K4's masks-free form and K3 once per resumed tick, and the
+    logs of the CPU's 4x2 run from tick 0."""
+    from distributed_membership_tpu_torch.elastic.reshard import reshard
+    from distributed_membership_tpu_torch.runtime import checkpoint as ck
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+    conf = tmp_path / "sh.conf"
+    conf.write_text(_SHARDED_RESHARD)
+    ckdir = str(tmp_path / "ck")
+    kw = dict(checkpoint_every=20, checkpoint_dir=ckdir, resume=True)
+    monkeypatch.setenv(ck.CRASH_ENV, "30")
+    with pytest.raises(RuntimeError, match="injected crash"):
+        run_conf(str(conf), seed=4, out_dir=str(tmp_path / "mig"),
+                 device="cuda", **kw)
+    monkeypatch.delenv(ck.CRASH_ENV)
+    assert ck.manifest_tick(ckdir) == 40
+    stats = reshard([ckdir], [ckdir], to_mesh_shape="4x2", device="cuda")
+    assert stats["to_shape"] == "4x2"
+    kernels.reset_launches()
+    run_conf(str(conf), seed=4, out_dir=str(tmp_path / "mig"),
+             device="cuda", mesh_shape="4x2", **kw)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive": 40, "gossip_stacked": 40, "probe": 40}
+    run_conf(str(conf), seed=4, out_dir=str(tmp_path / "twin"),
+             device="cpu", mesh_shape="4x2", checkpoint_every=20)
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "mig" / name).read_bytes()
+                == (tmp_path / "twin" / name).read_bytes()), name
+    assert b" removed " in (tmp_path / "mig" / "dbg.log").read_bytes()
+
+
+@pytest.mark.cuda
+def test_fleet_records_the_cards_refusal_as_failed(cuda, tmp_path):
+    """A ring conf with VIEW_SIZE 16 is a served run for the fleet; under
+    SERVICE_PORT the folded layout stays off, so the card refuses it at
+    make_config.  The fleet's worker (on the card, the default) fails
+    with that refusal in its log, as ``--serve`` of the conf fails."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+    conf_text = ("MAX_NNB: 256\nSINGLE_FAILURE: 1\nDROP_MSG: 0\n"
+                 "MSG_DROP_PROB: 0.0\nVIEW_SIZE: 16\nFAIL_TIME: 1000\n"
+                 "JOIN_MODE: warm\nBACKEND: tpu_hash\nEVENT_MODE: agg\n"
+                 "CHECKPOINT_EVERY: 30\nTOTAL_TIME: 60\n")
+    conf = tmp_path / "v16.conf"
+    conf.write_text(conf_text)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    served = subprocess.run(
+        [sys.executable, "-m", "distributed_membership_tpu_torch",
+         str(conf), "--serve", "--port", "0", "--out-dir",
+         str(tmp_path / "srv")], cwd=repo, capture_output=True, text=True,
+        timeout=300)
+    assert served.returncode != 0
+    refusal = "VIEW_SIZE 16 on CUDA outside FOLDED"
+    assert refusal in served.stderr
+    root = tmp_path / "fleet"
+    root.mkdir()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_membership_tpu_torch",
+         "--fleet", "--port", "0", "--out-dir", str(root)], cwd=repo,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        port = None
+        deadline = time.monotonic() + 120
+        while port is None and time.monotonic() < deadline:
+            try:
+                doc = json.loads((root / "fleet.json").read_text())
+                port = doc["port"] if doc.get("pid") == proc.pid else None
+            except (OSError, ValueError, KeyError):
+                time.sleep(0.1)
+        base = f"http://127.0.0.1:{port}"
+        req = urllib.request.Request(
+            base + "/v1/runs", method="POST",
+            data=json.dumps({"conf": conf_text, "run_id": "v16"}).encode(),
+            headers={"Content-Type": "application/json"})
+        ack = json.loads(urllib.request.urlopen(req, timeout=30).read())
+        assert ack["mode"] == "serve"
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            runs = json.loads(urllib.request.urlopen(
+                base + "/v1/runs", timeout=30).read())["runs"]
+            if runs[0]["state"] in ("failed", "done"):
+                break
+            time.sleep(0.2)
+        assert runs[0]["state"] == "failed", runs
+        assert refusal in (root / "v16" / "worker.log").read_text()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=120)

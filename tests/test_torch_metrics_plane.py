@@ -3,7 +3,8 @@
 Mirrors ``tests/test_metrics_plane.py`` on the modules this port has
 (``observability/metricsbus.py``, ``beacon.py``, ``spans.py``,
 ``watchdog.py`` and the /metrics routes of the daemon and the replica;
-the multi-process merge and the fleet union wait for their items):
+the multi-process merge waits for its item, and the fleet union is
+mirrored in ``tests/test_torch_fleet.py``):
 
 * the registry's rendered text for the same instrument sequence equals
   the JAX package's, byte for byte, and ``parse_text``/``relabel`` give

@@ -1,7 +1,7 @@
 """The port's query tier against the JAX package's, at tolerance 0.
 
-Mirrors ``tests/test_query_tier.py`` (without the fleet proxy, which
-waits for the fleet controller):
+Mirrors ``tests/test_query_tier.py`` (its fleet proxy test is mirrored
+in ``tests/test_torch_fleet.py``):
 
 * snapshots: the port's ``Snapshot`` (incremental and full derive) gives
   the JAX package's census and member documents on the same synthetic

@@ -17,8 +17,8 @@ JAX package's at tolerance 0:
   injection and equals the JAX package's served run with it (logs,
   timeline, every boundary's documents) and the union-scenario twin;
 * the CLI's ``--serve``, ``--port`` and ``--fleet`` as the JAX
-  package's (usage errors; ``--fleet`` and ``FLEET_PORT`` name their
-  Queue 1 item);
+  package's (usage errors; ``--fleet``'s gates, and a run conf with
+  ``FLEET_PORT``, as the JAX package's);
 * the injection gates answer with the JAX package's HTTP codes and
   messages; a bind failure exits 2 with its hint; torn and idle SSE
   clients are tolerated; the chunked driver's boundary hook stops a run
@@ -813,15 +813,28 @@ def test_cli_usage_errors_match_jax(argv, capsys):
     assert errors[0].split("error: ")[1] == errors[1].split("error: ")[1]
 
 
-def test_fleet_is_refused_with_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10d"):
-        application.main(["--fleet"])
+def test_fleet_is_refused_with_its_item(tmp_path, capsys):
+    """``--fleet`` runs now (fleet/daemon.py): what it refuses is a bad
+    FLEET_* setting, with exit code 2 and the JAX package's message.  A
+    run conf with ``FLEET_PORT: 0`` is no longer refused: it runs, with
+    the JAX package's logs (only ``--fleet`` reads the key)."""
+    errs = []
+    for main, extra in ((application.main, ["--device", "cpu"]),
+                        (jax_app.main, [])):
+        assert main(["--fleet", "--port", "70000", "--out-dir",
+                     str(tmp_path / "f")] + extra) == 2
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == errs[1] and "FLEET_PORT must be in 0..65535" in errs[0]
+    assert not (tmp_path / "f").exists()
     conf = tmp_path / "fleet.conf"
     conf.write_text(SVC_CONF.replace("CHECKPOINT_EVERY: 30\n", "")
                     + "FLEET_PORT: 0\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10d"):
-        application.run_conf(str(conf), out_dir=str(tmp_path),
-                             device="cpu")
+    application.run_conf(str(conf), seed=SEED, out_dir=str(tmp_path / "p"),
+                         device="cpu")
+    jax_app.run_conf(str(conf), seed=SEED, out_dir=str(tmp_path / "j"))
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "p" / name).read_bytes()
+                == (tmp_path / "j" / name).read_bytes()), name
 
 
 def test_cli_serve_writes_the_batch_logs(tmp_path):
