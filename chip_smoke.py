@@ -11,7 +11,9 @@ Phases (any failure exits non-zero before the final line):
                 at N=2^20, S=128, P=16, k_max=3; K5-K7 on the folded
                 layout at N=2^20, S=16, P=2, k_max=3;
   3. main    -- run_conf on confs/ring_1m_s128.conf (the bench.py hash
-                geometry at N=2^20, drop-free, 160 ticks, EVENT_MODE agg);
+                geometry at N=2^20, drop-free, EVENT_MODE agg; 72 ticks
+                with the crash at 24, as DEPTH_CUTS cuts the natural 1M
+                runs);
                 every kernel of the path must launch once per tick, with no
                 false removal and at least one detection;
   4. lossy   -- the same geometry with 5% message drops for 64 ticks
@@ -25,11 +27,11 @@ Phases (any failure exits non-zero before the final line):
                 false removal, at least one detection;
   7. folded_lossy  -- the same with 5% drops for 64 ticks
                 (confs/ring_1m_s16_folded_drop.conf);
-  8. folded_parity -- confs/ring_16k_s16_folded_drop.conf on the card and
-                on the CPU: the detection summary and every leaf of the
-                final state must be identical;
+  8. folded_parity -- confs/ring_16k_s16_folded_drop.conf (84 ticks) on
+                the card and on the CPU: the detection summary and every
+                leaf of the final state must be identical;
   9. sharded -- run_conf on confs/ring_1m_s128_sharded.conf (the main
-                path's geometry on the sharded backend, one shard, 160
+                path's geometry on the sharded backend, one shard, 72
                 ticks): K1, K4 and K3 once per tick and no other kernel, no
                 false removal, at least one detection;
  10. sharded_lossy -- confs/ring_1m_s128_sharded8_drop.conf: eight shards
@@ -44,13 +46,13 @@ Phases (any failure exits non-zero before the final line):
                 and a run's final state lies on the card;
  13. scatter_parity -- confs/scatter_2k_s128_drop.conf (the scatter
                 exchange at N=2048 with 5% drops, probes through the hashed
-                probe mailbox) on the card and on the CPU: byte-identical
-                logs, no kernel launched;
+                probe mailbox; 130 of its 200 ticks) on the card and on the
+                CPU: byte-identical logs, no kernel launched;
  14. cold_parity -- confs/ring_256_s128_staggered_drop.conf (staggered joins
-                on the ring, 5% drops) on tpu_hash (K1, K2's masks form and
-                K3 once per tick) and its sharded twin on eight shards (K1,
-                K4, K3 once per tick), each on the card and on the CPU:
-                byte-identical logs.
+                on the ring, 5% drops, 160 ticks) on tpu_hash (K1, K2's
+                masks form and K3 once per tick) and its sharded twin on
+                eight shards (K1, K4, K3 once per tick), each on the card
+                and on the CPU: byte-identical logs.
  15. sharded_folded -- run_conf on confs/ring_1m_s16_folded_sharded.conf (the
                 S=16 geometry at N=2^20 on tpu_hash_sharded, one shard,
                 FOLDED: 1, drop-free, 160 ticks): K5-K7 once per tick, no
@@ -60,17 +62,17 @@ Phases (any failure exits non-zero before the final line):
                 (one eight-shard launch) and K7's hist form once per tick,
                 and the timeline reconciles with the detection summary;
  17. sharded_folded_parity -- confs/ring_16k_s16_folded_sharded8_drop.conf
-                (N=2^14, eight shards, 5% drops, TELEMETRY hist) on the card
-                and on the CPU: the summary, every final-state leaf and
-                every timeline series identical;
+                (N=2^14, eight shards, 5% drops, TELEMETRY hist, 84 ticks)
+                on the card and on the CPU: the summary, every final-state
+                leaf and every timeline series identical;
  18. telemetry -- confs/ring_1m_s128_hist.conf (the main path's geometry
-                with TELEMETRY hist, 96 ticks, crash at tick 24): K3's hist
+                with TELEMETRY hist, 72 ticks, crash at tick 24): K3's hist
                 form once per tick, the timeline reconciles with the
                 summary; then confs/ring_256_s128_drop.conf with TELEMETRY
                 hist on the card against the CPU: its logs equal the CPU's
                 with TELEMETRY off, its timeline the CPU's with hist.
  19. scenario -- confs/ring_1m_s128_partition.conf (the main path's
-                geometry, 160 ticks, TELEMETRY scalars, the halves
+                geometry, 128 ticks, TELEMETRY scalars, the halves
                 partitioned over (40, 100], then healed): K1, K2's masks
                 form and K3 once per tick, the timeline reconciles, and
                 the oracle's partition entry and invariants are printed;
@@ -89,9 +91,10 @@ Phases (any failure exits non-zero before the final line):
                 every final-state leaf, every series and the report
                 identical.
  23. checkpoint -- confs/ring_1m_s128_ckpt.conf (the main path in 40-tick
-                segments, TELEMETRY scalars): with no directory, then with
-                snapshots under --out-dir killed at tick 100
-                (DM_CRASH_AT_TICK; the manifest at 120) and resumed; each
+                segments, TELEMETRY scalars, 72 ticks): with no
+                directory, then with snapshots under --out-dir killed at
+                tick 20 (DM_CRASH_AT_TICK; the manifest at 40) and resumed
+                for the last segment, where the detections fall; each
                 run's summary equals main's, every kernel once per tick
                 driven; prints the free disk, the snapshot bytes, each
                 segment's device_sync_s/flush_s/ckpt_wait_s (runlog.jsonl)
@@ -103,8 +106,8 @@ Phases (any failure exits non-zero before the final line):
                 8-tick blocks with the packed carry): summary equals
                 folded's; prints ms/tick against folded and carry_bytes;
  26. hoisted -- confs/ring_1m_s128_hoisted.conf (RNG_MODE hoisted, 8-tick
-                segments): summary equals main's; prints ms/tick, launches
-                per tick and the peak device memory;
+                segments, 72 ticks): summary equals main's; prints
+                ms/tick, launches per tick and the peak device memory;
  27. checkpoint_parity -- confs/ring_256_s128_drop.conf and
                 confs/ring_256_s128_scenario.conf killed on the card and
                 resumed on the CPU, and the reverse: the three logs and
@@ -124,19 +127,20 @@ Phases (any failure exits non-zero before the final line):
                 the table's shifts through K2) and its folded S=16 twin
                 (K6); N=256 with SHIFT_SET 16 card vs CPU;
  31. buffsize -- ENFORCE_BUFFSIZE (EN_BUFFSIZE 30000) with cold joins card vs
-                CPU at N=256 (staggered) and N=4096 (batch), and 20 ticks at
-                N=2^20 through K2's masks form;
- 32. approx_lag -- the main path's geometry for 40 ticks with PROBE_IO
-                approx_lag in 20-tick segments: its summary (run totals
+                CPU at N=256 (staggered) and N=4096 (batch, 60 ticks, crash
+                at 20), and 20 ticks at N=2^20 through K2's masks form;
+ 32. approx_lag -- the main path's geometry for 20 ticks with PROBE_IO
+                approx_lag in 10-tick segments: its summary (run totals
                 included) equals PROBE_IO exact's; PROBE_IO none for 20
                 ticks; N=256 approx_lag card vs CPU;
  33. wide    -- confs/ring_16k_full.conf (VIEW_SIZE 0: S = N = 16384, 80
                 ticks): K2's wide-row form once per tick, detections and no
                 false removal; its eight-shard twin (K4's wide-row form, 40
-                ticks); N=4352 full view card vs CPU (14 ticks, TFAIL 4,
-                TREMOVE 8).  Phase 2 holds K2 and
-                K4's wide forms and K1 and K3 at N = S = 16384 against
-                their plain versions.
+                ticks); N=4352 full view card vs CPU (13 ticks, TFAIL 4,
+                TREMOVE 8).  Phase 2 holds K2 and K4's wide forms (row
+                chunks of 4096 columns) and K1 and K3 at N = S = 16384
+                against their plain versions, K2's k_eff form also with
+                every gate open.
  34. folded_probes0 -- confs/ring_1m_s16_folded_probes0.conf (the folded
                 S=16 path with PROBES 0, the Params default; 120 ticks):
                 K5 and K6 once per tick and K7 never, detections > 0; its
@@ -150,7 +154,9 @@ Phases (any failure exits non-zero before the final line):
                 prints ms/tick served against batch, the hook's host pull
                 per publishing boundary, each derive's mode and ms, the
                 boundaries the publisher skipped, the daemon's query
-                p50/p99 and the peak device memory;
+                p50/p99 and the peak device memory; then at N=4096 (20
+                ticks) the engine idle, under four closed-loop threads
+                with the query gate and, for up to 5 s, without it;
  36. serve_inject -- confs/ring_4k_s128_serve_inject.conf (N=4096, full
                 events): a crash injected over POST /v1/events while the
                 engine is parked at boundary 0, uninterrupted; the same
@@ -224,8 +230,10 @@ runs a subset of the phases and prints no final line; `--only profile`
 splits one tick of each 1M conf into its RNG draw, kernels and the rest,
 prints a torch.profiler summary with the device's busy share and the
 device span of each protocol phase (the dm_* record_function ranges),
-times the 1M natural tick with TELEMETRY hist against off, and profiles
-the two 1M single-chip scenario confs on ticks inside their windows.
+profiles the full view (confs/ring_16k_full.conf, N = S = 16384) and
+its eight-shard twin the same way, times the 1M natural tick with
+TELEMETRY hist against off, and profiles the two 1M single-chip scenario
+confs on ticks inside their windows.
 The scenario confs name their SCENARIO file relative to the repository
 root, so the script runs from there.  Run
 outputs (logs, profiler tables) go to --out-dir (default smoke_out/).
@@ -351,6 +359,55 @@ def conf_variant(conf: str, out_dir: str, name: str, **keys) -> str:
     return path
 
 
+def wide_sharded_conf(full: str, out_dir: str) -> str:
+    """The eight-shard twin of confs/ring_16k_full.conf (K4's wide rows),
+    40 ticks."""
+    return conf_variant(full, out_dir, "wide_sharded8",
+                        BACKEND="tpu_hash_sharded", MESH_SHAPE=8,
+                        TOTAL_TIME=40)
+
+
+# Depth cuts for the script's time limit (PERF.md section 4): conf keys
+# over the confs' own, by conf name or, for a variant the script makes,
+# by the variant's name.  Each run keeps its detections inside it: a
+# drop-free crash is detected 34-41 ticks after it at N = 2^20 (so the
+# natural runs crash at 24, as ring_1m_s128_hist does, and stay each
+# other's twins), the partition reconverges ~9 ticks after its heal, the
+# N = 2^14 folded crash at 40 is detected 27-41 ticks later, the N = 256
+# staggered crash at 100 is removed at 141-150, the scatter crash at 60
+# by every tracker ~40 ticks later, the N = 4096 budgeted crash at 20
+# inside 40, and the N = 4352 full view's crash at 1 (TFAIL 4, TREMOVE
+# 8) 9-11 ticks later.  approx_lag's 20 ticks are two segments, so its
+# lagged counters cross a boundary; the served N = 4096 gate case needs
+# only ticks to time.  The 1M lossy paths are not cut: under drops the
+# crash is first detected ~57 ticks into the run, whenever it happens.
+DEPTH_CUTS = {
+    "ring_1m_s128": dict(TOTAL_TIME=72, FAIL_TIME=24),
+    "ring_1m_s128_ckpt": dict(TOTAL_TIME=72, FAIL_TIME=24),
+    "ring_1m_s128_hoisted": dict(TOTAL_TIME=72, FAIL_TIME=24),
+    "ring_1m_s128_sharded": dict(TOTAL_TIME=72, FAIL_TIME=24),
+    "ring_1m_s128_hist": dict(TOTAL_TIME=72),
+    "ring_1m_s128_partition": dict(TOTAL_TIME=128),
+    "ring_16k_s16_folded_drop": dict(TOTAL_TIME=84),
+    "ring_16k_s16_folded_sharded8_drop": dict(TOTAL_TIME=84),
+    "ring_256_s128_staggered_drop": dict(TOTAL_TIME=160),
+    "ring_256_s128_staggered_sharded8_drop": dict(TOTAL_TIME=160),
+    "scatter_2k_s128_drop": dict(TOTAL_TIME=130),
+    "buffsize_4k": dict(TOTAL_TIME=60, FAIL_TIME=20),
+    "approx_lag_1m": dict(TOTAL_TIME=20, FAIL_TIME=8),
+    "serve_gil_4k": dict(TOTAL_TIME=20),
+    "wide_4352": dict(TOTAL_TIME=13, FAIL_TIME=1),
+}
+
+
+def smoke_conf(confs: str, out_dir: str, name: str) -> str:
+    """confs/``name``.conf with its DEPTH_CUTS applied."""
+    conf = os.path.join(confs, name + ".conf")
+    if name not in DEPTH_CUTS:
+        return conf
+    return conf_variant(conf, out_dir, name + "_cut", **DEPTH_CUTS[name])
+
+
 def conf_ticks(conf: str) -> int:
     from distributed_membership_tpu_torch.config import Params
     return Params.from_file(conf, validate=False).TOTAL_TIME
@@ -375,6 +432,16 @@ def record(rows: dict, name, form, err, k_ms, p_ms, moved,
                       bound_ms=bound, bound_by="bytes", library_ms=None)
 
 
+def keff_bytes(mail, payload, k_eff, shifts) -> int:
+    """What K2's k_eff form must move on these inputs: the mailbox read
+    and written, k_eff, the shifts, and the payload rows of the senders
+    whose gate is open for some shift (k_eff >= 1; no receiver reads the
+    others)."""
+    open_rows = int((k_eff > 0).sum())
+    return (2 * nbytes(mail) + nbytes(k_eff, shifts)
+            + open_rows * nbytes(payload) // payload.shape[0])
+
+
 def phase_kernels(torch, dev) -> dict:
     """Phase 2: K1-K3 against their plain versions at the main path's
     shapes; returns one record per kernel form."""
@@ -391,11 +458,17 @@ def phase_kernels(torch, dev) -> dict:
     t = 90
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     shape = (N, S)
-    view = T(packed(rng, N, 0.7, 2 * t + 2, shape))
-    view_ts = T(rng.integers(0, t + 1, size=shape, dtype=np.int32))
-    mail = T(packed(rng, N, 0.4, 2 * t + 4, shape))
-    cand = T(np.where(rng.random(shape, dtype=np.float32) < 0.1,
-                      packed(rng, N, 1.0, 2 * t + 4, shape), 0))
+    # The [N, S] planes are drawn on the card (2^27 entries each), the
+    # row vectors on the host.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20260)
+    rand = lambda *sh: torch.rand(sh, generator=gen, device=dev)  # noqa
+    view = packed_dev(torch, gen, N, 0.7, 2 * t + 2, shape)
+    view_ts = torch.randint(0, t + 1, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+    mail = packed_dev(torch, gen, N, 0.4, 2 * t + 4, shape)
+    cand = torch.where(rand(*shape) < 0.1,
+                       packed_dev(torch, gen, N, 1.0, 2 * t + 4, shape), 0)
     recv = T(rng.random(N) < 0.95)
     act = T(rng.random(N) < 0.95)
     self_on = act & T(rng.random(N) < 0.98)
@@ -427,7 +500,7 @@ def phase_kernels(torch, dev) -> dict:
     record(rows, "receive_fused", "receive", err, k_ms, p_ms, k1_bytes)
 
     # K1's admit_mask form: a random half of the slots admit.
-    admit = T((rng.random(shape, dtype=np.float32) < 0.5).astype(np.int32))
+    admit = (rand(*shape) < 0.5).to(torch.int32)
     ref = receive_core(N, S, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail,
                        *args, admit_mask=admit)
     got = receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t, view.clone(),
@@ -454,8 +527,7 @@ def phase_kernels(torch, dev) -> dict:
     del admit
 
     # ---- K2 gossip, both operand forms ----
-    payload = torch.where(T(rng.random(shape, dtype=np.float32) < 0.3),
-                          view, 0)
+    payload = torch.where(rand(*shape) < 0.3, view, 0)
     k_eff = T(rng.integers(0, K_MAX + 1, size=N, dtype=np.int32))
     err = 0
     for shifts_np in ([1, N - 1, 12345], [777, 524288, 99991]):
@@ -472,10 +544,10 @@ def phase_kernels(torch, dev) -> dict:
                                         shifts), 3)
     # design: the tiled kernel reads the payload and k_eff once per shift
     record(rows, "gossip_fused", "gossip", err, k_ms, p_ms,
-           2 * nbytes(mail) + nbytes(payload, k_eff, shifts),
+           keff_bytes(mail, payload, k_eff, shifts),
            2 * nbytes(mail) + K_MAX * nbytes(payload, k_eff))
 
-    masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
+    masks = rand(K_MAX, *shape) < 0.3
     ref = gossip_plain(N, S, K_MAX, mail, view, None, shifts, masks)
     got = gossip_fused(N, S, K_MAX, mail.clone(), view, None, shifts,
                        masks=masks)
@@ -493,12 +565,9 @@ def phase_kernels(torch, dev) -> dict:
 
     # ---- K3 probe window: agg partials (main path) and hist ----
     fail_ids = (3, 777777, N - 1)
-    rm = np.full(shape, -1, np.int32)
-    hit = rng.random(shape, dtype=np.float32) < 0.02
-    rm[hit] = rng.choice(np.asarray(fail_ids + (5, 6), np.int32),
-                         size=int(hit.sum()))
-    rm_ids = T(rm)
-    del rm, hit
+    ids = torch.tensor(fail_ids + (5, 6), dtype=torch.int32, device=dev)
+    rm_ids = torch.where(rand(*shape) < 0.02, ids[torch.randint(
+        0, len(ids), shape, generator=gen, device=dev)], -1)
     err = 0
     for ptr in (120, 32):                  # wrapping and inner window
         ref = probe_plain(N, S, P, TFAIL, fail_ids, False, True, t, ptr, 0,
@@ -784,7 +853,6 @@ def phase_kernels_stacked(torch, dev) -> dict:
         gossip_fused_stacked, gossip_stacked_plain)
     from distributed_membership_tpu_torch.ops.view_merge import STRIDE
 
-    rng = np.random.default_rng(20263)
     t = 90
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     rows = {}
@@ -797,11 +865,12 @@ def phase_kernels_stacked(torch, dev) -> dict:
         return T(c), T(s1), T(s2)
 
     shape = (N, S)
-    mail = T(packed(rng, N, 0.4, 2 * t + 4, shape))
-    view = T(packed(rng, N, 0.7, 2 * t + 2, shape))
-    payloads = torch.where(
-        T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3), view[None],
-        0)
+    gen = torch.Generator(device=dev)       # the planes, on the card
+    gen.manual_seed(20263)
+    rand = lambda *sh: torch.rand(sh, generator=gen, device=dev)  # noqa
+    mail = packed_dev(torch, gen, N, 0.4, 2 * t + 4, shape)
+    view = packed_dev(torch, gen, N, 0.7, 2 * t + 2, shape)
+    payloads = torch.where(rand(K_MAX, *shape) < 0.3, view[None], 0)
     err = 0
     for seed in (1, 2):
         c, s1, s2 = shifts(1, N, seed)
@@ -843,7 +912,7 @@ def phase_kernels_stacked(torch, dev) -> dict:
                              "from its plain version")
     rows["gossip_stacked"]["two_col_max_abs_err"] = err8
 
-    masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
+    masks = rand(K_MAX, *shape) < 0.3
     c, s1, s2 = shifts(1, N, 4)
     ref = gossip_stacked_plain(N, S, K_MAX, single, mail, view[None], c, s1,
                                s2, masks)
@@ -882,7 +951,7 @@ def phase_kernels_wide(torch, dev) -> dict:
     1000 rows) and K1 and K3 at N = S = 16384, the wide path's full
     view, against their plain versions; returns one record per form."""
     from distributed_membership_tpu_torch.ops.fused_gossip import (
-        gossip_fused, gossip_fused_stacked, gossip_plain,
+        MAX_TILE_S, gossip_fused, gossip_fused_stacked, gossip_plain,
         gossip_stacked_plain)
     from distributed_membership_tpu_torch.ops.fused_probe import (
         probe_plain, probe_window_fused)
@@ -927,10 +996,28 @@ def phase_kernels_wide(torch, dev) -> dict:
     k_ms = cuda_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, ke, shifts),
                    5)
     p_ms = cuda_ms(lambda: gossip_plain(nw, sw, K_MAX, m, v, ke, shifts), 2)
+    # The design copies a sender chunk only where its row's gate is open,
+    # and reads one k_eff value per chunk and shift.
+    open_rows = int(sum((ke > j).sum() for j in range(K_MAX)))
+    chunks = -(-sw // MAX_TILE_S)
     record(rows, "gossip_fused", "gossip_wide", max(err, err_r), k_ms, p_ms,
-           2 * nbytes(m) + nbytes(v, ke, shifts),
-           2 * nbytes(m) + K_MAX * nbytes(v, ke))
+           keff_bytes(m, v, ke, shifts),
+           2 * nbytes(m) + open_rows * sw * 4 + K_MAX * chunks * nbytes(ke))
     rows["gossip_wide"]["ragged_max_abs_err"] = err_r
+    # Every gate open, as on the wide path, where k_eff = min(view,
+    # FANOUT) - seeds is K_MAX on nearly every row of a full view.
+    ke = torch.full_like(ke, K_MAX)
+    ref = gossip_plain(nw, sw, K_MAX, m, v, ke, shifts)
+    got = gossip_fused(nw, sw, K_MAX, m.clone(), v, ke, shifts)
+    torch.cuda.synchronize()
+    err = max_abs_err([(got, ref)])
+    del ref, got
+    k_ms = cuda_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, ke, shifts),
+                   5)
+    p_ms = cuda_ms(lambda: gossip_plain(nw, sw, K_MAX, m, v, ke, shifts), 2)
+    record(rows, "gossip_fused", "gossip_wide_open", err, k_ms, p_ms,
+           keff_bytes(m, v, ke, shifts),
+           2 * nbytes(m) + K_MAX * (nbytes(v) + chunks * nbytes(ke)))
     del payload, v, m2
     masks = rand(K_MAX, *shape) < 0.3
     err, m, v, _, mk, shifts = k2("masks", view, None, masks,
@@ -1187,16 +1274,23 @@ def runlog_segments(tl_dir: str) -> list:
 def phase_checkpoint(torch, confs: str, paths: dict, out_dir: str,
                      card: str) -> dict:
     """The main path's conf in 40-tick segments (TELEMETRY scalars): with
-    no directory, then with snapshots, killed at 100 (the manifest at
-    120) and resumed; each equals the main path's detection summary,
-    with every kernel once per tick."""
+    no directory, then with snapshots, killed in the segment before the
+    last (the manifest at its end) and resumed for the last, where the
+    crash's detections fall; each equals the main path's detection
+    summary, with every kernel once per tick."""
     import shutil
 
+    from distributed_membership_tpu_torch.config import Params
     from distributed_membership_tpu_torch.runtime import checkpoint as ck
-    main = twin(torch, paths, "main", os.path.join(confs, "ring_1m_s128.conf"),
-                launches_expected(receive=160, gossip=160, probe=160),
-                out_dir)
-    conf = os.path.join(confs, "ring_1m_s128_ckpt.conf")
+    main_conf = smoke_conf(confs, out_dir, "ring_1m_s128")
+    t_main = conf_ticks(main_conf)
+    main = twin(torch, paths, "main", main_conf,
+                launches_expected(receive=t_main, gossip=t_main,
+                                  probe=t_main), out_dir)
+    conf = smoke_conf(confs, out_dir, "ring_1m_s128_ckpt")
+    total = conf_ticks(conf)
+    every = Params.from_file(conf, validate=False).CHECKPOINT_EVERY
+    durable = (total - 1) // every * every          # the last boundary
     free = shutil.disk_usage(out_dir).free
     log(f"checkpoint: {free / 2**30:.1f} GiB free under {out_dir}")
     tl = {k: os.path.join(out_dir, f"checkpoint_{k}_tl")
@@ -1208,26 +1302,28 @@ def phase_checkpoint(torch, confs: str, paths: dict, out_dir: str,
     def per_tick(n):
         return launches_expected(receive=n, gossip=n, probe=n)
 
-    nodir = run_path(torch, conf, "checkpoint", per_tick(160), out_dir,
+    nodir = run_path(torch, conf, "checkpoint", per_tick(total), out_dir,
                      telemetry_dir=tl["nodir"])
     same_detection("checkpoint", nodir, main, "main")
-    killed_s = run_killed(torch, conf, "checkpoint_killed", per_tick(120),
-                          out_dir, 100, checkpoint_dir=ckdir,
-                          telemetry_dir=tl["dir"])
-    if ck.manifest_tick(ckdir) != 120:
+    killed_s = run_killed(torch, conf, "checkpoint_killed", per_tick(durable),
+                          out_dir, durable - every // 2,
+                          checkpoint_dir=ckdir, telemetry_dir=tl["dir"])
+    if ck.manifest_tick(ckdir) != durable:
         raise AssertionError(f"checkpoint: manifest at "
-                             f"{ck.manifest_tick(ckdir)}, not 120")
+                             f"{ck.manifest_tick(ckdir)}, not {durable}")
     snaps = {f: os.path.getsize(os.path.join(ckdir, f))
              for f in sorted(os.listdir(ckdir)) if f.endswith(".npz")}
-    resumed = run_path(torch, conf, "checkpoint_resumed", per_tick(40),
-                       out_dir, ticks=40, checkpoint_dir=ckdir, resume=True,
+    resumed = run_path(torch, conf, "checkpoint_resumed",
+                       per_tick(total - durable), out_dir,
+                       ticks=total - durable, checkpoint_dir=ckdir,
+                       resume=True,
                        telemetry_dir=tl["dir"])
     same_detection("checkpoint_resumed", resumed, main, "main")
     info = {"card": card, "free_disk_gib": free / 2**30,
             "launches": nodir["launches"], "snapshot_bytes": snaps,
             "ticks_per_s": {"main": main["ticks_per_s"],
                             "chunked_no_dir": nodir["ticks_per_s"],
-                            "killed_with_snapshots": 120 / killed_s,
+                            "killed_with_snapshots": durable / killed_s,
                             "resumed_with_snapshot":
                                 resumed["ticks_per_s"]},
             "segments_no_dir": runlog_segments(tl["nodir"]),
@@ -1672,8 +1768,8 @@ def state_tensors(state):
 def phase_profile(torch, conf: str, name: str, out_dir: str,
                   warm: int = 3, ticks: int = 5, telemetry=None,
                   t0: int = 0) -> dict:
-    """Where one tick's time goes at N=2^20: the whole step, its RNG plan
-    alone (CUDA events), and a torch.profiler window over ``ticks`` steps
+    """Where one tick of ``conf`` spends its time: the whole step, its RNG
+    plan alone (CUDA events), and a torch.profiler window over ``ticks`` steps
     (device kernel time by name, device busy share of the wall, and the
     device span of each protocol-phase range ``dm_*``).  ``telemetry``
     overrides the conf's TELEMETRY; the warm state steps from tick ``t0``
@@ -2153,7 +2249,7 @@ def latency_tail(lat: list, got: dict) -> dict:
 
 
 def gil_case(torch, conf: str, out_dir: str, mode: str,
-             window_s: float = 10.0) -> dict:
+             window_s: float = 5.0) -> dict:
     """The engine's ms/tick while four closed-loop query threads in its
     process read for up to ``window_s``, with the daemon's query gate
     (``mode`` "gated") or without it ("ungated"), or with no query
@@ -2172,8 +2268,8 @@ def gil_case(torch, conf: str, out_dir: str, mode: str,
         def leave(self, t0):
             pass
 
-    params = served_params(conf, TOTAL_TIME=40, CHECKPOINT_EVERY=2,
-                           TELEMETRY="off")
+    params = served_params(conf, CHECKPOINT_EVERY=2, TELEMETRY="off",
+                           **DEPTH_CUTS["serve_gil_4k"])
     gates = {0: threading.Event()}
 
     def script(port):
@@ -2990,6 +3086,13 @@ def main(argv=None) -> int:
             phase_profile(torch, os.path.join(confs, name + ".conf"), name,
                           out_dir)
             torch.cuda.empty_cache()
+        # The full view at N = S = 16384: K2's and K4's wide rows.
+        full = os.path.join(confs, "ring_16k_full.conf")
+        for name, conf in (("ring_16k_full", full),
+                           ("ring_16k_full_sharded8",
+                            wide_sharded_conf(full, out_dir))):
+            phase_profile(torch, conf, name, out_dir)
+            torch.cuda.empty_cache()
         # The recorder's cost: the natural 1M tick with TELEMETRY hist
         # against off, back to back.
         hist = {}
@@ -3013,10 +3116,17 @@ def main(argv=None) -> int:
              "hist_minus_off_ms": (sum(hist["hist"]) - sum(hist["off"]))
              / 2, "card": card}))
     paths = {}
+
+    def cut(name):
+        """A 1M conf with its depth cut, and its ticks."""
+        conf = smoke_conf(confs, out_dir, name)
+        return conf, conf_ticks(conf)
+
     if "main" in phases:
+        conf, t = cut("ring_1m_s128")
         paths["main"] = run_path(
-            torch, os.path.join(confs, "ring_1m_s128.conf"), "main",
-            launches_expected(receive=160, gossip=160, probe=160), out_dir)
+            torch, conf, "main",
+            launches_expected(receive=t, gossip=t, probe=t), out_dir)
         det = paths["main"]["detection"]
         if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
             return fail(f"main path detection summary: {det}")
@@ -3064,14 +3174,14 @@ def main(argv=None) -> int:
             return fail("folded_lossy path: no detection")
         torch.cuda.empty_cache()
     if "folded_parity" in phases:
-        state_parity(torch, os.path.join(confs,
-                                         "ring_16k_s16_folded_drop.conf"),
+        state_parity(torch, smoke_conf(confs, out_dir,
+                                       "ring_16k_s16_folded_drop"),
                      "folded_parity", out_dir, card)
     if "sharded" in phases:
+        conf, t = cut("ring_1m_s128_sharded")
         paths["sharded"] = run_path(
-            torch, os.path.join(confs, "ring_1m_s128_sharded.conf"),
-            "sharded", launches_expected(receive=160, gossip_stacked=160,
-                                         probe=160), out_dir)
+            torch, conf, "sharded", launches_expected(
+                receive=t, gossip_stacked=t, probe=t), out_dir)
         det = paths["sharded"]["detection"]
         if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
             return fail(f"sharded path detection summary: {det}")
@@ -3111,21 +3221,20 @@ def main(argv=None) -> int:
     if "scatter_parity" in phases:
         t0 = time.perf_counter()
         paths["scatter_parity"] = card_vs_cpu(
-            torch, os.path.join(confs, "scatter_2k_s128_drop.conf"),
+            torch, smoke_conf(confs, out_dir, "scatter_2k_s128_drop"),
             "scatter_parity", launches_expected(), out_dir, card)
         log(f"phase scatter_parity: {time.perf_counter() - t0:.1f}s; "
             f"card: {card}")
     if "cold_parity" in phases:
         t0 = time.perf_counter()
+        conf, t = cut("ring_256_s128_staggered_drop")
         paths["cold_parity"] = card_vs_cpu(
-            torch, os.path.join(confs, "ring_256_s128_staggered_drop.conf"),
-            "cold_parity", launches_expected(
-                receive=200, gossip_masks=200, probe=200), out_dir, card)
+            torch, conf, "cold_parity", launches_expected(
+                receive=t, gossip_masks=t, probe=t), out_dir, card)
+        conf, t = cut("ring_256_s128_staggered_sharded8_drop")
         paths["cold_parity_sharded"] = card_vs_cpu(
-            torch, os.path.join(
-                confs, "ring_256_s128_staggered_sharded8_drop.conf"),
-            "cold_parity_sharded", launches_expected(
-                receive=200, gossip_stacked=200, probe=200), out_dir, card)
+            torch, conf, "cold_parity_sharded", launches_expected(
+                receive=t, gossip_stacked=t, probe=t), out_dir, card)
         log(f"phase cold_parity: {time.perf_counter() - t0:.1f}s; "
             f"card: {card}")
     if "sharded_folded" in phases:
@@ -3150,14 +3259,15 @@ def main(argv=None) -> int:
             return fail("sharded_folded_lossy path: no detection")
         torch.cuda.empty_cache()
     if "sharded_folded_parity" in phases:
-        state_parity(torch, os.path.join(
-            confs, "ring_16k_s16_folded_sharded8_drop.conf"),
+        state_parity(torch, smoke_conf(
+            confs, out_dir, "ring_16k_s16_folded_sharded8_drop"),
             "sharded_folded_parity", out_dir, card)
     if "telemetry" in phases:
         t0 = time.perf_counter()
+        conf, t = cut("ring_1m_s128_hist")
         paths["telemetry"] = run_path(
-            torch, os.path.join(confs, "ring_1m_s128_hist.conf"), "telemetry",
-            launches_expected(receive=96, gossip=96, probe_hist=96), out_dir)
+            torch, conf, "telemetry",
+            launches_expected(receive=t, gossip=t, probe_hist=t), out_dir)
         det = paths["telemetry"]["detection"]
         if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
             return fail(f"telemetry path detection summary: {det}")
@@ -3166,10 +3276,10 @@ def main(argv=None) -> int:
                          out_dir, card)
         log(f"phase telemetry: {time.perf_counter() - t0:.1f}s; card: {card}")
     if "scenario" in phases:
+        conf, t = cut("ring_1m_s128_partition")
         paths["scenario"] = run_path(
-            torch, os.path.join(confs, "ring_1m_s128_partition.conf"),
-            "scenario", launches_expected(receive=160, gossip_masks=160,
-                                          probe=160), out_dir)
+            torch, conf, "scenario", launches_expected(
+                receive=t, gossip_masks=t, probe=t), out_dir)
         sc = paths["scenario"]["scenario"]
         part = sc["partitions"][0] if sc["partitions"] else {}
         if sc["basis"] != "telemetry" or part.get("removals_during", 0) <= 0:
@@ -3250,20 +3360,19 @@ def main(argv=None) -> int:
              "block_boundaries": 160 // 8, "card": card}))
         torch.cuda.empty_cache()
     if "hoisted" in phases:
-        per_tick = launches_expected(receive=160, gossip=160, probe=160)
-        main_info = twin(torch, paths, "main",
-                         os.path.join(confs, "ring_1m_s128.conf"), per_tick,
-                         out_dir)
-        paths["hoisted"] = run_path(
-            torch, os.path.join(confs, "ring_1m_s128_hoisted.conf"),
-            "hoisted", per_tick, out_dir)
+        conf, t = cut("ring_1m_s128")
+        per_tick = launches_expected(receive=t, gossip=t, probe=t)
+        main_info = twin(torch, paths, "main", conf, per_tick, out_dir)
+        conf, t = cut("ring_1m_s128_hoisted")
+        paths["hoisted"] = run_path(torch, conf, "hoisted", per_tick,
+                                    out_dir)
         same_detection("hoisted", paths["hoisted"], main_info, "main")
         log("hoisted: RNG_MODE hoisted (8-tick segments) == main; "
             + json.dumps({
                 "ms_per_tick": 1e3 / paths["hoisted"]["ticks_per_s"],
                 "main_ms_per_tick": 1e3 / main_info["ticks_per_s"],
                 "launches_per_tick": {
-                    k: v / 160 for k, v in
+                    k: v / t for k, v in
                     paths["hoisted"]["launches"].items() if v},
                 "peak_mem_gib": paths["hoisted"]["peak_mem_gib"],
                 "main_peak_mem_gib": main_info["peak_mem_gib"],
@@ -3334,19 +3443,19 @@ def main(argv=None) -> int:
         log(f"phase shift_set: {time.perf_counter() - t0:.1f}s; card: {card}")
     if "buffsize" in phases:
         t0 = time.perf_counter()
-        cold = os.path.join(confs, "ring_256_s128_staggered_drop.conf")
-        tc = conf_ticks(cold)
+        cold, tc = cut("ring_256_s128_staggered_drop")
         budget = dict(ENFORCE_BUFFSIZE=1, EN_BUFFSIZE=30000)
         paths["buffsize_parity"] = card_vs_cpu(
             torch, conf_variant(cold, out_dir, "buffsize_256", **budget),
             "buffsize_parity", launches_expected(
                 receive=tc, gossip_masks=tc, probe=tc), out_dir, card)
+        t4k = DEPTH_CUTS["buffsize_4k"]
         paths["buffsize_parity_4k"] = card_vs_cpu(
             torch, conf_variant(cold, out_dir, "buffsize_4k", MAX_NNB=4096,
-                                JOIN_MODE="batch", TOTAL_TIME=100,
-                                FAIL_TIME=40, **budget),
+                                JOIN_MODE="batch", **t4k, **budget),
             "buffsize_parity_4k", launches_expected(
-                receive=100, gossip_masks=100, probe=100), out_dir, card)
+                receive=t4k["TOTAL_TIME"], gossip_masks=t4k["TOTAL_TIME"],
+                probe=t4k["TOTAL_TIME"]), out_dir, card)
         paths["buffsize"] = run_path(
             torch, conf_variant(main_conf, out_dir, "buffsize_1m",
                                 TOTAL_TIME=20, FAIL_TIME=8, **budget),
@@ -3356,17 +3465,19 @@ def main(argv=None) -> int:
         log(f"phase buffsize: {time.perf_counter() - t0:.1f}s; card: {card}")
     if "approx_lag" in phases:
         t0 = time.perf_counter()
-        per40 = launches_expected(receive=40, gossip=40, probe=40)
-        lag = dict(TOTAL_TIME=40, FAIL_TIME=8)
+        lag = DEPTH_CUTS["approx_lag_1m"]
+        tl = lag["TOTAL_TIME"]
+        per_run = launches_expected(receive=tl, gossip=tl, probe=tl)
         paths["approx_lag"] = run_path(
             torch, conf_variant(main_conf, out_dir, "approx_lag_1m",
-                                PROBE_IO="approx_lag", CHECKPOINT_EVERY=20,
-                                **lag), "approx_lag", per40, out_dir)
+                                PROBE_IO="approx_lag",
+                                CHECKPOINT_EVERY=tl // 2,
+                                **lag), "approx_lag", per_run, out_dir)
         torch.cuda.empty_cache()
         paths["approx_lag_exact"] = run_path(
             torch, conf_variant(main_conf, out_dir, "exact_1m",
                                 PROBE_IO="exact", **lag),
-            "approx_lag_exact", per40, out_dir)
+            "approx_lag_exact", per_run, out_dir)
         # Same trajectory, same run totals; only the attribution flag
         # differs.
         got, want = ({k: v for k, v in paths[x]["detection"].items()
@@ -3400,17 +3511,15 @@ def main(argv=None) -> int:
             return fail(f"wide path detection summary: {det}")
         torch.cuda.empty_cache()
         paths["wide_sharded"] = run_path(
-            torch, conf_variant(full, out_dir, "wide_sharded8",
-                                BACKEND="tpu_hash_sharded", MESH_SHAPE=8,
-                                TOTAL_TIME=40),
-            "wide_sharded", launches_expected(
-                receive=40, gossip_stacked_wide=40, probe=40), out_dir)
+            torch, wide_sharded_conf(full, out_dir), "wide_sharded",
+            launches_expected(receive=40, gossip_stacked_wide=40, probe=40),
+            out_dir)
         torch.cuda.empty_cache()
-        # Short timeouts, so that the CPU's 14 ticks of 4352^2 slots see
+        # Short timeouts, so that the CPU's few ticks of 4352^2 slots see
         # detections (~3 s a tick there).
         state_parity(torch, conf_variant(
-            full, out_dir, "wide_4352", MAX_NNB=4352, TOTAL_TIME=14,
-            FAIL_TIME=2, TFAIL=4, TREMOVE=8), "wide_parity", out_dir, card)
+            full, out_dir, "wide_4352", MAX_NNB=4352, TFAIL=4, TREMOVE=8,
+            **DEPTH_CUTS["wide_4352"]), "wide_parity", out_dir, card)
         log(f"phase wide: {time.perf_counter() - t0:.1f}s; card: {card}")
     if "folded_probes0" in phases:
         t0 = time.perf_counter()
@@ -3469,7 +3578,8 @@ def main(argv=None) -> int:
             ("gossip_stacked", "sharded", "gossip_stacked",
              "gossip_stacked.cu", (("gossip_stacked_masks", "masks"),)),
             ("gossip_wide", "wide", "gossip_wide", "gossip.cu",
-             (("gossip_wide_masks", "masks"),)),
+             (("gossip_wide_open", "all_open"),
+              ("gossip_wide_masks", "masks"))),
             ("gossip_stacked_wide", "wide_sharded", "gossip_stacked_wide",
              "gossip_stacked.cu", (("gossip_stacked_wide_masks", "masks"),)),
             ("receive_wide", "wide", "receive", "receive.cu", ()),
@@ -3485,10 +3595,9 @@ def main(argv=None) -> int:
                      and info["launches"].get(key)}}
         for x_form, tag in extras:
             x = rows[x_form]
-            entry.update({f"{tag}_ms": x["ms"],
-                          f"{tag}_plain_ms": x["plain_ms"],
-                          f"{tag}_bound_ms": x["bound_ms"],
-                          f"{tag}_max_abs_err": x["max_abs_err"]})
+            entry.update({f"{tag}_{k}": v for k, v in x.items()
+                          if k in ("ms", "plain_ms", "bound_ms",
+                                   "max_abs_err")})
         out.append(entry)
     log(json.dumps({"kernels": out}))
     log(nvidia_smi())

@@ -20,7 +20,10 @@
 // flight per block while one is merged, then merges them with a rotated,
 // conflict-free read of the staged rows.  Receiver rows below r_j use the
 // wrapped-row column alignment when (N * STRIDE) % S != 0, a case the TPU
-// kernel could not take.
+// kernel could not take.  A row wider than a tile (S > 4096) is staged in
+// chunks of 4096 columns, each shift's sender chunk already in receiver
+// column order; a sender row whose k_eff gate is closed for the shift is
+// not copied at all, so the chunks move (2 + the open gates) planes.
 
 #include "gossip_tile.cuh"
 
@@ -42,24 +45,23 @@ __device__ __forceinline__ void ring_shifts(const dm_tile::TileArgs& a,
     }
 }
 
-template <Gate G>
+template <Gate G, bool kWide>
 __global__ void __launch_bounds__(dm_tile::kThreads)
 gossip_kernel(dm_tile::TileArgs a, const int* __restrict__ shifts,
               int cstride) {
     __shared__ dm_tile::Shifts sh;
     ring_shifts(a, shifts, cstride, sh);
-    dm_tile::run<G, true>(a, sh);
+    dm_tile::run<G, true, kWide>(a, sh);
 }
 
-// Rows wider than one tile (S > 4096): the wide-row body.
 template <Gate G>
-__global__ void __launch_bounds__(dm_tile::kThreads)
-gossip_wide_kernel(dm_tile::TileArgs a, const int* __restrict__ shifts,
-                   int cstride) {
-    __shared__ dm_tile::Shifts sh;
-    ring_shifts(a, shifts, cstride, sh);
-    __syncthreads();
-    dm_tile::run_wide<G, true>(a, sh);
+int launch_gossip(const dm_tile::TileArgs& a, const int* shifts, int cstride,
+                  void* stream) {
+    return a.s > dm_tile::kMaxS
+        ? dm_tile::launch<G>(&gossip_kernel<G, true>, a.n_tiles, stream, a,
+                             shifts, cstride)
+        : dm_tile::launch<G>(&gossip_kernel<G, false>, a.n_tiles, stream, a,
+                             shifts, cstride);
 }
 
 }  // namespace
@@ -68,10 +70,11 @@ gossip_wide_kernel(dm_tile::TileArgs a, const int* __restrict__ shifts,
 // non-null; shifts is a device [k_max] int32 array (the ring draws values
 // in [1, n); any int32 shift gives the plain version's result: the sender
 // row is taken mod n, and each receiver row i picks s1 or s2 by i >= r as
-// drawn, as the plain version does).  s % 128 == 0 (the tiled body for s
-// <= 4096, the wide-row body above); mail, payload and masks 16-byte
-// aligned.  mail is updated in place.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// drawn, as the plain version does).  s % 128 == 0 (whole rows per tile
+// for s <= 4096, one row chunk per tile past it); mail, payload and masks
+// 16-byte aligned.  mail is updated in place.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for arguments the kernel does
+// not take.
 extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
                          int single_col, unsigned* mail,
                          const unsigned* payload, const int* k_eff,
@@ -91,18 +94,9 @@ extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
     a.n_local = static_cast<int>(n);
     a.k_max = k_max;
     a.single_col = single_col != 0;
-    if (s > dm_tile::kMaxS)
-        return masks != nullptr
-            ? dm_tile::launch_wide(&gossip_wide_kernel<Gate::kMask>, a.plane,
-                                   stream, a, shifts, cstride)
-            : dm_tile::launch_wide(&gossip_wide_kernel<Gate::kKeff>, a.plane,
-                                   stream, a, shifts, cstride);
-    dm_tile::set_tiles(a, 1);
-    if (masks != nullptr)
-        return dm_tile::launch<Gate::kMask>(&gossip_kernel<Gate::kMask>,
-                                            a.n_tiles, stream, a, shifts,
-                                            cstride);
-    return dm_tile::launch<Gate::kKeff>(&gossip_kernel<Gate::kKeff>,
-                                        a.n_tiles, stream, a, shifts,
-                                        cstride);
+    if (!dm_tile::set_tiles(a, 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return masks != nullptr
+        ? launch_gossip<Gate::kMask>(a, shifts, cstride, stream)
+        : launch_gossip<Gate::kKeff>(a, shifts, cstride, stream);
 }

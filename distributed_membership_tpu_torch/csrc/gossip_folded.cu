@@ -65,9 +65,12 @@ extern "C" int dm_gossip_folded(int rows, int s, int n_local, int k_max,
     a.single_col = single_col != 0;
     // Tiles never straddle a shard, and every shard ends on a plane row,
     // so a wrapped run's second half lands 16-byte aligned.
-    dm_tile::set_tiles(a, static_cast<int>(plane / s / n_local));
+    if (!dm_tile::set_tiles(a, static_cast<int>(plane / s / n_local)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    // S divides 128, so a row never outgrows a tile.
     return masks != nullptr
-        ? dm_tile::launch_stacked<Gate::kMask>(a, thr, shared_payload, stream)
-        : dm_tile::launch_stacked<Gate::kNone>(a, thr, shared_payload,
-                                               stream);
+        ? dm_tile::launch_stacked<Gate::kMask, false>(a, thr, shared_payload,
+                                                      stream)
+        : dm_tile::launch_stacked<Gate::kNone, false>(a, thr, shared_payload,
+                                                      stream);
 }

@@ -25,7 +25,9 @@
 // ring of four stages, so several items are in flight per block while one
 // is merged, and merges them with a rotated, conflict-free read of the
 // staged rows.  The tile's shard shifts s1[d][j], s2[d][j] are read once
-// per tile.
+// per tile.  A row wider than a tile (S > 4096) is staged in chunks of
+// 4096 columns, each shift's sender chunk already in receiver column
+// order (gossip_tile.cuh, "Wide rows").
 
 #include "gossip_tile.cuh"
 
@@ -34,7 +36,7 @@
 // c is a device [K] int32 array of row shifts (the step passes [0, n_local);
 // any int32 gives the plain version's result), s1 and s2 device [D, K]
 // int32 arrays of per-shard column shifts.  s % 128 == 0 (rows wider than
-// 4096 take the wide-row body of gossip_tile.cuh); mail, payloads and masks
+// 4096 are tiled by row chunks, gossip_tile.cuh); mail, payloads and masks
 // 16-byte aligned.  mail is updated in place.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for arguments the kernel does not take.
@@ -60,9 +62,17 @@ extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
     a.n_local = n_local;
     a.k_max = k_max;
     a.single_col = single_col != 0;
-    if (s <= dm_tile::kMaxS)
-        dm_tile::set_tiles(a, static_cast<int>(rows / n_local));
+    if (!dm_tile::set_tiles(a, static_cast<int>(rows / n_local)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (s > dm_tile::kMaxS)
+        return masks != nullptr
+            ? dm_tile::launch_stacked<Gate::kMask, true>(a, c, shared_payload,
+                                                         stream)
+            : dm_tile::launch_stacked<Gate::kNone, true>(a, c, shared_payload,
+                                                         stream);
     return masks != nullptr
-        ? dm_tile::launch_stacked<Gate::kMask>(a, c, shared_payload, stream)
-        : dm_tile::launch_stacked<Gate::kNone>(a, c, shared_payload, stream);
+        ? dm_tile::launch_stacked<Gate::kMask, false>(a, c, shared_payload,
+                                                      stream)
+        : dm_tile::launch_stacked<Gate::kNone, false>(a, c, shared_payload,
+                                                      stream);
 }

@@ -9,9 +9,10 @@
 // wrapped rows l < c_j, and the max is unsigned.  K2 is the case D = 1,
 // L = N.  K6 runs on the natural [N, S] view of the folded
 // [N * S / 128, 128] planes (S | 128), D shards of whole plane rows: c_j
-// is the node shift thr_j and s1/s2 the slot shifts c1/c2.  The gate is none (pre-masked
-// payloads), `j < k_eff[sender row]` or `masks[j][sender entry] != 0`; the
-// payload is one plane shared by all shifts or one plane per shift.
+// is the node shift thr_j and s1/s2 the slot shifts c1/c2.  The gate is
+// none (pre-masked payloads), `j < k_eff[sender row]` or
+// `masks[j][sender entry] != 0`; the payload is one plane shared by all
+// shifts or one plane per shift.
 //
 // Tile walk.  A block owns R = kTileWords / S consecutive receiver rows of
 // one shard (the last tile of a shard is ragged, so no tile straddles two
@@ -49,16 +50,23 @@
 // shared-memory buffer by one bulk store.  Index arithmetic inside a tile
 // is 32-bit; only the tile's base offsets are 64-bit.
 //
-// Wide rows.  A tile holds at least one row, so the tiled body takes S <=
-// kTileWords.  Wider rows (S % 128 == 0 and S > 4096: the full membership
-// list past 4096 nodes) take `run_wide`, a simple body with the same
-// arithmetic and no staging: each thread owns mail words e, e + the grid's
-// threads, ..., and per shift reads its sender word straight from device
-// memory (row (l - c_j) mod L of its shard, column (c - s_j(l)) mod S), so
-// a warp's 32 reads are 32 consecutive words of one sender row, split at
-// most once where the column rotation wraps.  It moves what the tiled body
-// moves, (2 + k_max) planes plus the gates, through L2 instead of shared
-// memory.  All its indices are 64-bit.
+// Wide rows.  A row wider than one tile (S % 128 == 0 and S > 4096: the
+// full membership list past 4096 nodes) is cut into chunks of kTileWords
+// columns, the last one ragged (a multiple of 128 words), and a wide tile
+// is one chunk [col0, col0 + C) of one receiver row l: the same walk,
+// stage ring and merge over the D * L * ceil(S / C) tiles.  Its sender for
+// shift j is row (l - c_j) mod L, columns (col0 - s_j(l)) mod S on: at
+// most two runs, split at the sender row's end.  The first run is widened
+// down to a 16-byte bound (`lead` entries), and the second, from column 0,
+// lands right behind it on a bound too (S % 128 == 0), so the stage holds
+// the sender entries in receiver column order and the merge is
+// acc[i] = max(acc[i], stage[lead + i]): no rotation, no bank conflict.
+// s_j(l) and the gate `j < k_eff[sender row]` are one value per item.
+// Warp 0 loads them (K4's column shifts from a.s1/a.s2, the gate from
+// k_eff) into registers when it stages the tile's mail item and reads
+// them an item or more later, when it stages the shift's; a closed gate
+// issues no copy and only arrives on the stage's barrier (no bytes), and
+// the stage's `meta` word tells the merge what the item holds.
 #pragma once
 
 #include <cstdint>
@@ -75,6 +83,10 @@ constexpr int kMaxShifts = 64;
 constexpr int kMaxS = kTileWords;                // R >= 1
 constexpr int kStages = 4;
 constexpr int kBarBytes = 128;                   // the stages' mbarriers
+// Behind the barriers, in the same 128 bytes: a wide tile's per-stage
+// meta word (the sender's first column, or -1 for an item with no copy).
+constexpr int kMetaOffset = kStages * 8;
+static_assert(kMetaOffset + kStages * 4 <= kBarBytes, "meta words");
 // A stage holds a tile's words plus the widening of its runs (up to 3
 // words or 15 mask bytes before, and as many after each of two runs).
 constexpr int kStageWords = kTileWords + 32;
@@ -100,6 +112,7 @@ struct TileArgs {
     const int* s2;                   //   already holds the column shifts
     long long plane;                 // D * L * S
     int s, n_local, k_max, tile_rows, tiles_per_shard, n_tiles;
+    int chunks;                      // tiles per row: ceil(S / C) or 1
     bool single_col;
 };
 
@@ -210,16 +223,55 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 struct Tile {
     int d, l0, rows;
+    int col0, words;                 // first column and entries (wide: C)
     long long base;                  // the shard's first row
 };
 
+template <bool kWide>
 __device__ __forceinline__ Tile tile_of(const TileArgs& a, int tile) {
     Tile t;
     t.d = tile / a.tiles_per_shard;
-    t.l0 = (tile - t.d * a.tiles_per_shard) * a.tile_rows;
-    t.rows = min(a.tile_rows, a.n_local - t.l0);
+    const int r = tile - t.d * a.tiles_per_shard;
+    if (kWide) {
+        t.l0 = r / a.chunks;
+        t.col0 = (r - t.l0 * a.chunks) * kTileWords;
+        t.rows = 1;
+        t.words = min(kTileWords, a.s - t.col0);
+    } else {
+        t.l0 = r * a.tile_rows;
+        t.col0 = 0;
+        t.rows = min(a.tile_rows, a.n_local - t.l0);
+        t.words = t.rows * a.s;
+    }
     t.base = static_cast<long long>(t.d) * a.n_local;
     return t;
+}
+
+// Lane 0 of warp 0: shift j's sender entries [e0, e0 + a_words) and, past
+// a wrap, [eb, eb + b_words) (eb 16-byte aligned), each widened to 16-byte
+// bounds, into stage st by bulk copies completing on its barrier; the
+// masks form copies the same entries of masks[j].
+template <Gate G, bool kShared>
+__device__ __forceinline__ void load_runs(const TileArgs& a,
+                                          unsigned char* smem, int st, int j,
+                                          long long e0, unsigned a_words,
+                                          long long eb, unsigned b_words) {
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + st;
+    unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
+                    + st * kStageWords;
+    const unsigned* plane = a.payload + (kShared ? 0 : j * a.plane);
+    const int lw = lead_of(e0, 4), lm = lead_of(e0, 1);
+    const unsigned aw = (lw + a_words + 3) & ~3u, bw = (b_words + 3) & ~3u;
+    const unsigned am = (lm + a_words + 15) & ~15u, bm = (b_words + 15) & ~15u;
+    mbar_expect_tx(bar, (aw + bw) * 4 + (G == Gate::kMask ? am + bm : 0));
+    bulk_load(pay, plane + e0 - lw, aw * 4, bar);
+    if (b_words) bulk_load(pay + aw, plane + eb, bw * 4, bar);
+    if (G == Gate::kMask) {
+        const unsigned char* mp = a.masks + j * a.plane;
+        unsigned char* md = smem + kTailOffset + st * kStageMaskBytes;
+        bulk_load(md, mp + e0 - lm, am, bar);
+        if (b_words) bulk_load(md + am, mp + eb, bm, bar);
+    }
 }
 
 // Warp 0: start item k (tile k / (1 + k_max), part p = k mod (1 + k_max):
@@ -232,16 +284,16 @@ __device__ __forceinline__ void stage_item(const TileArgs& a,
     const int per_tile = 1 + a.k_max;
     const int t = k / per_tile;
     const int p = k - t * per_tile;
-    const Tile tl = tile_of(a, blockIdx.x + t * gridDim.x);
+    const Tile tl = tile_of<false>(a, blockIdx.x + t * gridDim.x);
     const int st = k % kStages;
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + st;
-    unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
-                    + st * kStageWords;
     const int s = a.s;
-    const unsigned words = static_cast<unsigned>(tl.rows * s);
+    const unsigned words = static_cast<unsigned>(tl.words);
     if (p == 0) {
         if (G == Gate::kKeff) cp_async_arrive(bar);
         if (lane == 0) {
+            unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
+                            + st * kStageWords;
             mbar_expect_tx(bar, words * 4);
             bulk_load(pay, a.mail + (tl.base + tl.l0) * s, words * 4, bar);
         }
@@ -251,44 +303,112 @@ __device__ __forceinline__ void stage_item(const TileArgs& a,
     int src0 = tl.l0 - sh.cl[j];
     if (src0 < 0) src0 += a.n_local;
     const int first = min(tl.rows, a.n_local - src0);   // rows before the wrap
-    unsigned char* tail = smem + kTailOffset;
     if (G == Gate::kKeff) {
         if (lane < tl.rows) {
             int r = src0 + lane;
             if (r >= a.n_local) r -= a.n_local;
-            cp_async4(reinterpret_cast<int*>(tail) + st * kMaxRows + lane,
+            cp_async4(reinterpret_cast<int*>(smem + kTailOffset)
+                          + st * kMaxRows + lane,
                       a.k_eff + tl.base + r);
         }
         cp_async_arrive(bar);
     }
     if (lane != 0) return;
-    // The runs in entries of the plane: [e0, e0 + a_words) and, past the
-    // wrap, [eb, eb + b_words), each widened to 16-byte bounds.
-    const long long e0 = (tl.base + src0) * s, eb = tl.base * s;
+    // The runs in entries of the plane: the rows from src0 up to the
+    // shard's end, then from its first row.
     const unsigned a_words = static_cast<unsigned>(first * s);
-    const unsigned b_words = words - a_words;
-    const unsigned* plane = a.payload + (kShared ? 0 : j * a.plane);
-    const int lw = lead_of(e0, 4), lm = lead_of(e0, 1);
-    const unsigned aw = (lw + a_words + 3) & ~3u, bw = (b_words + 3) & ~3u;
-    const unsigned am = (lm + a_words + 15) & ~15u, bm = (b_words + 15) & ~15u;
-    mbar_expect_tx(bar, (aw + bw) * 4 + (G == Gate::kMask ? am + bm : 0));
-    bulk_load(pay, plane + e0 - lw, aw * 4, bar);
-    if (b_words) bulk_load(pay + aw, plane + eb, bw * 4, bar);
-    if (G == Gate::kMask) {
-        const unsigned char* mp = a.masks + j * a.plane;
-        unsigned char* md = tail + st * kStageMaskBytes;
-        bulk_load(md, mp + e0 - lm, am, bar);
-        if (b_words) bulk_load(md + am, mp + eb, bm, bar);
+    load_runs<G, kShared>(a, smem, st, j, (tl.base + src0) * s, a_words,
+                          tl.base * s, words - a_words);
+}
+
+// Warp 0's per-shift values of the wide tile whose mail item it staged
+// last: lane i holds those of shifts i and i + 32 (the k_eff gate of the
+// sender row, and K4's column shifts as given).
+struct Ahead {
+    int keff[2], s1[2], s2[2];
+};
+
+// Warp 0: start item k of the wide walk into stage k % kStages (the
+// mail chunk for p = 0, shift p - 1 otherwise), and write the stage's
+// meta word for a shift.
+template <Gate G, bool kShared>
+__device__ __forceinline__ void stage_wide(const TileArgs& a,
+                                           const Shifts& sh,
+                                           unsigned char* smem, int k,
+                                           int lane, Ahead& ah) {
+    const int per_tile = 1 + a.k_max;
+    const int t = k / per_tile;
+    const int p = k - t * per_tile;
+    const Tile tl = tile_of<true>(a, blockIdx.x + t * gridDim.x);
+    const int st = k % kStages;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + st;
+    const int s = a.s;
+    if (p == 0) {
+        // Loads whose values are first read when the shifts are staged.
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int j = lane + 32 * h;
+            if (j < a.k_max) {
+                if (G == Gate::kKeff) {
+                    int src = tl.l0 - sh.cl[j];
+                    if (src < 0) src += a.n_local;
+                    ah.keff[h] = a.k_eff[tl.base + src];
+                }
+                if (a.s1 != nullptr) {
+                    ah.s1[h] = a.s1[tl.d * a.k_max + j];
+                    ah.s2[h] = a.s2[tl.d * a.k_max + j];
+                }
+            }
+        }
+        if (lane == 0) {
+            unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
+                            + st * kStageWords;
+            const unsigned bytes = static_cast<unsigned>(tl.words) * 4;
+            mbar_expect_tx(bar, bytes);
+            bulk_load(pay, a.mail + (tl.base + tl.l0) * s + tl.col0, bytes,
+                      bar);
+        }
+        return;
     }
+    const int j = p - 1;
+    // Shift j's value of a per-lane pair, from the lane that loaded it.
+    auto shift_value = [&](const int (&v)[2]) {
+        return __shfl_sync(DM_FULL_MASK, j >= 32 ? v[1] : v[0], j & 31);
+    };
+    int keff = 0, sh1, sh2;
+    if (G == Gate::kKeff) keff = shift_value(ah.keff);
+    if (a.s1 != nullptr) {
+        sh1 = mod(shift_value(ah.s1), s);
+        sh2 = mod(shift_value(ah.s2), s);
+    } else {
+        sh1 = sh.s1[j];
+        sh2 = sh.s2[j];
+    }
+    if (lane != 0) return;
+    int c0 = tl.col0 - (a.single_col || tl.l0 >= sh.c[j] ? sh1 : sh2);
+    if (c0 < 0) c0 += s;
+    const bool keep = G != Gate::kKeff || j < keff;
+    reinterpret_cast<int*>(smem + kMetaOffset)[st] = keep ? c0 : -1;
+    if (!keep) {
+        mbar_expect_tx(bar, 0);      // completes the phase, no bytes
+        return;
+    }
+    int src = tl.l0 - sh.cl[j];
+    if (src < 0) src += a.n_local;
+    const long long row = (tl.base + src) * s;
+    const unsigned a_words = static_cast<unsigned>(min(tl.words, s - c0));
+    load_runs<G, kShared>(a, smem, st, j, row + c0, a_words, row,
+                          static_cast<unsigned>(tl.words) - a_words);
 }
 
 // The whole kernel after its prologue has filled `sh` (c and cl always;
 // s1/s2 too when a.s1 is null).  Launch with kThreads threads and
-// smem_bytes(G) bytes of dynamic shared memory.
-template <Gate G, bool kShared>
+// smem_bytes(G) bytes of dynamic shared memory; kWide for S > kMaxS.
+template <Gate G, bool kShared, bool kWide>
 __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+    const int* meta = reinterpret_cast<const int*>(smem + kMetaOffset);
     const unsigned* pay = reinterpret_cast<const unsigned*>(smem + kBarBytes);
     unsigned* out = reinterpret_cast<unsigned*>(smem + kOutOffset);
     const unsigned char* tail = smem + kTailOffset;
@@ -297,18 +417,24 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
 
     if (tid == 0) {
         for (int st = 0; st < kStages; ++st)
-            mbar_init(full + st, G == Gate::kKeff ? 33 : 1);
+            mbar_init(full + st, G == Gate::kKeff && !kWide ? 33 : 1);
         mbar_init_fence();
     }
     __syncthreads();                 // barriers and the prologue's `sh`
 
+    Ahead ah;
+    auto stage = [&](int item) {
+        if constexpr (kWide)
+            stage_wide<G, kShared>(a, sh, smem, item, lane, ah);
+        else
+            stage_item<G, kShared>(a, sh, smem, item, lane);
+    };
     const int bid = static_cast<int>(blockIdx.x);
     const int my_tiles = a.n_tiles > bid
         ? (a.n_tiles - 1 - bid) / static_cast<int>(gridDim.x) + 1 : 0;
     const int n_items = my_tiles * (1 + a.k_max);
     if (warp == 0)
-        for (int k = 0; k < kStages && k < n_items; ++k)
-            stage_item<G, kShared>(a, sh, smem, k, lane);
+        for (int k = 0; k < kStages && k < n_items; ++k) stage(k);
 
     // This thread's words tid + kThreads * m: row and column of m = 0,
     // and the step from one m to the next (drow rows and dcol columns).
@@ -317,8 +443,9 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
     unsigned acc[kPerThread];
     int k = 0;
     for (int t = 0; t < my_tiles; ++t) {
-        const Tile tl = tile_of(a, bid + t * static_cast<int>(gridDim.x));
-        const int words = tl.rows * s;
+        const Tile tl =
+            tile_of<kWide>(a, bid + t * static_cast<int>(gridDim.x));
+        const int words = tl.words;
 
         // Item 1 of the tile: its mail rows.
         mbar_wait(full + k % kStages, (k / kStages) & 1);
@@ -330,60 +457,81 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
                 acc[i] = e < words ? m[e] : 0u;
             }
         }
-        if (a.s1 != nullptr && tid < a.k_max) {
+        if (!kWide && a.s1 != nullptr && tid < a.k_max) {
             const int at = tl.d * a.k_max + tid;
             sh.s1[tid] = mod(a.s1[at], s);
             sh.s2[tid] = mod(a.s2[at], s);
         }
         __syncthreads();
-        if (warp == 0 && k + kStages < n_items)
-            stage_item<G, kShared>(a, sh, smem, k + kStages, lane);
+        if (warp == 0 && k + kStages < n_items) stage(k + kStages);
         ++k;
 
         // One item per shift: merge the staged sender rows.
         for (int j = 0; j < a.k_max; ++j) {
             const int st = k % kStages;
-            // Tile rows below `wrap` are the wrapped receivers l < c_j.
-            const long long w = static_cast<long long>(sh.c[j]) - tl.l0;
-            const int wrap = a.single_col ? 0
-                : static_cast<int>(w < 0 ? 0 : (w > tl.rows ? tl.rows : w));
-            const int sh1 = sh.s1[j], sh2 = sh.s2[j];
-            // Where the stage's widened runs put the tile's first sender.
-            int src0 = tl.l0 - sh.cl[j];
-            if (src0 < 0) src0 += a.n_local;
-            const long long e0 = (tl.base + src0) * s;
-            mbar_wait(full + st, (k / kStages) & 1);
-            const unsigned* src = pay + st * kStageWords + lead_of(e0, 4);
-            const unsigned char* msk = tail + st * kStageMaskBytes
-                                       + lead_of(e0, 1);
-            const int* keff = reinterpret_cast<const int*>(tail)
-                              + st * kMaxRows;
-            int row = row0, col = col0;
+            if constexpr (kWide) {
+                // The stage holds the chunk's senders in column order,
+                // `lead` entries in; no meta word means no copy.
+                mbar_wait(full + st, (k / kStages) & 1);
+                const int c0 = meta[st];
+                if (c0 >= 0) {
+                    const unsigned* src = pay + st * kStageWords
+                                          + lead_of(c0, 4);
+                    const unsigned char* msk = tail + st * kStageMaskBytes
+                                               + lead_of(c0, 1);
 #pragma unroll
-            for (int i = 0; i < kPerThread; ++i) {
-                if (tid + i * kThreads < words) {
-                    int sc = col - (row < wrap ? sh2 : sh1);
-                    if (sc < 0) sc += s;
-                    const int at = row * s + sc;
-                    bool keep = true;
-                    if (G == Gate::kMask) keep = msk[at] != 0;
-                    if (G == Gate::kKeff) keep = j < keff[row];
-                    const unsigned v = keep ? src[at] : 0u;
-                    acc[i] = v > acc[i] ? v : acc[i];
+                    for (int i = 0; i < kPerThread; ++i) {
+                        const int e = tid + i * kThreads;
+                        if (e < words) {
+                            const unsigned v =
+                                G != Gate::kMask || msk[e] ? src[e] : 0u;
+                            acc[i] = v > acc[i] ? v : acc[i];
+                        }
+                    }
                 }
-                col += dcol;
-                row += drow;
-                if (col >= s) {
-                    col -= s;
-                    ++row;
+            } else {
+                // Tile rows below `wrap` are the wrapped receivers l < c_j.
+                const long long w = static_cast<long long>(sh.c[j]) - tl.l0;
+                const int wrap = a.single_col ? 0
+                    : static_cast<int>(w < 0 ? 0
+                                       : (w > tl.rows ? tl.rows : w));
+                const int sh1 = sh.s1[j], sh2 = sh.s2[j];
+                // Where the stage's widened runs put the tile's first sender.
+                int src0 = tl.l0 - sh.cl[j];
+                if (src0 < 0) src0 += a.n_local;
+                const long long e0 = (tl.base + src0) * s;
+                mbar_wait(full + st, (k / kStages) & 1);
+                const unsigned* src = pay + st * kStageWords + lead_of(e0, 4);
+                const unsigned char* msk = tail + st * kStageMaskBytes
+                                           + lead_of(e0, 1);
+                const int* keff = reinterpret_cast<const int*>(tail)
+                                  + st * kMaxRows;
+                int row = row0, col = col0;
+#pragma unroll
+                for (int i = 0; i < kPerThread; ++i) {
+                    if (tid + i * kThreads < words) {
+                        int sc = col - (row < wrap ? sh2 : sh1);
+                        if (sc < 0) sc += s;
+                        const int at = row * s + sc;
+                        bool keep = true;
+                        if (G == Gate::kMask) keep = msk[at] != 0;
+                        if (G == Gate::kKeff) keep = j < keff[row];
+                        const unsigned v = keep ? src[at] : 0u;
+                        acc[i] = v > acc[i] ? v : acc[i];
+                    }
+                    col += dcol;
+                    row += drow;
+                    if (col >= s) {
+                        col -= s;
+                        ++row;
+                    }
                 }
             }
             // The last shift's sync also frees `out` for this tile: the
             // previous tile's store has read it.
             if (j == a.k_max - 1 && tid == 0) bulk_wait_read();
             __syncthreads();
-            if (warp == 0 && k + kStages < n_items)
-                stage_item<G, kShared>(a, sh, smem, k + kStages, lane);
+            if (warp == 0 && k + kStages < n_items) stage(k + kStages);
             ++k;
         }
 
@@ -396,69 +544,10 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
         fence_async_shared();
         __syncthreads();
         if (tid == 0)
-            bulk_store(a.mail + (tl.base + tl.l0) * s, out,
+            bulk_store(a.mail + (tl.base + tl.l0) * s + tl.col0, out,
                        static_cast<unsigned>(words) * 4);
     }
     if (tid == 0) bulk_wait();
-}
-
-// The wide-row body (see the header): every mail word of the D shards of
-// a.n_local rows, a.plane words in all.  `sh` holds c and cl, and s1/s2
-// unless a.s1 is given ([D, k_max], read per word and shift).
-template <Gate G, bool kShared>
-__device__ __forceinline__ void run_wide(const TileArgs& a,
-                                         const Shifts& sh) {
-    const long long s = a.s, n_local = a.n_local;
-    const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-    for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x
-                       + threadIdx.x;
-         e < a.plane; e += step) {
-        const long long row = e / s;
-        const int col = static_cast<int>(e - row * s);
-        const int d = static_cast<int>(row / n_local);
-        const long long base = d * n_local;
-        const int l = static_cast<int>(row - base);
-        unsigned acc = a.mail[e];
-        for (int j = 0; j < a.k_max; ++j) {
-            int src = l - sh.cl[j];
-            if (src < 0) src += a.n_local;
-            const bool unwrapped = a.single_col || l >= sh.c[j];
-            int shift;
-            if (a.s1 != nullptr) {
-                const int at = d * a.k_max + j;
-                shift = mod(unwrapped ? a.s1[at] : a.s2[at], a.s);
-            } else {
-                shift = unwrapped ? sh.s1[j] : sh.s2[j];
-            }
-            int sc = col - shift;
-            if (sc < 0) sc += a.s;
-            const long long at = (base + src) * s + sc;
-            bool keep = true;
-            if (G == Gate::kMask) keep = a.masks[j * a.plane + at] != 0;
-            if (G == Gate::kKeff) keep = j < a.k_eff[base + src];
-            if (keep) {
-                const unsigned v = a.payload[(kShared ? 0 : j * a.plane)
-                                             + at];
-                acc = v > acc ? v : acc;
-            }
-        }
-        a.mail[e] = acc;
-    }
-}
-
-// Host side: launch a wide-row `kernel` (no dynamic shared memory) on as
-// many blocks as the card holds at once, at most one per kThreads words.
-template <typename... P, typename... A>
-int launch_wide(void (*kernel)(P...), long long words, void* stream,
-                A... args) {
-    unsigned grid = 0;
-    const int rc = dm_persistent_grid(kernel, kThreads, 0,
-                                      (words + kThreads - 1) / kThreads,
-                                      &grid);
-    if (rc != 0) return rc;
-    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        args...);
-    return dm_launch_status();
 }
 
 // Host side: launch `kernel` on a grid of as many blocks as the card holds
@@ -481,16 +570,24 @@ int launch(void (*kernel)(P...), int n_tiles, void* stream, A... args) {
 }
 
 // Host side: the tile geometry of `a` for `shards` shards of a.n_local
-// rows (a.s and a.n_local set).
-inline void set_tiles(TileArgs& a, int shards) {
-    a.tile_rows = kTileWords / a.s;
-    a.tiles_per_shard = (a.n_local + a.tile_rows - 1) / a.tile_rows;
-    a.n_tiles = shards * a.tiles_per_shard;
+// rows (a.s and a.n_local set): R = kTileWords / S whole rows a tile, or
+// for S > kMaxS one chunk of a row.  False when the tiles outnumber int.
+inline bool set_tiles(TileArgs& a, int shards) {
+    const bool wide = a.s > kMaxS;
+    a.tile_rows = wide ? 1 : kTileWords / a.s;
+    a.chunks = wide ? (a.s + kTileWords - 1) / kTileWords : 1;
+    const long long per_shard = wide
+        ? static_cast<long long>(a.n_local) * a.chunks
+        : (a.n_local + a.tile_rows - 1) / a.tile_rows;
+    if (per_shard * shards > 0x7fffffffLL) return false;
+    a.tiles_per_shard = static_cast<int>(per_shard);
+    a.n_tiles = static_cast<int>(per_shard * shards);
+    return true;
 }
 
 // K4 and K6: the row shifts c[j] come from device memory, the column
 // shifts from a.s1/a.s2 ([D, k_max], read once per tile).
-template <Gate G, bool kShared>
+template <Gate G, bool kShared, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 stacked_kernel(TileArgs a, const int* __restrict__ c) {
     __shared__ Shifts sh;
@@ -498,38 +595,19 @@ stacked_kernel(TileArgs a, const int* __restrict__ c) {
         sh.c[j] = c[j];
         sh.cl[j] = mod(c[j], a.n_local);
     }
-    run<G, kShared>(a, sh);
+    run<G, kShared, kWide>(a, sh);
 }
 
-// K4 on rows wider than one tile: run_wide with the column shifts read
-// from a.s1/a.s2.
-template <Gate G, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-stacked_wide_kernel(TileArgs a, const int* __restrict__ c) {
-    __shared__ Shifts sh;
-    for (int j = threadIdx.x; j < a.k_max; j += kThreads) {
-        sh.c[j] = c[j];
-        sh.cl[j] = mod(c[j], a.n_local);
-    }
-    __syncthreads();
-    run_wide<G, kShared>(a, sh);
-}
-
-// Host side: stacked_kernel (stacked_wide_kernel when a row is wider than
-// a tile) for one payload plane shared by every shift or one plane per
-// shift.
-template <Gate G>
+// Host side: stacked_kernel for one payload plane shared by every shift
+// or one plane per shift; kWide (K4's rows wider than a tile) on row
+// chunks.
+template <Gate G, bool kWide>
 int launch_stacked(const TileArgs& a, const int* c, bool shared,
                    void* stream) {
-    if (a.s > kMaxS)
-        return shared
-            ? launch_wide(&stacked_wide_kernel<G, true>, a.plane, stream,
-                          a, c)
-            : launch_wide(&stacked_wide_kernel<G, false>, a.plane, stream,
-                          a, c);
     return shared
-        ? launch<G>(&stacked_kernel<G, true>, a.n_tiles, stream, a, c)
-        : launch<G>(&stacked_kernel<G, false>, a.n_tiles, stream, a, c);
+        ? launch<G>(&stacked_kernel<G, true, kWide>, a.n_tiles, stream, a, c)
+        : launch<G>(&stacked_kernel<G, false, kWide>, a.n_tiles, stream, a,
+                    c);
 }
 
 }  // namespace dm_tile

@@ -744,24 +744,42 @@ def test_blocked_and_hoisted_runs_on_card_match_cpu(cuda, tmp_path, extra):
     _timelines_equal(card.extra["timeline"], cpu.extra["timeline"])
 
 
-# Rows wider than one 16 KiB tile: K2's and K4's wide-row body.  Ragged N
+# Rows wider than one 16 KiB tile: K2's and K4's row-chunk tiles.  Ragged N
 # (not a multiple of anything the kernel tiles by), and N * STRIDE % S != 0
-# except at N = S, so the wrapped rows take the second column alignment.
-WIDE_CASES = [(301, 4224), (77, 8192), (40, 16384), (16384 // 64, 16384)]
+# except at N = S, so the wrapped rows take the second column alignment;
+# S = 4224 and 12416 end in a ragged chunk of 128 columns.  The column
+# rotations are mostly not multiples of 4, so sender runs start off a
+# 16-byte bound and wrap inside a chunk.
+WIDE_CASES = [(301, 4224), (77, 8192), (40, 16384), (16384 // 64, 16384),
+              (37, 12416)]
+
+
+def _wide_gate(rng, cuda, form, fill, k_max, n, s):
+    """K2's gate: k_eff over 0..k_max, all closed (0) or all open (k_max);
+    or masks at 70%, all zero or all one."""
+    if form == "k_eff":
+        k_eff = {"random": torch.from_numpy(rng.integers(
+                     0, k_max + 1, size=n, dtype=np.int32)),
+                 "none": torch.zeros(n, dtype=torch.int32),
+                 "all": torch.full((n,), k_max, dtype=torch.int32)}[fill]
+        return k_eff.to(cuda), None
+    masks = {"random": lambda: _flags(rng, k_max * n * s, 0.7),
+             "none": lambda: torch.zeros(k_max * n * s, dtype=torch.bool),
+             "all": lambda: torch.ones(k_max * n * s, dtype=torch.bool)}
+    return (torch.zeros(n, dtype=torch.int32, device=cuda),
+            masks[fill]().reshape(k_max, n, s).to(cuda))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["random", "none", "all"])
 @pytest.mark.parametrize("form", ["k_eff", "masks"])
 @pytest.mark.parametrize("n,s", WIDE_CASES)
-def test_gossip_kernel_wide_rows(cuda, form, n, s):
+def test_gossip_kernel_wide_rows(cuda, form, fill, n, s):
     k_max = 3
     rng = np.random.default_rng(n + s)
     mail = _packed(rng, n, 0.5, (n, s)).to(cuda)
     view = _packed(rng, n, 0.8, (n, s)).to(cuda)
-    k_eff = torch.from_numpy(rng.integers(0, k_max + 1, size=n,
-                                          dtype=np.int32)).to(cuda)
-    masks = (_flags(rng, k_max * n * s, 0.7).reshape(k_max, n, s).to(cuda)
-             if form == "masks" else None)
+    k_eff, masks = _wide_gate(rng, cuda, form, fill, k_max, n, s)
     payload = view if form == "masks" else torch.where(
         _flags(rng, n * s, 0.3).reshape(n, s).to(cuda), view, 0)
     shifts = torch.tensor([1, n - 1, n // 3], dtype=torch.int32,
@@ -774,13 +792,19 @@ def test_gossip_kernel_wide_rows(cuda, form, n, s):
     assert kernels.LAUNCHES["gossip_wide" if form == "k_eff"
                             else "gossip_wide_masks"] == 1
     assert torch.equal(got, want)
+    assert torch.equal(got, mail) == (fill == "none")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["stacked", "masks"])
+@pytest.mark.parametrize("form,fill", [("stacked", "random"),
+                                       ("masks", "random"), ("masks", "none"),
+                                       ("masks", "all")])
 @pytest.mark.parametrize("d,n_local,s", [(1, 301, 4224), (3, 77, 8192),
-                                         (8, 5, 16384)])
-def test_gossip_stacked_kernel_wide_rows(cuda, form, d, n_local, s):
+                                         (8, 5, 16384), (8, 64, 8192),
+                                         (4, 1, 12416)])
+def test_gossip_stacked_kernel_wide_rows(cuda, form, fill, d, n_local, s):
+    """Also eight shards at S = 8192 and shards of one row; shard 0's
+    first shift rotates by 4097 (unwrapped rows) and 3 (wrapped rows)."""
     k_max = 3
     n = d * n_local
     single = (n_local * STRIDE) % s == 0
@@ -792,11 +816,15 @@ def test_gossip_stacked_kernel_wide_rows(cuda, form, d, n_local, s):
     s1, s2 = (torch.from_numpy(rng.integers(0, s, size=(d, k_max),
                                             dtype=np.int32)).to(cuda)
               for _ in range(2))
+    s1[0, 0], s2[0, 0] = 4097, 3
     payloads = view[None] if form == "masks" else torch.where(
         _flags(rng, k_max * n * s, 0.3).reshape(k_max, n, s).to(cuda),
         view[None], 0)
     masks = (None if form == "stacked" else
-             _flags(rng, k_max * n * s, 0.7).reshape(k_max, n, s).to(cuda))
+             {"random": lambda: _flags(rng, k_max * n * s, 0.7),
+              "none": lambda: torch.zeros(k_max * n * s, dtype=torch.bool),
+              "all": lambda: torch.ones(k_max * n * s, dtype=torch.bool)}
+             [fill]().reshape(k_max, n, s).to(cuda))
     want = gossip_stacked_plain(n_local, s, k_max, single, mail, payloads,
                                 c, s1, s2, masks)
     kernels.reset_launches()
@@ -806,6 +834,7 @@ def test_gossip_stacked_kernel_wide_rows(cuda, form, d, n_local, s):
     assert kernels.LAUNCHES["gossip_stacked_wide" if form == "stacked"
                             else "gossip_stacked_wide_masks"] == 1
     assert torch.equal(got, want)
+    assert torch.equal(got, mail) == (fill == "none")
 
 
 @pytest.mark.cuda
