@@ -213,6 +213,28 @@ Phases (any failure exits non-zero before the final line):
                 files while it runs.  Prints the seconds from the SIGKILL
                 to the relaunch, downtime_ticks, resume_tick, the fleet's
                 /metrics union scraped once and the phase's wall time.
+ 41. sweep   -- the phase sweep (sweeps/phase.py) SweepSpec.north_star():
+                N=65536, S=16, G=4, P=2, TFAIL 16, TREMOVE 40, fanout 3,
+                drops 0/0.05/0.1/0.15/0.25, seeds 0 and 1: ten cells of
+                160 ticks through the dynamic-knob folded step on its
+                AggStats route: K5, K6 and K7 once per tick (1600 each)
+                and no other kernel; the drop-free cells complete (1.0)
+                with no false removal; prints each cell's record and
+                ms/tick; then the quick grid (N=1024, S=32, fanouts 2 and
+                5, drops 0 and 0.2, seed 0; DEPTH_CUTS: 60 ticks, crash
+                at 16) card == CPU, record for record;
+ 42. chaos   -- chaos campaigns (chaos/) on the card: 8 default-mix
+                schedules at N=65536 (160 ticks, TFAIL 8, TREMOVE 20,
+                S=16, P=4), all graded green, K5-K7 once per tick; 2
+                schedules of 8 permanent crashes and 4 leaves each (12
+                failed ids: the folded AggStats route, checked run by
+                run); a migrating schedule (kill, same-shape reshard,
+                resume) graded green; an N=256 4-schedule campaign whose
+                campaign.jsonl equals the CPU's byte for byte; and JAX
+                test_broken_config_shrinks_reproducibly's campaign at
+                N=256 (DEPTH_CUTS: its first schedule), the violations
+                shrunk and banked on the card and each banked repro
+                replayed there to the same violations.
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -263,7 +285,7 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "mega", "hoisted", "checkpoint_parity", "legacy", "multi",
           "shift_set", "buffsize", "approx_lag", "wide", "folded_probes0",
           "serve", "serve_inject", "serve_sharded", "serve_replicas",
-          "reshard", "fleet")
+          "reshard", "fleet", "sweep", "chaos")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile",)           # run only when named in --only
 TPU_KERNEL = {
@@ -397,6 +419,11 @@ DEPTH_CUTS = {
     "approx_lag_1m": dict(TOTAL_TIME=20, FAIL_TIME=8),
     "serve_gil_4k": dict(TOTAL_TIME=20),
     "wide_4352": dict(TOTAL_TIME=13, FAIL_TIME=1),
+    # Phases sweep and chaos: SweepSpec / CampaignSpec fields.  The quick
+    # grid's crash at 16 is detected 24-43 ticks later; the broken
+    # campaign's first schedule shrinks in 6 probes (both: 30).
+    "sweep_quick": dict(ticks=60, fail_time=16),
+    "chaos_broken": dict(schedules=1),
 }
 
 
@@ -3007,6 +3034,195 @@ def read_service_port(root: str, run_id: str, listing: dict):
     return int(doc["port"]) if doc.get("pid") == row["pid"] else None
 
 
+# Phases sweep and chaos (items 10e-10f): geometries and cuts.
+SWEEP_QUICK = dict(n=1024, fanouts=(2, 5), drop_rates=(0.0, 0.2),
+                   seeds=(0,))
+CHAOS_N = 65536
+CHAOS_SPEC = dict(seed=0, schedules=8, n=CHAOS_N, total=160, tfail=8,
+                  tremove=20)
+# The default mix at 6 events pairs its one crash with a restart, and a
+# permanent crash or leave is one id wide: this mix leaves 12 permanent
+# ids (8 crashes, 4 leaves) per schedule, so its runs take AggStats.
+CHAOS_AGG = dict(CHAOS_SPEC, schedules=2, events=16, name="agg",
+                 mix={"crash": 2.0, "leave": 1.0, "delay_window": 1.0})
+CHAOS_MIGRATE = dict(seed=9, n=CHAOS_N, events=3, total=160, schedules=1,
+                     name="migrate", mix={"crash": 1.0, "one_way_flake": 1.0,
+                                          "migrate": 1.0})
+CHAOS_BROKEN = (dict(seed=4, schedules=2, events=4, n=256, name="broken",
+                     mix={"link_flake": 1.0, "drop_window": 1.0}),
+                {"DROP_MSG": 1, "MSG_DROP_PROB": 0.6})
+
+
+def folded_launches(ticks: int) -> dict:
+    """K5, K6 and K7 once per tick, no other kernel."""
+    return launches_expected(receive_folded=ticks, gossip_folded=ticks,
+                             probe_folded=ticks)
+
+
+def phase_sweep(torch, out_dir: str, card: str) -> dict:
+    """The north-star phase sweep (SweepSpec.north_star: N=65536, S=16,
+    ten cells of 160 ticks) on the card, through the folded layout's
+    AggStats route, then the quick grid's records card == CPU."""
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.sweeps.phase import (
+        SweepSpec, run_sweep, summarize)
+
+    spec = SweepSpec.north_star()
+
+    def cell(rec, secs):
+        log(f"sweep[cell]: {json.dumps(rec)} ms_per_tick="
+            f"{secs / spec.ticks * 1e3}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    records = run_sweep(spec, device="cuda", progress=cell)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ticks = len(records) * spec.ticks
+    if launches != folded_launches(ticks):
+        raise AssertionError(f"sweep: launches {launches} != K5-K7 x "
+                             f"{ticks}")
+    for r in records:
+        if r["drop_rate"] == 0.0 and (r["observer_completeness"] != 1.0
+                                      or r["false_removals"] != 0):
+            raise AssertionError(f"sweep: drop-free cell {r}")
+    rows = summarize(records)
+    info = {"cells": len(records), "ticks": ticks, "n": spec.n,
+            "wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
+            "node_ticks_per_s": spec.n * ticks / wall, "launches": launches,
+            "rows": rows, "card": card}
+    log("sweep[north_star]: " + json.dumps(info))
+    quick = SweepSpec(**SWEEP_QUICK, **DEPTH_CUTS["sweep_quick"])
+    t0 = time.perf_counter()
+    got = run_sweep(quick, device="cuda")
+    t_card = time.perf_counter() - t0
+    want = run_sweep(quick, device="cpu")
+    if got != want:
+        raise AssertionError(f"sweep quick grid: card {got} != cpu {want}")
+    log(f"sweep[quick]: N={quick.n} S={quick.view_size}, {len(got)} "
+        f"cells card == CPU; card {t_card:.2f}s, CPU "
+        f"{time.perf_counter() - t0 - t_card:.2f}s")
+    return info
+
+
+def phase_chaos(torch, out_dir: str, card: str) -> dict:
+    """Chaos campaigns on the card: the green N=65536 campaign (default
+    mix), a permanent-crash campaign on the AggStats route, a migrating
+    schedule, an N=256 campaign card == CPU, and the broken config's
+    shrunk repro banked and replayed on the card."""
+    import shutil
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.backends import tpu_hash
+    from distributed_membership_tpu_torch.chaos import (
+        CampaignSpec, read_journal, run_campaign)
+    from distributed_membership_tpu_torch.chaos import campaign as cmp
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.runtime.checkpoint import (
+        load_manifest)
+    from distributed_membership_tpu_torch.runtime.failures import (
+        resolve_plan)
+    from distributed_membership_tpu_torch.sweeps.fleet_submit import (
+        override_conf)
+
+    root = os.path.join(out_dir, "chaos")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def campaign(name, spec_kw, expect_ok=True, device="cuda", **kw):
+        spec = CampaignSpec(**spec_kw)
+        out = os.path.join(root, f"{name}_{device}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = run_campaign(spec, out, device=device, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = read_journal(os.path.join(out, "campaign.jsonl"))
+        graded = [r for r in rows if r["kind"] == "graded"]
+        info = {"runs": summary["runs"], "ok": summary["ok"],
+                "graded": len(graded), "wall_s": wall,
+                "ms_per_run_tick": wall / spec.schedules / spec.total * 1e3,
+                "launches": dict(kernels.LAUNCHES),
+                "violations": summary["violations"],
+                "repros": [os.path.basename(p) for p in summary["repros"]]}
+        log(f"chaos[{name}/{device}]: " + json.dumps(info))
+        if summary["ok"] != expect_ok or len(graded) != spec.schedules:
+            raise AssertionError(f"chaos {name}: {summary}")
+        return spec, out, summary, info
+
+    def route(spec, out, index):
+        """The layout and event path make_config gives the card for
+        schedule ``index``'s run."""
+        sch = os.path.join(out, "scenarios",
+                           f"{spec.name}-{spec.seed}-{index:04d}.json")
+        params = Params.from_text(override_conf(cmp.base_conf(spec),
+                                                "SCENARIO", sch))
+        plan = resolve_plan(params, random.Random("route"))
+        cfg = tpu_hash.make_config(
+            params, False, fail_ids=tpu_hash.plan_fail_ids(plan),
+            device="cuda", scenario=tpu_hash.plan_scenario(plan))
+        return cfg, len(plan.failed_indices)
+
+    # The green campaign: default mix, K5-K7 once per tick of every run.
+    spec, out, _, green = campaign("green", CHAOS_SPEC)
+    if green["launches"] != folded_launches(spec.schedules * spec.total):
+        raise AssertionError(f"chaos green: launches {green['launches']}")
+    # AggStats: more than 8 permanent ids on the folded layout.
+    spec, out, _, agg = campaign("agg", CHAOS_AGG)
+    if agg["launches"] != folded_launches(spec.schedules * spec.total):
+        raise AssertionError(f"chaos agg: launches {agg['launches']}")
+    for i in range(spec.schedules):
+        cfg, n_perm = route(spec, out, i)
+        if not (cfg.folded and not cfg.fast_agg and n_perm > 8):
+            raise AssertionError(f"chaos agg run {i}: folded={cfg.folded} "
+                                 f"fast_agg={cfg.fast_agg} ids={n_perm}")
+        log(f"chaos[agg]: run {spec.name}-{spec.seed}-{i:04d} took the "
+            f"folded AggStats route ({n_perm} permanent ids)")
+    # A migrating schedule: kill, same-geometry reshard, resume.
+    _, out, _, mig = campaign("migrate", CHAOS_MIGRATE, shrink=False)
+    chains = []
+    for name in os.listdir(os.path.join(out, "scenarios")):
+        if name.endswith(".ckpt"):
+            m = load_manifest(os.path.join(out, "scenarios", name))
+            chains.extend((m or {}).get("reshard", ()))
+    if not chains or any(c["from_shape"] != c["to_shape"] for c in chains):
+        raise AssertionError(f"chaos migrate: reshard chain {chains}")
+    log(f"chaos[migrate]: {len(chains)} same-shape reshard(s), graded ok")
+    # N=256: the card's journal and schedules equal the CPU's.
+    small = dict(seed=1, schedules=4, n=256, name="small")
+    journals = {}
+    for device in ("cuda", "cpu"):
+        spec, out, _, info = campaign("small", small, device=device)
+        ticks = spec.schedules * spec.total if device == "cuda" else 0
+        if info["launches"] != folded_launches(ticks):
+            raise AssertionError(f"chaos small/{device}: launches "
+                                 f"{info['launches']}")
+        journals[device] = open(os.path.join(
+            out, "campaign.jsonl")).read().replace(out, "OUT")
+    if journals["cuda"] != journals["cpu"]:
+        raise AssertionError("chaos small: journals differ card vs CPU")
+    log("chaos[small]: N=256 campaign.jsonl byte-identical card vs CPU")
+    # The broken config: violations shrunk and banked on the card, and
+    # the banked repro still violates when replayed there.
+    spec, out, summary, _ = campaign(
+        "broken", dict(CHAOS_BROKEN[0], **DEPTH_CUTS["chaos_broken"]),
+        expect_ok=False, overrides=CHAOS_BROKEN[1])
+    if not summary["repros"]:
+        raise AssertionError("chaos broken: nothing banked")
+    conf = cmp.base_conf(spec, CHAOS_BROKEN[1])
+    for path in summary["repros"]:
+        meta = json.load(open(path))["meta"]
+        report = cmp._run_inproc(conf, path, meta["seed"], "cuda")
+        if not set(meta["violations"]) <= set(report["violations"]):
+            raise AssertionError(f"chaos broken: {path} replays "
+                                 f"{report['violations']}")
+        log(f"chaos[broken]: {os.path.basename(path)} replays "
+            f"{report['violations']} on the card")
+    green.update(card=card)
+    return green
+
+
 def check_no_jax() -> int:
     """Import the port's entry points, the elastic and fleet modules
     included, and check that nothing of JAX or the JAX package came with
@@ -3014,7 +3230,8 @@ def check_no_jax() -> int:
     import importlib
     for name in ("runtime.application", "elastic.reshard", "elastic.migrate",
                  "fleet.placement", "fleet.registry", "fleet.scheduler",
-                 "fleet.daemon", "sweeps.fleet_submit", "service.daemon"):
+                 "fleet.daemon", "sweeps.fleet_submit", "service.daemon",
+                 "sweeps.phase", "chaos.campaign"):
         importlib.import_module("distributed_membership_tpu_torch." + name)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "distributed_membership_tpu")]
@@ -3535,7 +3752,9 @@ def main(argv=None) -> int:
             ("serve_replicas", lambda: phase_serve_replicas(
                 torch, confs, out_dir, card)),
             ("reshard", lambda: phase_reshard(torch, confs, out_dir, card)),
-            ("fleet", lambda: phase_fleet(torch, confs, out_dir, card))):
+            ("fleet", lambda: phase_fleet(torch, confs, out_dir, card)),
+            ("sweep", lambda: phase_sweep(torch, out_dir, card)),
+            ("chaos", lambda: phase_chaos(torch, out_dir, card))):
         if name in phases:
             t0 = time.perf_counter()
             paths[name + "_info"] = phase()

@@ -52,7 +52,12 @@ as int32 bits and widened to int64 where order or ``%`` matters
 gates (``make_config``, same messages, ``ValueError``).  ``FOLDED: 1`` is
 honoured on both devices; ``-1`` picks it on CUDA when the gates pass and
 ``S < 128``, and the natural layout otherwise (always on the CPU, as the
-JAX package's auto is off away from its accelerator).
+JAX package's auto is off away from its accelerator).  On one card ``-1``
+also takes it where the only failed gate is FastAgg's (more than
+FAST_AGG_MAX_FAILED failed ids): the folded step then folds AggStats on
+its planes' ``[N, S]`` view, the port's card route for what the JAX
+package runs on its natural layout; a pinned ``FOLDED: 1`` keeps the JAX
+gate.
 
 ``SCENARIO`` (scenario/compile.py) runs on the ring step of every layout:
 a legacy-shaped schedule lowers to the usual FailurePlan (on the scatter
@@ -73,7 +78,7 @@ The ring step's options, each as the JAX step computes it:
 
 * ``EVENT_MODE: agg`` with more than FAST_AGG_MAX_FAILED failed ids, or on
   the scatter exchange: the scatter-based ``AggStats`` update
-  (observability/aggregates.py ``update_agg``);
+  (observability/aggregates.py ``update_agg``), on either layout;
 * ``SHIFT_SET: K``: the gossip shifts are a static K-table
   (:func:`shift_table`) indexed by the tick's draw.  The JAX step
   delivers them through static-roll branches equal to its dynamic roll;
@@ -89,6 +94,10 @@ The ring step's options, each as the JAX step computes it:
   ``approx_lag`` (the counter bits ride the ack gather one tick late,
   ``wf_prev`` carries the will-flush mask, and the final tick's ack
   sends are added to the run totals once: :func:`lag_tail`).
+
+``make_step(cfg, dynamic_knobs=True)`` (and the folded and scatter
+steps' own) is the phase sweep's step (sweeps/phase.py): each call takes
+the cell's ``fanout`` and ``drop_prob``.
 
 ``SERVICE_PORT`` runs the step under the service daemon
 (service/daemon.py), which drives :func:`segment_runner`'s runner and
@@ -714,20 +723,41 @@ def tick_telemetry(cfg: HashConfig, agg_before, agg, out: SparseTickEvents,
         dropped=drop_tick, stale=stale, susp=susp))
 
 
-def ring_rng_plans(cfg: HashConfig, keys, device) -> list:
+def ring_rng_plans(cfg: HashConfig, keys, device,
+                   use_drop: Optional[bool] = None) -> list:
     """The single-chip ring step's RingRng for each tick key of ``keys``
     (the JAX ``_ring_rng_builder``), each stream drawn for all keys in
     one pass: the per-tick draw is one key, ``RNG_MODE: hoisted`` a
     segment's keys.  The natural step draws the control and burst coins,
-    the folded step neither."""
+    the folded step neither.  ``use_drop`` (default :func:`uses_drop`)
+    draws the drop coins; the dynamic-knob steps always draw them."""
     return hash_ring_rng_keys(
         keys, n=cfg.n, s=cfg.s, g=cfg.g, k_max=min(cfg.fanout, cfg.s),
         p_cnt=max(cfg.probes, 0), seed_rows=min(cfg.seed_cap, cfg.n),
-        use_drop=uses_drop(cfg), need_ctrl=not cfg.folded,
+        use_drop=uses_drop(cfg) if use_drop is None else use_drop,
+        need_ctrl=not cfg.folded,
         need_burst=not cfg.folded, device=device, shift_set=cfg.shift_set)
 
 
-def make_step(cfg: HashConfig):
+def check_dynamic_knobs(cfg: HashConfig) -> None:
+    """The JAX ``make_step`` gate of ``dynamic_knobs``: a general scenario
+    needs the plain ring step (its message, word for word)."""
+    if cfg.scenario is not None:
+        raise ValueError(
+            "cfg.scenario requires the plain ring exchange (no "
+            "dynamic knobs or ENFORCE_BUFFSIZE)")
+
+
+def knob_values(cfg: HashConfig, fanout, drop_prob) -> tuple:
+    """A dynamic-knob call's ``(fanout, p)``: the cell's values, or the
+    config's where the call gives none; ``p`` rounded to float32, as
+    every drop coin compares ``uniform < f32(p)``."""
+    return (cfg.fanout if fanout is None else int(fanout),
+            float(np.float32(cfg.drop_prob if drop_prob is None
+                             else drop_prob)))
+
+
+def make_step(cfg: HashConfig, dynamic_knobs: bool = False):
     """``step(state, t, key, plan, rng=None) -> (state,
     SparseTickEvents)``; ``t`` is a host int, ``key`` the tick's threefry
     key, ``plan`` the run's PlanTensors, ``rng`` the tick's pre-drawn
@@ -737,9 +767,16 @@ def make_step(cfg: HashConfig):
     every hook site of the JAX step runs: the delay window's held rows,
     partition cuts and link-flake probabilities at each send site (the
     ack leg at t-1), K2's masks form whenever partitions or flakes exist,
-    and the end-of-tick crash/leave/restart transitions."""
+    and the end-of-tick crash/leave/restart transitions.
+
+    With ``dynamic_knobs`` (the JAX ``make_step(cfg, dynamic_knobs=True)``
+    of the phase sweep, sweeps/phase.py) the step also takes ``fanout``
+    and ``drop_prob``, the cell's values: ``cfg.fanout`` then only bounds
+    ``k_max``, the drop coins are drawn on every tick (at drop 0 too),
+    ``k_eff`` takes the cell's fanout, and every keep mask compares its
+    uniform against the cell's probability (K2's masks form)."""
     if cfg.exchange != "ring":
-        return make_scatter_step(cfg)
+        return make_scatter_step(cfg, dynamic_knobs)
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
     intro = INTRODUCER_INDEX
     k_max = min(cfg.fanout, s)
@@ -749,9 +786,9 @@ def make_step(cfg: HashConfig):
     if p_cnt >= s:
         raise ValueError(f"ring mode needs PROBES < VIEW_SIZE "
                          f"(got {p_cnt} >= {s})")
-    use_drop = uses_drop(cfg)
-    # Every legacy drop coin is `uniform < f32(p)`.
-    p_drop = float(np.float32(cfg.drop_prob))
+    if dynamic_knobs:
+        check_dynamic_knobs(cfg)
+    use_drop = dynamic_knobs or uses_drop(cfg)
     want_agg = cfg.fast_agg and not cfg.collect_events
     want_hist = cfg.telemetry_hist and p_cnt > 0
     fail_ids = cfg.fail_ids if want_agg else ()
@@ -765,13 +802,14 @@ def make_step(cfg: HashConfig):
     tables = {}                 # the SHIFT_SET table on each device
 
     def step(state: HashState, t: int, key: Key, plan: PlanTensors,
-             rng=None):
+             rng=None, fanout=None, drop_prob=None):
         if t < 0:
             raise ValueError("ticks start at 0")
         dev = state.view.device
         idx = torch.arange(n, dtype=I64, device=dev)
+        fanout_eff, p_drop = knob_values(cfg, fanout, drop_prob)
         if rng is None:
-            rng = ring_rng_plans(cfg, [key], dev)[0]
+            rng = ring_rng_plans(cfg, [key], dev, use_drop)[0]
         f = tick_faults(plan, t, idx, n, p_drop)
         # Consumed in the JAX step's order: join control, gossip, the
         # seed burst, probes.
@@ -863,7 +901,7 @@ def make_step(cfg: HashConfig):
         seed_burst_on = act[intro]
         n_seeds_row = torch.where((idx == intro) & seed_burst_on, jp.n_seeds,
                                   0)
-        k_eff = (numpotential.clamp(max=cfg.fanout)
+        k_eff = (numpotential.clamp(max=fanout_eff)
                  - n_seeds_row).clamp_min(0).to(I32)
         if g >= s:
             keep = fresh
@@ -1080,7 +1118,7 @@ def _admit(n: int, self_mask, idx, view, incoming):
     return torch.where(take, torch.maximum(view, incoming), view)
 
 
-def make_scatter_step(cfg: HashConfig):
+def make_scatter_step(cfg: HashConfig, dynamic_knobs: bool = False):
     """The scatter exchange (the JAX ``make_step``'s ``not ring``
     branches): the amail and mail merge by sticky admission, the JOINREQ
     scatter, gossip to ``k_eff`` sampled view occupants with ``G`` sampled
@@ -1088,18 +1126,21 @@ def make_scatter_step(cfg: HashConfig):
     probe mailbox (``pmail``, twice when ``Qp < N``) answered into the ack
     mailbox (``amail``).  Its random streams are the JAX ones: the tick key
     split 8 ways, ``bernoulli(k, p, shape)`` as ``uniform(k, shape) <
-    f32(p)``.  In EVENT_MODE agg the events fold into ``AggStats``."""
+    f32(p)``.  In EVENT_MODE agg the events fold into ``AggStats``.
+    ``dynamic_knobs`` as in :func:`make_step`: the drop keys are split and
+    the coins drawn on every tick of the drop window."""
     n, s, g, p_cnt, qp = cfg.n, cfg.s, cfg.g, cfg.probes, cfg.qp
     intro = INTRODUCER_INDEX
     k_max = min(cfg.fanout, s)
     p_red = 1 if qp >= n else 2
-    use_drop = cfg.drop_prob > 0.0
-    p_drop = float(np.float32(cfg.drop_prob))
+    use_drop = dynamic_knobs or cfg.drop_prob > 0.0
     cap = min(cfg.seed_cap, n)
 
-    def step(state: HashState, t: int, key: Key, plan: PlanTensors):
+    def step(state: HashState, t: int, key: Key, plan: PlanTensors,
+             fanout=None, drop_prob=None):
         if t < 0:
             raise ValueError("ticks start at 0")
+        fanout_eff, p_drop = knob_values(cfg, fanout, drop_prob)
         dev = state.view.device
         idx = torch.arange(n, dtype=I64, device=dev)
         (k_targets, k_entries, k_drop, k_ctrl, k_drop_p, _k_shifts,
@@ -1159,7 +1200,7 @@ def make_scatter_step(cfg: HashConfig):
         seed_burst_on = act[intro]
         n_seeds_row = torch.where((idx == intro) & seed_burst_on, jp.n_seeds,
                                   0)
-        k_eff = (numpotential.clamp(max=cfg.fanout)
+        k_eff = (numpotential.clamp(max=fanout_eff)
                  - n_seeds_row).clamp_min(0)
         eligible = fresh & ~is_self_slot & act[:, None]
         in_seed = jp.seeds[cur_id[intro].clamp_min(0)] & present[intro]
@@ -1340,6 +1381,15 @@ def make_config(params: Params, collect_events: bool = True,
                                    kernels=on_cuda)
     if params.FOLDED == 1 and why_not_folded:
         raise ValueError(why_not_folded)
+    if (why_not_folded and params.FOLDED == -1 and on_cuda and ring
+            and not collect_events and params.BACKEND == "tpu_hash"):
+        # The card's route for AggStats (more than FAST_AGG_MAX_FAILED
+        # failed ids) at S < 128: the folded planes are the natural
+        # [N, S] bytes, so the folded step updates AggStats on their
+        # [N, S] view and equals the natural step bit for bit.  Auto
+        # takes it on one chip; a pinned FOLDED: 1 keeps the JAX gate.
+        why_not_folded = _folded_gates(params, n, s, collect_events, True,
+                                       kernels=True)
     # Auto keeps the folded layout off where a pinned FOLDED would raise
     # (the budget, approx_lag: JAX gates below and in step_and_init) and
     # under the service, whose snapshot reads the natural carry.
@@ -1483,9 +1533,11 @@ def resolve_mega_pack(cfg: HashConfig, params: Params,
     return dataclasses.replace(cfg, mega_pack=False)
 
 
-def step_and_init(cfg: HashConfig):
+def step_and_init(cfg: HashConfig, dynamic_knobs: bool = False):
     """``(step, init)`` for the config's layout and join mode (the JAX
-    ``_get_step_and_init``); ``init(cfg, key, device)``."""
+    ``_get_step_and_init``); ``init(cfg, key, device)``.  With
+    ``dynamic_knobs`` the step takes the cell's ``fanout`` and
+    ``drop_prob`` (:func:`make_step`) on either layout."""
     if cfg.folded and cfg.probe_io_lag:
         raise ValueError(
             "PROBE_IO approx_lag requires the natural layout "
@@ -1494,9 +1546,10 @@ def step_and_init(cfg: HashConfig):
     if cfg.folded:
         from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
             init_state_warm_folded, make_folded_step)
-        return make_folded_step(cfg), init_state_warm_folded
-    return make_step(cfg), (init_state_cold if cfg.cold_join
-                            else init_state_warm)
+        return (make_folded_step(cfg, dynamic_knobs=dynamic_knobs),
+                init_state_warm_folded)
+    return make_step(cfg, dynamic_knobs), (init_state_cold if cfg.cold_join
+                                           else init_state_warm)
 
 
 def plan_fail_ids(plan: FailurePlan) -> tuple:

@@ -20,6 +20,16 @@ for bit at the same seed, and runs three kernels:
   placeholders, and FastAgg sums the removal plane itself
   (``folded_agg_partials``).
 
+With more than FAST_AGG_MAX_FAILED failed ids (``cfg.fast_agg`` false;
+single chip) the events fold into ``AggStats`` through the natural
+``update_agg`` on the ``[N, S]`` view of the planes, so each node's S
+slots are one row of its per-node reductions; K7 then runs its form
+with no failed id (window ids and removal counts).  The JAX package has
+no such route (its folded layout requires FastAgg): it is the port's
+card route for what the JAX package runs on the natural layout.
+``dynamic_knobs`` takes the cell's fanout and drop probability per call,
+as the natural step's (``tpu_hash.make_step``).
+
 It mirrors the JAX ``make_folded_step`` for the ring exchange under warm
 join in EVENT_MODE agg, with the flight recorder (``TELEMETRY``, K7's hist
 partials), the protocol-phase ranges of the natural step and the
@@ -42,19 +52,18 @@ single-chip step.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     HashState, _count_at, _credit_orphan_recvs, _pack_probe_table, _roll,
-    coin_at, failed_after, init_state_warm, no_coin, pack_u, restart_wipe,
-    ring_rng_plans, shift_table, table_shifts, tick_faults, tick_telemetry,
-    uses_drop, will_flush_of)
+    check_dynamic_knobs, coin_at, failed_after, init_state_warm,
+    knob_values, no_coin, pack_u, restart_wipe, ring_rng_plans, shift_table,
+    table_shifts, tick_faults, tick_telemetry, uses_drop, will_flush_of)
 from distributed_membership_tpu_torch.backends.tpu_sparse import (
     SparseTickEvents)
 from distributed_membership_tpu_torch.observability.aggregates import (
-    update_fast_agg)
+    update_agg, update_fast_agg)
 from distributed_membership_tpu_torch.ops.fused_folded import (
     LANES, gossip_folded_stacked, receive_folded_fused, roll_nodes,
     roll_slots)
@@ -109,7 +118,7 @@ def init_local_state_warm_folded(cfg, mesh, key):
     return _fold_state(cfg, init_local_state_warm(cfg, mesh, key))
 
 
-def make_folded_step(cfg, mesh=None):
+def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
     """``step(state, t, key, plan, rng=None) -> (state, SparseTickEvents)``
     on folded state, with the arguments of ``tpu_hash.make_step``; under
     ``cfg.telemetry`` the events come paired with the tick's packed
@@ -120,12 +129,15 @@ def make_folded_step(cfg, mesh=None):
     payloads, then one D-shard K6 launch that rolls every shift by ``c``
     within each shard and aligns its slots by that shard's column shifts
     -- and FastAgg partials per shard.  One shard is the single-chip
-    step, whose shifts are ``b = 0, c = u``."""
+    step, whose shifts are ``b = 0, c = u``.  Without ``cfg.fast_agg``
+    (one chip) the events fold into AggStats (module docstring);
+    ``dynamic_knobs`` as in ``tpu_hash.make_step``."""
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
     rows = n * s // LANES
     k_max = min(cfg.fanout, s)
-    use_drop = uses_drop(cfg)
-    p_drop = float(np.float32(cfg.drop_prob))  # coins: uniform < f32(p)
+    if dynamic_knobs:
+        check_dynamic_knobs(cfg)
+    use_drop = dynamic_knobs or uses_drop(cfg)
     p_red = 1 if cfg.qp >= n else 2
     cstride = STRIDE % s
     d = 1 if mesh is None else mesh.size
@@ -140,7 +152,7 @@ def make_folded_step(cfg, mesh=None):
     tables = {}
     if mesh is None:
         def plan_rng(key, dev):
-            return ring_rng_plans(cfg, [key], dev)[0]
+            return ring_rng_plans(cfg, [key], dev, use_drop)[0]
         part = None
     else:
         def plan_rng(key, dev):
@@ -151,9 +163,11 @@ def make_folded_step(cfg, mesh=None):
                                     device=dev)
         part = mesh.shard_sums
 
-    def step(state, t: int, key, plan, rng=None):
+    def step(state, t: int, key, plan, rng=None, fanout=None,
+             drop_prob=None):
         dev = state.view.device
         idx = torch.arange(n, dtype=I64, device=dev)
+        fanout_eff, p_drop = knob_values(cfg, fanout, drop_prob)
         if rng is None:
             rng = plan_rng(key, dev)
         f = tick_faults(plan, t, idx, n, p_drop)
@@ -226,7 +240,7 @@ def make_folded_step(cfg, mesh=None):
         # block hop, then K6 ----
         numpotential = size - 1 - numfailed
         fresh = present & (difft < cfg.tfail)
-        k_eff = numpotential.clamp(max=cfg.fanout).clamp_min(0)
+        k_eff = numpotential.clamp(max=fanout_eff).clamp_min(0)
         if g >= s:
             keep = fresh
         else:
@@ -325,31 +339,46 @@ def make_folded_step(cfg, mesh=None):
             sent_tick = sent_tick + sent_probes + sent_ack
             recv_add = recv_add + recv_probe
         pending_recv = pending_recv + recv_add + ack_recv_cnt
-        # FastAgg on per-node [N, S] views, from K7's partials (per shard
-        # with a mesh), or with no probes (so no K7) the same sums over the
-        # removal plane.
         with record_function(PHASE_AGG):
-            if pfo is None:
-                pfo = folded_agg_partials(rm_ids, fail_ids)
-            det_tick = any_true_rm = None
-            if fail_ids:
-                det_tick = torch.stack([dc.view(d, -1).sum(1, dtype=I32)
-                                        for dc in pfo["det_cols"]], dim=1)
-                if mesh is None:
-                    det_tick = det_tick[0]
-                any_true_rm = pfo["det_any"].view(n, s).any(1)
-            rm_cnt = pfo["rm_cnt"]
-            agg = update_fast_agg(
-                state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
-                rm_total_tick=(rm_cnt.sum(dtype=I32) if mesh is None
-                               else mesh.shard_sums(rm_cnt)),
-                det_tick=det_tick, any_true_rm=any_true_rm,
-                view_ids=cur_id if t == plan.fail_time and fail_ids else None,
-                view_present=present, fail_time=plan.fail_time,
-                holder_failed=plan.fail_mask, sent_tick=sent_tick,
-                recv_tick=recv_tick, part=part)
-        out = SparseTickEvents(join_mask.sum(dtype=I32), rm_cnt.sum(dtype=I32),
-                               sent_tick.sum(dtype=I32),
+            if not cfg.fast_agg:
+                # AggStats on the [N, S] view: the natural step's fold.
+                join_ids = torch.where(join_mask.view(n, s), cur_id, EMPTY)
+                rm_n = rm_ids.view(n, s)
+                agg = update_agg(
+                    state.agg, t=t, join_ids=join_ids, rm_ids=rm_n,
+                    view_ids=cur_id, view_present=present,
+                    fail_mask=plan.fail_mask, fail_time=plan.fail_time,
+                    sent_tick=sent_tick, recv_tick=recv_tick)
+                joins = (join_ids != EMPTY).sum(dtype=I32)
+                rm_total = (rm_n != EMPTY).sum(dtype=I32)
+            else:
+                # FastAgg on per-node [N, S] views, from K7's partials (per
+                # shard with a mesh), or with no probes (so no K7) the same
+                # sums over the removal plane.
+                if pfo is None:
+                    pfo = folded_agg_partials(rm_ids, fail_ids)
+                det_tick = any_true_rm = None
+                if fail_ids:
+                    det_tick = torch.stack(
+                        [dc.view(d, -1).sum(1, dtype=I32)
+                         for dc in pfo["det_cols"]], dim=1)
+                    if mesh is None:
+                        det_tick = det_tick[0]
+                    any_true_rm = pfo["det_any"].view(n, s).any(1)
+                rm_cnt = pfo["rm_cnt"]
+                agg = update_fast_agg(
+                    state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
+                    rm_total_tick=(rm_cnt.sum(dtype=I32) if mesh is None
+                                   else mesh.shard_sums(rm_cnt)),
+                    det_tick=det_tick, any_true_rm=any_true_rm,
+                    view_ids=(cur_id if t == plan.fail_time and fail_ids
+                              else None),
+                    view_present=present, fail_time=plan.fail_time,
+                    holder_failed=plan.fail_mask, sent_tick=sent_tick,
+                    recv_tick=recv_tick, part=part)
+                joins, rm_total = join_mask.sum(dtype=I32), rm_cnt.sum(
+                    dtype=I32)
+        out = SparseTickEvents(joins, rm_total, sent_tick.sum(dtype=I32),
                                recv_tick.sum(dtype=I32))
         # End-of-tick crash/leave/restart transitions, after the agg fold.
         new_state = restart_wipe(state._replace(

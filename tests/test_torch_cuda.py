@@ -1234,3 +1234,84 @@ def test_fleet_records_the_cards_refusal_as_failed(cuda, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=120)
+
+
+@pytest.mark.cuda
+def test_folded_aggstats_run_on_card_matches_cpu(cuda, tmp_path):
+    """More than 8 failed ids at S=16 (N=2^12, half the nodes fail): auto
+    takes the folded layout's AggStats route on the card (K5-K7 once per
+    tick), the natural layout on the CPU; the detection summary and the
+    final state (reshaped) are the same."""
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = tmp_path / "multi.conf"
+    conf.write_text(
+        "MAX_NNB: 4096\nSINGLE_FAILURE: 0\nDROP_MSG: 1\n"
+        "MSG_DROP_PROB: 0.05\nDROP_START: 0\nDROP_STOP: 70\n"
+        "VIEW_SIZE: 16\nGOSSIP_LEN: 4\nPROBES: 4\nFANOUT: 3\nTFAIL: 8\n"
+        "TREMOVE: 20\nTOTAL_TIME: 70\nFAIL_TIME: 10\nJOIN_MODE: warm\n"
+        "EXCHANGE: ring\nEVENT_MODE: agg\nTELEMETRY: scalars\n"
+        "BACKEND: tpu_hash\n")
+    kernels.reset_launches()
+    card = run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive_folded": 70, "gossip_folded": 70, "probe_folded": 70}
+    cpu = run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
+    assert (card.extra["detection_summary"]
+            == cpu.extra["detection_summary"])
+    assert card.extra["detection_summary"]["detections_total"] > 0
+    for k, v in cpu.extra["timeline"].items():
+        np.testing.assert_array_equal(np.asarray(card.extra["timeline"][k]),
+                                      np.asarray(v), err_msg=k)
+    assert card.extra["final_state"].view.shape == (512, 128)
+    want = state_to_numpy(cpu.extra["final_state"])
+    got = state_to_numpy(card.extra["final_state"])
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name].reshape(want[name].shape),
+                                      want[name], err_msg=name)
+
+
+@pytest.mark.cuda
+def test_sweep_cell_on_card_matches_cpu(cuda):
+    """One phase-sweep cell (N=1024, S=16, fanout 3, 10% drops) through
+    the dynamic-knob folded step: K5-K7 once per tick, the CPU's
+    record."""
+    from distributed_membership_tpu_torch.sweeps.phase import (
+        SweepSpec, run_sweep)
+
+    spec = SweepSpec(n=1024, view_size=16, gossip_len=4, probes=2, tfail=16,
+                     tremove=40, ticks=80, fail_time=20, fanouts=(3,),
+                     drop_rates=(0.1,), seeds=(1,))
+    kernels.reset_launches()
+    got = run_sweep(spec, device="cuda")
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "receive_folded": 80, "gossip_folded": 80, "probe_folded": 80}
+    assert got == run_sweep(spec, device="cpu")
+    assert got[0]["detections"] > 0
+
+
+@pytest.mark.cuda
+def test_campaign_journal_on_card_matches_cpu(cuda, tmp_path):
+    """A 2-schedule chaos campaign at N=256 (S=16: 32 plane rows, the
+    folded kernels): ``campaign.jsonl`` and the schedules equal the CPU
+    campaign's, byte for byte."""
+    from distributed_membership_tpu_torch.chaos import (
+        CampaignSpec, run_campaign)
+
+    spec = CampaignSpec(seed=5, schedules=2, n=256, name="card")
+    files = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        kernels.reset_launches()
+        summary = run_campaign(spec, str(out), device=device)
+        assert summary["ok"], summary
+        if device == "cuda":
+            assert kernels.LAUNCHES["receive_folded"] == 2 * spec.total
+        files[device] = (
+            (out / "campaign.jsonl").read_text().replace(str(out), "OUT"),
+            {p.name: p.read_bytes()
+             for p in sorted((out / "scenarios").iterdir())})
+    assert files["cuda"] == files["cpu"]
