@@ -148,15 +148,13 @@ Phases (any failure exits non-zero before the final line):
  35. serve   -- confs/ring_1m_s128_serve.conf (the main path's geometry,
                 40 ticks in 10-tick segments) batch, then served by the
                 service daemon (service/daemon.py, in this process) under
-                four query threads reading /v1/census and /v1/member/<i>
-                (one request every 20 ms each) and a /metrics scraper:
-                K1-K3 once per tick, the summary equals the batch run's;
-                prints ms/tick served against batch, the hook's host pull
-                per publishing boundary, each derive's mode and ms, the
-                boundaries the publisher skipped, the daemon's query
-                p50/p99 and the peak device memory; then at N=4096 (20
-                ticks) the engine idle, under four closed-loop threads
-                with the query gate and, for up to 5 s, without it;
+                four closed-loop query threads reading /v1/census and
+                /v1/member/<i> and a /metrics scraper: K1-K3 once per
+                tick, the summary equals the batch run's; prints ms/tick
+                served against batch, the hook's host pull per publishing
+                boundary (and against a pageable pull), each derive's
+                mode and ms, the boundaries the publisher skipped, the
+                daemon's query p50/p99 and the peak device memory;
  36. serve_inject -- confs/ring_4k_s128_serve_inject.conf (N=4096, full
                 events): a crash injected over POST /v1/events while the
                 engine is parked at boundary 0, uninterrupted; the same
@@ -235,6 +233,35 @@ Phases (any failure exits non-zero before the final line):
                 N=256 (DEPTH_CUTS: its first schedule), the violations
                 shrunk and banked on the card and each banked repro
                 replayed there to the same violations.
+ 43. sharded_scatter -- the sharded backend's scatter exchange
+                (make_sharded_step; no kernel): --grade-all --backend
+                tpu_hash_sharded on the card (90; the CPU's logs are
+                held against the JAX package's by the tier-1 tests);
+                scatter_2k_s16_sharded8.conf (the JAX
+                test_warm_scale_detection_on_mesh geometry, eight shards,
+                warm; DEPTH_CUTS: 90 ticks, crash at 40, not 150 and
+                100) and the staggered N=256 eight-
+                shard conf with drops on EXCHANGE scatter, card == CPU in
+                every final-state leaf, the summary and the logs; then
+                scatter_1m_s128_sharded8.conf (N=2^20, S=128, eight
+                shards; DEPTH_CUTS: 44 ticks, crash at 1): ms/tick,
+                node-ticks/s, peak memory, the messages a shard lists per
+                tick and whether they fit the JAX packed sort (2^26),
+                the valid ones sent, and the ones full buckets truncated
+                per tick (mean and max, 0 expected; RunResult.extra
+                "buckets"), and the detections;
+ 44. batched -- EXCHANGE_MODE batched (ops/exchange.py) against legacy on
+                the card: the eight-shard folded N=2^14 hist conf in
+                16-tick segments and an N=2^14 S=128 eight-shard conf
+                with 5% drops (state hash, detection summary, timeline
+                equal); batched card == CPU at N=256 (logs); N=2^20,
+                S=128, eight shards, drop-free, 24 ticks: ms/tick and
+                peak memory, batched against legacy.  Batched launches
+                K1 and K3 (K5 and K7) once per tick and K4 (K6) never;
+ 45. sharded_folded_multi -- ring_16k_s16_folded_sharded8_multi.conf
+                (more than 8 failed ids): the card takes the folded
+                layout with AggStats (K5-K7 once per tick), the CPU the
+                natural layout; summary and final state equal.
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -255,7 +282,22 @@ device span of each protocol phase (the dm_* record_function ranges),
 profiles the full view (confs/ring_16k_full.conf, N = S = 16384) and
 its eight-shard twin the same way, times the 1M natural tick with
 TELEMETRY hist against off, and profiles the two 1M single-chip scenario
-confs on ticks inside their windows.
+confs on ticks inside their windows; `--only profile_exchange` profiles
+the 1M scatter tick on eight shards and the 1M eight-shard ring tick
+under EXCHANGE_MODE legacy and batched, in turns; `--only serve_load`
+serves the 1M conf under four paced query threads (one request every
+20 ms each; summary equal to the batch run's), then at N=4096 (20 ticks)
+times the engine idle, under four closed-loop threads with the query
+gate and, for up to 5 s, without it.
+Every CPU twin of a card run (the parity phases' CPU runs, the grade's,
+the quick sweep grid's, the N=256 chaos campaign's, serve_inject's CPU
+served run) runs in one of TWIN_WORKERS spawned processes at the lowest
+priority while the card goes on with the next phases; each twin's
+comparison runs when the phases are done, before the kernel line, and
+fails the script like any other phase.  Phase fleet runs on a thread
+beside sweep and chaos (its controller and workers are processes of
+their own, the thread only polls them) and is joined before
+sharded_scatter.
 The scenario confs name their SCENARIO file relative to the repository
 root, so the script runs from there.  Run
 outputs (logs, profiler tables) go to --out-dir (default smoke_out/).
@@ -264,6 +306,7 @@ outputs (logs, profiler tables) go to --out-dir (default smoke_out/).
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import random
@@ -285,9 +328,16 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "mega", "hoisted", "checkpoint_parity", "legacy", "multi",
           "shift_set", "buffsize", "approx_lag", "wide", "folded_probes0",
           "serve", "serve_inject", "serve_sharded", "serve_replicas",
-          "reshard", "fleet", "sweep", "chaos")
+          "reshard", "fleet", "sweep", "chaos", "sharded_scatter",
+          "batched", "sharded_folded_multi")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
-OPT_IN = ("profile",)           # run only when named in --only
+OPT_IN = ("profile", "profile_exchange",   # run only when named in --only
+          "serve_load")
+TWIN_WORKERS, TWIN_THREADS = 2, 2  # CPU twin processes, threads in each
+TWIN_TIMEOUT_S = 600                # the longest wait for one twin
+# Phases run on a thread beside sweep and chaos, when the phases whose
+# outputs they read ran before them.
+BESIDE = {"fleet": ("serve", "serve_sharded")}
 TPU_KERNEL = {
     "receive_fused": "distributed_membership_tpu/ops/fused_receive.py:176",
     "gossip_fused": "distributed_membership_tpu/ops/fused_gossip.py:195",
@@ -424,6 +474,14 @@ DEPTH_CUTS = {
     # campaign's first schedule shrinks in 6 probes (both: 30).
     "sweep_quick": dict(ticks=60, fail_time=16),
     "chaos_broken": dict(schedules=1),
+    # Phase sharded_scatter: the N = 2048 crash is detected by every
+    # tracker 27-41 ticks later, so a crash at 40 inside 90; the 1M run's
+    # drop-free detections come 38-45 ticks after the crash (p99 42), so a
+    # crash at 1 is detected inside 44.  Phase batched's 1M pair times ticks only (no detection
+    # inside).
+    "scatter_2k_s16_sharded8": dict(TOTAL_TIME=90, FAIL_TIME=40),
+    "scatter_1m_s128_sharded8": dict(TOTAL_TIME=44, FAIL_TIME=1),
+    "batched_1m": dict(TOTAL_TIME=24, FAIL_TIME=8),
 }
 
 
@@ -1226,6 +1284,8 @@ def run_path(torch, conf: str, name: str, expect: dict, out_dir: str,
         SERIES[name] = result.extra["timeline"]
     if "scenario_report" in result.extra:
         info["scenario"] = oracle_digest(result.extra["scenario_report"])
+    if "buckets" in result.extra:
+        info["buckets"] = result.extra["buckets"]
     log(f"main[{name}]: " + json.dumps(info))
     PATH_INFO[name] = info
     if launches != expect:
@@ -1470,14 +1530,13 @@ def checkpoint_parity(torch, conf: str, name: str, every: int, kill: int,
     from distributed_membership_tpu_torch.runtime.application import run_conf
 
     ref_dir = os.path.join(out_dir, f"{name}_ref")
-    ref = run_conf(conf, out_dir=ref_dir, device="cpu")
-    total = ref.params.TOTAL_TIME
+    total = conf_ticks(conf)
     mark = -(-kill // every) * every
 
     def expect(n):
         return launches_expected(**{k: n for k in expect_tick})
 
-    walls = {}
+    walls, reports = {}, {}
     for killer, resumer in (("cuda", "cpu"), ("cpu", "cuda")):
         tag = f"{name}_{killer}_to_{resumer}"
         ckdir = os.path.join(out_dir, f"{tag}_ck")
@@ -1509,16 +1568,23 @@ def checkpoint_parity(torch, conf: str, name: str, every: int, kill: int,
         want = expect(total - mark) if resumer == "cuda" else expect(0)
         if launches != want:
             raise AssertionError(f"{tag}: launches {launches} != {want}")
-        same_logs(ref_dir, out, tag)
-        if res.extra.get("scenario_report") != ref.extra.get(
-                "scenario_report"):
-            raise AssertionError(f"{tag}: scenario report differs")
+        reports[out] = res.extra.get("scenario_report")
+        del res
         shutil.rmtree(ckdir, ignore_errors=True)
-    log(f"{name}: killed at {kill} (manifest {mark}) on the card and "
-        "resumed on the CPU, and the reverse: logs"
-        + (" and scenario report" if "scenario_report" in ref.extra else "")
-        + " byte-identical to the CPU's uninterrupted run; "
-        + json.dumps(walls))
+
+    def check(ref: dict) -> None:
+        for out, report in reports.items():
+            same_logs(ref_dir, out, os.path.basename(out))
+            if report != ref["scenario_report"]:
+                raise AssertionError(f"{os.path.basename(out)}: scenario "
+                                     "report differs")
+        log(f"{name}: killed at {kill} (manifest {mark}) on the card and "
+            "resumed on the CPU, and the reverse: logs"
+            + (" and scenario report" if ref["scenario_report"] is not None
+               else "")
+            + " byte-identical to the CPU's uninterrupted run; "
+            + json.dumps(walls))
+    TWINS.submit(conf, ref_dir, check, leaves=False)
     return walls
 
 
@@ -1534,9 +1600,9 @@ def oracle_digest(report: dict) -> dict:
             "violations": report["violations"]}
 
 
-def same_report(res: dict, name: str) -> None:
-    """Raise unless the card's and the CPU's scenario reports are equal."""
-    reps = {d: r.extra.get("scenario_report") for d, r in res.items()}
+def same_report(reps: dict, name: str) -> None:
+    """Raise unless the card's and the CPU's scenario reports
+    (``reps["cuda"]``, ``reps["cpu"]``) are equal."""
     if reps["cuda"] is None or reps["cuda"] != reps["cpu"]:
         raise AssertionError(f"{name}: scenario reports differ between "
                              "cuda and cpu (or are missing)")
@@ -1581,11 +1647,95 @@ def same_logs(a: str, b: str, what: str, need_removal: bool = True) -> None:
             raise AssertionError(f"{what}: dbg.log holds no removal")
 
 
+def run_view(result, wall: float, leaves: bool = True) -> dict:
+    """What the card-vs-CPU checks read of a run_conf result: its size,
+    wall, detection summary, final-state leaves as numpy (with
+    ``leaves``), timeline and scenario report."""
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+
+    extra = result.extra
+    return {"n": result.params.EN_GPSZ, "ticks": result.params.TOTAL_TIME,
+            "wall_s": wall, "detection": extra.get("detection_summary"),
+            "leaves": (state_to_numpy(extra["final_state"]) if leaves
+                       else None),
+            "timeline": extra.get("timeline"),
+            "scenario_report": extra.get("scenario_report")}
+
+
+def _twin_init(repo: str, threads: int) -> None:
+    """A twin worker: the port importable, relative SCENARIO paths from
+    the repository root, ``threads`` intra-op threads, and the lowest
+    priority, so that the card's phases keep the host's cores."""
+    sys.path.insert(0, repo)
+    os.chdir(repo)
+    os.nice(19)
+    import torch
+    torch.set_num_threads(threads)
+
+
+def _twin_job(conf: str, out_dir: str, partitionable: bool, leaves: bool,
+              kw: dict) -> dict:
+    """run_conf of ``conf`` on the CPU under the submitter's threefry
+    stream -> :func:`run_view`."""
+    from distributed_membership_tpu_torch.ops import threefry
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    t0 = time.perf_counter()
+    with threefry.partitionable(partitionable):
+        res = run_conf(conf, out_dir=out_dir, device="cpu", **kw)
+    return run_view(res, time.perf_counter() - t0, leaves)
+
+
+class Twins:
+    """The CPU twins of card runs.  With ``workers`` each twin runs in
+    one of that many spawned processes (``threads`` intra-op threads
+    each) while the card goes on with the next phases, and its check
+    runs in :meth:`drain`, in submission order; with none, a twin runs
+    and is checked at once."""
+
+    def __init__(self, workers: int = 0, threads: int = 2):
+        self.pool, self.pending = None, []
+        if workers:
+            import multiprocessing
+            self.pool = multiprocessing.get_context("spawn").Pool(
+                workers, _twin_init, (REPO, threads))
+
+    def call(self, fn, args: tuple, check) -> None:
+        """``check(fn(*args))``; ``fn`` is a function of this module."""
+        if self.pool is None:
+            check(fn(*args))
+        else:
+            self.pending.append((self.pool.apply_async(fn, args), check))
+
+    def submit(self, conf: str, out_dir: str, check, leaves: bool = True,
+               **kw) -> None:
+        """run_conf(conf, out_dir=out_dir, device="cpu", **kw), then
+        ``check(`` its :func:`run_view` ``)``."""
+        from distributed_membership_tpu_torch.ops import threefry
+
+        self.call(_twin_job, (conf, out_dir, threefry.is_partitionable(),
+                              leaves, kw), check)
+
+    def drain(self) -> None:
+        while self.pending:
+            job, check = self.pending.pop(0)
+            check(job.get(timeout=TWIN_TIMEOUT_S))
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+
+
+TWINS = Twins()
+
+
 def card_vs_cpu(torch, conf: str, name: str, expect: dict, out_dir: str,
                 card: str) -> dict:
     """run_conf of a full-event conf on the card (launch counts set to 0
-    just before and read just after, and held to ``expect``) and on the
-    CPU; the logs must be byte-identical."""
+    just before and read just after, and held to ``expect``) and its CPU
+    twin; the logs must be byte-identical."""
     from distributed_membership_tpu_torch import kernels
     from distributed_membership_tpu_torch.runtime.application import run_conf
 
@@ -1601,69 +1751,120 @@ def card_vs_cpu(torch, conf: str, name: str, expect: dict, out_dir: str,
         raise AssertionError(f"{name}: launches {launches} != {expect}")
     if not res.extra["final_state"].view.is_cuda:
         raise AssertionError(f"{name}: the final state is not on the card")
-    t1 = time.perf_counter()
-    cpu = run_conf(conf, out_dir=dirs["cpu"], device="cpu")
-    cpu_wall = time.perf_counter() - t1
-    same_logs(dirs["cuda"], dirs["cpu"], name)
-    if "scenario_report" in cpu.extra:
-        same_report({"cuda": res, "cpu": cpu}, name)
+    report = res.extra.get("scenario_report")
     ticks = res.params.TOTAL_TIME
     info = {"n": res.params.EN_GPSZ, "ticks": ticks, "wall_s": wall,
-            "ms_per_tick": wall * 1e3 / ticks, "cpu_wall_s": cpu_wall,
+            "ms_per_tick": wall * 1e3 / ticks,
             "launches": {k: v for k, v in launches.items() if v},
             "card": card}
-    log(f"{name}: logs byte-identical, cuda vs cpu; " + json.dumps(info))
+    del res
+
+    def check(cpu: dict) -> None:
+        same_logs(dirs["cuda"], dirs["cpu"], name)
+        if cpu["scenario_report"] is not None:
+            same_report({"cuda": report, "cpu": cpu["scenario_report"]},
+                        name)
+        info["cpu_wall_s"] = cpu["wall_s"]
+        log(f"{name}: logs byte-identical, cuda vs cpu; " + json.dumps(info))
+    TWINS.submit(conf, dirs["cpu"], check, leaves=False)
+    return info
+
+
+def logs_parity(conf: str, name: str, out_dir: str, done: str) -> None:
+    """run_conf of a full-event conf on the card and its CPU twin: the
+    three logs byte-identical, a removal in dbg.log; logs ``done``."""
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    dirs = {d: os.path.join(out_dir, f"{name}_{d}") for d in ("cuda", "cpu")}
+    run_conf(conf, out_dir=dirs["cuda"], device="cuda")
+
+    def check(cpu: dict) -> None:
+        same_logs(dirs["cuda"], dirs["cpu"], name)
+        log(done)
+    TWINS.submit(conf, dirs["cpu"], check, leaves=False)
+
+
+def twin_parity(torch, conf: str, name: str, out_dir: str, card: str,
+                expect: dict | None = None) -> dict:
+    """run_conf of ``conf`` on the card and its CPU twin: the detection
+    summaries (agg mode), every final-state leaf, compared byte for byte
+    (so a folded card plane meets the CPU's natural one), the logs both
+    runs write, and under TELEMETRY every timeline series and a
+    scenario's report must be identical.  With ``expect`` the card run's
+    launch counts, set to 0 just before it and read just after, must
+    equal it.  The returned record holds the card's detection summary."""
+    import numpy as np
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    dirs = {d: os.path.join(out_dir, f"{name}_{d}") for d in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_conf(conf, out_dir=dirs["cuda"], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if expect is not None and launches != expect:
+        raise AssertionError(f"{name}: launches {launches} != {expect}")
+    if not res.extra["final_state"].view.is_cuda:
+        raise AssertionError(f"{name}: the final state is not on the card")
+    if "timeline" in res.extra:
+        reconcile(name, res)
+    got = run_view(res, wall)
+    del res
+    info = {"n": got["n"], "ticks": got["ticks"], "wall_s": wall,
+            "ms_per_tick": wall * 1e3 / got["ticks"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "detection": got["detection"], "card": card}
+
+    def check(cpu: dict) -> None:
+        if got["detection"] != cpu["detection"]:
+            raise AssertionError(f"{name}: detection summaries differ: "
+                                 f"{got['detection']} != {cpu['detection']}")
+        if got["leaves"].keys() != cpu["leaves"].keys():
+            raise AssertionError(f"{name}: state leaves differ")
+        for leaf, want in cpu["leaves"].items():
+            have = got["leaves"][leaf]
+            if have.size != want.size or not np.array_equal(
+                    have.reshape(-1), want.reshape(-1)):
+                raise AssertionError(f"{name}: final state leaf {leaf} "
+                                     "differs between cuda and cpu")
+        what = [f"{len(cpu['leaves'])} final-state leaves"]
+        if cpu["detection"]:
+            what.append("the detection summary")
+        for f in LOGS:
+            if os.path.exists(os.path.join(dirs["cpu"], f)):
+                if (_read(os.path.join(dirs["cuda"], f))
+                        != _read(os.path.join(dirs["cpu"], f))):
+                    raise AssertionError(f"{name}: {f} differs between cuda "
+                                         "and cpu")
+                what.append(f)
+        if cpu["scenario_report"] is not None:
+            same_report({"cuda": got["scenario_report"],
+                         "cpu": cpu["scenario_report"]}, name)
+            what.append("the scenario report")
+        if cpu["timeline"] is not None:
+            a, b = got["timeline"], cpu["timeline"]
+            if a is None or a.keys() != b.keys() or any(
+                    not np.array_equal(a[k], b[k]) for k in b):
+                raise AssertionError(f"{name}: timelines differ between "
+                                     "cuda and cpu")
+            what.append(f"{len(b)} timeline series")
+        info["cpu_wall_s"] = cpu["wall_s"]
+        log(f"{name}: N={cpu['n']} {', '.join(what)} identical, cuda vs "
+            "cpu; " + json.dumps(info))
+    TWINS.submit(conf, dirs["cpu"], check)
     return info
 
 
 def state_parity(torch, conf: str, name: str, out_dir: str,
                  card: str) -> None:
-    """run_conf of an agg-mode conf on the card and on the CPU: the
-    detection summaries, every leaf of the final states and, under
-    TELEMETRY, every timeline series must be identical."""
-    import numpy as np
-
-    from distributed_membership_tpu_torch.convert import state_to_numpy
-    from distributed_membership_tpu_torch.runtime.application import run_conf
-
-    walls, res = {}, {}
-    for d in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        res[d] = run_conf(conf, out_dir=os.path.join(out_dir, f"{name}_{d}"),
-                          device=d)
-        walls[d] = time.perf_counter() - t0
-    summ = {d: r.extra["detection_summary"] for d, r in res.items()}
-    if summ["cuda"] != summ["cpu"]:
-        raise AssertionError(f"{name}: detection summaries differ: {summ}")
-    leaves = {d: state_to_numpy(r.extra["final_state"])
-              for d, r in res.items()}
-    if leaves["cuda"].keys() != leaves["cpu"].keys():
-        raise AssertionError(f"{name}: state leaves differ")
-    for leaf, want in leaves["cpu"].items():
-        got = leaves["cuda"][leaf]
-        if got.shape != want.shape or (got != want).any():
-            raise AssertionError(f"{name}: final state leaf {leaf} differs "
-                                 "between cuda and cpu")
-    if summ["cpu"].get("detections_total", 0) <= 0:
+    """:func:`twin_parity` of an agg-mode conf with a detection."""
+    info = twin_parity(torch, conf, name, out_dir, card)
+    if info["detection"].get("detections_total", 0) <= 0:
         raise AssertionError(f"{name}: no detection")
-    what = f"{len(leaves['cpu'])} final-state leaves"
-    if "scenario_report" in res["cpu"].extra:
-        same_report(res, name)
-        what += ", the scenario report"
-    if "timeline" in res["cpu"].extra:
-        series = {d: r.extra["timeline"] for d, r in res.items()}
-        if series["cuda"].keys() != series["cpu"].keys() or any(
-                not np.array_equal(series["cuda"][k], series["cpu"][k])
-                for k in series["cpu"]):
-            raise AssertionError(f"{name}: timelines differ between cuda "
-                                 "and cpu")
-        reconcile(name, res["cuda"])
-        what += f", {len(series['cpu'])} timeline series"
-    log(f"{name}: N={res['cpu'].params.EN_GPSZ} detection summary, {what} "
-        f"identical, cuda vs cpu; " + json.dumps(
-            {"wall_s": walls["cuda"], "cpu_wall_s": walls["cpu"],
-             "ms_per_tick": walls["cuda"] * 1e3 / res["cpu"].params.TOTAL_TIME,
-             "card": card}))
 
 
 def telemetry_parity(torch, conf: str, out_dir: str, card: str) -> None:
@@ -1689,22 +1890,30 @@ def telemetry_parity(torch, conf: str, out_dir: str, card: str) -> None:
     if dict(kernels.LAUNCHES) != expect:
         raise AssertionError(f"telemetry: launches {dict(kernels.LAUNCHES)} "
                              f"!= {expect}")
-    res["cpu_off"] = run_conf(conf, out_dir=dirs["cpu_off"], device="cpu",
-                              telemetry="off")
-    res["cpu_hist"] = run_conf(conf, out_dir=dirs["cpu_hist"], device="cpu",
-                               telemetry="hist")
-    same_logs(dirs["cuda_hist"], dirs["cpu_off"], "telemetry")
-    a, b = (res[k].extra["timeline"] for k in ("cuda_hist", "cpu_hist"))
-    if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k])
-                                   for k in a):
-        raise AssertionError("telemetry: the card's timeline differs from "
-                             "the CPU's")
-    if "timeline" in res["cpu_off"].extra or int(a["dropped"].sum()) <= 0:
-        raise AssertionError("telemetry: TELEMETRY off recorded a timeline, "
-                             "or the hist run counted no drop")
-    log(f"telemetry: N={res['cpu_off'].params.EN_GPSZ} full-event logs with "
-        "TELEMETRY hist on the card == TELEMETRY off on the CPU; timelines "
-        f"identical, cuda vs cpu ({len(a)} series); card: {card}")
+    a = res["cuda_hist"].extra["timeline"]
+    del res
+
+    def check_off(cpu: dict) -> None:
+        same_logs(dirs["cuda_hist"], dirs["cpu_off"], "telemetry")
+        if cpu["timeline"] is not None:
+            raise AssertionError("telemetry: TELEMETRY off recorded a "
+                                 "timeline")
+
+    def check_hist(cpu: dict) -> None:
+        b = cpu["timeline"]
+        if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k])
+                                       for k in a):
+            raise AssertionError("telemetry: the card's timeline differs "
+                                 "from the CPU's")
+        if int(a["dropped"].sum()) <= 0:
+            raise AssertionError("telemetry: the hist run counted no drop")
+        log(f"telemetry: N={cpu['n']} full-event logs with TELEMETRY hist "
+            "on the card == TELEMETRY off on the CPU; timelines identical, "
+            f"cuda vs cpu ({len(a)} series); card: {card}")
+    TWINS.submit(conf, dirs["cpu_off"], check_off, leaves=False,
+                 telemetry="off")
+    TWINS.submit(conf, dirs["cpu_hist"], check_hist, leaves=False,
+                 telemetry="hist")
 
 
 def phase_legacy(torch, paths: dict, main_conf: str, drop256: str,
@@ -1732,54 +1941,87 @@ def phase_legacy(torch, paths: dict, main_conf: str, drop256: str,
         log("legacy: 2^20 and 2^20 + 1 legacy bits identical, cuda vs cpu")
 
 
-def phase_grade(torch, out_dir: str, card: str, seed: int = 3) -> dict:
-    """``--grade-all`` (``application.grade_all`` on the parsed flags, as
-    ``main`` calls it) on the card and on the CPU: both grade 90, their
-    logs agree, the card run launches no kernel (the scatter step has
-    none) and its final states lie on the card."""
+def grade_argv(out_dir: str, device: str, seed: int,
+               backend: str | None) -> list:
+    """``--grade-all`` flags for ``device`` (``--backend`` where given)."""
+    tag = "grade" if backend is None else f"grade_{backend}"
+    return (["--grade-all", "--device", device, "--seed", str(seed),
+             "--out-dir", os.path.join(out_dir, f"{tag}_{device}")]
+            + ([] if backend is None else ["--backend", backend]))
+
+
+def run_grade(argv: list, results: list) -> tuple:
+    """``application.grade_all`` on the parsed ``argv``, as ``main``
+    calls it, appending to ``results`` -> ``(rc, stdout, wall)``."""
     import contextlib
     import io
 
+    from distributed_membership_tpu_torch.runtime import application
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = application.grade_all(application.parser().parse_args(argv),
+                                   results)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def _grade_job(argv: list) -> tuple:
+    """:func:`run_grade` on the CPU, in a twin worker."""
+    return run_grade(argv, [])
+
+
+def phase_grade(torch, out_dir: str, card: str, seed: int = 3,
+                backend: str | None = None, cpu_twin: bool = True) -> dict:
+    """``--grade-all`` (``--backend`` where given) on the card and, with
+    ``cpu_twin``, its CPU twin: both grade 90, their logs agree, the
+    card run launches no kernel (neither scatter step has one) and its
+    final states lie on the card."""
     from distributed_membership_tpu_torch import kernels
     from distributed_membership_tpu_torch.runtime import application
 
-    walls = {}
-    launches = {}
-    results = {"cuda": [], "cpu": []}
-    for d in ("cuda", "cpu"):
-        buf = io.StringIO()
-        args = application.parser().parse_args([
-            "--grade-all", "--device", d, "--seed", str(seed),
-            "--out-dir", os.path.join(out_dir, f"grade_{d}")])
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = application.grade_all(args, results[d])
-        torch.cuda.synchronize()
-        walls[d] = time.perf_counter() - t0
-        if d == "cuda":
-            launches = dict(kernels.LAUNCHES)
-        for line in buf.getvalue().splitlines():
-            log(f"grade[{d}]: {line}")
-        if rc != 0 or buf.getvalue().splitlines()[-1] != "Final grade 90":
-            raise AssertionError(f"grade: --grade-all on {d} exited {rc}")
+    tag = "grade" if backend is None else f"grade_{backend}"
+
+    def graded(d: str, rc: int, out: str) -> None:
+        for line in out.splitlines():
+            log(f"{tag}[{d}]: {line}")
+        if rc != 0 or out.splitlines()[-1] != "Final grade 90":
+            raise AssertionError(f"{tag}: --grade-all on {d} exited {rc}")
+
+    results = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rc, out, wall = run_grade(grade_argv(out_dir, "cuda", seed, backend),
+                              results)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    graded("cuda", rc, out)
     if any(launches.values()):
-        raise AssertionError(f"grade: kernels launched: {launches}")
-    for scenario in application.SCENARIOS:
-        same_logs(*(os.path.join(out_dir, f"grade_{d}", scenario)
-                    for d in ("cuda", "cpu")), f"grade[{scenario}]")
-    off = [k for res, _ in results["cuda"]
+        raise AssertionError(f"{tag}: kernels launched: {launches}")
+    off = [k for res, _ in results
            for k, v in state_tensors(res.extra["final_state"])
            if not v.is_cuda]
     if off:
-        raise AssertionError(f"grade: final state leaves off the card: {off}")
-    ticks = sum(res.params.TOTAL_TIME for res, _ in results["cuda"])
-    info = {"ticks": ticks, "wall_s": walls["cuda"],
-            "ms_per_tick": walls["cuda"] * 1e3 / ticks,
-            "cpu_wall_s": walls["cpu"], "card": card}
-    log("grade: 90/90 on cuda and cpu, logs byte-identical, no kernel "
-        "launched; " + json.dumps(info))
+        raise AssertionError(f"{tag}: final state leaves off the card: "
+                             f"{off}")
+    ticks = sum(res.params.TOTAL_TIME for res, _ in results)
+    del results
+    info = {"ticks": ticks, "wall_s": wall, "ms_per_tick": wall * 1e3 / ticks,
+            "cpu_wall_s": None, "card": card}
+    if not cpu_twin:
+        log(f"{tag}: 90 on cuda, no kernel launched; " + json.dumps(info))
+        return info
+
+    def check(got: tuple) -> None:
+        rc, out, info["cpu_wall_s"] = got
+        graded("cpu", rc, out)
+        for scenario in application.SCENARIOS:
+            same_logs(*(os.path.join(out_dir, f"{tag}_{d}", scenario)
+                        for d in ("cuda", "cpu")), f"{tag}[{scenario}]")
+        log(f"{tag}: 90 on cuda and cpu, logs byte-identical, no kernel "
+            "launched; " + json.dumps(info))
+    TWINS.call(_grade_job, (grade_argv(out_dir, "cpu", seed, backend),),
+               check)
     return info
 
 
@@ -1828,11 +2070,26 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
             step = tpu_hash_folded.make_ring_sharded_folded_step(cfg, mesh)
             state = tpu_hash_folded.init_local_state_warm_folded(cfg, mesh,
                                                                  key0)
-        else:
+        elif cfg.exchange == "ring":
             step = tpu_hash_sharded.make_ring_sharded_step(cfg, mesh)
             state = tpu_hash_sharded.init_local_state_warm(cfg, mesh, key0)
+        else:
+            step = tpu_hash_sharded.make_sharded_step(cfg, mesh)
+            state = tpu_hash_sharded.init_local_state_warm(cfg, mesh, key0)
+        bx = getattr(step, "batched_exchange", None)
+        if bx is not None:
+            state = (state, bx.zero("cuda"))
 
         def plan_rng(key):
+            if cfg.exchange != "ring":
+                # The scatter step's draws: each shard's target and entry
+                # scores (drop-free).
+                from distributed_membership_tpu_torch.ops.threefry import (
+                    fold_in, split, uniform_keys)
+                keys = [split(fold_in(key, d), 4) for d in range(mesh.size)]
+                return [uniform_keys([k[i] for k in keys],
+                                     n_local * cfg.s, "cuda")
+                        for i in (0, 1)]
             return sharded_ring_rng(
                 key, range(mesh.size), n=cfg.n, n_local=n_local, s=cfg.s,
                 g=cfg.g,
@@ -2354,43 +2611,72 @@ def pull_times(torch, carry) -> dict:
     return out
 
 
-def phase_serve(torch, confs: str, out_dir: str, card: str) -> dict:
-    """The 1M S=128 conf batch, then served under four closed-loop query
-    threads and a scraper, then under four paced ones; the hook's pull
-    against a pageable one; at N=4096 the engine under closed-loop
-    threads with the query gate and without it."""
+def served_check(torch, params, out_dir: str, case: str, pause: float,
+                 expect: dict, want: dict) -> tuple:
+    """:func:`served_case` of ``params`` (``pause`` 0: closed-loop); its
+    launches must be ``expect``, its summary the batch run's ``want``
+    and its final census the run's last tick.  -> ``(info, carry)``."""
+    launches, got, info = served_case(
+        torch, params, os.path.join(out_dir, f"serve_{case}"), pause)
+    if launches != expect:
+        raise AssertionError(f"serve[{case}]: launches {launches}")
+    det = got["result"].extra["detection_summary"]
+    if {k: v for k, v in det.items()
+            if k != "latency_hist_nonzero"} != want:
+        raise AssertionError(f"serve[{case}]: summary {det} != "
+                             f"batch's {want}")
+    census = info["census"]
+    if census["tick"] != params.TOTAL_TIME or census["n"] != params.EN_GPSZ:
+        raise AssertionError(f"serve[{case}]: final census {census}")
+    return info, got["carry"]
+
+
+def serve_batch(torch, confs: str, out_dir: str) -> tuple:
+    """The 1M served conf, its launches per tick and its batch run's
+    record (run now unless an earlier phase ran it)."""
     conf = os.path.join(confs, "ring_1m_s128_serve.conf")
     ticks = conf_ticks(conf)
     expect = launches_expected(receive=ticks, gossip=ticks, probe=ticks)
-    batch = run_path(torch, conf, "serve_batch", expect, out_dir)
-    torch.cuda.empty_cache()
+    if "serve_batch" not in PATH_INFO:
+        run_path(torch, conf, "serve_batch", expect, out_dir)
+        torch.cuda.empty_cache()
+    return conf, expect, PATH_INFO["serve_batch"]
+
+
+def phase_serve(torch, confs: str, out_dir: str, card: str) -> dict:
+    """The 1M S=128 conf batch, then served under four closed-loop query
+    threads and a scraper; the hook's pull against a pageable one."""
+    conf, expect, batch = serve_batch(torch, confs, out_dir)
     params = served_params(conf)
-    n = params.EN_GPSZ
-    want = dict(batch["detection"])
-    info = {"ticks": ticks, "n": n,
+    info = {"ticks": params.TOTAL_TIME, "n": params.EN_GPSZ,
             "batch_ms_per_tick": 1e3 / batch["ticks_per_s"],
             "batch_peak_mem_gib": batch["peak_mem_gib"], "card": card}
-    for case, pause in (("closed_loop", 0.0), ("paced", QUERY_PAUSE_S)):
-        launches, got, info[case] = served_case(
-            torch, params, os.path.join(out_dir, f"serve_{case}"), pause)
-        if launches != expect:
-            raise AssertionError(f"serve[{case}]: launches {launches}")
-        det = got["result"].extra["detection_summary"]
-        if {k: v for k, v in det.items()
-                if k != "latency_hist_nonzero"} != want:
-            raise AssertionError(f"serve[{case}]: summary {det} != "
-                                 f"batch's {want}")
-        census = info[case]["census"]
-        if census["tick"] != ticks or census["n"] != n:
-            raise AssertionError(f"serve[{case}]: final census {census}")
-        if case == "paced":
-            info["pull"] = pull_times(torch, got["carry"])
-        del got
-        torch.cuda.empty_cache()
+    info["closed_loop"], carry = served_check(
+        torch, params, out_dir, "closed_loop", 0.0, expect,
+        dict(batch["detection"]))
+    info["pull"] = pull_times(torch, carry)
+    del carry
+    log("serve: summary == batch's; " + json.dumps(info))
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_serve_load(torch, confs: str, out_dir: str, card: str) -> dict:
+    """Opt-in: the 1M served conf under four paced query threads; at
+    N=4096 the engine under closed-loop threads with the query gate and
+    without it."""
+    conf, expect, batch = serve_batch(torch, confs, out_dir)
+    params = served_params(conf)
+    info = {"card": card}
+    info["paced"], carry = served_check(
+        torch, params, out_dir, "paced", QUERY_PAUSE_S, expect,
+        dict(batch["detection"]))
+    del carry
+    torch.cuda.empty_cache()
     small = os.path.join(confs, "ring_4k_s128_serve_inject.conf")
     info["gil_4k"] = [gil_case(torch, small, os.path.join(
         out_dir, f"serve_gil_{m}"), m) for m in ("idle", "gated", "ungated")]
-    log("serve: summary == batch's; " + json.dumps(info))
+    log("serve_load: summary == batch's; " + json.dumps(info))
     torch.cuda.empty_cache()
     return info
 
@@ -2410,36 +2696,20 @@ def phase_serve_inject(torch, confs: str, out_dir: str, card: str) -> dict:
     from distributed_membership_tpu_torch.runtime.application import run_conf
 
     conf = os.path.join(confs, "ring_4k_s128_serve_inject.conf")
-    event = {"kind": "crash", "time": 40, "nodes": [3]}
     root = os.path.join(out_dir, "serve_inject")
 
     def dirs(tag):
-        return dict(CHECKPOINT_DIR=os.path.join(root, f"{tag}_ck"),
-                    TELEMETRY_DIR=os.path.join(root, f"{tag}_tl"))
-
-    def inject(stop_too):
-        def script(port):
-            wait_health(port, lambda h: h["snapshot_tick"] is not None)
-            code, reply = http_json(port, "/v1/events", "POST", event)
-            if code != 202 or reply["apply_at_tick"] != 30:
-                raise AssertionError(f"serve_inject: POST {code} {reply}")
-            if stop_too:
-                http_get(port, "/v1/admin/shutdown", "POST", {})
-            gates[0].set()
-            if not stop_too:
-                return wait_health(port, lambda h: h["status"] == "complete")
-        return script
+        return inject_dirs(root, tag)
 
     walls, counts = {}, {}
-    runs = (("a", "cuda", False), ("a_cpu", "cpu", False),
-            ("b", "cuda", True))
-    for tag, device, stop_too in runs:
+    for tag, stop_too in (("a", False), ("b", True)):
         gates = {0: threading.Event()}
         kernels.reset_launches()
         t0 = time.perf_counter()
         rc, _, got = serve_in_process(
             torch, served_params(conf, **dirs(tag)),
-            os.path.join(root, tag), inject(stop_too), device, gates)
+            os.path.join(root, tag), inject_script(gates, stop_too),
+            "cuda", gates)
         walls[tag] = time.perf_counter() - t0
         counts[tag] = dict(kernels.LAUNCHES)
         if rc != 0:
@@ -2467,8 +2737,7 @@ def phase_serve_inject(torch, confs: str, out_dir: str, card: str) -> dict:
              telemetry_dir=dirs("b")["TELEMETRY_DIR"])
     counts["b3"] = dict(kernels.LAUNCHES)
     # A crash alone masks no shift: K2's k_eff form throughout.
-    for tag, ticks in (("a", 120), ("a_cpu", 0), ("b", 30), ("b2", 30),
-                       ("b3", 60)):
+    for tag, ticks in (("a", 120), ("b", 30), ("b2", 30), ("b3", 60)):
         if counts[tag] != launches_expected(receive=ticks, gossip=ticks,
                                             probe=ticks):
             raise AssertionError(f"serve_inject[{tag}]: launches "
@@ -2476,21 +2745,78 @@ def phase_serve_inject(torch, confs: str, out_dir: str, card: str) -> dict:
     files = [(f, f) for f in LOGS] + [(os.path.join("..", "{}_tl",
                                                     "timeline.jsonl"),
                                        "timeline.jsonl")]
-    for rel, what in files:
-        got = {tag: _read(os.path.join(root, tag, rel.format(tag)))
-               for tag in ("a", "a_cpu", "b")}
-        if not got["a"] == got["a_cpu"] == got["b"]:
-            raise AssertionError(f"serve_inject: {what} differs")
+
+    def same(tags):
+        for rel, what in files:
+            got = {tag: _read(os.path.join(root, tag, rel.format(tag)))
+                   for tag in tags}
+            if len(set(got.values())) != 1:
+                raise AssertionError(f"serve_inject: {what} differs")
+    same(("a", "b"))
     if b" removed " not in _read(os.path.join(root, "a", "dbg.log")):
         raise AssertionError("serve_inject: the injected crash was not "
                              "detected")
     info = {"walls_s": walls, "launch_counts": {
         t: {k: v for k, v in c.items() if v} for t, c in counts.items()},
         "card": card}
-    log("serve_inject: logs and timeline.jsonl byte-identical: served "
-        "uninterrupted (card), served on the CPU, and stopped/resumed "
-        "served/resumed headless (card); " + json.dumps(info))
+
+    def check(cpu: tuple) -> None:
+        rc, walls["a_cpu"], counts["a_cpu"] = cpu
+        if rc != 0 or any(counts["a_cpu"].values()):
+            raise AssertionError(f"serve_inject[a_cpu]: rc {rc}, launches "
+                                 f"{counts['a_cpu']}")
+        info["launch_counts"]["a_cpu"] = {}
+        same(("a", "a_cpu"))
+        log("serve_inject: logs and timeline.jsonl byte-identical: served "
+            "uninterrupted (card), served on the CPU, and stopped/resumed "
+            "served/resumed headless (card); " + json.dumps(info))
+    TWINS.call(_served_inject_job, (conf, root), check)
     return info
+
+
+def inject_dirs(root: str, tag: str) -> dict:
+    """serve_inject's checkpoint and telemetry directories of run ``tag``."""
+    return dict(CHECKPOINT_DIR=os.path.join(root, f"{tag}_ck"),
+                TELEMETRY_DIR=os.path.join(root, f"{tag}_tl"))
+
+
+def inject_script(gates: dict, stop_too: bool):
+    """serve_inject's client: once a snapshot is up, POST the crash (it
+    applies at boundary 30), with ``stop_too`` ask for shutdown, release
+    the engine parked at boundary 0 and (without ``stop_too``) wait for
+    the run's end."""
+    event = {"kind": "crash", "time": 40, "nodes": [3]}
+
+    def script(port):
+        wait_health(port, lambda h: h["snapshot_tick"] is not None)
+        code, reply = http_json(port, "/v1/events", "POST", event)
+        if code != 202 or reply["apply_at_tick"] != 30:
+            raise AssertionError(f"serve_inject: POST {code} {reply}")
+        if stop_too:
+            http_get(port, "/v1/admin/shutdown", "POST", {})
+        gates[0].set()
+        if not stop_too:
+            return wait_health(port, lambda h: h["status"] == "complete")
+    return script
+
+
+def _served_inject_job(conf: str, root: str) -> tuple:
+    """serve_inject's uninterrupted run served on the CPU, in a twin
+    worker -> ``(rc, wall, launch counts)``."""
+    import threading
+
+    import torch
+
+    from distributed_membership_tpu_torch import kernels
+
+    gates = {0: threading.Event()}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc, _, _ = serve_in_process(
+        torch, served_params(conf, **inject_dirs(root, "a_cpu")),
+        os.path.join(root, "a_cpu"), inject_script(gates, False), "cpu",
+        gates)
+    return rc, time.perf_counter() - t0, dict(kernels.LAUNCHES)
 
 
 def phase_serve_sharded(torch, confs: str, out_dir: str, card: str) -> dict:
@@ -2499,7 +2825,6 @@ def phase_serve_sharded(torch, confs: str, out_dir: str, card: str) -> dict:
     import threading
 
     from distributed_membership_tpu_torch import kernels
-    from distributed_membership_tpu_torch.runtime.application import run_conf
 
     conf = os.path.join(confs, "ring_16k_s128_sharded8_serve.conf")
     ticks = conf_ticks(conf)
@@ -2530,23 +2855,23 @@ def phase_serve_sharded(torch, confs: str, out_dir: str, card: str) -> dict:
     union = os.path.join(root, "union.json")
     with open(union, "w") as fh:
         json.dump({"name": "union", "events": [event]}, fh)
-    t1 = time.perf_counter()
-    run_conf(conf_variant(conf, out_dir, "serve_sharded_twin",
-                          SERVICE_PORT=-1),
-             out_dir=os.path.join(root, "twin"), device="cpu",
-             scenario=union, telemetry_dir=os.path.join(root, "twin_tl"))
-    cpu_wall = time.perf_counter() - t1
-    same_logs(os.path.join(root, "live"), os.path.join(root, "twin"),
-              "serve_sharded")
-    if (_read(os.path.join(root, "live_tl", "timeline.jsonl"))
-            != _read(os.path.join(root, "twin_tl", "timeline.jsonl"))):
-        raise AssertionError("serve_sharded: timeline.jsonl differs")
     info = {"n": got["state"].params.EN_GPSZ, "shards": 8, "ticks": ticks,
             "wall_s": wall,
-            "cpu_twin_wall_s": cpu_wall,
             "mesh_size": got["result"].extra["mesh_size"], "card": card}
-    log("serve_sharded: the live injection == the CPU's union-scenario "
-        "twin (logs, timeline.jsonl); " + json.dumps(info))
+
+    def check(cpu: dict) -> None:
+        same_logs(os.path.join(root, "live"), os.path.join(root, "twin"),
+                  "serve_sharded")
+        if (_read(os.path.join(root, "live_tl", "timeline.jsonl"))
+                != _read(os.path.join(root, "twin_tl", "timeline.jsonl"))):
+            raise AssertionError("serve_sharded: timeline.jsonl differs")
+        info["cpu_twin_wall_s"] = cpu["wall_s"]
+        log("serve_sharded: the live injection == the CPU's union-scenario "
+            "twin (logs, timeline.jsonl); " + json.dumps(info))
+    TWINS.submit(conf_variant(conf, out_dir, "serve_sharded_twin",
+                              SERVICE_PORT=-1),
+                 os.path.join(root, "twin"), check, leaves=False,
+                 scenario=union, telemetry_dir=os.path.join(root, "twin_tl"))
     return info
 
 
@@ -2838,11 +3163,8 @@ def phase_fleet(torch, confs: str, out_dir: str, card: str) -> dict:
     # phase's batch run and serve_sharded's live run (a partial run makes
     # them now: the batch run, and the union-scenario run on the card).
     ref_1m = os.path.join(out_dir, "serve_batch")
-    if "serve_batch" not in PATH_INFO:
-        t = conf_ticks(conf_1m)
-        run_path(torch, conf_1m, "serve_batch", launches_expected(
-            receive=t, gossip=t, probe=t), out_dir)
-    batch_det = json.loads(json.dumps(PATH_INFO["serve_batch"]["detection"]))
+    batch_det = json.loads(json.dumps(
+        serve_batch(torch, confs, out_dir)[2]["detection"]))
     ref_s8 = os.path.join(out_dir, "serve_sharded", "live")
     if not os.path.exists(os.path.join(ref_s8, "dbg.log")):
         union = os.path.join(out_dir, "fleet_union.json")
@@ -3093,17 +3415,45 @@ def phase_sweep(torch, out_dir: str, card: str) -> dict:
             "node_ticks_per_s": spec.n * ticks / wall, "launches": launches,
             "rows": rows, "card": card}
     log("sweep[north_star]: " + json.dumps(info))
-    quick = SweepSpec(**SWEEP_QUICK, **DEPTH_CUTS["sweep_quick"])
+    quick_kw = dict(SWEEP_QUICK, **DEPTH_CUTS["sweep_quick"])
+    quick = SweepSpec(**quick_kw)
     t0 = time.perf_counter()
     got = run_sweep(quick, device="cuda")
     t_card = time.perf_counter() - t0
-    want = run_sweep(quick, device="cpu")
-    if got != want:
-        raise AssertionError(f"sweep quick grid: card {got} != cpu {want}")
-    log(f"sweep[quick]: N={quick.n} S={quick.view_size}, {len(got)} "
-        f"cells card == CPU; card {t_card:.2f}s, CPU "
-        f"{time.perf_counter() - t0 - t_card:.2f}s")
+
+    def check(cpu: tuple) -> None:
+        want, t_cpu = cpu
+        if got != want:
+            raise AssertionError(f"sweep quick grid: card {got} != cpu "
+                                 f"{want}")
+        log(f"sweep[quick]: N={quick.n} S={quick.view_size}, {len(got)} "
+            f"cells card == CPU; card {t_card:.2f}s, CPU {t_cpu:.2f}s")
+    TWINS.call(_sweep_job, (quick_kw,), check)
     return info
+
+
+def _sweep_job(spec_kw: dict) -> tuple:
+    """run_sweep of ``SweepSpec(**spec_kw)`` on the CPU, in a twin
+    worker -> ``(records, wall)``."""
+    from distributed_membership_tpu_torch.sweeps.phase import (
+        SweepSpec, run_sweep)
+
+    t0 = time.perf_counter()
+    records = run_sweep(SweepSpec(**spec_kw), device="cpu")
+    return records, time.perf_counter() - t0
+
+
+def _campaign_job(spec_kw: dict, out: str) -> tuple:
+    """run_campaign of ``CampaignSpec(**spec_kw)`` on the CPU into
+    ``out``, in a twin worker -> ``(summary, its campaign.jsonl with
+    out as OUT, wall)``."""
+    from distributed_membership_tpu_torch.chaos import (
+        CampaignSpec, run_campaign)
+
+    t0 = time.perf_counter()
+    summary = run_campaign(CampaignSpec(**spec_kw), out, device="cpu")
+    journal = open(os.path.join(out, "campaign.jsonl")).read()
+    return summary, journal.replace(out, "OUT"), time.perf_counter() - t0
 
 
 def phase_chaos(torch, out_dir: str, card: str) -> dict:
@@ -3192,17 +3542,22 @@ def phase_chaos(torch, out_dir: str, card: str) -> dict:
     # N=256: the card's journal and schedules equal the CPU's.
     small = dict(seed=1, schedules=4, n=256, name="small")
     journals = {}
-    for device in ("cuda", "cpu"):
-        spec, out, _, info = campaign("small", small, device=device)
-        ticks = spec.schedules * spec.total if device == "cuda" else 0
-        if info["launches"] != folded_launches(ticks):
-            raise AssertionError(f"chaos small/{device}: launches "
-                                 f"{info['launches']}")
-        journals[device] = open(os.path.join(
-            out, "campaign.jsonl")).read().replace(out, "OUT")
-    if journals["cuda"] != journals["cpu"]:
-        raise AssertionError("chaos small: journals differ card vs CPU")
-    log("chaos[small]: N=256 campaign.jsonl byte-identical card vs CPU")
+    spec, out, _, info = campaign("small", small)
+    if info["launches"] != folded_launches(spec.schedules * spec.total):
+        raise AssertionError(f"chaos small/cuda: launches "
+                             f"{info['launches']}")
+    journals["cuda"] = open(os.path.join(
+        out, "campaign.jsonl")).read().replace(out, "OUT")
+
+    def check(cpu: tuple) -> None:
+        summary, journals["cpu"], wall = cpu
+        log("chaos[small/cpu]: " + json.dumps(
+            {"runs": summary["runs"], "ok": summary["ok"], "wall_s": wall}))
+        if not summary["ok"] or journals["cuda"] != journals["cpu"]:
+            raise AssertionError("chaos small: journals differ card vs CPU")
+        log("chaos[small]: N=256 campaign.jsonl byte-identical card vs CPU")
+    TWINS.call(_campaign_job, (small, os.path.join(root, "small_cpu")),
+               check)
     # The broken config: violations shrunk and banked on the card, and
     # the banked repro still violates when replayed there.
     spec, out, summary, _ = campaign(
@@ -3221,6 +3576,172 @@ def phase_chaos(torch, out_dir: str, card: str) -> dict:
             f"{report['violations']} on the card")
     green.update(card=card)
     return green
+
+
+def phase_sharded_scatter(torch, confs: str, out_dir: str,
+                          card: str) -> dict:
+    """The sharded backend's scatter exchange (make_sharded_step, no
+    kernel): ``--grade-all --backend tpu_hash_sharded`` on the card and
+    the CPU, the JAX warm-scale mesh geometry and staggered cold joins
+    with drops card == CPU, then N = 2^20 on eight shards with the
+    buckets' numbers per tick."""
+    # The grade on the card only: tests/test_torch_sharded_scatter.py
+    # holds the CPU's logs against the JAX package's, and the twins below
+    # hold this step card == CPU in every leaf.
+    info = {"grade": phase_grade(torch, out_dir, card,
+                                 backend="tpu_hash_sharded", cpu_twin=False)}
+    info["warm_2k"] = twin_parity(
+        torch, smoke_conf(confs, out_dir, "scatter_2k_s16_sharded8"),
+        "scatter_2k_sharded8", out_dir, card, launches_expected())
+    det = info["warm_2k"]["detection"]
+    if det["false_removals"] or det["detection_completeness"] != 1.0:
+        raise AssertionError(f"scatter_2k_sharded8: {det}")
+    cold = conf_variant(
+        os.path.join(confs, "ring_256_s128_staggered_sharded8_drop.conf"),
+        out_dir, "scatter_256_staggered_sharded8_drop", EXCHANGE="scatter",
+        **DEPTH_CUTS["ring_256_s128_staggered_sharded8_drop"])
+    info["cold_256"] = twin_parity(torch, cold, "scatter_cold_sharded8",
+                                   out_dir, card, launches_expected())
+    info["1m"] = run_path(
+        torch, smoke_conf(confs, out_dir, "scatter_1m_s128_sharded8"),
+        "scatter_1m_sharded8", launches_expected(), out_dir)
+    stats = info["1m"]["buckets"]
+    ticks = info["1m"]["ticks"]
+    if stats["ticks"] != ticks:
+        raise AssertionError(f"scatter_1m_sharded8: buckets {stats}")
+    buckets = {"messages_per_shard": stats["messages"],
+               "packed_sort_regime": stats["messages"] <= 1 << 26,
+               "cap": stats["cap"],
+               "sent_per_shard_mean": stats["sent"] / ticks / 8,
+               "truncated_per_tick_mean": stats["truncated"] / ticks,
+               "truncated_per_tick_max": stats["truncated_max"],
+               "ms_per_tick": info["1m"]["wall_s"] * 1e3 / ticks,
+               "card": card}
+    log("scatter_1m_sharded8[buckets]: " + json.dumps(buckets))
+    info["1m"]["buckets"] = buckets
+    det = info["1m"]["detection"]
+    if det["false_removals"] or det.get("detections_total", 0) <= 0:
+        raise AssertionError(f"scatter_1m_sharded8: {det}")
+    return info
+
+
+def phase_batched(torch, confs: str, out_dir: str, card: str,
+                  paths: dict) -> dict:
+    """EXCHANGE_MODE batched (ops/exchange.py): on the card batched ==
+    legacy in final state, timeline and detection summary (sharded
+    folded with TELEMETRY hist in 16-tick segments; N = 2^14 natural
+    eight shards with 5% drops), batched card == CPU at N = 256, and N =
+    2^20 on eight shards drop-free, batched against legacy.  Batched
+    launches K1 and K3 (K5 and K7) once per tick and K4/K6 never: the
+    senders align the shifts."""
+    info = {}
+
+    def pair(base: str, name: str, legacy: dict, batched: dict, **keys):
+        out = {}
+        for mode, expect in (("legacy", legacy), ("batched", batched)):
+            conf = conf_variant(base, out_dir, f"{name}_{mode}",
+                                EXCHANGE_MODE=mode, **keys)
+            out[mode] = paths[f"{name}_{mode}"] = run_path(
+                torch, conf, f"{name}_{mode}", expect, out_dir,
+                digest=True)
+            torch.cuda.empty_cache()
+        same_detection(name, out["batched"], out["legacy"], "legacy")
+        if out["batched"]["state_hash"] != out["legacy"]["state_hash"]:
+            raise AssertionError(f"{name}: batched final state differs "
+                                 "from legacy")
+        if f"{name}_legacy" in SERIES:
+            same_series(f"{name}_batched", f"{name}_legacy")
+        log(f"batched[{name}]: batched == legacy (final state, "
+            f"detection{', timeline' if f'{name}_legacy' in SERIES else ''})"
+            "; "
+            + json.dumps({m: {k: out[m][k] for k in (
+                "ticks", "wall_s", "ticks_per_s", "peak_mem_gib")}
+                for m in out} | {"card": card}))
+        return out
+
+    folded = smoke_conf(confs, out_dir, "ring_16k_s16_folded_sharded8_drop")
+    t = conf_ticks(folded)
+    info["folded_16k"] = pair(
+        folded, "batched_folded_16k",
+        launches_expected(receive_folded=t, gossip_folded=t,
+                          probe_folded_hist=t),
+        launches_expected(receive_folded=t, probe_folded_hist=t),
+        CHECKPOINT_EVERY=16)
+    lossy = os.path.join(confs, "ring_1m_s128_sharded8_drop.conf")
+    t = conf_ticks(lossy)
+    info["natural_16k"] = pair(
+        lossy, "batched_natural_16k",
+        launches_expected(receive=t, gossip_stacked=t, probe=t),
+        launches_expected(receive=t, probe=t), MAX_NNB=16384)
+    if info["natural_16k"]["batched"]["detection"].get(
+            "detections_total", 0) <= 0:
+        raise AssertionError("batched_natural_16k: no detection")
+    small = conf_variant(
+        os.path.join(confs, "ring_256_s128_sharded8_drop.conf"), out_dir,
+        "batched_256_sharded8_drop", EXCHANGE_MODE="batched")
+    t = conf_ticks(small)
+    info["parity_256"] = card_vs_cpu(
+        torch, small, "batched_parity_256",
+        launches_expected(receive=t, probe=t), out_dir, card)
+    big = conf_variant(os.path.join(confs, "ring_1m_s128.conf"), out_dir,
+                       "ring_1m_s128_sharded8", BACKEND="tpu_hash_sharded",
+                       MESH_SHAPE=8, **DEPTH_CUTS["batched_1m"])
+    t = conf_ticks(big)
+    info["1m"] = pair(big, "batched_1m",
+                      launches_expected(receive=t, gossip_stacked=t,
+                                        probe=t),
+                      launches_expected(receive=t, probe=t))
+    log("batched[1m]: " + json.dumps({
+        m: {"ms_per_tick": info["1m"][m]["wall_s"] * 1e3 / t,
+            "node_ticks_per_s": info["1m"][m]["node_ticks_per_s"],
+            "peak_mem_gib": info["1m"][m]["peak_mem_gib"]}
+        for m in ("legacy", "batched")} | {"card": card}))
+    return info
+
+
+def phase_sharded_folded_multi(torch, confs: str, out_dir: str,
+                               card: str) -> dict:
+    """Many failed ids on eight folded shards: the card takes the folded
+    layout with AggStats (K5-K7 once per tick), the CPU the natural
+    layout; detection summary and final state equal."""
+    conf = os.path.join(confs, "ring_16k_s16_folded_sharded8_multi.conf")
+    info = twin_parity(torch, conf, "sharded_folded_multi", out_dir, card,
+                       folded_launches(conf_ticks(conf)))
+    det = info["detection"]
+    if det["failed_nodes"] <= 8 or det.get("detections_total", 0) <= 0:
+        raise AssertionError(f"sharded_folded_multi: {det}")
+    return info
+
+
+def start_beside(name: str, phase) -> tuple:
+    """``phase()`` on a thread of its own, beside the phases after it:
+    its processes do its work, the thread only polls them.  The thread
+    is not a daemon, so the script's exit waits for its clean-up."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["info"] = phase()
+        except BaseException as e:      # re-raised by join_beside
+            box["error"] = e
+    thread = threading.Thread(target=run, name=name)
+    thread.start()
+    return thread, box, time.perf_counter()
+
+
+def join_beside(beside: dict, paths: dict, card: str) -> None:
+    """Wait for the phases :func:`start_beside` started; raise the first
+    one's error."""
+    while beside:
+        name, (thread, box, t0) = beside.popitem()
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        paths[name + "_info"] = box["info"]
+        log(f"phase {name}: {time.perf_counter() - t0:.1f}s beside the "
+            f"phases after it; card: {card}")
 
 
 def check_no_jax() -> int:
@@ -3332,7 +3853,26 @@ def main(argv=None) -> int:
             {"step_ms_off": hist["off"], "step_ms_hist": hist["hist"],
              "hist_minus_off_ms": (sum(hist["hist"]) - sum(hist["off"]))
              / 2, "card": card}))
+    if "profile_exchange" in phases:
+        # The sharded exchanges' 1M ticks: scatter, and batched against
+        # legacy in turns (legacy, batched, batched, legacy).
+        phase_profile(torch, os.path.join(confs,
+                                          "scatter_1m_s128_sharded8.conf"),
+                      "scatter_1m_s128_sharded8", out_dir)
+        torch.cuda.empty_cache()
+        for mode in ("legacy", "batched", "batched", "legacy"):
+            phase_profile(torch, conf_variant(
+                os.path.join(confs, "ring_1m_s128.conf"), out_dir,
+                f"ring_1m_s128_sharded8_{mode}", BACKEND="tpu_hash_sharded",
+                MESH_SHAPE=8, EXCHANGE_MODE=mode),
+                f"ring_1m_s128_sharded8_{mode}", out_dir)
+            torch.cuda.empty_cache()
     paths = {}
+    # The CPU twins run beside the card's phases from here on, their
+    # checks at the end; the kernel timings and profiles above ran alone.
+    global TWINS
+    TWINS = Twins(workers=TWIN_WORKERS, threads=TWIN_THREADS)
+    atexit.register(TWINS.close)
 
     def cut(name):
         """A 1M conf with its depth cut, and its ticks."""
@@ -3357,21 +3897,10 @@ def main(argv=None) -> int:
             return fail("lossy path: no detection")
         torch.cuda.empty_cache()
     if "parity" in phases:
-        from distributed_membership_tpu_torch.runtime.application import (
-            run_conf)
-        conf = os.path.join(confs, "ring_256_s128_drop.conf")
-        for d in ("cuda", "cpu"):
-            run_conf(conf, out_dir=os.path.join(out_dir, f"parity_{d}"),
-                     device=d)
-        for f in LOGS:
-            a, b = (open(os.path.join(out_dir, f"parity_{d}", f),
-                         "rb").read()
-                    for d in ("cuda", "cpu"))
-            if a != b:
-                return fail(f"parity: {f} differs between cuda and cpu")
-            if f == "dbg.log" and b" removed " not in a:
-                return fail("parity: dbg.log holds no removal")
-        log("parity: N=256 full-event logs byte-identical, cuda vs cpu")
+        logs_parity(os.path.join(confs, "ring_256_s128_drop.conf"),
+                    "parity", out_dir,
+                    "parity: N=256 full-event logs byte-identical, cuda vs "
+                    "cpu")
     if "folded" in phases:
         paths["folded"] = run_path(
             torch, os.path.join(confs, "ring_1m_s16_folded.conf"), "folded",
@@ -3413,24 +3942,10 @@ def main(argv=None) -> int:
             return fail("sharded_lossy path: no detection")
         torch.cuda.empty_cache()
     if "sharded_parity" in phases:
-        from distributed_membership_tpu_torch.runtime.application import (
-            run_conf)
-        conf = os.path.join(confs, "ring_256_s128_sharded8_drop.conf")
-        for d in ("cuda", "cpu"):
-            run_conf(conf, out_dir=os.path.join(out_dir,
-                                                f"sharded_parity_{d}"),
-                     device=d)
-        for f in ("dbg.log", "stats.log", "msgcount.log"):
-            a, b = (open(os.path.join(out_dir, f"sharded_parity_{d}", f),
-                         "rb").read()
-                    for d in ("cuda", "cpu"))
-            if a != b:
-                return fail(f"sharded_parity: {f} differs between cuda and "
-                            "cpu")
-            if f == "dbg.log" and b" removed " not in a:
-                return fail("sharded_parity: dbg.log holds no removal")
-        log("sharded_parity: N=256 eight-shard full-event logs "
-            "byte-identical, cuda vs cpu")
+        logs_parity(os.path.join(confs, "ring_256_s128_sharded8_drop.conf"),
+                    "sharded_parity", out_dir,
+                    "sharded_parity: N=256 eight-shard full-event logs "
+                    "byte-identical, cuda vs cpu")
     if "grade" in phases:
         t0 = time.perf_counter()
         paths["grade"] = phase_grade(torch, out_dir, card)
@@ -3743,8 +4258,11 @@ def main(argv=None) -> int:
         phase_folded_probes0(torch, confs, paths, out_dir, card)
         log(f"phase folded_probes0: {time.perf_counter() - t0:.1f}s; "
             f"card: {card}")
+    beside = {}
     for name, phase in (
             ("serve", lambda: phase_serve(torch, confs, out_dir, card)),
+            ("serve_load", lambda: phase_serve_load(torch, confs, out_dir,
+                                                    card)),
             ("serve_inject", lambda: phase_serve_inject(torch, confs,
                                                         out_dir, card)),
             ("serve_sharded", lambda: phase_serve_sharded(torch, confs,
@@ -3754,13 +4272,30 @@ def main(argv=None) -> int:
             ("reshard", lambda: phase_reshard(torch, confs, out_dir, card)),
             ("fleet", lambda: phase_fleet(torch, confs, out_dir, card)),
             ("sweep", lambda: phase_sweep(torch, out_dir, card)),
-            ("chaos", lambda: phase_chaos(torch, out_dir, card))):
-        if name in phases:
+            ("chaos", lambda: phase_chaos(torch, out_dir, card)),
+            ("sharded_scatter", lambda: phase_sharded_scatter(
+                torch, confs, out_dir, card)),
+            ("batched", lambda: phase_batched(torch, confs, out_dir, card,
+                                              paths)),
+            ("sharded_folded_multi", lambda: phase_sharded_folded_multi(
+                torch, confs, out_dir, card))):
+        if name == "sharded_scatter" and beside:
+            join_beside(beside, paths, card)
+        if (name in phases and name in BESIDE
+                and set(BESIDE[name]) <= phases):
+            beside[name] = start_beside(name, phase)
+        elif name in phases:
             t0 = time.perf_counter()
             paths[name + "_info"] = phase()
             torch.cuda.empty_cache()
             log(f"phase {name}: {time.perf_counter() - t0:.1f}s; "
                 f"card: {card}")
+    join_beside(beside, paths, card)
+    t0 = time.perf_counter()
+    TWINS.drain()
+    TWINS.close()
+    log(f"twins: every CPU twin checked, {time.perf_counter() - t0:.1f}s "
+        "waited for at the end")
     log(f"total: {time.perf_counter() - t_start:.1f}s after the card check")
 
     if phases != set(PHASES):

@@ -149,7 +149,7 @@ from distributed_membership_tpu_torch.ops.sampling import sample_k_indices
 from distributed_membership_tpu_torch.ops.threefry import (
     Key, randint, split, uniform, uniform_at)
 from distributed_membership_tpu_torch.ops.view_merge import (
-    EMPTY, M32, STRIDE, as_u32, hash_slot, member_of, to_bits)
+    EMPTY, M32, SIGN, STRIDE, as_u32, hash_slot, member_of, to_bits)
 from distributed_membership_tpu_torch.runtime.failures import (
     FailurePlan, PlanTensors, make_run_key, plan_tensors, resolve_plan)
 from distributed_membership_tpu_torch.scenario.compile import (
@@ -224,6 +224,7 @@ class HashConfig:
     probe_io_lag: bool = False    # PROBE_IO approx_lag
     send_budget: int = 0          # ENFORCE_BUFFSIZE: EN_BUFFSIZE, else 0
     shift_set: int = 0            # SHIFT_SET: K-table gossip shifts
+    batched_exchange: bool = False  # EXCHANGE_MODE batched (sharded ring)
 
 
 def uses_drop(cfg: HashConfig) -> bool:
@@ -319,11 +320,19 @@ def _scatter_msgs(cfg: HashConfig, mail, tgt, msg_id, msg_hb, msg_valid,
     msg_id = msg_id.to(I64)
     node = tgt if node is None else node
     addr = torch.where(msg_valid, tgt * s + slot_of(cfg, node, msg_id), r * s)
-    val = torch.where(msg_valid, pack_u(cfg, msg_hb, msg_id), 0)
-    flat = torch.cat([as_u32(mail).reshape(-1),
-                      torch.zeros((1,), dtype=I64, device=mail.device)])
-    flat.scatter_reduce_(0, addr.reshape(-1), val.reshape(-1), "amax")
-    return to_bits(flat[:-1].reshape(r, s))
+    return _scatter_umax(mail, addr, pack_u(cfg, msg_hb, msg_id))
+
+
+def _scatter_umax(plane, addr, val):
+    """``plane`` (int32 u32 bits) max-combined with the u32 values ``val``
+    (int64) at the flat addresses ``addr``; the address ``plane.numel()``
+    is a sink, dropped.  The unsigned max is the signed one with the sign
+    bit flipped around it (``view_merge.umax``).  Returns a new plane."""
+    flat = torch.cat([(plane ^ SIGN).reshape(-1),
+                      plane.new_full((1,), SIGN)])
+    flat.scatter_reduce_(0, addr.reshape(-1),
+                         to_bits(val).reshape(-1) ^ SIGN, "amax")
+    return flat[:-1].reshape(plane.shape) ^ SIGN
 
 
 def _scatter_rows(cfg: HashConfig, plane, rows, local_tgt, msg_id, msg_hb,
@@ -1257,16 +1266,12 @@ def make_scatter_step(cfg: HashConfig, dynamic_knobs: bool = False):
                                         n * s) < p_drop)
                 due = due[~(uniform_at(kd2, due, n * qp) < p_drop)]
             own_id_p = idx[:, None].expand(n, p_cnt)
-            pval = torch.where(p_valid, own_id_p + 1, 0).reshape(-1)
-            flat = torch.cat([as_u32(pmail).reshape(-1),
-                              torch.zeros((1,), dtype=I64, device=dev)])
             for c in range(p_red):
                 paddr = p_tgt * qp + hash_slot(own_id_p, t + c * 0x2545F49,
                                                qp, n)
-                flat.scatter_reduce_(
-                    0, torch.where(p_valid, paddr, n * qp).reshape(-1),
-                    pval, "amax")
-            pmail = to_bits(flat[:-1].reshape(n, qp))
+                pmail = _scatter_umax(pmail,
+                                      torch.where(p_valid, paddr, n * qp),
+                                      own_id_p + 1)
             mail = _scatter_msgs(cfg, mail, p_tgt, own_id_p,
                                  jp.own_hb[:, None].expand(n, p_cnt), p_valid)
             # Ack: my (id, current hb) into each prober's ack mailbox.
@@ -1382,12 +1387,15 @@ def make_config(params: Params, collect_events: bool = True,
     if params.FOLDED == 1 and why_not_folded:
         raise ValueError(why_not_folded)
     if (why_not_folded and params.FOLDED == -1 and on_cuda and ring
-            and not collect_events and params.BACKEND == "tpu_hash"):
+            and not collect_events
+            and params.BACKEND in ("tpu_hash", "tpu_hash_sharded")):
         # The card's route for AggStats (more than FAST_AGG_MAX_FAILED
         # failed ids) at S < 128: the folded planes are the natural
         # [N, S] bytes, so the folded step updates AggStats on their
         # [N, S] view and equals the natural step bit for bit.  Auto
-        # takes it on one chip; a pinned FOLDED: 1 keeps the JAX gate.
+        # takes it on one card (for tpu_hash_sharded where its shards'
+        # rows fold, sharded_config); a pinned FOLDED: 1 keeps the JAX
+        # gate.
         why_not_folded = _folded_gates(params, n, s, collect_events, True,
                                        kernels=True)
     # Auto keeps the folded layout off where a pinned FOLDED would raise
@@ -1474,6 +1482,15 @@ def make_config(params: Params, collect_events: bool = True,
                 "ENFORCE_BUFFSIZE and FUSED_GOSSIP are incompatible (the "
                 "budget is a per-slot send mask; the natural-layout kernel "
                 "applies its fanout mask in-kernel)")
+    # EXCHANGE_MODE batches the shifts that cross shards: the sharded ring
+    # steps only ('-1' is legacy, as the JAX package off its TPU).
+    batched_x = (params.BACKEND == "tpu_hash_sharded"
+                 and params.EXCHANGE_MODE == "batched")
+    if batched_x and not ring:
+        raise ValueError(
+            "EXCHANGE_MODE batched requires the ring exchange on "
+            "tpu_hash_sharded (the scatter lowering has no per-shift "
+            "collective round to batch)")
     if ring and n < 4:
         raise ValueError("the ring step's packed probe table needs N >= 4")
     if on_cuda and ring:
@@ -1514,7 +1531,8 @@ def make_config(params: Params, collect_events: bool = True,
         mega_ticks=mega, mega_pack=bool(mega_pack),
         probe_io_none=params.PROBE_IO == "none",
         probe_io_lag=params.PROBE_IO == "approx_lag",
-        send_budget=send_budget, shift_set=params.SHIFT_SET)
+        send_budget=send_budget, shift_set=params.SHIFT_SET,
+        batched_exchange=batched_x)
 
 
 def resolve_mega_pack(cfg: HashConfig, params: Params,

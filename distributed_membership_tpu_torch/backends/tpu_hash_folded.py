@@ -21,10 +21,10 @@ for bit at the same seed, and runs three kernels:
   (``folded_agg_partials``).
 
 With more than FAST_AGG_MAX_FAILED failed ids (``cfg.fast_agg`` false;
-single chip) the events fold into ``AggStats`` through the natural
-``update_agg`` on the ``[N, S]`` view of the planes, so each node's S
-slots are one row of its per-node reductions; K7 then runs its form
-with no failed id (window ids and removal counts).  The JAX package has
+one card, one shard or D) the events fold into ``AggStats`` through the
+natural ``update_agg`` on the ``[N, S]`` view of the planes, so each
+node's S slots are one row of its per-node reductions; K7 then runs its
+form with no failed id (window ids and removal counts).  The JAX package has
 no such route (its folded layout requires FastAgg): it is the port's
 card route for what the JAX package runs on the natural layout.
 ``dynamic_knobs`` takes the cell's fanout and drop probability per call,
@@ -47,7 +47,9 @@ step (JAX ``make_ring_sharded_folded_step``, ``tpu_hash_sharded`` with
 (the block hop on the folded planes, then one K6 launch over every
 shard), FastAgg partials per shard, and the warm init
 :func:`init_local_state_warm_folded`.  One shard of N nodes is the
-single-chip step.
+single-chip step.  Under ``EXCHANGE_MODE: batched`` the sharded step
+carries ``(state, xbuf)`` and delivers through ops/exchange.py instead of
+the block hop and K6.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from distributed_membership_tpu_torch.backends.tpu_sparse import (
     SparseTickEvents)
 from distributed_membership_tpu_torch.observability.aggregates import (
     update_agg, update_fast_agg)
+from distributed_membership_tpu_torch.ops.exchange import BatchedExchange
 from distributed_membership_tpu_torch.ops.fused_folded import (
     LANES, gossip_folded_stacked, receive_folded_fused, roll_nodes,
     roll_slots)
@@ -130,7 +133,9 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
     within each shard and aligns its slots by that shard's column shifts
     -- and FastAgg partials per shard.  One shard is the single-chip
     step, whose shifts are ``b = 0, c = u``.  Without ``cfg.fast_agg``
-    (one chip) the events fold into AggStats (module docstring);
+    the events fold into AggStats (module docstring); under
+    ``cfg.batched_exchange`` (a mesh) the carry is ``(state, xbuf)`` and
+    ``step.batched_exchange`` the BatchedExchange, else None;
     ``dynamic_knobs`` as in ``tpu_hash.make_step``."""
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
     rows = n * s // LANES
@@ -150,6 +155,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
     # shifts go to K6 as the dynamic ones do.
     table = shift_table(n, cfg.shift_set) if cfg.shift_set else None
     tables = {}
+    bx = None
     if mesh is None:
         def plan_rng(key, dev):
             return ring_rng_plans(cfg, [key], dev, use_drop)[0]
@@ -162,9 +168,16 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                                     use_drop=use_drop, cold_join=False,
                                     device=dev)
         part = mesh.shard_sums
+        if cfg.batched_exchange:
+            bx = BatchedExchange(mesh=mesh, n_local=n_local, s=s,
+                                 cstride=cstride, single_col_roll=single_col,
+                                 folded=True, lanes=LANES)
 
     def step(state, t: int, key, plan, rng=None, fanout=None,
              drop_prob=None):
+        if bx is not None:
+            # Last tick's exchange merged where the legacy merge is read.
+            state = bx.flush(*state)
         dev = state.view.device
         idx = torch.arange(n, dtype=I64, device=dev)
         fanout_eff, p_drop = knob_values(cfg, fanout, drop_prob)
@@ -265,7 +278,10 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
         sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
         recv_add = torch.zeros((n,), dtype=I32, device=dev)
         with record_function(PHASE_GOSSIP):
-            payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
+            if bx is None:
+                payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
+            else:
+                xnew = bx.zero(dev)
             for j in range(k_max):
                 m = keep & (j < k_eff)[:, None]
                 # Shift u sends global row i to (i + u) mod n.
@@ -280,6 +296,13 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                     m = m & ~coin
                 cnt = m.sum(1, dtype=I32)
                 sent_gossip += cnt
+                if bx is not None:
+                    # Aligned on the sender, into its destination's
+                    # bucket (no K6).
+                    bx.add_shift(*xnew,
+                                 torch.mul(vn, m).view(d, -1, LANES),
+                                 cnt.view(d, n_local), b[j], c[j])
+                    continue
                 torch.mul(vn, m, out=payloads[j])      # where(m, view, 0)
                 if mesh is None:
                     recv_add += _roll(cnt, c[j], idx, n)
@@ -289,11 +312,12 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                         payloads[j] = mesh.block_send(payloads[j], b[j])
                     recv_add += mesh.local_roll(mesh.block_send(cnt, b[j]),
                                                 c[j])
-            mail = gossip_folded_stacked(
-                rows, s, k_max, single_col, mail,
-                payloads.view(k_max, rows, LANES), c.to(I32), s1, s2,
-                n_local=n_local)
-            del payloads
+            if bx is None:
+                mail = gossip_folded_stacked(
+                    rows, s, k_max, single_col, mail,
+                    payloads.view(k_max, rows, LANES), c.to(I32), s1, s2,
+                    n_local=n_local)
+                del payloads
 
         # ---- SWIM probes from the window (K7), coins in [N, P] space;
         # none with no probes ----
@@ -387,6 +411,11 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
             mail=mail, pending_recv=pending_recv, agg=agg,
             probe_ids1=probe_ids1, probe_ids2=probe_ids2,
             act_prev=act_prev), f, t, n, p_cnt)
+        if bx is not None:
+            if f.up is not None:
+                # The restart wipe chases the deferred gossip.
+                xnew = bx.wipe(*xnew, f.up)
+            new_state = (new_state, xnew)
         if not cfg.telemetry:
             return new_state, out
         with record_function(PHASE_TELEMETRY):
@@ -397,6 +426,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                 size=size, t=t, fail_time=plan.fail_time, pfo=pfo)
         return new_state, (out, rec)
 
+    step.batched_exchange = bx
     return step
 
 

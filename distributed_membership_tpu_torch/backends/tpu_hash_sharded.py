@@ -1,9 +1,10 @@
-"""``tpu_hash_sharded`` backend, ring exchange, warm or cold joins
-(counterpart of the JAX package's ``backends/tpu_hash_sharded.py``).
+"""``tpu_hash_sharded`` backend: the ring and scatter exchanges, warm or
+cold joins (counterpart of the JAX package's
+``backends/tpu_hash_sharded.py``).
 
 The JAX backend shards the node rows of the ``tpu_hash`` state over a
-device mesh: shard ``d`` owns rows ``[d*L, (d+1)*L)``, runs the ring step
-on them inside ``shard_map`` and reaches the other shards through
+device mesh: shard ``d`` owns rows ``[d*L, (d+1)*L)``, runs the step on
+them inside ``shard_map`` and reaches the other shards through
 collectives.  The port holds the mesh on one device
 (:class:`~distributed_membership_tpu_torch.parallel.mesh.LocalMesh`): the
 state keeps the flat ``[N, ...]`` layout, every per-shard computation runs
@@ -12,7 +13,8 @@ layout.  With ``MESH_SHAPE`` unset the mesh has one shard, which is what a
 user runs on one card; ``MESH_SHAPE: 8`` (or ``2x4``) runs the eight-shard
 program of the JAX package's eight-device mesh, bit for bit.
 
-Per tick (``make_ring_sharded_step``), as in the JAX ring step:
+Per tick of the ring exchange (``make_ring_sharded_step``), as in the JAX
+ring step:
 
 * the per-shard RNG plan (ops/rng_plan.py ``sharded_ring_rng``, each
   shard's streams from ``fold_in(key, shard)``, concatenated in shard
@@ -24,6 +26,8 @@ Per tick (``make_ring_sharded_step``), as in the JAX ring step:
   layout those collectives are the identity, so it is the single-chip
   computation with the sharded step's replicated coin streams;
 * the ack candidates from one gathered probe table (``all_gather``);
+  ``PROBE_GATHER: split`` runs it too: the JAX split arm's three
+  gathers are the identity on the flat layout and give the same bits;
 * the receive pass -- K1 (ops/fused_receive.py) over all rows, with
   global row ids;
 * gossip as torus-product shifts ``u = b*L + c``: per shift the sender
@@ -31,7 +35,11 @@ Per tick (``make_ring_sharded_step``), as in the JAX ring step:
   shard ``d + b`` (``block_send``), and one pass of K4
   (ops/fused_gossip.py ``gossip_fused_stacked``) rolls every shift's
   payload by ``c`` rows within each shard, aligns its columns by that
-  shard's ``s1``/``s2`` and maxes it into the mailbox;
+  shard's ``s1``/``s2`` and maxes it into the mailbox.  Under
+  ``EXCHANGE_MODE: batched`` the senders align each shift for its
+  destination into that destination's bucket (ops/exchange.py, where
+  the buckets already sit at their destinations: the ``all_to_all`` has
+  nothing to move), and the next tick's head merges them: no K4;
 * the probe window and the FastAgg row partials -- K3
   (ops/fused_probe.py) over all rows -- then the message counters
   (exact per-target histograms through ``psum_scatter``, or the prober's
@@ -43,28 +51,31 @@ Per tick (``make_ring_sharded_step``), as in the JAX ring step:
 * under ``TELEMETRY`` the flight recorder's record of the tick, over all
   rows (the JAX step's psums are sums over the flat layout).
 
+``EXCHANGE: scatter`` (which ``auto`` picks under cold joins, as for the
+grader's testcases) runs :func:`make_sharded_step`, the JAX bucketed
+``all_to_all`` exchange: PyTorch ops only, no kernel, in either package.
+
 ``FOLDED`` runs the sharded folded step (backends/tpu_hash_folded.py
 ``make_ring_sharded_folded_step``, K5-K7 over every shard) behind the JAX
-``sharded_config`` gates on the per-shard rows.
+``sharded_config`` gates on the per-shard rows; on CUDA it also takes
+AggStats (below) where the shards' rows fold.
 
-``EVENT_MODE: agg`` with more than 8 failed ids folds into ``AggStats``
-over all rows (the JAX step's per-shard partials and their reduction in
-one update), started from zero per segment and merged under
-``CHECKPOINT_EVERY``; ``PROBE_IO: none`` zeroes the probe-recv and
-ack-send counters.  ``PROBE_IO approx_lag``, ``SHIFT_SET`` and
-``ENFORCE_BUFFSIZE`` raise the JAX package's ValueErrors.
-
-Refused with ``NotImplementedError`` naming the ROADMAP.md item: the
-scatter exchange (the JAX ``make_sharded_step``, which ``EXCHANGE: auto``
-picks under cold joins), ``EXCHANGE_MODE: batched`` and ``PROBE_GATHER:
-split`` (item 6c).  Refused by design, as on ``tpu_hash``: on CUDA
-``VIEW_SIZE % 128 != 0`` outside the folded layout, fewer than 8 folded
-plane rows per shard, and a pinned ``FUSED_*: 0``.
+``EVENT_MODE: agg`` with more than 8 failed ids, or on the scatter
+exchange, folds into ``AggStats`` over all rows (the JAX step's per-shard
+partials and their ``reduce_agg`` in one update), started from zero per
+segment and merged under ``CHECKPOINT_EVERY``; ``PROBE_IO: none`` zeroes
+the probe-recv and ack-send counters.  ``PROBE_IO approx_lag``,
+``SHIFT_SET`` and ``ENFORCE_BUFFSIZE`` raise the JAX package's
+ValueErrors, as does a 2-D ``MESH_SHAPE`` with the scatter exchange.
+Refused by design, as on ``tpu_hash``: on CUDA ``VIEW_SIZE % 128 != 0``
+outside the folded layout, fewer than 8 folded plane rows per shard, and
+a pinned ``FUSED_*: 0``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import random as _pyrandom
 import time as _time
 from typing import Callable, NamedTuple, Optional
@@ -76,12 +87,11 @@ from torch.profiler import record_function
 from distributed_membership_tpu_torch.addressing import INTRODUCER_INDEX
 from distributed_membership_tpu_torch.backends import RunResult, register
 from distributed_membership_tpu_torch.backends.tpu_hash import (
-    I32, I64, HashConfig, _credit_orphan_recvs_sharded, _gathered_act,
-    _gathered_flush, _gathered_hb, _pack_probe_table, _refuse, _refuse_on,
-    coin_at,
-    count_ctrl_dropped, failed_after, join_plane, joinreq_to_intro,
-    make_config, no_coin, pack_u, plan_fail_ids, plan_scenario,
-    resolve_mega_pack, restart_wipe, run_segment, run_ticks, seed_burst,
+    I32, I64, HashConfig, _admit, _credit_orphan_recvs_sharded,
+    _gathered_act, _gathered_flush, _gathered_hb, _pack_probe_table,
+    _refuse_on, _scatter_umax, coin_at, count_ctrl_dropped, failed_after,
+    join_plane, joinreq_to_intro, make_config, no_coin, pack_u,
+    plan_fail_ids, plan_scenario, resolve_mega_pack, restart_wipe, run_segment, seed_burst, slot_of,
     tick_faults, tick_telemetry, uses_drop, warm_view, will_flush_of)
 from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
     folded_supported, init_local_state_warm_folded,
@@ -96,15 +106,18 @@ from distributed_membership_tpu_torch.observability.aggregates import (
 from distributed_membership_tpu_torch.observability.timeline import (
     PHASE_ACK, PHASE_AGG, PHASE_COLLECTIVE, PHASE_GOSSIP, PHASE_PROBE,
     PHASE_RECEIVE, PHASE_TELEMETRY)
+from distributed_membership_tpu_torch.ops.exchange import BatchedExchange
 from distributed_membership_tpu_torch.ops.fused_gossip import (
     gossip_fused_stacked)
 from distributed_membership_tpu_torch.ops.fused_probe import (
     probe_window_fused)
 from distributed_membership_tpu_torch.ops.fused_receive import receive_fused
 from distributed_membership_tpu_torch.ops.rng_plan import sharded_ring_rng
-from distributed_membership_tpu_torch.ops.threefry import Key, fold_in, randint
+from distributed_membership_tpu_torch.ops.sampling import sample_k_indices
+from distributed_membership_tpu_torch.ops.threefry import (
+    Key, fold_in, randint, split, uniform, uniform_keys)
 from distributed_membership_tpu_torch.ops.view_merge import (
-    EMPTY, STRIDE, member_of, to_bits)
+    EMPTY, M32, STRIDE, as_u32, hash_slot, member_of, to_bits)
 from distributed_membership_tpu_torch.parallel.mesh import (
     LocalMesh, mesh_shape)
 from distributed_membership_tpu_torch.runtime.failures import (
@@ -124,23 +137,29 @@ class ShardedHashState(NamedTuple):
     failed: torch.Tensor        # [N] bool
     self_hb: torch.Tensor       # [N] int32
     mail: torch.Tensor          # [N, S]
-    amail: torch.Tensor         # [D, 1] placeholder (scatter exchange)
-    pmail: torch.Tensor         # [D, 1] placeholder (scatter exchange)
+    amail: torch.Tensor         # [N, S] ack mailbox (scatter), ring [D, 1]
+    pmail: torch.Tensor         # [N, Qp] probe mailbox (scatter), ring [D, 1]
     joinreq_infl: torch.Tensor  # [N] bool
     joinrep_infl: torch.Tensor  # [N] bool
     pending_recv: torch.Tensor  # [N] int32
     agg: NamedTuple             # FastAgg, or the AggStats placeholder
-    probe_ids1: torch.Tensor    # [N, P] ids probed last tick (id + 1)
-    probe_ids2: torch.Tensor    # [N, P] ids probed two ticks ago
-    act_prev: torch.Tensor      # [N] bool
+    probe_ids1: torch.Tensor    # [N, P] ids probed last tick (id + 1;
+    #                             ring), else [D, 1]
+    probe_ids2: torch.Tensor    # [N, P] ids probed two ticks ago (ring)
+    act_prev: torch.Tensor      # [N] bool (ring), else [D]
 
 
 def init_local_state(cfg: HashConfig, mesh: LocalMesh) -> ShardedHashState:
+    """The all-zero state (JAX ``init_local_state``, the shards' leaves
+    concatenated): the scatter exchange's ack and probe mailboxes are
+    ``[N, S]`` and ``[N, Qp]``, the ring's gather pipeline replaces them
+    with one-per-shard placeholders and keeps the probe pipeline."""
     n, s, d = cfg.n, cfg.s, mesh.size
     dev = mesh.device
     i32 = dict(dtype=I32, device=dev)
     b = dict(dtype=torch.bool, device=dev)
-    probe_shape = (n, cfg.probes) if cfg.probes > 0 else (d, 1)
+    ring = cfg.exchange == "ring"
+    probe_shape = (n, cfg.probes) if ring and cfg.probes > 0 else (d, 1)
     return ShardedHashState(
         view=torch.zeros((n, s), **i32),
         view_ts=torch.zeros((n, s), **i32),
@@ -149,8 +168,8 @@ def init_local_state(cfg: HashConfig, mesh: LocalMesh) -> ShardedHashState:
         failed=torch.zeros((n,), **b),
         self_hb=torch.zeros((n,), **i32),
         mail=torch.zeros((n, s), **i32),
-        amail=torch.zeros((d, 1), **i32),
-        pmail=torch.zeros((d, 1), **i32),
+        amail=torch.zeros((n, s) if not ring else (d, 1), **i32),
+        pmail=torch.zeros((n, cfg.qp) if not ring else (d, 1), **i32),
         joinreq_infl=torch.zeros((n,), **b),
         joinrep_infl=torch.zeros((n,), **b),
         pending_recv=torch.zeros((n,), **i32),
@@ -164,7 +183,7 @@ def init_local_state(cfg: HashConfig, mesh: LocalMesh) -> ShardedHashState:
              else init_agg(n, dev, rows=mesh.rows_per_shard(n))),
         probe_ids1=torch.zeros(probe_shape, **i32),
         probe_ids2=torch.zeros(probe_shape, **i32),
-        act_prev=torch.zeros((n,), **b),
+        act_prev=torch.zeros((n,) if ring else (d,), **b),
     )
 
 
@@ -187,8 +206,12 @@ def init_local_state_warm(cfg: HashConfig, mesh: LocalMesh,
 def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     """``step(state, t, key, plan) -> (state, SparseTickEvents)``: the JAX
     ``make_ring_sharded_step`` (``cold_join`` under JOIN_MODE staggered
-    or batch) with the legacy exchange, on every shard of ``mesh`` at
-    once."""
+    or batch) on every shard of ``mesh`` at once.  Under ``EXCHANGE_MODE:
+    batched`` the step carries ``(state, xbuf)``: the head merges last
+    tick's exchange into the mailbox and pending receives, the senders
+    align every shift into its destination's bucket (ops/exchange.py, no
+    K4 launch), and the buckets are the new xbuf; ``step.batched_exchange``
+    is the BatchedExchange, else None."""
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
     intro = INTRODUCER_INDEX
     d = mesh.size
@@ -214,6 +237,9 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     rng_kw = dict(n=n, n_local=n_local, s=s, g=g, k_max=k_max,
                   p_cnt=max(p_cnt, 0), seed_rows=min(cfg.seed_cap, n),
                   use_drop=use_drop, cold_join=cfg.cold_join)
+    bx = (BatchedExchange(mesh=mesh, n_local=n_local, s=s, cstride=cstride,
+                          single_col_roll=single_col)
+          if cfg.batched_exchange else None)
 
     def total(x):
         return mesh.psum(mesh.shard_sums(x))
@@ -227,9 +253,13 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             (idx.numel(),), weight, dtype=I32, device=tgt.device))
         return out.view(d, n + 1)[:, :n]
 
-    def step(state: ShardedHashState, t: int, key: Key, plan: PlanTensors):
+    def step(state, t: int, key: Key, plan: PlanTensors):
         if t < 0:
             raise ValueError("ticks start at 0")
+        if bx is not None:
+            # Last tick's exchange lands where the legacy merge is first
+            # read: the receive pass's mailbox and the pending receives.
+            state = bx.flush(*state)
         dev = state.view.device
         rows = torch.arange(n, dtype=I64, device=dev)   # global row ids
         rng = sharded_ring_rng(key, range(d), device=dev, **rng_kw)
@@ -322,6 +352,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         keep = keep & act[:, None]
         sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
         recv_add = torch.zeros((n,), dtype=I32, device=dev)
+        xnew = None
         if k_max > 0:
             u = rng.shift_draw.to(I64)
             b, c = u // n_local, u % n_local
@@ -333,7 +364,11 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             s1 = ((bp * n_local + c) % s * cstride % s).to(I32)
             s2 = ((bp * n_local + c - n_local) % s * cstride % s).to(I32)
             with record_function(PHASE_GOSSIP):
-                payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
+                if bx is None:
+                    payloads = torch.empty((k_max, n, s), dtype=I32,
+                                           device=dev)
+                else:
+                    xnew = bx.zero(dev)
                 for j in range(k_max):
                     m = keep & (j < k_eff)[:, None]
                     # Shift u sends global row i to (i + u) mod n.
@@ -348,16 +383,24 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                         m &= ~coin
                     cnt = m.sum(1, dtype=I32)
                     sent_gossip += cnt
+                    if bx is not None:
+                        # Aligned on the sender, into its
+                        # destination's bucket (no K4).
+                        bx.add_shift(*xnew,
+                                     torch.mul(view, m).view(d, n_local, s),
+                                     cnt.view(d, n_local), b[j], c[j])
+                        continue
                     torch.mul(view, m, out=payloads[j])  # where(m, view, 0)
                     with record_function(PHASE_COLLECTIVE):  # the block hop
                         if d > 1:
                             payloads[j] = mesh.block_send(payloads[j], b[j])
                         recv_add += mesh.local_roll(
                             mesh.block_send(cnt, b[j]), c[j])
-                mail = gossip_fused_stacked(n_local, s, k_max, single_col,
-                                            mail, payloads, c.to(I32), s1,
-                                            s2)
-                del payloads
+                if bx is None:
+                    mail = gossip_fused_stacked(n_local, s, k_max,
+                                                single_col, mail, payloads,
+                                                c.to(I32), s1, s2)
+                    del payloads
         sent_tick = sent_gossip + jp.sent_req + jp.sent_rep
         if cfg.cold_join:
             # The introducer's burst (its row broadcast, delivered by each
@@ -474,6 +517,14 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             state.amail, state.pmail, jp.joinreq_infl, jp.joinrep_infl,
             pending_recv, agg, probe_ids1, probe_ids2, act_prev),
             f, t, n, p_cnt)
+        if bx is not None:
+            if xnew is None:                     # no gossip shift
+                xnew = bx.zero(dev)
+            if f.up is not None:
+                # The legacy merge precedes the restart wipe: the wipe
+                # chases the deferred gossip into the xbuf.
+                xnew = bx.wipe(*xnew, f.up)
+            new_state = (new_state, xnew)
         if not cfg.telemetry:
             return new_state, out
         with record_function(PHASE_TELEMETRY):
@@ -484,6 +535,337 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 size=size, t=t, fail_time=plan.fail_time, pfo=pfo)
         return new_state, (out, rec)
 
+    step.batched_exchange = bx
+    return step
+
+
+# Message channels of the scatter exchange (3 bits beside the target id).
+# Their numeric order is the bucket priority: a full bucket drops its
+# highest channel, the gossip, first (JAX ``CH_*``).
+CH_ACK, CH_PROBE0, CH_PROBE1, CH_JOIN, CH_GOSSIP = range(5)
+N_CH = 5
+EMPTY_SLOT = -1             # 0xFFFFFFFF as int32 bits: an empty wire slot
+
+
+def bucket_capacity(cfg: HashConfig, n_local: int, n_shards: int) -> int:
+    """The messages one shard may send another per tick (JAX
+    ``bucket_capacity``): 2.5 times the expected traffic plus 64, and no
+    more than a shard can send; a fuller bucket drops its tail, as
+    EmulNet's bounded buffer does."""
+    k = min(cfg.fanout, cfg.s)
+    per_sender = k * cfg.g + 6 * cfg.probes + 2
+    seed_total = cfg.seed_cap * cfg.s
+    expect = (n_local * per_sender + seed_total) / n_shards
+    cap = int(2.5 * expect) + 64
+    return min(cap, n_local * per_sender + seed_total)
+
+
+def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
+    """``step(state, t, key, plan) -> (state, SparseTickEvents)``: the JAX
+    ``make_sharded_step``, the scatter exchange of ``tpu_hash_sharded``
+    (cold or warm joins), on every shard of ``mesh`` at once.
+
+    Each shard lists its tick's messages as ``(target, entry, channel)``
+    -- gossip to ``k_eff`` sampled view occupants with ``G`` sampled
+    entries each, JOINREQs, the introducer's seed burst, both probe copies
+    and the acks -- sorts them by (destination shard, channel), cuts them
+    into per-destination buckets of :func:`bucket_capacity`, and one
+    ``all_to_all`` ships the buckets; each shard scatter-maxes what it
+    got into its mailboxes (``mail``, ``amail``, ``pmail``).  The JAX sort
+    (packed ``key * 2^26 + position`` keys) orders a shard's messages by
+    key, then position; here the valid messages of every shard, listed
+    in position order, take one stable sort by (shard, destination,
+    channel), which gives that order, and the invalid tail is never
+    listed.  The JAX fallback sort (more than 2^26 messages a shard, or
+    more than 64 keys) is not stable; it can differ from this order only
+    inside a bucket that overflows.  Random streams per shard from
+    ``fold_in(key, shard)`` split 4 ways, the control coins from
+    ``split(key, 1)[0]``.  The join handshake's all-gathers are the
+    identity on the flat layout.  In EVENT_MODE agg the events fold into
+    AggStats over every row (the JAX per-shard partials, reduced).
+    ``step.stats`` holds the buckets' numbers (host ints: the bucketing
+    reads its counts on the host): ``messages`` per shard (the JAX
+    message list's length, which sets its sort: packed keys need at most
+    2^26) and ``cap``, and over the ``ticks`` stepped the valid messages
+    ``sent`` over all shards and those that full buckets dropped,
+    ``truncated`` (``truncated_max`` in one tick).  The backend returns
+    them in ``RunResult.extra["buckets"]``."""
+    n, s, g, p_cnt, qp = cfg.n, cfg.s, cfg.g, cfg.probes, cfg.qp
+    intro = INTRODUCER_INDEX
+    d = mesh.size
+    n_local = mesh.rows_per_shard(n)
+    k_max = min(cfg.fanout, s)
+    g_eff = s if g >= s else g
+    cap = bucket_capacity(cfg, n_local, d)
+    seed_rows = min(cfg.seed_cap, n)
+    p_copies = 1 if qp >= n else 2
+    p_drop = float(np.float32(cfg.drop_prob))
+    intro_shard = intro // n_local
+    # Each shard's message list, piece by piece (the JAX emit order):
+    # (channel, per-row width or None for the burst's [cap, S] block),
+    # and its length (the JAX list's, invalid messages included).
+    pieces = [(CH_GOSSIP, k_max * g_eff), (CH_JOIN, 1), (CH_GOSSIP, None)]
+    if p_cnt > 0:
+        pieces += [(CH_PROBE0, p_cnt)] + (
+            [(CH_PROBE1, p_cnt)] if p_copies == 2 else []) + [(CH_ACK, qp)]
+    m_shard = sum(n_local * w if w else seed_rows * s for _, w in pieces)
+    stats = {"messages": m_shard, "cap": cap, "ticks": 0, "sent": 0,
+             "truncated": 0, "truncated_max": 0}
+
+    def draw(keys, shape, dev):
+        """Each shard's ``uniform(key, shape)``, in shard order, in one
+        pass."""
+        return uniform_keys(keys, math.prod(shape), dev).view(
+            (len(keys) * shape[0],) + tuple(shape[1:]))
+
+    def step(state: ShardedHashState, t: int, key: Key, plan: PlanTensors):
+        if t < 0:
+            raise ValueError("ticks start at 0")
+        dev = state.view.device
+        rows = torch.arange(n, dtype=I64, device=dev)
+        keys_l = [split(fold_in(key, me), 4) for me in range(d)]
+        k_ctrl = split(key, 1)[0]                  # replicated
+        coins = cfg.drop_prob > 0.0 and plan.drop_active(t)
+        st = plan.start_ticks
+        self_slot = slot_of(cfg, rows, rows)
+        self_mask = (torch.arange(s, device=dev)[None, :]
+                     == self_slot[:, None])
+        ctrl_kept = (~(uniform(k_ctrl, (2, n), dev) < p_drop) if coins
+                     else torch.ones((2, n), dtype=torch.bool, device=dev))
+
+        with record_function(PHASE_RECEIVE):
+            # ---- receive: acks, then gossip, by sticky admission ----
+            recv_mask = state.started & (t > st) & ~state.failed
+            rcol = recv_mask[:, None]
+            v0 = as_u32(state.view)
+            view = torch.where(rcol, _admit(n, self_mask, rows, v0,
+                                            as_u32(state.amail)), v0)
+            view = torch.where(rcol, _admit(n, self_mask, rows, view,
+                                            as_u32(state.mail)), view)
+            changed = view > v0
+            view_ts = torch.where(changed, t, state.view_ts)
+            mail = torch.where(rcol, 0, state.mail)
+            amail = torch.where(rcol, 0, state.amail)
+            join_ids = torch.where(changed & (v0 == 0),
+                                   ((view - 1) & M32) % n, EMPTY).to(I32)
+            ack_valid = (state.pmail != 0) & rcol
+            ack_tgt = torch.where(ack_valid, as_u32(state.pmail) - 1, 0)
+            pmail = torch.where(rcol, 0, state.pmail)
+            recv_tick = torch.where(recv_mask, state.pending_recv, 0)
+            pending_recv = torch.where(recv_mask, 0, state.pending_recv)
+            in_group = state.in_group | (state.joinrep_infl & recv_mask)
+            joinrep_infl = state.joinrep_infl & ~recv_mask
+
+            # ---- join handshake (its all_gathers: the identity here) ----
+            intro_recv = (state.started[intro] & (t > st[intro])
+                          & ~state.failed[intro])
+            seeds = state.joinreq_infl & intro_recv
+            joinreq_infl = state.joinreq_infl & ~intro_recv
+            rep_ok = seeds & ctrl_kept[1]
+            joinrep_infl = joinrep_infl | rep_ok
+            n_seeds = seeds.sum(dtype=I32)
+            is_intro_row = rows == intro
+            sent_rep = torch.where(is_intro_row & intro_recv,
+                                   rep_ok.sum(dtype=I32), 0)
+            pending_recv = pending_recv + rep_ok.to(I32)
+            start_now = st == t
+            started = state.started | start_now
+            boot = st[intro] == t
+            in_group = in_group | (is_intro_row & boot)
+            joiner_req = start_now & ~is_intro_row & ctrl_kept[0]
+            joinreq_infl = joinreq_infl | joiner_req
+            sent_req = joiner_req.to(I32)
+
+            # ---- self refresh, then the TFAIL / TREMOVE sweep ----
+            act = started & (t > st) & ~state.failed & in_group
+            own_hb = state.self_hb + 1
+            self_hb = torch.where(act, state.self_hb + 2, state.self_hb)
+            self_on = act | (is_intro_row & boot)
+            self_val = pack_u(cfg, torch.where(act, own_hb, 0), rows)
+            view[rows, self_slot] = torch.where(self_on, self_val,
+                                                view[rows, self_slot])
+            view_ts[rows, self_slot] = torch.where(self_on, t,
+                                                   view_ts[rows, self_slot])
+            present = view > 0
+            cur_id = torch.where(present, ((view - 1) & M32) % n, EMPTY)
+            cur_hb = torch.where(present, ((view - 1) & M32) // n, -1)
+            difft = t - view_ts
+            stale = present & (difft >= cfg.tfail) & act[:, None]
+            numfailed = stale.sum(1, dtype=I32)
+            removes = stale & (difft >= cfg.tremove)
+            rm_ids = torch.where(removes, cur_id, EMPTY).to(I32)
+            view = torch.where(removes, 0, view)
+            present = present & ~removes
+
+        with record_function(PHASE_GOSSIP):
+            # ---- gossip selection ----
+            size = present.sum(1, dtype=I32)
+            numpotential = size - 1 - numfailed
+            fresh = present & (difft < cfg.tfail)
+            is_self_slot = cur_id == rows[:, None]
+            eligible = fresh & ~is_self_slot & act[:, None]
+            in_seed = seeds[cur_id.clamp_min(0)] & present
+            eligible = torch.where(is_intro_row[:, None], eligible & ~in_seed,
+                                   eligible)
+            intro_act = act[intro]
+            n_seeds_row = torch.where(is_intro_row & act, n_seeds, 0)
+            k_extra = (numpotential.clamp(max=cfg.fanout)
+                       - n_seeds_row).clamp_min(0)
+            tgt_slot, tgt_valid = sample_k_indices(
+                draw([k[0] for k in keys_l], (n_local, s), dev), eligible,
+                k_extra, k_max)
+            tgt = cur_id.gather(1, tgt_slot)
+            if g >= s:
+                e_ids, e_hbs, e_valid = cur_id, cur_hb, fresh
+            else:
+                scores = torch.where(is_self_slot, -1.0, draw(
+                    [k[1] for k in keys_l], (n_local, s), dev))
+                scores = torch.where(fresh, scores, 2.0)
+                e_idx = torch.sort(-scores, dim=1, descending=True,
+                                   stable=True).indices[:, :g]
+                e_valid = fresh.gather(1, e_idx)
+                e_ids = cur_id.gather(1, e_idx)
+                e_hbs = cur_hb.gather(1, e_idx)
+            msg_valid = tgt_valid[:, :, None] & e_valid[:, None, :]
+            kd = [split(k[2]) for k in keys_l] if coins else None
+            if coins:
+                msg_valid = msg_valid & ~(draw(
+                    [k[0] for k in kd], (n_local, k_max, g_eff), dev) < p_drop)
+
+            # ---- the introducer's burst (its shard's rows only) ----
+            seed_idx = torch.sort(seeds.to(I32), descending=True,
+                                  stable=True).indices[:seed_rows]
+            burst_valid = ((seeds[seed_idx] & intro_act)[:, None]
+                           & fresh[intro][None, :])
+            if coins:
+                burst_valid = burst_valid & ~(uniform(
+                    kd[intro_shard][1], (seed_rows, s), dev) < p_drop)
+
+        with record_function(PHASE_PROBE):
+            # ---- probes and acks ----
+            # Each piece of a shard's list: (valid, target of, entry of), the
+            # last two on flat indices into ``valid``.
+            gval = pack_u(cfg, e_hbs, e_ids)                       # [N, G']
+            bval = pack_u(cfg, cur_hb[intro], cur_id[intro])       # [S]
+            parts = [
+                (msg_valid, lambda i: tgt.reshape(-1)[i // g_eff],
+                 lambda i: gval[i // (k_max * g_eff), i % g_eff]),
+                (joiner_req, lambda i: torch.full_like(i, intro),
+                 lambda i: pack_u(cfg, 0 * i, i)),
+                (burst_valid, lambda i: seed_idx[i // s],
+                 lambda i: bval[i % s])]
+            sent_probe_ack = torch.zeros_like(sent_req)
+            if p_cnt > 0:
+                widx = (t * p_cnt + torch.arange(p_cnt, device=dev)) % s
+                p_tgt = cur_id[:, widx]
+                p_ok = (present & ~is_self_slot)[:, widx] & act[:, None]
+                ack_ok = ack_valid & act[:, None]
+                if coins:
+                    kp = [split(k[3]) for k in keys_l]
+                    p_ok = p_ok & ~(draw([k[0] for k in kp], (n_local, p_cnt),
+                                         dev) < p_drop)
+                    ack_ok = ack_ok & ~(draw([k[1] for k in kp],
+                                             (n_local, qp), dev) < p_drop)
+                own = pack_u(cfg, own_hb, rows)
+                parts += [(p_ok, lambda i: p_tgt.reshape(-1)[i],
+                           lambda i: own[i // p_cnt])] * p_copies
+                parts.append((ack_ok, lambda i: ack_tgt.reshape(-1)[i],
+                              lambda i: own[i // qp]))
+                sent_probe_ack = (p_ok.sum(1, dtype=I32) * p_copies
+                                  + ack_ok.sum(1, dtype=I32))
+
+        with record_function(PHASE_COLLECTIVE):
+            # ---- bucket by destination shard, ship, deliver ----
+            recv_a, recv_b, sent, truncated = bucket_and_ship(parts, dev)
+            stats["ticks"] += 1
+            stats["sent"] += sent
+            stats["truncated"] += truncated
+            stats["truncated_max"] = max(stats["truncated_max"], truncated)
+            got = (recv_a != EMPTY_SLOT).nonzero().squeeze(1)
+            a = as_u32(recv_a[got])
+            r_tgt, r_chan = a >> 3, a & 7
+            val = as_u32(recv_b[got])
+            r_id = ((val - 1) & M32) % n
+            # Each mailbox takes its channels' messages only: a sink
+            # address would draw every other message's atomic max.
+            addr = r_tgt * s + slot_of(cfg, r_tgt, r_id)
+            ack = r_chan == CH_ACK
+            mail = _scatter_umax(mail, addr[~ack], val[~ack])
+            amail = _scatter_umax(amail, addr[ack], val[ack])
+            copies = ((CH_PROBE0, 0), (CH_PROBE1, 0x2545F49))[:p_copies]
+            for ch, salt in copies if p_cnt > 0 else ():
+                sel = r_chan == ch
+                pid = r_id[sel]
+                pmail = _scatter_umax(
+                    pmail, r_tgt[sel] * qp + hash_slot(pid, t + salt, qp, n),
+                    pid + 1)
+            pending_recv = pending_recv + torch.bincount(
+                r_tgt, minlength=n).to(I32)
+
+        sent_tick = (msg_valid.sum((1, 2), dtype=I32) + sent_req + sent_rep
+                     + sent_probe_ack + torch.where(
+                         is_intro_row, burst_valid.sum(dtype=I32), 0))
+        failed = (state.failed | plan.fail_mask if t == plan.fail_time
+                  else state.failed)
+        agg = state.agg
+        out = SparseTickEvents(join_ids, rm_ids, sent_tick, recv_tick)
+        if not cfg.collect_events:
+            # The JAX per-shard partials and their reduce_agg (psum,
+            # pmin/pmax, all_gather) are one update over every row.
+            with record_function(PHASE_AGG):
+                agg = update_agg(
+                    agg, t=t, join_ids=join_ids, rm_ids=rm_ids,
+                    view_ids=cur_id, view_present=present,
+                    fail_mask=plan.fail_mask, fail_time=plan.fail_time,
+                    sent_tick=sent_tick, recv_tick=recv_tick)
+            out = SparseTickEvents(*(x.sum(dtype=I32) for x in (
+                join_ids != EMPTY, rm_ids != EMPTY, sent_tick, recv_tick)))
+        new_state = ShardedHashState(
+            to_bits(view), view_ts, started, in_group, failed, self_hb,
+            mail, amail, pmail, joinreq_infl, joinrep_infl, pending_recv,
+            agg, state.probe_ids1, state.probe_ids2, state.act_prev)
+        return new_state, out
+
+    def bucket_and_ship(parts, dev):
+        """Each shard's valid messages in the JAX bucket order, the first
+        ``cap`` of each (source, destination) bucket written to the wire
+        buffers, and one ``all_to_all`` (``mesh.all_to_all``).  The
+        pieces are listed in the JAX emit order, each shard-major, so a
+        stable sort by (shard, destination, channel) leaves each key's
+        messages in list order.  Returns ``(recv_a, recv_b, sent,
+        truncated)``: the received ``[D * D * cap]`` planes (``target * 8
+        + channel`` and the entry, int32 u32 bits, :data:`EMPTY_SLOT`
+        where empty), and host counts."""
+        keys, avals, bvals = [], [], []
+        for (chan, width), (ok_p, tgt_of, val_of) in zip(pieces, parts):
+            flat = ok_p.reshape(-1).nonzero().squeeze(1)
+            shard = (torch.full_like(flat, intro_shard) if width is None
+                     else flat // (n_local * width))
+            tg = tgt_of(flat)
+            keys.append(((shard * d + tg // n_local) * N_CH + chan).to(I32))
+            avals.append(to_bits(tg * 8 + chan))
+            bvals.append(to_bits(val_of(flat)))
+        key_s, order = torch.sort(torch.cat(keys), stable=True)
+        group = key_s // N_CH                      # src * D + dst
+        del key_s
+        counts = torch.bincount(group, minlength=d * d)
+        first = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(group.numel(), device=dev) - first[group]
+        keep = rank < cap
+        slot = (group * cap + rank)[keep]
+        order = order[keep]
+        send_a = torch.full((d * d * cap,), EMPTY_SLOT, dtype=I32,
+                            device=dev)
+        send_b = torch.zeros((d * d * cap,), dtype=I32, device=dev)
+        send_a[slot] = torch.cat(avals)[order]
+        send_b[slot] = torch.cat(bvals)[order]
+        sent = int(group.numel())
+        truncated = sent - int(slot.numel())
+        return (mesh.all_to_all(send_a), mesh.all_to_all(send_b), sent,
+                truncated)
+
+    step.stats = stats
+    step.batched_exchange = None
     return step
 
 
@@ -506,20 +888,16 @@ def reduce_fast_agg(agg: FastAgg, mesh: LocalMesh) -> FastAgg:
 def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
                    n_local: int, device="cpu", scenario=None) -> HashConfig:
     """``tpu_hash.make_config`` plus the JAX ``sharded_config`` gates on
-    the per-shard rows (same messages), and the refusals of what the
-    port's sharded steps do not run yet.  Where the rows of a shard do
-    not fold, a pinned ``FOLDED: 1`` raises and ``-1`` falls back to the
+    the per-shard rows (same messages).  Where the rows of a shard do not
+    fold, a pinned ``FOLDED: 1`` raises and ``-1`` falls back to the
     natural layout, as in the JAX package; on CUDA the natural kernels
     then need ``VIEW_SIZE % 128 == 0``, and the folded kernels at least 8
     plane rows per shard (the JAX package runs its unfused folded path
-    below that, which the port runs on the CPU only)."""
-    if params.resolved_exchange() != "ring":
-        _refuse("the scatter exchange on tpu_hash_sharded "
-                "(make_sharded_step)", "Queue 1 item 6c")
-    if params.EXCHANGE_MODE == "batched":
-        _refuse("EXCHANGE_MODE batched (ops/exchange.py)", "Queue 1 item 6c")
-    if params.PROBE_GATHER == "split":
-        _refuse("PROBE_GATHER split", "Queue 1 item 6c")
+    below that, which the port runs on the CPU only).  On CUDA, in
+    EVENT_MODE agg at S < 128 with more than 8 failed ids, ``FOLDED: -1``
+    takes the folded layout with AggStats where the shards' rows fold
+    (tpu_hash.make_config); the JAX package runs that on its natural
+    layout.  The scatter exchange takes no kernel."""
     cfg = make_config(params, collect_events, fail_ids=fail_ids,
                       device=device, scenario=scenario)
     if cfg.probe_io_lag:
@@ -596,13 +974,31 @@ class ShardedSegmentRunner(NamedTuple):
     collect_events: bool
 
     def reduced(self, state):
-        """The carry with a FastAgg reduced to its global form."""
+        """The carry with a FastAgg reduced to its global form (an
+        AggStats is updated over every row at once, so the JAX
+        ``reduce_agg`` has nothing left to do)."""
         if self.collect_events or not self.cfg.fast_agg:
             return state
         return state._replace(agg=reduce_fast_agg(state.agg, self.mesh))
 
     def init_carry(self):
         return self.reduced(self.init())
+
+    def ticks(self, state, a: int, b: int):
+        """``run_segment`` of ticks ``[a, b)``.  Under ``EXCHANGE_MODE:
+        batched`` the xbuf rides inside the segment only: it starts empty
+        and the last one is flushed into the mailbox and pending receives
+        at the end (the JAX ``_flush_xbuf``), so the boundary carry --
+        checkpoints, the resume identity, the service's snapshots --
+        keeps the legacy shape."""
+        bx = self.step.batched_exchange
+        if bx is not None:
+            state = (state, bx.zero(self.mesh.device))
+        state, events, series = run_segment(self.step, state, self.plan_t,
+                                            a, b, self.cfg)
+        if bx is not None:
+            state = bx.flush(*state)
+        return state, events, series
 
     def segment(self, state, a: int, b: int):
         """``chunked_run``'s ``segment_fn``: ticks ``[a, b)`` from a
@@ -615,8 +1011,7 @@ class ShardedSegmentRunner(NamedTuple):
             state = state._replace(agg=expand_fast_agg(carried, self.mesh))
         elif not self.collect_events:
             state = state._replace(agg=init_agg(cfg.n, self.mesh.device))
-        state, events, series = run_segment(self.step, state, self.plan_t,
-                                            a, b, cfg)
+        state, events, series = self.ticks(state, a, b)
         if not (cfg.fast_agg or self.collect_events):
             state = state._replace(agg=merge_agg(carried, state.agg))
         return self.reduced(state), events, series
@@ -626,11 +1021,15 @@ def sharded_segment_runner(params: Params, plan: FailurePlan, seed: int,
                            mesh: LocalMesh, collect_events: bool,
                            total: int) -> ShardedSegmentRunner:
     """The runner of ``plan`` on ``mesh``: the natural or the folded
-    sharded step, as the config resolves."""
+    sharded ring step, or the scatter step, as the config resolves."""
     n_local = mesh.rows_per_shard(params.EN_GPSZ)
     cfg = sharded_config(params, collect_events, plan_fail_ids(plan),
                          n_local, device=mesh.device,
                          scenario=plan_scenario(plan))
+    if len(mesh.shape) > 1 and cfg.exchange != "ring":
+        raise ValueError(
+            "2-D torus meshes require EXCHANGE ring (the bucketed "
+            "all_to_all exchange is 1-D only)")
     params.validate_sparse_packing(total)
     cfg = resolve_mega_pack(cfg, params, total)
     key = make_run_key(params, seed ^ 0x5EED)
@@ -640,7 +1039,8 @@ def sharded_segment_runner(params: Params, plan: FailurePlan, seed: int,
         def init():
             return init_local_state_warm_folded(cfg, mesh, key)
     else:
-        step = make_ring_sharded_step(cfg, mesh)
+        step = (make_ring_sharded_step(cfg, mesh) if cfg.exchange == "ring"
+                else make_sharded_step(cfg, mesh))
 
         def init():
             return (init_local_state(cfg, mesh) if cfg.cold_join
@@ -653,25 +1053,31 @@ def sharded_segment_runner(params: Params, plan: FailurePlan, seed: int,
 
 def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
                      mesh: LocalMesh, collect_events: bool = True,
-                     telemetry=None):
+                     telemetry=None, buckets: Optional[dict] = None):
     """Run the whole simulation on ``mesh``: ``(final_state, events)`` as
     ``tpu_hash.run_scan``, the final agg reduced.  Under
     ``CHECKPOINT_EVERY`` the segments run through ``chunked_run``
-    (:meth:`ShardedSegmentRunner.segment`)."""
+    (:meth:`ShardedSegmentRunner.segment`).  ``buckets``, a dict,
+    receives the scatter step's ``stats`` at the end."""
     total = params.TOTAL_TIME
     runner = sharded_segment_runner(params, plan, seed, mesh,
                                     collect_events, total)
     if params.CHECKPOINT_EVERY > 0:
         from distributed_membership_tpu_torch.runtime.checkpoint import (
             chunked_run)
-        return chunked_run(
+        out = chunked_run(
             params, seed, total, device=mesh.device,
             init_carry=runner.init_carry, segment_fn=runner.segment,
             collect_events=collect_events, telemetry=telemetry,
             with_series=runner.cfg.telemetry)
-    state, events = run_ticks(runner.step, runner.init(), runner.plan_t,
-                              total, runner.cfg, telemetry)
-    return runner.reduced(state), events
+    else:
+        state, events, series = runner.ticks(runner.init(), 0, total)
+        if series is not None and telemetry is not None:
+            telemetry.flush(series, 0)
+        out = runner.reduced(state), events
+    if buckets is not None:
+        buckets.update(getattr(runner.step, "stats", {}))
+    return out
 
 
 def resolve_mesh(params: Params, device) -> LocalMesh:
@@ -679,13 +1085,13 @@ def resolve_mesh(params: Params, device) -> LocalMesh:
     return LocalMesh(mesh_shape(params), device)
 
 
-def bind_run_scan(mesh: LocalMesh):
+def bind_run_scan(mesh: LocalMesh, buckets: Optional[dict] = None):
     """A ``run_scan``-shaped callable closed over ``mesh`` (the form
     ``finish_run`` drives, which passes the mesh's own device)."""
     def run_scan_bound(params, plan, seed, device, collect_events=True,
                        telemetry=None):
         return run_scan_sharded(params, plan, seed, mesh, collect_events,
-                                telemetry)
+                                telemetry, buckets)
     return run_scan_bound
 
 
@@ -698,7 +1104,11 @@ def run_tpu_hash_sharded(params: Params, log: Optional[EventLog] = None,
     log = log if log is not None else EventLog()
     plan = resolve_plan(params, _pyrandom.Random(f"app:{seed}"))
     mesh = resolve_mesh(params, device)
-    result = finish_run(params, plan, log, bind_run_scan(mesh), t0, seed,
-                        mesh.device)
+    buckets = {}
+    result = finish_run(params, plan, log, bind_run_scan(mesh, buckets), t0,
+                        seed, mesh.device)
     result.extra["mesh_size"] = mesh.size
+    if buckets:
+        # The scatter exchange's bucket numbers (make_sharded_step).
+        result.extra["buckets"] = buckets
     return result

@@ -57,29 +57,30 @@ def fits16(x) -> bool:
     return bool(((a + 1 >= 0) & (a + 1 < (1 << 16))).all())
 
 
-def named_leaves(state) -> list:
-    """``(leaf name, tensor)`` of a ring-step state in the JAX flatten
-    order: its fields in order, a nested NamedTuple's (the aggregate's)
-    inline as ``field.sub``."""
+def named_leaves(state, prefix: str = "") -> list:
+    """``(leaf name, tensor)`` of a ring-step carry in the JAX flatten
+    order: a state's fields in order, a nested tuple's (the aggregate's,
+    or the batched exchange's ``(state, xbuf)`` lane) inline as
+    ``field.sub`` (a plain tuple's members named by position)."""
+    items = (state._asdict().items() if hasattr(state, "_asdict")
+             else ((str(i), x) for i, x in enumerate(state)))
     out = []
-    for name, leaf in state._asdict().items():
+    for name, leaf in items:
         if isinstance(leaf, tuple):
-            out.extend((f"{name}.{k}", v) for k, v in leaf._asdict().items())
+            out.extend(named_leaves(leaf, f"{prefix}{name}."))
         else:
-            out.append((name, leaf))
+            out.append((prefix + name, leaf))
     return out
 
 
 def _rebuild(template, leaves: list):
-    """A state of ``template``'s types from leaves in flatten order."""
+    """A carry of ``template``'s types from leaves in flatten order."""
     it = iter(leaves)
-    fields = {}
-    for name, leaf in template._asdict().items():
-        if isinstance(leaf, tuple):
-            fields[name] = type(leaf)(*(next(it) for _ in leaf))
-        else:
-            fields[name] = next(it)
-    return type(template)(**fields)
+
+    def build(tpl):
+        vals = [build(x) if isinstance(x, tuple) else next(it) for x in tpl]
+        return type(tpl)(*vals) if hasattr(tpl, "_fields") else tuple(vals)
+    return build(template)
 
 
 def _pack_bits(a: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ import torch
 EMPTY = -1          # member id of a free slot
 STRIDE = 7919       # odd prime per-node slot-map offset (JAX view_merge.py)
 M32 = 0xFFFFFFFF
+SIGN = -(1 << 31)   # int32 sign bit: x ^ SIGN orders u32 bits as int32
 
 
 def as_u32(bits: torch.Tensor) -> torch.Tensor:
@@ -27,8 +28,9 @@ def to_bits(u: torch.Tensor) -> torch.Tensor:
 
 
 def umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Unsigned max of two int32 bit-pattern tensors."""
-    return torch.where(as_u32(b) > as_u32(a), b, a)
+    """Unsigned max of two int32 bit-pattern tensors (the signed max with
+    the sign bit flipped around it)."""
+    return torch.maximum(a ^ SIGN, b ^ SIGN) ^ SIGN
 
 
 def member_of(bits: torch.Tensor, n: int) -> torch.Tensor:

@@ -22,6 +22,8 @@ Collectives, on flat tensors whose leading axis is the node axis:
 * :meth:`block_send` -- shard ``d`` receives what shard ``(d - b) mod D``
   sent (a roll of the rows by ``b * L``);
 * :meth:`all_gather` -- the identity (the flat tensor is the gathered one);
+* :meth:`all_to_all` -- shard ``d``'s bucket ``k`` becomes shard ``k``'s
+  slice ``d`` (a transpose of the source and destination block axes);
 * :meth:`psum` / :meth:`psum_scatter` -- the sum of per-shard partials
   ``[D, ...]``; for ``psum_scatter`` over the global ``[N]`` index space,
   the flat result's rows ``[d*L, (d+1)*L)`` are shard ``d``'s slice.
@@ -89,6 +91,17 @@ class LocalMesh:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         return x
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_to_all(x, AX, 0, 0, tiled=True)`` on the flat layout:
+        the leading axis holds each shard's ``D`` equal buckets in shard
+        order (``[D_src * D_dst * m, ...]``), and shard ``d``'s bucket
+        ``k`` becomes shard ``k``'s slice ``d``.  The identity at D = 1."""
+        d = self.size
+        if d == 1:
+            return x
+        return x.reshape((d, d, -1) + tuple(x.shape[1:])).transpose(
+            0, 1).reshape(x.shape)
 
     def psum(self, parts: torch.Tensor) -> torch.Tensor:
         """Sum of per-shard partials ``[D, ...]`` (integers stay int32)."""

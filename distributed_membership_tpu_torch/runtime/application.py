@@ -20,7 +20,10 @@ resumes on its new shape.
 ``--grade SCENARIO`` grades one run.  The testcases name the reference's
 ``emul`` backend, which the port does not have (ROADMAP.md Queue 1 item
 11), so ``--grade-all`` runs ``tpu_hash`` unless ``--backend`` says
-otherwise.
+otherwise.  ``--backend tpu_hash_sharded`` grades the sharded scatter step
+(``EXCHANGE: auto`` resolves scatter for the testcases' staggered joins)
+on one shard, or on ``--mesh-shape``'s shards; the JAX package takes the
+largest device count that divides N when ``MESH_SHAPE`` is unset.
 """
 
 from __future__ import annotations
@@ -128,10 +131,12 @@ def default_testcases_dir() -> str:
 
 
 def run_scenario_graded(scenario: str, testdir: str, backend, seed,
-                        out_dir: str, device="cuda"):
+                        out_dir: str, device="cuda",
+                        mesh_shape: str | None = None):
     """Run one grading scenario and grade its dbg.log."""
     result = run_conf(os.path.join(testdir, f"{scenario}.conf"), seed=seed,
-                      out_dir=out_dir, device=device, backend=backend)
+                      out_dir=out_dir, device=device, backend=backend,
+                      mesh_shape=mesh_shape)
     grade = SCENARIO_GRADERS[scenario](result.log.dbg_text(),
                                        result.params.EN_GPSZ)
     return result, grade
@@ -144,6 +149,7 @@ def grade_all(args, results: list | None = None) -> int:
     ScenarioResult)``."""
     testdir = args.testcases or default_testcases_dir()
     backend = args.backend or GRADE_BACKEND
+    mesh = getattr(args, "mesh_shape", None)
     total = 0
     print("============================================")
     print("Grading Started")
@@ -154,11 +160,12 @@ def grade_all(args, results: list | None = None) -> int:
         if args.out_dir is None:
             with tempfile.TemporaryDirectory() as tmp:
                 res, g = run_scenario_graded(scenario, testdir, backend,
-                                             args.seed, tmp, args.device)
+                                             args.seed, tmp, args.device,
+                                             mesh)
         else:
             res, g = run_scenario_graded(
                 scenario, testdir, backend, args.seed,
-                os.path.join(args.out_dir, scenario), args.device)
+                os.path.join(args.out_dir, scenario), args.device, mesh)
         if results is not None:
             results.append((res, g))
         print(f"Checking Join.................."
@@ -183,10 +190,11 @@ def parser() -> argparse.ArgumentParser:
                     help="testcase .conf file; omit with --grade-all")
     ap.add_argument("--backend", default=None,
                     help="override BACKEND from the conf (the port runs "
-                         "tpu_hash and tpu_hash_sharded); --grade-all "
-                         f"defaults to {GRADE_BACKEND}, because the "
-                         "testcases' default emul is not ported (ROADMAP.md "
-                         "Queue 1 item 11)")
+                         "tpu_hash and tpu_hash_sharded, whose EXCHANGE "
+                         "auto takes the scatter step under cold joins); "
+                         f"--grade-all defaults to {GRADE_BACKEND}, because "
+                         "the testcases' default emul is not ported "
+                         "(ROADMAP.md Queue 1 item 11)")
     ap.add_argument("--grade-all", action="store_true",
                     help="run all three grading scenarios and print the /90 "
                          "total (Grader_verbose.sh's build-run-score loop); "

@@ -1315,3 +1315,97 @@ def test_campaign_journal_on_card_matches_cpu(cuda, tmp_path):
             {p.name: p.read_bytes()
              for p in sorted((out / "scenarios").iterdir())})
     assert files["cuda"] == files["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8])
+def test_all_to_all_card_equal_cpu(cuda, d):
+    """LocalMesh.all_to_all (the scatter exchange's one collective) on the
+    card equals the CPU's."""
+    from distributed_membership_tpu_torch.parallel.mesh import LocalMesh
+
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, size=(d * d * 37, 5),
+                                      dtype=np.int64).astype(np.int32))
+    want = LocalMesh((d,), "cpu").all_to_all(x)
+    got = LocalMesh((d,), "cuda").all_to_all(x.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def _final_equal(card, cpu):
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    want = state_to_numpy(cpu.extra["final_state"])
+    got = state_to_numpy(card.extra["final_state"])
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name].reshape(want[name].shape),
+                                      want[name], err_msg=name)
+
+
+@pytest.mark.cuda
+def test_sharded_scatter_run_on_card_matches_cpu(cuda, tmp_path):
+    """The sharded scatter step (N=256, eight shards, staggered joins, 10%
+    drops, full events): no kernel, the CPU's logs and final state."""
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    conf = tmp_path / "scatter.conf"
+    conf.write_text(
+        "MAX_NNB: 256\nSINGLE_FAILURE: 1\nVIEW_SIZE: 128\nGOSSIP_LEN: 32\n"
+        "PROBES: 16\nFANOUT: 3\nTFAIL: 16\nTREMOVE: 32\nTOTAL_TIME: 70\n"
+        "FAIL_TIME: 20\nJOIN_MODE: staggered\nEXCHANGE: scatter\n"
+        "BACKEND: tpu_hash_sharded\nMESH_SHAPE: 8\nDROP_MSG: 1\n"
+        "MSG_DROP_PROB: 0.1\nDROP_START: 5\nDROP_STOP: 50\n")
+    kernels.reset_launches()
+    card = run_conf(str(conf), out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert not any(kernels.LAUNCHES.values())
+    assert card.extra["final_state"].amail.is_cuda
+    cpu = run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
+    for f in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "cuda" / f).read_bytes()
+                == (tmp_path / "cpu" / f).read_bytes()), f
+    assert b" removed " in (tmp_path / "cpu" / "dbg.log").read_bytes()
+    _final_equal(card, cpu)
+
+
+_BATCHED = ("MAX_NNB: {n}\nSINGLE_FAILURE: 1\nDROP_MSG: 1\n"
+            "MSG_DROP_PROB: 0.05\nDROP_START: 0\nDROP_STOP: 60\n"
+            "VIEW_SIZE: {s}\nGOSSIP_LEN: {g}\nPROBES: {p}\nFANOUT: 3\n"
+            "TFAIL: 16\nTREMOVE: 40\nTOTAL_TIME: 60\nFAIL_TIME: 8\n"
+            "JOIN_MODE: warm\nEXCHANGE: ring\nEVENT_MODE: agg\n"
+            "CHECKPOINT_EVERY: 16\nBACKEND: tpu_hash_sharded\n"
+            "MESH_SHAPE: 8\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["natural", "folded"])
+def test_batched_equals_legacy_on_card(cuda, tmp_path, layout):
+    """EXCHANGE_MODE batched on the card: the legacy run's detection
+    summary and final state, the CPU's batched run's too; K1 and K3 (K5
+    and K7) once per tick, K4 (K6) never: the senders align the shifts."""
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+
+    text = (_BATCHED.format(n=2048, s=128, g=32, p=16) if layout == "natural"
+            else _BATCHED.format(n=4096, s=16, g=4, p=2) + "FOLDED: 1\n")
+    keys = (("receive", "gossip_stacked", "probe") if layout == "natural"
+            else ("receive_folded", "gossip_folded", "probe_folded"))
+    runs = {}
+    for mode in ("legacy", "batched"):
+        conf = tmp_path / f"{mode}.conf"
+        conf.write_text(text + f"EXCHANGE_MODE: {mode}\n")
+        kernels.reset_launches()
+        runs[mode] = run_conf(str(conf), out_dir=str(tmp_path / mode),
+                              device="cuda")
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = {k: 60 for k in keys}
+        if mode == "batched":
+            del want[keys[1]]
+        assert got == want, mode
+    cpu = run_conf(str(tmp_path / "batched.conf"),
+                   out_dir=str(tmp_path / "cpu"), device="cpu")
+    for other in (runs["legacy"], cpu):
+        assert (runs["batched"].extra["detection_summary"]
+                == other.extra["detection_summary"])
+        _final_equal(runs["batched"], other)
+    assert runs["batched"].extra["detection_summary"]["detections_total"] > 0

@@ -176,7 +176,8 @@ def test_folded_aggstats_run_matches_jax(conf, monkeypatch):
 def test_gates(conf):
     """A pinned FOLDED: 1 keeps the JAX ValueError, word for word; auto
     resolves natural on the CPU and folded on CUDA (the refusal-free card
-    route), and stays natural for the sharded backend's config."""
+    route; tpu_hash_sharded's shards take it too:
+    tests/test_torch_exchange.py)."""
     jp, pp = _params(conf + "FOLDED: 1\n")
     fail_ids = tuple(range(12))
     with pytest.raises(ValueError) as want:

@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from distributed_membership_tpu.backends import tpu_hash as jax_hash
+from distributed_membership_tpu.backends import (
+    tpu_hash_sharded as jax_sharded)
 from distributed_membership_tpu import grader as jax_grader
 from distributed_membership_tpu.config import Params as JaxParams
 from distributed_membership_tpu.runtime import application as jax_app
@@ -192,10 +194,22 @@ def test_scatter_agg_mode_still_refused(testcases_dir, device):
 
 def test_sharded_scatter_still_refused(testcases_dir):
     """Cold joins on tpu_hash_sharded with EXCHANGE auto resolve to the
-    scatter exchange, the JAX make_sharded_step (item 6c)."""
-    p = Params.from_text(
-        (testcases_dir / "singlefailure.conf").read_text()
-        + "\nBACKEND: tpu_hash_sharded\nMESH_SHAPE: 5\n")
+    scatter exchange, the JAX make_sharded_step, now ported (item 6c, on
+    one card): the config is the JAX package's on both devices, with no
+    kernel and no batched exchange."""
+    text = ((testcases_dir / "singlefailure.conf").read_text()
+            + "\nBACKEND: tpu_hash_sharded\nMESH_SHAPE: 5\n")
+    p = Params.from_text(text)
     assert p.resolved_exchange() == "scatter"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
-        sharded_config(p, True, (3,), 2, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = jax_sharded.sharded_config(JaxParams.from_text(text), True,
+                                          (3,), None, 2)
+    for device in ("cpu", "cuda"):
+        got = sharded_config(p, True, (3,), 2, device=device)
+        assert (got.exchange, got.cold_join, got.batched_exchange,
+                got.folded) == ("scatter", True, False, False)
+        assert (got.s, got.qp, got.seed_cap, got.g, got.probes) == (
+            want.s, want.qp, want.seed_cap, want.g, want.probes)
+        assert not (want.fused_receive or want.fused_gossip
+                    or want.fused_probe or want.batched_exchange)

@@ -550,20 +550,24 @@ _REF = _BASE.format(n=64, tremove=40, mesh=8) + _NODROP
     ("CHECKPOINT_EVERY: 10\nSERVICE_PORT: 0\n", "Queue 1 item 10"),
 ])
 def test_outside_the_slice_is_refused(extra, item):
-    """What the sharded steps do not run yet is refused with its Queue 1
-    item; SERVICE_PORT (item 10, the service daemon, now ported)
-    resolves into the JAX package's sharded config."""
-    p = Params.from_text(_REF + extra)
-    if item == "Queue 1 item 10":
+    """What earlier slices refused now resolves into the JAX package's
+    sharded config: the scatter exchange, EXCHANGE_MODE batched and
+    PROBE_GATHER split (Queue 1 item 6c, on one card) and SERVICE_PORT
+    (item 10, the service daemon); the step runs them (tests of
+    test_torch_sharded_scatter.py and test_torch_exchange.py)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
         want = jax_sh.sharded_config(JaxParams.from_text(_REF + extra), True,
                                      (3,), None, 8)
-        got = sh.sharded_config(p, True, (3,), 8, device="cpu")
-        for field in ("n", "s", "g", "probes", "collect_events", "folded",
-                      "fast_agg", "count_probe_io", "exchange"):
-            assert getattr(got, field) == getattr(want, field), field
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        sh.sharded_config(p, True, (3,), 8, device="cpu")
+    got = sh.sharded_config(Params.from_text(_REF + extra), True, (3,), 8,
+                            device="cpu")
+    for field in ("n", "s", "g", "probes", "collect_events", "folded",
+                  "fast_agg", "count_probe_io", "exchange",
+                  "batched_exchange"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert (got.exchange, got.batched_exchange, want.probe_gather) == (
+        "scatter" if "scatter" in extra else "ring", "batched" in extra,
+        "split" if "split" in extra else "packed")
 
 
 @pytest.mark.parametrize("extra", [

@@ -394,9 +394,19 @@ def test_auto_folded_downgrades_per_shard():
     ("PROBE_GATHER: split\n", "Queue 1 item 6c"),
 ])
 def test_sharded_folded_refusals(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        sh.sharded_config(Params.from_text(_conf(extra=extra)), False, (3,),
-                          64, device="cpu")
+    """EXCHANGE_MODE batched and PROBE_GATHER split, once refused (Queue 1
+    item 6c), resolve on the sharded folded step as in the JAX package's
+    sharded_config (the runs: tests/test_torch_exchange.py)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = jax_sh.sharded_config(JaxParams.from_text(_conf(extra=extra)),
+                                     False, (3,), None, 64)
+    got = sh.sharded_config(Params.from_text(_conf(extra=extra)), False,
+                            (3,), 64, device="cpu")
+    assert got.folded and want.folded
+    assert got.batched_exchange == want.batched_exchange
+    assert got.batched_exchange == ("batched" in extra)
+    assert want.probe_gather == ("split" if "split" in extra else "packed")
 
 
 def test_sharded_folded_scenario_checkpoints_resolve():
