@@ -262,6 +262,32 @@ Phases (any failure exits non-zero before the final line):
                 (more than 8 failed ids): the card takes the folded
                 layout with AggStats (K5-K7 once per tick), the CPU the
                 natural layout; summary and final state equal.
+ 46. host_backends -- the host simulators: --grade-all with no --backend
+                (emul, the testcases' default) and with --backend
+                emul_native under --device cuda, each "Final grade 90",
+                no kernel launched, logs byte-identical to the CPU
+                twin's; prints the native engine's build seconds;
+ 47. dense   -- the dense tpu step at N=10^4 (confs/dense_10k.conf,
+                BASELINE.json config #3: fanout 3, batch join, one crash,
+                drop-free; DEPTH_CUTS: 60 ticks, crash at 20) driven tick
+                by tick with its events counted on the card (a batch join
+                makes ~10^8 join events, so no dbg.log): ms/tick,
+                node-ticks/s, peak memory, joins, removals and the crashed
+                node's removals (all of them, no false removal); then
+                confs/dense_256_drop.conf (5% drops) card == CPU in the
+                three logs on tpu and on tpu_sharded with eight shards,
+                and its drop-free twin on eight shards with replicated_rng
+                == tpu on the card (logs and every final-state leaf);
+ 48. sparse  -- tpu_sparse at N=65536 (confs/sparse_64k.conf: M=64, G=16,
+                P=8, fanout 3, TFAIL 16, TREMOVE 40, warm join, one crash,
+                150 ticks, agg): ms/tick, node-ticks/s, peak memory and
+                the detection summary (detections, no false removal);
+                confs/sparse_512_drop.conf (warm join into M=16 slots that
+                gossip overflows, 5% drops) card == CPU in the logs and
+                every final-state leaf; the same conf in 20-tick segments
+                killed at 60 and resumed on the card: logs equal the
+                uninterrupted run's.  None of the three launches a kernel
+                (the JAX backends reach no Pallas kernel).
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -284,7 +310,9 @@ its eight-shard twin the same way, times the 1M natural tick with
 TELEMETRY hist against off, and profiles the two 1M single-chip scenario
 confs on ticks inside their windows; `--only profile_exchange` profiles
 the 1M scatter tick on eight shards and the 1M eight-shard ring tick
-under EXCHANGE_MODE legacy and batched, in turns; `--only serve_load`
+under EXCHANGE_MODE legacy and batched, in turns; `--only
+profile_backends` profiles the dense tick at N=10^4 and the tpu_sparse
+tick at N=65536 the same way; `--only serve_load`
 serves the 1M conf under four paced query threads (one request every
 20 ms each; summary equal to the batch run's), then at N=4096 (20 ticks)
 times the engine idle, under four closed-loop threads with the query
@@ -329,10 +357,11 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "shift_set", "buffsize", "approx_lag", "wide", "folded_probes0",
           "serve", "serve_inject", "serve_sharded", "serve_replicas",
           "reshard", "fleet", "sweep", "chaos", "sharded_scatter",
-          "batched", "sharded_folded_multi")
+          "batched", "sharded_folded_multi", "host_backends", "dense",
+          "sparse")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile", "profile_exchange",   # run only when named in --only
-          "serve_load")
+          "serve_load", "profile_backends")
 TWIN_WORKERS, TWIN_THREADS = 2, 2  # CPU twin processes, threads in each
 TWIN_TIMEOUT_S = 600                # the longest wait for one twin
 # Phases run on a thread beside sweep and chaos, when the phases whose
@@ -482,6 +511,9 @@ DEPTH_CUTS = {
     "scatter_2k_s16_sharded8": dict(TOTAL_TIME=90, FAIL_TIME=40),
     "scatter_1m_s128_sharded8": dict(TOTAL_TIME=44, FAIL_TIME=1),
     "batched_1m": dict(TOTAL_TIME=24, FAIL_TIME=8),
+    # Phase dense: the N = 10^4 crash at 20 is removed by every node
+    # 20-22 ticks later (TREMOVE 20), inside 60.
+    "dense_10k": dict(TOTAL_TIME=60, FAIL_TIME=20),
 }
 
 
@@ -1972,11 +2004,13 @@ def _grade_job(argv: list) -> tuple:
 
 
 def phase_grade(torch, out_dir: str, card: str, seed: int = 3,
-                backend: str | None = None, cpu_twin: bool = True) -> dict:
-    """``--grade-all`` (``--backend`` where given) on the card and, with
-    ``cpu_twin``, its CPU twin: both grade 90, their logs agree, the
-    card run launches no kernel (neither scatter step has one) and its
-    final states lie on the card."""
+                backend: str | None = None, cpu_twin: bool = True,
+                host: bool = False) -> dict:
+    """``--grade-all`` (``--backend`` where given; none is the testcases'
+    ``emul``) under ``--device cuda`` and, with ``cpu_twin``, its CPU
+    twin: both grade 90, their logs agree, the card run launches no
+    kernel (neither scatter step has one) and, unless the backend runs
+    on the ``host``, its final states lie on the card."""
     from distributed_membership_tpu_torch import kernels
     from distributed_membership_tpu_torch.runtime import application
 
@@ -1998,7 +2032,7 @@ def phase_grade(torch, out_dir: str, card: str, seed: int = 3,
     graded("cuda", rc, out)
     if any(launches.values()):
         raise AssertionError(f"{tag}: kernels launched: {launches}")
-    off = [k for res, _ in results
+    off = [k for res, _ in results if not host
            for k, v in state_tensors(res.extra["final_state"])
            if not v.is_cuda]
     if off:
@@ -2034,6 +2068,30 @@ def state_tensors(state):
             yield name, leaf
 
 
+def plain_backend_tick(params, key0) -> tuple:
+    """``(step, state, plan_rng)`` of the dense ``tpu`` step (an empty
+    state, events counted) or of ``tpu_sparse`` (its init), for
+    :func:`phase_profile`; ``plan_rng(key)`` draws the step's uniform
+    planes (drop-free: the coins are not drawn)."""
+    from distributed_membership_tpu_torch.backends import tpu, tpu_sparse
+    from distributed_membership_tpu_torch.ops.threefry import split, uniform
+
+    n = params.EN_GPSZ
+    if params.BACKEND == "tpu":
+        step = tpu.make_step(tpu.step_config(params, collect_events=False))
+        return (step, tpu.init_state(n, "cuda"),
+                lambda key: uniform(split(key, 3)[0], (n, n), "cuda"))
+    cfg = tpu_sparse.make_config(params, collect_events=False)
+    state = (tpu_sparse.init_state_warm(cfg, key0, "cuda")
+             if params.JOIN_MODE == "warm"
+             else tpu_sparse.init_state(cfg, "cuda"))
+
+    def plan_rng(key):
+        keys = split(key, 6)
+        return [uniform(k, (n, cfg.m), "cuda") for k in keys[:2]]
+    return tpu_sparse.make_step(cfg), state, plan_rng
+
+
 def phase_profile(torch, conf: str, name: str, out_dir: str,
                   warm: int = 3, ticks: int = 5, telemetry=None,
                   t0: int = 0) -> dict:
@@ -2060,7 +2118,9 @@ def phase_profile(torch, conf: str, name: str, out_dir: str,
     scenario = tpu_hash.plan_scenario(plan)
     pt = failures.plan_tensors(params, plan, 0, params.TOTAL_TIME, "cuda")
     key0 = failures.make_run_key(params, 0 ^ 0x5EED)
-    if params.BACKEND == "tpu_hash_sharded":
+    if params.BACKEND in ("tpu", "tpu_sparse"):
+        step, state, plan_rng = plain_backend_tick(params, key0)
+    elif params.BACKEND == "tpu_hash_sharded":
         mesh = tpu_hash_sharded.resolve_mesh(params, "cuda")
         n_local = mesh.rows_per_shard(params.EN_GPSZ)
         cfg = tpu_hash_sharded.sharded_config(params, False, fail_ids,
@@ -3713,6 +3773,205 @@ def phase_sharded_folded_multi(torch, confs: str, out_dir: str,
     return info
 
 
+def phase_host_backends(torch, out_dir: str, card: str) -> dict:
+    """Phase host_backends: the grade on ``emul`` and on ``emul_native``
+    (host simulators: ``--device cuda`` runs them on the host, as the
+    JAX package runs them off the TPU), each with its CPU twin."""
+    from distributed_membership_tpu_torch.backends import emul_native
+
+    t0 = time.perf_counter()
+    so = emul_native.build()
+    info = {"engine": os.path.basename(so),
+            "engine_build_s": (emul_native.BUILD_SECONDS[-1]
+                               if emul_native.BUILD_SECONDS else None),
+            "engine_ready_s": time.perf_counter() - t0}
+    log("host_backends: native engine " + json.dumps(info))
+    for backend in (None, "emul_native"):
+        info[backend or "emul"] = phase_grade(torch, out_dir, card,
+                                              backend=backend, host=True)
+    return info
+
+
+def run_sharded(conf: str, out_dir: str, device, d: int,
+                replicated_rng: bool = False) -> tuple:
+    """``run_tpu_sharded`` of ``conf`` on ``d`` shards on ``device`` (the
+    mesh is an argument of the backend, as in the JAX package), its logs
+    written to ``out_dir`` -> ``(result, wall)``."""
+    from distributed_membership_tpu_torch.backends import get_backend
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.eventlog import EventLog
+    from distributed_membership_tpu_torch.observability.metrics import (
+        write_msgcount)
+    from distributed_membership_tpu_torch.parallel.mesh import LocalMesh
+
+    params = Params.from_file(conf, validate=False)
+    params.BACKEND = "tpu_sharded"
+    params.validate()
+    t0 = time.perf_counter()
+    res = get_backend("tpu_sharded")(
+        params, EventLog(out_dir), device=device,
+        mesh=LocalMesh((d,), device), replicated_rng=replicated_rng)
+    wall = time.perf_counter() - t0
+    res.log.flush(out_dir)
+    write_msgcount(res, out_dir)
+    return res, wall
+
+
+def _sharded_job(conf: str, out_dir: str, d: int) -> dict:
+    """:func:`run_sharded` on the CPU, in a twin worker -> run_view."""
+    return run_view(*run_sharded(conf, out_dir, "cpu", d))
+
+
+def on_card(name: str, state) -> None:
+    off = [k for k, v in state_tensors(state) if not v.is_cuda]
+    if off:
+        raise AssertionError(f"{name}: final state leaves off the card: "
+                             f"{off}")
+
+
+def same_leaves(name: str, a: dict, b: dict) -> None:
+    import numpy as np
+    bad = [k for k in a if not np.array_equal(a[k], b[k])]
+    if bad or set(a) != set(b):
+        raise AssertionError(f"{name}: final-state leaves differ: {bad}")
+
+
+def phase_dense(torch, confs: str, out_dir: str, card: str) -> dict:
+    """Phase dense: the dense step at N = 10^4, then its N = 256 parity
+    runs (tpu and eight tpu_sharded shards, card == CPU) and
+    replicated_rng == tpu on the card."""
+    import random as pyrandom
+
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.backends import tpu
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+    from distributed_membership_tpu_torch.runtime.failures import (
+        plan_tensors, resolve_plan)
+
+    dev = torch.device("cuda")
+    conf = smoke_conf(confs, out_dir, "dense_10k")
+    params = Params.from_file(conf)
+    n, ticks, seed = params.EN_GPSZ, params.TOTAL_TIME, params.SEED
+    plan = resolve_plan(params, pyrandom.Random(f"app:{seed}"))
+    crashed = plan.failed_indices[0]
+    step = tpu.make_step(tpu.step_config(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    plan_t = plan_tensors(params, plan, seed, ticks, dev)
+    state = tpu.init_state(n, dev)
+    count = torch.zeros((4,), dtype=torch.int64, device=dev)
+    tick_ms = []
+    for t in range(ticks):
+        ts = time.perf_counter()
+        state, ev = step(state, t, plan_t.tick_key(t), plan_t)
+        count += torch.stack([ev.joins.sum(), ev.removes.sum(),
+                              ev.removes[:, crashed].sum(),
+                              ev.sent.sum(dtype=torch.int64)])
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    joins, removes, crashed_rm, sent = (int(x) for x in count.cpu())
+    launches = dict(kernels.LAUNCHES)
+    on_card("dense", state)
+    info = {"n": n, "ticks": ticks, "wall_s": wall,
+            "ms_per_tick": wall * 1e3 / ticks,
+            "ms_per_tick_median": sorted(tick_ms)[ticks // 2],
+            "node_ticks_per_s": n * ticks / wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "joins": joins, "removals": removes,
+            "crashed": crashed, "crashed_removals": crashed_rm,
+            "msgs_sent": sent, "card": card}
+    log("dense[10k]: " + json.dumps(info))
+    del state, ev, plan_t
+    torch.cuda.empty_cache()
+    if any(launches.values()):
+        raise AssertionError(f"dense: kernels launched: {launches}")
+    if crashed_rm != n - 1 or removes != crashed_rm or joins < n * (n - 1):
+        raise AssertionError(f"dense: every node must remove the crashed "
+                             f"node and nothing else: {info}")
+
+    lossy = os.path.join(confs, "dense_256_drop.conf")
+    dirs = {k: os.path.join(out_dir, f"dense_{k}")
+            for k in ("cuda", "cpu", "sh8_cuda", "sh8_cpu", "clean_cuda",
+                      "rep8_cuda")}
+    res = run_conf(lossy, out_dir=dirs["cuda"], device="cuda")
+    on_card("dense_256", res.extra["final_state"])
+    sh8, sh8_wall = run_sharded(lossy, dirs["sh8_cuda"], "cuda", 8)
+    on_card("dense_256_sh8", sh8.extra["final_state"])
+    info["sharded8_256_wall_s"] = sh8_wall
+    del res, sh8
+
+    def check_tpu(cpu: dict) -> None:
+        same_logs(dirs["cuda"], dirs["cpu"], "dense_256")
+        log("dense: N=256 tpu logs byte-identical, cuda vs cpu")
+
+    def check_sh8(cpu: dict) -> None:
+        same_logs(dirs["sh8_cuda"], dirs["sh8_cpu"], "dense_256_sh8")
+        log("dense: N=256 tpu_sharded (eight shards) logs byte-identical, "
+            "cuda vs cpu")
+    TWINS.submit(lossy, dirs["cpu"], check_tpu, leaves=False)
+    TWINS.call(_sharded_job, (lossy, dirs["sh8_cpu"], 8), check_sh8)
+
+    clean = conf_variant(lossy, out_dir, "dense_256_clean", DROP_MSG=0)
+    dense = run_conf(clean, out_dir=dirs["clean_cuda"], device="cuda")
+    rep, _ = run_sharded(clean, dirs["rep8_cuda"], "cuda", 8,
+                         replicated_rng=True)
+    same_logs(dirs["clean_cuda"], dirs["rep8_cuda"], "dense_replicated")
+    same_leaves("dense_replicated",
+                state_to_numpy(dense.extra["final_state"]),
+                state_to_numpy(rep.extra["final_state"]))
+    log("dense: tpu_sharded on eight shards with replicated_rng == tpu on "
+        "the card (logs and every final-state leaf)")
+    return info
+
+
+def phase_sparse(torch, confs: str, out_dir: str, card: str) -> dict:
+    """Phase sparse: tpu_sparse at N = 65536, the N = 512 parity run
+    (card == CPU) and a kill and resume on the card."""
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+
+    info = run_path(torch, os.path.join(confs, "sparse_64k.conf"), "sparse",
+                    launches_expected(), out_dir)
+    det = info["detection"]
+    if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
+        raise AssertionError(f"sparse: detection summary {det}")
+    torch.cuda.empty_cache()
+
+    conf = os.path.join(confs, "sparse_512_drop.conf")
+    dirs = {k: os.path.join(out_dir, f"sparse_512_{k}")
+            for k in ("cuda", "cpu", "resumed")}
+    t0 = time.perf_counter()
+    res = run_conf(conf, out_dir=dirs["cuda"], device="cuda")
+    info["parity_512_wall_s"] = time.perf_counter() - t0
+    on_card("sparse_512", res.extra["final_state"])
+    leaves = state_to_numpy(res.extra["final_state"])
+    del res
+
+    def check(cpu: dict) -> None:
+        same_logs(dirs["cuda"], dirs["cpu"], "sparse_512")
+        same_leaves("sparse_512", leaves, cpu["leaves"])
+        log("sparse: N=512 logs and every final-state leaf identical, cuda "
+            "vs cpu")
+    TWINS.submit(conf, dirs["cpu"], check)
+
+    ck = dict(checkpoint_every=20,
+              checkpoint_dir=os.path.join(out_dir, "sparse_512_ck"))
+    run_killed(torch, conf, "sparse_512_killed", launches_expected(),
+               out_dir, 60, **ck)
+    run_conf(conf, out_dir=dirs["resumed"], device="cuda", resume=True,
+             **ck)
+    same_logs(dirs["cuda"], dirs["resumed"], "sparse_512_resume")
+    log("sparse: N=512 killed at 60 and resumed on the card == the "
+        "uninterrupted run's logs")
+    info["card"] = card
+    return info
+
+
 def start_beside(name: str, phase) -> tuple:
     """``phase()`` on a thread of its own, beside the phases after it:
     its processes do its work, the thread only polls them.  The thread
@@ -3867,6 +4126,13 @@ def main(argv=None) -> int:
                 MESH_SHAPE=8, EXCHANGE_MODE=mode),
                 f"ring_1m_s128_sharded8_{mode}", out_dir)
             torch.cuda.empty_cache()
+    if "profile_backends" in phases:
+        # The dense step from tick 0 (its batch join in the 8 warm ticks)
+        # and tpu_sparse from its warm start.
+        for name, first, warm in (("dense_10k", 0, 8), ("sparse_64k", 0, 3)):
+            phase_profile(torch, os.path.join(confs, name + ".conf"), name,
+                          out_dir, warm=warm, t0=first)
+            torch.cuda.empty_cache()
     paths = {}
     # The CPU twins run beside the card's phases from here on, their
     # checks at the end; the kernel timings and profiles above ran alone.
@@ -3948,7 +4214,7 @@ def main(argv=None) -> int:
                     "byte-identical, cuda vs cpu")
     if "grade" in phases:
         t0 = time.perf_counter()
-        paths["grade"] = phase_grade(torch, out_dir, card)
+        paths["grade"] = phase_grade(torch, out_dir, card, backend="tpu_hash")
         log(f"phase grade: {time.perf_counter() - t0:.1f}s; card: {card}")
     if "scatter_parity" in phases:
         t0 = time.perf_counter()
@@ -4278,7 +4544,11 @@ def main(argv=None) -> int:
             ("batched", lambda: phase_batched(torch, confs, out_dir, card,
                                               paths)),
             ("sharded_folded_multi", lambda: phase_sharded_folded_multi(
-                torch, confs, out_dir, card))):
+                torch, confs, out_dir, card)),
+            ("host_backends", lambda: phase_host_backends(torch, out_dir,
+                                                          card)),
+            ("dense", lambda: phase_dense(torch, confs, out_dir, card)),
+            ("sparse", lambda: phase_sparse(torch, confs, out_dir, card))):
         if name == "sharded_scatter" and beside:
             join_beside(beside, paths, card)
         if (name in phases and name in BESIDE

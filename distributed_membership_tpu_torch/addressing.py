@@ -20,3 +20,4 @@ def index_to_id(i: int) -> int:
 
 
 INTRODUCER_INDEX = 0
+INTRODUCER_ID = 1   # the introducer's id (Application::getjoinaddr)

@@ -1,9 +1,18 @@
 """Backend registry (the JAX package's ``backends/__init__.py``).
 
-A backend turns ``Params`` into a completed run.  The port implements
-``tpu_hash`` and ``tpu_hash_sharded`` (ring exchange, warm join); the
-conf's ``BACKEND:`` key names the same backends as the JAX package, and
-the others are refused.
+A backend turns ``Params`` into a completed run; the conf's ``BACKEND:``
+key selects one of the JAX package's seven:
+
+* ``emul``        -- the queue-level host simulator (executable spec);
+* ``emul_native`` -- the same semantics, C++ core via ctypes;
+* ``tpu``         -- the dense ``[N, N]`` step;
+* ``tpu_sharded`` -- the dense step on a mesh of node shards;
+* ``tpu_sparse``  -- exact bounded member views (sorted merge);
+* ``tpu_hash``    -- hash-slotted bounded views: the scale path;
+* ``tpu_hash_sharded`` -- ``tpu_hash`` on a mesh of node shards.
+
+The two ``emul`` backends run on the host whatever the device; the
+others run on the run's device (a card, or the CPU when asked).
 """
 
 from __future__ import annotations
@@ -38,10 +47,9 @@ BackendFn = Callable[..., RunResult]
 
 _REGISTRY: Dict[str, BackendFn] = {}
 _MODULES = {
-    "tpu_hash": "distributed_membership_tpu_torch.backends.tpu_hash",
-    "tpu_hash_sharded":
-        "distributed_membership_tpu_torch.backends.tpu_hash_sharded",
-}
+    name: f"distributed_membership_tpu_torch.backends.{name}"
+    for name in ("emul", "emul_native", "tpu", "tpu_sharded", "tpu_sparse",
+                 "tpu_hash", "tpu_hash_sharded")}
 
 
 def register(name: str):
@@ -52,10 +60,10 @@ def register(name: str):
 
 
 def get_backend(name: str) -> BackendFn:
-    if name not in _MODULES:
-        raise NotImplementedError(
-            f"BACKEND {name!r} is not ported yet (the port runs tpu_hash "
-            "and tpu_hash_sharded; ROADMAP.md Queue 1 item 11)")
     if name not in _REGISTRY:
+        if name not in _MODULES:
+            raise NotImplementedError(
+                f"backend {name!r} is not available "
+                f"(known: {sorted(_MODULES)})")
         importlib.import_module(_MODULES[name])
     return _REGISTRY[name]

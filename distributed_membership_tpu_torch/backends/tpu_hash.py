@@ -149,7 +149,8 @@ from distributed_membership_tpu_torch.ops.sampling import sample_k_indices
 from distributed_membership_tpu_torch.ops.threefry import (
     Key, randint, split, uniform, uniform_at)
 from distributed_membership_tpu_torch.ops.view_merge import (
-    EMPTY, M32, SIGN, STRIDE, as_u32, hash_slot, member_of, to_bits)
+    EMPTY, M32, STRIDE, as_u32, count_at, hash_slot, member_of,
+    scatter_umax, to_bits)
 from distributed_membership_tpu_torch.runtime.failures import (
     FailurePlan, PlanTensors, make_run_key, plan_tensors, resolve_plan)
 from distributed_membership_tpu_torch.scenario.compile import (
@@ -320,19 +321,7 @@ def _scatter_msgs(cfg: HashConfig, mail, tgt, msg_id, msg_hb, msg_valid,
     msg_id = msg_id.to(I64)
     node = tgt if node is None else node
     addr = torch.where(msg_valid, tgt * s + slot_of(cfg, node, msg_id), r * s)
-    return _scatter_umax(mail, addr, pack_u(cfg, msg_hb, msg_id))
-
-
-def _scatter_umax(plane, addr, val):
-    """``plane`` (int32 u32 bits) max-combined with the u32 values ``val``
-    (int64) at the flat addresses ``addr``; the address ``plane.numel()``
-    is a sink, dropped.  The unsigned max is the signed one with the sign
-    bit flipped around it (``view_merge.umax``).  Returns a new plane."""
-    flat = torch.cat([(plane ^ SIGN).reshape(-1),
-                      plane.new_full((1,), SIGN)])
-    flat.scatter_reduce_(0, addr.reshape(-1),
-                         to_bits(val).reshape(-1) ^ SIGN, "amax")
-    return flat[:-1].reshape(plane.shape) ^ SIGN
+    return scatter_umax(mail, addr, pack_u(cfg, msg_hb, msg_id))
 
 
 def _scatter_rows(cfg: HashConfig, plane, rows, local_tgt, msg_id, msg_hb,
@@ -454,18 +443,6 @@ def _roll(vec, shift, idx, n: int):
     """``jnp.roll(vec, shift)`` for a device scalar shift: out[i] =
     vec[(i - shift) mod n], without a host sync."""
     return vec.index_select(0, (idx - shift.to(I64)) % n)
-
-
-def _count_at(tgt, valid, weight, n: int):
-    """``[N]`` int32 per-target counts: ``weight`` (a scalar or a tensor
-    of ``tgt``'s shape) added at each valid ``tgt`` (the JAX ``.at[].add``
-    into a sink row)."""
-    w = torch.as_tensor(weight, dtype=I32, device=tgt.device).expand(
-        tgt.shape)
-    out = torch.zeros((n + 1,), dtype=I32, device=tgt.device)
-    out.index_add_(0, torch.where(valid, tgt, n).reshape(-1),
-                   w.reshape(-1))
-    return out[:n]
 
 
 class JoinPlane(NamedTuple):
@@ -1025,8 +1002,8 @@ def make_step(cfg: HashConfig, dynamic_knobs: bool = False):
                 if cfg.count_probe_io:
                     # Probes issued at t-1 arrive now; act targets ack.
                     ack_send = v1 & _gathered_act(probe_bits1)
-                    recv_probe = _count_at(tgt1, v1, p_red, n)
-                    sent_ack = _count_at(tgt1, ack_send, 1, n)
+                    recv_probe = count_at(tgt1, v1, p_red, n)
+                    sent_ack = count_at(tgt1, ack_send, 1, n)
                 elif cfg.probe_io_none:
                     recv_probe = sent_ack = torch.zeros_like(sent_probes)
                 elif cfg.probe_io_lag:
@@ -1239,7 +1216,7 @@ def make_scatter_step(cfg: HashConfig, dynamic_knobs: bool = False):
                              e_hbs[:, None, :].expand(shape3), msg_valid)
         sent_tick = (msg_valid.sum((1, 2), dtype=I32) + jp.sent_req
                      + jp.sent_rep)
-        recv_add = _count_at(tgt, tgt_valid, msg_valid.sum(2, dtype=I32), n)
+        recv_add = count_at(tgt, tgt_valid, msg_valid.sum(2, dtype=I32), n)
 
         # ---- introducer burst to this tick's joiners (full fresh view) --
         mail, seed_idx, seed_valid, burst_valid = seed_burst(
@@ -1269,7 +1246,7 @@ def make_scatter_step(cfg: HashConfig, dynamic_knobs: bool = False):
             for c in range(p_red):
                 paddr = p_tgt * qp + hash_slot(own_id_p, t + c * 0x2545F49,
                                                qp, n)
-                pmail = _scatter_umax(pmail,
+                pmail = scatter_umax(pmail,
                                       torch.where(p_valid, paddr, n * qp),
                                       own_id_p + 1)
             mail = _scatter_msgs(cfg, mail, p_tgt, own_id_p,
@@ -1281,9 +1258,9 @@ def make_scatter_step(cfg: HashConfig, dynamic_knobs: bool = False):
             amail = _scatter_msgs(cfg, amail, prober, acker,
                                   jp.own_hb[acker], sent)
             sent_tick = (sent_tick + p_valid.sum(1, dtype=I32) * p_red
-                         + _count_at(acker, sent, 1, n))
-            recv_add = (recv_add + _count_at(p_tgt, p_valid, p_red, n)
-                        + _count_at(prober, sent, 1, n))
+                         + count_at(acker, sent, 1, n))
+            recv_add = (recv_add + count_at(p_tgt, p_valid, p_red, n)
+                        + count_at(prober, sent, 1, n))
 
         failed = (state.failed | plan.fail_mask if t == plan.fail_time
                   else state.failed)
@@ -1307,11 +1284,6 @@ def make_scatter_step(cfg: HashConfig, dynamic_knobs: bool = False):
         return new_state, out
 
     return step
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                              f"{item})")
 
 
 def _refuse_on(what: str, why: str) -> None:

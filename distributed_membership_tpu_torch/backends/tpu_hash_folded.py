@@ -58,7 +58,7 @@ import torch
 from torch.profiler import record_function
 
 from distributed_membership_tpu_torch.backends.tpu_hash import (
-    HashState, _count_at, _credit_orphan_recvs, _pack_probe_table, _roll,
+    HashState, _credit_orphan_recvs, _pack_probe_table, _roll,
     check_dynamic_knobs, coin_at, failed_after, init_state_warm,
     knob_values, no_coin, pack_u, restart_wipe, ring_rng_plans, shift_table,
     table_shifts, tick_faults, tick_telemetry, uses_drop, will_flush_of)
@@ -77,7 +77,7 @@ from distributed_membership_tpu_torch.observability.timeline import (
     PHASE_RECEIVE, PHASE_TELEMETRY)
 from distributed_membership_tpu_torch.ops.rng_plan import sharded_ring_rng
 from distributed_membership_tpu_torch.ops.view_merge import (
-    EMPTY, STRIDE, member_of, to_bits)
+    EMPTY, STRIDE, count_at, member_of, to_bits)
 from distributed_membership_tpu_torch.scenario.compile import cross_group
 
 __all__ = ["folded_supported", "roll_nodes", "roll_slots",
@@ -349,8 +349,8 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                 # Per-target counts over the global ids: on the flat layout
                 # the sharded step's psum_scatter of per-shard histograms.
                 if cfg.count_probe_io:
-                    recv_probe = _count_at(tgt1, v1, p_red, n)
-                    sent_ack = _count_at(tgt1, v1 & ((bits1 & 2) != 0), 1,
+                    recv_probe = count_at(tgt1, v1, p_red, n)
+                    sent_ack = count_at(tgt1, v1 & ((bits1 & 2) != 0), 1,
                                          n)
                 elif cfg.probe_io_none:
                     recv_probe = sent_ack = torch.zeros_like(sent_probes)

@@ -89,7 +89,7 @@ from distributed_membership_tpu_torch.backends import RunResult, register
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     I32, I64, HashConfig, _admit, _credit_orphan_recvs_sharded,
     _gathered_act, _gathered_flush, _gathered_hb, _pack_probe_table,
-    _refuse_on, _scatter_umax, coin_at, count_ctrl_dropped, failed_after,
+    _refuse_on, coin_at, count_ctrl_dropped, failed_after,
     join_plane, joinreq_to_intro, make_config, no_coin, pack_u,
     plan_fail_ids, plan_scenario, resolve_mega_pack, restart_wipe, run_segment, seed_burst, slot_of,
     tick_faults, tick_telemetry, uses_drop, warm_view, will_flush_of)
@@ -117,7 +117,7 @@ from distributed_membership_tpu_torch.ops.sampling import sample_k_indices
 from distributed_membership_tpu_torch.ops.threefry import (
     Key, fold_in, randint, split, uniform, uniform_keys)
 from distributed_membership_tpu_torch.ops.view_merge import (
-    EMPTY, M32, STRIDE, as_u32, hash_slot, member_of, to_bits)
+    EMPTY, M32, STRIDE, as_u32, hash_slot, member_of, scatter_umax, to_bits)
 from distributed_membership_tpu_torch.parallel.mesh import (
     LocalMesh, mesh_shape)
 from distributed_membership_tpu_torch.runtime.failures import (
@@ -790,13 +790,13 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             # address would draw every other message's atomic max.
             addr = r_tgt * s + slot_of(cfg, r_tgt, r_id)
             ack = r_chan == CH_ACK
-            mail = _scatter_umax(mail, addr[~ack], val[~ack])
-            amail = _scatter_umax(amail, addr[ack], val[ack])
+            mail = scatter_umax(mail, addr[~ack], val[~ack])
+            amail = scatter_umax(amail, addr[ack], val[ack])
             copies = ((CH_PROBE0, 0), (CH_PROBE1, 0x2545F49))[:p_copies]
             for ch, salt in copies if p_cnt > 0 else ():
                 sel = r_chan == ch
                 pid = r_id[sel]
-                pmail = _scatter_umax(
+                pmail = scatter_umax(
                     pmail, r_tgt[sel] * qp + hash_slot(pid, t + salt, qp, n),
                     pid + 1)
             pending_recv = pending_recv + torch.bincount(

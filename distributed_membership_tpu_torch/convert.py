@@ -1,9 +1,10 @@
-"""Carry a ring-step state across implementations.
+"""Carry a step's state across implementations.
 
-``state_to_numpy`` flattens a port ``HashState`` or ``ShardedHashState``
+``state_to_numpy`` flattens a port state (a ring step's ``HashState`` or
+``ShardedHashState``, the dense step's ``State``, ``SparseState``)
 into a dict of numpy arrays with the JAX leaf names (``agg.<field>`` for
 the aggregate leaves) and the JAX dtypes (u32 planes as ``uint32``);
-``state_from_numpy`` builds the port's state from such a dict, e.g. the
+``state_from_numpy`` builds a ring step's state from such a dict, e.g. the
 leaves of a JAX state (a ``ShardedHashState`` when the leaves have no
 ``wf_prev``, which only the single-chip state carries).  Both copy, so
 neither side aliases the other.  A folded state, single-chip or sharded
@@ -13,8 +14,8 @@ both directions keep whatever shape a leaf has.
 The carry of a checkpoint (runtime/checkpoint.py) is these leaves in the
 JAX flatten order -- the state's fields in order, the aggregate's fields
 inline -- as the npz members ``c0..cK``: :func:`carry_leaves` copies a
-state to that list, :func:`carry_from_leaves` builds one from it on a
-device, and :func:`leaf_specs` gives the names, shapes and dtypes a
+state to that list, :func:`carry_from_leaves` builds one of a template
+state's types from it on a device, and :func:`leaf_specs` gives the names, shapes and dtypes a
 resume checks.
 """
 
@@ -30,7 +31,8 @@ from distributed_membership_tpu_torch.backends.tpu_hash_sharded import (
     ShardedHashState)
 from distributed_membership_tpu_torch.observability.aggregates import (
     AggStats, FastAgg)
-from distributed_membership_tpu_torch.ops.megakernel import named_leaves
+from distributed_membership_tpu_torch.ops.megakernel import (
+    named_leaves, rebuild_carry)
 
 U32_LEAVES = frozenset({"view", "mail", "amail", "pmail", "probe_ids1",
                         "probe_ids2"})
@@ -71,19 +73,22 @@ def carry_leaves(state) -> list:
     return [host_leaf(name, x) for name, x in named_leaves(state)]
 
 
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a, order="C")        # a copy; keeps 0-d leaves 0-d
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.tensor(a, device=device)
+
+
 def carry_from_leaves(template, leaves: list, device):
-    """A state of ``template``'s types from ``carry_leaves``-ordered host
-    arrays, on ``device``."""
-    names = [name for name, _ in named_leaves(template)]
-    return state_from_numpy(dict(zip(names, leaves)), device)
+    """A carry of ``template``'s types (any of the port's states) from
+    ``carry_leaves``-ordered host arrays, on ``device``."""
+    return rebuild_carry(template, [_tensor(a, device) for a in leaves])
 
 
 def state_from_numpy(leaves: dict, device="cpu"):
     def tensor(a):
-        a = np.array(a, order="C")        # a copy; keeps 0-d leaves 0-d
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.tensor(a, device=device)
+        return _tensor(a, device)
 
     agg_type = FastAgg if "agg.join_total" in leaves else AggStats
     agg = agg_type(*(tensor(leaves[f"agg.{f}"]) for f in agg_type._fields))

@@ -73,7 +73,7 @@ def named_leaves(state, prefix: str = "") -> list:
     return out
 
 
-def _rebuild(template, leaves: list):
+def rebuild_carry(template, leaves: list):
     """A carry of ``template``'s types from leaves in flatten order."""
     it = iter(leaves)
 
@@ -146,7 +146,7 @@ def make_codec(state, pack16: bool):
         out = [_unpack_bits(leaf, shape) if kind == "bits"
                else _unpack_u16(leaf, shape) if kind == "u16" else leaf
                for (kind, shape), leaf in zip(plan, packed)]
-        return _rebuild(state, out)
+        return rebuild_carry(state, out)
 
     return pack, unpack
 

@@ -45,6 +45,7 @@ import math
 import os
 from typing import Tuple
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -197,6 +198,19 @@ def _unit(bits: torch.Tensor) -> torch.Tensor:
 def uniform(key: Key, shape, device) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on [0, 1)."""
     return _unit(random_bits(key, math.prod(shape), device)).reshape(shape)
+
+
+def bernoulli(key: Key, p: float, shape, device) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform(key, shape) <
+    p``, with ``p`` rounded to float32 as jax rounds a Python float."""
+    return uniform(key, shape, device) < float(np.float32(p))
+
+
+def bernoulli_at(key: Key, p: float, idx: torch.Tensor,
+                 numel: int) -> torch.Tensor:
+    """Elements ``idx`` of the flat draw ``bernoulli(key, p, (numel,))``
+    (so of any shape's draw of ``numel`` elements, at flat indices)."""
+    return uniform_at(key, idx, numel) < float(np.float32(p))
 
 
 def uniform_at(key: Key, idx: torch.Tensor, numel: int) -> torch.Tensor:

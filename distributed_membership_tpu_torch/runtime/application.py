@@ -3,7 +3,9 @@
 
 The run's device is explicit.  The default is ``cuda``: without a GPU
 the run raises rather than quietly running on the CPU; ``--device cpu``
-runs the plain versions of the kernels.
+runs the plain versions of the kernels.  The ``emul`` and ``emul_native``
+backends are host simulators and run on the host whatever the device,
+as the JAX package's run off the TPU; the device is still checked.
 
 ``--serve`` (with ``--port``) runs the conf under the service daemon
 (service/daemon.py): queries and live injection over HTTP between the
@@ -17,10 +19,9 @@ resumes on its new shape.
 
 ``--grade-all`` runs the reference's three grading scenarios
 (``testcases/``) and prints the /90 total, as Grader_verbose.sh does;
-``--grade SCENARIO`` grades one run.  The testcases name the reference's
-``emul`` backend, which the port does not have (ROADMAP.md Queue 1 item
-11), so ``--grade-all`` runs ``tpu_hash`` unless ``--backend`` says
-otherwise.  ``--backend tpu_hash_sharded`` grades the sharded scatter step
+``--grade SCENARIO`` grades one run.  The testcases name no backend, so
+they run the default ``emul``, as in the JAX package; ``--backend``
+grades another.  ``--backend tpu_hash_sharded`` grades the sharded scatter step
 (``EXCHANGE: auto`` resolves scatter for the testcases' staggered joins)
 on one shard, or on ``--mesh-shape``'s shards; the JAX package takes the
 largest device count that divides N when ``MESH_SHAPE`` is unset.
@@ -46,7 +47,7 @@ from distributed_membership_tpu_torch.observability.metrics import (
 SCENARIOS = ("singlefailure", "multifailure", "msgdropsinglefailure")
 SCENARIO_TITLES = ("Single Failure Scenario", "Multi Failure Scenario",
                    "Message Drop Single Failure Scenario")
-GRADE_BACKEND = "tpu_hash"
+GRADE_BACKEND = "emul"
 
 
 def resolve_device(device) -> torch.device:
@@ -185,16 +186,16 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m distributed_membership_tpu_torch",
         description="Gossip membership simulator, PyTorch/CUDA port "
-                    "(tpu_hash and tpu_hash_sharded)")
+                    "(all seven backends of the JAX package)")
     ap.add_argument("conf", nargs="?", default=None,
                     help="testcase .conf file; omit with --grade-all")
     ap.add_argument("--backend", default=None,
-                    help="override BACKEND from the conf (the port runs "
-                         "tpu_hash and tpu_hash_sharded, whose EXCHANGE "
-                         "auto takes the scatter step under cold joins); "
-                         f"--grade-all defaults to {GRADE_BACKEND}, because "
-                         "the testcases' default emul is not ported "
-                         "(ROADMAP.md Queue 1 item 11)")
+                    help="override BACKEND from the conf: emul (the "
+                         "default), emul_native, tpu, tpu_sharded, "
+                         "tpu_sparse, tpu_hash or tpu_hash_sharded; emul "
+                         "and emul_native run on the host whatever "
+                         f"--device says; --grade-all defaults to "
+                         f"{GRADE_BACKEND}, the testcases' backend")
     ap.add_argument("--grade-all", action="store_true",
                     help="run all three grading scenarios and print the /90 "
                          "total (Grader_verbose.sh's build-run-score loop); "
@@ -213,7 +214,8 @@ def parser() -> argparse.ArgumentParser:
                          "per scenario, and none kept when omitted)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the GPU with the CUDA kernels (default) "
-                         "or on the CPU with their plain versions")
+                         "or on the CPU with their plain versions; the "
+                         "emul backends run on the host either way")
     ap.add_argument("--checkpoint-every", type=int, default=None,
                     metavar="TICKS",
                     help="CHECKPOINT_EVERY conf key: run the tick loop in "

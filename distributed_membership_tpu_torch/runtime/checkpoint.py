@@ -97,6 +97,23 @@ def state_hash(leaves) -> str:
     return h.hexdigest()
 
 
+def compact_dense(events, t0: int = 0) -> CompactEvents:
+    """Compact the dense step's TickEvents of ``[C, N, N]`` bool planes
+    (the JAX ``compact_dense``): ``(t0 + c, logger, member)`` rows in
+    tick, logger, member order.  The planes may be tensors on any device
+    (their nonzeros are found there) or numpy arrays."""
+    def triples(plane):
+        rows = torch.nonzero(torch.as_tensor(plane)).cpu().numpy()
+        rows = rows.astype(np.int64).reshape(-1, 3)
+        rows[:, 0] += t0
+        return rows
+
+    sent = torch.as_tensor(events.sent).cpu().numpy()
+    return CompactEvents(triples(events.joins), triples(events.removes),
+                         sent, torch.as_tensor(events.recv).cpu().numpy(),
+                         sent.shape[0])
+
+
 def concat_compact(parts: List[CompactEvents]) -> CompactEvents:
     parts = [p for p in parts if p is not None]
     if len(parts) == 1:
@@ -408,14 +425,16 @@ class boundary_hook:
 
 def chunked_run(params: Params, seed: int, total: int, *, device,
                 init_carry, segment_fn, collect_events: bool,
-                telemetry=None, with_series: bool = False, finalize=None):
+                telemetry=None, with_series: bool = False, finalize=None,
+                event_type=SparseTickEvents):
     """Run ticks ``[0, total)`` in ``CHECKPOINT_EVERY``-tick segments.
 
     ``init_carry()`` builds the fresh carry on ``device``;
     ``segment_fn(carry, a, b) -> (carry, events, series)`` runs ticks
     ``[a, b)`` (backends/tpu_hash.py ``run_segment``): ``events`` the
-    segment's CompactEvents (full mode) or SparseTickEvents of ``[b-a]``
-    int32 totals (agg mode) on the host, ``series`` its telemetry series
+    segment's CompactEvents (full mode) or an ``event_type`` of four
+    per-tick streams (agg mode: SparseTickEvents of ``[b-a]`` int32
+    totals, or the dense step's TickEvents) on the host, ``series`` its telemetry series
     when ``with_series``, flushed to ``telemetry`` (a TimelineRecorder,
     or None) with ``t0 = a``.  The carry's snapshot is copied to the
     host only with ``CHECKPOINT_DIR``; its write overlaps the next
@@ -582,10 +601,10 @@ def chunked_run(params: Params, seed: int, total: int, *, device,
     if collect_events:
         events = acc
     elif acc is None:        # zero-length run
-        return carry, SparseTickEvents(*(np.zeros((0,), np.int32)
-                                         for _ in range(4)))
+        return carry, event_type(*(np.zeros((0,), np.int32)
+                                   for _ in range(4)))
     else:
-        events = SparseTickEvents(*acc)
+        events = event_type(*acc)
     if finalize is not None and total > 0:
         carry, events = finalize(carry, events)
     return carry, events

@@ -128,7 +128,18 @@ def test_port_imports_no_jax():
             PKG / "chaos" / "fuzz.py", PKG / "chaos" / "shrink.py",
             PKG / "chaos" / "campaign.py", PKG / "ops" / "exchange.py",
             PKG / "parallel" / "mesh.py",
-            PKG / "backends" / "tpu_hash_sharded.py"} <= set(_port_sources())
+            PKG / "backends" / "tpu_hash_sharded.py",
+            PKG / "backends" / "emul.py", PKG / "backends" / "emul_native.py",
+            PKG / "backends" / "tpu.py", PKG / "backends" / "tpu_sharded.py",
+            PKG / "backends" / "tpu_sparse.py", PKG / "ops" / "merge.py",
+            PKG / "ops" / "view_merge.py",
+            PKG / "parallel" / "collectives.py"} <= set(_port_sources())
+    # The native engine's loader builds the port's own copy of the
+    # source; no port file names the JAX package's native directory.
+    assert (PKG / "native" / "emul_engine.cpp").exists()
+    for path in _port_sources():
+        assert "distributed_membership_tpu/native" not in path.read_text()
+        assert '"native", "build"' not in path.read_text()
     for path in _port_sources():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -341,6 +352,11 @@ def test_refusals_on_the_card_and_off():
     assert make_config(Params.from_text(base + "SCENARIO: x.json\n"
                                         "CHECKPOINT_EVERY: 5\n"),
                        device="cpu").exchange == "ring"
+    # Every BACKEND of the JAX package resolves; an unknown name is
+    # refused with the list, as in the JAX package.
     from distributed_membership_tpu_torch.backends import get_backend
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_backend("tpu_sparse")
+    for name in ("emul", "emul_native", "tpu", "tpu_sharded", "tpu_sparse",
+                 "tpu_hash", "tpu_hash_sharded"):
+        assert callable(get_backend(name))
+    with pytest.raises(NotImplementedError, match="known: .*'tpu_sparse'"):
+        get_backend("tpu_dense")

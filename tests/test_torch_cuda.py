@@ -10,6 +10,8 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 are integers and must be equal, bit for bit.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -476,11 +478,13 @@ def test_grade_all_on_card_matches_cpu(cuda, tmp_path, capsys):
     from distributed_membership_tpu_torch.runtime import application
 
     kernels.reset_launches()
-    assert application.main(["--grade-all", "--seed", "3", "--out-dir",
+    assert application.main(["--grade-all", "--seed", "3", "--backend",
+                             "tpu_hash", "--out-dir",
                              str(tmp_path / "cuda")]) == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     assert application.main(["--grade-all", "--device", "cpu", "--seed",
-                             "3", "--out-dir", str(tmp_path / "cpu")]) == 0
+                             "3", "--backend", "tpu_hash", "--out-dir",
+                             str(tmp_path / "cpu")]) == 0
     assert capsys.readouterr().out.count("Final grade 90") == 2
     for scenario in ("singlefailure", "multifailure",
                      "msgdropsinglefailure"):
@@ -1409,3 +1413,109 @@ def test_batched_equals_legacy_on_card(cuda, tmp_path, layout):
                 == other.extra["detection_summary"])
         _final_equal(runs["batched"], other)
     assert runs["batched"].extra["detection_summary"]["detections_total"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The other five backends (no kernel): the plain ops on the card give the
+# CPU's bits.
+
+CONFS = (pathlib.Path(__file__).resolve().parent.parent
+         / "distributed_membership_tpu_torch" / "confs")
+
+
+def _same_logs(a, b):
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hb_hi", [1, 3])
+def test_view_merge_on_card_matches_cpu(cuda, hb_hi):
+    """``merge_views`` on tie-heavy rows that overflow the view (the
+    stable sorts' order decides the survivors), and the mailbox
+    scatter."""
+    from distributed_membership_tpu_torch.ops import view_merge as vm
+    rng = np.random.default_rng(hb_hi)
+    n, m, q = 4096, 16, 64
+    slot_id = rng.integers(0, 200, (n, m)).astype(np.int32)
+    slot_id[rng.random((n, m)) < 0.2] = -1
+    args = [slot_id, rng.integers(0, hb_hi, (n, m)).astype(np.int32),
+            rng.integers(0, 9, (n, m)).astype(np.int32),
+            rng.integers(0, 200, (n, q)).astype(np.int32),
+            rng.integers(0, hb_hi, (n, q)).astype(np.int32),
+            rng.random((n, q)) < 0.7, np.arange(n, dtype=np.int32) % 200,
+            rng.integers(0, hb_hi + 1, n).astype(np.int32),
+            rng.random(n) < 0.8]
+    ar = rng.random(n) < 0.9
+    cpu = vm.merge_views(*map(torch.from_numpy, args), 9,
+                         torch.from_numpy(ar))
+    card = vm.merge_views(*(torch.from_numpy(a).to(cuda) for a in args), 9,
+                          torch.from_numpy(ar).to(cuda))
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+    mail = torch.zeros((n, 256), dtype=torch.int32)
+    msg = [torch.from_numpy(rng.integers(0, k, 50000).astype(np.int32))
+           for k in (n, 5000, 40)]
+    valid = torch.from_numpy(rng.random(50000) < 0.8)
+    for salt in (0, 7 + 0x2545F49):
+        a = vm.scatter_mailbox(mail, *msg, valid, 5000, salt=salt)
+        b = vm.scatter_mailbox(mail.to(cuda), *(x.to(cuda) for x in msg),
+                               valid.to(cuda), 5000, salt=salt)
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_sparse_run_on_card_matches_cpu(cuda, tmp_path):
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+    conf = str(CONFS / "sparse_512_drop.conf")
+    kernels.reset_launches()
+    card = run_conf(conf, out_dir=str(tmp_path / "cuda"), device="cuda")
+    assert not any(kernels.LAUNCHES.values())
+    assert card.extra["final_state"].slot_id.is_cuda
+    cpu = run_conf(conf, out_dir=str(tmp_path / "cpu"), device="cpu")
+    _same_logs(tmp_path / "cuda", tmp_path / "cpu")
+    for a, b in zip(card.extra["final_state"].slot_id,
+                    cpu.extra["final_state"].slot_id):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_dense_runs_on_card_match_cpu(cuda, tmp_path):
+    """``tpu`` and ``tpu_sharded`` on eight shards, card == CPU under
+    drops; drop-free, ``replicated_rng`` on eight shards == ``tpu``."""
+    from distributed_membership_tpu_torch.backends import get_backend
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.eventlog import EventLog
+    from distributed_membership_tpu_torch.parallel.mesh import LocalMesh
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+    conf = CONFS / "dense_256_drop.conf"
+    for dev in ("cuda", "cpu"):
+        run_conf(str(conf), out_dir=str(tmp_path / dev), device=dev)
+    _same_logs(tmp_path / "cuda", tmp_path / "cpu")
+    text = conf.read_text().replace("BACKEND: tpu", "BACKEND: tpu_sharded")
+    dbg = {}
+    for dev, rep, drop in (("cuda", False, 1), ("cpu", False, 1),
+                           ("cuda", True, 0)):
+        p = Params.from_text(text.replace("DROP_MSG: 1",
+                                          f"DROP_MSG: {drop}"))
+        r = get_backend("tpu_sharded")(p, EventLog(), device=dev,
+                                       mesh=LocalMesh((8,), dev),
+                                       replicated_rng=rep)
+        dbg[dev, rep] = r.log.dbg_text()
+    assert dbg["cuda", False] == dbg["cpu", False]
+    clean = Params.from_text(conf.read_text().replace("DROP_MSG: 1",
+                                                      "DROP_MSG: 0"))
+    dense = get_backend("tpu")(clean, EventLog(), device="cuda")
+    assert dense.log.dbg_text() == dbg["cuda", True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["emul", "emul_native"])
+def test_host_backends_under_device_cuda(cuda, backend, tmp_path):
+    """The host simulators run on the host whatever the device says."""
+    from distributed_membership_tpu_torch.runtime.application import run_conf
+    conf = str(CONFS.parent.parent / "testcases" / "singlefailure.conf")
+    for dev in ("cuda", "cpu"):
+        run_conf(conf, out_dir=str(tmp_path / dev), device=dev,
+                 backend=backend)
+    _same_logs(tmp_path / "cuda", tmp_path / "cpu")

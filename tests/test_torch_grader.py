@@ -1,8 +1,8 @@
 """The grader regime through the port: ``--grade-all`` and ``--grade``
 against the JAX package, and the scatter exchange's configuration gates.
 
-* ``application.main(["--grade-all", "--device", "cpu", "--seed", "3"])``
-  prints ``Final grade 90``, and the three scenarios' ``dbg.log``,
+* ``application.main(["--grade-all", "--device", "cpu", "--seed", "3",
+  "--backend", "tpu_hash"])`` prints ``Final grade 90``, and the three scenarios' ``dbg.log``,
   ``stats.log`` and ``msgcount.log`` are byte-identical to the JAX
   package's ``--grade-all --backend tpu_hash`` runs at the same seed
   (its ``run_scenario_graded``, which ``grade_all`` drives);
@@ -48,6 +48,7 @@ def _one_torch_thread():
 def test_grade_all_on_cpu_matches_jax_logs(tmp_path, capsys,
                                            testcases_dir):
     rc = application.main(["--grade-all", "--device", "cpu", "--seed", "3",
+                           "--backend", "tpu_hash",
                            "--out-dir", str(tmp_path / "port")])
     out = capsys.readouterr().out
     assert rc == 0
@@ -131,11 +132,18 @@ def test_grade_all_defaults_to_cuda(monkeypatch):
 
 
 def test_testcases_backend_emul_is_refused(testcases_dir, tmp_path):
-    """Without --backend a testcase names the reference's emul backend,
-    which the port does not have; --grade-all picks tpu_hash instead."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        application.run_conf(str(testcases_dir / "singlefailure.conf"),
-                             out_dir=str(tmp_path), device="cpu")
+    """Without --backend a testcase runs the reference's ``emul`` backend,
+    which the port now has (the name is the one this test had while the
+    port refused it): ``run_conf`` writes the JAX package's three logs,
+    byte for byte."""
+    conf = str(testcases_dir / "singlefailure.conf")
+    result = application.run_conf(conf, out_dir=str(tmp_path / "p"),
+                                  device="cpu")
+    assert result.params.BACKEND == "emul"
+    jax_app.run_conf(conf, out_dir=str(tmp_path / "j"))
+    for name in ("dbg.log", "stats.log", "msgcount.log"):
+        assert ((tmp_path / "p" / name).read_bytes()
+                == (tmp_path / "j" / name).read_bytes()), name
 
 
 def _testcase_params(testcases_dir, extra: str = "", jax: bool = False):
