@@ -258,6 +258,21 @@ Phases (any failure exits non-zero before the final line):
                 S=128, eight shards, drop-free, 24 ticks: ms/tick and
                 peak memory, batched against legacy.  Batched launches
                 K1 and K3 (K5 and K7) once per tick and K4 (K6) never;
+ 44b. multiproc -- tpu_hash_sharded with its eight shards over two
+                processes on the card (runtime/distributed.py, the
+                launcher's commands, each rank the port's CLI through
+                --as-rank; gloo over CUDA tensors, NCCL taking one rank
+                per card): N=2^20, S=128, legacy, DEPTH_CUTS: 8 ticks,
+                crash at 4 (state hash and summary == the in-process
+                run; K1, K4, K3 once per tick in each process; ms/tick,
+                node-ticks/s, peak memory, bytes per tick, the
+                transport); N=256 (p0 == p1 == the in-process card logs
+                == the CPU's two-process run, a twin); the N=2^14 folded
+                batched hist run killed at 48, resumed and merged (state
+                hash and every series == phase batched's); the scatter
+                exchange at N=2048 (state hash and summary); `--only
+                nccl_probe` (opt-in) prints what NCCL says of two ranks
+                on one card and which gloo collectives take CUDA tensors;
  45. sharded_folded_multi -- ring_16k_s16_folded_sharded8_multi.conf
                 (more than 8 failed ids): the card takes the folded
                 layout with AggStats (K5-K7 once per tick), the CPU the
@@ -357,11 +372,11 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "shift_set", "buffsize", "approx_lag", "wide", "folded_probes0",
           "serve", "serve_inject", "serve_sharded", "serve_replicas",
           "reshard", "fleet", "sweep", "chaos", "sharded_scatter",
-          "batched", "sharded_folded_multi", "host_backends", "dense",
-          "sparse")
+          "batched", "multiproc", "sharded_folded_multi", "host_backends",
+          "dense", "sparse")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile", "profile_exchange",   # run only when named in --only
-          "serve_load", "profile_backends")
+          "serve_load", "profile_backends", "nccl_probe")
 TWIN_WORKERS, TWIN_THREADS = 2, 2  # CPU twin processes, threads in each
 TWIN_TIMEOUT_S = 600                # the longest wait for one twin
 # Phases run on a thread beside sweep and chaos, when the phases whose
@@ -511,6 +526,9 @@ DEPTH_CUTS = {
     "scatter_2k_s16_sharded8": dict(TOTAL_TIME=90, FAIL_TIME=40),
     "scatter_1m_s128_sharded8": dict(TOTAL_TIME=44, FAIL_TIME=1),
     "batched_1m": dict(TOTAL_TIME=24, FAIL_TIME=8),
+    # Phase multiproc: the 1M run over two processes ticks at ~0.7 s
+    # (gloo through the host), so it times 8 of batched_1m's 24 ticks.
+    "multiproc_1m": dict(TOTAL_TIME=8, FAIL_TIME=4),
     # Phase dense: the N = 10^4 crash at 20 is removed by every node
     # 20-22 ticks later (TREMOVE 20), inside 60.
     "dense_10k": dict(TOTAL_TIME=60, FAIL_TIME=20),
@@ -3759,6 +3777,355 @@ def phase_batched(torch, confs: str, out_dir: str, card: str,
     return info
 
 
+MP_PROCS = 2                    # processes of phase multiproc, on one card
+
+
+def rank_main(argv: list) -> int:
+    """One rank of a multi-process run (``--as-rank``, under the
+    launcher's DM_DIST_* environment): the port's CLI,
+    ``runtime.application.main(argv)``, with every launch count set to 0
+    just before, then one ``RANK {...}`` line: the launches, the final
+    state's hash and detection summary, the run's wall seconds, the
+    transport and the bytes this process put on it inside the ticks, and
+    the peak device memory.  A run that raises (the injected crash) gives
+    the line too, with the error, and exit code 1."""
+    import torch
+    sys.path.insert(0, REPO)
+    from distributed_membership_tpu_torch import kernels
+    from distributed_membership_tpu_torch.convert import carry_leaves
+    from distributed_membership_tpu_torch.runtime import application
+    from distributed_membership_tpu_torch.runtime import distributed
+    from distributed_membership_tpu_torch.runtime.checkpoint import (
+        state_hash)
+
+    got = {}
+    inner = application.run_conf
+
+    def run_conf(*a, **kw):
+        got["result"] = inner(*a, **kw)
+        return got["result"]
+    application.run_conf = run_conf
+    kernels.reset_launches()
+    rc, err = 1, None
+    try:
+        rc = application.main(argv)
+    except Exception as e:          # the injected crash among them
+        err = f"{type(e).__name__}: {e}"
+    out = {"rc": rc, "error": err, "launches": dict(kernels.LAUNCHES),
+           "transport": distributed.transport(),
+           "stats": distributed.transport_stats(),
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if torch.cuda.is_initialized() else 0.0)}
+    res = got.get("result")
+    if res is not None:
+        det = res.extra.get("detection_summary")
+        out.update(
+            wall_s=res.wall_seconds, ticks=res.params.TOTAL_TIME,
+            n=res.params.EN_GPSZ,
+            state_hash=state_hash(carry_leaves(res.extra["final_state"])),
+            detection=None if det is None else {
+                k: v for k, v in det.items() if k != "latency_hist_nonzero"})
+    print("RANK " + json.dumps(out), flush=True)
+    return 0 if rc == 0 and err is None else 1
+
+
+def mp_start(conf: str, root: str, device: str = "cuda", every: int = 0,
+             resume: bool = False, extra=(), env=None) -> list:
+    """Start the MP_PROCS ranks of a run of ``conf``: the launcher's
+    commands and environments (multiproc_launch.build_commands), each
+    rank through :func:`rank_main`.  Returns ``[(Popen, log file,
+    rank)]``."""
+    from distributed_membership_tpu_torch import multiproc_launch as ml
+    args = argparse.Namespace(
+        conf=conf, procs=MP_PROCS, out_root=root, seed=0, backend=None,
+        device=device, devices_per_proc=1, checkpoint_every=every,
+        resume=resume, mesh_shape=None, extra=list(extra))
+    procs = []
+    for i, (cmd, penv, pdir) in enumerate(ml.build_commands(
+            args, ml._free_port())):
+        penv.update(env or {})
+        logf = open(os.path.join(pdir, "rank.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--as-rank", "--"] + cmd[3:], env=penv, cwd=pdir,
+            stdout=logf, stderr=subprocess.STDOUT), logf, i))
+    return procs
+
+
+def mp_finish(procs: list, root: str, timeout: float = 300,
+              crash: bool = False) -> list:
+    """Wait for the ranks (the first that fails stops the others, unless
+    every rank is to ``crash``) and return each one's ``RANK`` record,
+    rank order."""
+    from distributed_membership_tpu_torch import multiproc_launch as ml
+    try:
+        if crash:
+            for p, _, _ in procs:
+                p.wait(timeout=timeout)
+        else:
+            ml._wait_all(procs, timeout)
+    finally:
+        for p, logf, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    ranks = []
+    for _, _, i in procs:
+        text = open(os.path.join(root, f"p{i}", "rank.log")).read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
+        if not lines:
+            raise AssertionError(f"{root} p{i}: no RANK line:\n"
+                                 + text[-3000:])
+        ranks.append(json.loads(lines[-1][5:]))
+    return ranks
+
+
+def ranks_ok(root: str, ranks: list, expect: dict) -> list:
+    """Every rank exited 0 having launched ``expect``; returns ``ranks``."""
+    for i, r in enumerate(ranks):
+        if r["rc"] != 0 or r["error"]:
+            raise AssertionError(f"{root} p{i}: {r}")
+        if r["launches"] != expect:
+            raise AssertionError(f"{root} p{i}: launches {r['launches']} "
+                                 f"!= {expect}")
+    return ranks
+
+
+def mp_run(conf: str, root: str, expect: dict, **kw) -> list:
+    """:func:`mp_start` and :func:`mp_finish`, held by :func:`ranks_ok`."""
+    return ranks_ok(root, mp_finish(mp_start(conf, root, **kw), root),
+                    expect)
+
+
+def _mp_cpu_job(conf: str, root: str) -> int:
+    """The launcher's CPU run of ``conf`` on MP_PROCS processes (a twin)."""
+    return subprocess.run(
+        [sys.executable, "-m",
+         "distributed_membership_tpu_torch.multiproc_launch", conf,
+         "--procs", str(MP_PROCS), "--device", "cpu", "--out-root", root,
+         "--timeout", "500"], cwd=REPO, capture_output=True).returncode
+
+
+def same_ranks(name: str, ranks: list, want: dict) -> None:
+    """Every rank's final state hash and detection summary equal the
+    in-process run's."""
+    for i, r in enumerate(ranks):
+        for k in ("state_hash", "detection"):
+            if r.get(k) != want.get(k):
+                raise AssertionError(f"{name} p{i}: {k} {r.get(k)} != the "
+                                     f"in-process run's {want.get(k)}")
+
+
+def phase_multiproc(torch, confs: str, out_dir: str, card: str,
+                    paths: dict) -> dict:
+    """tpu_hash_sharded with its shards over MP_PROCS processes on the
+    card (runtime/distributed.py; gloo over CUDA tensors, as NCCL takes
+    one rank per card), each rank the port's CLI: N = 2^20 on eight
+    shards, four per process, legacy exchange, against the in-process
+    run of its conf (state hash, detection summary; K1, K4, K3 once per
+    tick in each process); N = 256 against the in-process card logs and
+    the CPU's two-process run; the N = 2^14 folded batched run killed at
+    its tick-48 boundary, resumed and merged against phase batched's
+    in-process run (state hash, every timeline series); the scatter
+    exchange at N = 2048 against the in-process run."""
+    from distributed_membership_tpu_torch.observability.merge import (
+        merge_run)
+    from distributed_membership_tpu_torch.observability.timeline import (
+        read_timeline)
+    info = {}
+
+    def inproc(name: str, conf: str, expect: dict) -> dict:
+        if name not in paths:
+            paths[name] = run_path(torch, conf, name, expect, out_dir,
+                                   digest=True)
+            torch.cuda.empty_cache()
+        return paths[name]
+
+    def root(name: str) -> str:
+        r = os.path.join(out_dir, name)
+        subprocess.run(["rm", "-rf", r], check=True)
+        return r
+
+    # N = 2^20, eight shards over two processes (phase batched's conf,
+    # cut to its own depth).
+    big = conf_variant(os.path.join(confs, "ring_1m_s128.conf"), out_dir,
+                       "multiproc_1m", BACKEND="tpu_hash_sharded",
+                       MESH_SHAPE=8, EXCHANGE_MODE="legacy",
+                       **DEPTH_CUTS["multiproc_1m"])
+    t = conf_ticks(big)
+    expect = launches_expected(receive=t, gossip_stacked=t, probe=t)
+    want = inproc("multiproc_1m_inproc", big, expect)
+    ranks = mp_run(big, root("mp_1m"), expect)
+    same_ranks("mp_1m", ranks, want)
+    st = [r["stats"] for r in ranks]
+    info["1m"] = {
+        "procs": MP_PROCS, "shards": 8, "ticks": t,
+        "transport": ranks[0]["transport"],
+        "ms_per_tick": [x["tick_s"] * 1e3 / x["ticks"] for x in st],
+        "transport_ms_per_tick": [x["tick_comm_s"] * 1e3 / x["ticks"]
+                                  for x in st],
+        "run_ms_per_tick": [r["wall_s"] * 1e3 / t for r in ranks],
+        "node_ticks_per_s": [r["n"] * x["ticks"] / x["tick_s"]
+                             for r, x in zip(ranks, st)],
+        "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
+        "bytes_per_tick": [x["tick_bytes"] / x["ticks"] for x in st],
+        "boundary_bytes": [x["bytes"] - x["tick_bytes"] for x in st],
+        "inproc_run_ms_per_tick": want["wall_s"] * 1e3 / t, "card": card}
+    log("multiproc[1m]: state hash and detection == the in-process run's; "
+        "K1, K4, K3 once per tick in each process; "
+        + json.dumps(info["1m"]))
+
+    # N = 256, the scatter exchange at N = 2048 and the N = 2^14 folded
+    # batched run with TELEMETRY hist in 16-tick segments, killed at its
+    # tick-48 boundary, side by side; then the folded run resumed and
+    # merged.
+    small = os.path.join(confs, "ring_256_s128_sharded8_drop.conf")
+    t = conf_ticks(small)
+    small_expect = launches_expected(receive=t, gossip_stacked=t, probe=t)
+    scatter = smoke_conf(confs, out_dir, "scatter_2k_s16_sharded8")
+    folded = smoke_conf(confs, out_dir, "ring_16k_s16_folded_sharded8_drop")
+    conf16 = conf_variant(folded, out_dir, "batched_folded_16k_batched",
+                          EXCHANGE_MODE="batched", CHECKPOINT_EVERY=16)
+    t16 = conf_ticks(conf16)
+    want16 = inproc("batched_folded_16k_batched", conf16, launches_expected(
+        receive_folded=t16, probe_folded_hist=t16))
+    roots = {"256": root("mp_256"), "scatter": root("mp_scatter"),
+             "folded": root("mp_folded_16k")}
+    kw16 = dict(every=16, extra=("--telemetry-dir", "."))
+    kill = 40
+    done = -(-kill // 16) * 16                  # the boundary it stops at
+    started = {"256": mp_start(small, roots["256"]),
+               "scatter": mp_start(scatter, roots["scatter"]),
+               "folded": mp_start(conf16, roots["folded"],
+                                  env={"DM_CRASH_AT_TICK": str(kill)},
+                                  **kw16)}
+    # The in-process twins run while the ranks start: phase
+    # sharded_parity's card logs where it ran, else a run now.
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+    card_dir = os.path.join(out_dir, "sharded_parity_cuda")
+    if not os.path.exists(os.path.join(card_dir, "dbg.log")):
+        card_dir = os.path.join(out_dir, "mp_256_inproc")
+        run_conf(small, out_dir=card_dir, device="cuda")
+    want_sc = inproc("mp_scatter_inproc", scatter, launches_expected())
+    # The killed folded run ends first; its resume starts beside the rest.
+    r16 = roots["folded"]
+    for i, r in enumerate(mp_finish(started.pop("folded"), r16,
+                                    crash=True)):
+        if f"injected crash at tick {done}" not in (r["error"] or ""):
+            raise AssertionError(f"mp_folded_16k p{i}: {r}")
+        if r["launches"] != launches_expected(receive_folded=done,
+                                              probe_folded_hist=done):
+            raise AssertionError(f"mp_folded_16k p{i}: {r['launches']}")
+    resume = mp_start(conf16, r16, resume=True, **kw16)
+    got = {k: mp_finish(v, roots[k]) for k, v in started.items()}
+    ranks_ok(roots["256"], got["256"], small_expect)
+    ranks_ok(roots["scatter"], got["scatter"], launches_expected())
+    for i in range(MP_PROCS):
+        same_logs(os.path.join(roots["256"], f"p{i}"), card_dir, "mp_256")
+    same_ranks("mp_scatter", got["scatter"], want_sc)
+    info["256"] = {"ms_per_tick": [r["wall_s"] * 1e3 / t
+                                   for r in got["256"]], "card": card}
+    info["scatter_2k"] = {"ms_per_tick": [
+        r["wall_s"] * 1e3 / r["ticks"] for r in got["scatter"]],
+        "card": card}
+    cpu_root = root("mp_256_cpu")
+
+    def check_cpu(rc: int) -> None:
+        if rc != 0:
+            raise AssertionError(f"mp_256_cpu: the launcher exited {rc}")
+        for i in range(MP_PROCS):
+            same_logs(os.path.join(cpu_root, f"p{i}"),
+                      os.path.join(roots["256"], "p0"), "mp_256 cpu")
+        log("multiproc[256]: card p0 == p1 == in-process card == the "
+            "CPU's two-process run (three logs)")
+    TWINS.call(_mp_cpu_job, (small, cpu_root), check_cpu)
+    log("multiproc[256,scatter]: p0 == p1 == the in-process card run "
+        "(logs; state hash and detection); " + json.dumps(
+            {"256": info["256"], "scatter_2k": info["scatter_2k"]}))
+
+    resumed = ranks_ok(r16, mp_finish(resume, r16), launches_expected(
+        receive_folded=t16 - done, probe_folded_hist=t16 - done))
+    same_ranks("mp_folded_16k", resumed, want16)
+    merged = merge_run(r16)
+    SERIES["mp_folded_16k"] = read_timeline(merged["path"])
+    same_series("mp_folded_16k", "batched_folded_16k_batched")
+    for i in range(MP_PROCS):
+        m = json.load(open(os.path.join(r16, f"p{i}", "ckpt",
+                                        "MANIFEST.json")))
+        if m["process_count"] != MP_PROCS or m["tick"] != t16:
+            raise AssertionError(f"mp_folded_16k p{i}: manifest {m}")
+    info["folded_16k"] = {"killed_at": done, "merged": merged["shards"],
+                          "ticks": merged["ticks"], "card": card}
+    log("multiproc[folded_16k]: killed at its tick-"
+        f"{done} boundary, resumed, merged: state hash, detection and every "
+        "timeline series == the in-process run's; manifests say "
+        f"process_count {MP_PROCS}; " + json.dumps(info["folded_16k"]))
+    return info
+
+
+def probe_main(argv: list) -> int:
+    """A rank of phase nccl_probe (``--as-probe``): an nccl group with
+    every rank on one card, which NCCL refuses (its message printed),
+    then the gloo group and each collective the process mesh uses, tried
+    on CUDA tensors without staging."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from distributed_membership_tpu_torch.runtime import distributed
+    out = {}
+    try:
+        distributed.maybe_initialize("cuda", transport="nccl")
+        out["nccl"] = "came up"
+    except Exception as e:
+        out["nccl"] = f"{type(e).__name__}: {e}"[:600]
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    distributed._STATE.clear()
+    os.environ["DM_DIST_COORD"] = argv[0]
+    distributed.maybe_initialize("cuda")
+    x = torch.arange(8, dtype=torch.int32, device="cuda")
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(MP_PROCS)], x)),
+            ("all_to_all_single", lambda: dist.all_to_all_single(
+                torch.empty_like(x), x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    distributed.shutdown()
+    print("PROBE " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_nccl_probe(out_dir: str, card: str) -> dict:
+    """Two ranks on the one card: what NCCL says, and which gloo
+    collectives take CUDA tensors directly."""
+    from distributed_membership_tpu_torch import multiproc_launch as ml
+    ports = [ml._free_port(), ml._free_port()]
+    procs = []
+    for i in range(MP_PROCS):
+        env = dict(os.environ, DM_DIST_PROCS=str(MP_PROCS),
+                   DM_DIST_PROC_ID=str(i),
+                   DM_DIST_COORD=f"localhost:{ports[0]}")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--as-probe", f"localhost:{ports[1]}"], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    got = [json.loads(ln[6:]) for o in outs for ln in o.splitlines()
+           if ln.startswith("PROBE ")]
+    if len(got) != MP_PROCS:
+        raise AssertionError("nccl_probe: " + "\n".join(outs)[-4000:])
+    log("nccl_probe: " + json.dumps({"ranks": got, "card": card}))
+    return {"ranks": got}
+
+
 def phase_sharded_folded_multi(torch, confs: str, out_dir: str,
                                card: str) -> dict:
     """Many failed ids on eight folded shards: the card takes the folded
@@ -4022,6 +4389,11 @@ def check_no_jax() -> int:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:2] == ["--as-rank", "--"]:
+        return rank_main(argv[2:])
+    if argv[:1] == ["--as-probe"]:
+        return probe_main(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=os.path.join(REPO, "smoke_out"),
                     help="directory for run outputs (default smoke_out/)")
@@ -4543,6 +4915,9 @@ def main(argv=None) -> int:
                 torch, confs, out_dir, card)),
             ("batched", lambda: phase_batched(torch, confs, out_dir, card,
                                               paths)),
+            ("multiproc", lambda: phase_multiproc(torch, confs, out_dir,
+                                                  card, paths)),
+            ("nccl_probe", lambda: phase_nccl_probe(out_dir, card)),
             ("sharded_folded_multi", lambda: phase_sharded_folded_multi(
                 torch, confs, out_dir, card)),
             ("host_backends", lambda: phase_host_backends(torch, out_dir,

@@ -135,7 +135,7 @@ from distributed_membership_tpu_torch.observability.aggregates import (
     update_fast_agg)
 from distributed_membership_tpu_torch.observability.timeline import (
     PHASE_ACK, PHASE_AGG, PHASE_GOSSIP, PHASE_PROBE, PHASE_RECEIVE,
-    PHASE_TELEMETRY, TickTelemetry, build_tick_hist, pack_tick,
+    PHASE_TELEMETRY, TickTelemetry, build_tick_hist, row_hists, pack_tick,
     unpack_series)
 from distributed_membership_tpu_torch.ops.fused_gossip import gossip_fused
 from distributed_membership_tpu_torch.ops.fused_probe import (
@@ -226,6 +226,7 @@ class HashConfig:
     send_budget: int = 0          # ENFORCE_BUFFSIZE: EN_BUFFSIZE, else 0
     shift_set: int = 0            # SHIFT_SET: K-table gossip shifts
     batched_exchange: bool = False  # EXCHANGE_MODE batched (sharded ring)
+    probe_gather_split: bool = False  # PROBE_GATHER split (sharded ring)
 
 
 def uses_drop(cfg: HashConfig) -> bool:
@@ -325,12 +326,14 @@ def _scatter_msgs(cfg: HashConfig, mail, tgt, msg_id, msg_hb, msg_valid,
 
 
 def _scatter_rows(cfg: HashConfig, plane, rows, local_tgt, msg_id, msg_hb,
-                  msg_valid):
-    """:func:`_scatter_msgs` into the mailboxes of ``rows`` (distinct
-    global row ids) in place; message ``k`` goes to ``rows[local_tgt[k]]``.
+                  msg_valid, nodes=None):
+    """:func:`_scatter_msgs` into the mailboxes of ``rows`` (distinct row
+    indices of ``plane``, holding the nodes ``nodes``, by default the
+    same ids) in place; message ``k`` goes to ``rows[local_tgt[k]]``.
     Only those rows are widened."""
+    nodes = rows if nodes is None else nodes
     sub = _scatter_msgs(cfg, plane.index_select(0, rows), local_tgt, msg_id,
-                        msg_hb, msg_valid, node=rows[local_tgt])
+                        msg_hb, msg_valid, node=nodes[local_tgt])
     return plane.index_copy_(0, rows, sub)
 
 
@@ -371,17 +374,21 @@ def init_state_cold(cfg: HashConfig, key: Key, device) -> HashState:
     return init_state(cfg, device)
 
 
-def warm_view(cfg: HashConfig, view, offs):
+def warm_view(cfg: HashConfig, view, offs, row0: int = 0):
     """Seed ``view`` in place: node ``i`` holds nodes ``(i + offs[i, k])
     mod N`` at heartbeat 0 in their hashed slots (unsigned max on a
-    collision) and itself in its own slot, which admission reserves."""
+    collision) and itself in its own slot, which admission reserves.
+    ``view``'s rows are nodes ``row0, row0 + 1, ...``."""
     n = cfg.n
-    idx = torch.arange(n, dtype=I64, device=view.device)
+    loc = torch.arange(view.shape[0], dtype=I64, device=view.device)
+    idx = loc + row0
     nbrs = (idx[:, None] + offs) % n
-    _scatter_rows(cfg, view, idx, idx[:, None].expand(nbrs.shape), nbrs,
-                  torch.zeros_like(nbrs),
-                  torch.ones(nbrs.shape, dtype=torch.bool, device=view.device))
-    view[idx, slot_of(cfg, idx, idx)] = to_bits(
+    view.copy_(_scatter_msgs(
+        cfg, view, loc[:, None].expand(nbrs.shape), nbrs,
+        torch.zeros_like(nbrs),
+        torch.ones(nbrs.shape, dtype=torch.bool, device=view.device),
+        node=idx[:, None].expand(nbrs.shape)))
+    view[loc, slot_of(cfg, idx, idx)] = to_bits(
         pack_u(cfg, torch.zeros_like(idx), idx))
     return view
 
@@ -468,7 +475,8 @@ class JoinPlane(NamedTuple):
 
 
 def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
-               ctrl_kept=None, held=None, budget=None) -> JoinPlane:
+               ctrl_kept=None, held=None, budget=None,
+               mesh=None) -> JoinPlane:
     """JOINREP delivery, nodeStart (the introducer boots its group, the
     others send a JOINREQ) and the double heartbeat increment
     (MP1Node.cpp:126-163,226-251,412-415).  ``ctrl_kept`` is the ``[2,
@@ -479,10 +487,23 @@ def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
     warm join every start tick is -1, so nobody starts and no JOINREQ is
     sent.  ``budget`` (a SendBudget or None) takes the JOINREPs, then the
     JOINREQs; one it drops is dropped for good (the reference never
-    retries a join)."""
+    retries a join).  ``mesh`` (a sharded step's) holds the rows ``idx``
+    of one process of a ProcessMesh, whose introducer bits and counts
+    over every row it reads (:meth:`~distributed_membership_tpu_torch.
+    parallel.mesh.LocalMesh.row_value`, ``allreduce``)."""
     intro = INTRODUCER_INDEX
     start = plan.start_ticks
     is_intro = idx == intro
+    if mesh is None:
+        def at_intro(x):
+            return x[intro]
+
+        def total(x):
+            return x
+    else:
+        def at_intro(x):
+            return mesh.row_value(x, intro)
+        total = mesh.allreduce
     recv_mask = state.started & (start < t) & ~state.failed
     if held is not None:
         recv_mask = recv_mask & ~held
@@ -490,20 +511,21 @@ def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
     pending_recv = torch.where(recv_mask, 0, state.pending_recv)
     in_group = state.in_group | (state.joinrep_infl & recv_mask)
     joinrep_infl = state.joinrep_infl & ~recv_mask
-    intro_recv = recv_mask[intro]
+    intro_recv = at_intro(recv_mask)
     seeds = state.joinreq_infl & intro_recv
     joinreq_infl = state.joinreq_infl & ~intro_recv
     rep_ok = seeds if ctrl_kept is None else seeds & ctrl_kept[1]
     if budget is not None:
         rep_ok = budget.take(rep_ok)
     joinrep_infl = joinrep_infl | rep_ok
-    sent_rep = torch.where(is_intro & intro_recv, rep_ok.sum(dtype=I32), 0)
+    sent_rep = torch.where(is_intro & intro_recv,
+                           total(rep_ok.sum(dtype=I32)), 0)
     pending_recv = pending_recv + rep_ok.to(I32)
 
     # ---- nodeStart ----
     start_now = start == t
     started = state.started | start_now
-    boot = start_now[intro]
+    boot = at_intro(start_now)
     in_group = in_group | (is_intro & boot)
     joiner_req = start_now & ~is_intro
     if ctrl_kept is not None:
@@ -512,40 +534,57 @@ def join_plane(cfg: HashConfig, state, t: int, plan: PlanTensors, idx,
         joiner_req = budget.take(joiner_req)
     joinreq_infl = joinreq_infl | joiner_req
     pending_recv = pending_recv + torch.where(
-        is_intro, joiner_req.sum(dtype=I32), 0)
+        is_intro, total(joiner_req.sum(dtype=I32)), 0)
 
     # ---- self refresh (double heartbeat increment) ----
     act = started & (start < t) & ~state.failed & in_group
     own_hb = state.self_hb + 1
     return JoinPlane(
         recv_mask, recv_tick, pending_recv, in_group, joinrep_infl,
-        joinreq_infl, seeds, seeds.sum(dtype=I32), joiner_req.to(I32),
+        joinreq_infl, seeds, total(seeds.sum(dtype=I32)), joiner_req.to(I32),
         sent_rep, started, joiner_req, act, act | (is_intro & boot),
         torch.where(act, state.self_hb + 2, state.self_hb), own_hb,
         to_bits(pack_u(cfg, torch.where(act, own_hb, 0), idx)))
 
 
-def joinreq_to_intro(cfg: HashConfig, mail, joiner_req, idx):
+def joinreq_to_intro(cfg: HashConfig, mail, joiner_req, mesh=None):
     """This tick's JOINREQs (hb 0, the joiner's id) into the introducer's
-    mailbox row, in place; only that row is widened."""
-    zeros = torch.zeros_like(idx)
-    return _scatter_rows(cfg, mail, idx[INTRODUCER_INDEX:][:1], zeros, idx,
-                         zeros, joiner_req)
+    mailbox row, in place; only that row is widened.  With a ``mesh``,
+    ``mail`` and ``joiner_req`` hold its process's rows: every joiner's
+    bit is gathered, and the introducer's process takes them."""
+    intro = INTRODUCER_INDEX
+    row0 = 0
+    if mesh is not None:
+        row0 = mesh.row_lo(cfg.n)
+        joiner_req = mesh.all_gather(joiner_req)
+    if not row0 <= intro < row0 + mail.shape[0]:
+        return mail
+    ids = torch.arange(cfg.n, dtype=I64, device=mail.device)
+    zeros = torch.zeros_like(ids)
+    return _scatter_rows(cfg, mail, ids[intro - row0:][:1], zeros, ids,
+                         zeros, joiner_req, nodes=ids[intro:][:1])
 
 
 def seed_burst(cfg: HashConfig, mail, view, fresh_intro, seeds,
-               burst_on, burst_drop=None, budget=None):
+               burst_on, burst_drop=None, budget=None, mesh=None):
     """The introducer's burst of its fresh view row to this tick's seeded
     joiners (MP1Node.cpp:240-242): the first ``min(seed_cap, N)`` seeds in
     index order (``lax.top_k`` ties go lowest index first, hence the
     stable sort), ``burst_drop`` the ``[cap, S]`` dropped mask or None,
     ``budget`` a SendBudget (one message per entry) or None.  Updates
     ``mail`` in place; returns ``(mail, seed_idx, seed_valid,
-    burst_valid)``."""
+    burst_valid)``, the seeds as global ids.  With a ``mesh`` of
+    processes ``mail``, ``view`` and ``seeds`` hold one process's rows:
+    the seeds are gathered, the introducer's row is read from its
+    process, and each process takes its own seeds' bursts."""
     n, s = cfg.n, cfg.s
     intro = INTRODUCER_INDEX
     cap = min(cfg.seed_cap, n)
     dev = mail.device
+    multi = mesh is not None and mesh.procs > 1
+    if multi:
+        row0, rows = mesh.row_lo(n), mesh.local_rows(n)
+        seeds = mesh.all_gather(seeds)
     seed_idx = torch.sort(seeds.to(I32), descending=True,
                           stable=True).indices[:cap]
     seed_valid = seeds[seed_idx] & burst_on
@@ -554,14 +593,20 @@ def seed_burst(cfg: HashConfig, mail, view, fresh_intro, seeds,
         burst_valid = burst_valid & ~burst_drop
     if budget is not None:
         burst_valid = budget.take(burst_valid)
-    iv = as_u32(view[intro])
+    iv = as_u32(mesh.row_value(view, intro) if multi else view[intro])
     ipres = iv > 0
     intro_id = torch.where(ipres, ((iv - 1) & M32) % n, EMPTY)
     intro_hb = torch.where(ipres, ((iv - 1) & M32) // n, -1)
-    local = torch.arange(cap, dtype=I64, device=dev)[:, None].expand(cap, s)
-    mail = _scatter_rows(cfg, mail, seed_idx, local,
-                         intro_id[None, :].expand(cap, s),
-                         intro_hb[None, :].expand(cap, s), burst_valid)
+    mine = seed_idx
+    valid = burst_valid
+    if multi:
+        here = (seed_idx >= row0) & (seed_idx < row0 + rows)
+        mine, valid = seed_idx[here], burst_valid[here]
+    k = mine.shape[0]
+    local = torch.arange(k, dtype=I64, device=dev)[:, None].expand(k, s)
+    mail = _scatter_rows(cfg, mail, mine - row0 if multi else mine, local,
+                         intro_id[None, :].expand(k, s),
+                         intro_hb[None, :].expand(k, s), valid, nodes=mine)
     return mail, seed_idx, seed_valid, burst_valid
 
 
@@ -672,14 +717,18 @@ def restart_wipe(state, f: TickFaults, t: int, n: int, p_cnt: int):
 def tick_telemetry(cfg: HashConfig, agg_before, agg, out: SparseTickEvents,
                    dropped: list, *, act, numfailed, ack_recv_cnt,
                    sent_gossip, difft, present, size, t: int,
-                   fail_time: int, pfo):
+                   fail_time: int, pfo, reduce=None):
     """One tick's flight-recorder record (observability/timeline.py) as
     one packed int32 vector on the device, from what a ring step holds:
     ``out`` the tick's events (planes in full event mode, totals in agg
     mode), ``dropped`` its coin-kill counts, the other tensors over all
     rows (every shard of a mesh; the JAX steps' psums are these sums).
     ``pfo`` carries the probe kernel's staleness and suspicion partials
-    under the hist tier."""
+    under the hist tier.  ``reduce`` (a ProcessMesh's ``allreduce``)
+    sums the process's partials over the processes, in one call: every
+    sum of rows, the detections and drops (which the latency and drop
+    histograms then read), and in full event mode the event counts; the
+    agg-mode totals in ``out`` are global already."""
     zero = torch.zeros((), dtype=I32, device=act.device)
     if cfg.collect_events:
         det_tick = zero
@@ -690,23 +739,40 @@ def tick_telemetry(cfg: HashConfig, agg_before, agg, out: SparseTickEvents,
         det_tick = (agg.det_count.sum(dtype=I32)
                     - agg_before.det_count.sum(dtype=I32))
         joins, removals, sent, recv = out
-    drop_tick = sum(dropped, zero)
+    sums = [act.sum(dtype=I32), numfailed.sum(dtype=I32),
+            ack_recv_cnt.sum(dtype=I32), sent_gossip.sum(dtype=I32),
+            sum(dropped, zero), det_tick]
+    if cfg.collect_events:
+        sums += [joins, removals, sent, recv]
+    hists = []
+    if cfg.telemetry_hist:
+        stale = susp = None
+        if pfo is not None and "stale_rows" in pfo:
+            stale = pfo["stale_rows"].sum(0, dtype=I32)
+            susp = pfo["susp_rows"].sum(0, dtype=I32)
+        hists = list(row_hists(difft=difft, present=present, size=size,
+                               act=act, tfail=cfg.tfail, stale=stale,
+                               susp=susp))
+    if reduce is not None:
+        flat = reduce(torch.cat([torch.stack([v.to(I32) for v in sums])]
+                                + hists))
+        sums = list(flat[:len(sums)])
+        hists = list(flat[len(sums):].split([h.numel() for h in hists]))
+    if cfg.collect_events:
+        joins, removals, sent, recv = sums[6:]
+    live, suspected, probe_acks, gossip_rows, drop_tick, det_tick = sums[:6]
     telem = TickTelemetry(
-        live=act.sum(dtype=I32), suspected=numfailed.sum(dtype=I32),
+        live=live, suspected=suspected,
         joins=joins, removals=removals, detections=det_tick,
         msgs_sent=sent, msgs_recv=recv, dropped=drop_tick,
-        probe_acks=ack_recv_cnt.sum(dtype=I32),
-        gossip_rows=sent_gossip.sum(dtype=I32))
+        probe_acks=probe_acks, gossip_rows=gossip_rows)
     if not cfg.telemetry_hist:
         return pack_tick(telem)
-    stale = susp = None
-    if pfo is not None and "stale_rows" in pfo:
-        stale = pfo["stale_rows"].sum(0, dtype=I32)
-        susp = pfo["susp_rows"].sum(0, dtype=I32)
     return pack_tick(telem, build_tick_hist(
         difft=difft, present=present, size=size, act=act, t=t,
         fail_time=fail_time, tfail=cfg.tfail, det_tick=det_tick,
-        dropped=drop_tick, stale=stale, susp=susp))
+        dropped=drop_tick, stale=hists[0], susp=hists[1],
+        occupancy=hists[2]))
 
 
 def ring_rng_plans(cfg: HashConfig, keys, device,
@@ -876,7 +942,7 @@ def make_step(cfg: HashConfig, dynamic_knobs: bool = False):
                                    cand_full, recv_mask, act, jp.self_on,
                                    jp.self_val)
         if cfg.cold_join:
-            mail = joinreq_to_intro(cfg, mail, jp.joiner_req, idx)
+            mail = joinreq_to_intro(cfg, mail, jp.joiner_req)
         present = view != 0
         difft = t - view_ts
 

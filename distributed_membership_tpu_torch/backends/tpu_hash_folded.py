@@ -49,7 +49,9 @@ shard), FastAgg partials per shard, and the warm init
 :func:`init_local_state_warm_folded`.  One shard of N nodes is the
 single-chip step.  Under ``EXCHANGE_MODE: batched`` the sharded step
 carries ``(state, xbuf)`` and delivers through ops/exchange.py instead of
-the block hop and K6.
+the block hop and K6.  On a ProcessMesh (runtime/distributed.py) each
+process runs its own shards' rows, K6 over them in one launch, with the
+probe table gathered and the tick's totals summed over the processes.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ import torch
 from torch.profiler import record_function
 
 from distributed_membership_tpu_torch.backends.tpu_hash import (
-    HashState, _credit_orphan_recvs, _pack_probe_table, _roll,
+    HashState, _credit_orphan_recvs, _credit_orphan_recvs_sharded,
+    _pack_probe_table, _roll,
     check_dynamic_knobs, coin_at, failed_after, init_state_warm,
     knob_values, no_coin, pack_u, restart_wipe, ring_rng_plans, shift_table,
     table_shifts, tick_faults, tick_telemetry, uses_drop, will_flush_of)
@@ -78,6 +81,7 @@ from distributed_membership_tpu_torch.observability.timeline import (
 from distributed_membership_tpu_torch.ops.rng_plan import sharded_ring_rng
 from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, STRIDE, count_at, member_of, to_bits)
+from distributed_membership_tpu_torch.parallel.mesh import local_plan
 from distributed_membership_tpu_torch.scenario.compile import cross_group
 
 __all__ = ["folded_supported", "roll_nodes", "roll_slots",
@@ -138,7 +142,12 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
     ``step.batched_exchange`` the BatchedExchange, else None;
     ``dynamic_knobs`` as in ``tpu_hash.make_step``."""
     n, s, g, p_cnt = cfg.n, cfg.s, cfg.g, cfg.probes
-    rows = n * s // LANES
+    # This process's nodes and plane rows (every node without a process
+    # mesh).
+    nr = n if mesh is None else mesh.local_rows(n)
+    row0 = 0 if mesh is None else mesh.row_lo(n)
+    multi = mesh is not None and mesh.procs > 1
+    rows = nr * s // LANES
     k_max = min(cfg.fanout, s)
     if dynamic_knobs:
         check_dynamic_knobs(cfg)
@@ -146,6 +155,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
     p_red = 1 if cfg.qp >= n else 2
     cstride = STRIDE % s
     d = 1 if mesh is None else mesh.size
+    dl = 1 if mesh is None else mesh.local_size
     n_local = n if mesh is None else mesh.rows_per_shard(n)
     # The wrapped rows' slot shift equals the unwrapped one iff this.
     single_col = (n_local * STRIDE) % s == 0
@@ -162,8 +172,8 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
         part = None
     else:
         def plan_rng(key, dev):
-            return sharded_ring_rng(key, range(d), n=n, n_local=n_local, s=s,
-                                    g=g, k_max=k_max, p_cnt=p_cnt,
+            return sharded_ring_rng(key, mesh.shards, n=n, n_local=n_local,
+                                    s=s, g=g, k_max=k_max, p_cnt=p_cnt,
                                     seed_rows=min(cfg.seed_cap, n),
                                     use_drop=use_drop, cold_join=False,
                                     device=dev)
@@ -179,7 +189,10 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
             # Last tick's exchange merged where the legacy merge is read.
             state = bx.flush(*state)
         dev = state.view.device
-        idx = torch.arange(n, dtype=I64, device=dev)
+        idx = torch.arange(nr, dtype=I64, device=dev) + row0
+        plan_g = plan
+        if mesh is not None:
+            plan = local_plan(plan, mesh)
         fanout_eff, p_drop = knob_values(cfg, fanout, drop_prob)
         if rng is None:
             rng = plan_rng(key, dev)
@@ -202,16 +215,18 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
         # all_gather of the sharded step); none with no probes ----
         will_flush = will_flush_of(plan, t, recv_mask, f)
         cand_sf = torch.zeros((rows, LANES), dtype=I32, device=dev)
-        ack_recv_cnt = torch.zeros((n,), dtype=I32, device=dev)
+        ack_recv_cnt = torch.zeros((nr,), dtype=I32, device=dev)
         if p_cnt > 0:
             with record_function(PHASE_ACK):
-                ids1 = state.probe_ids1.view(n, p_cnt)
-                ids2 = state.probe_ids2.view(n, p_cnt)
+                ids1 = state.probe_ids1.view(nr, p_cnt)
+                ids2 = state.probe_ids2.view(nr, p_cnt)
                 id2 = (ids2.to(I64) - 1).clamp_min(0)
                 tgt1 = (ids1.to(I64) - 1).clamp_min(0)
                 v1 = ids1 != 0
                 vec = torch.where(state.act_prev, state.self_hb - 1, 0)
                 tbl = _pack_probe_table(vec, will_flush, act)
+                if mesh is not None:
+                    tbl = mesh.all_gather(tbl)
                 # One gather; PROBE_IO none reads no counter bits.
                 gcat = tbl[id2 if cfg.probe_io_none
                            else torch.cat([id2, tgt1], dim=1)]
@@ -223,11 +238,11 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                     valid2 &= ~cross_group(f.cuts_prev, id2, idx[:, None])
                 p_ack = f.prob(t - 1, id2, idx[:, None])
                 if not no_coin(p_ack):
-                    coin = coin_at(rng.ack_u.view(n, p_cnt), p_ack)
+                    coin = coin_at(rng.ack_u.view(nr, p_cnt), p_ack)
                     if dropped is not None:
                         dropped.append((valid2 & coin).sum(dtype=I32))
                     valid2 = valid2 & ~coin
-                cand = torch.zeros((n, s), dtype=I32, device=dev)
+                cand = torch.zeros((nr, s), dtype=I32, device=dev)
                 cand[:, :p_cnt] = torch.where(
                     valid2, to_bits(pack_u(cfg, hb_ack, id2)), 0)
                 cand_sf = roll_slots(cand.view(rows, LANES),
@@ -241,11 +256,11 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
              stale) = receive_folded_fused(
                 n, s, cfg.tfail, cfg.tremove, STRIDE, t, state.view,
                 state.view_ts, state.mail, cand_sf, recv_mask, act,
-                self_val)
-        vn = view.view(n, s)
+                self_val, row0)
+        vn = view.view(nr, s)
         present = vn != 0
-        difft = t - view_ts.view(n, s)
-        numfailed = stale.view(n, s).sum(1, dtype=I32)
+        difft = t - view_ts.view(nr, s)
+        numfailed = stale.view(nr, s).sum(1, dtype=I32)
         size = present.sum(1, dtype=I32)
         cur_id = torch.where(present, member_of(vn, n), EMPTY)
 
@@ -262,7 +277,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                 fresh_cnt > 1,
                 (g - 1) / (fresh_cnt - 1).clamp_min(1).to(torch.float32),
                 1.0)
-            keep = fresh & ((rng.thin_u.view(n, s) < p_keep[:, None])
+            keep = fresh & ((rng.thin_u.view(nr, s) < p_keep[:, None])
                             | (cur_id == idx[:, None]))
         keep = keep & act[:, None]
         u = (rng.shift_draw.to(I64) if table is None
@@ -271,17 +286,24 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
         # Receiver slot = sender slot + delta * STRIDE with delta = b'L +
         # c, b' = b - D on the shards me < b (block wrap), and c - L on the
         # rows l < c (row wrap): per shard and shift.
-        me = torch.arange(d, dtype=I64, device=dev)[:, None]
+        shard_lo = 0 if mesh is None else mesh.shard_lo
+        me = torch.arange(shard_lo, shard_lo + dl, dtype=I64,
+                          device=dev)[:, None]
         bp = torch.where(me < b, b - d, b)
         s1 = ((bp * n_local + c) % s * cstride % s).to(I32)
         s2 = ((bp * n_local + c - n_local) % s * cstride % s).to(I32)
-        sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
-        recv_add = torch.zeros((n,), dtype=I32, device=dev)
+        sent_gossip = torch.zeros((nr,), dtype=I32, device=dev)
+        recv_add = torch.zeros((nr,), dtype=I32, device=dev)
+        # Across processes the hops need the shifts on the host: one read
+        # for the tick.
+        hops = (mesh.hop_shifts(b) if mesh is not None and d > 1
+                and bx is None else b)
         with record_function(PHASE_GOSSIP):
             if bx is None:
-                payloads = torch.empty((k_max, n, s), dtype=I32, device=dev)
+                payloads = torch.empty((k_max, nr, s), dtype=I32,
+                                       device=dev)
             else:
-                xnew = bx.zero(dev)
+                xnew = bx.buckets(dev)
             for j in range(k_max):
                 m = keep & (j < k_eff)[:, None]
                 # Shift u sends global row i to (i + u) mod n.
@@ -290,7 +312,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                     m = m & ~cross_group(f.cuts, idx, dst)[:, None]
                 p_g = f.prob(t, idx, dst)
                 if not no_coin(p_g):
-                    coin = coin_at(rng.gossip_u[j].view(n, s), p_g)
+                    coin = coin_at(rng.gossip_u[j].view(nr, s), p_g)
                     if dropped is not None:
                         dropped.append((m & coin).sum(dtype=I32))
                     m = m & ~coin
@@ -300,8 +322,8 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                     # Aligned on the sender, into its destination's
                     # bucket (no K6).
                     bx.add_shift(*xnew,
-                                 torch.mul(vn, m).view(d, -1, LANES),
-                                 cnt.view(d, n_local), b[j], c[j])
+                                 torch.mul(vn, m).view(dl, -1, LANES),
+                                 cnt.view(dl, n_local), b[j], c[j])
                     continue
                 torch.mul(vn, m, out=payloads[j])      # where(m, view, 0)
                 if mesh is None:
@@ -309,10 +331,13 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                     continue
                 with record_function(PHASE_COLLECTIVE):   # the block hop
                     if d > 1:
-                        payloads[j] = mesh.block_send(payloads[j], b[j])
-                    recv_add += mesh.local_roll(mesh.block_send(cnt, b[j]),
-                                                c[j])
-            if bx is None:
+                        payloads[j] = mesh.block_send(payloads[j], hops[j])
+                    recv_add += mesh.local_roll(
+                        mesh.block_send(cnt, hops[j]), c[j])
+            if bx is not None:
+                with record_function(PHASE_COLLECTIVE):
+                    xnew = bx.ship(*xnew)
+            else:
                 mail = gossip_folded_stacked(
                     rows, s, k_max, single_col, mail,
                     payloads.view(k_max, rows, LANES), c.to(I32), s1, s2,
@@ -329,9 +354,9 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
             with record_function(PHASE_PROBE):
                 pfo = probe_folded_window_fused(
                     n, s, p_cnt, cfg.tfail, fail_ids, want_hist, True, t,
-                    (t * p_cnt) % s, 0, view,
+                    (t * p_cnt) % s, row0, view,
                     view_ts if want_hist else None, act, rm_ids)
-                window = pfo["ids"].view(n, s)[:, :p_cnt]
+                window = pfo["ids"].view(nr, s)[:, :p_cnt]
                 p_valid = window != 0
                 w_id = (window.to(I64) - 1).clamp_min(0)
                 if f.cuts is not None:
@@ -339,7 +364,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                                                      w_id)
                 p_pr = f.prob(t, idx[:, None], w_id)
                 if not no_coin(p_pr):
-                    coin = coin_at(rng.probe_u.view(n, p_cnt), p_pr)
+                    coin = coin_at(rng.probe_u.view(nr, p_cnt), p_pr)
                     if dropped is not None:
                         dropped.append((p_valid & coin).sum(dtype=I32))
                     p_valid = p_valid & ~coin
@@ -352,12 +377,18 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                     recv_probe = count_at(tgt1, v1, p_red, n)
                     sent_ack = count_at(tgt1, v1 & ((bits1 & 2) != 0), 1,
                                          n)
+                    if mesh is not None:
+                        recv_probe = mesh.scatter_sum(recv_probe)
+                        sent_ack = mesh.scatter_sum(sent_ack)
                 elif cfg.probe_io_none:
                     recv_probe = sent_ack = torch.zeros_like(sent_probes)
                 else:
                     per_prober = (v1 & ((bits1 & 1) != 0)).sum(
                         1, dtype=I32) * p_red
-                    recv_probe = _credit_orphan_recvs(per_prober, will_flush)
+                    recv_probe = (_credit_orphan_recvs_sharded(
+                        per_prober, will_flush, (tbl & 1) != 0, idx, mesh)
+                        if multi else
+                        _credit_orphan_recvs(per_prober, will_flush))
                     sent_ack = (v1 & ((bits1 & 2) != 0)).sum(1, dtype=I32)
             probe_ids1, probe_ids2, act_prev = new_ids1, probe_ids1, act
             sent_tick = sent_tick + sent_probes + sent_ack
@@ -366,13 +397,14 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
         with record_function(PHASE_AGG):
             if not cfg.fast_agg:
                 # AggStats on the [N, S] view: the natural step's fold.
-                join_ids = torch.where(join_mask.view(n, s), cur_id, EMPTY)
-                rm_n = rm_ids.view(n, s)
+                join_ids = torch.where(join_mask.view(nr, s), cur_id, EMPTY)
+                rm_n = rm_ids.view(nr, s)
                 agg = update_agg(
                     state.agg, t=t, join_ids=join_ids, rm_ids=rm_n,
                     view_ids=cur_id, view_present=present,
-                    fail_mask=plan.fail_mask, fail_time=plan.fail_time,
-                    sent_tick=sent_tick, recv_tick=recv_tick)
+                    fail_mask=plan_g.fail_mask, fail_time=plan.fail_time,
+                    sent_tick=sent_tick, recv_tick=recv_tick,
+                    holder_failed=plan.fail_mask)
                 joins = (join_ids != EMPTY).sum(dtype=I32)
                 rm_total = (rm_n != EMPTY).sum(dtype=I32)
             else:
@@ -384,11 +416,11 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                 det_tick = any_true_rm = None
                 if fail_ids:
                     det_tick = torch.stack(
-                        [dc.view(d, -1).sum(1, dtype=I32)
+                        [dc.view(dl, -1).sum(1, dtype=I32)
                          for dc in pfo["det_cols"]], dim=1)
                     if mesh is None:
                         det_tick = det_tick[0]
-                    any_true_rm = pfo["det_any"].view(n, s).any(1)
+                    any_true_rm = pfo["det_any"].view(nr, s).any(1)
                 rm_cnt = pfo["rm_cnt"]
                 agg = update_fast_agg(
                     state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,
@@ -404,13 +436,15 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                     dtype=I32)
         out = SparseTickEvents(joins, rm_total, sent_tick.sum(dtype=I32),
                                recv_tick.sum(dtype=I32))
+        if multi:
+            out = SparseTickEvents(*mesh.allreduce(torch.stack(out)))
         # End-of-tick crash/leave/restart transitions, after the agg fold.
         new_state = restart_wipe(state._replace(
             view=view, view_ts=view_ts,
             failed=failed_after(plan, t, state.failed, f), self_hb=self_hb,
             mail=mail, pending_recv=pending_recv, agg=agg,
             probe_ids1=probe_ids1, probe_ids2=probe_ids2,
-            act_prev=act_prev), f, t, n, p_cnt)
+            act_prev=act_prev), f, t, nr, p_cnt)
         if bx is not None:
             if f.up is not None:
                 # The restart wipe chases the deferred gossip.
@@ -423,7 +457,8 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                 cfg, state.agg, agg, out, dropped, act=act,
                 numfailed=numfailed, ack_recv_cnt=ack_recv_cnt,
                 sent_gossip=sent_gossip, difft=difft, present=present,
-                size=size, t=t, fail_time=plan.fail_time, pfo=pfo)
+                size=size, t=t, fail_time=plan.fail_time, pfo=pfo,
+                reduce=mesh.allreduce if multi else None)
         return new_state, (out, rec)
 
     step.batched_exchange = bx

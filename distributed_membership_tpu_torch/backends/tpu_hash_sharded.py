@@ -13,6 +13,16 @@ layout.  With ``MESH_SHAPE`` unset the mesh has one shard, which is what a
 user runs on one card; ``MESH_SHAPE: 8`` (or ``2x4``) runs the eight-shard
 program of the JAX package's eight-device mesh, bit for bit.
 
+In a run of K processes (runtime/distributed.py) the mesh is a
+:class:`~distributed_membership_tpu_torch.parallel.mesh.ProcessMesh`:
+each process holds ``D/K`` consecutive shards, the same flat layout over
+its rows ``[p*N/K, (p+1)*N/K)``, and draws only its shards' streams; the
+collectives below are ``torch.distributed`` calls, the plan's per-row
+masks are cut to the process's rows, and every boundary (each
+``CHECKPOINT_EVERY`` segment, the run's end) gathers the global carry,
+so every process writes the logs of the one-process run with the same
+``MESH_SHAPE``.
+
 Per tick of the ring exchange (``make_ring_sharded_step``), as in the JAX
 ring step:
 
@@ -26,8 +36,10 @@ ring step:
   layout those collectives are the identity, so it is the single-chip
   computation with the sharded step's replicated coin streams;
 * the ack candidates from one gathered probe table (``all_gather``);
-  ``PROBE_GATHER: split`` runs it too: the JAX split arm's three
-  gathers are the identity on the flat layout and give the same bits;
+  ``PROBE_GATHER: split`` runs it too on one process, where the JAX
+  split arm's three gathers are the identity and give the same bits,
+  and gathers the heartbeats, will-flush and act bits apart across
+  processes;
 * the receive pass -- K1 (ops/fused_receive.py) over all rows, with
   global row ids;
 * gossip as torus-product shifts ``u = b*L + c``: per shift the sender
@@ -101,7 +113,7 @@ from distributed_membership_tpu_torch.backends.tpu_sparse import (
 from distributed_membership_tpu_torch.config import Params
 from distributed_membership_tpu_torch.eventlog import EventLog
 from distributed_membership_tpu_torch.observability.aggregates import (
-    FastAgg, init_agg, init_fast_agg, merge_agg, update_agg,
+    AggStats, FastAgg, init_agg, init_fast_agg, merge_agg, update_agg,
     update_fast_agg)
 from distributed_membership_tpu_torch.observability.timeline import (
     PHASE_ACK, PHASE_AGG, PHASE_COLLECTIVE, PHASE_GOSSIP, PHASE_PROBE,
@@ -119,7 +131,10 @@ from distributed_membership_tpu_torch.ops.threefry import (
 from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, M32, STRIDE, as_u32, hash_slot, member_of, scatter_umax, to_bits)
 from distributed_membership_tpu_torch.parallel.mesh import (
-    LocalMesh, mesh_shape)
+    LocalMesh, ProcessMesh, gather_carry, local_plan, mesh_shape)
+from distributed_membership_tpu_torch.runtime.distributed import (
+    count_ticks, device_put_global, process_count, process_index,
+    transport_stats)
 from distributed_membership_tpu_torch.runtime.failures import (
     FailurePlan, PlanTensors, make_run_key, plan_tensors, resolve_plan)
 from distributed_membership_tpu_torch.scenario.compile import cross_group
@@ -127,9 +142,11 @@ from distributed_membership_tpu_torch.scenario.compile import cross_group
 
 class ShardedHashState(NamedTuple):
     """The JAX ``ShardedHashState`` leaves in their global shapes (the
-    shards' rows concatenated); u32 planes as int32 bits.  During a run in
-    agg mode ``agg`` holds per-shard FastAgg partials (``init_fast_agg(...,
-    shards=D)``); the finished run's is reduced (:func:`reduce_fast_agg`)."""
+    shards' rows concatenated; during a segment of a run of many
+    processes, this process's shards'); u32 planes as int32 bits.
+    During a run in agg mode ``agg`` holds per-shard FastAgg partials
+    (``init_fast_agg(..., shards=D)``); the finished run's is reduced
+    (:func:`reduce_fast_agg`)."""
     view: torch.Tensor          # [N, S]
     view_ts: torch.Tensor       # [N, S]
     started: torch.Tensor       # [N] bool
@@ -154,36 +171,39 @@ def init_local_state(cfg: HashConfig, mesh: LocalMesh) -> ShardedHashState:
     concatenated): the scatter exchange's ack and probe mailboxes are
     ``[N, S]`` and ``[N, Qp]``, the ring's gather pipeline replaces them
     with one-per-shard placeholders and keeps the probe pipeline."""
-    n, s, d = cfg.n, cfg.s, mesh.size
+    n, s, d = cfg.n, cfg.s, mesh.local_size
+    nr = mesh.local_rows(n)
     dev = mesh.device
     i32 = dict(dtype=I32, device=dev)
     b = dict(dtype=torch.bool, device=dev)
     ring = cfg.exchange == "ring"
-    probe_shape = (n, cfg.probes) if ring and cfg.probes > 0 else (d, 1)
+    probe_shape = (nr, cfg.probes) if ring and cfg.probes > 0 else (d, 1)
     return ShardedHashState(
-        view=torch.zeros((n, s), **i32),
-        view_ts=torch.zeros((n, s), **i32),
-        started=torch.zeros((n,), **b),
-        in_group=torch.zeros((n,), **b),
-        failed=torch.zeros((n,), **b),
-        self_hb=torch.zeros((n,), **i32),
-        mail=torch.zeros((n, s), **i32),
-        amail=torch.zeros((n, s) if not ring else (d, 1), **i32),
-        pmail=torch.zeros((n, cfg.qp) if not ring else (d, 1), **i32),
-        joinreq_infl=torch.zeros((n,), **b),
-        joinrep_infl=torch.zeros((n,), **b),
-        pending_recv=torch.zeros((n,), **i32),
-        # FastAgg: per-shard partials.  AggStats in agg mode: the global
-        # value (on the flat layout the sum, min/max and gathers of the
-        # JAX step's per-shard partials are one update over all rows).
-        # Full event mode carries one shard's never-updated placeholder.
-        agg=(init_fast_agg(len(cfg.fail_ids), n, dev, shards=d)
+        view=torch.zeros((nr, s), **i32),
+        view_ts=torch.zeros((nr, s), **i32),
+        started=torch.zeros((nr,), **b),
+        in_group=torch.zeros((nr,), **b),
+        failed=torch.zeros((nr,), **b),
+        self_hb=torch.zeros((nr,), **i32),
+        mail=torch.zeros((nr, s), **i32),
+        amail=torch.zeros((nr, s) if not ring else (d, 1), **i32),
+        pmail=torch.zeros((nr, cfg.qp) if not ring else (d, 1), **i32),
+        joinreq_infl=torch.zeros((nr,), **b),
+        joinrep_infl=torch.zeros((nr,), **b),
+        pending_recv=torch.zeros((nr,), **i32),
+        # FastAgg: per-shard partials.  AggStats in agg mode: this
+        # process's partial (on the flat layout the sum, min/max and
+        # gathers of the JAX step's per-shard partials are one update
+        # over the process's rows, reduced over the processes by
+        # reduce_agg_stats).  Full event mode carries one shard's
+        # never-updated placeholder.
+        agg=(init_fast_agg(len(cfg.fail_ids), nr, dev, shards=d)
              if cfg.fast_agg else
-             init_agg(n, dev) if not cfg.collect_events
+             init_agg(n, dev, rows=nr) if not cfg.collect_events
              else init_agg(n, dev, rows=mesh.rows_per_shard(n))),
         probe_ids1=torch.zeros(probe_shape, **i32),
         probe_ids2=torch.zeros(probe_shape, **i32),
-        act_prev=torch.zeros((n,) if ring else (d,), **b),
+        act_prev=torch.zeros((nr,) if ring else (d,), **b),
     )
 
 
@@ -192,15 +212,17 @@ def init_local_state_warm(cfg: HashConfig, mesh: LocalMesh,
     """Every node in the group at t=0 with itself and ~S/2 random
     neighbours (JAX ``init_local_state_warm``): shard ``d`` draws its rows'
     neighbour offsets from ``fold_in(key, d)``."""
-    n, d = cfg.n, mesh.size
+    n = cfg.n
     n_local = mesh.rows_per_shard(n)
     fill = max(cfg.s // 2, 1)
     st = init_local_state(cfg, mesh)
     offs = torch.cat([randint(fold_in(key, me), (n_local, fill), 1,
-                              max(n, 2), mesh.device) for me in range(d)])
-    ones = torch.ones((n,), dtype=torch.bool, device=mesh.device)
-    return st._replace(view=warm_view(cfg, st.view, offs), started=ones,
-                       in_group=ones.clone())
+                              max(n, 2), mesh.device) for me in mesh.shards])
+    ones = torch.ones((mesh.local_rows(n),), dtype=torch.bool,
+                      device=mesh.device)
+    return st._replace(view=warm_view(cfg, st.view, offs,
+                                      mesh.row_lo(n)),
+                       started=ones, in_group=ones.clone())
 
 
 def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
@@ -216,6 +238,9 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     intro = INTRODUCER_INDEX
     d = mesh.size
     n_local = mesh.rows_per_shard(n)
+    # This process's rows and shards (all of them on a LocalMesh).
+    nr, row0, dl = mesh.local_rows(n), mesh.row_lo(n), mesh.local_size
+    multi = mesh.procs > 1
     k_max = min(cfg.fanout, s)
     p_red = 1 if cfg.qp >= n else 2
     cstride = STRIDE % s
@@ -240,18 +265,22 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     bx = (BatchedExchange(mesh=mesh, n_local=n_local, s=s, cstride=cstride,
                           single_col_roll=single_col)
           if cfg.batched_exchange else None)
+    # PROBE_GATHER split's three gathers are the identity on one process,
+    # where the packed gather gives the same bits.
+    split_gathers = cfg.probe_gather_split and multi
 
     def total(x):
         return mesh.psum(mesh.shard_sums(x))
 
     def hist(tgt, valid, weight, shard):
-        """Per-shard ``[D, N]`` histograms of ``tgt`` over the global ids
-        (the JAX step's local ``.at[].add``), for ``psum_scatter``."""
-        idx = torch.where(valid, tgt, n) + shard[:, None] * (n + 1)
-        out = torch.zeros((d * (n + 1),), dtype=I32, device=tgt.device)
+        """Per-shard ``[D_local, N]`` histograms of ``tgt`` over the global
+        ids (the JAX step's local ``.at[].add``), for ``psum_scatter``."""
+        idx = torch.where(valid, tgt, n) + (shard - mesh.shard_lo)[
+            :, None] * (n + 1)
+        out = torch.zeros((dl * (n + 1),), dtype=I32, device=tgt.device)
         out.index_add_(0, idx.reshape(-1), torch.full(
             (idx.numel(),), weight, dtype=I32, device=tgt.device))
-        return out.view(d, n + 1)[:, :n]
+        return out.view(dl, n + 1)[:, :n]
 
     def step(state, t: int, key: Key, plan: PlanTensors):
         if t < 0:
@@ -261,8 +290,11 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             # read: the receive pass's mailbox and the pending receives.
             state = bx.flush(*state)
         dev = state.view.device
-        rows = torch.arange(n, dtype=I64, device=dev)   # global row ids
-        rng = sharded_ring_rng(key, range(d), device=dev, **rng_kw)
+        # This process's global row ids, and the plan's per-row masks
+        # cut to them (update_agg reads the fail mask by member id).
+        rows = torch.arange(nr, dtype=I64, device=dev) + row0
+        plan_g, plan = plan, local_plan(plan, mesh)
+        rng = sharded_ring_rng(key, mesh.shards, device=dev, **rng_kw)
         # The scenario's tensors are replicated on every shard: each
         # shard's rows read them elementwise, with no collective.
         f = tick_faults(plan, t, rows, n, p_drop)
@@ -273,10 +305,11 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
 
         # ---- join control plane (inert under warm join), self refresh
         # (cold joins run the legacy plan only: the gate above)
-        ctrl_drop = (rng.ctrl_u.reshape(2, n) < p_drop
+        ctrl_drop = (rng.ctrl_u.reshape(2, n)[:, row0:row0 + nr] < p_drop
                      if coins and cfg.cold_join else None)
         jp = join_plane(cfg, state, t, plan, rows,
-                        None if ctrl_drop is None else ~ctrl_drop, f.held)
+                        None if ctrl_drop is None else ~ctrl_drop, f.held,
+                        mesh=mesh)
         if dropped is not None and ctrl_drop is not None:
             dropped.append(count_ctrl_dropped(jp, plan, t, rows, ctrl_drop))
         recv_mask, act, recv_tick = jp.recv_mask, jp.act, jp.recv_tick
@@ -284,8 +317,8 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
 
         # ---- ack candidates (probes issued at t-2): one all_gather of
         # the packed probe table, one gather on [id2, tgt1] ----
-        cand_full = torch.zeros((n, s), dtype=I32, device=dev)
-        ack_recv_cnt = torch.zeros((n,), dtype=I32, device=dev)
+        cand_full = torch.zeros((nr, s), dtype=I32, device=dev)
+        ack_recv_cnt = torch.zeros((nr,), dtype=I32, device=dev)
         if p_cnt > 0:
             with record_function(PHASE_ACK):
                 ids2 = state.probe_ids2
@@ -295,8 +328,15 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 tgt1 = (ids1.to(I64) - 1).clamp_min(0)
                 vec = torch.where(state.act_prev, state.self_hb - 1, 0)
                 will_flush = will_flush_of(plan, t, recv_mask, f)
-                tbl_g = mesh.all_gather(_pack_probe_table(vec, will_flush,
-                                                          act))
+                if split_gathers:
+                    # The JAX split arm: the heartbeats, will-flush and
+                    # act bits in three gathers (the same packed bits).
+                    tbl_g = _pack_probe_table(mesh.all_gather(vec),
+                                              mesh.all_gather(will_flush),
+                                              mesh.all_gather(act))
+                else:
+                    tbl_g = mesh.all_gather(_pack_probe_table(
+                        vec, will_flush, act))
                 will_flush_g = _gathered_flush(tbl_g)
                 gcat = tbl_g[torch.cat([id2, tgt1], dim=1)]
                 hb_ack = _gathered_hb(gcat[:, :p_cnt])
@@ -307,7 +347,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                     valid2 &= ~cross_group(f.cuts_prev, id2, rows[:, None])
                 p_ack = f.prob(t - 1, id2, rows[:, None])
                 if not no_coin(p_ack):
-                    coin = coin_at(rng.ack_u.reshape(n, p_cnt), p_ack)
+                    coin = coin_at(rng.ack_u.reshape(nr, p_cnt), p_ack)
                     if dropped is not None:
                         dropped.append((valid2 & coin).sum(dtype=I32))
                     valid2 = valid2 & ~coin
@@ -324,9 +364,9 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
              size) = receive_fused(n, s, cfg.tfail, cfg.tremove, STRIDE, t,
                                    state.view, state.view_ts, state.mail,
                                    cand_full, recv_mask, act, jp.self_on,
-                                   jp.self_val)
+                                   jp.self_val, row0=row0)
         if cfg.cold_join:
-            mail = joinreq_to_intro(cfg, mail, jp.joiner_req, rows)
+            mail = joinreq_to_intro(cfg, mail, jp.joiner_req, mesh=mesh)
         present = view != 0
         cur_id = torch.where(present, member_of(view, n), EMPTY)
         difft = t - view_ts
@@ -347,11 +387,11 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 fresh_cnt > 1,
                 (g - 1) / (fresh_cnt - 1).clamp_min(1).to(torch.float32),
                 1.0)
-            keep = fresh & ((rng.thin_u.reshape(n, s) < p_keep[:, None])
+            keep = fresh & ((rng.thin_u.reshape(nr, s) < p_keep[:, None])
                             | (cur_id == rows[:, None]))
         keep = keep & act[:, None]
-        sent_gossip = torch.zeros((n,), dtype=I32, device=dev)
-        recv_add = torch.zeros((n,), dtype=I32, device=dev)
+        sent_gossip = torch.zeros((nr,), dtype=I32, device=dev)
+        recv_add = torch.zeros((nr,), dtype=I32, device=dev)
         xnew = None
         if k_max > 0:
             u = rng.shift_draw.to(I64)
@@ -359,16 +399,20 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             # Receiver slot = sender slot + delta * STRIDE with delta = b'L
             # + c, b' = b - D on shards me < b (block wrap), and c - L on
             # the rows l < c (row wrap): per shard and shift.
-            me = torch.arange(d, dtype=I64, device=dev)[:, None]
+            me = torch.arange(mesh.shard_lo, mesh.shard_lo + dl,
+                              dtype=I64, device=dev)[:, None]
             bp = torch.where(me < b, b - d, b)
             s1 = ((bp * n_local + c) % s * cstride % s).to(I32)
             s2 = ((bp * n_local + c - n_local) % s * cstride % s).to(I32)
+            # Across processes the hops need the shifts on the host: one
+            # read for the tick.
+            hops = mesh.hop_shifts(b) if d > 1 and bx is None else b
             with record_function(PHASE_GOSSIP):
                 if bx is None:
-                    payloads = torch.empty((k_max, n, s), dtype=I32,
+                    payloads = torch.empty((k_max, nr, s), dtype=I32,
                                            device=dev)
                 else:
-                    xnew = bx.zero(dev)
+                    xnew = bx.buckets(dev)
                 for j in range(k_max):
                     m = keep & (j < k_eff)[:, None]
                     # Shift u sends global row i to (i + u) mod n.
@@ -377,7 +421,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                         m &= ~cross_group(f.cuts, rows, dst)[:, None]
                     p_g = f.prob(t, rows, dst)
                     if not no_coin(p_g):
-                        coin = coin_at(rng.gossip_u[j].reshape(n, s), p_g)
+                        coin = coin_at(rng.gossip_u[j].reshape(nr, s), p_g)
                         if dropped is not None:
                             dropped.append((m & coin).sum(dtype=I32))
                         m &= ~coin
@@ -387,16 +431,20 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                         # Aligned on the sender, into its
                         # destination's bucket (no K4).
                         bx.add_shift(*xnew,
-                                     torch.mul(view, m).view(d, n_local, s),
-                                     cnt.view(d, n_local), b[j], c[j])
+                                     torch.mul(view, m).view(dl, n_local, s),
+                                     cnt.view(dl, n_local), b[j], c[j])
                         continue
                     torch.mul(view, m, out=payloads[j])  # where(m, view, 0)
                     with record_function(PHASE_COLLECTIVE):  # the block hop
                         if d > 1:
-                            payloads[j] = mesh.block_send(payloads[j], b[j])
+                            payloads[j] = mesh.block_send(payloads[j],
+                                                          hops[j])
                         recv_add += mesh.local_roll(
-                            mesh.block_send(cnt, b[j]), c[j])
-                if bx is None:
+                            mesh.block_send(cnt, hops[j]), c[j])
+                if bx is not None:
+                    with record_function(PHASE_COLLECTIVE):
+                        xnew = bx.ship(*xnew)
+                else:
                     mail = gossip_fused_stacked(n_local, s, k_max,
                                                 single_col, mail, payloads,
                                                 c.to(I32), s1, s2)
@@ -408,16 +456,21 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             cap = min(cfg.seed_cap, n)
             burst_drop = ((rng.burst_u.reshape(cap, s) < p_drop) if coins
                           else None)
+            fresh_intro = mesh.row_value(fresh, intro)
             mail, seed_idx, seed_valid, burst_valid = seed_burst(
-                cfg, mail, view, fresh[intro], jp.seeds, act[intro],
-                burst_drop)
-            if dropped is not None and coins:
-                dropped.append((seed_valid[:, None] & fresh[intro][None, :]
+                cfg, mail, view, fresh_intro, jp.seeds,
+                mesh.row_value(act, intro), burst_drop, mesh=mesh)
+            if dropped is not None and coins and row0 <= intro < row0 + nr:
+                # The replicated burst coins, counted by one process.
+                dropped.append((seed_valid[:, None] & fresh_intro[None, :]
                                 & burst_drop).sum(dtype=I32))
             sent_tick = sent_tick + torch.where(
                 (rows == intro) & act, burst_valid.sum(dtype=I32), 0)
-            recv_add.index_add_(0, seed_idx, burst_valid.sum(1, dtype=I32)
-                                * seed_valid.to(I32))
+            # Each process credits its own seeds' receives.
+            seed_row = seed_idx.to(I64) - row0
+            here = (seed_row >= 0) & (seed_row < nr)
+            recv_add.index_add_(0, seed_row.clamp(0, nr - 1), torch.where(
+                here, burst_valid.sum(1, dtype=I32) * seed_valid.to(I32), 0))
 
         # ---- SWIM round-robin probing (K3; row-local, global ids) ----
         probe_ids1, probe_ids2 = state.probe_ids1, state.probe_ids2
@@ -427,7 +480,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             with record_function(PHASE_PROBE):
                 pfo = probe_window_fused(
                     n, s, p_cnt, cfg.tfail, fail_ids, want_hist, want_agg,
-                    t, (t * p_cnt) % s, 0, view,
+                    t, (t * p_cnt) % s, row0, view,
                     view_ts if want_hist else None, act,
                     rm_ids if want_agg else None)
                 window_ids = pfo["ids"]
@@ -438,7 +491,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                                                      w_id)
                 p_pr = f.prob(t, rows[:, None], w_id)
                 if not no_coin(p_pr):
-                    coin = coin_at(rng.probe_u.reshape(n, p_cnt), p_pr)
+                    coin = coin_at(rng.probe_u.reshape(nr, p_cnt), p_pr)
                     if dropped is not None:
                         dropped.append((p_valid & coin).sum(dtype=I32))
                     p_valid = p_valid & ~coin
@@ -482,8 +535,9 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 agg = update_agg(
                     state.agg, t=t, join_ids=join_ids, rm_ids=rm_ids,
                     view_ids=cur_id, view_present=present,
-                    fail_mask=plan.fail_mask, fail_time=plan.fail_time,
-                    sent_tick=sent_tick, recv_tick=recv_tick)
+                    fail_mask=plan_g.fail_mask, fail_time=plan.fail_time,
+                    sent_tick=sent_tick, recv_tick=recv_tick,
+                    holder_failed=plan.fail_mask)
                 out = SparseTickEvents(total(join_ids != EMPTY),
                                        total(rm_ids != EMPTY),
                                        total(sent_tick), total(recv_tick))
@@ -501,7 +555,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                     join_events=join_mask,
                     rm_total_tick=mesh.shard_sums(rm_cnt),
                     det_tick=(None if det is None else det.view(
-                        len(fail_ids), d, n_local).sum(2, dtype=I32).t()),
+                        len(fail_ids), dl, n_local).sum(2, dtype=I32).t()),
                     any_true_rm=None if det is None else (det > 0).any(0),
                     view_ids=(cur_id if t == plan.fail_time and fail_ids
                               else None),
@@ -516,7 +570,7 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             failed_after(plan, t, state.failed, f), jp.self_hb, mail,
             state.amail, state.pmail, jp.joinreq_infl, jp.joinrep_infl,
             pending_recv, agg, probe_ids1, probe_ids2, act_prev),
-            f, t, n, p_cnt)
+            f, t, nr, p_cnt)
         if bx is not None:
             if xnew is None:                     # no gossip shift
                 xnew = bx.zero(dev)
@@ -525,15 +579,19 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 # chases the deferred gossip into the xbuf.
                 xnew = bx.wipe(*xnew, f.up)
             new_state = (new_state, xnew)
-        if not cfg.telemetry:
-            return new_state, out
-        with record_function(PHASE_TELEMETRY):
-            rec = tick_telemetry(
-                cfg, state.agg, agg, out, dropped, act=act,
-                numfailed=numfailed, ack_recv_cnt=ack_recv_cnt,
-                sent_gossip=sent_gossip, difft=difft, present=present,
-                size=size, t=t, fail_time=plan.fail_time, pfo=pfo)
-        return new_state, (out, rec)
+        rec = None
+        if cfg.telemetry:
+            with record_function(PHASE_TELEMETRY):
+                rec = tick_telemetry(
+                    cfg, state.agg, agg, out, dropped, act=act,
+                    numfailed=numfailed, ack_recv_cnt=ack_recv_cnt,
+                    sent_gossip=sent_gossip, difft=difft, present=present,
+                    size=size, t=t, fail_time=plan.fail_time, pfo=pfo,
+                    reduce=mesh.allreduce if multi else None)
+        if cfg.collect_events:
+            # Every process logs every row's events.
+            out = SparseTickEvents(*(mesh.all_gather(x) for x in out))
+        return new_state, out if rec is None else (out, rec)
 
     step.batched_exchange = bx
     return step
@@ -594,6 +652,9 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     intro = INTRODUCER_INDEX
     d = mesh.size
     n_local = mesh.rows_per_shard(n)
+    # This process's rows and shards (all of them on a LocalMesh).
+    nr, row0, dl = mesh.local_rows(n), mesh.row_lo(n), mesh.local_size
+    multi = mesh.procs > 1
     k_max = min(cfg.fanout, s)
     g_eff = s if g >= s else g
     cap = bucket_capacity(cfg, n_local, d)
@@ -601,6 +662,7 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     p_copies = 1 if qp >= n else 2
     p_drop = float(np.float32(cfg.drop_prob))
     intro_shard = intro // n_local
+    intro_here = intro_shard in mesh.shards
     # Each shard's message list, piece by piece (the JAX emit order):
     # (channel, per-row width or None for the burst's [cap, S] block),
     # and its length (the JAX list's, invalid messages included).
@@ -622,16 +684,21 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         if t < 0:
             raise ValueError("ticks start at 0")
         dev = state.view.device
-        rows = torch.arange(n, dtype=I64, device=dev)
-        keys_l = [split(fold_in(key, me), 4) for me in range(d)]
+        # This process's global row ids, and the plan's per-row masks cut
+        # to them (update_agg reads the fail mask by member id).
+        rows = torch.arange(nr, dtype=I64, device=dev) + row0
+        plan_g, plan = plan, local_plan(plan, mesh)
+        keys_l = [split(fold_in(key, me), 4) for me in mesh.shards]
         k_ctrl = split(key, 1)[0]                  # replicated
         coins = cfg.drop_prob > 0.0 and plan.drop_active(t)
         st = plan.start_ticks
+        st_intro = plan_g.start_ticks[intro]
         self_slot = slot_of(cfg, rows, rows)
         self_mask = (torch.arange(s, device=dev)[None, :]
                      == self_slot[:, None])
-        ctrl_kept = (~(uniform(k_ctrl, (2, n), dev) < p_drop) if coins
-                     else torch.ones((2, n), dtype=torch.bool, device=dev))
+        ctrl_kept = (~(uniform(k_ctrl, (2, n), dev) < p_drop)[
+            :, row0:row0 + nr] if coins
+            else torch.ones((2, nr), dtype=torch.bool, device=dev))
 
         with record_function(PHASE_RECEIVE):
             # ---- receive: acks, then gossip, by sticky admission ----
@@ -656,21 +723,24 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             in_group = state.in_group | (state.joinrep_infl & recv_mask)
             joinrep_infl = state.joinrep_infl & ~recv_mask
 
-            # ---- join handshake (its all_gathers: the identity here) ----
-            intro_recv = (state.started[intro] & (t > st[intro])
-                          & ~state.failed[intro])
+            # ---- join handshake (the introducer's row read from its
+            # process, the seeds gathered: the identity on one process) ----
+            intro_recv = (mesh.row_value(state.started & ~state.failed, intro)
+                          & (t > st_intro))
             seeds = state.joinreq_infl & intro_recv
+            seeds_g = mesh.all_gather(seeds)
             joinreq_infl = state.joinreq_infl & ~intro_recv
             rep_ok = seeds & ctrl_kept[1]
             joinrep_infl = joinrep_infl | rep_ok
-            n_seeds = seeds.sum(dtype=I32)
+            n_seeds = seeds_g.sum(dtype=I32)
             is_intro_row = rows == intro
+            n_rep = rep_ok.sum(dtype=I32)
             sent_rep = torch.where(is_intro_row & intro_recv,
-                                   rep_ok.sum(dtype=I32), 0)
+                                   mesh.allreduce(n_rep), 0)
             pending_recv = pending_recv + rep_ok.to(I32)
             start_now = st == t
             started = state.started | start_now
-            boot = st[intro] == t
+            boot = st_intro == t
             in_group = in_group | (is_intro_row & boot)
             joiner_req = start_now & ~is_intro_row & ctrl_kept[0]
             joinreq_infl = joinreq_infl | joiner_req
@@ -682,10 +752,11 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             self_hb = torch.where(act, state.self_hb + 2, state.self_hb)
             self_on = act | (is_intro_row & boot)
             self_val = pack_u(cfg, torch.where(act, own_hb, 0), rows)
-            view[rows, self_slot] = torch.where(self_on, self_val,
-                                                view[rows, self_slot])
-            view_ts[rows, self_slot] = torch.where(self_on, t,
-                                                   view_ts[rows, self_slot])
+            loc = rows - row0
+            view[loc, self_slot] = torch.where(self_on, self_val,
+                                               view[loc, self_slot])
+            view_ts[loc, self_slot] = torch.where(self_on, t,
+                                                  view_ts[loc, self_slot])
             present = view > 0
             cur_id = torch.where(present, ((view - 1) & M32) % n, EMPTY)
             cur_hb = torch.where(present, ((view - 1) & M32) // n, -1)
@@ -704,10 +775,10 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             fresh = present & (difft < cfg.tfail)
             is_self_slot = cur_id == rows[:, None]
             eligible = fresh & ~is_self_slot & act[:, None]
-            in_seed = seeds[cur_id.clamp_min(0)] & present
+            in_seed = seeds_g[cur_id.clamp_min(0)] & present
             eligible = torch.where(is_intro_row[:, None], eligible & ~in_seed,
                                    eligible)
-            intro_act = act[intro]
+            intro_act = mesh.row_value(act, intro)
             n_seeds_row = torch.where(is_intro_row & act, n_seeds, 0)
             k_extra = (numpotential.clamp(max=cfg.fanout)
                        - n_seeds_row).clamp_min(0)
@@ -733,26 +804,30 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                     [k[0] for k in kd], (n_local, k_max, g_eff), dev) < p_drop)
 
             # ---- the introducer's burst (its shard's rows only) ----
-            seed_idx = torch.sort(seeds.to(I32), descending=True,
+            seed_idx = torch.sort(seeds_g.to(I32), descending=True,
                                   stable=True).indices[:seed_rows]
-            burst_valid = ((seeds[seed_idx] & intro_act)[:, None]
-                           & fresh[intro][None, :])
+            burst_valid = ((seeds_g[seed_idx] & intro_act)[:, None]
+                           & mesh.row_value(fresh, intro)[None, :])
             if coins:
+                k_burst = split(split(fold_in(key, intro_shard), 4)[2])[1]
                 burst_valid = burst_valid & ~(uniform(
-                    kd[intro_shard][1], (seed_rows, s), dev) < p_drop)
+                    k_burst, (seed_rows, s), dev) < p_drop)
 
         with record_function(PHASE_PROBE):
             # ---- probes and acks ----
             # Each piece of a shard's list: (valid, target of, entry of), the
             # last two on flat indices into ``valid``.
             gval = pack_u(cfg, e_hbs, e_ids)                       # [N, G']
-            bval = pack_u(cfg, cur_hb[intro], cur_id[intro])       # [S]
+            li = intro - row0 if intro_here else 0   # not sent elsewhere
+            bval = pack_u(cfg, cur_hb[li], cur_id[li])             # [S]
             parts = [
                 (msg_valid, lambda i: tgt.reshape(-1)[i // g_eff],
                  lambda i: gval[i // (k_max * g_eff), i % g_eff]),
                 (joiner_req, lambda i: torch.full_like(i, intro),
-                 lambda i: pack_u(cfg, 0 * i, i)),
-                (burst_valid, lambda i: seed_idx[i // s],
+                 lambda i: pack_u(cfg, 0 * i, i + row0)),
+                # Only the introducer's process sends its burst.
+                (burst_valid if intro_here else torch.zeros_like(
+                    burst_valid), lambda i: seed_idx[i // s],
                  lambda i: bval[i % s])]
             sent_probe_ack = torch.zeros_like(sent_req)
             if p_cnt > 0:
@@ -777,6 +852,9 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         with record_function(PHASE_COLLECTIVE):
             # ---- bucket by destination shard, ship, deliver ----
             recv_a, recv_b, sent, truncated = bucket_and_ship(parts, dev)
+            if multi:
+                sent, truncated = mesh.allreduce(torch.tensor(
+                    [sent, truncated], dtype=I64)).tolist()
             stats["ticks"] += 1
             stats["sent"] += sent
             stats["truncated"] += truncated
@@ -788,7 +866,8 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
             r_id = ((val - 1) & M32) % n
             # Each mailbox takes its channels' messages only: a sink
             # address would draw every other message's atomic max.
-            addr = r_tgt * s + slot_of(cfg, r_tgt, r_id)
+            r_row = r_tgt - row0
+            addr = r_row * s + slot_of(cfg, r_tgt, r_id)
             ack = r_chan == CH_ACK
             mail = scatter_umax(mail, addr[~ack], val[~ack])
             amail = scatter_umax(amail, addr[ack], val[ack])
@@ -797,10 +876,10 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 sel = r_chan == ch
                 pid = r_id[sel]
                 pmail = scatter_umax(
-                    pmail, r_tgt[sel] * qp + hash_slot(pid, t + salt, qp, n),
+                    pmail, r_row[sel] * qp + hash_slot(pid, t + salt, qp, n),
                     pid + 1)
             pending_recv = pending_recv + torch.bincount(
-                r_tgt, minlength=n).to(I32)
+                r_row, minlength=nr).to(I32)
 
         sent_tick = (msg_valid.sum((1, 2), dtype=I32) + sent_req + sent_rep
                      + sent_probe_ack + torch.where(
@@ -816,10 +895,16 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
                 agg = update_agg(
                     agg, t=t, join_ids=join_ids, rm_ids=rm_ids,
                     view_ids=cur_id, view_present=present,
-                    fail_mask=plan.fail_mask, fail_time=plan.fail_time,
-                    sent_tick=sent_tick, recv_tick=recv_tick)
+                    fail_mask=plan_g.fail_mask, fail_time=plan.fail_time,
+                    sent_tick=sent_tick, recv_tick=recv_tick,
+                    holder_failed=plan.fail_mask)
             out = SparseTickEvents(*(x.sum(dtype=I32) for x in (
                 join_ids != EMPTY, rm_ids != EMPTY, sent_tick, recv_tick)))
+            if multi:
+                out = SparseTickEvents(*mesh.allreduce(torch.stack(out)))
+        else:
+            # Every process logs every row's events.
+            out = SparseTickEvents(*(mesh.all_gather(x) for x in out))
         new_state = ShardedHashState(
             to_bits(view), view_ts, started, in_group, failed, self_hb,
             mail, amail, pmail, joinreq_infl, joinrep_infl, pending_recv,
@@ -839,8 +924,9 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         keys, avals, bvals = [], [], []
         for (chan, width), (ok_p, tgt_of, val_of) in zip(pieces, parts):
             flat = ok_p.reshape(-1).nonzero().squeeze(1)
-            shard = (torch.full_like(flat, intro_shard) if width is None
-                     else flat // (n_local * width))
+            # This process's source shards, from 0.
+            shard = (torch.full_like(flat, intro_shard - mesh.shard_lo)
+                     if width is None else flat // (n_local * width))
             tg = tgt_of(flat)
             keys.append(((shard * d + tg // n_local) * N_CH + chan).to(I32))
             avals.append(to_bits(tg * 8 + chan))
@@ -848,19 +934,23 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
         key_s, order = torch.sort(torch.cat(keys), stable=True)
         group = key_s // N_CH                      # src * D + dst
         del key_s
-        counts = torch.bincount(group, minlength=d * d)
+        counts = torch.bincount(group, minlength=dl * d)
         first = torch.cumsum(counts, 0) - counts
         rank = torch.arange(group.numel(), device=dev) - first[group]
         keep = rank < cap
         slot = (group * cap + rank)[keep]
         order = order[keep]
-        send_a = torch.full((d * d * cap,), EMPTY_SLOT, dtype=I32,
+        send_a = torch.full((dl * d * cap,), EMPTY_SLOT, dtype=I32,
                             device=dev)
-        send_b = torch.zeros((d * d * cap,), dtype=I32, device=dev)
+        send_b = torch.zeros((dl * d * cap,), dtype=I32, device=dev)
         send_a[slot] = torch.cat(avals)[order]
         send_b[slot] = torch.cat(bvals)[order]
         sent = int(group.numel())
         truncated = sent - int(slot.numel())
+        if multi:
+            # One all_to_all: the two planes side by side.
+            both = mesh.all_to_all(torch.stack([send_a, send_b], 1))
+            return both[:, 0], both[:, 1], sent, truncated
         return (mesh.all_to_all(send_a), mesh.all_to_all(send_b), sent,
                 truncated)
 
@@ -871,18 +961,33 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
 
 def reduce_fast_agg(agg: FastAgg, mesh: LocalMesh) -> FastAgg:
     """Reduce per-shard FastAgg partials to the global value: sums of the
-    counts and histogram, gathers of the per-row fields."""
-    return FastAgg(
+    counts and histogram over every shard.  The per-row fields stay
+    this process's rows (:func:`~distributed_membership_tpu_torch.
+    parallel.mesh.gather_carry` gathers them with the state's)."""
+    return agg._replace(
         det_count=mesh.psum(agg.det_count),
         trackers=mesh.psum(agg.trackers),
-        tracker_obs=mesh.all_gather(agg.tracker_obs),
-        det_obs=mesh.all_gather(agg.det_obs),
         lat_hist=mesh.psum(agg.lat_hist),
         join_total=mesh.psum(agg.join_total),
-        rm_total=mesh.psum(agg.rm_total),
-        sent_total=mesh.all_gather(agg.sent_total),
-        recv_total=mesh.all_gather(agg.recv_total),
-    )
+        rm_total=mesh.psum(agg.rm_total))
+
+
+def reduce_agg_stats(agg: AggStats, mesh: LocalMesh) -> AggStats:
+    """This process's AggStats partial (its rows' events counted by member
+    id) reduced over the processes: the counts and histogram summed, the
+    first and last removal ticks as min and max (their init values are
+    the identities).  The per-row fields stay this process's rows.  The
+    identity on a LocalMesh, whose one update covers every row."""
+    if mesh.procs == 1:
+        return agg
+    counts = ("rm_count", "det_count", "join_count", "trackers",
+              "lat_hist")
+    flat = mesh.allreduce(torch.cat([getattr(agg, f) for f in counts]))
+    summed = dict(zip(counts, flat.split([getattr(agg, f).numel()
+                                          for f in counts])))
+    return agg._replace(rm_first=mesh.allreduce(agg.rm_first, "min"),
+                        rm_last=mesh.allreduce(agg.rm_last, "max"),
+                        **summed)
 
 
 def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
@@ -900,6 +1005,8 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
     layout.  The scatter exchange takes no kernel."""
     cfg = make_config(params, collect_events, fail_ids=fail_ids,
                       device=device, scenario=scenario)
+    cfg = dataclasses.replace(
+        cfg, probe_gather_split=params.PROBE_GATHER == "split")
     if cfg.probe_io_lag:
         raise ValueError(
             "PROBE_IO approx_lag is single-chip tpu_hash only (the "
@@ -950,8 +1057,9 @@ def expand_fast_agg(agg: FastAgg, mesh: LocalMesh) -> FastAgg:
     zeros.  Every field is a sum or an or over the shards, so reducing
     the result gives the global value back."""
     def lead(x):
-        out = x.new_zeros((mesh.size,) + tuple(x.shape))
-        out[0] = x
+        out = x.new_zeros((mesh.local_size,) + tuple(x.shape))
+        if mesh.shard_lo == 0:
+            out[0] = x
         return out
 
     return agg._replace(det_count=lead(agg.det_count),
@@ -974,15 +1082,27 @@ class ShardedSegmentRunner(NamedTuple):
     collect_events: bool
 
     def reduced(self, state):
-        """The carry with a FastAgg reduced to its global form (an
-        AggStats is updated over every row at once, so the JAX
-        ``reduce_agg`` has nothing left to do)."""
-        if self.collect_events or not self.cfg.fast_agg:
+        """The carry with its aggregate reduced to the global form: a
+        FastAgg's per-shard partials summed, an AggStats's per-process
+        partials reduced over the processes (on one process its update
+        covers every row at once, so the JAX ``reduce_agg`` has nothing
+        left to do)."""
+        if self.collect_events:
             return state
+        if not self.cfg.fast_agg:
+            return state._replace(agg=reduce_agg_stats(state.agg,
+                                                       self.mesh))
         return state._replace(agg=reduce_fast_agg(state.agg, self.mesh))
 
+    def global_carry(self, state):
+        """The reduced carry's process-sharded leaves gathered to their
+        global values (runtime/distributed.py: every process holds the
+        same whole carry at a boundary); the identity on a LocalMesh."""
+        return gather_carry(self.reduced(state), self.mesh,
+                            self.collect_events)
+
     def init_carry(self):
-        return self.reduced(self.init())
+        return self.global_carry(self.init())
 
     def ticks(self, state, a: int, b: int):
         """``run_segment`` of ticks ``[a, b)``.  Under ``EXCHANGE_MODE:
@@ -994,27 +1114,40 @@ class ShardedSegmentRunner(NamedTuple):
         bx = self.step.batched_exchange
         if bx is not None:
             state = (state, bx.zero(self.mesh.device))
+        before, t0 = transport_stats(), _time.perf_counter()
         state, events, series = run_segment(self.step, state, self.plan_t,
                                             a, b, self.cfg)
+        after = transport_stats()
+        count_ticks(b - a, _time.perf_counter() - t0,
+                    after["bytes"] - before["bytes"],
+                    after["comm_s"] - before["comm_s"])
         if bx is not None:
             state = bx.flush(*state)
         return state, events, series
 
     def segment(self, state, a: int, b: int):
         """``chunked_run``'s ``segment_fn``: ticks ``[a, b)`` from a
-        carry that holds the reduced global aggregates, as the JAX
-        chunked carry does: a FastAgg is expanded to shard partials
+        global carry that holds the reduced aggregates, as the JAX
+        chunked carry does: cut to this process's rows
+        (:func:`~distributed_membership_tpu_torch.runtime.distributed.
+        device_put_global`), a FastAgg expanded to shard partials
         (:func:`expand_fast_agg`) and reduced at the end, an AggStats
-        starts from zero and is merged into the carried one."""
-        cfg, carried = self.cfg, state.agg
+        started from zero and merged into the carried one, and the
+        result gathered back to the global carry."""
+        cfg, mesh = self.cfg, self.mesh
+        state = device_put_global(state, mesh, self.collect_events)
+        carried = state.agg
         if cfg.fast_agg and not self.collect_events:
-            state = state._replace(agg=expand_fast_agg(carried, self.mesh))
+            state = state._replace(agg=expand_fast_agg(carried, mesh))
         elif not self.collect_events:
-            state = state._replace(agg=init_agg(cfg.n, self.mesh.device))
+            state = state._replace(agg=init_agg(
+                cfg.n, mesh.device, rows=mesh.local_rows(cfg.n)))
         state, events, series = self.ticks(state, a, b)
         if not (cfg.fast_agg or self.collect_events):
-            state = state._replace(agg=merge_agg(carried, state.agg))
-        return self.reduced(state), events, series
+            state = state._replace(agg=merge_agg(
+                carried, reduce_agg_stats(state.agg, mesh)))
+            return gather_carry(state, mesh), events, series
+        return self.global_carry(state), events, series
 
 
 def sharded_segment_runner(params: Params, plan: FailurePlan, seed: int,
@@ -1074,15 +1207,22 @@ def run_scan_sharded(params: Params, plan: FailurePlan, seed: int,
         state, events, series = runner.ticks(runner.init(), 0, total)
         if series is not None and telemetry is not None:
             telemetry.flush(series, 0)
-        out = runner.reduced(state), events
+        out = runner.global_carry(state), events
     if buckets is not None:
         buckets.update(getattr(runner.step, "stats", {}))
     return out
 
 
 def resolve_mesh(params: Params, device) -> LocalMesh:
-    """The run's mesh: ``MESH_SHAPE`` when set, else one shard."""
-    return LocalMesh(mesh_shape(params), device)
+    """The run's mesh: ``MESH_SHAPE`` when set, else one shard per
+    process.  In a run of K processes (runtime/distributed.py) it is a
+    ProcessMesh over all of them, as the JAX mesh spans every global
+    device: with ``MESH_SHAPE`` unset, K shards."""
+    procs = process_count()
+    if procs == 1:
+        return LocalMesh(mesh_shape(params), device)
+    shape = mesh_shape(params) if params.MESH_SHAPE else (procs,)
+    return ProcessMesh(shape, device, process_index(), procs)
 
 
 def bind_run_scan(mesh: LocalMesh, buckets: Optional[dict] = None):

@@ -194,6 +194,15 @@ def run_tpu_sharded(params: Params, log: Optional[EventLog] = None,
     t0 = _time.time()
     seed = params.SEED if seed is None else seed
     log = log if log is not None else EventLog()
+    from distributed_membership_tpu_torch.runtime.distributed import (
+        process_count)
+    if process_count() > 1:
+        # The JAX run's mesh would span the processes, and it reads the
+        # mesh's outputs on the host, which no process can do whole.
+        raise ValueError(
+            "tpu_sharded runs in one process: its dense sharded step has "
+            "no multi-process path in either package (unset DM_DIST_PROCS, "
+            "or run tpu_hash_sharded across processes)")
     plan = resolve_plan(params, _pyrandom.Random(f"app:{seed}"))
     if mesh is None:
         mesh = LocalMesh((1,), device)

@@ -133,15 +133,12 @@ def drops_hist(dropped, nbins: int = HIST_BUCKETS["h_drops"]):
     return (torch.arange(nbins, device=dropped.device) == idx).to(I32)
 
 
-def build_tick_hist(*, difft, present, size, act, t: int, fail_time: int,
-                    tfail: int, det_tick, dropped, stale=None,
-                    susp=None) -> TickHist:
-    """The TickHist of every ring step: ``difft``/``present`` the
-    post-receive staleness planes (natural or folded; all shards of a
-    mesh), ``size``/``act`` the per-node occupancy and liveness,
-    ``det_tick`` and ``dropped`` the tick's (global) detection and drop
-    counts.  ``stale``/``susp`` are the ``[8]`` bucket counts the probe
-    kernels emit as partials, which stand in for the two plane passes."""
+def row_hists(*, difft, present, size, act, tfail: int, stale=None,
+              susp=None) -> tuple:
+    """The row-summed histograms of a tick, ``(h_staleness, h_suspicion,
+    h_occupancy)``: sums over rows, so a mesh's processes add theirs.
+    ``stale``/``susp`` are the ``[8]`` bucket counts the probe kernels
+    emit as partials, which stand in for the two plane passes."""
     if stale is None:
         stale = hist_bucket_counts(difft, present,
                                    HIST_BUCKETS["h_staleness"],
@@ -150,11 +147,27 @@ def build_tick_hist(*, difft, present, size, act, t: int, fail_time: int,
         susp = hist_bucket_counts(difft - tfail, present & (difft >= tfail),
                                   HIST_BUCKETS["h_suspicion"],
                                   STALENESS_BUCKET_TICKS)
+    return stale, susp, hist_bucket_counts(size, act,
+                                           HIST_BUCKETS["h_occupancy"], 1)
+
+
+def build_tick_hist(*, difft, present, size, act, t: int, fail_time: int,
+                    tfail: int, det_tick, dropped, stale=None,
+                    susp=None, occupancy=None) -> TickHist:
+    """The TickHist of every ring step: ``difft``/``present`` the
+    post-receive staleness planes (natural or folded; all shards of a
+    mesh), ``size``/``act`` the per-node occupancy and liveness,
+    ``det_tick`` and ``dropped`` the tick's (global) detection and drop
+    counts; ``stale``/``susp``/``occupancy`` the row histograms where
+    the caller has them (:func:`row_hists`)."""
+    if occupancy is None:
+        stale, susp, occupancy = row_hists(
+            difft=difft, present=present, size=size, act=act, tfail=tfail,
+            stale=stale, susp=susp)
     return TickHist(
         h_staleness=stale, h_suspicion=susp,
         h_latency=scalar_one_hot(t - fail_time, LATENCY_BUCKETS, det_tick),
-        h_occupancy=hist_bucket_counts(size, act,
-                                       HIST_BUCKETS["h_occupancy"], 1),
+        h_occupancy=occupancy,
         h_drops=drops_hist(dropped))
 
 

@@ -17,6 +17,15 @@ become worker subprocesses on ``--device``.  ``--mesh-shape`` overrides
 ``MESH_SHAPE``, the way a checkpoint resharded by elastic/reshard.py
 resumes on its new shape.
 
+Under ``DM_DIST_PROCS = K > 1`` (set by ``python -m
+distributed_membership_tpu_torch.multiproc_launch``) the process first
+joins the run's process group (runtime/distributed.py
+``maybe_initialize``, before its first CUDA call), and a
+``tpu_hash_sharded`` run spreads its shards over the K processes, each
+writing the same complete logs.  The one-process backends run whole in
+every process, as the JAX package's do; ``tpu_sharded`` and ``--serve``
+refuse such a run, and ``--fleet`` never joins it.
+
 ``--grade-all`` runs the reference's three grading scenarios
 (``testcases/``) and prints the /90 total, as Grader_verbose.sh does;
 ``--grade SCENARIO`` grades one run.  The testcases name no backend, so
@@ -295,6 +304,27 @@ def main(argv=None) -> int:
             fleet_conf)
         return fleet_conf(args.conf, port=args.port,
                           out_dir=args.out_dir or ".", device=args.device)
+    from distributed_membership_tpu_torch.runtime import distributed
+    if args.serve and distributed.env_procs() > 1:
+        ap.error(f"--serve runs one process: the daemon publishes its own "
+                 f"carry's snapshots and takes its own injections "
+                 f"(unset {distributed.PROCS_ENV})")
+    # Join the run's process group before the first CUDA call (a no-op
+    # unless DM_DIST_PROCS > 1).
+    distributed.maybe_initialize(args.device)
+    try:
+        rc = _run_main(args)
+    except BaseException:
+        # The other processes may wait in a collective: leave without
+        # the closing barrier.
+        distributed.shutdown(barrier=False)
+        raise
+    distributed.shutdown()
+    return rc
+
+
+def _run_main(args) -> int:
+    """``main`` past its argument checks and the process group's init."""
     if args.serve:
         from distributed_membership_tpu_torch.service.daemon import (
             serve_conf)

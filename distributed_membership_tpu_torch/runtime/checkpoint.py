@@ -8,9 +8,13 @@ written by one background thread as ``ckpt_<tick>.npz`` (atomic
 write-rename), then ``MANIFEST.json`` names it, with the run's identity
 ``(params_text, seed, backend, total_time, collect_events,
 process_count)``, the scenario file's digest and the carry's
-``state_hash``.  The per-tick keys are ``fold_in(seed key, t)``, so only
-the tick is persisted.  ``RESUME: 1`` checks the manifest against the
-run and continues from its tick, bit for bit.
+``state_hash``.  A run of K processes (runtime/distributed.py) hands
+:func:`chunked_run` the global carry at every boundary, so each process
+writes the whole carry into its own ``CHECKPOINT_DIR`` and resumes
+from it; the manifests differ from a one-process run's in
+``process_count`` only.  The per-tick keys are ``fold_in(seed key,
+t)``, so only the tick is persisted.  ``RESUME: 1`` checks the manifest
+against the run and continues from its tick, bit for bit.
 
 The files are the JAX package's, member for member: ``c0..cK`` are the
 carry's leaves in the JAX flatten order (convert.py, u32 planes as
@@ -54,6 +58,8 @@ from distributed_membership_tpu_torch.convert import (
     carry_from_leaves, carry_leaves, host_leaf, leaf_specs)
 from distributed_membership_tpu_torch.observability.runlog import (
     maybe_runlog)
+from distributed_membership_tpu_torch.runtime.distributed import (
+    process_count)
 from distributed_membership_tpu_torch.ops.megakernel import named_leaves
 
 CKPT_VERSION = 1
@@ -172,8 +178,9 @@ def _manifest_base(params: Params, seed: int, total: int,
         "backend": params.BACKEND,
         "total_time": int(total),
         "collect_events": bool(collect_events),
-        # One process holds the whole carry (more is Queue 1 item 6c).
-        "process_count": 1,
+        # Each of the run's processes writes its own directory with the
+        # whole (global) carry, so any one of them resumes the run.
+        "process_count": process_count(),
     }
     if params.SCENARIO:
         # The file's content, not only its path: an edited schedule must

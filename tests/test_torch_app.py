@@ -133,7 +133,10 @@ def test_port_imports_no_jax():
             PKG / "backends" / "tpu.py", PKG / "backends" / "tpu_sharded.py",
             PKG / "backends" / "tpu_sparse.py", PKG / "ops" / "merge.py",
             PKG / "ops" / "view_merge.py",
-            PKG / "parallel" / "collectives.py"} <= set(_port_sources())
+            PKG / "parallel" / "collectives.py",
+            PKG / "runtime" / "distributed.py",
+            PKG / "observability" / "merge.py",
+            PKG / "multiproc_launch.py"} <= set(_port_sources())
     # The native engine's loader builds the port's own copy of the
     # source; no port file names the JAX package's native directory.
     assert (PKG / "native" / "emul_engine.cpp").exists()

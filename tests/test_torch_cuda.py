@@ -1519,3 +1519,42 @@ def test_host_backends_under_device_cuda(cuda, backend, tmp_path):
         run_conf(conf, out_dir=str(tmp_path / dev), device=dev,
                  backend=backend)
     _same_logs(tmp_path / "cuda", tmp_path / "cpu")
+
+
+@pytest.mark.cuda
+def test_process_mesh_collectives_on_card(cuda):
+    """Two ranks on the card (gloo over CUDA tensors, staged through the
+    host: NCCL takes one rank per card): every collective of the
+    process mesh equals LocalMesh's on the same global tensors
+    (tests/test_torch_multiproc.py's check, on CUDA tensors)."""
+    from test_torch_multiproc import _free_port, _mesh_worker
+    torch.multiprocessing.spawn(_mesh_worker,
+                                args=(2, _free_port(), "cuda"), nprocs=2)
+
+
+@pytest.mark.cuda
+def test_multiproc_run_on_card_matches_cpu(cuda, tmp_path):
+    """N=256 on eight shards over two processes through the launcher:
+    on the card (K1, K4, K3 per process) and on the CPU, both ranks
+    write the same three logs, equal to the one-process card run's."""
+    import subprocess
+    import sys
+    from distributed_membership_tpu_torch.runtime.application import (
+        run_conf)
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    conf = (repo / "distributed_membership_tpu_torch" / "confs"
+            / "ring_256_s128_sharded8_drop.conf")
+    run_conf(str(conf), out_dir=str(tmp_path / "one"), device="cuda")
+    for device in ("cuda", "cpu"):
+        r = subprocess.run(
+            [sys.executable, "-m",
+             "distributed_membership_tpu_torch.multiproc_launch", str(conf),
+             "--procs", "2", "--device", device, "--out-root",
+             str(tmp_path / device), "--timeout", "300"], cwd=repo,
+            capture_output=True, text=True, timeout=360)
+        assert r.returncode == 0, (r.stdout, r.stderr)
+        for i in range(2):
+            for name in ("dbg.log", "stats.log", "msgcount.log"):
+                assert (tmp_path / device / f"p{i}" / name).read_bytes() \
+                    == (tmp_path / "one" / name).read_bytes(), (device, i,
+                                                                name)
