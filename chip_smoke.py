@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the final line):
                 card (bit-exact: integer outputs, tolerance 0), and time
                 kernel, plain version and the device-memory bound: K1-K3
                 at N=2^20, S=128, P=16, k_max=3; K5-K7 on the folded
-                layout at N=2^20, S=16, P=2, k_max=3;
+                layout at N=2^20, S=16, P=2, k_max=3, and at the scale
+                smoke's S=64, P=8 (phase scale);
   3. main    -- run_conf on confs/ring_1m_s128.conf (the bench.py hash
                 geometry at N=2^20, drop-free, EVENT_MODE agg; 72 ticks
                 with the crash at 24, as DEPTH_CUTS cuts the natural 1M
@@ -303,6 +304,24 @@ Phases (any failure exits non-zero before the final line):
                 killed at 60 and resumed on the card: logs equal the
                 uninterrupted run's.  None of the three launches a kernel
                 (the JAX backends reach no Pallas kernel).
+ 49. scale   -- the port's scale smoke (python -m
+                distributed_membership_tpu_torch.scale_smoke) at its
+                defaults, N=2^20: S=64, G=16, P=8, warm join, agg, one
+                crash at tick 24 of 120 (the tool's own sizing): the
+                folded layout, K5, K6 and K7 once per tick and no other
+                kernel, verdict_ok; ms/tick, node-ticks/s and peak memory;
+                the same with --backend tpu_hash_sharded --mesh 8 (K6's
+                eight-shard launch at S=64); then N=2^14 on the card and
+                on the CPU: the records equal in every field but timing
+                and the card's;
+                package_results --backend tpu_hash (90/90, the scatter
+                step, no kernel); and perf_ledger ingesting the phase's
+                records, --check exit 0.  `--only scale_extra` (opt-in)
+                runs the tool's variants at N=2^20: --view 128 (K1-K3),
+                --drop 0.05 (the loss floor's TREMOVE, 200 ticks),
+                --rack-size 256 --rack-failures 4 (the folded AggStats
+                route, 1024 failed ids, 150 ticks) and --backend
+                tpu_sparse at N=65536 (no kernel).
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -355,6 +374,7 @@ import os
 import random
 import subprocess
 import sys
+import tarfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -373,10 +393,10 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "serve", "serve_inject", "serve_sharded", "serve_replicas",
           "reshard", "fleet", "sweep", "chaos", "sharded_scatter",
           "batched", "multiproc", "sharded_folded_multi", "host_backends",
-          "dense", "sparse")
+          "dense", "sparse", "scale")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile", "profile_exchange",   # run only when named in --only
-          "serve_load", "profile_backends", "nccl_probe")
+          "serve_load", "profile_backends", "nccl_probe", "scale_extra")
 TWIN_WORKERS, TWIN_THREADS = 2, 2  # CPU twin processes, threads in each
 TWIN_TIMEOUT_S = 600                # the longest wait for one twin
 # Phases run on a thread beside sweep and chaos, when the phases whose
@@ -780,10 +800,14 @@ def phase_kernels(torch, dev) -> dict:
     return rows
 
 
-def phase_kernels_folded(torch, dev) -> dict:
+def phase_kernels_folded(torch, dev, fs: int = FS, fp: int = FP,
+                         tag: str = "") -> dict:
     """Phase 2, folded layout: K5-K7 against their plain versions at the
-    folded path's shapes (N=2^20, S=16, P=2, k_max=3); returns one record
-    per kernel form."""
+    folded path's shapes (N=2^20, S=``fs``, P=``fp``, k_max=3; S=16, P=2
+    by default, the scale smoke's S=64, P=8 with ``tag`` "_s64"); returns
+    one record per kernel form, each named with ``tag``.  The forms no
+    scale path runs (K6's masks form and short shards, K7's hist forms)
+    are held at the default geometry only."""
     import numpy as np
     from distributed_membership_tpu_torch.ops.fused_folded import (
         folded_receive_core, gossip_folded_plain, gossip_folded_stacked,
@@ -792,10 +816,10 @@ def phase_kernels_folded(torch, dev) -> dict:
         probe_folded_plain, probe_folded_window_fused)
     from distributed_membership_tpu_torch.ops.view_merge import STRIDE
 
-    rng = np.random.default_rng(20262)
+    rng = np.random.default_rng(20262 + fs)
     t = 90
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
-    r = N * FS // 128
+    r = N * fs // 128
     shape = (r, 128)
     view = T(packed(rng, N, 0.7, 2 * t + 2, shape))
     view_ts = T(rng.integers(0, t + 1, size=shape, dtype=np.int32))
@@ -811,9 +835,9 @@ def phase_kernels_folded(torch, dev) -> dict:
 
     # ---- K5 receive (updates view/view_ts/mail in place) ----
     args = (cand, recv, act, self_val)
-    ref = folded_receive_core(N, FS, TFAIL, TREMOVE, STRIDE, t, view,
+    ref = folded_receive_core(N, fs, TFAIL, TREMOVE, STRIDE, t, view,
                               view_ts, mail, *args)
-    got = receive_folded_fused(N, FS, TFAIL, TREMOVE, STRIDE, t,
+    got = receive_folded_fused(N, fs, TFAIL, TREMOVE, STRIDE, t,
                                view.clone(), view_ts.clone(), mail.clone(),
                                *args)
     torch.cuda.synchronize()
@@ -821,113 +845,117 @@ def phase_kernels_folded(torch, dev) -> dict:
     del ref, got
     v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
     k_ms = cuda_ms(lambda: receive_folded_fused(
-        N, FS, TFAIL, TREMOVE, STRIDE, t, v2, ts2, m2, *args), 20)
+        N, fs, TFAIL, TREMOVE, STRIDE, t, v2, ts2, m2, *args), 20)
     p_ms = cuda_ms(lambda: folded_receive_core(
-        N, FS, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail, *args), 3)
+        N, fs, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail, *args), 3)
     del v2, ts2, m2
     # in: view, view_ts, mail, cand, the per-node vectors; out: view,
     # view_ts, mail, rm_ids (4 B) and join, stale (1 B) per entry
-    record(rows, "receive_folded_fused", "receive_folded", err, k_ms, p_ms,
-           nbytes(view, view_ts, mail, cand, recv, act, self_val)
+    record(rows, "receive_folded_fused", "receive_folded" + tag, err, k_ms,
+           p_ms, nbytes(view, view_ts, mail, cand, recv, act, self_val)
            + nbytes(view, view_ts, mail) + r * 128 * 6)
 
     # ---- K6 gossip: stacked payloads (the path) and shared + masks ----
     shifts = T(np.asarray([1, N - 1, 12345], np.int32))
-    cs = STRIDE % FS
-    c1 = ((shifts % FS) * cs % FS).to(torch.int32)
-    c2 = (((shifts - N) % FS) * cs % FS).to(torch.int32)
+    cs = STRIDE % fs
+    c1 = ((shifts % fs) * cs % fs).to(torch.int32)
+    c2 = (((shifts - N) % fs) * cs % fs).to(torch.int32)
     payloads = torch.where(
         T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3),
         view[None], 0)
     err = 0
     for single in (True, False):
-        ref = gossip_folded_plain(r, FS, K_MAX, single, mail, payloads,
+        ref = gossip_folded_plain(r, fs, K_MAX, single, mail, payloads,
                                   shifts, c1, c2)
-        got = gossip_folded_stacked(r, FS, K_MAX, single, mail.clone(),
+        got = gossip_folded_stacked(r, fs, K_MAX, single, mail.clone(),
                                     payloads, shifts, c1, c2)
         torch.cuda.synchronize()
         err = max(err, max_abs_err([(got, ref)]))
     del ref, got
     m2 = mail.clone()
     k_ms = cuda_ms(lambda: gossip_folded_stacked(
-        r, FS, K_MAX, True, m2, payloads, shifts, c1, c2), 20)
+        r, fs, K_MAX, True, m2, payloads, shifts, c1, c2), 20)
     p_ms = cuda_ms(lambda: gossip_folded_plain(
-        r, FS, K_MAX, True, mail, payloads, shifts, c1, c2), 3)
+        r, fs, K_MAX, True, mail, payloads, shifts, c1, c2), 3)
     # design: the tiled body reads each payload plane once
-    record(rows, "gossip_folded_stacked", "gossip_folded", err, k_ms, p_ms,
-           2 * nbytes(mail) + nbytes(payloads, shifts, c1),
+    record(rows, "gossip_folded_stacked", "gossip_folded" + tag, err, k_ms,
+           p_ms, 2 * nbytes(mail) + nbytes(payloads, shifts, c1),
            2 * nbytes(mail) + nbytes(payloads))
     del payloads
 
-    masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
-    ref = gossip_folded_plain(r, FS, K_MAX, True, mail, view[None], shifts,
-                              c1, c2, masks)
-    got = gossip_folded_stacked(r, FS, K_MAX, True, mail.clone(), view[None],
-                                shifts, c1, c2, masks)
-    torch.cuda.synchronize()
-    err = max_abs_err([(got, ref)])
-    del ref, got
-    k_ms = cuda_ms(lambda: gossip_folded_stacked(
-        r, FS, K_MAX, True, m2, view[None], shifts, c1, c2, masks), 20)
-    p_ms = cuda_ms(lambda: gossip_folded_plain(
-        r, FS, K_MAX, True, mail, view[None], shifts, c1, c2, masks), 3)
-    # design: the shared payload once per shift
-    record(rows, "gossip_folded_stacked", "gossip_folded_masks", err, k_ms,
-           p_ms, 2 * nbytes(mail) + nbytes(view, masks, shifts, c1),
-           2 * nbytes(mail) + K_MAX * nbytes(view) + nbytes(masks))
-    del masks, m2
+    if not tag:
+        masks = T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3)
+        ref = gossip_folded_plain(r, fs, K_MAX, True, mail, view[None],
+                                  shifts, c1, c2, masks)
+        got = gossip_folded_stacked(r, fs, K_MAX, True, mail.clone(),
+                                    view[None], shifts, c1, c2, masks)
+        torch.cuda.synchronize()
+        err = max_abs_err([(got, ref)])
+        del ref, got
+        k_ms = cuda_ms(lambda: gossip_folded_stacked(
+            r, fs, K_MAX, True, m2, view[None], shifts, c1, c2, masks), 20)
+        p_ms = cuda_ms(lambda: gossip_folded_plain(
+            r, fs, K_MAX, True, mail, view[None], shifts, c1, c2, masks), 3)
+        # design: the shared payload once per shift
+        record(rows, "gossip_folded_stacked", "gossip_folded_masks", err,
+               k_ms, p_ms, 2 * nbytes(mail) + nbytes(view, masks, shifts, c1),
+               2 * nbytes(mail) + K_MAX * nbytes(view) + nbytes(masks))
+        del masks
+    del m2
 
     # ---- K6 on eight shards in one launch (the sharded folded step):
     # node shifts within a shard, per-shard slot shifts ----
     d, n_local = 8, N // 8
     krng = np.random.default_rng(20264)
     thr = T(np.asarray([n_local - 1, 0, 54321], np.int32))
-    s1 = T(krng.integers(0, FS, size=(d, K_MAX)).astype(np.int32))
-    s2 = T(krng.integers(0, FS, size=(d, K_MAX)).astype(np.int32))
+    s1 = T(krng.integers(0, fs, size=(d, K_MAX)).astype(np.int32))
+    s2 = T(krng.integers(0, fs, size=(d, K_MAX)).astype(np.int32))
     payloads = torch.where(
         T(rng.random((K_MAX,) + shape, dtype=np.float32) < 0.3), view[None],
         0)
     err = 0
     for single in (True, False):
-        ref = gossip_folded_plain(r, FS, K_MAX, single, mail, payloads, thr,
+        ref = gossip_folded_plain(r, fs, K_MAX, single, mail, payloads, thr,
                                   s1, s2, n_local=n_local)
-        got = gossip_folded_stacked(r, FS, K_MAX, single, mail.clone(),
+        got = gossip_folded_stacked(r, fs, K_MAX, single, mail.clone(),
                                     payloads, thr, s1, s2, n_local=n_local)
         torch.cuda.synchronize()
         err = max(err, max_abs_err([(got, ref)]))
     del ref, got
     m2 = mail.clone()
     k_ms = cuda_ms(lambda: gossip_folded_stacked(
-        r, FS, K_MAX, True, m2, payloads, thr, s1, s2, n_local=n_local), 20)
+        r, fs, K_MAX, True, m2, payloads, thr, s1, s2, n_local=n_local), 20)
     p_ms = cuda_ms(lambda: gossip_folded_plain(
-        r, FS, K_MAX, True, mail, payloads, thr, s1, s2, n_local=n_local), 3)
-    record(rows, "gossip_folded_stacked", "gossip_folded_shards", err, k_ms,
-           p_ms, 2 * nbytes(mail) + nbytes(payloads, thr, s1, s2),
+        r, fs, K_MAX, True, mail, payloads, thr, s1, s2, n_local=n_local), 3)
+    record(rows, "gossip_folded_stacked", "gossip_folded_shards" + tag, err,
+           k_ms, p_ms, 2 * nbytes(mail) + nbytes(payloads, thr, s1, s2),
            2 * nbytes(mail) + nbytes(payloads))
     del payloads, m2
-    # Short shards at S=2 and S=4 (one to eight plane rows each), where
-    # the runs widened to 16-byte bounds reach a shard's edge.
-    err = 0
-    for fs, nl in ((2, 64), (2, 512), (4, 32), (4, 256)):
-        rr = d * nl * fs // 128
-        m = T(packed(krng, d * nl, 0.5, 200, (rr, 128)))
-        pay = T(packed(krng, d * nl, 0.8, 200, (K_MAX, rr, 128)))
-        th = T(np.asarray([nl - 1, 0, 5 % nl], np.int32))
-        a1 = T(krng.integers(0, fs, size=(d, K_MAX)).astype(np.int32))
-        a2 = T(krng.integers(0, fs, size=(d, K_MAX)).astype(np.int32))
-        for single in (True, False):
-            ref = gossip_folded_plain(rr, fs, K_MAX, single, m, pay, th, a1,
-                                      a2, n_local=nl)
-            got = gossip_folded_stacked(rr, fs, K_MAX, single, m.clone(),
-                                        pay, th, a1, a2, n_local=nl)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err([(got, ref)]))
-    log(f"kernel gossip_folded_stacked[short_shards]: D={d} S=2,4 "
-        f"max_abs_err={err}")
-    if err != 0:
-        raise AssertionError("gossip_folded_stacked on short shards differs "
-                             "from its plain version")
-    rows["gossip_folded_shards"]["short_shards_max_abs_err"] = err
+    if not tag:
+        # Short shards at S=2 and S=4 (one to eight plane rows each), where
+        # the runs widened to 16-byte bounds reach a shard's edge.
+        err = 0
+        for sfs, nl in ((2, 64), (2, 512), (4, 32), (4, 256)):
+            rr = d * nl * sfs // 128
+            m = T(packed(krng, d * nl, 0.5, 200, (rr, 128)))
+            pay = T(packed(krng, d * nl, 0.8, 200, (K_MAX, rr, 128)))
+            th = T(np.asarray([nl - 1, 0, 5 % nl], np.int32))
+            a1 = T(krng.integers(0, sfs, size=(d, K_MAX)).astype(np.int32))
+            a2 = T(krng.integers(0, sfs, size=(d, K_MAX)).astype(np.int32))
+            for single in (True, False):
+                ref = gossip_folded_plain(rr, sfs, K_MAX, single, m, pay,
+                                          th, a1, a2, n_local=nl)
+                got = gossip_folded_stacked(rr, sfs, K_MAX, single,
+                                            m.clone(), pay, th, a1, a2,
+                                            n_local=nl)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err([(got, ref)]))
+        log(f"kernel gossip_folded_stacked[short_shards]: D={d} S=2,4 "
+            f"max_abs_err={err}")
+        if err != 0:
+            raise AssertionError("gossip_folded_stacked on short shards "
+                                 "differs from its plain version")
+        rows["gossip_folded_shards"]["short_shards_max_abs_err"] = err
 
     # ---- K7 probe window: agg partials (the path) and hist ----
     fail_ids = (3, 777777, N - 1)
@@ -940,7 +968,7 @@ def phase_kernels_folded(torch, dev) -> dict:
 
     def probe_err(want_hist, want_agg, ptr):
         fails = fail_ids if want_agg else ()
-        a = (N, FS, FP, TFAIL, fails, want_hist, want_agg, t, ptr, 0, view,
+        a = (N, fs, fp, TFAIL, fails, want_hist, want_agg, t, ptr, 0, view,
              view_ts if want_hist else None, act,
              rm_ids if want_agg else None)
         ref, got = probe_folded_plain(*a), probe_folded_window_fused(*a)
@@ -952,23 +980,25 @@ def phase_kernels_folded(torch, dev) -> dict:
         return max_abs_err(pairs), a
 
     err = 0
-    for ptr in (FS - 1, 6):               # wrapping and inner window
+    for ptr in (fs - 1, 6):               # wrapping and inner window
         e, a = probe_err(False, True, ptr)
         err = max(err, e)
     k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
     # in: view, act, rm_ids; out: the id plane, det_any (1 B per entry),
     # 1 + F counts per plane row
-    record(rows, "probe_folded_window_fused", "probe_folded", err, k_ms,
+    record(rows, "probe_folded_window_fused", "probe_folded" + tag, err, k_ms,
            p_ms, nbytes(view, act, rm_ids, view) + r * 128
            + r * 4 * (1 + len(fail_ids)))
-    err, a = probe_err(True, False, FS - 1)
+    if tag:
+        return rows
+    err, a = probe_err(True, False, fs - 1)
     k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
     record(rows, "probe_folded_window_fused", "probe_folded_hist_only", err,
            k_ms, p_ms, nbytes(view, view_ts, act, view) + r * 2 * 8 * 4)
     # The form the TELEMETRY hist paths run: hist and agg partials at once.
-    err, a = probe_err(True, True, FS - 1)
+    err, a = probe_err(True, True, fs - 1)
     k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
     record(rows, "probe_folded_window_fused", "probe_folded_hist", err,
@@ -4339,6 +4369,167 @@ def phase_sparse(torch, confs: str, out_dir: str, card: str) -> dict:
     return info
 
 
+# Phase scale: the scale smoke's own geometry (S=64, G=16, P=8 by its
+# defaults; 120 ticks, so its sizing crashes one node at tick 24), its
+# card-vs-CPU twin at N=2^14, and the opt-in variants of scale_extra:
+# (name, flags, per-tick launch counts).
+SCALE_TICKS = 120
+SCALE_FLAGS = ["--n", str(N), "--ticks", str(SCALE_TICKS)]
+SCALE_PARITY_FLAGS = ["--n", str(1 << 14), "--ticks", str(SCALE_TICKS)]
+SCALE_FOLDED = dict(receive_folded=1, gossip_folded=1, probe_folded=1)
+SCALE_SHARDED = ["--backend", "tpu_hash_sharded", "--mesh", "8"]
+# The loss floor's TREMOVE at N=2^20 needs more than 184 ticks; the racks
+# are artifacts/SCALE_SMOKE.json's (4 of 256 nodes, 150 ticks).
+SCALE_EXTRA = (
+    ("view128", ["--view", "128", "--gossip", "32", "--probes", "16"],
+     dict(receive=1, gossip=1, probe=1)),
+    ("drop", ["--drop", "0.05", "--ticks", "200"], SCALE_FOLDED),
+    ("racks", ["--rack-size", "256", "--rack-failures", "4", "--ticks",
+               "150"], SCALE_FOLDED),
+    ("sparse_64k", ["--backend", "tpu_sparse", "--n", "65536"], {}))
+
+
+def scale_run(argv: list, out: str) -> tuple:
+    """``python -m distributed_membership_tpu_torch.scale_smoke`` in this
+    process with ``argv`` and ``--out out`` -> (rc, the record it banked);
+    its stdout (the record again) is kept off the script's."""
+    import contextlib
+    import io
+
+    from distributed_membership_tpu_torch import scale_smoke
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = scale_smoke.main(argv + ["--out", out])
+    with open(out) as fh:
+        return rc, json.load(fh)[-1]
+
+
+def scale_case(torch, name: str, flags: list, per_tick: dict, out: str,
+               card: str) -> dict:
+    """One scale-smoke run on the card, every launch count set to 0 just
+    before and read just after: exit 0 with ``verdict_ok``, and each
+    kernel of ``per_tick`` launched that many times a tick, no other."""
+    from distributed_membership_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rc, rec = scale_run(flags + ["--device", "cuda"], out)
+    launches = dict(kernels.LAUNCHES)
+    ticks = rec["ticks"]
+    expect = launches_expected(**{k: v * ticks for k, v in per_tick.items()})
+    info = {k: rec.get(k) for k in (
+        "backend", "n", "ticks", "view_size", "gossip_len", "probes",
+        "mesh_size", "tfail", "tremove", "drop_prob", "layout",
+        "ms_per_tick", "node_ticks_per_sec", "peak_mem_gib", "wall_seconds",
+        "build_seconds", "verdict_ok", "device")}
+    info.update(launches=launches, card=card, detection={
+        k: v for k, v in rec["detection"].items()
+        if k != "latency_hist_nonzero"})
+    log(f"scale[{name}]: " + json.dumps(info))
+    if rc != 0 or not rec["verdict_ok"]:
+        raise AssertionError(f"scale[{name}]: exit {rc}, verdicts "
+                             f"{rec['detection']}")
+    if launches != expect or rec["launches"] != {
+            k: v for k, v in expect.items() if v}:
+        raise AssertionError(f"scale[{name}]: launches {launches} != "
+                             f"{expect} (record: {rec['launches']})")
+    if per_tick and rec["layout"] != (
+            "folded" if "receive_folded" in per_tick else "natural"):
+        raise AssertionError(f"scale[{name}]: layout {rec['layout']}")
+    info["record"] = rec
+    return info
+
+
+def phase_scale(torch, out_dir: str, card: str, paths: dict) -> dict:
+    """Phase scale: the scale smoke at N=2^20 on K5-K7, on one shard and
+    on eight, its N=2^14 record card == CPU, package_results on the card
+    and the perf ledger's ingest and check of the phase's records."""
+    from distributed_membership_tpu_torch import (
+        package_results, perf_ledger, scale_smoke)
+    from distributed_membership_tpu_torch.observability import perfdb
+
+    root = os.path.join(out_dir, "scale")
+    bank = os.path.join(root, perfdb.SCALE_SMOKE_PATH)
+    os.makedirs(os.path.dirname(bank), exist_ok=True)
+    ledger = os.path.join(root, perfdb.LEDGER_PATH)
+    # The N=2^14 twin first, so that the CPU runs it beside the 1M run.
+    cpu_out = os.path.join(root, "cpu.json")
+    for path in (bank, ledger, cpu_out):
+        if os.path.exists(path):
+            os.remove(path)
+    parity = {}
+
+    def check(got: tuple) -> None:
+        rc, want = got
+        have = parity["record"]
+        if rc != 0 or ({k: v for k, v in have.items()
+                        if k not in scale_smoke.MACHINE_FIELDS}
+                       != {k: v for k, v in want.items()
+                           if k not in scale_smoke.MACHINE_FIELDS}):
+            raise AssertionError(f"scale[16k]: card record {have} != CPU "
+                                 f"record {want} (exit {rc})")
+        log(f"scale[16k]: N=2^14 S=64 record identical, cuda vs cpu, but "
+            f"timing; cpu wall {want['wall_seconds']} s, card "
+            f"{have['wall_seconds']} s; card: {card}")
+    TWINS.call(scale_run, (SCALE_PARITY_FLAGS + ["--device", "cpu"],
+                           cpu_out), check)
+    info = paths["scale"] = scale_case(torch, "1m_s64", SCALE_FLAGS,
+                                       SCALE_FOLDED, bank, card)
+    torch.cuda.empty_cache()
+    # The same on eight shards of the card: K6's eight-shard launch.
+    info["sharded8"] = scale_case(torch, "1m_s64_sharded8",
+                                  SCALE_FLAGS + SCALE_SHARDED, SCALE_FOLDED,
+                                  bank, card)
+    info["sharded8"].pop("record")
+    torch.cuda.empty_cache()
+    parity.update(scale_case(torch, "16k_s64", SCALE_PARITY_FLAGS,
+                             SCALE_FOLDED, bank, card))
+    with open(bank) as fh:
+        recs = json.load(fh)
+
+    t0 = time.perf_counter()
+    tgz = os.path.join(root, "results.tar.gz")
+    rc = package_results.main(["--backend", "tpu_hash", "--device", "cuda",
+                               "--seed", "3", "--out", tgz])
+    with tarfile.open(tgz) as tar:
+        manifest = json.load(tar.extractfile("manifest.json"))
+    log("scale[package_results]: " + json.dumps(
+        {k: manifest[k] for k in ("backend", "platform", "total_points",
+                                  "max_points", "passed")})
+        + f" in {time.perf_counter() - t0:.1f}s")
+    if rc != 0 or manifest["total_points"] != 90 or manifest[
+            "platform"] != "cuda":
+        raise AssertionError(f"scale: package_results exit {rc}, "
+                             f"{manifest['total_points']}/90")
+
+    rc = perf_ledger.main(["--root", root, "--check"])
+    rows = perfdb.load_ledger(ledger)
+    if rc != 0 or len(rows) != len(recs) or {
+            r["knobs"].get("device") for r in rows} != {
+                info["device"]["name"]}:
+        raise AssertionError(f"scale: perf_ledger --check exit {rc}, rows "
+                             f"{rows}")
+    log(f"scale[perf_ledger]: {len(rows)} rows ingested, --check exit 0; "
+        f"card: {card}")
+    info.pop("record")
+    # The kernel line reads the launches from paths["scale"].
+    return {k: v for k, v in info.items() if k != "launches"}
+
+
+def phase_scale_extra(torch, out_dir: str, card: str) -> dict:
+    """Opt-in: the scale smoke's variants at N=2^20 (SCALE_EXTRA)."""
+    bank = os.path.join(out_dir, "scale_extra", "SCALE_SMOKE_TORCH.json")
+    os.makedirs(os.path.dirname(bank), exist_ok=True)
+    out = {}
+    for name, flags, per_tick in SCALE_EXTRA:
+        info = scale_case(torch, name, SCALE_FLAGS + flags, per_tick, bank,
+                          card)
+        info.pop("record")
+        out[name] = info
+        torch.cuda.empty_cache()
+    return out
+
+
 def start_beside(name: str, phase) -> tuple:
     """``phase()`` on a thread of its own, beside the phases after it:
     its processes do its work, the thread only polls them.  The thread
@@ -4371,14 +4562,15 @@ def join_beside(beside: dict, paths: dict, card: str) -> None:
 
 
 def check_no_jax() -> int:
-    """Import the port's entry points, the elastic and fleet modules
-    included, and check that nothing of JAX or the JAX package came with
+    """Import the port's entry points, the elastic and fleet modules and
+    the tools included, and check that nothing of JAX or the JAX package came with
     them; -> the count of the port's modules loaded."""
     import importlib
     for name in ("runtime.application", "elastic.reshard", "elastic.migrate",
                  "fleet.placement", "fleet.registry", "fleet.scheduler",
                  "fleet.daemon", "sweeps.fleet_submit", "service.daemon",
-                 "sweeps.phase", "chaos.campaign"):
+                 "sweeps.phase", "chaos.campaign", "scale_smoke",
+                 "perf_ledger", "run_report", "package_results", "submit"):
         importlib.import_module("distributed_membership_tpu_torch." + name)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "distributed_membership_tpu")]
@@ -4423,8 +4615,8 @@ def main(argv=None) -> int:
     os.chdir(REPO)       # the scenario confs' SCENARIO paths start here
     t_start = time.perf_counter()
 
-    log(f"imports: {check_no_jax()} modules of the port, elastic and "
-        "fleet included; none of jax or the JAX package")
+    log(f"imports: {check_no_jax()} modules of the port, elastic, fleet "
+        "and the tools included; none of jax or the JAX package")
     secs = kernels.build(ptxas_report=True)
     log(f"build: {secs:.1f}s (nvcc, sm_90a, one process per source)")
     for name, text in kernels.BUILD_LOG.items():
@@ -4439,6 +4631,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         rows.update(phase_kernels_folded(torch, dev))
         torch.cuda.empty_cache()
+        rows.update(phase_kernels_folded(torch, dev, 64, 8, "_s64"))
+        torch.cuda.empty_cache()
         rows.update(phase_kernels_stacked(torch, dev))
         torch.cuda.empty_cache()
         rows.update(phase_kernels_wide(torch, dev))
@@ -4451,7 +4645,8 @@ def main(argv=None) -> int:
                      "ring_1m_s16_folded", "ring_1m_s16_folded_drop",
                      "ring_1m_s128_sharded", "ring_1m_s128_sharded8_drop",
                      "ring_1m_s16_folded_sharded",
-                     "ring_1m_s16_folded_sharded8_drop"):
+                     "ring_1m_s16_folded_sharded8_drop",
+                     "scale_1m_s64_folded"):
             phase_profile(torch, os.path.join(confs, name + ".conf"), name,
                           out_dir)
             torch.cuda.empty_cache()
@@ -4923,7 +5118,10 @@ def main(argv=None) -> int:
             ("host_backends", lambda: phase_host_backends(torch, out_dir,
                                                           card)),
             ("dense", lambda: phase_dense(torch, confs, out_dir, card)),
-            ("sparse", lambda: phase_sparse(torch, confs, out_dir, card))):
+            ("sparse", lambda: phase_sparse(torch, confs, out_dir, card)),
+            ("scale", lambda: phase_scale(torch, out_dir, card, paths)),
+            ("scale_extra", lambda: phase_scale_extra(torch, out_dir,
+                                                      card))):
         if name == "sharded_scatter" and beside:
             join_beside(beside, paths, card)
         if (name in phases and name in BESIDE
@@ -4982,7 +5180,13 @@ def main(argv=None) -> int:
             ("gossip_stacked_wide", "wide_sharded", "gossip_stacked_wide",
              "gossip_stacked.cu", (("gossip_stacked_wide_masks", "masks"),)),
             ("receive_wide", "wide", "receive", "receive.cu", ()),
-            ("probe_wide", "wide", "probe", "probe.cu", ())):
+            ("probe_wide", "wide", "probe", "probe.cu", ()),
+            ("receive_folded_s64", "scale", "receive_folded",
+             "receive_folded.cu", ()),
+            ("gossip_folded_s64", "scale", "gossip_folded",
+             "gossip_folded.cu", (("gossip_folded_shards_s64", "shards"),)),
+            ("probe_folded_s64", "scale", "probe_folded", "probe_folded.cu",
+             ())):
         r = dict(rows[form])
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",

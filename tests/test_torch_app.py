@@ -136,7 +136,11 @@ def test_port_imports_no_jax():
             PKG / "parallel" / "collectives.py",
             PKG / "runtime" / "distributed.py",
             PKG / "observability" / "merge.py",
-            PKG / "multiproc_launch.py"} <= set(_port_sources())
+            PKG / "multiproc_launch.py",
+            PKG / "observability" / "perfdb.py", PKG / "scale_smoke.py",
+            PKG / "perf_ledger.py", PKG / "run_report.py",
+            PKG / "package_results.py", PKG / "submit.py"} <= set(
+                _port_sources())
     # The native engine's loader builds the port's own copy of the
     # source; no port file names the JAX package's native directory.
     assert (PKG / "native" / "emul_engine.cpp").exists()

@@ -1558,3 +1558,33 @@ def test_multiproc_run_on_card_matches_cpu(cuda, tmp_path):
                 assert (tmp_path / device / f"p{i}" / name).read_bytes() \
                     == (tmp_path / "one" / name).read_bytes(), (device, i,
                                                                 name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [[], ["--rack-size", "8",
+                                        "--rack-failures", "4"]])
+def test_scale_smoke_s64_on_card_matches_cpu(cuda, tmp_path, flags):
+    """The scale smoke's S=64 geometry at N=2^14 (G=16, P=8, 120 ticks),
+    one crash or four racks of 8 (AggStats): on the card the folded
+    layout with K5, K6 and K7 once per tick and no other kernel; the
+    record equals the CPU's in every field but timing and the card's."""
+    import json
+
+    from distributed_membership_tpu_torch import scale_smoke
+
+    argv = ["--n", "16384", "--ticks", "120"] + flags
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.json"
+        rc = scale_smoke.main(argv + ["--device", dev, "--out", str(out)])
+        assert rc == 0
+        recs[dev] = json.loads(out.read_text())[-1]
+    card = recs["cuda"]
+    assert card["layout"] == "folded" and card["platform"] == "gpu"
+    assert card["launches"] == {"receive_folded": 120, "gossip_folded": 120,
+                                "probe_folded": 120}
+    assert card["device"]["name"] == torch.cuda.get_device_name(0)
+    skip = scale_smoke.MACHINE_FIELDS
+    assert ({k: v for k, v in card.items() if k not in skip}
+            == {k: v for k, v in recs["cpu"].items() if k not in skip})
+    assert card["verdict_ok"] and card["detection"]["detections_total"] > 0
