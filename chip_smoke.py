@@ -322,6 +322,25 @@ Phases (any failure exits non-zero before the final line):
                 --rack-size 256 --rack-failures 4 (the folded AggStats
                 route, 1024 failed ids, 150 ticks) and --backend
                 tpu_sparse at N=65536 (no kernel).
+ 50. ragged  -- every ring geometry the JAX package runs, off the TPU's
+                tiling: K1, K2 (k_eff and masks) and K3 at N=2^20 and
+                S = 16, 100, 50; K4 on eight shards of 33 rows at S=10 and
+                of 2^17 rows at S=50; K1, K2's wide form and K3 at N = S
+                = 10000 and 4099; K5 and K7 at 1, 2 and 4 plane rows; each
+                bit-identical to its plain version, timed against its
+                bound.  Then confs/ring_1m_s16_natural_events.conf and
+                confs/ring_10k_full.conf (DEPTH_CUTS: events counted on
+                the card): K1, K2 (wide at 10^4) and K3 once per tick,
+                no false removal, the crashed node removed by every
+                tracker, ms/tick, node-ticks/s and peak memory; the 1M
+                S=16 natural run (ring_1m_s16_folded.conf with FOLDED: 0)
+                == the folded run (final state, summary); card == CPU:
+                N=1030 VIEW_SIZE 0 with 5% drops and full events (logs),
+                N=264 on eight shards of 33 at S=10 (logs), FOLDED 1 at
+                N=32, S=16 (4 plane rows) and on eight shards of 4 plane
+                rows (state, summary), a served N=256, S=16 run (state,
+                summary) and the default chaos campaign (N=10, two
+                schedules; the journal).
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -393,7 +412,7 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "serve", "serve_inject", "serve_sharded", "serve_replicas",
           "reshard", "fleet", "sweep", "chaos", "sharded_scatter",
           "batched", "multiproc", "sharded_folded_multi", "host_backends",
-          "dense", "sparse", "scale")
+          "dense", "sparse", "scale", "ragged")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile", "profile_exchange",   # run only when named in --only
           "serve_load", "profile_backends", "nccl_probe", "scale_extra")
@@ -552,6 +571,16 @@ DEPTH_CUTS = {
     # Phase dense: the N = 10^4 crash at 20 is removed by every node
     # 20-22 ticks later (TREMOVE 20), inside 60.
     "dense_10k": dict(TOTAL_TIME=60, FAIL_TIME=20),
+    # Phase ragged: full events at N = 2^20 write ~1.1e7 dbg.log lines
+    # (~10 joins a node) and at N = S = 10^4 ~6e7 (the full view's warm
+    # joins), each tens of seconds of the host's log writer, so both
+    # full-width runs count their events on the card (EVENT_MODE agg;
+    # the N = 1030 twin writes the full view's log).  The 1M run is then
+    # ring_1m_s16_folded.conf with FOLDED: 0.  The N = 1030 crash at 10
+    # is removed 40-60 ticks later.
+    "ragged_1m_s16": dict(EVENT_MODE="agg"),
+    "ragged_10k_full": dict(EVENT_MODE="agg"),
+    "ragged_full_1030": dict(TOTAL_TIME=70, FAIL_TIME=10),
 }
 
 
@@ -1304,6 +1333,428 @@ def phase_kernels_wide(torch, dev) -> dict:
     return rows
 
 
+# Phase ragged (geometries off the TPU's tiling): natural S at N = 2^20 as
+# (S, P); the full views N = S; K5/K7 plane rows at S=16, P=4.
+RAGGED_S = ((16, 2), (100, 12), (50, 6))
+RAGGED_FULL = (10000, 4099)
+RAGGED_ROWS = (1, 2, 4)
+
+
+def natural_forms(torch, dev, n: int, s: int, p: int, tag: str, rows: dict,
+                  reps=(20, 3)) -> None:
+    """K1, K2 (k_eff and masks forms) and K3 (agg partials) on random
+    ``[n, s]`` planes drawn on the card, each against its plain version
+    (tolerance 0): one record per form in ``rows``, named with ``tag``.
+    K2's two shift sets take the wrapped rows' second column alignment
+    wherever (n * STRIDE) % s != 0; K3's windows wrap and start off a
+    16-byte bound."""
+    from distributed_membership_tpu_torch.ops.fused_gossip import (
+        gossip_fused, gossip_plain)
+    from distributed_membership_tpu_torch.ops.fused_probe import (
+        probe_plain, probe_window_fused)
+    from distributed_membership_tpu_torch.ops.fused_receive import (
+        receive_core, receive_fused)
+    from distributed_membership_tpu_torch.ops.view_merge import STRIDE
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20266 + s)
+    t = 90
+    shape = (n, s)
+    rand = lambda *sh: torch.rand(sh, generator=gen, device=dev)  # noqa
+    view = packed_dev(torch, gen, n, 0.7, 2 * t + 2, shape)
+    view_ts = torch.randint(0, t + 1, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+    mail = packed_dev(torch, gen, n, 0.4, 2 * t + 4, shape)
+    cand = torch.where(rand(*shape) < 0.1,
+                       packed_dev(torch, gen, n, 1.0, 2 * t + 4, shape), 0)
+    recv, act = rand(n) < 0.95, rand(n) < 0.95
+    self_on = act & (rand(n) < 0.98)
+    hb = ((torch.randint(1, 2 * t + 3, (n,), generator=gen, device=dev) * n
+           + torch.arange(n, device=dev) + 1) & 0xFFFFFFFF)
+    self_pack = (torch.where(hb >= 1 << 31, hb - (1 << 32), hb)
+                 .to(torch.int32) * self_on.to(torch.int32))
+    kr, pr = reps
+
+    args = (cand, recv, act, self_on, self_pack)
+    ref = receive_core(n, s, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail,
+                       *args)
+    got = receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t, view.clone(),
+                        view_ts.clone(), mail.clone(), *args)
+    torch.cuda.synchronize()
+    err = max_abs_err(zip(got, ref))
+    del ref, got
+    v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
+    k_ms = cuda_ms(lambda: receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
+                                         v2, ts2, m2, *args), kr)
+    p_ms = cuda_ms(lambda: receive_core(n, s, TFAIL, TREMOVE, STRIDE, t,
+                                        view, view_ts, mail, *args), pr)
+    del v2, ts2, m2
+    record(rows, "receive_fused", "receive" + tag, err, k_ms, p_ms,
+           nbytes(view, view_ts, mail, cand, recv, act, self_on, self_pack)
+           + nbytes(view, view_ts, mail) + n * s * 5 + n * 8)
+    del cand, args
+
+    payload = torch.where(rand(*shape) < 0.3, view, 0)
+    k_eff = torch.randint(0, K_MAX + 1, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    shift_sets = ([1, n - 1, n // 3], [777 % n, n // 2, n - 7])
+
+    def k2(form, pay, ke, masks):
+        err = 0
+        for sh in shift_sets:
+            shifts = torch.tensor(sh, dtype=torch.int32, device=dev)
+            ref = gossip_plain(n, s, K_MAX, mail, pay, ke, shifts, masks)
+            got = gossip_fused(n, s, K_MAX, mail.clone(), pay, ke, shifts,
+                               masks=masks)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([(got, ref)]))
+            del ref, got
+        m2 = mail.clone()
+        k_ms = cuda_ms(lambda: gossip_fused(n, s, K_MAX, m2, pay, ke, shifts,
+                                            masks=masks), kr)
+        p_ms = cuda_ms(lambda: gossip_plain(n, s, K_MAX, mail, pay, ke,
+                                            shifts, masks), pr)
+        moved = (keff_bytes(mail, pay, ke, shifts) if masks is None else
+                 2 * nbytes(mail) + nbytes(pay, masks, shifts))
+        record(rows, "gossip_fused", form + tag, err, k_ms, p_ms, moved)
+
+    k2("gossip", payload, k_eff, None)
+    del payload
+    masks = rand(K_MAX, *shape) < 0.3
+    k2("gossip_masks", view, None, masks)
+    del masks
+
+    fail_ids = (3, n // 2, n - 1)
+    ids = torch.tensor(fail_ids + (5, 6), dtype=torch.int32, device=dev)
+    rm_ids = torch.where(rand(*shape) < 0.02, ids[torch.randint(
+        0, len(ids), shape, generator=gen, device=dev)], -1)
+    err = 0
+    for ptr in (s - 1, 3):
+        a = (n, s, p, TFAIL, fail_ids, False, True, t, ptr, 0, view, None,
+             act, rm_ids)
+        ref, got = probe_plain(*a), probe_window_fused(*a)
+        torch.cuda.synchronize()
+        if set(got) != set(ref):
+            raise AssertionError(f"probe outputs {sorted(got)}")
+        err = max(err, max_abs_err((got[k], ref[k]) for k in ref))
+    k_ms = cuda_ms(lambda: probe_window_fused(*a), kr)
+    p_ms = cuda_ms(lambda: probe_plain(*a), pr)
+    record(rows, "probe_window_fused", "probe" + tag, err, k_ms, p_ms,
+           n * p * 4 + nbytes(act, rm_ids) + n * p * 4
+           + n * 4 * (1 + len(fail_ids)))
+
+
+def stacked_forms(torch, dev, d: int, l: int, s: int, tag: str, rows: dict,
+                  reps=(20, 3)) -> None:
+    """K4 on ``d`` shards of ``l`` rows of ``s`` slots (shard and row
+    starts off 16-byte bounds where l * s or s is not a multiple of 4),
+    both operand forms, single and two column alignments, against its
+    plain version; the pre-masked form (the path's) timed."""
+    from distributed_membership_tpu_torch.ops.fused_gossip import (
+        gossip_fused_stacked, gossip_stacked_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20267 + l + s)
+    n = d * l
+    shape = (n, s)
+    rand = lambda *sh: torch.rand(sh, generator=gen, device=dev)  # noqa
+    mail = packed_dev(torch, gen, n, 0.4, 200, shape)
+    view = packed_dev(torch, gen, n, 0.7, 200, shape)
+    ri = lambda hi, sh: torch.randint(0, hi, sh, generator=gen,  # noqa
+                                      device=dev, dtype=torch.int32)
+    c = torch.tensor([l - 1, 0, l // 3], dtype=torch.int32, device=dev)
+    s1, s2 = ri(s, (d, K_MAX)), ri(s, (d, K_MAX))
+    payloads = torch.where(rand(K_MAX, *shape) < 0.3, view[None], 0)
+    masks = rand(K_MAX, *shape) < 0.3
+    err = 0
+    for single in (True, False):
+        for pay, mk in ((payloads, None), (view[None], masks)):
+            ref = gossip_stacked_plain(l, s, K_MAX, single, mail, pay, c,
+                                       s1, s2, mk)
+            got = gossip_fused_stacked(l, s, K_MAX, single, mail.clone(),
+                                       pay, c, s1, s2, mk)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([(got, ref)]))
+            del ref, got
+    del masks
+    m2 = mail.clone()
+    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+        l, s, K_MAX, False, m2, payloads, c, s1, s2), reps[0])
+    p_ms = cuda_ms(lambda: gossip_stacked_plain(
+        l, s, K_MAX, False, mail, payloads, c, s1, s2), reps[1])
+    record(rows, "gossip_fused_stacked", "gossip_stacked" + tag, err, k_ms,
+           p_ms, 2 * nbytes(mail) + nbytes(payloads, c, s1, s2))
+
+
+def folded_rows_forms(torch, dev, plane_rows: int, rows: dict) -> None:
+    """K5 and K7 (agg partials) on ``plane_rows`` folded plane rows at
+    S=16, P=4 (8 nodes a row), against their plain versions."""
+    import numpy as np
+    from distributed_membership_tpu_torch.ops.fused_folded import (
+        folded_receive_core, receive_folded_fused)
+    from distributed_membership_tpu_torch.ops.fused_probe import (
+        probe_folded_plain, probe_folded_window_fused)
+    from distributed_membership_tpu_torch.ops.view_merge import STRIDE
+
+    fs, fp, t = 16, 4, 90
+    n = plane_rows * 128 // fs
+    rng = np.random.default_rng(20268 + plane_rows)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    shape = (plane_rows, 128)
+    view = T(packed(rng, n, 0.7, 2 * t + 2, shape))
+    view_ts = T(rng.integers(0, t + 1, size=shape, dtype=np.int32))
+    mail = T(packed(rng, n, 0.4, 2 * t + 4, shape))
+    cand = T(np.where(rng.random(shape, dtype=np.float32) < 0.1,
+                      packed(rng, n, 1.0, 2 * t + 4, shape), 0))
+    recv, act = T(rng.random(n) < 0.95), T(rng.random(n) < 0.95)
+    own_hb = rng.integers(1, 2 * t + 3, size=n, dtype=np.int64)
+    self_val = T(((own_hb * n + np.arange(n) + 1) & 0xFFFFFFFF)
+                 .astype(np.uint32).view(np.int32)) * act.to(torch.int32)
+    tag = f"_rows{plane_rows}"
+    args = (cand, recv, act, self_val)
+    ref = folded_receive_core(n, fs, TFAIL, TREMOVE, STRIDE, t, view,
+                              view_ts, mail, *args)
+    got = receive_folded_fused(n, fs, TFAIL, TREMOVE, STRIDE, t,
+                               view.clone(), view_ts.clone(), mail.clone(),
+                               *args)
+    torch.cuda.synchronize()
+    err = max_abs_err(zip(got, ref))
+    v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
+    k_ms = cuda_ms(lambda: receive_folded_fused(
+        n, fs, TFAIL, TREMOVE, STRIDE, t, v2, ts2, m2, *args), 50)
+    p_ms = cuda_ms(lambda: folded_receive_core(
+        n, fs, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail, *args), 10)
+    record(rows, "receive_folded_fused", "receive_folded" + tag, err, k_ms,
+           p_ms, nbytes(view, view_ts, mail, cand, recv, act, self_val)
+           + nbytes(view, view_ts, mail) + plane_rows * 128 * 6)
+    fail_ids = (3, n - 1)
+    rm = np.full(shape, -1, np.int32)
+    hit = rng.random(shape, dtype=np.float32) < 0.1
+    rm[hit] = rng.choice(np.asarray(fail_ids + (5,), np.int32),
+                         size=int(hit.sum()))
+    rm_ids = T(rm)
+    err = 0
+    for ptr in (fs - 1, 6):
+        a = (n, fs, fp, TFAIL, fail_ids, False, True, t, ptr, 0, view, None,
+             act, rm_ids)
+        ref, got = probe_folded_plain(*a), probe_folded_window_fused(*a)
+        torch.cuda.synchronize()
+        if set(got) != set(ref):
+            raise AssertionError(f"probe_folded outputs {sorted(got)}")
+        pairs = [(got[k], ref[k]) for k in ref if k != "det_cols"]
+        pairs += list(zip(got.get("det_cols", ()), ref.get("det_cols", ())))
+        err = max(err, max_abs_err(pairs))
+    k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 50)
+    p_ms = cuda_ms(lambda: probe_folded_plain(*a), 10)
+    record(rows, "probe_folded_window_fused", "probe_folded" + tag, err,
+           k_ms, p_ms, nbytes(view, act, rm_ids, view) + plane_rows * 128
+           + plane_rows * 4 * (1 + len(fail_ids)))
+
+
+def phase_kernels_ragged(torch, dev) -> dict:
+    """Phase ragged's kernel checks: K1-K3 at N=2^20 and S = 16, 100, 50
+    (S % 4 = 0, 0, 2); K4 on eight shards of 33 rows at S=10 and of 2^17
+    rows at S=50; K1, K2's wide form and K3 at N = S = 10000 and 4099;
+    K5 and K7 at 1, 2 and 4 plane rows.  Returns one record per form."""
+    rows = {}
+    for s, p in RAGGED_S:
+        natural_forms(torch, dev, N, s, p, f"_s{s}", rows)
+        torch.cuda.empty_cache()
+    stacked_forms(torch, dev, 8, 33, 10, "_l33_s10", rows, (50, 5))
+    stacked_forms(torch, dev, 8, N // 8, 50, "_s50", rows)
+    torch.cuda.empty_cache()
+    for n in RAGGED_FULL:
+        natural_forms(torch, dev, n, n, 16, f"_full{n}", rows, (10, 2))
+        torch.cuda.empty_cache()
+    for r in RAGGED_ROWS:
+        folded_rows_forms(torch, dev, r, rows)
+    return rows
+
+
+def leaf_digest(state) -> str:
+    """sha256 over a final state's leaves as numpy (sorted by name: dtype
+    and bytes, not shape), so a folded carry and the natural carry of the
+    same run hash alike."""
+    import hashlib
+
+    import numpy as np
+
+    from distributed_membership_tpu_torch.convert import state_to_numpy
+    h = hashlib.sha256()
+    for name, a in sorted(state_to_numpy(state).items()):
+        a = np.ascontiguousarray(a)
+        h.update(name.encode() + str(a.dtype).encode())
+        h.update(a.reshape(-1).view(np.uint8))
+    return h.hexdigest()
+
+
+def clean_detection(name: str, info: dict) -> None:
+    """A drop-free single crash: no false removal, and the crashed node
+    removed by every node that tracked it."""
+    det = info["detection"]
+    if (det["false_removals"] != 0 or det.get("detections_total", 0) <= 0
+            or det.get("observer_completeness") != 1.0):
+        raise AssertionError(f"{name}: detection summary {det}")
+
+
+SERVED_16 = ("MAX_NNB: 256\nSINGLE_FAILURE: 1\nDROP_MSG: 0\n"
+             "MSG_DROP_PROB: 0.0\nVIEW_SIZE: 16\nFAIL_TIME: 1000\n"
+             "JOIN_MODE: warm\nBACKEND: tpu_hash\nEVENT_MODE: agg\n"
+             "CHECKPOINT_EVERY: 30\nTOTAL_TIME: 60\n")
+
+
+def _served_job(conf: str, out: str, device: str) -> tuple:
+    """``conf`` served to its end (no client but the wait), on
+    ``device`` -> ``(rc, detection summary, leaf_digest of the final
+    state, launch counts)``."""
+    import torch
+
+    from distributed_membership_tpu_torch import kernels
+
+    kernels.reset_launches()
+    rc, _, got = serve_in_process(
+        torch, served_params(conf, SERVICE_PORT=0), out,
+        lambda port: wait_health(port, lambda h: h["status"] == "complete"),
+        device)
+    res = got["result"]
+    return (rc, res.extra["detection_summary"],
+            leaf_digest(res.extra["final_state"]), dict(kernels.LAUNCHES))
+
+
+def phase_ragged(torch, confs: str, paths: dict, out_dir: str,
+                 card: str) -> dict:
+    """Every ring geometry on the card: the ragged kernel forms against
+    their plain versions, the two full-width confs, the natural 1M S=16
+    run against the folded one, and the card == CPU twins."""
+    from distributed_membership_tpu_torch.chaos import (
+        CampaignSpec, run_campaign)
+    from distributed_membership_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    rows = phase_kernels_ragged(torch, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    log(f"ragged[kernels]: {time.perf_counter() - t0:.1f}s; card: {card}")
+
+    # The full-width confs, as DEPTH_CUTS runs them.  The natural 1M S=16
+    # run in agg is ring_1m_s16_folded.conf with FOLDED: 0, so it is
+    # also held to the folded run: the planes are the same bytes.
+    for name, src, form in (("ragged_1m_s16", "ring_1m_s16_natural_events",
+                             "gossip"),
+                            ("ragged_10k_full", "ring_10k_full",
+                             "gossip_wide")):
+        conf = conf_variant(os.path.join(confs, src + ".conf"), out_dir,
+                            name, **DEPTH_CUTS[name])
+        t = conf_ticks(conf)
+        paths[name] = run_path(torch, conf, name, launches_expected(
+            receive=t, probe=t, **{form: t}), out_dir,
+            flat_digest=name == "ragged_1m_s16")
+        clean_detection(name, paths[name])
+        info = paths[name]
+        log(f"{name}: " + json.dumps({
+            "ms_per_tick": 1e3 / info["ticks_per_s"],
+            "node_ticks_per_s": info["node_ticks_per_s"],
+            "peak_mem_gib": info["peak_mem_gib"],
+            "launches_per_tick": {k: v / t for k, v in
+                                  info["launches"].items() if v},
+            "card": card}))
+        torch.cuda.empty_cache()
+    folded = twin(torch, paths, "folded",
+                  os.path.join(confs, "ring_1m_s16_folded.conf"),
+                  folded_launches(160), out_dir, flat_digest=True)
+    same_detection("ragged_1m_s16", paths["ragged_1m_s16"], folded,
+                   "folded")
+    if paths["ragged_1m_s16"]["state_digest"] != folded["state_digest"]:
+        raise AssertionError("ragged_1m_s16: final state differs from the "
+                             "folded run's")
+    log("ragged_1m_s16: FOLDED 0 == FOLDED 1 at N=2^20, S=16 (final state "
+        "and detection summary)")
+
+    # Card == CPU.
+    full = os.path.join(confs, "ring_16k_full.conf")
+    name = "ragged_full_1030"
+    conf = conf_variant(full, out_dir, name, MAX_NNB=1030, EVENT_MODE="full",
+                        DROP_MSG=1, MSG_DROP_PROB=0.05, DROP_START=-1,
+                        DROP_STOP=1000, **DEPTH_CUTS[name])
+    t = conf_ticks(conf)
+    paths[name] = card_vs_cpu(torch, conf, name, launches_expected(
+        receive=t, gossip_masks=t, probe=t), out_dir, card)
+    name = "ragged_264_s10_sharded8"
+    conf = conf_variant(os.path.join(confs,
+                                     "ring_256_s128_sharded8_drop.conf"),
+                        out_dir, name, MAX_NNB=264, VIEW_SIZE=10,
+                        GOSSIP_LEN=4, PROBES=2)
+    t = conf_ticks(conf)
+    paths[name] = card_vs_cpu(torch, conf, name, launches_expected(
+        receive=t, gossip_stacked=t, probe=t), out_dir, card)
+    for name, src, keys in (
+            ("ragged_folded_32", "ring_16k_s16_folded_drop",
+             dict(MAX_NNB=32, PROBES=4, TOTAL_TIME=84)),
+            ("ragged_folded_sharded8_256", "ring_16k_s16_folded_sharded8_drop",
+             dict(MAX_NNB=256, PROBES=4, TOTAL_TIME=84))):
+        conf = conf_variant(os.path.join(confs, src + ".conf"), out_dir,
+                            name, **keys)
+        t = conf_ticks(conf)
+        probe = "probe_folded_hist" if "sharded8" in name else "probe_folded"
+        paths[name] = twin_parity(torch, conf, name, out_dir, card,
+                                  launches_expected(receive_folded=t,
+                                                    gossip_folded=t,
+                                                    **{probe: t}))
+        if paths[name]["detection"].get("detections_total", 0) <= 0:
+            raise AssertionError(f"{name}: no detection")
+
+    # The served N=256, S=16 run (the conf a served run was refused for):
+    # the natural layout under the service.
+    conf = os.path.join(out_dir, "ragged_served_16.conf")
+    with open(conf, "w") as fh:
+        fh.write(SERVED_16)
+    card_run = _served_job(conf, os.path.join(out_dir, "ragged_served_cuda"),
+                           "cuda")
+    served = dict(launches={k: v for k, v in card_run[3].items() if v},
+                  rc=card_run[0], card=card)
+    if card_run[0] != 0 or served["launches"] != {"receive": 60,
+                                                   "gossip": 60}:
+        raise AssertionError(f"ragged_served_16: {served}")
+    paths["ragged_served_16"] = served
+
+    def served_check(cpu: tuple) -> None:
+        if cpu[0] != 0 or cpu[1:3] != card_run[1:3]:
+            raise AssertionError("ragged_served_16: the served run's summary "
+                                 "or final state differs card vs CPU")
+        log("ragged_served_16: served N=256, S=16 summary and final state "
+            "identical, cuda vs cpu; " + json.dumps(served))
+    TWINS.call(_served_job, (conf, os.path.join(out_dir, "ragged_served_cpu"),
+                             "cpu"), served_check)
+
+    # The default chaos campaign (N=10, VIEW_SIZE 10): natural kernels.
+    spec_kw = dict(schedules=2)
+    out = os.path.join(out_dir, "ragged_chaos_cuda")
+    kernels.reset_launches()
+    summary = run_campaign(CampaignSpec(**spec_kw), out, device="cuda")
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    spec = CampaignSpec(**spec_kw)
+    ticks = spec.schedules * spec.total
+    if (not summary["ok"] or launches.get("receive") != ticks
+            or launches.get("probe") != ticks
+            or launches.get("gossip", 0) + launches.get("gossip_masks", 0)
+            != ticks or any(k.endswith("folded") for k in launches)):
+        raise AssertionError(f"ragged_chaos: {summary} {launches}")
+    journal = open(os.path.join(out, "campaign.jsonl")).read().replace(
+        out, "OUT")
+    paths["ragged_chaos"] = dict(launches=launches, runs=summary["runs"],
+                                 card=card)
+
+    def chaos_check(cpu: tuple) -> None:
+        summary, cpu_journal, wall = cpu
+        if not summary["ok"] or cpu_journal != journal:
+            raise AssertionError("ragged_chaos: journals differ card vs CPU")
+        log("ragged_chaos: N=10 default campaign.jsonl byte-identical card "
+            "vs CPU; " + json.dumps(paths["ragged_chaos"]))
+    TWINS.call(_campaign_job, (spec_kw, os.path.join(out_dir,
+                                                     "ragged_chaos_cpu")),
+               chaos_check)
+    return rows
+
+
 def launches_expected(**nonzero) -> dict:
     """The launch counts of a path: ``nonzero`` and 0 for every other
     kernel form."""
@@ -1317,14 +1768,16 @@ PATH_INFO = {}                  # path name -> run_path's record of it
 
 def run_path(torch, conf: str, name: str, expect: dict, out_dir: str,
              ticks: int | None = None, carry: bool = False,
-             digest: bool = False, **kw) -> dict:
+             digest: bool = False, flat_digest: bool = False,
+             **kw) -> dict:
     """Drive run_conf once on the card, with every launch count set to 0
     just before and read just after; ``kw`` are run_conf's overrides and
     ``ticks`` the ticks the run drives (a resumed run's rest; default
     TOTAL_TIME).  A conf with TELEMETRY must give a timeline that
     reconciles with its detection summary.  With ``carry`` the final
     state's block-boundary bytes (ops/megakernel.py) are recorded, with
-    ``digest`` its checkpoint state hash (runtime/checkpoint.py)."""
+    ``digest`` its checkpoint state hash (runtime/checkpoint.py), with
+    ``flat_digest`` its :func:`leaf_digest` (layout-free)."""
     from distributed_membership_tpu_torch import kernels
     from distributed_membership_tpu_torch.runtime.application import run_conf
 
@@ -1359,6 +1812,8 @@ def run_path(torch, conf: str, name: str, expect: dict, out_dir: str,
             state_hash)
         info["state_hash"] = state_hash(carry_leaves(
             result.extra["final_state"]))
+    if flat_digest:
+        info["state_digest"] = leaf_digest(result.extra["final_state"])
     if "timeline" in result.extra:
         info["timeline"] = reconcile(name, result)
         SERIES[name] = result.extra["timeline"]
@@ -1406,11 +1861,12 @@ def run_killed(torch, conf: str, name: str, expect: dict, out_dir: str,
 
 
 def twin(torch, paths: dict, name: str, conf: str, expect: dict,
-         out_dir: str) -> dict:
+         out_dir: str, **kw) -> dict:
     """The uninterrupted per-tick path a new path is held to: the run of
-    its earlier phase, or (on a partial run) one made now."""
+    its earlier phase, or (on a partial run) one made now (``kw``:
+    run_path's)."""
     if name not in paths:
-        paths[name] = run_path(torch, conf, name, expect, out_dir)
+        paths[name] = run_path(torch, conf, name, expect, out_dir, **kw)
     return paths[name]
 
 
@@ -4738,7 +5194,7 @@ def main(argv=None) -> int:
         paths["folded"] = run_path(
             torch, os.path.join(confs, "ring_1m_s16_folded.conf"), "folded",
             launches_expected(receive_folded=160, gossip_folded=160,
-                              probe_folded=160), out_dir)
+                              probe_folded=160), out_dir, flat_digest=True)
         det = paths["folded"]["detection"]
         if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
             return fail(f"folded path detection summary: {det}")
@@ -5086,6 +5542,11 @@ def main(argv=None) -> int:
             full, out_dir, "wide_4352", MAX_NNB=4352, TFAIL=4, TREMOVE=8,
             **DEPTH_CUTS["wide_4352"]), "wide_parity", out_dir, card)
         log(f"phase wide: {time.perf_counter() - t0:.1f}s; card: {card}")
+    if "ragged" in phases:
+        t0 = time.perf_counter()
+        rows.update(phase_ragged(torch, confs, paths, out_dir, card))
+        torch.cuda.empty_cache()
+        log(f"phase ragged: {time.perf_counter() - t0:.1f}s; card: {card}")
     if "folded_probes0" in phases:
         t0 = time.perf_counter()
         phase_folded_probes0(torch, confs, paths, out_dir, card)
@@ -5186,7 +5647,32 @@ def main(argv=None) -> int:
             ("gossip_folded_s64", "scale", "gossip_folded",
              "gossip_folded.cu", (("gossip_folded_shards_s64", "shards"),)),
             ("probe_folded_s64", "scale", "probe_folded", "probe_folded.cu",
-             ())):
+             ()),
+            ("receive_s16", "ragged_1m_s16", "receive", "receive.cu",
+             (("receive_s100", "s100"), ("receive_s50", "s50"))),
+            ("gossip_s16", "ragged_1m_s16", "gossip", "gossip.cu",
+             (("gossip_masks_s16", "masks"), ("gossip_s100", "s100"),
+              ("gossip_masks_s100", "masks_s100"), ("gossip_s50", "s50"),
+              ("gossip_masks_s50", "masks_s50"))),
+            ("probe_s16", "ragged_1m_s16", "probe", "probe.cu",
+             (("probe_s100", "s100"), ("probe_s50", "s50"))),
+            ("receive_full10000", "ragged_10k_full", "receive", "receive.cu",
+             (("receive_full4099", "n4099"),)),
+            ("gossip_full10000", "ragged_10k_full", "gossip_wide",
+             "gossip.cu", (("gossip_masks_full10000", "masks"),
+                           ("gossip_full4099", "n4099"),
+                           ("gossip_masks_full4099", "masks_n4099"))),
+            ("probe_full10000", "ragged_10k_full", "probe", "probe.cu",
+             (("probe_full4099", "n4099"),)),
+            ("gossip_stacked_l33_s10", "ragged_264_s10_sharded8",
+             "gossip_stacked", "gossip_stacked.cu",
+             (("gossip_stacked_s50", "s50"),)),
+            ("receive_folded_rows4", "ragged_folded_32", "receive_folded",
+             "receive_folded.cu", (("receive_folded_rows1", "rows1"),
+                                   ("receive_folded_rows2", "rows2"))),
+            ("probe_folded_rows4", "ragged_folded_32", "probe_folded",
+             "probe_folded.cu", (("probe_folded_rows1", "rows1"),
+                                 ("probe_folded_rows2", "rows2")))):
         r = dict(rows[form])
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",

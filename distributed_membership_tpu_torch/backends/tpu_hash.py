@@ -103,14 +103,22 @@ the cell's ``fanout`` and ``drop_prob``.
 (service/daemon.py), which drives :func:`segment_runner`'s runner and
 swaps in the runner of a merged plan on a live injection; auto
 ``FOLDED`` stays off there, as in the JAX package (the snapshot reads
-the natural carry).  On CUDA the ring's kernels are the path,
-so a pinned ``FUSED_*: 0`` is refused there (the plain versions run on
-CPU tensors only), and so is ``VIEW_SIZE % 128 != 0`` outside the
-folded layout (full event mode, or a geometry the folded gates refuse),
-which the natural kernels do not take; on the CPU the wrappers run their
-plain versions and ``FUSED_*: 1`` is refused.  On the scatter exchange
-``FUSED_*: 1`` raises the JAX package's ValueError and ``-1`` resolves
-off on both devices.
+the natural carry).  On CUDA the ring's kernels are the path, at every
+geometry the JAX package runs: K1-K3 take any ``VIEW_SIZE`` (full event
+mode, ``VIEW_SIZE: 0`` at any N, S = 10, 100, ...) and K5-K7 any number
+of folded plane rows, so ``FUSED_*: -1`` resolves to them; a pinned
+``FUSED_*: 1`` keeps the JAX package's ValueErrors of its TPU tiling,
+word for word (natural: ``VIEW_SIZE % 128 == 0``, ``N >= 8``; folded:
+at least 8 plane rows), and a pinned ``FUSED_*: 0`` is refused there
+(the plain versions run on CPU tensors only).  ``FOLDED: -1`` on the
+card picks the folded layout wherever its gates pass, under 8 plane rows
+too, as the JAX package's layout knob does (its kernel knobs, not its
+layout, look at the row count), and the natural layout where they
+refuse (full events, S not dividing 128, N off the fold, ...), as the
+JAX package does.  On the CPU the wrappers run their plain versions and
+``FUSED_*: 1`` is refused.  On the scatter exchange ``FUSED_*: 1``
+raises the JAX package's ValueError and ``-1`` resolves off on both
+devices.
 """
 
 from __future__ import annotations
@@ -1358,11 +1366,12 @@ def _refuse_on(what: str, why: str) -> None:
 
 
 def _folded_gates(params: Params, n: int, s: int, collect_events: bool,
-                  fast_agg: bool, kernels: bool) -> Optional[str]:
+                  fast_agg: bool, pinned_kernels: bool) -> Optional[str]:
     """Why the folded layout cannot run this config, in the JAX package's
-    words (``tpu_hash.make_config``), or None.  ``kernels``: the run goes
-    through the folded kernels (on CUDA), which the JAX package gates on
-    at least 8 plane rows."""
+    words (``tpu_hash.make_config``), or None.  ``pinned_kernels``: a
+    ``FUSED_*: 1`` pins the folded kernels (on CUDA), which the JAX
+    package gates on at least 8 plane rows; the port's K5-K7 take any
+    number of plane rows, so auto knobs pass here."""
     from distributed_membership_tpu_torch.backends.tpu_hash_folded import (
         folded_supported)
     p_cnt = params.PROBES
@@ -1377,7 +1386,7 @@ def _folded_gates(params: Params, n: int, s: int, collect_events: bool,
     if not fast_agg:
         return ("FOLDED requires the FastAgg event path (a static failed "
                 f"set of at most {FAST_AGG_MAX_FAILED} ids)")
-    if kernels and (n * s) // 128 < 8:
+    if pinned_kernels and (n * s) // 128 < 8:
         return (f"FOLDED FUSED_* kernels need at least 8 plane rows "
                 f"(N*VIEW_SIZE/128 >= 8; got N={n}, S={s})")
     # The folded step runs the probe traversal (K7 or its plain version)
@@ -1420,8 +1429,11 @@ def make_config(params: Params, collect_events: bool = True,
     fast_agg = (not collect_events and ring
                 and len(fail_ids) <= FAST_AGG_MAX_FAILED)
     send_budget = params.EN_BUFFSIZE if params.ENFORCE_BUFFSIZE else 0
+    knobs = {k: getattr(params, k)
+             for k in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE")}
+    pinned = on_cuda and 1 in knobs.values()
     why_not_folded = _folded_gates(params, n, s, collect_events, fast_agg,
-                                   kernels=on_cuda)
+                                   pinned_kernels=pinned)
     if params.FOLDED == 1 and why_not_folded:
         raise ValueError(why_not_folded)
     if (why_not_folded and params.FOLDED == -1 and on_cuda and ring
@@ -1435,7 +1447,7 @@ def make_config(params: Params, collect_events: bool = True,
         # rows fold, sharded_config); a pinned FOLDED: 1 keeps the JAX
         # gate.
         why_not_folded = _folded_gates(params, n, s, collect_events, True,
-                                       kernels=True)
+                                       pinned_kernels=pinned)
     # Auto keeps the folded layout off where a pinned FOLDED would raise
     # (the budget, approx_lag: JAX gates below and in step_and_init) and
     # under the service, whose snapshot reads the natural carry.
@@ -1443,8 +1455,6 @@ def make_config(params: Params, collect_events: bool = True,
         params.FOLDED == -1 and on_cuda and s < 128 and not why_not_folded
         and not send_budget and params.PROBE_IO != "approx_lag"
         and params.SERVICE_PORT < 0)
-    knobs = {k: getattr(params, k)
-             for k in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE")}
     if ring and knobs["FUSED_PROBE"] == 1 and params.PROBES <= 0:
         raise ValueError(
             "FUSED_PROBE requires the ring exchange with PROBES > 0")
@@ -1458,6 +1468,27 @@ def make_config(params: Params, collect_events: bool = True,
         if knobs["FUSED_PROBE"] == 1:
             raise ValueError(
                 "FUSED_PROBE requires the ring exchange with PROBES > 0")
+    if ring and on_cuda and not folded:
+        # A pinned kernel on the natural layout: the JAX gates of its
+        # 128-lane tiling, word for word.  The CUDA kernels take any
+        # geometry, so auto (-1) takes them there.
+        tiled = s % 128 == 0 and n >= 8
+        if knobs["FUSED_RECEIVE"] == 1 and not tiled:
+            raise ValueError(
+                f"FUSED_RECEIVE needs VIEW_SIZE % 128 == 0 and N >= 8 "
+                f"(got N={n}, S={s}); for S < 128 combine it with FOLDED")
+        if knobs["FUSED_GOSSIP"] == 1 and not (
+                tiled and (n * STRIDE) % s == 0):
+            raise ValueError(
+                f"FUSED_GOSSIP needs VIEW_SIZE % 128 == 0 and "
+                f"(N*STRIDE) % VIEW_SIZE == 0 (got N={n}, S={s}); for "
+                f"S < 128 combine it with FOLDED")
+        if knobs["FUSED_PROBE"] == 1 and not (
+                tiled and 0 < params.PROBES < s):
+            raise ValueError(
+                f"FUSED_PROBE needs VIEW_SIZE % 128 == 0, N >= 8 and "
+                f"0 < PROBES < VIEW_SIZE (got N={n}, S={s}, "
+                f"P={params.PROBES}); for S < 128 combine it with FOLDED")
     # Multi-tick blocks: auto (-1) resolves off, as the JAX package's
     # does away from a TPU; its gates, word for word.
     mega = max(params.MEGA_TICKS, 0)
@@ -1532,13 +1563,6 @@ def make_config(params: Params, collect_events: bool = True,
     if ring and n < 4:
         raise ValueError("the ring step's packed probe table needs N >= 4")
     if on_cuda and ring:
-        if s % 128 != 0 and not folded:
-            _refuse_on(
-                f"VIEW_SIZE {s} on CUDA outside FOLDED",
-                "the natural kernels take whole 128-slot rows (VIEW_SIZE "
-                "% 128 == 0); S < 128 runs on the folded layout in "
-                "EVENT_MODE agg, here: "
-                f"{why_not_folded or 'FOLDED: 0'}")
         pinned_off = [k for k, v in knobs.items() if v == 0]
         if pinned_off:
             _refuse_on(f"{'/'.join(pinned_off)}: 0 on CUDA",

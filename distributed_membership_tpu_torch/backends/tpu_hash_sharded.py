@@ -79,9 +79,12 @@ segment and merged under ``CHECKPOINT_EVERY``; ``PROBE_IO: none`` zeroes
 the probe-recv and ack-send counters.  ``PROBE_IO approx_lag``,
 ``SHIFT_SET`` and ``ENFORCE_BUFFSIZE`` raise the JAX package's
 ValueErrors, as does a 2-D ``MESH_SHAPE`` with the scatter exchange.
-Refused by design, as on ``tpu_hash``: on CUDA ``VIEW_SIZE % 128 != 0``
-outside the folded layout, fewer than 8 folded plane rows per shard, and
-a pinned ``FUSED_*: 0``.
+On CUDA the kernels take every geometry the JAX package runs, as on
+``tpu_hash``: K1, K4 and K3 rows of any width and shards of any size
+(``L * S % 4 != 0`` included), K5-K7 any number of local plane rows.  A
+pinned ``FUSED_*: 1`` keeps the JAX package's ValueErrors (natural: ``S
+% 128 == 0`` and ``L >= 8``; folded: at least 8 local plane rows), and a
+pinned ``FUSED_*: 0`` is refused by design.
 """
 
 from __future__ import annotations
@@ -101,7 +104,7 @@ from distributed_membership_tpu_torch.backends import RunResult, register
 from distributed_membership_tpu_torch.backends.tpu_hash import (
     I32, I64, HashConfig, _admit, _credit_orphan_recvs_sharded,
     _gathered_act, _gathered_flush, _gathered_hb, _pack_probe_table,
-    _refuse_on, coin_at, count_ctrl_dropped, failed_after,
+    coin_at, count_ctrl_dropped, failed_after,
     join_plane, joinreq_to_intro, make_config, no_coin, pack_u,
     plan_fail_ids, plan_scenario, resolve_mega_pack, restart_wipe, run_segment, seed_burst, slot_of,
     tick_faults, tick_telemetry, uses_drop, warm_view, will_flush_of)
@@ -995,10 +998,10 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
     """``tpu_hash.make_config`` plus the JAX ``sharded_config`` gates on
     the per-shard rows (same messages).  Where the rows of a shard do not
     fold, a pinned ``FOLDED: 1`` raises and ``-1`` falls back to the
-    natural layout, as in the JAX package; on CUDA the natural kernels
-    then need ``VIEW_SIZE % 128 == 0``, and the folded kernels at least 8
-    plane rows per shard (the JAX package runs its unfused folded path
-    below that, which the port runs on the CPU only).  On CUDA, in
+    natural layout, as in the JAX package, whose kernels on CUDA take any
+    ``VIEW_SIZE``; the folded kernels take shards of any number of plane
+    rows, and only a pinned ``FUSED_*: 1`` raises the JAX package's
+    8-row gate.  On CUDA, in
     EVENT_MODE agg at S < 128 with more than 8 failed ids, ``FOLDED: -1``
     takes the folded layout with AggStats where the shards' rows fold
     (tpu_hash.make_config); the JAX package runs that on its natural
@@ -1020,20 +1023,13 @@ def sharded_config(params: Params, collect_events: bool, fail_ids: tuple,
                 f"count to fold (L={n_local}, S={s}, P={cfg.probes}: "
                 "L must be a multiple of 128/S and 128/P)")
         cfg = dataclasses.replace(cfg, folded=False)
-        if on_cuda and s % 128 != 0:
-            _refuse_on(f"VIEW_SIZE {s} on CUDA outside FOLDED",
-                       "the natural kernels take whole 128-slot rows "
-                       "(VIEW_SIZE % 128 == 0); the per-shard rows do not "
-                       f"fold: L={n_local}, S={s}, P={cfg.probes}")
     if cfg.folded:
-        if on_cuda and (n_local * s) // 128 < 8:
-            msg = (f"FOLDED FUSED_* on tpu_hash_sharded needs at least 8 "
-                   f"local plane rows (L*S/128 >= 8; got L={n_local}, "
-                   f"S={s})")
-            if params.FUSED_RECEIVE == 1 or params.FUSED_GOSSIP == 1:
-                raise ValueError(msg)
-            _refuse_on(msg, "the unfused folded path runs on CPU tensors "
-                       "only")
+        if (on_cuda and (n_local * s) // 128 < 8
+                and (params.FUSED_RECEIVE == 1 or params.FUSED_GOSSIP == 1)):
+            raise ValueError(
+                f"FOLDED FUSED_* on tpu_hash_sharded needs at least 8 "
+                f"local plane rows (L*S/128 >= 8; got L={n_local}, "
+                f"S={s})")
         return cfg
     if params.FUSED_GOSSIP == 1 and (n_local < 8 or s % 128 != 0):
         raise ValueError(

@@ -24,6 +24,9 @@
 // chunks of 4096 columns, each shift's sender chunk already in receiver
 // column order; a sender row whose k_eff gate is closed for the shift is
 // not copied at all, so the chunks move (2 + the open gates) planes.
+// Rows of any width run: the TPU kernel's 128-lane tiling asked S % 128
+// == 0, the bulk copies here only 16-byte bounds, to which every span is
+// widened (gossip_tile.cuh).
 
 #include "gossip_tile.cuh"
 
@@ -70,9 +73,10 @@ int launch_gossip(const dm_tile::TileArgs& a, const int* shifts, int cstride,
 // non-null; shifts is a device [k_max] int32 array (the ring draws values
 // in [1, n); any int32 shift gives the plain version's result: the sender
 // row is taken mod n, and each receiver row i picks s1 or s2 by i >= r as
-// drawn, as the plain version does).  s % 128 == 0 (whole rows per tile
-// for s <= 4096, one row chunk per tile past it); mail, payload and masks
-// 16-byte aligned.  mail is updated in place.  Returns cudaGetLastError()
+// drawn, as the plain version does).  Any s > 0 (whole rows per tile for
+// s <= 4096, at most 512 rows in the k_eff form; one row chunk per tile
+// past 4096); mail, payload and masks 16-byte aligned.  mail is updated
+// in place.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for arguments the kernel does
 // not take.
 extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
@@ -80,8 +84,7 @@ extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
                          const unsigned* payload, const int* k_eff,
                          const unsigned char* masks, const int* shifts,
                          void* stream) {
-    if (k_max > dm_tile::kMaxShifts || s <= 0 || s % 128 != 0
-        || n > 0x7fffffffu)
+    if (k_max > dm_tile::kMaxShifts || s <= 0 || n > 0x7fffffffu)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0 || k_max <= 0) return dm_launch_status();
     dm_tile::TileArgs a{};
@@ -94,7 +97,8 @@ extern "C" int dm_gossip(unsigned n, int s, int k_max, int cstride,
     a.n_local = static_cast<int>(n);
     a.k_max = k_max;
     a.single_col = single_col != 0;
-    if (!dm_tile::set_tiles(a, 1))
+    if (!dm_tile::set_tiles(a, 1, masks != nullptr ? dm_tile::kTileWords
+                                                   : dm_tile::kKeffRows))
         return static_cast<int>(cudaErrorInvalidValue);
     return masks != nullptr
         ? launch_gossip<Gate::kMask>(a, shifts, cstride, stream)

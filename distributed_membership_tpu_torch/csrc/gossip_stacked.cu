@@ -35,9 +35,10 @@
 // or [1, rows, s] with shared_payload; masks is [K, rows, s] bytes or null;
 // c is a device [K] int32 array of row shifts (the step passes [0, n_local);
 // any int32 gives the plain version's result), s1 and s2 device [D, K]
-// int32 arrays of per-shard column shifts.  s % 128 == 0 (rows wider than
-// 4096 are tiled by row chunks, gossip_tile.cuh); mail, payloads and masks
-// 16-byte aligned.  mail is updated in place.
+// int32 arrays of per-shard column shifts.  Any s > 0 and shard size
+// (rows wider than 4096 are tiled by row chunks, and spans off a 16-byte
+// bound widened, gossip_tile.cuh); mail, payloads and masks 16-byte
+// aligned.  mail is updated in place.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for arguments the kernel does not take.
 extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
@@ -46,8 +47,7 @@ extern "C" int dm_gossip_stacked(long long rows, int s, int n_local, int k_max,
                                  const unsigned char* masks, const int* c,
                                  const int* s1, const int* s2, void* stream) {
     using dm_tile::Gate;
-    if (k_max > dm_tile::kMaxShifts || s <= 0 || s % 128 != 0
-        || n_local <= 0 || rows < 0
+    if (k_max > dm_tile::kMaxShifts || s <= 0 || n_local <= 0 || rows < 0
         || rows % n_local != 0 || rows > 0x7fffffffLL)
         return static_cast<int>(cudaErrorInvalidValue);
     if (rows == 0 || k_max <= 0) return dm_launch_status();

@@ -15,20 +15,24 @@
 // shifts or one plane per shift.
 //
 // Tile walk.  A block owns R = kTileWords / S consecutive receiver rows of
-// one shard (the last tile of a shard is ragged, so no tile straddles two
-// shards) and walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ...: the
-// grid is as many blocks as the card holds at once.  For shift j the
-// tile's senders are the R rows from (l0 - c_j) mod L on, at most two
-// contiguous runs split where the shard wraps; that split is also where
-// the column shift changes from s2 to s1, because receiver row c_j reads
-// sender row 0.  Each run is one span of device memory.  A bulk copy
-// takes 16-byte aligned addresses and sizes, which a run of S < 4 words
-// (payload) or S < 16 bytes (masks) per row need not have: each run is
-// widened to 16-byte bounds (its start rounded down, its end up) and the
-// stage read `lead` entries in.  A wrapped run ends at its shard's end,
-// which is aligned (L * S % 16 == 0), so the second run lands aligned
-// right behind it; the widened runs never leave the plane.  At S % 128 ==
-// 0 nothing is widened.
+// one shard (at most kKeffRows in the k_eff form; the last tile of a
+// shard is ragged, so no tile straddles two shards) and walks the tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ...: the grid is as many blocks as
+// the card holds at once.  For shift j the tile's senders are the R rows
+// from (l0 - c_j) mod L on, at most two contiguous runs split where the
+// shard wraps; that split is also where the column shift changes from s2
+// to s1, because receiver row c_j reads sender row 0.  Each run is one
+// span of device memory.  A bulk copy takes 16-byte aligned addresses and
+// sizes, which a run need not have at any S % 4 != 0 (payload words) or S
+// % 16 != 0 (mask bytes), nor where a shard's rows end off a bound (L * S
+// % 4 != 0): each run, and the tile's own mail span, is widened to 16-byte
+// bounds (its start rounded down, its end up) and read `lead` entries in.
+// The second run lands at the next bound behind the first, with a lead of
+// its own, so the merge adds that gap to the rows past the wrap (0 where
+// the first run ends on a bound, as at S % 128 == 0).  A widened span
+// reads at most 15 bytes past a run's ends, inside the 16-byte block of
+// the run's first or last byte: inside the allocation, whatever the
+// shapes; the entries read there are never used.
 //
 // Stages.  A tile is a sequence of 1 + k_max items: its own mail rows,
 // then one item per shift (the sender runs of the payload and, in the
@@ -46,21 +50,24 @@
 // their max in registers.  Lane column c reads sender column (c - s) mod
 // S of the staged row, a cyclic rotation within each row, so a warp's 32
 // reads are 32 consecutive staged words: 32 distinct banks.
-// The mail tile is read once (the first item) and written once, from a
-// shared-memory buffer by one bulk store.  Index arithmetic inside a tile
-// is 32-bit; only the tile's base offsets are 64-bit.
+// The mail tile is read once (the first item) and written once: its
+// 16-byte aligned interior from a shared-memory buffer by one bulk store,
+// the up to 3 words before the interior's first bound and after its last
+// by plain stores (a bulk store of the widened span would write the
+// neighbouring tiles' words).  Index arithmetic inside a tile is 32-bit;
+// only the tile's base offsets are 64-bit.
 //
-// Wide rows.  A row wider than one tile (S % 128 == 0 and S > 4096: the
-// full membership list past 4096 nodes) is cut into chunks of kTileWords
-// columns, the last one ragged (a multiple of 128 words), and a wide tile
-// is one chunk [col0, col0 + C) of one receiver row l: the same walk,
-// stage ring and merge over the D * L * ceil(S / C) tiles.  Its sender for
-// shift j is row (l - c_j) mod L, columns (col0 - s_j(l)) mod S on: at
-// most two runs, split at the sender row's end.  The first run is widened
-// down to a 16-byte bound (`lead` entries), and the second, from column 0,
-// lands right behind it on a bound too (S % 128 == 0), so the stage holds
-// the sender entries in receiver column order and the merge is
-// acc[i] = max(acc[i], stage[lead + i]): no rotation, no bank conflict.
+// Wide rows.  A row wider than one tile (S > 4096: the full membership
+// list past 4096 nodes) is cut into chunks of kTileWords columns, the
+// last one ragged, and a wide tile is one chunk [col0, col0 + C) of one
+// receiver row l: the same walk, stage ring and merge over the
+// D * L * ceil(S / C) tiles.  Its sender for shift j is row (l - c_j) mod
+// L, columns (col0 - s_j(l)) mod S on: at most two runs, split at the
+// sender row's end, each widened to 16-byte bounds as above, the second
+// at the bound behind the first.  The stage holds the sender entries in
+// receiver column order, and the merge is acc[i] = max(acc[i],
+// stage[lead + i (+ the gap past the first run)]): no rotation, no bank
+// conflict.
 // s_j(l) and the gate `j < k_eff[sender row]` are one value per item.
 // Warp 0 loads them (K4's column shifts from a.s1/a.s2, the gate from
 // k_eff) into registers when it stages the tile's mail item and reads
@@ -78,7 +85,7 @@ namespace dm_tile {
 constexpr int kThreads = 256;
 constexpr int kTileWords = 4096;                 // R * S <= 4096: 16 KiB
 constexpr int kPerThread = kTileWords / kThreads;
-constexpr int kMaxRows = kTileWords / 128;       // R of the k_eff gate
+constexpr int kKeffRows = 512;                   // most R of the k_eff gate
 constexpr int kMaxShifts = 64;
 constexpr int kMaxS = kTileWords;                // R >= 1
 constexpr int kStages = 4;
@@ -91,6 +98,8 @@ static_assert(kMetaOffset + kStages * 4 <= kBarBytes, "meta words");
 // words or 15 mask bytes before, and as many after each of two runs).
 constexpr int kStageWords = kTileWords + 32;
 constexpr int kStageMaskBytes = kTileWords + 128;
+// The output buffer: a tile's words behind the lead of its mail span.
+constexpr int kOutWords = kTileWords + 4;
 
 enum class Gate { kNone, kKeff, kMask };
 
@@ -119,10 +128,12 @@ struct TileArgs {
 // Dynamic shared memory of one block: barriers, the stages' payload rows,
 // the output buffer, then the stages' mask rows or k_eff values.
 constexpr int kOutOffset = kBarBytes + kStages * kStageWords * 4;
-constexpr int kTailOffset = kOutOffset + kTileWords * 4;
+constexpr int kTailOffset = kOutOffset + kOutWords * 4;
+static_assert(kOutOffset % 16 == 0 && kTailOffset % 16 == 0,
+              "bulk copies need 16-byte aligned shared memory");
 constexpr int smem_bytes(Gate g) {
     return kTailOffset + (g == Gate::kMask ? kStages * kStageMaskBytes : 0)
-           + (g == Gate::kKeff ? kStages * kMaxRows * 4 : 0);
+           + (g == Gate::kKeff ? kStages * kKeffRows * 4 : 0);
 }
 
 __device__ __forceinline__ int mod(int v, int m) {
@@ -134,6 +145,26 @@ __device__ __forceinline__ int mod(int v, int m) {
 // entries of `bytes` bytes (mod 2^32 is enough: only the low bits count).
 __device__ __forceinline__ int lead_of(long long e, int bytes) {
     return static_cast<int>(static_cast<unsigned>(e) & (16 / bytes - 1));
+}
+
+// Entries a span of `count` entries `lead` entries past a 16-byte bound
+// occupies once widened to bounds on both sides.
+__device__ __forceinline__ unsigned widened(int lead, unsigned count,
+                                            int bytes) {
+    const unsigned q = 16 / bytes - 1;
+    return (lead + count + q) & ~q;
+}
+
+// Where the second of two staged runs puts its entries, against the
+// first run's entries continued: the second run starts at the bound
+// behind the widened first one, `lead_of(eb)` entries in, while a row
+// past the wrap would read `lead_of(e0) + a_count` entries in.  0 when
+// the first run ends on a bound.
+__device__ __forceinline__ int run_gap(long long e0, unsigned a_count,
+                                       long long eb, int bytes) {
+    const int la = lead_of(e0, bytes);
+    return static_cast<int>(widened(la, a_count, bytes)) + lead_of(eb, bytes)
+           - la - static_cast<int>(a_count);
 }
 
 // ---- PTX wrappers: mbarrier, bulk copies, cp.async ----
@@ -248,9 +279,10 @@ __device__ __forceinline__ Tile tile_of(const TileArgs& a, int tile) {
 }
 
 // Lane 0 of warp 0: shift j's sender entries [e0, e0 + a_words) and, past
-// a wrap, [eb, eb + b_words) (eb 16-byte aligned), each widened to 16-byte
-// bounds, into stage st by bulk copies completing on its barrier; the
-// masks form copies the same entries of masks[j].
+// a wrap, [eb, eb + b_words), each widened to 16-byte bounds, into stage
+// st by bulk copies completing on its barrier, the second run at the
+// bound behind the first; the masks form copies the same entries of
+// masks[j].
 template <Gate G, bool kShared>
 __device__ __forceinline__ void load_runs(const TileArgs& a,
                                           unsigned char* smem, int st, int j,
@@ -259,19 +291,39 @@ __device__ __forceinline__ void load_runs(const TileArgs& a,
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + st;
     unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
                     + st * kStageWords;
-    const unsigned* plane = a.payload + (kShared ? 0 : j * a.plane);
-    const int lw = lead_of(e0, 4), lm = lead_of(e0, 1);
-    const unsigned aw = (lw + a_words + 3) & ~3u, bw = (b_words + 3) & ~3u;
-    const unsigned am = (lm + a_words + 15) & ~15u, bm = (b_words + 15) & ~15u;
+    // Leads count from the buffers' bases: plane j starts j * a.plane
+    // entries in, off a bound where a.plane is not a multiple of 16.
+    const long long po = kShared ? 0 : j * a.plane, mo = j * a.plane;
+    const unsigned* plane = a.payload + po;
+    const int lw = lead_of(po + e0, 4), lm = lead_of(mo + e0, 1);
+    const int lbw = lead_of(po + eb, 4), lbm = lead_of(mo + eb, 1);
+    const unsigned aw = widened(lw, a_words, 4);
+    const unsigned am = widened(lm, a_words, 1);
+    const unsigned bw = b_words ? widened(lbw, b_words, 4) : 0u;
+    const unsigned bm = b_words ? widened(lbm, b_words, 1) : 0u;
     mbar_expect_tx(bar, (aw + bw) * 4 + (G == Gate::kMask ? am + bm : 0));
     bulk_load(pay, plane + e0 - lw, aw * 4, bar);
-    if (b_words) bulk_load(pay + aw, plane + eb, bw * 4, bar);
+    if (b_words) bulk_load(pay + aw, plane + eb - lbw, bw * 4, bar);
     if (G == Gate::kMask) {
-        const unsigned char* mp = a.masks + j * a.plane;
+        const unsigned char* mp = a.masks + mo;
         unsigned char* md = smem + kTailOffset + st * kStageMaskBytes;
         bulk_load(md, mp + e0 - lm, am, bar);
-        if (b_words) bulk_load(md + am, mp + eb, bm, bar);
+        if (b_words) bulk_load(md + am, mp + eb - lbm, bm, bar);
     }
+}
+
+// Lane 0 of warp 0: the tile's own mail span [e, e + words), widened to
+// 16-byte bounds, into stage st.
+__device__ __forceinline__ void load_mail(const TileArgs& a,
+                                          unsigned char* smem, int st,
+                                          long long e, unsigned words) {
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + st;
+    unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
+                    + st * kStageWords;
+    const int lw = lead_of(e, 4);
+    const unsigned w = widened(lw, words, 4);
+    mbar_expect_tx(bar, w * 4);
+    bulk_load(pay, a.mail + e - lw, w * 4, bar);
 }
 
 // Warp 0: start item k (tile k / (1 + k_max), part p = k mod (1 + k_max):
@@ -291,12 +343,7 @@ __device__ __forceinline__ void stage_item(const TileArgs& a,
     const unsigned words = static_cast<unsigned>(tl.words);
     if (p == 0) {
         if (G == Gate::kKeff) cp_async_arrive(bar);
-        if (lane == 0) {
-            unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
-                            + st * kStageWords;
-            mbar_expect_tx(bar, words * 4);
-            bulk_load(pay, a.mail + (tl.base + tl.l0) * s, words * 4, bar);
-        }
+        if (lane == 0) load_mail(a, smem, st, (tl.base + tl.l0) * s, words);
         return;
     }
     const int j = p - 1;
@@ -304,12 +351,12 @@ __device__ __forceinline__ void stage_item(const TileArgs& a,
     if (src0 < 0) src0 += a.n_local;
     const int first = min(tl.rows, a.n_local - src0);   // rows before the wrap
     if (G == Gate::kKeff) {
-        if (lane < tl.rows) {
-            int r = src0 + lane;
+        int* keff = reinterpret_cast<int*>(smem + kTailOffset)
+                    + st * kKeffRows;
+        for (int i = lane; i < tl.rows; i += 32) {
+            int r = src0 + i;
             if (r >= a.n_local) r -= a.n_local;
-            cp_async4(reinterpret_cast<int*>(smem + kTailOffset)
-                          + st * kMaxRows + lane,
-                      a.k_eff + tl.base + r);
+            cp_async4(keff + i, a.k_eff + tl.base + r);
         }
         cp_async_arrive(bar);
     }
@@ -360,14 +407,9 @@ __device__ __forceinline__ void stage_wide(const TileArgs& a,
                 }
             }
         }
-        if (lane == 0) {
-            unsigned* pay = reinterpret_cast<unsigned*>(smem + kBarBytes)
-                            + st * kStageWords;
-            const unsigned bytes = static_cast<unsigned>(tl.words) * 4;
-            mbar_expect_tx(bar, bytes);
-            bulk_load(pay, a.mail + (tl.base + tl.l0) * s + tl.col0, bytes,
-                      bar);
-        }
+        if (lane == 0)
+            load_mail(a, smem, st, (tl.base + tl.l0) * s + tl.col0,
+                      static_cast<unsigned>(tl.words));
         return;
     }
     const int j = p - 1;
@@ -446,11 +488,13 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
         const Tile tl =
             tile_of<kWide>(a, bid + t * static_cast<int>(gridDim.x));
         const int words = tl.words;
+        const long long mb = (tl.base + tl.l0) * s + tl.col0;
+        const int ml = lead_of(mb, 4);
 
         // Item 1 of the tile: its mail rows.
         mbar_wait(full + k % kStages, (k / kStages) & 1);
         {
-            const unsigned* m = pay + (k % kStages) * kStageWords;
+            const unsigned* m = pay + (k % kStages) * kStageWords + ml;
 #pragma unroll
             for (int i = 0; i < kPerThread; ++i) {
                 const int e = tid + i * kThreads;
@@ -475,16 +519,28 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
                 mbar_wait(full + st, (k / kStages) & 1);
                 const int c0 = meta[st];
                 if (c0 >= 0) {
+                    // The sender row's entries from column c0, then from
+                    // column 0 past the row's end (load_runs' two runs).
+                    int src_row = tl.l0 - sh.cl[j];
+                    if (src_row < 0) src_row += a.n_local;
+                    const long long rb = (tl.base + src_row) * s;
+                    const long long prb = rb + (kShared ? 0 : j * a.plane);
+                    const long long mrb = rb + j * a.plane;
+                    const int a_words = min(words, s - c0);
+                    const int gw = run_gap(prb + c0, a_words, prb, 4);
+                    const int gm = run_gap(mrb + c0, a_words, mrb, 1);
                     const unsigned* src = pay + st * kStageWords
-                                          + lead_of(c0, 4);
+                                          + lead_of(prb + c0, 4);
                     const unsigned char* msk = tail + st * kStageMaskBytes
-                                               + lead_of(c0, 1);
+                                               + lead_of(mrb + c0, 1);
 #pragma unroll
                     for (int i = 0; i < kPerThread; ++i) {
                         const int e = tid + i * kThreads;
                         if (e < words) {
+                            const bool past = e >= a_words;
                             const unsigned v =
-                                G != Gate::kMask || msk[e] ? src[e] : 0u;
+                                G != Gate::kMask || msk[e + (past ? gm : 0)]
+                                ? src[e + (past ? gw : 0)] : 0u;
                             acc[i] = v > acc[i] ? v : acc[i];
                         }
                     }
@@ -496,16 +552,26 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
                     : static_cast<int>(w < 0 ? 0
                                        : (w > tl.rows ? tl.rows : w));
                 const int sh1 = sh.s1[j], sh2 = sh.s2[j];
-                // Where the stage's widened runs put the tile's first sender.
+                // Where the stage's widened runs put the tile's first
+                // sender, and the gap before the rows past the wrap.
                 int src0 = tl.l0 - sh.cl[j];
                 if (src0 < 0) src0 += a.n_local;
+                // Entries counted from the payload's and the masks' bases.
+                const long long po = kShared ? 0 : j * a.plane;
+                const long long mo = j * a.plane;
                 const long long e0 = (tl.base + src0) * s;
+                const int first = min(tl.rows, a.n_local - src0);
+                const unsigned a_words = static_cast<unsigned>(first * s);
+                const long long eb = tl.base * s;
+                const int gw = run_gap(po + e0, a_words, po + eb, 4);
+                const int gm = run_gap(mo + e0, a_words, mo + eb, 1);
                 mbar_wait(full + st, (k / kStages) & 1);
-                const unsigned* src = pay + st * kStageWords + lead_of(e0, 4);
+                const unsigned* src = pay + st * kStageWords
+                                      + lead_of(po + e0, 4);
                 const unsigned char* msk = tail + st * kStageMaskBytes
-                                           + lead_of(e0, 1);
+                                           + lead_of(mo + e0, 1);
                 const int* keff = reinterpret_cast<const int*>(tail)
-                                  + st * kMaxRows;
+                                  + st * kKeffRows;
                 int row = row0, col = col0;
 #pragma unroll
                 for (int i = 0; i < kPerThread; ++i) {
@@ -513,10 +579,11 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
                         int sc = col - (row < wrap ? sh2 : sh1);
                         if (sc < 0) sc += s;
                         const int at = row * s + sc;
+                        const bool past = row >= first;
                         bool keep = true;
-                        if (G == Gate::kMask) keep = msk[at] != 0;
+                        if (G == Gate::kMask) keep = msk[at + (past ? gm : 0)] != 0;
                         if (G == Gate::kKeff) keep = j < keff[row];
-                        const unsigned v = keep ? src[at] : 0u;
+                        const unsigned v = keep ? src[at + (past ? gw : 0)] : 0u;
                         acc[i] = v > acc[i] ? v : acc[i];
                     }
                     col += dcol;
@@ -535,17 +602,26 @@ __device__ __forceinline__ void run(const TileArgs& a, Shifts& sh) {
             ++k;
         }
 
-        // Write the tile back: registers -> `out` -> one bulk store.
+        // Write the tile back: the aligned interior [head, head + body)
+        // registers -> `out` (ml words in) -> one bulk store; the words
+        // before and after it by plain stores.
+        const int head = min(words, (4 - ml) & 3);
+        const int body = (words - head) & ~3;
 #pragma unroll
         for (int i = 0; i < kPerThread; ++i) {
             const int e = tid + i * kThreads;
-            if (e < words) out[e] = acc[i];
+            if (e < words) {
+                if (e >= head && e < head + body)
+                    out[ml + e] = acc[i];
+                else
+                    a.mail[mb + e] = acc[i];
+            }
         }
         fence_async_shared();
         __syncthreads();
-        if (tid == 0)
-            bulk_store(a.mail + (tl.base + tl.l0) * s + tl.col0, out,
-                       static_cast<unsigned>(words) * 4);
+        if (tid == 0 && body > 0)
+            bulk_store(a.mail + mb + head, out + ml + head,
+                       static_cast<unsigned>(body) * 4);
     }
     if (tid == 0) bulk_wait();
 }
@@ -570,11 +646,13 @@ int launch(void (*kernel)(P...), int n_tiles, void* stream, A... args) {
 }
 
 // Host side: the tile geometry of `a` for `shards` shards of a.n_local
-// rows (a.s and a.n_local set): R = kTileWords / S whole rows a tile, or
-// for S > kMaxS one chunk of a row.  False when the tiles outnumber int.
-inline bool set_tiles(TileArgs& a, int shards) {
+// rows (a.s and a.n_local set): R = kTileWords / S whole rows a tile (at
+// most `max_rows`: kKeffRows for the k_eff gate), or for S > kMaxS one
+// chunk of a row.  False when the tiles outnumber int.
+inline bool set_tiles(TileArgs& a, int shards, int max_rows = kTileWords) {
     const bool wide = a.s > kMaxS;
-    a.tile_rows = wide ? 1 : kTileWords / a.s;
+    const int fit = wide ? 1 : kTileWords / a.s;
+    a.tile_rows = fit < max_rows ? fit : max_rows;
     a.chunks = wide ? (a.s + kTileWords - 1) / kTileWords : 1;
     const long long per_shard = wide
         ? static_cast<long long>(a.n_local) * a.chunks

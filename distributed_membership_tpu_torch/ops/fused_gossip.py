@@ -36,8 +36,8 @@ import torch
 from distributed_membership_tpu_torch import kernels
 from distributed_membership_tpu_torch.ops.view_merge import STRIDE, umax
 
-# The widest row the tiled body takes: one 128-slot-aligned row per 16 KiB
-# tile (csrc/gossip_tile.cuh).  Wider rows take the wide-row body.
+# The widest row the tiled body takes: one row per 16 KiB tile
+# (csrc/gossip_tile.cuh).  Wider rows take the wide-row body.
 MAX_TILE_S = 4096
 
 
@@ -46,13 +46,11 @@ def wide_form(s: int) -> bool:
     return s > MAX_TILE_S
 
 
-def _require_tiles(name: str, s: int, *planes) -> None:
-    """What K2 and K4 take on CUDA (csrc/gossip_tile.cuh): whole 128-slot
-    rows (the tiled body up to MAX_TILE_S slots, the wide-row body past
+def _require_tiles(name: str, *planes) -> None:
+    """What K2 and K4 take on CUDA (csrc/gossip_tile.cuh): rows of any
+    width (the tiled body up to MAX_TILE_S slots, the wide-row body past
     it), fewer than 2^31 rows, and planes the bulk copies can address
-    (16-byte aligned)."""
-    kernels.require(s % 128 == 0,
-                    f"{name}: the CUDA kernel takes S % 128 == 0 (got S={s})")
+    (16-byte aligned bases; spans inside them are widened to bounds)."""
     kernels.require(planes[0].shape[0] < 2**31,
                     f"{name}: the CUDA kernel takes fewer than 2^31 rows")
     kernels.require(all(p.data_ptr() % 16 == 0 for p in planes
@@ -91,8 +89,8 @@ def gossip_fused(n: int, s: int, k_max: int, mail, payload, k_eff, shifts,
     ``k_eff`` int32 ``[N]`` (ignored when ``masks`` is given), ``shifts``
     int32 ``[k_max]`` on the device (the ring draws ``[1, N)``; any int32
     shift gives the plain version's result), ``masks`` bool ``[k_max, N,
-    S]``.  The CUDA kernel ``csrc/gossip.cu`` takes ``S % 128 == 0`` and
-    16-byte aligned planes (its wide-row body past ``MAX_TILE_S``)."""
+    S]``.  The CUDA kernel ``csrc/gossip.cu`` takes any ``S`` and 16-byte
+    aligned planes (its wide-row body past ``MAX_TILE_S``)."""
     req = kernels.require
     dev = mail.device
     req(all(p.shape == (n, s) and p.dtype == torch.int32
@@ -112,7 +110,7 @@ def gossip_fused(n: int, s: int, k_max: int, mail, payload, k_eff, shifts,
             f"gossip: masks must be contiguous bool [{k_max}, {n}, {s}]")
     if not mail.is_cuda:
         return gossip_plain(n, s, k_max, mail, payload, k_eff, shifts, masks)
-    _require_tiles("gossip", s, mail, payload, masks)
+    _require_tiles("gossip", mail, payload, masks)
     if k_max == 0:
         return mail
     p = kernels.ptr
@@ -171,8 +169,8 @@ def gossip_fused_stacked(n_local: int, s: int, k_max: int, single_col: bool,
     gives the plain version's result); ``s1``/``s2`` int32 ``[D, k_max]``
     per-shard column shifts (``s2`` unused when ``single_col``).  The
     CUDA kernel ``csrc/gossip_stacked.cu`` for CUDA tensors (mail updated
-    in place; ``S % 128 == 0``, 16-byte aligned planes; the wide-row body
-    past ``MAX_TILE_S``),
+    in place; any ``S`` and shard size, 16-byte aligned planes; the
+    wide-row body past ``MAX_TILE_S``),
     :func:`gossip_stacked_plain` for CPU ones."""
     req = kernels.require
     dev = mail.device
@@ -203,7 +201,7 @@ def gossip_fused_stacked(n_local: int, s: int, k_max: int, single_col: bool,
     if not mail.is_cuda:
         return gossip_stacked_plain(n_local, s, k_max, single_col, mail,
                                     payloads, c, s1, s2, masks)
-    _require_tiles("gossip_stacked", s, mail, payloads, masks)
+    _require_tiles("gossip_stacked", mail, payloads, masks)
     if k_max == 0:
         return mail
     p = kernels.ptr

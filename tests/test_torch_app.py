@@ -273,10 +273,10 @@ _FOLDED = ("MAX_NNB: {n}\nSINGLE_FAILURE: 1\nDROP_MSG: 0\n"
     (_FOLDED.format(n=256, s=48, p=8), False, "cpu", ""),
     # PROBES >= S
     (_FOLDED.format(n=256, s=16, p=16), False, "cpu", ""),
-    # fewer than 8 plane rows where the kernels run (the JAX package
-    # gates its folded kernels so; the port's kernels are the CUDA path)
-    (_FOLDED.format(n=32, s=16, p=2), False, "cuda",
-     "FUSED_RECEIVE: 1\n"),
+    # fewer than 8 plane rows with a pinned kernel (the JAX package gates
+    # its folded kernels so; the port's take any row count under auto)
+    (_FOLDED.format(n=32, s=16, p=4) + "FUSED_RECEIVE: 1\n", False, "cuda",
+     ""),
 ], ids=["full_events", "scatter", "s48", "probes_ge_s", "few_rows"])
 def test_folded_gates(conf, collect, device, jax_extra):
     """FOLDED: 1 outside the folded layout's scope raises the JAX
@@ -293,6 +293,8 @@ def test_folded_gates(conf, collect, device, jax_extra):
         make_config(pp, collect, fail_ids=(3,), device=device)
     assert str(got.value) == str(want.value)
     assert "FOLDED" in str(got.value) or "PROBES" in str(got.value)
+    if device == "cuda":
+        assert "at least 8 plane rows" in str(got.value)
 
 
 def test_folded_auto_resolution():
@@ -309,10 +311,13 @@ def test_folded_auto_resolution():
     s128 = Params.from_text(_RING.format(n=256, drop=0, p=0, total=10,
                                          fail=5))
     assert not make_config(s128, False, fail_ids=(3,), device="cuda").folded
-    # Full events at S < 128 on CUDA: natural, and the natural kernels
-    # refuse the view size, naming why FOLDED does not apply.
-    with pytest.raises(NotImplementedError, match="FOLDED requires agg"):
-        make_config(p, True, device="cuda")
+    # Full events at S < 128 on CUDA: the natural layout, whose kernels
+    # take any view size; under 8 plane rows auto stays folded.
+    full = make_config(p, True, device="cuda")
+    assert not full.folded and full.s == 16
+    few = Params.from_text(_FOLDED.format(n=32, s=16, p=4).replace(
+        "FOLDED: 1", "FOLDED: -1"))
+    assert make_config(few, False, fail_ids=(3,), device="cuda").folded
 
 
 def test_wide_views_refused_on_cuda():
@@ -329,18 +334,31 @@ def test_wide_views_refused_on_cuda():
 
 
 def test_refusals_on_the_card_and_off():
+    from distributed_membership_tpu.backends import tpu_hash as jax_hash
+    from distributed_membership_tpu.config import Params as JaxParams
     base = _RING.format(n=64, drop=0, p=0, total=10, fail=5)
-    # On CUDA the kernels are the path: no pinned-off kernel, S % 128.
+    # On CUDA the kernels are the path: no pinned-off kernel.
     with pytest.raises(NotImplementedError, match="FUSED_GOSSIP"):
         make_config(Params.from_text(base + "FUSED_GOSSIP: 0\n"),
                     device="cuda")
-    with pytest.raises(NotImplementedError, match="VIEW_SIZE % 128"):
-        make_config(Params.from_text(base.replace("VIEW_SIZE: 128",
-                                                  "VIEW_SIZE: 64")
-                                     .replace("GOSSIP_LEN: 32",
-                                              "GOSSIP_LEN: 16")
-                                     .replace("PROBES: 16", "PROBES: 8")),
-                    device="cuda")
+    # The natural kernels take any view size on CUDA; a pinned kernel
+    # keeps the JAX package's tiling gate, word for word.
+    s64 = (base.replace("VIEW_SIZE: 128", "VIEW_SIZE: 64")
+           .replace("GOSSIP_LEN: 32", "GOSSIP_LEN: 16")
+           .replace("PROBES: 16", "PROBES: 8"))
+    cfg = make_config(Params.from_text(s64), device="cuda")
+    assert cfg.s == 64 and not cfg.folded
+    for knob in ("FUSED_RECEIVE", "FUSED_GOSSIP", "FUSED_PROBE"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            jp = JaxParams.from_text(s64 + f"{knob}: 1\n")
+        with pytest.raises(ValueError) as want:
+            jax_hash.make_config(jp, True, fail_ids=(3,))
+        with pytest.raises(ValueError) as got:
+            make_config(Params.from_text(s64 + f"{knob}: 1\n"), True,
+                        fail_ids=(3,), device="cuda")
+        assert str(got.value) == str(want.value)
+        assert str(got.value).startswith(f"{knob} needs VIEW_SIZE % 128")
     # On the CPU a pinned-on kernel cannot run.
     with pytest.raises(NotImplementedError, match="FUSED_RECEIVE"):
         make_config(Params.from_text(base + "FUSED_RECEIVE: 1\n"),

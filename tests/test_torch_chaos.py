@@ -222,18 +222,28 @@ def test_base_conf_matches_jax():
 
 
 def test_cuda_refuses_the_default_geometry(tmp_path, capsys):
-    """On CUDA the default N=10 campaign (VIEW_SIZE 10, which neither the
-    natural kernels nor the folded layout take) fails on its first run
-    with the port's refusal naming the geometry -- raised before any
-    tensor reaches a device, so it shows here too; the CLI exits 2."""
+    """On CUDA the default N=10 campaign (VIEW_SIZE 10, which the folded
+    layout does not take) resolves to the natural layout, whose kernels
+    take any view size; a config the card still refuses (a pinned
+    FUSED_GOSSIP: 0: the kernels are the path there) fails the campaign
+    on its first run with the port's refusal -- raised before any tensor
+    reaches a device, so it shows here too; the CLI exits 2."""
+    from distributed_membership_tpu_torch.backends.tpu_hash import (
+        make_config)
+    from distributed_membership_tpu_torch.config import Params
+    spec = chaos.CampaignSpec(schedules=1)
+    params = Params.from_text(campaign.base_conf(spec))
+    for collect in (True, False):
+        cfg = make_config(params, collect, fail_ids=(3,), device="cuda")
+        assert (cfg.n, cfg.s, cfg.folded) == (10, 10, False)
     with pytest.raises(NotImplementedError,
-                       match="VIEW_SIZE 10 on CUDA outside FOLDED"):
-        chaos.run_campaign(chaos.CampaignSpec(schedules=1),
-                           str(tmp_path / "c"), device="cuda")
+                       match="FUSED_GOSSIP: 0 on CUDA"):
+        chaos.run_campaign(spec, str(tmp_path / "c"), device="cuda",
+                           overrides={"FUSED_GOSSIP": "0"})
     rc = cli_main(["--out", str(tmp_path / "cli"), "--schedules", "1",
-                   "--device", "cuda"])
+                   "--device", "cuda", "--set", "FUSED_GOSSIP=0"])
     assert rc == 2
-    assert "VIEW_SIZE 10 on CUDA outside FOLDED" in capsys.readouterr().err
+    assert "FUSED_GOSSIP: 0 on CUDA" in capsys.readouterr().err
     rows = chaos.read_journal(str(tmp_path / "cli" / "campaign.jsonl"))
     assert [r["kind"] for r in rows] == ["campaign"]
     assert json.loads(json.dumps(rows[0]["spec"]))["n"] == 10

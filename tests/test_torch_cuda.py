@@ -238,7 +238,10 @@ def test_run_on_card_matches_cpu(cuda, tmp_path):
 # at S=64 (2048 rows), and 260 at S=64, whose 130 rows fill neither a
 # whole block of K5/K6 nor of K7; 260 also takes two column alignments.
 
-FOLDED_SHAPES = [(4096, 16), (4096, 64), (260, 64)]
+# Under 8 plane rows too (1, 2 and 4 at S=16), which the JAX package's
+# folded kernels do not take and the port's do.
+FOLDED_SHAPES = [(4096, 16), (4096, 64), (260, 64), (8, 16), (16, 16),
+                 (32, 16)]
 
 
 def _rows(n, s):
@@ -429,20 +432,101 @@ def test_gossip_stacked_kernel(cuda, d, n_local, s, k_max, form):
     assert torch.equal(got, want)
 
 
+# Row widths off the TPU's 128-lane tiling, off 16-byte bounds (S % 4
+# != 0) and under 8 slots, where a K2 tile holds the k_eff gate's most
+# rows (512).
+PARTIAL_ROWS = [1, 3, 10, 16, 50, 100, 200]
+
+
 @pytest.mark.cuda
-def test_gossip_kernels_refuse_partial_rows(cuda):
-    """K2 and K4 take whole 128-slot rows: they raise for other S on
-    the card (the plain versions take any S on the CPU)."""
-    n, s, k_max = 64, 64, 1
-    mail = torch.zeros((n, s), dtype=torch.int32, device=cuda)
-    shifts = torch.ones(k_max, dtype=torch.int32, device=cuda)
-    k_eff = torch.ones(n, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="S % 128"):
-        gossip_fused(n, s, k_max, mail, mail.clone(), k_eff, shifts)
-    cols = torch.zeros((1, k_max), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="S % 128"):
-        gossip_fused_stacked(n, s, k_max, True, mail, mail[None].clone(),
-                             shifts, cols, cols)
+@pytest.mark.parametrize("form", ["k_eff", "masks", "stacked",
+                                  "stacked_masks"])
+@pytest.mark.parametrize("s", PARTIAL_ROWS)
+def test_gossip_kernels_refuse_partial_rows(cuda, s, form):
+    """K2 and K4 once refused rows that are not whole 128-slot groups;
+    they take any S now: each kernel == its plain version at S off every
+    4- and 128-slot bound, K2 on N = 1001 rows (a ragged last tile,
+    both column alignments where N * STRIDE % S != 0), K4 on eight
+    shards of 33 rows (shard ends off 16-byte bounds where 33 * S % 4 !=
+    0), both with shifts that split a tile's senders at the wrap."""
+    rng = np.random.default_rng(s * 10 + len(form))
+    if form in ("k_eff", "masks"):
+        n, shift_list = 1001, [1, 1000, 37, 517]
+        k_max = len(shift_list)
+        mail = _packed(rng, n, 0.5, (n, s)).to(cuda)
+        view = _packed(rng, n, 0.8, (n, s)).to(cuda)
+        k_eff = torch.from_numpy(rng.integers(0, k_max + 1, size=n,
+                                              dtype=np.int32)).to(cuda)
+        masks = (_flags(rng, k_max * n * s, 0.7).reshape(k_max, n, s)
+                 .to(cuda) if form == "masks" else None)
+        payload = view if form == "masks" else torch.where(
+            _flags(rng, n * s, 0.3).reshape(n, s).to(cuda), view, 0)
+        shifts = torch.tensor(shift_list, dtype=torch.int32, device=cuda)
+        want = gossip_plain(n, s, k_max, mail, payload, k_eff, shifts, masks)
+        kernels.reset_launches()
+        got = gossip_fused(n, s, k_max, mail.clone(), payload, k_eff,
+                           shifts, masks=masks)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["gossip" if form == "k_eff"
+                                else "gossip_masks"] == 1
+    else:
+        d, n_local, k_max = 8, 33, 3
+        n = d * n_local
+        mail = _packed(rng, n, 0.5, (n, s)).to(cuda)
+        view = _packed(rng, n, 0.8, (n, s)).to(cuda)
+        c = torch.tensor([n_local - 1, 0, 11], dtype=torch.int32,
+                         device=cuda)
+        s1, s2 = (torch.from_numpy(rng.integers(0, s, size=(d, k_max),
+                                                dtype=np.int32)).to(cuda)
+                  for _ in range(2))
+        keep = _flags(rng, k_max * n * s, 0.3).reshape(k_max, n, s).to(cuda)
+        payloads = torch.where(keep, view[None], 0)
+        masks = (None if form == "stacked" else
+                 _flags(rng, k_max * n * s, 0.7).reshape(k_max, n, s)
+                 .to(cuda))
+        want = gossip_stacked_plain(n_local, s, k_max, False, mail, payloads,
+                                    c, s1, s2, masks)
+        kernels.reset_launches()
+        got = gossip_fused_stacked(n_local, s, k_max, False, mail.clone(),
+                                   payloads, c, s1, s2, masks)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["gossip_stacked" if form == "stacked"
+                                else "gossip_stacked_masks"] == 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, mail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admit", [False, True])
+@pytest.mark.parametrize("s", PARTIAL_ROWS + [4099, 10000])
+def test_receive_kernel_partial_rows(cuda, s, admit):
+    """K1 at row widths off the 128-slot groups: several rows a warp
+    under 32 slots, 4-byte words where S % 4 != 0, one row a block past
+    4096 slots; == its plain version, row counts included."""
+    n, t = (1001 if s < 4096 else 40), 45
+    rng = np.random.default_rng(7 * s + admit)
+    view = _packed(rng, n, 0.7, (n, s))
+    view_ts = torch.from_numpy(
+        rng.integers(0, t + 1, size=(n, s), dtype=np.int32))
+    mail = _packed(rng, n, 0.4, (n, s))
+    cand = torch.where(_flags(rng, n * s, 0.5).reshape(n, s), view,
+                       _packed(rng, n, 0.1, (n, s)))
+    act = _flags(rng, n, 0.9)
+    self_on = act & _flags(rng, n, 0.95)
+    spack = _packed(rng, n, 1.0, (n,)) * self_on
+    args = [x.to(cuda) for x in (view, view_ts, mail, cand,
+                                 _flags(rng, n, 0.9), act, self_on, spack)]
+    mask = (_flags(rng, n * s, 0.5).reshape(n, s).to(torch.int32).to(cuda)
+            if admit else None)
+    want = receive_core(n, s, TFAIL, TREMOVE, STRIDE, t, *args,
+                        admit_mask=mask)
+    kernels.reset_launches()
+    got = receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
+                        *(a.clone() for a in args), admit_mask=mask)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["receive_admit" if admit else "receive"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -1179,10 +1263,11 @@ def test_resharded_resume_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_fleet_records_the_cards_refusal_as_failed(cuda, tmp_path):
-    """A ring conf with VIEW_SIZE 16 is a served run for the fleet; under
-    SERVICE_PORT the folded layout stays off, so the card refuses it at
-    make_config.  The fleet's worker (on the card, the default) fails
-    with that refusal in its log, as ``--serve`` of the conf fails."""
+    """A ring conf with VIEW_SIZE 16 is a served run for the fleet; it
+    pins FUSED_GOSSIP: 0, which the card refuses at make_config (the
+    kernels are the path there).  The fleet's worker (on the card, the
+    default) fails with that refusal in its log, as ``--serve`` of the
+    conf fails."""
     import json
     import os
     import subprocess
@@ -1192,7 +1277,7 @@ def test_fleet_records_the_cards_refusal_as_failed(cuda, tmp_path):
     conf_text = ("MAX_NNB: 256\nSINGLE_FAILURE: 1\nDROP_MSG: 0\n"
                  "MSG_DROP_PROB: 0.0\nVIEW_SIZE: 16\nFAIL_TIME: 1000\n"
                  "JOIN_MODE: warm\nBACKEND: tpu_hash\nEVENT_MODE: agg\n"
-                 "CHECKPOINT_EVERY: 30\nTOTAL_TIME: 60\n")
+                 "CHECKPOINT_EVERY: 30\nTOTAL_TIME: 60\nFUSED_GOSSIP: 0\n")
     conf = tmp_path / "v16.conf"
     conf.write_text(conf_text)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1202,7 +1287,7 @@ def test_fleet_records_the_cards_refusal_as_failed(cuda, tmp_path):
          str(tmp_path / "srv")], cwd=repo, capture_output=True, text=True,
         timeout=300)
     assert served.returncode != 0
-    refusal = "VIEW_SIZE 16 on CUDA outside FOLDED"
+    refusal = "FUSED_GOSSIP: 0 on CUDA"
     assert refusal in served.stderr
     root = tmp_path / "fleet"
     root.mkdir()

@@ -194,7 +194,17 @@ def test_gates(conf):
     card = tpu_hash.make_config(pp, False, fail_ids=fail_ids, device="cuda")
     assert not cpu.folded and card.folded
     assert not (cpu.fast_agg or card.fast_agg) and card.fail_ids == ()
-    # Fewer than 8 plane rows: no folded kernel launch, so the card refuses.
-    _, small = _params(conf.replace(f"MAX_NNB: {N}", "MAX_NNB: 32"))
-    with pytest.raises(NotImplementedError, match="at least 8 plane rows"):
-        tpu_hash.make_config(small, False, fail_ids=fail_ids, device="cuda")
+    # Fewer than 8 plane rows (N=32: 4): the card's K5-K7 take them, so
+    # auto keeps the route; a pinned kernel raises the JAX package's
+    # 8-row gate, word for word.
+    jsmall, small = _params(conf.replace(f"MAX_NNB: {N}", "MAX_NNB: 32"))
+    assert tpu_hash.make_config(small, False, fail_ids=fail_ids,
+                                device="cuda").folded
+    jp, pp = _params(conf.replace(f"MAX_NNB: {N}", "MAX_NNB: 32")
+                     + "FOLDED: 1\nFUSED_RECEIVE: 1\n")
+    with pytest.raises(ValueError) as want:
+        jax_hash.make_config(jp, False, fail_ids=(3,))
+    with pytest.raises(ValueError) as got:
+        tpu_hash.make_config(pp, False, fail_ids=(3,), device="cuda")
+    assert str(got.value) == str(want.value)
+    assert "at least 8 plane rows" in str(got.value)

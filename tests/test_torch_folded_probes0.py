@@ -206,8 +206,7 @@ def test_folded_probes0_gates_match_jax():
     unserved = _params(Params, auto + "CHECKPOINT_EVERY: 10\n")
     assert tpu_hash.make_config(unserved, False, fail_ids=(3,),
                                 device="cuda").folded
-    # Served, auto stays natural, which takes no 16-slot rows on CUDA.
+    # Served, auto stays natural, whose kernels take 16-slot rows on CUDA.
     served = _params(Params, auto + "CHECKPOINT_EVERY: 10\nSERVICE_PORT: 0\n")
-    with pytest.raises(NotImplementedError,
-                       match="VIEW_SIZE 16 on CUDA outside FOLDED"):
-        tpu_hash.make_config(served, False, fail_ids=(3,), device="cuda")
+    cfg = tpu_hash.make_config(served, False, fail_ids=(3,), device="cuda")
+    assert not cfg.folded and cfg.s == 16

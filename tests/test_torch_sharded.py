@@ -613,12 +613,10 @@ def test_gates_and_messages_match_jax():
                 .replace("PROBES: 16", "PROBES: 2") + "EVENT_MODE: agg\n")
     # FOLDED auto on CUDA at S < 128 picks the folded layout globally,
     # but L=8 rows do not fold at P=2 (128/P = 64): the natural layout,
-    # whose kernels refuse S < 128 on CUDA.
-    with pytest.raises(NotImplementedError,
-                       match=r"VIEW_SIZE 16 on CUDA outside FOLDED: the "
-                       r"natural kernels take whole 128-slot rows"):
-        sh.sharded_config(Params.from_text(folded16), False, (3,), 8,
-                          device="cuda")
+    # whose kernels take S < 128 on CUDA.
+    cfg = sh.sharded_config(Params.from_text(folded16), False, (3,), 8,
+                            device="cuda")
+    assert not cfg.folded and cfg.s == 16
     for extra, n_local in (("FUSED_GOSSIP: 1\n", 4),
                            ("FUSED_RECEIVE: 1\n", 4)):
         with warnings.catch_warnings():

@@ -355,36 +355,30 @@ def test_pinned_folded_raises_where_shards_do_not_fold(device):
 
 def test_eight_plane_rows_gate():
     """P=4 folds L=32 into 4 plane rows: a pinned kernel raises the JAX
-    message; on the CPU (plain versions) the layout runs; on CUDA auto
-    kernels are refused, saying why."""
+    message; on the CPU (plain versions) the layout runs, and on CUDA
+    too, with auto kernels (K5-K7 take any number of plane rows)."""
     conf = _conf(n=256, p=4)
     msg = _both_raise(conf + "FUSED_GOSSIP: 1\n", 32, "cuda")
     assert "at least 8 local plane rows" in msg
-    assert sh.sharded_config(Params.from_text(conf), False, (3,), 32,
-                             device="cpu").folded
-    with pytest.raises(NotImplementedError,
-                       match="8 local plane rows.*: the unfused folded "
-                       "path runs on CPU tensors only"):
-        sh.sharded_config(Params.from_text(conf), False, (3,), 32,
-                          device="cuda")
+    for device in ("cpu", "cuda"):
+        assert sh.sharded_config(Params.from_text(conf), False, (3,), 32,
+                                 device=device).folded
 
 
 def test_auto_folded_downgrades_per_shard():
     """FOLDED: -1 takes the folded layout on CUDA where the shards fold;
-    where they do not it falls back to the natural layout, which on CUDA
-    refuses S < 128 (saying why); the CPU always runs the
-    natural layout under auto, as the JAX package off its accelerator."""
+    where they do not it falls back to the natural layout, whose kernels
+    take S < 128 on CUDA; the CPU always runs the natural layout under
+    auto, as the JAX package off its accelerator."""
     auto = _conf().replace("FOLDED: 1", "FOLDED: -1")
     assert sh.sharded_config(Params.from_text(auto), False, (3,), 64,
                              device="cuda").folded
     assert not sh.sharded_config(Params.from_text(auto), False, (3,), 64,
                                  device="cpu").folded
     small = _conf(n=256).replace("FOLDED: 1", "FOLDED: -1")
-    with pytest.raises(NotImplementedError,
-                       match=r"VIEW_SIZE 16 on CUDA outside FOLDED: the "
-                       r"natural kernels take whole 128-slot rows.*L=32"):
-        sh.sharded_config(Params.from_text(small), False, (3,), 32,
-                          device="cuda")
+    cfg = sh.sharded_config(Params.from_text(small), False, (3,), 32,
+                            device="cuda")
+    assert not cfg.folded and cfg.s == 16
     assert not sh.sharded_config(Params.from_text(small), False, (3,), 32,
                                  device="cpu").folded
 
