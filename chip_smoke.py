@@ -324,7 +324,10 @@ Phases (any failure exits non-zero before the final line):
                 tpu_sparse at N=65536 (no kernel).
  50. ragged  -- every ring geometry the JAX package runs, off the TPU's
                 tiling: K1, K2 (k_eff and masks) and K3 at N=2^20 and
-                S = 16, 100, 50; K4 on eight shards of 33 rows at S=10 and
+                S = 16, 100, 50; K1 alone at N=2^20 and S = 10, 1030 and
+                at S=128 with every plane off a 16-byte bound (4, 8 or 12
+                bytes; the row vectors off by odd bytes); K4 on eight
+                shards of 33 rows at S=10 and
                 of 2^17 rows at S=50; K1, K2's wide form and K3 at N = S
                 = 10000 and 4099; K5 and K7 at 1, 2 and 4 plane rows; each
                 bit-identical to its plain version, timed against its
@@ -1336,6 +1339,12 @@ def phase_kernels_wide(torch, dev) -> dict:
 # Phase ragged (geometries off the TPU's tiling): natural S at N = 2^20 as
 # (S, P); the full views N = S; K5/K7 plane rows at S=16, P=4.
 RAGGED_S = ((16, 2), (100, 12), (50, 6))
+# K1 alone at N = 2^20: the row widths ragged_chaos (10) and
+# ragged_full_1030 run; and S=128 with each input's base that many
+# elements past a 16-byte bound (view, view_ts, mail, cand, recv, act,
+# self_on, self_pack).
+RAGGED_K1_S = (10, 1030)
+RAGGED_OFFSETS = (1, 2, 3, 1, 5, 11, 3, 2)
 RAGGED_FULL = (10000, 4099)
 RAGGED_ROWS = (1, 2, 4)
 
@@ -1551,15 +1560,107 @@ def folded_rows_forms(torch, dev, plane_rows: int, rows: dict) -> None:
            + plane_rows * 4 * (1 + len(fail_ids)))
 
 
+def receive_forms(torch, dev, n: int, s: int, tag: str, rows: dict,
+                  offsets=None, chunk: int = 1 << 16, reps=(20, 3)) -> None:
+    """K1 alone on random ``[n, s]`` planes drawn on the card ``chunk``
+    rows at a time, against its plain version row chunk by row chunk
+    (``receive_core`` with the chunk's first node as row0; tolerance 0):
+    one record named ``"receive" + tag``, the plain time the sum over the
+    chunks.  ``offsets``, where given, puts each input (view, view_ts,
+    mail, cand, recv, act, self_on, self_pack) in a larger buffer that
+    many elements in, so its base lies off a 16-byte bound."""
+    from distributed_membership_tpu_torch.ops.fused_receive import (
+        receive_core, receive_fused)
+    from distributed_membership_tpu_torch.ops.view_merge import STRIDE
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20269 + s + (0 if offsets is None else 1))
+    t = 90
+    offs = offsets or (0,) * 8
+
+    def buffer(dtype, numel, off):
+        base = torch.empty(numel + off + 16, dtype=dtype, device=dev)
+        return base[off:off + numel]
+
+    def plane(off, draw):
+        out = buffer(torch.int32, n * s, off).view(n, s)
+        for r in range(0, n, chunk):
+            out[r:r + chunk] = draw((min(chunk, n - r), s))
+        return out
+
+    view = plane(offs[0], lambda sh: packed_dev(torch, gen, n, 0.7,
+                                                2 * t + 2, sh))
+    view_ts = plane(offs[1], lambda sh: torch.randint(
+        0, t + 1, sh, generator=gen, device=dev, dtype=torch.int32))
+    mail = plane(offs[2], lambda sh: packed_dev(torch, gen, n, 0.4,
+                                                2 * t + 4, sh))
+    cand = plane(offs[3], lambda sh: torch.where(
+        torch.rand(sh, generator=gen, device=dev) < 0.1,
+        packed_dev(torch, gen, n, 1.0, 2 * t + 4, sh), 0))
+    vec = []
+    for off, p in zip(offs[4:7], (0.95, 0.95, 0.98)):
+        b = buffer(torch.bool, n, off)
+        b.copy_(torch.rand(n, generator=gen, device=dev) < p)
+        vec.append(b)
+    recv, act, self_on = vec
+    self_on &= act
+    hb = ((torch.randint(1, 2 * t + 3, (n,), generator=gen, device=dev) * n
+           + torch.arange(n, device=dev) + 1) & 0xFFFFFFFF)
+    self_pack = buffer(torch.int32, n, offs[7])
+    self_pack.copy_(torch.where(hb >= 1 << 31, hb - (1 << 32), hb)
+                    .to(torch.int32) * self_on.to(torch.int32))
+    if offsets is not None:
+        planes = (view, view_ts, mail, cand, self_pack)
+        if not all(p.data_ptr() % 16 for p in planes):
+            raise AssertionError("receive_offset: a plane on a bound")
+    args = (cand, recv, act, self_on, self_pack)
+
+    def plain(lo, hi, v, ts, m):
+        return receive_core(n, s, TFAIL, TREMOVE, STRIDE, t, v[lo:hi],
+                            ts[lo:hi], m[lo:hi], *(x[lo:hi] for x in args),
+                            row0=lo)
+
+    got = receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t, view.clone(),
+                        view_ts.clone(), mail.clone(), *args)
+    torch.cuda.synchronize()
+    err = 0
+    for r in range(0, n, chunk):
+        want = plain(r, min(n, r + chunk), view, view_ts, mail)
+        err = max(err, max_abs_err(
+            (g[r:r + chunk], w) for g, w in zip(got, want)))
+        del want
+    del got
+    v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
+    k_ms = cuda_ms(lambda: receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
+                                         v2, ts2, m2, *args), reps[0])
+    del v2, ts2, m2
+    p_ms = cuda_ms(lambda: [plain(r, min(n, r + chunk), view, view_ts, mail)
+                            for r in range(0, n, chunk)], reps[1])
+    record(rows, "receive_fused", "receive" + tag, err, k_ms, p_ms,
+           nbytes(view, view_ts, mail, cand, recv, act, self_on, self_pack)
+           + nbytes(view, view_ts, mail) + n * s * 5 + n * 8)
+
+
 def phase_kernels_ragged(torch, dev) -> dict:
     """Phase ragged's kernel checks: K1-K3 at N=2^20 and S = 16, 100, 50
-    (S % 4 = 0, 0, 2); K4 on eight shards of 33 rows at S=10 and of 2^17
-    rows at S=50; K1, K2's wide form and K3 at N = S = 10000 and 4099;
-    K5 and K7 at 1, 2 and 4 plane rows.  Returns one record per form."""
+    (S % 4 = 0, 0, 2); K1 alone at N=2^20 and S = 10, 1030 (the
+    ragged_chaos and ragged_full_1030 row widths) and at S=128 with every
+    plane off a 16-byte bound; K4 on eight shards of 33 rows at S=10 and
+    of 2^17 rows at S=50; K1, K2's wide form and K3 at N = S = 10000 and
+    4099; K5 and K7 at 1, 2 and 4 plane rows.  Returns one record per
+    form."""
     rows = {}
     for s, p in RAGGED_S:
         natural_forms(torch, dev, N, s, p, f"_s{s}", rows)
         torch.cuda.empty_cache()
+    for s in RAGGED_K1_S:
+        receive_forms(torch, dev, N, s, f"_s{s}", rows,
+                      chunk=1 << 20 if s < 128 else 1 << 16,
+                      reps=(20, 3) if s < 128 else (5, 1))
+        torch.cuda.empty_cache()
+    receive_forms(torch, dev, N, S, "_offset", rows, offsets=RAGGED_OFFSETS,
+                  chunk=1 << 20)
+    torch.cuda.empty_cache()
     stacked_forms(torch, dev, 8, 33, 10, "_l33_s10", rows, (50, 5))
     stacked_forms(torch, dev, 8, N // 8, 50, "_s50", rows)
     torch.cuda.empty_cache()
@@ -5649,7 +5750,9 @@ def main(argv=None) -> int:
             ("probe_folded_s64", "scale", "probe_folded", "probe_folded.cu",
              ()),
             ("receive_s16", "ragged_1m_s16", "receive", "receive.cu",
-             (("receive_s100", "s100"), ("receive_s50", "s50"))),
+             (("receive_s100", "s100"), ("receive_s50", "s50"),
+              ("receive_s10", "s10"), ("receive_s1030", "s1030"),
+              ("receive_offset", "offset"))),
             ("gossip_s16", "ragged_1m_s16", "gossip", "gossip.cu",
              (("gossip_masks_s16", "masks"), ("gossip_s100", "s100"),
               ("gossip_masks_s100", "masks_s100"), ("gossip_s50", "s50"),

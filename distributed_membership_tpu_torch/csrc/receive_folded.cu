@@ -24,7 +24,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void receive_folded_kernel(int t, unsigned n, int s_shift,
+__global__ void receive_folded_kernel(int t, Magic n, int s_shift,
                                       int tfail, int tremove,
                                       int stride_mod, long long row0,
                                       long long quads,
@@ -93,7 +93,8 @@ __global__ void receive_folded_kernel(int t, unsigned n, int s_shift,
 
 // S divides 128 and every plane is a contiguous, 16-byte aligned
 // [rows, 128] (the Python wrapper checks).  view, view_ts and mail are
-// updated in place.  Returns cudaGetLastError().
+// updated in place.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an S that does not divide 128 or N == 0.
 extern "C" int dm_receive_folded(int t, unsigned n, int s, int tfail,
                                  int tremove, int stride, long long row0,
                                  int rows, unsigned* view, int* view_ts,
@@ -103,7 +104,7 @@ extern "C" int dm_receive_folded(int t, unsigned n, int s, int tfail,
                                  const unsigned* self_val,
                                  unsigned char* join, int* rm_ids,
                                  unsigned char* stale, void* stream) {
-    if (s <= 0 || 128 % s != 0)
+    if (s <= 0 || 128 % s != 0 || n == 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const int s_shift = __builtin_ctz(static_cast<unsigned>(s));
     const int stride_mod = static_cast<int>((1LL + stride) % s);
@@ -112,8 +113,9 @@ extern "C" int dm_receive_folded(int t, unsigned n, int s, int tfail,
     if (blocks > 0) {
         receive_folded_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-            t, n, s_shift, tfail, tremove, stride_mod, row0, quads, view,
-            view_ts, mail, cand, recv, act, self_val, join, rm_ids, stale);
+            t, magic_of(n), s_shift, tfail, tremove, stride_mod, row0,
+            quads, view, view_ts, mail, cand, recv, act, self_val, join,
+            rm_ids, stale);
     }
     return dm_launch_status();
 }

@@ -9,9 +9,29 @@
 
 namespace {
 
+// x mod n without a division: the remainder by direct computation
+// (Lemire, Kaser and Kurz, 2019), exact for every 32-bit x, with M =
+// 2^64 / n rounded up (0 for n = 1): ((M * x mod 2^64) * n) >> 64, in
+// 32-bit halves (one wide multiply).
+struct Magic {
+    unsigned lo, hi, n;              // M's halves, n
+    __device__ __forceinline__ unsigned mod(unsigned x) const {
+        const unsigned f_lo = lo * x;                      // M * x mod 2^64
+        const unsigned f_hi = __umulhi(lo, x) + hi * x;
+        return static_cast<unsigned>(
+            (static_cast<unsigned long long>(f_hi) * n
+             + __umulhi(f_lo, n)) >> 32);
+    }
+};
+
+inline Magic magic_of(unsigned n) {
+    const unsigned long long m = ~0ULL / n + 1;
+    return Magic{static_cast<unsigned>(m), static_cast<unsigned>(m >> 32), n};
+}
+
 struct RowCtx {
     int t, tfail, tremove;
-    unsigned n;
+    Magic n;            // for member ids, (packed - 1) mod N
     unsigned node;      // global node id the entry belongs to
     int self_slot;      // slot_of(node, node)
     bool recv, act, son;
@@ -32,9 +52,9 @@ __device__ __forceinline__ void receive_one(const RowCtx& r, int col,
     const unsigned m_in = admit ? m : 0u;
     // Sticky admission: the self slot admits only the node's own id; an
     // occupied slot only its occupant's id; an empty slot anything.
-    const unsigned in_id = dm_member(m_in, r.n);
+    const unsigned in_id = r.n.mod(m_in - 1u);
     const bool ok = self_mask ? (in_id == r.node)
-                              : (!prev_present || in_id == dm_member(v0, r.n));
+                              : (!prev_present || in_id == r.n.mod(v0 - 1u));
     unsigned nv = v0;
     if (r.recv && m_in > 0u && ok && m_in > v0) nv = m_in;
     int nts = ts;
@@ -44,7 +64,7 @@ __device__ __forceinline__ void receive_one(const RowCtx& r, int col,
     if (r.recv) m = 0u;
     // Ack refresh: occupant must match, strictly newer heartbeat.
     if (r.recv && cand > 0u && nv > 0u && cand > nv &&
-        dm_member(cand, r.n) == dm_member(nv, r.n)) {
+        r.n.mod(cand - 1u) == r.n.mod(nv - 1u)) {
         nv = cand;
         nts = r.t;
     }
@@ -56,7 +76,7 @@ __device__ __forceinline__ void receive_one(const RowCtx& r, int col,
     const int difft = dm_sub_wrap(r.t, nts);
     const bool stale = nv > 0u && difft >= r.tfail && r.act;
     const bool removes = stale && difft >= r.tremove;
-    rm = removes ? static_cast<int>(dm_member(nv, r.n)) : -1;
+    rm = removes ? static_cast<int>(r.n.mod(nv - 1u)) : -1;
     if (removes) nv = 0u;
     stale_cnt += stale;
     size_cnt += nv > 0u;

@@ -7,8 +7,8 @@
   strict-increase ack refresh, the double-heartbeat self refresh
   (MP1Node.cpp:412-415) and the TFAIL/TREMOVE sweep (MP1Node.cpp:429-446).
 * :func:`receive_fused` -- the wrapper: the CUDA kernel
-  ``csrc/receive.cu`` for CUDA tensors (any ``S``: whole rows a block),
-  the plain version for CPU ones.
+  ``csrc/receive.cu`` for CUDA tensors (any ``S``: tiles of the flattened
+  planes, read by 16-byte loads), the plain version for CPU ones.
 
 Both take the JAX kernel's optional ``admit_mask`` (``[rows, S]``, 0 =
 suppress): a slot whose entry is 0 treats its delivered mail as not
@@ -132,9 +132,8 @@ def receive_fused(n: int, s: int, tfail: int, tremove: int, stride: int,
         return receive_core(n, s, tfail, tremove, stride, t, view, view_ts,
                             mail, cand, recv_mask, act, self_on, self_pack,
                             row0, admit_mask)
-    req(s % 4 != 0 or all(p.data_ptr() % 16 == 0 for p in planes),
-        "receive kernel reads 16-byte vectors where S % 4 == 0: planes "
-        "must be 16-byte aligned")
+    req(all(p.data_ptr() % 4 == 0 for p in planes + (self_pack,)),
+        "receive kernel: int32 planes must be 4-byte aligned")
     dev = view.device
     join = torch.empty((rows, s), dtype=torch.bool, device=dev)
     rm_ids = torch.empty((rows, s), dtype=torch.int32, device=dev)

@@ -496,37 +496,83 @@ def test_gossip_kernels_refuse_partial_rows(cuda, s, form):
     assert not torch.equal(got, mail)
 
 
+def _sliced(x, off):
+    """``x`` copied into a larger buffer ``off`` elements in: a contiguous
+    slice whose base lies ``off * itemsize`` bytes past the buffer's."""
+    buf = torch.zeros(x.numel() + off + 16, dtype=x.dtype, device=x.device)
+    out = buf[off:off + x.numel()].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() == buf.data_ptr() + (
+        off * x.element_size())
+    return out
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["whole", "sliced"])
 @pytest.mark.parametrize("admit", [False, True])
-@pytest.mark.parametrize("s", PARTIAL_ROWS + [4099, 10000])
-def test_receive_kernel_partial_rows(cuda, s, admit):
-    """K1 at row widths off the 128-slot groups: several rows a warp
-    under 32 slots, 4-byte words where S % 4 != 0, one row a block past
-    4096 slots; == its plain version, row counts included."""
-    n, t = (1001 if s < 4096 else 40), 45
-    rng = np.random.default_rng(7 * s + admit)
-    view = _packed(rng, n, 0.7, (n, s))
+@pytest.mark.parametrize("s", PARTIAL_ROWS + [127, 129, 1030, 4095, 4097,
+                                             4099, 10000])
+def test_receive_kernel_partial_rows(cuda, s, admit, layout):
+    """K1 at row widths off the 128-slot groups and off 16-byte bounds:
+    the flattened planes' tiles end inside rows (1001 rows, or 40 past
+    4096 slots: a ragged last tile), rows wider than a tile span several;
+    ``sliced`` gives every plane its own offset of 4, 8 or 12 bytes off a
+    16-byte bound (the row vectors odd byte offsets) and the rows a first
+    node id row0 != 0, as a shard's.  == its plain version, row counts
+    included."""
+    _check_receive_rows(cuda, s, 1001 if s < 4096 else 40, admit, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["whole", "sliced"])
+@pytest.mark.parametrize("admit", [False, True])
+@pytest.mark.parametrize("s", [128, 129])
+def test_receive_kernel_many_tiles(cuda, s, admit, layout):
+    """K1 on a grid of many tiles (32768 rows: over 4000 tiles of 1024
+    entries, more than thirty a streaming multiprocessor), whole rows to
+    a tile at S=128 and rows cut by tile ends at S=129, here also with
+    planes off 16-byte bounds, row0 != 0 and admit.  == its plain
+    version, row counts included."""
+    _check_receive_rows(cuda, s, 32768, admit, layout)
+
+
+def _check_receive_rows(cuda, s, rows, admit, layout):
+    t = 45
+    row0 = 777 if layout == "sliced" else 0
+    n = rows + row0 + 3
+    rng = np.random.default_rng(7 * s + admit + 2 * len(layout))
+    view = _packed(rng, n, 0.7, (rows, s))
     view_ts = torch.from_numpy(
-        rng.integers(0, t + 1, size=(n, s), dtype=np.int32))
-    mail = _packed(rng, n, 0.4, (n, s))
-    cand = torch.where(_flags(rng, n * s, 0.5).reshape(n, s), view,
-                       _packed(rng, n, 0.1, (n, s)))
-    act = _flags(rng, n, 0.9)
-    self_on = act & _flags(rng, n, 0.95)
-    spack = _packed(rng, n, 1.0, (n,)) * self_on
+        rng.integers(0, t + 1, size=(rows, s), dtype=np.int32))
+    mail = _packed(rng, n, 0.4, (rows, s))
+    cand = torch.where(_flags(rng, rows * s, 0.5).reshape(rows, s), view,
+                       _packed(rng, n, 0.1, (rows, s)))
+    act = _flags(rng, rows, 0.9)
+    self_on = act & _flags(rng, rows, 0.95)
+    spack = _packed(rng, n, 1.0, (rows,)) * self_on
     args = [x.to(cuda) for x in (view, view_ts, mail, cand,
-                                 _flags(rng, n, 0.9), act, self_on, spack)]
-    mask = (_flags(rng, n * s, 0.5).reshape(n, s).to(torch.int32).to(cuda)
-            if admit else None)
+                                 _flags(rng, rows, 0.9), act, self_on, spack)]
+    mask = (_flags(rng, rows * s, 0.5).reshape(rows, s).to(torch.int32)
+            .to(cuda) if admit else None)
+    if layout == "sliced":
+        # view, view_ts, mail, cand, recv, act, self_on, self_pack
+        offs = (1, 2, 3, 2, 5, 11, 3, 1)
+        args = [_sliced(a, o) for a, o in zip(args, offs)]
+        mask = None if mask is None else _sliced(mask, 3)
+        assert {a.data_ptr() % 16 for a in args[:4]} == {4, 8, 12}
     want = receive_core(n, s, TFAIL, TREMOVE, STRIDE, t, *args,
-                        admit_mask=mask)
+                        row0=row0, admit_mask=mask)
     kernels.reset_launches()
     got = receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
-                        *(a.clone() for a in args), admit_mask=mask)
+                        *(a.clone() if layout == "whole" else
+                          _sliced(a, 1 + i % 3)
+                          for i, a in enumerate(args)),
+                        row0=row0, admit_mask=mask)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["receive_admit" if admit else "receive"] == 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert int(want[5].sum()) > 0 and int(want[6].sum()) > 0
 
 
 @pytest.mark.cuda
