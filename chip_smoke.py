@@ -344,6 +344,24 @@ Phases (any failure exits non-zero before the final line):
                 rows (state, summary), a served N=256, S=16 run (state,
                 summary) and the default chaos campaign (N=10, two
                 schedules; the journal).
+ 51. bench   -- the port's bench and profiler: python -m
+                distributed_membership_tpu_torch.bench with BENCH_N=2^20
+                and BENCH_TICKS=20 (its ledger under --out-dir): exit 0,
+                one line on platform cuda naming the card, the S=128 and
+                S=16 rows (headline and hash_alt) and the dense row with
+                node-ticks/s > 0; its leg_hash in this process at 2^20
+                for 8 ticks at S=128 (K1-K3) and S=16 (K5-K7, folded),
+                each kernel once per tick of the warm run and the timed
+                one; profile_step.time_point at 2^20, S=128 (2 ticks)
+                with --trace-dir: a torch.profiler trace of the timed run
+                holding every dm_* phase range, K1-K3 once per tick; and
+                the leg's final state at N=2^12 (40 ticks, S=128 and
+                S=16) card == CPU; the CLI runs beside the rest of the
+                phase.  `--only bench_full` (opt-in) runs the bench's
+                own ladder alone (2^16/100, 2^18/60, 2^20/60 at S=128,
+                S=16 at 2^20/60, dense at N=512/100), then times the
+                set-up inside each 2^20 leg's timed window (config,
+                step, plan tensors, warm state).
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -415,10 +433,11 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "serve", "serve_inject", "serve_sharded", "serve_replicas",
           "reshard", "fleet", "sweep", "chaos", "sharded_scatter",
           "batched", "multiproc", "sharded_folded_multi", "host_backends",
-          "dense", "sparse", "scale", "ragged")
+          "dense", "sparse", "scale", "ragged", "bench")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile", "profile_exchange",   # run only when named in --only
-          "serve_load", "profile_backends", "nccl_probe", "scale_extra")
+          "serve_load", "profile_backends", "nccl_probe", "scale_extra",
+          "bench_full")
 TWIN_WORKERS, TWIN_THREADS = 2, 2  # CPU twin processes, threads in each
 TWIN_TIMEOUT_S = 600                # the longest wait for one twin
 # Phases run on a thread beside sweep and chaos, when the phases whose
@@ -5087,6 +5106,215 @@ def phase_scale_extra(torch, out_dir: str, card: str) -> dict:
     return out
 
 
+# Phase bench: the port's bench CLI at N=2^20 (BENCH_N, BENCH_TICKS), its
+# hash leg in this process at S=128 and S=16 (two runs of BENCH_LEG_TICKS
+# each: the warm one and the timed one), profile_step's traced point, and
+# the leg's final state at N=2^12 against its CPU twin.
+BENCH_CLI_TICKS = 20
+BENCH_LEG_TICKS = 8
+BENCH_TRACE_TICKS = 2
+BENCH_TWIN_N, BENCH_TWIN_TICKS = 1 << 12, 40
+BENCH_LAUNCHES = {128: ("receive", "gossip", "probe"),
+                  16: ("receive_folded", "gossip_folded", "probe_folded")}
+
+
+def start_bench_cli(out: str, env: dict) -> tuple:
+    """Start ``python -m distributed_membership_tpu_torch.bench`` with
+    ``env`` (and no other BENCH_* key), its ledger and its output under
+    ``out``; -> the handle :func:`finish_bench_cli` takes."""
+    from distributed_membership_tpu_torch.observability import perfdb
+
+    os.makedirs(out, exist_ok=True)
+    ledger = os.path.join(out, os.path.basename(perfdb.LEDGER_PATH))
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    full = {k: v for k, v in os.environ.items() if not k.startswith(
+        "BENCH_")}
+    full.update(env)
+    files = [os.path.join(out, name) for name in ("cli.out", "cli.err")]
+    with open(files[0], "w") as fo, open(files[1], "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_membership_tpu_torch.bench",
+             "--ledger", ledger], cwd=REPO, env=full, stdout=fo, stderr=fe)
+    return proc, ledger, files, time.perf_counter()
+
+
+def finish_bench_cli(handle: tuple, card: str, timeout: float,
+                     note: str = "") -> dict:
+    """Wait for the bench CLI and check its last line: exit 0, platform
+    cuda, the card's name, the headline, hash_alt and dense rows with
+    node-ticks/s > 0, and its ledger rows keyed by the card -> the
+    line."""
+    from distributed_membership_tpu_torch.observability import perfdb
+
+    proc, ledger, files, t0 = handle
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    with open(files[0]) as fo, open(files[1]) as fe:
+        out, err = fo.read(), fe.read()
+    lines = out.strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"bench CLI exit {rc}: {(err or out)[-2000:]}")
+    rec = json.loads(lines[-1])
+    rows = perfdb.load_ledger(ledger)
+    log(f"bench[cli]: {json.dumps(rec)}; {len(rows)} ledger rows; "
+        f"{wall:.1f}s{note}; card: {card}")
+    name = rec["device"]["name"]
+    if (rec["platform"] != "cuda" or not rec["value"] > 0
+            or not card.startswith(name) or "failed_legs" in rec
+            or rec["dense"]["node_ticks_per_sec"] <= 0
+            or rec["hash_alt"]["node_ticks_per_sec"] <= 0
+            or {r["knobs"].get("device") for r in rows} != {name}):
+        raise AssertionError(f"bench CLI: {rec}; ledger {rows}")
+    return rec
+
+
+def bench_leg_digest(n: int, ticks: int, view: int, device: str) -> str:
+    """The bench's hash leg at ``n`` on ``device`` -> the leaf digest of
+    its timed run's final state."""
+    import random as _pyrandom
+
+    import torch
+
+    from distributed_membership_tpu_torch import bench
+    from distributed_membership_tpu_torch.backends.tpu_hash import run_scan
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.runtime.failures import make_plan
+
+    params = Params.from_text(bench.hash_leg_conf(n, ticks, view).text)
+    plan = make_plan(params, _pyrandom.Random("app:0"))
+    _, state = bench._timed_runs(run_scan, params, plan, ticks,
+                                 torch.device(device))
+    return leaf_digest(state)
+
+
+def _bench_twin_job(n: int, ticks: int, view: int) -> str:
+    return bench_leg_digest(n, ticks, view, "cpu")
+
+
+def phase_bench(torch, out_dir: str, card: str, paths: dict) -> dict:
+    """Phase bench: the bench CLI at N=2^20 (one line, the card's name,
+    both hash regimes and dense > 0), started first and run beside the
+    rest of the phase, so its times are not the card's alone; the leg's
+    final state at N=2^12 card == CPU (S=128 and S=16); leg_hash at 2^20
+    on the card with K1-K3 (S=128) and K5-K7 (S=16) once per tick; and
+    profile_step's timed point at 2^20, S=128 traced, every dm_* range in
+    the trace."""
+    from distributed_membership_tpu_torch import bench, kernels, profile_step
+
+    root = os.path.join(out_dir, "bench")
+    cli = start_bench_cli(os.path.join(root, "cli"), {
+        "BENCH_N": str(N), "BENCH_TICKS": str(BENCH_CLI_TICKS)})
+    info = {}
+    try:
+        for view in (128, 16):
+            got = bench_leg_digest(BENCH_TWIN_N, BENCH_TWIN_TICKS, view,
+                                   "cuda")
+
+            def check(want: str, got=got, view=view) -> None:
+                if got != want:
+                    raise AssertionError(f"bench[twin_s{view}]: card digest "
+                                         f"{got} != CPU {want}")
+                log(f"bench[twin_s{view}]: N=2^12 leg's final state "
+                    f"identical, cuda vs cpu ({BENCH_TWIN_TICKS} ticks); "
+                    f"card: {card}")
+            TWINS.call(_bench_twin_job,
+                       (BENCH_TWIN_N, BENCH_TWIN_TICKS, view), check)
+        for view, forms in BENCH_LAUNCHES.items():
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            row = bench.leg_hash(N, BENCH_LEG_TICKS, "cuda", view)
+            launches = dict(kernels.LAUNCHES)
+            expect = launches_expected(**{k: 2 * BENCH_LEG_TICKS
+                                          for k in forms})
+            leg = {k: row[k] for k in ("n", "ticks", "view_size", "mode",
+                                       "node_ticks_per_sec", "wall_seconds",
+                                       "device")}
+            paths[f"bench_s{view}"] = dict(leg, launches=launches)
+            log(f"bench[leg_s{view}]: {json.dumps(leg)} (beside the CLI); "
+                f"launches {json.dumps({k: v for k, v in launches.items() if v})}"
+                f" over the warm and the timed run; card: {card}")
+            if launches != expect or row["platform"] != "cuda":
+                raise AssertionError(f"bench[leg_s{view}]: launches "
+                                     f"{launches} != {expect}")
+            info[f"leg_s{view}"] = leg
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        rec = profile_step.time_point(
+            N, S, BENCH_TRACE_TICKS, "ring", device="cuda",
+            trace_dir=os.path.join(root, "trace"))
+        launches = dict(kernels.LAUNCHES)
+        expect = launches_expected(**{k: 2 * BENCH_TRACE_TICKS
+                                      for k in BENCH_LAUNCHES[128]})
+        keep = {k: rec[k] for k in (
+            "n", "s", "ticks", "fused", "fused_gossip", "fused_probe",
+            "folded", "trace_files", "trace_phases",
+            "trace_phase_annotations_present", "device")}
+        paths["bench_trace"] = dict(keep, launches=launches)
+        log(f"bench[trace]: {json.dumps(keep)}; card: {card}")
+        if (launches != expect or not rec["trace_phase_annotations_present"]
+                or not (rec["fused"] and rec["fused_gossip"]
+                        and rec["fused_probe"])):
+            raise AssertionError(f"bench[trace]: {rec}; launches {launches}")
+        info["trace"] = keep
+    finally:
+        info["cli"] = finish_bench_cli(cli, card, 600,
+                                       " (beside the phase's own runs)")
+    return info
+
+
+def run_setup_seconds(torch, n: int, ticks: int, view: int) -> float:
+    """Seconds of the set-up inside the bench leg's timed window at ``n``
+    (the config, step, plan tensors and warm state: ``segment_runner``
+    and ``init_carry``), after one untimed set-up."""
+    import random as _pyrandom
+
+    from distributed_membership_tpu_torch import bench
+    from distributed_membership_tpu_torch.backends.tpu_hash import (
+        segment_runner)
+    from distributed_membership_tpu_torch.config import Params
+    from distributed_membership_tpu_torch.runtime.failures import make_plan
+
+    params = Params.from_text(bench.hash_leg_conf(n, ticks, view).text)
+    plan = make_plan(params, _pyrandom.Random("app:0"))
+    walls = []
+    for seed in (0, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segment_runner(params, plan, seed, torch.device("cuda"), False,
+                       ticks).init_carry()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls[-1]
+
+
+def phase_bench_full(torch, out_dir: str, card: str) -> dict:
+    """Opt-in: the bench's own ladder on the card (2^16/100, 2^18/60,
+    2^20/60 at S=128, then S=16 at 2^20/60, then dense at N=512/100),
+    alone on the card; then the set-up inside each 2^20 leg's timed
+    window, and the legs' ms/tick with and without it."""
+    rec = finish_bench_cli(start_bench_cli(
+        os.path.join(out_dir, "bench_full"), {}), card, 3000)
+    out = {"cli": rec}
+    for row in (rec["hash"], rec["hash_alt"]):
+        ticks, wall = row["ticks"], row["wall_seconds"]
+        setup = run_setup_seconds(torch, N, ticks, row["view_size"])
+        res = {"view_size": row["view_size"], "ticks": ticks,
+               "ms_per_tick": 1e3 * wall / ticks, "setup_s": setup,
+               "ms_per_tick_without_setup": 1e3 * (wall - setup) / ticks}
+        log(f"bench_full[s{row['view_size']}]: {json.dumps(res)}; card: "
+            f"{card}")
+        out[f"s{row['view_size']}"] = res
+        torch.cuda.empty_cache()
+    return out
+
+
 def start_beside(name: str, phase) -> tuple:
     """``phase()`` on a thread of its own, beside the phases after it:
     its processes do its work, the thread only polls them.  The thread
@@ -5127,7 +5355,8 @@ def check_no_jax() -> int:
                  "fleet.placement", "fleet.registry", "fleet.scheduler",
                  "fleet.daemon", "sweeps.fleet_submit", "service.daemon",
                  "sweeps.phase", "chaos.campaign", "scale_smoke",
-                 "perf_ledger", "run_report", "package_results", "submit"):
+                 "perf_ledger", "run_report", "package_results", "submit",
+                 "bench", "profile_step"):
         importlib.import_module("distributed_membership_tpu_torch." + name)
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "distributed_membership_tpu")]
@@ -5683,7 +5912,9 @@ def main(argv=None) -> int:
             ("sparse", lambda: phase_sparse(torch, confs, out_dir, card)),
             ("scale", lambda: phase_scale(torch, out_dir, card, paths)),
             ("scale_extra", lambda: phase_scale_extra(torch, out_dir,
-                                                      card))):
+                                                      card)),
+            ("bench", lambda: phase_bench(torch, out_dir, card, paths)),
+            ("bench_full", lambda: phase_bench_full(torch, out_dir, card))):
         if name == "sharded_scatter" and beside:
             join_beside(beside, paths, card)
         if (name in phases and name in BESIDE

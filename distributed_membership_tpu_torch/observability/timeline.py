@@ -37,11 +37,14 @@ record per ``t0``.
 
 The ``PHASE_*`` names label the protocol phases of the four ring steps as
 ``torch.profiler.record_function`` ranges, so a profile splits a tick's
-device time by phase.
+device time by phase; :func:`scan_trace_for_phases` says which of them a
+captured trace holds (``python -m distributed_membership_tpu_torch.
+profile_step --trace-dir``).
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
 from typing import NamedTuple, Optional
@@ -323,3 +326,27 @@ def timeline_summary(series: dict) -> dict:
         "last_detection_tick": (int(series["t0"] + det_ticks[-1])
                                 if det_ticks.size else None),
     }
+
+
+def scan_trace_for_phases(trace_dir: str, names=PHASE_NAMES) -> list:
+    """Which phase names appear in a captured profiler trace, sorted: a
+    byte scan of every file under ``trace_dir``, gzip-aware (a
+    ``torch.profiler`` chrome trace names each ``record_function`` range
+    verbatim)."""
+    want = {n: n.encode() for n in names}
+    found = set()
+    for root, _, files in os.walk(trace_dir):
+        for fname in files:
+            path = os.path.join(root, fname)
+            try:
+                with open(path, "rb") as fh:
+                    blob = fh.read()
+            except OSError:
+                continue
+            if fname.endswith(".gz"):
+                try:
+                    blob = gzip.decompress(blob)
+                except OSError:
+                    pass
+            found.update(name for name, pat in want.items() if pat in blob)
+    return sorted(found)

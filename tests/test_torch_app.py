@@ -139,7 +139,8 @@ def test_port_imports_no_jax():
             PKG / "multiproc_launch.py",
             PKG / "observability" / "perfdb.py", PKG / "scale_smoke.py",
             PKG / "perf_ledger.py", PKG / "run_report.py",
-            PKG / "package_results.py", PKG / "submit.py"} <= set(
+            PKG / "package_results.py", PKG / "submit.py",
+            PKG / "bench.py", PKG / "profile_step.py"} <= set(
                 _port_sources())
     # The native engine's loader builds the port's own copy of the
     # source; no port file names the JAX package's native directory.
