@@ -410,6 +410,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import json
+import math
 import os
 import random
 import subprocess
@@ -479,8 +480,9 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` launches (CUDA
-    events, after one warm-up call)."""
+    """Mean milliseconds of ``fn`` over ``reps`` calls back to back, host
+    work included (CUDA events, after one warm-up call): a plain version's
+    or a tick's time as its caller sees it."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -492,6 +494,35 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of the kernel that ``fn`` (a wrapper call)
+    launches, over ``reps`` launches after one warm-up call.  A sleep
+    kernel goes ahead of the first event, long enough that the host has
+    enqueued every call before the card reaches them, so the events
+    bracket the kernels alone, not the wrapper's host work (checked: the
+    first event is still pending when the last call is enqueued, else the
+    sleep doubles and it runs again)."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_s = 2 * reps * (time.perf_counter() - t0) + 1e-3
+    for _ in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))   # cycles, <= 2 GHz clock
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        sleep_s *= 2
+    raise RuntimeError("kernel_ms: the host never got ahead of the card")
 
 
 def max_abs_err(pairs) -> int:
@@ -522,6 +553,22 @@ def packed(rng, n, occ, hb_hi, shape):
 
 def nbytes(*ts) -> int:
     return sum(x.numel() * x.element_size() for x in ts)
+
+
+def window_sector_bytes(nodes: int, s: int, p: int, ptr: int) -> int:
+    """Bytes of the 32-byte sectors that the P-slot windows at ``ptr``
+    (cyclic) of ``nodes`` rows of ``s`` int32 slots touch, the plane's
+    base on a 32-byte bound: what a probe kernel must read of the view.
+    Every ``8 // gcd(s, 8)`` rows end on a sector bound, so the count is
+    that block's times the blocks, plus the rest's."""
+    per = 8 // math.gcd(s, 8)
+
+    def sectors(rows):
+        return len({(i * s + (ptr + j) % s) >> 3
+                    for i in range(rows) for j in range(p)})
+
+    full, rest = divmod(nodes, per)
+    return 32 * (full * sectors(per) + sectors(rest))
 
 
 def conf_variant(conf: str, out_dir: str, name: str, **keys) -> str:
@@ -693,8 +740,8 @@ def phase_kernels(torch, dev) -> dict:
     err = max_abs_err(zip(got, ref))
     del ref, got
     v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
-    k_ms = cuda_ms(lambda: receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t,
-                                         v2, ts2, m2, *args), 20)
+    k_ms = kernel_ms(lambda: receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t,
+                                           v2, ts2, m2, *args), 20)
     p_ms = cuda_ms(lambda: receive_core(N, S, TFAIL, TREMOVE, STRIDE, t,
                                         view, view_ts, mail, *args), 3)
     del v2, ts2, m2
@@ -720,9 +767,9 @@ def phase_kernels(torch, dev) -> dict:
         raise AssertionError("receive_admit: the admit plane changed nothing")
     del ref, got, open_
     v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
-    k_ms = cuda_ms(lambda: receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t,
-                                         v2, ts2, m2, *args,
-                                         admit_mask=admit), 20)
+    k_ms = kernel_ms(lambda: receive_fused(N, S, TFAIL, TREMOVE, STRIDE, t,
+                                           v2, ts2, m2, *args,
+                                           admit_mask=admit), 20)
     p_ms = cuda_ms(lambda: receive_core(N, S, TFAIL, TREMOVE, STRIDE, t,
                                         view, view_ts, mail, *args,
                                         admit_mask=admit), 3)
@@ -744,8 +791,8 @@ def phase_kernels(torch, dev) -> dict:
         err = max(err, max_abs_err([(got, ref)]))
     del ref, got
     m2 = mail.clone()
-    k_ms = cuda_ms(lambda: gossip_fused(N, S, K_MAX, m2, payload, k_eff,
-                                        shifts), 20)
+    k_ms = kernel_ms(lambda: gossip_fused(N, S, K_MAX, m2, payload, k_eff,
+                                          shifts), 20)
     p_ms = cuda_ms(lambda: gossip_plain(N, S, K_MAX, mail, payload, k_eff,
                                         shifts), 3)
     # design: the tiled kernel reads the payload and k_eff once per shift
@@ -760,8 +807,8 @@ def phase_kernels(torch, dev) -> dict:
     torch.cuda.synchronize()
     err = max_abs_err([(got, ref)])
     del ref, got
-    k_ms = cuda_ms(lambda: gossip_fused(N, S, K_MAX, m2, view, None, shifts,
-                                        masks=masks), 20)
+    k_ms = kernel_ms(lambda: gossip_fused(N, S, K_MAX, m2, view, None, shifts,
+                                          masks=masks), 20)
     p_ms = cuda_ms(lambda: gossip_plain(N, S, K_MAX, mail, view, None,
                                         shifts, masks), 3)
     record(rows, "gossip_fused", "gossip_masks", err, k_ms, p_ms,
@@ -784,16 +831,16 @@ def phase_kernels(torch, dev) -> dict:
         if set(got) != set(ref):
             raise AssertionError(f"probe outputs {sorted(got)}")
         err = max(err, max_abs_err((got[k], ref[k]) for k in ref))
-    k_ms = cuda_ms(lambda: probe_window_fused(
+    k_ms = kernel_ms(lambda: probe_window_fused(
         N, S, P, TFAIL, fail_ids, False, True, t, ptr, 0, view, None, act,
         rm_ids), 20)
     p_ms = cuda_ms(lambda: probe_plain(
         N, S, P, TFAIL, fail_ids, False, True, t, ptr, 0, view, None, act,
         rm_ids), 3)
-    # in: the P window columns of view, act and the rm plane; out: P ids
-    # and 1 + F counts per row
-    moved = (N * P * 4 + nbytes(act, rm_ids) + N * P * 4
-             + N * 4 * (1 + len(fail_ids)))
+    # in: the sectors of view the P-slot windows touch, act and the rm
+    # plane; out: P ids and 1 + F counts per row
+    moved = (window_sector_bytes(N, S, P, ptr) + nbytes(act, rm_ids)
+             + N * P * 4 + N * 4 * (1 + len(fail_ids)))
     record(rows, "probe_window_fused", "probe", err, k_ms, p_ms, moved)
 
     # The same on a plane like a tick's: all -1 but a few removals of
@@ -809,7 +856,7 @@ def phase_kernels(torch, dev) -> dict:
     err = max_abs_err((got[k], ref[k]) for k in ref)
     if int(ref["rm_cnt"].sum()) <= 0:
         raise AssertionError("probe: the sparse plane holds no removal")
-    k_ms = cuda_ms(lambda: probe_window_fused(*a), 20)
+    k_ms = kernel_ms(lambda: probe_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_plain(*a), 3)
     record(rows, "probe_window_fused", "probe_sparse", err, k_ms, p_ms,
            moved)
@@ -823,7 +870,7 @@ def phase_kernels(torch, dev) -> dict:
     if set(got) != set(ref):
         raise AssertionError(f"probe outputs {sorted(got)}")
     err = max_abs_err((got[k], ref[k]) for k in ref)
-    k_ms = cuda_ms(lambda: probe_window_fused(*a), 20)
+    k_ms = kernel_ms(lambda: probe_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_plain(*a), 3)
     # in: view and view_ts (every entry's staleness), act, the rm plane;
     # out: P ids, 2 x 8 bucket counts and 1 + F counts per row
@@ -840,7 +887,7 @@ def phase_kernels(torch, dev) -> dict:
     if set(got) != set(ref):
         raise AssertionError(f"probe outputs {sorted(got)}")
     err = max_abs_err((got[k], ref[k]) for k in ref)
-    k_ms = cuda_ms(lambda: probe_window_fused(
+    k_ms = kernel_ms(lambda: probe_window_fused(
         N, S, P, TFAIL, (), True, False, t, 120, 0, view, view_ts, act,
         None), 20)
     p_ms = cuda_ms(lambda: probe_plain(
@@ -895,7 +942,7 @@ def phase_kernels_folded(torch, dev, fs: int = FS, fp: int = FP,
     err = max_abs_err(zip(got, ref))
     del ref, got
     v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
-    k_ms = cuda_ms(lambda: receive_folded_fused(
+    k_ms = kernel_ms(lambda: receive_folded_fused(
         N, fs, TFAIL, TREMOVE, STRIDE, t, v2, ts2, m2, *args), 20)
     p_ms = cuda_ms(lambda: folded_receive_core(
         N, fs, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail, *args), 3)
@@ -924,7 +971,7 @@ def phase_kernels_folded(torch, dev, fs: int = FS, fp: int = FP,
         err = max(err, max_abs_err([(got, ref)]))
     del ref, got
     m2 = mail.clone()
-    k_ms = cuda_ms(lambda: gossip_folded_stacked(
+    k_ms = kernel_ms(lambda: gossip_folded_stacked(
         r, fs, K_MAX, True, m2, payloads, shifts, c1, c2), 20)
     p_ms = cuda_ms(lambda: gossip_folded_plain(
         r, fs, K_MAX, True, mail, payloads, shifts, c1, c2), 3)
@@ -943,7 +990,7 @@ def phase_kernels_folded(torch, dev, fs: int = FS, fp: int = FP,
         torch.cuda.synchronize()
         err = max_abs_err([(got, ref)])
         del ref, got
-        k_ms = cuda_ms(lambda: gossip_folded_stacked(
+        k_ms = kernel_ms(lambda: gossip_folded_stacked(
             r, fs, K_MAX, True, m2, view[None], shifts, c1, c2, masks), 20)
         p_ms = cuda_ms(lambda: gossip_folded_plain(
             r, fs, K_MAX, True, mail, view[None], shifts, c1, c2, masks), 3)
@@ -974,7 +1021,7 @@ def phase_kernels_folded(torch, dev, fs: int = FS, fp: int = FP,
         err = max(err, max_abs_err([(got, ref)]))
     del ref, got
     m2 = mail.clone()
-    k_ms = cuda_ms(lambda: gossip_folded_stacked(
+    k_ms = kernel_ms(lambda: gossip_folded_stacked(
         r, fs, K_MAX, True, m2, payloads, thr, s1, s2, n_local=n_local), 20)
     p_ms = cuda_ms(lambda: gossip_folded_plain(
         r, fs, K_MAX, True, mail, payloads, thr, s1, s2, n_local=n_local), 3)
@@ -1031,29 +1078,33 @@ def phase_kernels_folded(torch, dev, fs: int = FS, fp: int = FP,
         return max_abs_err(pairs), a
 
     err = 0
-    for ptr in (fs - 1, 6):               # wrapping and inner window
+    # Wrapping, inner, and last the step's own ptr = (t * P) mod S, timed.
+    for ptr in (fs - 1, 6, t * fp % fs):
         e, a = probe_err(False, True, ptr)
         err = max(err, e)
-    k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
+    k_ms = kernel_ms(lambda: probe_folded_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
-    # in: view, act, rm_ids; out: the id plane, det_any (1 B per entry),
-    # 1 + F counts per plane row
+    # in: the sectors of view the windows touch, act, rm_ids; out: P ids
+    # and one det_any byte per node, 1 + F counts per plane row
+    ids_out = N * fp * 4 + N
     record(rows, "probe_folded_window_fused", "probe_folded" + tag, err, k_ms,
-           p_ms, nbytes(view, act, rm_ids, view) + r * 128
-           + r * 4 * (1 + len(fail_ids)))
+           p_ms, window_sector_bytes(N, fs, fp, a[8]) + nbytes(act, rm_ids)
+           + ids_out + r * 4 * (1 + len(fail_ids)))
     if tag:
         return rows
+    # The hist forms read view and view_ts whole (every entry's age).
     err, a = probe_err(True, False, fs - 1)
-    k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
+    k_ms = kernel_ms(lambda: probe_folded_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
     record(rows, "probe_folded_window_fused", "probe_folded_hist_only", err,
-           k_ms, p_ms, nbytes(view, view_ts, act, view) + r * 2 * 8 * 4)
+           k_ms, p_ms, nbytes(view, view_ts, act) + N * fp * 4
+           + r * 2 * 8 * 4)
     # The form the TELEMETRY hist paths run: hist and agg partials at once.
     err, a = probe_err(True, True, fs - 1)
-    k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 20)
+    k_ms = kernel_ms(lambda: probe_folded_window_fused(*a), 20)
     p_ms = cuda_ms(lambda: probe_folded_plain(*a), 3)
     record(rows, "probe_folded_window_fused", "probe_folded_hist", err,
-           k_ms, p_ms, nbytes(view, view_ts, act, rm_ids, view) + r * 128
+           k_ms, p_ms, nbytes(view, view_ts, act, rm_ids) + ids_out
            + r * 2 * 8 * 4 + r * 4 * (1 + len(fail_ids)))
     return rows
 
@@ -1100,7 +1151,7 @@ def phase_kernels_stacked(torch, dev) -> dict:
     del ref, got
     m2 = mail.clone()
     single = (N * STRIDE) % S == 0
-    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+    k_ms = kernel_ms(lambda: gossip_fused_stacked(
         N, S, K_MAX, single, m2, payloads, c, s1, s2), 20)
     p_ms = cuda_ms(lambda: gossip_stacked_plain(
         N, S, K_MAX, single, mail, payloads, c, s1, s2), 3)
@@ -1137,7 +1188,7 @@ def phase_kernels_stacked(torch, dev) -> dict:
     torch.cuda.synchronize()
     err = max_abs_err([(got, ref)])
     del ref, got
-    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+    k_ms = kernel_ms(lambda: gossip_fused_stacked(
         N, S, K_MAX, single, m2, view[None], c, s1, s2, masks), 20)
     p_ms = cuda_ms(lambda: gossip_stacked_plain(
         N, S, K_MAX, single, mail, view[None], c, s1, s2, masks), 3)
@@ -1209,8 +1260,8 @@ def phase_kernels_wide(torch, dev) -> dict:
     err_r = k2("k_eff", payload, k_eff, None, ([3, 9000, 4999],),
                n=9001, s=8192)[0]
     m2 = m.clone()
-    k_ms = cuda_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, ke, shifts),
-                   5)
+    k_ms = kernel_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, ke, shifts),
+                     5)
     p_ms = cuda_ms(lambda: gossip_plain(nw, sw, K_MAX, m, v, ke, shifts), 2)
     # The design copies a sender chunk only where its row's gate is open,
     # and reads one k_eff value per chunk and shift.
@@ -1228,8 +1279,8 @@ def phase_kernels_wide(torch, dev) -> dict:
     torch.cuda.synchronize()
     err = max_abs_err([(got, ref)])
     del ref, got
-    k_ms = cuda_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, ke, shifts),
-                   5)
+    k_ms = kernel_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, ke, shifts),
+                     5)
     p_ms = cuda_ms(lambda: gossip_plain(nw, sw, K_MAX, m, v, ke, shifts), 2)
     record(rows, "gossip_fused", "gossip_wide_open", err, k_ms, p_ms,
            keff_bytes(m, v, ke, shifts),
@@ -1239,8 +1290,8 @@ def phase_kernels_wide(torch, dev) -> dict:
     err, m, v, _, mk, shifts = k2("masks", view, None, masks,
                                   ([1, nw - 1, 5000],))
     m2 = m.clone()
-    k_ms = cuda_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, None, shifts,
-                                        masks=mk), 5)
+    k_ms = kernel_ms(lambda: gossip_fused(nw, sw, K_MAX, m2, v, None, shifts,
+                                          masks=mk), 5)
     p_ms = cuda_ms(lambda: gossip_plain(nw, sw, K_MAX, m, v, None, shifts,
                                         mk), 2)
     record(rows, "gossip_fused", "gossip_wide_masks", err, k_ms, p_ms,
@@ -1277,7 +1328,7 @@ def phase_kernels_wide(torch, dev) -> dict:
     err8 = max_abs_err([(got, ref)])
     del ref, got, sub
     m2 = mail.clone()
-    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+    k_ms = kernel_ms(lambda: gossip_fused_stacked(
         nw, sw, K_MAX, single, m2, payloads, c, s1, s2), 5)
     p_ms = cuda_ms(lambda: gossip_stacked_plain(
         nw, sw, K_MAX, single, mail, payloads, c, s1, s2), 2)
@@ -1294,7 +1345,7 @@ def phase_kernels_wide(torch, dev) -> dict:
     torch.cuda.synchronize()
     err = max_abs_err([(got, ref)])
     del ref, got
-    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+    k_ms = kernel_ms(lambda: gossip_fused_stacked(
         nw, sw, K_MAX, single, m2, view[None], c, s1, s2, masks), 5)
     p_ms = cuda_ms(lambda: gossip_stacked_plain(
         nw, sw, K_MAX, single, mail, view[None], c, s1, s2, masks), 2)
@@ -1324,8 +1375,8 @@ def phase_kernels_wide(torch, dev) -> dict:
     rm_ids = ref[4]
     del got
     v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
-    k_ms = cuda_ms(lambda: receive_fused(nw, sw, TFAIL, TREMOVE, STRIDE, t,
-                                         v2, ts2, m2, *args), 5)
+    k_ms = kernel_ms(lambda: receive_fused(nw, sw, TFAIL, TREMOVE, STRIDE, t,
+                                           v2, ts2, m2, *args), 5)
     p_ms = cuda_ms(lambda: receive_core(nw, sw, TFAIL, TREMOVE, STRIDE, t,
                                         view, view_ts, mail, *args), 2)
     del v2, ts2, m2
@@ -1342,7 +1393,7 @@ def phase_kernels_wide(torch, dev) -> dict:
                                  ptr, 0, view, view_ts, act, rm_ids)
         torch.cuda.synchronize()
         err = max(err, max_abs_err((got[k], ref[k]) for k in ref))
-    k_ms = cuda_ms(lambda: probe_window_fused(
+    k_ms = kernel_ms(lambda: probe_window_fused(
         nw, sw, P, TFAIL, fail_ids, True, True, t, 32, 0, view, view_ts,
         act, rm_ids), 5)
     p_ms = cuda_ms(lambda: probe_plain(
@@ -1412,8 +1463,8 @@ def natural_forms(torch, dev, n: int, s: int, p: int, tag: str, rows: dict,
     err = max_abs_err(zip(got, ref))
     del ref, got
     v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
-    k_ms = cuda_ms(lambda: receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
-                                         v2, ts2, m2, *args), kr)
+    k_ms = kernel_ms(lambda: receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
+                                           v2, ts2, m2, *args), kr)
     p_ms = cuda_ms(lambda: receive_core(n, s, TFAIL, TREMOVE, STRIDE, t,
                                         view, view_ts, mail, *args), pr)
     del v2, ts2, m2
@@ -1438,8 +1489,8 @@ def natural_forms(torch, dev, n: int, s: int, p: int, tag: str, rows: dict,
             err = max(err, max_abs_err([(got, ref)]))
             del ref, got
         m2 = mail.clone()
-        k_ms = cuda_ms(lambda: gossip_fused(n, s, K_MAX, m2, pay, ke, shifts,
-                                            masks=masks), kr)
+        k_ms = kernel_ms(lambda: gossip_fused(n, s, K_MAX, m2, pay, ke, shifts,
+                                              masks=masks), kr)
         p_ms = cuda_ms(lambda: gossip_plain(n, s, K_MAX, mail, pay, ke,
                                             shifts, masks), pr)
         moved = (keff_bytes(mail, pay, ke, shifts) if masks is None else
@@ -1465,11 +1516,11 @@ def natural_forms(torch, dev, n: int, s: int, p: int, tag: str, rows: dict,
         if set(got) != set(ref):
             raise AssertionError(f"probe outputs {sorted(got)}")
         err = max(err, max_abs_err((got[k], ref[k]) for k in ref))
-    k_ms = cuda_ms(lambda: probe_window_fused(*a), kr)
+    k_ms = kernel_ms(lambda: probe_window_fused(*a), kr)
     p_ms = cuda_ms(lambda: probe_plain(*a), pr)
     record(rows, "probe_window_fused", "probe" + tag, err, k_ms, p_ms,
-           n * p * 4 + nbytes(act, rm_ids) + n * p * 4
-           + n * 4 * (1 + len(fail_ids)))
+           window_sector_bytes(n, s, p, ptr) + nbytes(act, rm_ids)
+           + n * p * 4 + n * 4 * (1 + len(fail_ids)))
 
 
 def stacked_forms(torch, dev, d: int, l: int, s: int, tag: str, rows: dict,
@@ -1506,7 +1557,7 @@ def stacked_forms(torch, dev, d: int, l: int, s: int, tag: str, rows: dict,
             del ref, got
     del masks
     m2 = mail.clone()
-    k_ms = cuda_ms(lambda: gossip_fused_stacked(
+    k_ms = kernel_ms(lambda: gossip_fused_stacked(
         l, s, K_MAX, False, m2, payloads, c, s1, s2), reps[0])
     p_ms = cuda_ms(lambda: gossip_stacked_plain(
         l, s, K_MAX, False, mail, payloads, c, s1, s2), reps[1])
@@ -1516,7 +1567,8 @@ def stacked_forms(torch, dev, d: int, l: int, s: int, tag: str, rows: dict,
 
 def folded_rows_forms(torch, dev, plane_rows: int, rows: dict) -> None:
     """K5 and K7 (agg partials) on ``plane_rows`` folded plane rows at
-    S=16, P=4 (8 nodes a row), against their plain versions."""
+    S=16, P=4 (8 nodes a row), and K7 on as many rows at S = 4, 8 and 2
+    (every ptr), against their plain versions."""
     import numpy as np
     from distributed_membership_tpu_torch.ops.fused_folded import (
         folded_receive_core, receive_folded_fused)
@@ -1548,7 +1600,7 @@ def folded_rows_forms(torch, dev, plane_rows: int, rows: dict) -> None:
     torch.cuda.synchronize()
     err = max_abs_err(zip(got, ref))
     v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
-    k_ms = cuda_ms(lambda: receive_folded_fused(
+    k_ms = kernel_ms(lambda: receive_folded_fused(
         n, fs, TFAIL, TREMOVE, STRIDE, t, v2, ts2, m2, *args), 50)
     p_ms = cuda_ms(lambda: folded_receive_core(
         n, fs, TFAIL, TREMOVE, STRIDE, t, view, view_ts, mail, *args), 10)
@@ -1561,21 +1613,42 @@ def folded_rows_forms(torch, dev, plane_rows: int, rows: dict) -> None:
     rm[hit] = rng.choice(np.asarray(fail_ids + (5,), np.int32),
                          size=int(hit.sum()))
     rm_ids = T(rm)
-    err = 0
-    for ptr in (fs - 1, 6):
-        a = (n, fs, fp, TFAIL, fail_ids, False, True, t, ptr, 0, view, None,
-             act, rm_ids)
+
+    def probe_err(s, p, ptr, plane, act_s):
+        a = (plane.numel() // s, s, p, TFAIL, fail_ids, False, True, t, ptr,
+             0, plane, None, act_s, rm_ids)
         ref, got = probe_folded_plain(*a), probe_folded_window_fused(*a)
         torch.cuda.synchronize()
         if set(got) != set(ref):
             raise AssertionError(f"probe_folded outputs {sorted(got)}")
         pairs = [(got[k], ref[k]) for k in ref if k != "det_cols"]
         pairs += list(zip(got.get("det_cols", ()), ref.get("det_cols", ())))
-        err = max(err, max_abs_err(pairs))
-    k_ms = cuda_ms(lambda: probe_folded_window_fused(*a), 50)
+        return max_abs_err(pairs), a
+
+    err = 0
+    for ptr in (fs - 1, 6, t * fp % fs):  # the step's ptr last, timed
+        e, a = probe_err(fs, fp, ptr, view, act)
+        err = max(err, e)
+    k_ms = kernel_ms(lambda: probe_folded_window_fused(*a), 50)
     p_ms = cuda_ms(lambda: probe_folded_plain(*a), 10)
     record(rows, "probe_folded_window_fused", "probe_folded" + tag, err,
-           k_ms, p_ms, nbytes(view, act, rm_ids, view) + plane_rows * 128
+           k_ms, p_ms, window_sector_bytes(n, fs, fp, a[8])
+           + nbytes(act, rm_ids) + n * fp * 4 + n
+           + plane_rows * 4 * (1 + len(fail_ids)))
+    # The same rows as planes of S = 2, 4 and 8 slots (several nodes to a
+    # 16-byte load; P = 3 does not divide 4 or 8), timed at S = 2.
+    err = 0
+    for s, p in ((4, 3), (8, 3), (2, 1)):
+        n_s = plane_rows * 128 // s
+        plane = T(packed(rng, n_s, 0.7, 2 * t + 2, shape))
+        act_s = T(rng.random(n_s) < 0.95)
+        for ptr in range(s):
+            e, a = probe_err(s, p, ptr, plane, act_s)
+            err = max(err, e)
+    k_ms = kernel_ms(lambda: probe_folded_window_fused(*a), 50)
+    p_ms = cuda_ms(lambda: probe_folded_plain(*a), 10)
+    record(rows, "probe_folded_window_fused", "probe_folded_s2" + tag, err,
+           k_ms, p_ms, nbytes(plane, act_s, rm_ids) + n_s * 4 + n_s
            + plane_rows * 4 * (1 + len(fail_ids)))
 
 
@@ -1650,8 +1723,8 @@ def receive_forms(torch, dev, n: int, s: int, tag: str, rows: dict,
         del want
     del got
     v2, ts2, m2 = view.clone(), view_ts.clone(), mail.clone()
-    k_ms = cuda_ms(lambda: receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
-                                         v2, ts2, m2, *args), reps[0])
+    k_ms = kernel_ms(lambda: receive_fused(n, s, TFAIL, TREMOVE, STRIDE, t,
+                                           v2, ts2, m2, *args), reps[0])
     del v2, ts2, m2
     p_ms = cuda_ms(lambda: [plain(r, min(n, r + chunk), view, view_ts, mail)
                             for r in range(0, n, chunk)], reps[1])
@@ -6006,7 +6079,10 @@ def main(argv=None) -> int:
                                    ("receive_folded_rows2", "rows2"))),
             ("probe_folded_rows4", "ragged_folded_32", "probe_folded",
              "probe_folded.cu", (("probe_folded_rows1", "rows1"),
-                                 ("probe_folded_rows2", "rows2")))):
+                                 ("probe_folded_rows2", "rows2"),
+                                 ("probe_folded_s2_rows1", "s2_rows1"),
+                                 ("probe_folded_s2_rows2", "s2_rows2"),
+                                 ("probe_folded_s2_rows4", "s2_rows4")))):
         r = dict(rows[form])
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",

@@ -356,7 +356,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                     n, s, p_cnt, cfg.tfail, fail_ids, want_hist, True, t,
                     (t * p_cnt) % s, row0, view,
                     view_ts if want_hist else None, act, rm_ids)
-                window = pfo["ids"].view(nr, s)[:, :p_cnt]
+                window = pfo["ids"]
                 p_valid = window != 0
                 w_id = (window.to(I64) - 1).clamp_min(0)
                 if f.cuts is not None:
@@ -412,7 +412,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                 # shard with a mesh), or with no probes (so no K7) the same
                 # sums over the removal plane.
                 if pfo is None:
-                    pfo = folded_agg_partials(rm_ids, fail_ids)
+                    pfo = folded_agg_partials(rm_ids, fail_ids, s)
                 det_tick = any_true_rm = None
                 if fail_ids:
                     det_tick = torch.stack(
@@ -420,7 +420,7 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                          for dc in pfo["det_cols"]], dim=1)
                     if mesh is None:
                         det_tick = det_tick[0]
-                    any_true_rm = pfo["det_any"].view(nr, s).any(1)
+                    any_true_rm = pfo["det_any"]
                 rm_cnt = pfo["rm_cnt"]
                 agg = update_fast_agg(
                     state.agg, t=t, fail_ids=fail_ids, join_events=join_mask,

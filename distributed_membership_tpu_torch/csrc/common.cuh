@@ -10,19 +10,34 @@
 
 #define DM_FULL_MASK 0xffffffffu
 
-// (packed - 1) mod n in u32 arithmetic.
-__device__ __forceinline__ unsigned dm_member(unsigned packed, unsigned n) {
-    return (packed - 1u) % n;
-}
-
 // i32 subtraction with two's-complement wrap (the JAX `t - view_ts`).
 __device__ __forceinline__ int dm_sub_wrap(int a, int b) {
     return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
-__device__ __forceinline__ int dm_warp_sum(int x) {
-    return __reduce_add_sync(DM_FULL_MASK, x);
+namespace {
+
+// x mod n without a division: the remainder by direct computation
+// (Lemire, Kaser and Kurz, 2019), exact for every 32-bit x, with M =
+// 2^64 / n rounded up (0 for n = 1): ((M * x mod 2^64) * n) >> 64, in
+// 32-bit halves (one wide multiply).
+struct Magic {
+    unsigned lo, hi, n;              // M's halves, n
+    __device__ __forceinline__ unsigned mod(unsigned x) const {
+        const unsigned f_lo = lo * x;                      // M * x mod 2^64
+        const unsigned f_hi = __umulhi(lo, x) + hi * x;
+        return static_cast<unsigned>(
+            (static_cast<unsigned long long>(f_hi) * n
+             + __umulhi(f_lo, n)) >> 32);
+    }
+};
+
+inline Magic magic_of(unsigned n) {
+    const unsigned long long m = ~0ULL / n + 1;
+    return Magic{static_cast<unsigned>(m), static_cast<unsigned>(m >> 32), n};
 }
+
+}  // namespace
 
 // Launch status for the ctypes wrappers: 0 when the launch was accepted.
 static inline int dm_launch_status() {

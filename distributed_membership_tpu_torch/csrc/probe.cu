@@ -30,7 +30,6 @@
 // Counts are integers, so any reduction order gives the same result.
 
 #include <climits>
-#include <cstdint>
 #include <utility>
 
 #include "probe_parts.cuh"
@@ -44,7 +43,7 @@ constexpr int kHistRows = 4;      // of those, rows the histogram pass holds
 
 struct Args {
     int t, ptr, s, p_cnt, tfail, rows;
-    unsigned n;
+    Magic n;                          // member ids, (packed - 1) mod n
     long long row0;
     const unsigned* view;
     const int* view_ts;               // null unless the histogram is wanted
@@ -73,12 +72,6 @@ __device__ __forceinline__ void load(T (&v)[W], const T* p) {
     } else {
         v[0] = __ldcs(p);
     }
-}
-
-__device__ __forceinline__ int probe_id(unsigned w, unsigned n,
-                                        unsigned node, bool on) {
-    const unsigned id = dm_member(w, n);
-    return w > 0u && id != node && on ? static_cast<int>(id + 1u) : 0;
 }
 
 // The P ids of rows r0 .. r0 + 7: item k of the group is row k / q, piece
@@ -137,15 +130,8 @@ __device__ __forceinline__ void hist(const Args& a, int r0, int lane) {
             }
 #pragma unroll
             for (int u = 0; u < kHistRows; ++u) {
-                unsigned ns = 0u, nu = 0u;       // this chunk, in nibbles
-#pragma unroll
-                for (int e = 0; e < W; ++e) {
-                    if (w[u][e] == 0u) continue;
-                    const int d = dm_sub_wrap(a.t, ts[u][e]);
-                    ns += 1u << (bucket_of(d) << 2);
-                    if (d >= a.tfail)
-                        nu += 1u << (bucket_of(dm_sub_wrap(d, a.tfail)) << 2);
-                }
+                unsigned ns, nu;                 // this chunk, in nibbles
+                hist_nibbles<W>(w[u], ts[u], a.t, a.tfail, ns, nu);
                 stale[u].add_nibbles(ns);
                 susp[u].add_nibbles(nu);
             }
@@ -260,10 +246,6 @@ int launch_nf(const Args& a, int n_fail, void* stream,
     return rc;
 }
 
-bool aligned16(const void* p) {
-    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
-}
-
 }  // namespace
 
 // view_ts, stale_rows and susp_rows are all null or all set (histogram);
@@ -279,9 +261,9 @@ extern "C" int dm_probe(int t, int ptr, unsigned n, int s, int p_cnt,
     if (n_fail < 0 || n_fail > kMaxFail)
         return static_cast<int>(cudaErrorInvalidValue);
     if (rows <= 0) return dm_launch_status();
-    Args a{t, ptr, s, p_cnt, tfail, rows, n, row0, view, view_ts, act,
-           rm_ids, fail, INT_MAX, false, ids, stale_rows, susp_rows, rm_cnt,
-           det};
+    Args a{t, ptr, s, p_cnt, tfail, rows, magic_of(n), row0, view, view_ts,
+           act, rm_ids, fail, INT_MAX, false, ids, stale_rows, susp_rows,
+           rm_cnt, det};
     for (int f = 0; f < n_fail; ++f)
         a.fail_lo = fail.ids[f] < a.fail_lo ? fail.ids[f] : a.fail_lo;
     const bool vec = s % 4 == 0 && aligned16(view)

@@ -1,7 +1,10 @@
 // Pieces shared by the probe-window kernels K3 (probe.cu, the [N, S]
 // layout) and K7 (probe_folded.cu, the folded layout): the failed-id
-// argument and the staleness / suspicion histogram counters.
+// argument, the probe id of a window slot, and the staleness /
+// suspicion histogram counters.
 #pragma once
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -69,5 +72,34 @@ struct Buckets {
         }
     }
 };
+
+inline bool aligned16(const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+// A window slot's probe id + 1: occupied, not the node itself, and the
+// node active; 0 otherwise.  The member id by the Magic remainder.
+__device__ __forceinline__ int probe_id(unsigned w, const Magic& n,
+                                        unsigned node, bool on) {
+    const unsigned id = n.mod(w - 1u);
+    return w > 0u && id != node && on ? static_cast<int>(id + 1u) : 0;
+}
+
+// The staleness and suspicion buckets of W entries (view words w, stamps
+// ts) as nibble counts, bucket b in bits 4b..4b+3 (W < 16).
+template <int W>
+__device__ __forceinline__ void hist_nibbles(const unsigned (&w)[W],
+                                             const int (&ts)[W], int t,
+                                             int tfail, unsigned& ns,
+                                             unsigned& nu) {
+    ns = nu = 0u;
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+        if (w[e] == 0u) continue;
+        const int d = dm_sub_wrap(t, ts[e]);
+        ns += 1u << (bucket_of(d) << 2);
+        if (d >= tfail) nu += 1u << (bucket_of(dm_sub_wrap(d, tfail)) << 2);
+    }
+}
 
 }  // namespace

@@ -9,26 +9,6 @@
 
 namespace {
 
-// x mod n without a division: the remainder by direct computation
-// (Lemire, Kaser and Kurz, 2019), exact for every 32-bit x, with M =
-// 2^64 / n rounded up (0 for n = 1): ((M * x mod 2^64) * n) >> 64, in
-// 32-bit halves (one wide multiply).
-struct Magic {
-    unsigned lo, hi, n;              // M's halves, n
-    __device__ __forceinline__ unsigned mod(unsigned x) const {
-        const unsigned f_lo = lo * x;                      // M * x mod 2^64
-        const unsigned f_hi = __umulhi(lo, x) + hi * x;
-        return static_cast<unsigned>(
-            (static_cast<unsigned long long>(f_hi) * n
-             + __umulhi(f_lo, n)) >> 32);
-    }
-};
-
-inline Magic magic_of(unsigned n) {
-    const unsigned long long m = ~0ULL / n + 1;
-    return Magic{static_cast<unsigned>(m), static_cast<unsigned>(m >> 32), n};
-}
-
 struct RowCtx {
     int t, tfail, tremove;
     Magic n;            // for member ids, (packed - 1) mod N

@@ -67,8 +67,8 @@ _SIGNATURES = {
                  FailIds] + [_P] * 6,
     "dm_receive_folded": [_I, _U, _I, _I, _I, _I, _LL, _I] + [_P] * 11,
     "dm_gossip_folded": [_I] * 6 + [_P] * 7,
-    "dm_probe_folded": [_I, _I, _U, _I, _I, _LL, _I, _P, _P, _P, _P, _I,
-                        FailIds] + [_P] * 7,
+    "dm_probe_folded": [_I, _I, _U, _I, _I, _I, _LL, _I, _P, _P, _P, _P,
+                        _I, FailIds] + [_P] * 7,
     "dm_gossip_stacked": [_LL] + [_I] * 5 + [_P] * 7,
 }
 _ENTRY = {name: f"dm_{name}" for name in SOURCES}

@@ -20,15 +20,18 @@ with ``want_agg`` ``rm_cnt`` int32 ``[rows]`` and ``det`` int32
 ``[F, rows]``.
 
 * :func:`probe_folded_plain` / :func:`probe_folded_window_fused` -- K7,
-  the same on ``[rows, 128]`` folded planes (ops/fused_folded.py): the
-  window roll is segment-wise, ``ids`` is the whole rolled and validated
-  ``[rows, 128]`` plane (the caller keeps the first P positions of each
-  node), the partials are per plane row, and ``act`` is per node.  The
-  output dict has the JAX keys: ``ids``, ``rm_cnt`` and ``det_cols``
-  (int32 ``[rows, 1]`` each), ``det_any`` (bool ``[rows, 128]``, removals
-  of any failed id, when there are failed ids) and, with ``want_hist``,
-  ``stale_rows`` and ``susp_rows``.  The CUDA kernel is
-  ``csrc/probe_folded.cu``.
+  the same on ``[rows, 128]`` folded planes (ops/fused_folded.py), which
+  hold ``nodes = rows * 128 // S`` nodes of S slots each, node-major.
+  ``ids`` is int32 ``[nodes, P]``: position p of node i is slot ``(ptr +
+  p) mod S`` of the node, validated as above; ``act`` is per node.  The
+  partials are per plane row, except ``det_any``: bool ``[nodes]``, true
+  where the node removed any failed id (present when there are failed
+  ids).  The output dict has the JAX keys: ``ids``, ``rm_cnt`` and
+  ``det_cols`` (int32 ``[rows, 1]`` each), ``det_any`` and, with
+  ``want_hist``, ``stale_rows`` and ``susp_rows``.  The JAX kernel
+  returns the whole rolled ``[rows, 128]`` id plane and ``det_any`` per
+  slot, of which the folded step keeps the window and the per-node any;
+  this contract is those.  The CUDA kernel is ``csrc/probe_folded.cu``.
 """
 
 from __future__ import annotations
@@ -36,8 +39,7 @@ from __future__ import annotations
 import torch
 
 from distributed_membership_tpu_torch import kernels
-from distributed_membership_tpu_torch.ops.fused_folded import (
-    LANES, roll_slots)
+from distributed_membership_tpu_torch.ops.fused_folded import LANES
 from distributed_membership_tpu_torch.ops.view_merge import M32, as_u32
 
 # h_staleness / h_suspicion geometry (JAX observability/timeline.py).
@@ -136,35 +138,32 @@ def probe_folded_plain(n: int, s: int, p_cnt: int, tfail: int,
                        fail_ids: tuple, want_hist: bool, want_agg: bool,
                        t: int, ptr: int, row0: int, view, view_ts, act,
                        rm_ids) -> dict:
-    rows = view.shape[0]
-    dev = view.device
-    w = as_u32(roll_slots(view, (s - ptr) % s, s)).view(-1, s)
-    node = row0 + torch.arange(w.shape[0], dtype=torch.int64, device=dev)
-    w_id = ((w - 1) & M32) % n
-    valid = (w > 0) & (w_id != node[:, None]) & act[:, None]
-    out = {"ids": torch.where(valid, w_id + 1, 0).to(torch.int32)
-           .view(rows, LANES)}
+    # A node's S slots are one row of the [nodes, S] view of the plane.
+    out = {"ids": probe_plain(n, s, p_cnt, tfail, (), False, False, t, ptr,
+                              row0, view.view(-1, s), None, act,
+                              None)["ids"]}
     if want_hist:
         difft = t - view_ts
         pres = view != 0
         out["stale_rows"] = _bucket_rows(difft, pres)
         out["susp_rows"] = _bucket_rows(difft - tfail, pres & (difft >= tfail))
     if want_agg:
-        out.update(folded_agg_partials(rm_ids, fail_ids))
+        out.update(folded_agg_partials(rm_ids, fail_ids, s))
     return out
 
 
-def folded_agg_partials(rm_ids, fail_ids: tuple) -> dict:
-    """K7's FastAgg partials of a folded removal plane ``[rows, 128]``:
-    ``rm_cnt`` and one ``det_cols`` entry per failed id (``[rows, 1]``
-    each) and ``det_any`` (``[rows, 128]``, with failed ids).  The folded
-    step sums these itself where it runs no K7 (``PROBES: 0``)."""
+def folded_agg_partials(rm_ids, fail_ids: tuple, s: int) -> dict:
+    """K7's FastAgg partials of a folded removal plane ``[rows, 128]`` of
+    S-slot nodes: ``rm_cnt`` and one ``det_cols`` entry per failed id
+    (``[rows, 1]`` each) and, with failed ids, ``det_any`` (``[nodes]``,
+    the nodes that removed any).  The folded step sums these itself where
+    it runs no K7 (``PROBES: 0``)."""
     out = {"rm_cnt": (rm_ids >= 0).sum(1, keepdim=True, dtype=torch.int32)}
     hits = [rm_ids == f for f in fail_ids]
     out["det_cols"] = tuple(h.sum(1, keepdim=True, dtype=torch.int32)
                             for h in hits)
     if hits:
-        out["det_any"] = torch.stack(hits).any(0)
+        out["det_any"] = torch.stack(hits).any(0).view(-1, s).any(1)
     return out
 
 
@@ -175,8 +174,8 @@ def probe_folded_window_fused(n: int, s: int, p_cnt: int, tfail: int,
     """K7 wrapper.  ``view`` int32 u32-bit ``[rows, 128]``, ``view_ts``
     int32 ``[rows, 128]`` (``None`` unless ``want_hist``), ``act`` bool
     over the plane's ``rows * 128 // S`` nodes, ``rm_ids`` int32 ``[rows,
-    128]`` (``None`` unless ``want_agg``); ``t``, ``ptr`` and ``row0`` are
-    host ints."""
+    128]`` (``None`` unless ``want_agg``); ``t``, ``ptr`` and ``row0`` (the
+    plane's first global node id) are host ints."""
     rows = view.shape[0]
     dev = view.device
     req = kernels.require
@@ -214,7 +213,7 @@ def probe_folded_window_fused(n: int, s: int, p_cnt: int, tfail: int,
         "aligned")
     i32 = dict(dtype=torch.int32, device=dev)
     fails = fail_ids if want_agg else ()
-    out = {"ids": torch.empty((rows, LANES), **i32)}
+    out = {"ids": torch.empty((nodes, p_cnt), **i32)}
     det = det_any = None
     if want_hist:
         out["stale_rows"] = torch.empty((rows, HIST_BUCKETS), **i32)
@@ -222,17 +221,16 @@ def probe_folded_window_fused(n: int, s: int, p_cnt: int, tfail: int,
     if want_agg:
         out["rm_cnt"] = torch.empty((rows, 1), **i32)
         det = torch.empty((len(fails), rows), **i32)
-        out["det_cols"] = tuple(d.unsqueeze(1) for d in det)
+        out["det_cols"] = det.unsqueeze(-1).unbind(0)
         if fails:
-            det_any = torch.empty((rows, LANES), dtype=torch.bool,
-                                  device=dev)
+            det_any = torch.empty((nodes,), dtype=torch.bool, device=dev)
             out["det_any"] = det_any
     fail = kernels.FailIds()
     for k, f in enumerate(fails):
         fail.ids[k] = int(f)
     p = kernels.ptr
     rc = kernels.library("probe_folded").dm_probe_folded(
-        t, ptr, n, s, tfail, row0, rows, p(view), p(view_ts), p(act),
+        t, ptr, n, s, p_cnt, tfail, row0, rows, p(view), p(view_ts), p(act),
         p(rm_ids), len(fails), fail, p(out["ids"]), p(out.get("stale_rows")),
         p(out.get("susp_rows")), p(out.get("rm_cnt")), p(det), p(det_any),
         kernels.stream_of(view))

@@ -327,33 +327,45 @@ def test_gossip_folded_kernel(cuda, n, s, shift_list, single, form):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["agg", "hist"])
-@pytest.mark.parametrize("n,s", FOLDED_SHAPES)
+@pytest.mark.parametrize("mode", ["agg", "hist", "hist_agg", "agg_nofail"])
+@pytest.mark.parametrize("n,s", FOLDED_SHAPES + [(4096, 2), (4096, 4),
+                                                 (4096, 8), (4096, 32)])
 def test_probe_folded_kernel(cuda, n, s, mode):
-    t, p_cnt = 37, s // 8
+    """K7 == its plain version on every output: windows of P = S/8, S - 1
+    (not dividing S, wrapping) and 4 (16-byte runs where ptr % 4 == 0),
+    at wrapping and inner ptrs, on a plane at node 0 and on a shard's."""
+    t = 37
     rows = _rows(n, s)
     rng = np.random.default_rng(n + s)
-    view = _packed(rng, n, 0.7, (rows, 128)).to(cuda)
+    view = _packed(rng, 2 * n, 0.7, (rows, 128)).to(cuda)
     view_ts = torch.from_numpy(
         rng.integers(0, t + 3, size=(rows, 128), dtype=np.int32)).to(cuda)
     rm = torch.from_numpy(np.where(
         rng.random((rows, 128)) < 0.1, rng.integers(0, 8, size=(rows, 128)),
         -1).astype(np.int32)).to(cuda)
     act = _flags(rng, n, 0.9).to(cuda)
-    hist, agg = mode == "hist", mode == "agg"
-    for ptr in (s - 1, 3):
-        args = (p_cnt, TFAIL, (3, 5) if agg else (), hist, agg, t, ptr, 0,
-                view, view_ts if hist else None, act, rm if agg else None)
-        want = probe_folded_plain(n, s, *args)
-        got = probe_folded_window_fused(n, s, *args)
-        torch.cuda.synchronize()
-        assert set(got) == set(want)
-        for k in want:
-            if k == "det_cols":
-                assert all(torch.equal(g, w)
-                           for g, w in zip(got[k], want[k]))
-            else:
-                assert torch.equal(got[k], want[k]), k
+    hist, agg = "hist" in mode, mode != "hist"
+    fails = (3, 5) if mode in ("agg", "hist_agg") else ()
+    key = "probe_folded_hist" if hist else "probe_folded"
+    for p_cnt in sorted({max(1, s // 8), s - 1, min(4, s - 1)}):
+        for ptr in sorted({s - 1, 3 % s, 4 % s, 0}):
+            for row0 in (0, n):
+                args = (p_cnt, TFAIL, fails, hist, agg, t, ptr, row0, view,
+                        view_ts if hist else None, act, rm if agg else None)
+                want = probe_folded_plain(2 * n, s, *args)
+                kernels.reset_launches()
+                got = probe_folded_window_fused(2 * n, s, *args)
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES[key] == 1
+                assert set(got) == set(want)
+                assert got["ids"].shape == (rows * 128 // s, p_cnt)
+                for k in want:
+                    if k == "det_cols":
+                        assert all(torch.equal(g, w)
+                                   for g, w in zip(got[k], want[k]))
+                    else:
+                        assert torch.equal(got[k], want[k]), (k, p_cnt, ptr,
+                                                              row0)
 
 
 @pytest.mark.cuda
@@ -442,7 +454,7 @@ PARTIAL_ROWS = [1, 3, 10, 16, 50, 100, 200]
 @pytest.mark.parametrize("form", ["k_eff", "masks", "stacked",
                                   "stacked_masks"])
 @pytest.mark.parametrize("s", PARTIAL_ROWS)
-def test_gossip_kernels_refuse_partial_rows(cuda, s, form):
+def test_gossip_kernels_take_partial_rows(cuda, s, form):
     """K2 and K4 once refused rows that are not whole 128-slot groups;
     they take any S now: each kernel == its plain version at S off every
     4- and 128-slot bound, K2 on N = 1001 rows (a ragged last tile,

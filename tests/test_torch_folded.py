@@ -3,8 +3,11 @@
 * K5 ``receive_folded_fused``, K6 ``gossip_folded_stacked`` (stacked
   payloads, and one shared payload with keep masks; one and two column
   alignments) and K7 ``probe_folded_window_fused`` (agg and hist
-  partials): the port's wrappers on CPU tensors (their plain versions)
-  against the Pallas kernels in interpret mode, as
+  partials, alone and together; S = 2 to 64; wrapping windows; no failed
+  id; a shard's row0) with ``folded_agg_partials``, K7's window ids and
+  per-node ``det_any`` against the JAX kernel's planes reduced as the
+  folded step reduced them: the port's wrappers on CPU tensors (their
+  plain versions) against the Pallas kernels in interpret mode, as
   ``tests/test_fused_folded.py`` runs them, on numpy-seeded inputs with
   packed values above 2^31 and empty entries.  Integer outputs,
   tolerance 0.  The port's K5 and K7 read per-node vectors where the TPU
@@ -47,7 +50,7 @@ from distributed_membership_tpu_torch.ops.fused_folded import (
     folded_receive_core, gossip_folded_plain, gossip_folded_stacked,
     receive_folded_fused)
 from distributed_membership_tpu_torch.ops.fused_probe import (
-    probe_folded_plain, probe_folded_window_fused)
+    folded_agg_partials, probe_folded_plain, probe_folded_window_fused)
 from distributed_membership_tpu_torch.ops.view_merge import STRIDE
 from distributed_membership_tpu_torch.runtime import application, failures
 
@@ -224,51 +227,97 @@ def test_gossip_folded_wrapper_checks_arguments():
 # K7 probe window
 
 
-@pytest.mark.parametrize("n,s,p_cnt,t,ptr", [
-    (1024, 16, 2, 37, 15),     # the window wraps inside each segment
-    (1024, 16, 2, 9, 6),
-    (260, 64, 32, 100, 48),
-    (512, 32, 4, 5, 0),
+def _probe_case(mode, n, s, p_cnt, t, ptr, row0=0):
+    return pytest.param(mode, n, s, p_cnt, t, ptr, row0,
+                        id=f"{mode}-{n}-{s}-{p_cnt}-{t}-{ptr}"
+                        + (f"-row0_{row0}" if row0 else ""))
+
+
+# Modes: the agg and hist partials alone and together, agg with no failed
+# id, and folded_agg_partials (the PROBES: 0 route) against the JAX
+# kernel's agg partials.
+@pytest.mark.parametrize("mode,n,s,p_cnt,t,ptr,row0", [
+    *(_probe_case(m, *g) for m in ("agg", "hist") for g in (
+        (1024, 16, 2, 37, 15),     # the window wraps inside each segment
+        (1024, 16, 2, 9, 6),
+        (260, 64, 32, 100, 48),
+        (512, 32, 4, 5, 0))),
+    # Several nodes to a 16-byte load: S = 2, 4 and 8; P not dividing S
+    # with a wrapping ptr.
+    _probe_case("agg", 1024, 2, 1, 5, 1),
+    _probe_case("hist", 1024, 2, 1, 6, 0),
+    _probe_case("agg", 1024, 4, 3, 7, 2),
+    _probe_case("hist_agg", 1024, 4, 3, 7, 3),
+    _probe_case("agg", 1024, 8, 3, 11, 6),
+    _probe_case("hist", 1024, 8, 3, 11, 7),
+    _probe_case("agg", 1024, 8, 4, 2, 4),
+    _probe_case("agg", 512, 16, 5, 3, 13),
+    _probe_case("agg", 256, 64, 8, 9, 56),
+    _probe_case("hist_agg", 1024, 16, 2, 37, 15),
+    _probe_case("agg_nofail", 1024, 16, 2, 9, 6),
+    _probe_case("agg_nofail", 1024, 2, 1, 4, 0),
+    # A shard: the plane's nodes start at global id row0.
+    _probe_case("agg", 2048, 16, 2, 37, 15, 1024),
+    _probe_case("hist_agg", 2048, 4, 3, 8, 3, 512),
+    _probe_case("partials", 1024, 16, 2, 37, 15),
+    _probe_case("partials", 1024, 2, 1, 5, 1),
+    _probe_case("partials", 260, 64, 32, 100, 48),
 ])
-@pytest.mark.parametrize("mode", ["agg", "hist"])
-def test_probe_folded_matches_pallas(n, s, p_cnt, t, ptr, mode, no_launch):
-    rows = n * s // 128
-    fail_ids = (3, 5, 7)
-    want_hist, want_agg = mode == "hist", mode == "agg"
-    rng = np.random.default_rng(n + t + ptr)
+def test_probe_folded_matches_pallas(mode, n, s, p_cnt, t, ptr, row0,
+                                     no_launch):
+    nodes = n - row0
+    rows = nodes * s // 128
+    fail_ids = (3, 5, 7, row0 + 2)
+    want_hist = mode in ("hist", "hist_agg")
+    want_agg = mode != "hist"
+    rng = np.random.default_rng(n + t + ptr + s)
     view = _packed(rng, n, 0.7, (rows, 128))
     # A sprinkle of self entries (never a probe target) and time stamps
     # after t (negative ages clamp into bucket 0).
-    self_pack = _rep((np.arange(n) + 1).astype(np.uint32), s)
+    self_pack = _rep((np.arange(nodes) + row0 + 1).astype(np.uint32), s)
     view = np.where(rng.random(view.shape) < 0.05, self_pack, view)
     view_ts = rng.integers(0, t + 3, size=view.shape, dtype=np.int32)
-    act = rng.random(n) < 0.9
+    act = rng.random(nodes) < 0.9
     rm = np.where(rng.random(view.shape) < 0.1,
-                  rng.integers(0, 8, size=view.shape), -1).astype(np.int32)
-    fails = fail_ids if want_agg else ()
+                  rng.choice(np.asarray(fail_ids + (0, 1, 2, 4, 6)),
+                             size=view.shape), -1).astype(np.int32)
+    fails = fail_ids if want_agg and mode != "agg_nofail" else ()
     want = jax_probe.probe_folded_window_fused(
         n, s, p_cnt, TFAIL, fails, want_hist, want_agg, True,
         jnp.asarray(t, jnp.int32), jnp.asarray(ptr, jnp.int32),
-        jnp.zeros((), jnp.int32), view, view_ts if want_hist else None,
-        _rep(act, s), rm if want_agg else None)
-    for fn in (probe_folded_plain, probe_folded_window_fused):
-        got = fn(n, s, p_cnt, TFAIL, fails, want_hist, want_agg, t, ptr, 0,
-                 _bits(view),
-                 torch.from_numpy(view_ts) if want_hist else None,
-                 torch.from_numpy(act),
-                 torch.from_numpy(rm) if want_agg else None)
-        assert set(got) == set(want), fn.__name__
-        _eq(got["ids"], want["ids"], f"{fn.__name__}: ids")
-        for key in ("stale_rows", "susp_rows", "rm_cnt"):
+        jnp.asarray(row0, jnp.int32), view,
+        view_ts if want_hist else None, _rep(act, s),
+        rm if want_agg else None)
+    # The JAX kernel's whole rolled plane and per-slot det_any, as the
+    # folded step consumes them: each node's first P positions, and any
+    # over each node's slots.
+    want = dict(want, ids=np.asarray(want["ids"]).reshape(-1, s)[:, :p_cnt])
+    if "det_any" in want:
+        want["det_any"] = (np.asarray(want["det_any"]) != 0).reshape(
+            -1, s).any(1)
+    if mode == "partials":
+        got = folded_agg_partials(torch.from_numpy(rm), fails, s)
+        want.pop("ids")
+        results = [("folded_agg_partials", got)]
+    else:
+        results = [(fn.__name__, fn(
+            n, s, p_cnt, TFAIL, fails, want_hist, want_agg, t, ptr, row0,
+            _bits(view), torch.from_numpy(view_ts) if want_hist else None,
+            torch.from_numpy(act), torch.from_numpy(rm) if want_agg else None))
+            for fn in (probe_folded_plain, probe_folded_window_fused)]
+    for name, got in results:
+        assert set(got) == set(want), name
+        for key in ("ids", "stale_rows", "susp_rows", "rm_cnt", "det_any"):
             if key in want:
-                _eq(got[key], want[key], f"{fn.__name__}: {key}")
+                _eq(got[key], want[key], f"{name}: {key}")
         if want_agg:
-            assert len(got["det_cols"]) == len(fail_ids)
+            assert len(got["det_cols"]) == len(fails)
             for g, w in zip(got["det_cols"], want["det_cols"]):
-                _eq(g, w, f"{fn.__name__}: det_cols")
-            _eq(got["det_any"], np.asarray(want["det_any"]) != 0,
-                f"{fn.__name__}: det_any")
-    assert (np.asarray(want["ids"]) > 0).any()
+                _eq(g, w, f"{name}: det_cols")
+    if mode != "partials":
+        assert (want["ids"] > 0).any()
+    if fails:
+        assert want["det_any"].any() and not want["det_any"].all()
 
 
 def test_probe_folded_wrapper_checks_arguments():
