@@ -12,8 +12,8 @@ Phases (any failure exits non-zero before the final line):
                 layout at N=2^20, S=16, P=2, k_max=3, and at the scale
                 smoke's S=64, P=8 (phase scale);
   3. main    -- run_conf on confs/ring_1m_s128.conf (the bench.py hash
-                geometry at N=2^20, drop-free, EVENT_MODE agg; 72 ticks
-                with the crash at 24, as DEPTH_CUTS cuts the natural 1M
+                geometry at N=2^20, drop-free, EVENT_MODE agg; 60 ticks
+                with the crash at 12, as DEPTH_CUTS cuts the natural 1M
                 runs);
                 every kernel of the path must launch once per tick, with no
                 false removal and at least one detection;
@@ -24,15 +24,15 @@ Phases (any failure exits non-zero before the final line):
                 msgcount.log must be byte-identical;
   6. folded  -- run_conf on confs/ring_1m_s16_folded.conf (the bench.py
                 S=16 geometry at N=2^20 on the folded layout, drop-free,
-                160 ticks): K5-K7 once per tick and no natural kernel, no
-                false removal, at least one detection;
+                64 ticks, crash at 12): K5-K7 once per tick and no natural
+                kernel, no false removal, at least one detection;
   7. folded_lossy  -- the same with 5% drops for 64 ticks
                 (confs/ring_1m_s16_folded_drop.conf);
   8. folded_parity -- confs/ring_16k_s16_folded_drop.conf (84 ticks) on
                 the card and on the CPU: the detection summary and every
                 leaf of the final state must be identical;
   9. sharded -- run_conf on confs/ring_1m_s128_sharded.conf (the main
-                path's geometry on the sharded backend, one shard, 72
+                path's geometry on the sharded backend, one shard, 60
                 ticks): K1, K4 and K3 once per tick and no other kernel, no
                 false removal, at least one detection;
  10. sharded_lossy -- confs/ring_1m_s128_sharded8_drop.conf: eight shards
@@ -56,7 +56,7 @@ Phases (any failure exits non-zero before the final line):
                 and on the CPU: byte-identical logs.
  15. sharded_folded -- run_conf on confs/ring_1m_s16_folded_sharded.conf (the
                 S=16 geometry at N=2^20 on tpu_hash_sharded, one shard,
-                FOLDED: 1, drop-free, 160 ticks): K5-K7 once per tick, no
+                FOLDED: 1, drop-free, 64 ticks): K5-K7 once per tick, no
                 false removal, at least one detection;
  16. sharded_folded_lossy -- confs/ring_1m_s16_folded_sharded8_drop.conf:
                 eight shards, 5% drops, 64 ticks, TELEMETRY hist: K5, K6
@@ -67,7 +67,7 @@ Phases (any failure exits non-zero before the final line):
                 on the card and on the CPU: the summary, every final-state
                 leaf and every timeline series identical;
  18. telemetry -- confs/ring_1m_s128_hist.conf (the main path's geometry
-                with TELEMETRY hist, 72 ticks, crash at tick 24): K3's hist
+                with TELEMETRY hist, 60 ticks, crash at tick 12): K3's hist
                 form once per tick, the timeline reconciles with the
                 summary; then confs/ring_256_s128_drop.conf with TELEMETRY
                 hist on the card against the CPU: its logs equal the CPU's
@@ -92,7 +92,7 @@ Phases (any failure exits non-zero before the final line):
                 every final-state leaf, every series and the report
                 identical.
  23. checkpoint -- confs/ring_1m_s128_ckpt.conf (the main path in 40-tick
-                segments, TELEMETRY scalars, 72 ticks): with no
+                segments, TELEMETRY scalars, 60 ticks): with no
                 directory, then with snapshots under --out-dir killed at
                 tick 20 (DM_CRASH_AT_TICK; the manifest at 40) and resumed
                 for the last segment, where the detections fall; each
@@ -104,10 +104,11 @@ Phases (any failure exits non-zero before the final line):
                 in 16-tick segments, killed at 40 (the manifest at 48) and
                 resumed: summary and timeline equal sharded_folded_lossy's;
  25. mega    -- confs/ring_1m_s16_folded_mega.conf (the folded path in
-                8-tick blocks with the packed carry): summary equals
-                folded's; prints ms/tick against folded and carry_bytes;
+                8-tick blocks with the packed carry, 64 ticks): summary
+                equals folded's; prints ms/tick against folded and
+                carry_bytes;
  26. hoisted -- confs/ring_1m_s128_hoisted.conf (RNG_MODE hoisted, 8-tick
-                segments, 72 ticks): summary equals main's; prints
+                segments, 60 ticks): summary equals main's; prints
                 ms/tick, launches per tick and the peak device memory;
  27. checkpoint_parity -- confs/ring_256_s128_drop.conf and
                 confs/ring_256_s128_scenario.conf killed on the card and
@@ -362,6 +363,34 @@ Phases (any failure exits non-zero before the final line):
                 S=16 at 2^20/60, dense at N=512/100), then times the
                 set-up inside each 2^20 leg's timed window (config,
                 step, plan tensors, warm state).
+ 52. rbg     -- PRNG_IMPL rbg|unsafe_rbg (ops/rbg.py, jax's Philox4x32-10
+                stream): the Philox kernel (csrc/philox.cu) in its three
+                forms (float32 uniforms, u32 bits in int64, uniforms at
+                int64 indices) bit-identical to its plain version at
+                counts 1, 3, 4, 5, 2^20 + 3 and 3 * 2^27, at element
+                offsets 0 and 6, under a seeded key and a key whose 128-bit counter
+                carries inside the launch; each form timed by kernel_ms
+                beside its plain version, the uniform and bits forms
+                beside torch.rand of the same count (same work, other
+                bits).  Then confs/ring_1m_s16_folded.conf under rbg (60
+                ticks, crash at 12: K5-K7 once per tick, one Philox
+                launch per tick, no false removal, detections) and
+                confs/ring_1m_s128_drop.conf under unsafe_rbg (64 ticks:
+                K1, K2's masks form and K3 once per tick, four Philox
+                launches per tick, detections); both with randint's two
+                bit draws per tick and the warm init's two.  Card == CPU:
+                ring_16k_s16_folded_drop.conf under rbg with TELEMETRY
+                scalars (84 ticks; state, summary, timeline),
+                ring_256_s128_sharded8_drop.conf under unsafe_rbg (the
+                three logs), ring_256_s128_drop.conf under rbg in
+                16-tick RNG_MODE hoisted segments (the logs),
+                scatter_2k_s128_drop.conf under rbg (130 ticks; the
+                logs; the indexed form's probe and ack coins); the
+                Philox launches of each counted.  Last, profile_step.time_point
+                under --prng rbg at the JAX ladder's rungs 1M_s16_rbg and
+                1M_s64_rbg (N=2^20, 60 ticks).  `--only profile_rbg`
+                (opt-in) profiles the two 1M rbg paths beside their
+                threefry twins, in turns.
 Phase 2 also holds K1's admit_mask form (an int32 [N, S] plane; no path
 runs it) at N=2^20, S=128 against its plain version, and K4 (the sharded step's stacked gossip) in both operand
 forms at N=2^20, S=128, k_max=3, and on eight shards whose row count is
@@ -434,11 +463,11 @@ PHASES = ("build", "kernels", "main", "lossy", "parity", "folded",
           "serve", "serve_inject", "serve_sharded", "serve_replicas",
           "reshard", "fleet", "sweep", "chaos", "sharded_scatter",
           "batched", "multiproc", "sharded_folded_multi", "host_backends",
-          "dense", "sparse", "scale", "ragged", "bench")
+          "dense", "sparse", "rbg", "scale", "ragged", "bench")
 LOGS = ("dbg.log", "stats.log", "msgcount.log")
 OPT_IN = ("profile", "profile_exchange",   # run only when named in --only
           "serve_load", "profile_backends", "nccl_probe", "scale_extra",
-          "bench_full")
+          "bench_full", "profile_rbg")
 TWIN_WORKERS, TWIN_THREADS = 2, 2  # CPU twin processes, threads in each
 TWIN_TIMEOUT_S = 600                # the longest wait for one twin
 # Phases run on a thread beside sweep and chaos, when the phases whose
@@ -456,6 +485,9 @@ TPU_KERNEL = {
         "distributed_membership_tpu/ops/fused_probe.py:253",
     "gossip_fused_stacked":
         "distributed_membership_tpu/ops/fused_gossip.py:91",
+    # No Pallas kernel: XLA's rng_bit_generator (Philox4x32-10 on the
+    # CPU), under the root key made there.
+    "philox": "distributed_membership_tpu/runtime/failures.py:114",
 }
 CSRC = "distributed_membership_tpu_torch/csrc/"
 
@@ -595,8 +627,9 @@ def wide_sharded_conf(full: str, out_dir: str) -> str:
 # over the confs' own, by conf name or, for a variant the script makes,
 # by the variant's name.  Each run keeps its detections inside it: a
 # drop-free crash is detected 34-41 ticks after it at N = 2^20 (so the
-# natural runs crash at 24, as ring_1m_s128_hist does, and stay each
-# other's twins), the partition reconverges ~9 ticks after its heal, the
+# natural runs, ring_1m_s128_hist's included, crash at 12 of 60 ticks and
+# stay each other's twins), the partition reconverges ~9 ticks after its
+# heal, the
 # N = 2^14 folded crash at 40 is detected 27-41 ticks later, the N = 256
 # staggered crash at 100 is removed at 141-150, the scatter crash at 60
 # by every tracker ~40 ticks later, the N = 4096 budgeted crash at 20
@@ -606,11 +639,21 @@ def wide_sharded_conf(full: str, out_dir: str) -> str:
 # only ticks to time.  The 1M lossy paths are not cut: under drops the
 # crash is first detected ~57 ticks into the run, whenever it happens.
 DEPTH_CUTS = {
-    "ring_1m_s128": dict(TOTAL_TIME=72, FAIL_TIME=24),
-    "ring_1m_s128_ckpt": dict(TOTAL_TIME=72, FAIL_TIME=24),
-    "ring_1m_s128_hoisted": dict(TOTAL_TIME=72, FAIL_TIME=24),
-    "ring_1m_s128_sharded": dict(TOTAL_TIME=72, FAIL_TIME=24),
-    "ring_1m_s128_hist": dict(TOTAL_TIME=72),
+    "ring_1m_s128": dict(TOTAL_TIME=60, FAIL_TIME=12),
+    "ring_1m_s128_ckpt": dict(TOTAL_TIME=60, FAIL_TIME=12),
+    "ring_1m_s128_hoisted": dict(TOTAL_TIME=60, FAIL_TIME=12),
+    "ring_1m_s128_sharded": dict(TOTAL_TIME=60, FAIL_TIME=12),
+    "ring_1m_s128_hist": dict(TOTAL_TIME=60, FAIL_TIME=12),
+    # The S=16 drop-free runs: a crash at 12 is detected 30-41 ticks
+    # later (as in ring_1m_s16_folded_drop's 64 ticks), so 64 ticks;
+    # the natural twin, the T-tick-block twin and the one-shard twin
+    # are cut alike and stay the folded run's twins.
+    "ring_1m_s16_folded": dict(TOTAL_TIME=64, FAIL_TIME=12),
+    "ring_1m_s16_folded_mega": dict(TOTAL_TIME=64, FAIL_TIME=12),
+    "ring_1m_s16_folded_sharded": dict(TOTAL_TIME=64, FAIL_TIME=12),
+    # Phase rbg: the JAX ladder's 1M_s16_rbg rung is 60 ticks.
+    "ring_1m_s16_folded_rbg": dict(TOTAL_TIME=60, FAIL_TIME=12),
+    "ring_16k_s16_folded_drop_rbg": dict(TOTAL_TIME=84),
     "ring_1m_s128_partition": dict(TOTAL_TIME=128),
     "ring_16k_s16_folded_drop": dict(TOTAL_TIME=84),
     "ring_16k_s16_folded_sharded8_drop": dict(TOTAL_TIME=84),
@@ -647,7 +690,7 @@ DEPTH_CUTS = {
     # the N = 1030 twin writes the full view's log).  The 1M run is then
     # ring_1m_s16_folded.conf with FOLDED: 0.  The N = 1030 crash at 10
     # is removed 40-60 ticks later.
-    "ragged_1m_s16": dict(EVENT_MODE="agg"),
+    "ragged_1m_s16": dict(EVENT_MODE="agg", TOTAL_TIME=64, FAIL_TIME=12),
     "ragged_10k_full": dict(EVENT_MODE="agg"),
     "ragged_full_1030": dict(TOTAL_TIME=70, FAIL_TIME=10),
 }
@@ -1851,9 +1894,10 @@ def phase_ragged(torch, confs: str, paths: dict, out_dir: str,
                                   info["launches"].items() if v},
             "card": card}))
         torch.cuda.empty_cache()
-    folded = twin(torch, paths, "folded",
-                  os.path.join(confs, "ring_1m_s16_folded.conf"),
-                  folded_launches(160), out_dir, flat_digest=True)
+    conf = smoke_conf(confs, out_dir, "ring_1m_s16_folded")
+    folded = twin(torch, paths, "folded", conf,
+                  folded_launches(conf_ticks(conf)), out_dir,
+                  flat_digest=True)
     same_detection("ragged_1m_s16", paths["ragged_1m_s16"], folded,
                    "folded")
     if paths["ragged_1m_s16"]["state_digest"] != folded["state_digest"]:
@@ -4382,6 +4426,249 @@ def phase_sharded_scatter(torch, confs: str, out_dir: str,
     return info
 
 
+# ---------------------------------------------------------------------------
+# Phase rbg: PRNG_IMPL rbg|unsafe_rbg, jax's Philox4x32-10 stream
+# (ops/rbg.py), every bulk draw through csrc/philox.cu on the card
+
+RBG_COUNTS = (1, 3, 4, 5, (1 << 20) + 3, 3 << 27)
+RBG_BULK, RBG_MID = 3 << 27, (1 << 20) + 3
+RBG_CHUNK = 1 << 25             # elements per plain-version comparison
+# A key whose counter carries out of its low 64 bits from block 1 on.
+RBG_CARRY_WORDS = (5, 6, 0xFFFFFFFF, 0xFFFFFFFF)
+
+
+def rbg_form_err(torch, rbg, form: str, key, n: int, dev, start: int = 0,
+                 idx=None) -> int:
+    """One kernel form against its plain version on the same inputs, bit
+    for bit (float32 compared as its int32 bits), in chunks of
+    RBG_CHUNK elements of the plain version."""
+    if form == "philox_at":
+        got = rbg.uniform_at(key, idx)
+    elif form == "philox_bits":
+        got = rbg.bits(key, n, dev, start)
+    else:
+        got = rbg.uniform(key, n, dev, start)
+    pairs = []
+    for a in range(0, n, RBG_CHUNK):
+        b = min(n, a + RBG_CHUNK)
+        if form == "philox_at":
+            want = rbg.uniform_at_plain(key, idx[a:b])
+        elif form == "philox_bits":
+            want = rbg.bits_plain(key, b - a, dev, start + a)
+        else:
+            want = rbg.uniform_plain(key, b - a, dev, start + a)
+        part = got[a:b]
+        if part.dtype == torch.float32:
+            part, want = part.view(torch.int32), want.view(torch.int32)
+        pairs.append((part, want))
+    err = max_abs_err(pairs)
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_kernels_rbg(torch, dev, rows: dict) -> None:
+    """The Philox kernel's three forms (float32 uniforms, u32 bits,
+    uniforms at int64 indices) against their plain versions at counts 1,
+    3, 4, 5, 2^20 + 3 and 3 * 2^27 (ring_1m_s128_drop's three gossip
+    planes), at element offsets 0 and 6, under a seeded key and under a
+    key whose counter carries inside the launch; each form timed at
+    3 * 2^27 and 2^20 + 3 by kernel_ms, beside its plain version, and the
+    uniform and bits forms beside torch.rand (torch.randint into int64
+    for the bits) of the same count: the same work, other bits (cuRAND's
+    layout; the indexed form has no such call).  The carry key's forms
+    are timed, with their plain versions, at 2^20 + 3.  Bound: the bytes
+    the function must move over the HBM rate: 4 a uniform, 4 a u32 (the
+    bits form's int64 layout, 8, is logged as its design), 8 + 4 an
+    indexed uniform."""
+    from distributed_membership_tpu_torch.ops import rbg
+
+    keys = {"seed": rbg.fold_in(rbg.seed(7, "rbg"), 11),
+            "carry": rbg.RbgKey(RBG_CARRY_WORDS, "rbg")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    errs = {}
+    for tag, key in keys.items():
+        for n in RBG_COUNTS:
+            idx = torch.randint(0, 1 << 34, (n,), device=dev,
+                                dtype=torch.int64, generator=gen)
+            for form in ("philox", "philox_bits", "philox_at"):
+                for start in ((0,) if form == "philox_at" else (0, 6)):
+                    err = rbg_form_err(torch, rbg, form, key, n, dev, start,
+                                       idx)
+                    errs[(form, tag, n, start)] = err
+                    if err != 0:
+                        raise AssertionError(
+                            f"philox[{form}] key {tag} n={n} start={start} "
+                            f"differs from its plain version (err {err})")
+            del idx
+            torch.cuda.empty_cache()
+    log(f"kernel philox: {len(errs)} cases bit-identical to the plain "
+        f"versions (counts {list(RBG_COUNTS)}, offsets 0 and 6, a seeded "
+        "key and the carry key " + str(RBG_CARRY_WORDS) + ")")
+    key = keys["seed"]
+    for n, suffix in ((RBG_BULK, ""), (RBG_MID, "_1m")):
+        idx = torch.randint(0, 1 << 34, (n,), device=dev, dtype=torch.int64,
+                            generator=gen)
+        forms = {
+            "philox": (lambda: rbg.uniform(key, n, dev),
+                       lambda: rbg.uniform_plain(key, n, dev),
+                       lambda: torch.rand(n, device=dev), 4 * n, None),
+            "philox_bits": (lambda: rbg.bits(key, n, dev),
+                            lambda: rbg.bits_plain(key, n, dev),
+                            lambda: torch.randint(
+                                0, 2**32, (n,), device=dev,
+                                dtype=torch.int64), 4 * n, 8 * n),
+            "philox_at": (lambda: rbg.uniform_at(key, idx),
+                          lambda: rbg.uniform_at_plain(key, idx),
+                          None, 12 * n, None)}
+        reps_k, reps_p = (10, 2) if n == RBG_BULK else (50, 10)
+        for form, (kern, plain, same_work, moved, design) in forms.items():
+            k_ms = kernel_ms(kern, reps_k)
+            p_ms = cuda_ms(plain, reps_p)
+            torch.cuda.empty_cache()
+            record(rows, "philox", form + suffix,
+                   errs[(form, "seed", n, 0)], k_ms, p_ms, moved, design)
+            if same_work is not None:
+                other = cuda_ms(same_work, reps_k)
+                rows[form + suffix]["torch_rand_ms"] = other
+                log(f"kernel philox[{form}{suffix}]: n={n} torch.rand "
+                    f"(same work, other bits) {other} ms")
+        del idx, forms
+        torch.cuda.empty_cache()
+    key = keys["carry"]
+    for form, draw, plain, moved, design in (
+            ("philox", rbg.uniform, rbg.uniform_plain, 4 * RBG_MID, None),
+            ("philox_bits", rbg.bits, rbg.bits_plain, 4 * RBG_MID,
+             8 * RBG_MID)):
+        k_ms = kernel_ms(lambda: draw(key, RBG_MID, dev), 50)
+        p_ms = cuda_ms(lambda: plain(key, RBG_MID, dev), 10)
+        record(rows, "philox", form + "_carry",
+               errs[(form, "carry", RBG_MID, 0)], k_ms, p_ms, moved, design)
+
+
+def phase_rbg(torch, confs: str, out_dir: str, card: str, paths: dict,
+              rows: dict) -> dict:
+    """Phase rbg: the Philox kernel against its plain version
+    (:func:`phase_kernels_rbg`); ring_1m_s16_folded and ring_1m_s128_drop
+    under rbg / unsafe_rbg at full width, every bulk draw through the
+    kernel (launches per tick checked); card == CPU under rbg: N=2^14
+    folded S=16 with drops (state, timeline), N=256 on eight shards with
+    drops under unsafe_rbg (the three logs), a hoisted chunked N=256 run
+    and the N=2048 scatter step (the logs); and the JAX ladder's rbg rungs
+    through profile_step."""
+    from distributed_membership_tpu_torch import kernels, profile_step
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    phase_kernels_rbg(torch, dev, rows)
+    torch.cuda.empty_cache()
+    log(f"rbg[kernels]: {time.perf_counter() - t0:.1f}s; card: {card}")
+
+    def variant(src: str, name: str, impl: str, **keys) -> tuple:
+        conf = conf_variant(os.path.join(confs, src + ".conf"), out_dir,
+                            name, PRNG_IMPL=impl,
+                            **{**keys, **DEPTH_CUTS.get(name, {})})
+        return conf, conf_ticks(conf)
+
+    out = {"card": card}
+    for name, src, impl, per_tick, drawn in (
+            ("ring_1m_s16_folded_rbg", "ring_1m_s16_folded", "rbg",
+             dict(receive_folded=1, gossip_folded=1, probe_folded=1), 1),
+            ("ring_1m_s128_drop_unsafe_rbg", "ring_1m_s128_drop",
+             "unsafe_rbg", dict(receive=1, gossip_masks=1, probe=1), 4)):
+        conf, t = variant(src, name, impl)
+        # Per tick: `drawn` uniform draws (the plan's same-count groups)
+        # and randint's two bit draws; the warm init's randint once.
+        expect = launches_expected(**{k: v * t for k, v in per_tick.items()},
+                                   philox=drawn * t, philox_bits=2 * t + 2)
+        paths[name] = info = run_path(torch, conf, name, expect, out_dir)
+        det = info["detection"]
+        if det.get("detections_total", 0) <= 0 or (
+                "folded" in name and det["false_removals"] != 0):
+            raise AssertionError(f"{name}: detection summary {det}")
+        out[name] = {
+            "ms_per_tick": 1e3 / info["ticks_per_s"],
+            "launches_per_tick": {k: v / t for k, v in
+                                  info["launches"].items() if v},
+            "false_removals": det["false_removals"],
+            "detections_total": det["detections_total"],
+            "peak_mem_gib": info["peak_mem_gib"], "card": card}
+        log(f"rbg[{name}]: " + json.dumps(out[name]))
+        torch.cuda.empty_cache()
+
+    # Card == CPU under rbg.  The folded plan draws two groups a tick
+    # (thinning with the gossip coins, probe with ack), eight shards two
+    # each; a hoisted segment four (thinning and gossip, control, burst,
+    # probe and ack).
+    conf, t = variant("ring_16k_s16_folded_drop",
+                      "ring_16k_s16_folded_drop_rbg", "rbg",
+                      TELEMETRY="scalars")
+    info = twin_parity(torch, conf, "rbg_folded_parity", out_dir, card,
+                       launches_expected(receive_folded=t, gossip_folded=t,
+                                         probe_folded=t, philox=2 * t,
+                                         philox_bits=2 * t + 2))
+    if info["detection"].get("detections_total", 0) <= 0:
+        raise AssertionError("rbg_folded_parity: no detection")
+    torch.cuda.empty_cache()
+    conf, t = variant("ring_256_s128_sharded8_drop",
+                      "ring_256_s128_sharded8_drop_unsafe_rbg", "unsafe_rbg")
+    out["rbg_sharded_parity"] = card_vs_cpu(
+        torch, conf, "rbg_sharded_parity", launches_expected(
+            receive=t, gossip_stacked=t, probe=t, philox=16 * t,
+            philox_bits=2 * t + 16), out_dir, card)
+    every = 16
+    conf, t = variant("ring_256_s128_drop", "ring_256_s128_drop_hoisted_rbg",
+                      "rbg", CHECKPOINT_EVERY=every, RNG_MODE="hoisted")
+    segments = -(-t // every)
+    out["rbg_hoisted_parity"] = card_vs_cpu(
+        torch, conf, "rbg_hoisted_parity", launches_expected(
+            receive=t, gossip_masks=t, probe=t, philox=4 * segments,
+            philox_bits=2 * segments + 2), out_dir, card)
+    # The scatter step, whose probe and ack coins are the indexed form's
+    # only draws.  Its counts depend on the run (no ack is due on two of
+    # the 80 lossy ticks, so no coin is drawn for them); the CPU twin's
+    # run makes the same calls, 497, 2 and 158.
+    conf, t = variant("scatter_2k_s128_drop", "scatter_2k_s128_drop_rbg",
+                      "rbg", **DEPTH_CUTS["scatter_2k_s128_drop"])
+    paths["rbg_scatter_parity"] = out["rbg_scatter_parity"] = card_vs_cpu(
+        torch, conf, "rbg_scatter_parity", launches_expected(
+            philox=497, philox_bits=2, philox_at=158), out_dir, card)
+
+    # The JAX ladder's rbg rungs (scripts/tpu_ladder.py 1M_s16_rbg,
+    # 1M_s64_rbg: N=2^20, 60 ticks) through the port's profile_step.
+    for rung, s in (("1M_s16_rbg", 16), ("1M_s64_rbg", 64)):
+        kernels.reset_launches()
+        rec = profile_step.time_point(1 << 20, s, 60, "ring", prng="rbg",
+                                      device="cuda")
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if not launches.get("philox") or rec["prng"] != "rbg":
+            raise AssertionError(f"profile_step {rung}: launches {launches}")
+        out[rung] = {k: rec[k] for k in ("ms_per_tick", "node_ticks_per_sec",
+                                         "folded", "compile_plus_first_run_s")}
+        out[rung]["launches_two_runs"] = launches
+        log(f"rbg[profile_step {rung}]: " + json.dumps(out[rung])
+            + f"; card: {card}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_profile_rbg(torch, confs: str, out_dir: str, card: str) -> None:
+    """Opt-in: phase_profile of the two 1M rbg paths beside their threefry
+    twins, in turns (threefry, rbg, rbg, threefry)."""
+    for src, name, impl in (("ring_1m_s16_folded", "ring_1m_s16_folded_rbg",
+                             "rbg"),
+                            ("ring_1m_s128_drop",
+                             "ring_1m_s128_drop_unsafe_rbg", "unsafe_rbg")):
+        conf = conf_variant(os.path.join(confs, src + ".conf"), out_dir,
+                            name, PRNG_IMPL=impl)
+        for arm, c in ((src, os.path.join(confs, src + ".conf")),
+                       (name, conf), (name, conf),
+                       (src, os.path.join(confs, src + ".conf"))):
+            phase_profile(torch, c, arm, out_dir)
+            torch.cuda.empty_cache()
+    log(f"profile_rbg: card: {card}")
+
+
 def phase_batched(torch, confs: str, out_dir: str, card: str,
                   paths: dict) -> dict:
     """EXCHANGE_MODE batched (ops/exchange.py): on the card batched ==
@@ -5594,10 +5881,10 @@ def main(argv=None) -> int:
                     "parity: N=256 full-event logs byte-identical, cuda vs "
                     "cpu")
     if "folded" in phases:
+        conf, t = cut("ring_1m_s16_folded")
         paths["folded"] = run_path(
-            torch, os.path.join(confs, "ring_1m_s16_folded.conf"), "folded",
-            launches_expected(receive_folded=160, gossip_folded=160,
-                              probe_folded=160), out_dir, flat_digest=True)
+            torch, conf, "folded", folded_launches(t), out_dir,
+            flat_digest=True)
         det = paths["folded"]["detection"]
         if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
             return fail(f"folded path detection summary: {det}")
@@ -5662,11 +5949,9 @@ def main(argv=None) -> int:
         log(f"phase cold_parity: {time.perf_counter() - t0:.1f}s; "
             f"card: {card}")
     if "sharded_folded" in phases:
+        conf, t = cut("ring_1m_s16_folded_sharded")
         paths["sharded_folded"] = run_path(
-            torch, os.path.join(confs, "ring_1m_s16_folded_sharded.conf"),
-            "sharded_folded", launches_expected(
-                receive_folded=160, gossip_folded=160, probe_folded=160),
-            out_dir)
+            torch, conf, "sharded_folded", folded_launches(t), out_dir)
         det = paths["sharded_folded"]["detection"]
         if det["false_removals"] != 0 or det.get("detections_total", 0) <= 0:
             return fail(f"sharded_folded path detection summary: {det}")
@@ -5768,20 +6053,18 @@ def main(argv=None) -> int:
         log(f"phase checkpoint_sharded_folded: "
             f"{time.perf_counter() - t0:.1f}s")
     if "mega" in phases:
-        per_tick = launches_expected(receive_folded=160, gossip_folded=160,
-                                     probe_folded=160)
-        folded = twin(torch, paths, "folded",
-                      os.path.join(confs, "ring_1m_s16_folded.conf"),
-                      per_tick, out_dir)
-        paths["mega"] = run_path(
-            torch, os.path.join(confs, "ring_1m_s16_folded_mega.conf"),
-            "mega", per_tick, out_dir, carry=True)
+        conf, t = cut("ring_1m_s16_folded")
+        per_tick = folded_launches(t)
+        folded = twin(torch, paths, "folded", conf, per_tick, out_dir)
+        conf, t = cut("ring_1m_s16_folded_mega")
+        paths["mega"] = run_path(torch, conf, "mega", per_tick, out_dir,
+                                 carry=True)
         same_detection("mega", paths["mega"], folded, "folded")
         log("mega: MEGA_TICKS 8, MEGA_PACK 1 == folded; " + json.dumps(
             {"ms_per_tick": 1e3 / paths["mega"]["ticks_per_s"],
              "folded_ms_per_tick": 1e3 / folded["ticks_per_s"],
              "carry_bytes": paths["mega"]["carry_bytes"],
-             "block_boundaries": 160 // 8, "card": card}))
+             "block_boundaries": t // 8, "card": card}))
         torch.cuda.empty_cache()
     if "hoisted" in phases:
         conf, t = cut("ring_1m_s128")
@@ -5983,6 +6266,10 @@ def main(argv=None) -> int:
                                                           card)),
             ("dense", lambda: phase_dense(torch, confs, out_dir, card)),
             ("sparse", lambda: phase_sparse(torch, confs, out_dir, card)),
+            ("rbg", lambda: phase_rbg(torch, confs, out_dir, card, paths,
+                                      rows)),
+            ("profile_rbg", lambda: phase_profile_rbg(torch, confs, out_dir,
+                                                      card)),
             ("scale", lambda: phase_scale(torch, out_dir, card, paths)),
             ("scale_extra", lambda: phase_scale_extra(torch, out_dir,
                                                       card)),
@@ -6082,7 +6369,17 @@ def main(argv=None) -> int:
                                  ("probe_folded_rows2", "rows2"),
                                  ("probe_folded_s2_rows1", "s2_rows1"),
                                  ("probe_folded_s2_rows2", "s2_rows2"),
-                                 ("probe_folded_s2_rows4", "s2_rows4")))):
+                                 ("probe_folded_s2_rows4", "s2_rows4"))),
+            # The Philox draws (PRNG_IMPL rbg|unsafe_rbg) at 3 * 2^27,
+            # with 2^20 + 3 and the carry key beside; the indexed form
+            # has no ring path (the scatter step's probe and ack coins).
+            ("philox", "ring_1m_s128_drop_unsafe_rbg", "philox", "philox.cu",
+             (("philox_1m", "m1"), ("philox_carry", "carry"))),
+            ("philox_bits", "ring_1m_s128_drop_unsafe_rbg", "philox_bits",
+             "philox.cu", (("philox_bits_1m", "m1"),
+                           ("philox_bits_carry", "carry"))),
+            ("philox_at", "rbg_scatter_parity", "philox_at",
+             "philox.cu", (("philox_at_1m", "m1"),))):
         r = dict(rows[form])
         name = r.pop("name")
         entry = {"name": f"{name}[{form}]", "route": "cuda",
@@ -6096,7 +6393,7 @@ def main(argv=None) -> int:
             x = rows[x_form]
             entry.update({f"{tag}_{k}": v for k, v in x.items()
                           if k in ("ms", "plain_ms", "bound_ms",
-                                   "max_abs_err")})
+                                   "max_abs_err", "torch_rand_ms")})
         out.append(entry)
     log(json.dumps({"kernels": out}))
     log(nvidia_smi())

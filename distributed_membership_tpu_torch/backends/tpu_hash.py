@@ -796,7 +796,8 @@ def ring_rng_plans(cfg: HashConfig, keys, device,
         p_cnt=max(cfg.probes, 0), seed_rows=min(cfg.seed_cap, cfg.n),
         use_drop=uses_drop(cfg) if use_drop is None else use_drop,
         need_ctrl=not cfg.folded,
-        need_burst=not cfg.folded, device=device, shift_set=cfg.shift_set)
+        need_burst=not cfg.folded, device=device, shift_set=cfg.shift_set,
+        batched=cfg.rng_mode != "scattered")
 
 
 def check_dynamic_knobs(cfg: HashConfig) -> None:

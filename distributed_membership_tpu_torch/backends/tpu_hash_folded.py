@@ -176,7 +176,8 @@ def make_folded_step(cfg, mesh=None, dynamic_knobs: bool = False):
                                     s=s, g=g, k_max=k_max, p_cnt=p_cnt,
                                     seed_rows=min(cfg.seed_cap, n),
                                     use_drop=use_drop, cold_join=False,
-                                    device=dev)
+                                    device=dev,
+                                    batched=cfg.rng_mode != "scattered")
         part = mesh.shard_sums
         if cfg.batched_exchange:
             bx = BatchedExchange(mesh=mesh, n_local=n_local, s=s,

@@ -130,7 +130,7 @@ from distributed_membership_tpu_torch.ops.fused_receive import receive_fused
 from distributed_membership_tpu_torch.ops.rng_plan import sharded_ring_rng
 from distributed_membership_tpu_torch.ops.sampling import sample_k_indices
 from distributed_membership_tpu_torch.ops.threefry import (
-    Key, fold_in, randint, split, uniform, uniform_keys)
+    Key, fold_in, randint, split, uniform, uniform_each)
 from distributed_membership_tpu_torch.ops.view_merge import (
     EMPTY, M32, STRIDE, as_u32, hash_slot, member_of, scatter_umax, to_bits)
 from distributed_membership_tpu_torch.parallel.mesh import (
@@ -264,7 +264,8 @@ def make_ring_sharded_step(cfg: HashConfig, mesh: LocalMesh):
     fail_ids = cfg.fail_ids if want_agg else ()
     rng_kw = dict(n=n, n_local=n_local, s=s, g=g, k_max=k_max,
                   p_cnt=max(p_cnt, 0), seed_rows=min(cfg.seed_cap, n),
-                  use_drop=use_drop, cold_join=cfg.cold_join)
+                  use_drop=use_drop, cold_join=cfg.cold_join,
+                  batched=cfg.rng_mode != "scattered")
     bx = (BatchedExchange(mesh=mesh, n_local=n_local, s=s, cstride=cstride,
                           single_col_roll=single_col)
           if cfg.batched_exchange else None)
@@ -678,9 +679,9 @@ def make_sharded_step(cfg: HashConfig, mesh: LocalMesh):
              "truncated": 0, "truncated_max": 0}
 
     def draw(keys, shape, dev):
-        """Each shard's ``uniform(key, shape)``, in shard order, in one
-        pass."""
-        return uniform_keys(keys, math.prod(shape), dev).view(
+        """Each shard's ``uniform(key, shape)``, in shard order (in one
+        pass under threefry)."""
+        return uniform_each(keys, math.prod(shape), dev).view(
             (len(keys) * shape[0],) + tuple(shape[1:]))
 
     def step(state: ShardedHashState, t: int, key: Key, plan: PlanTensors):

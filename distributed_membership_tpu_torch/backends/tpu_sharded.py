@@ -44,7 +44,7 @@ from distributed_membership_tpu_torch.ops.merge import (
     broadcast_deliver, fanout_deliver_indexed)
 from distributed_membership_tpu_torch.ops.sampling import sample_k_indices
 from distributed_membership_tpu_torch.ops.threefry import (
-    Key, bernoulli, fold_in, split, uniform, uniform_keys)
+    Key, bernoulli, fold_in, split, uniform, uniform_each)
 from distributed_membership_tpu_torch.parallel.collectives import (
     all_gather_vec, reduce_scatter_sum, ring_reduce_scatter_max)
 from distributed_membership_tpu_torch.parallel.mesh import LocalMesh
@@ -114,7 +114,7 @@ def make_sharded_step(cfg: StepConfig, mesh: LocalMesh,
         if replicated_rng:
             scores = uniform(k_targets, (n, n), dev)
         else:
-            scores = uniform_keys([fold_in(k_targets, s) for s in range(d)],
+            scores = uniform_each([fold_in(k_targets, s) for s in range(d)],
                                   n_local * n, dev).reshape(n, n)
         tgt_idx, tgt_valid = sample_k_indices(scores, eligible, k_extra,
                                               k_max)
@@ -124,7 +124,7 @@ def make_sharded_step(cfg: StepConfig, mesh: LocalMesh,
         shard_keys = [split(fold_in(k_drop, s)) for s in range(d)]
         drop = None
         if coins:
-            drop = (uniform_keys([kf for kf, _ in shard_keys],
+            drop = (uniform_each([kf for kf, _ in shard_keys],
                                  n_local * k_max * n, dev)
                     < float(np.float32(cfg.drop_prob))).reshape(n, k_max, n)
         # Shard s's senders scatter into its own block of D (N + 1) rows.

@@ -12,7 +12,8 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 (the probe kernels' form with the TELEMETRY hist partials counts as
 ``probe_hist`` / ``probe_folded_hist``, K1's with an admit plane as
 ``receive_admit``, K2's and K4's wide-row body as ``gossip_wide`` and
-``gossip_stacked_wide``); a wrapper adds one where it
+``gossip_stacked_wide``; the Philox draws of ops/rbg.py as ``philox``,
+``philox_bits`` and ``philox_at``); a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels.
 """
@@ -37,7 +38,7 @@ SOURCES = {"receive": "receive.cu", "gossip": "gossip.cu",
            "probe": "probe.cu", "receive_folded": "receive_folded.cu",
            "gossip_folded": "gossip_folded.cu",
            "probe_folded": "probe_folded.cu",
-           "gossip_stacked": "gossip_stacked.cu"}
+           "gossip_stacked": "gossip_stacked.cu", "philox": "philox.cu"}
 HEADERS = ("common.cuh", "receive_one.cuh", "probe_parts.cuh",
            "gossip_tile.cuh")
 
@@ -47,7 +48,8 @@ LAUNCHES: Dict[str, int] = {
     "gossip_folded_masks": 0, "probe_folded": 0, "probe_folded_hist": 0,
     "gossip_stacked": 0, "gossip_stacked_masks": 0, "gossip_wide": 0,
     "gossip_wide_masks": 0, "gossip_stacked_wide": 0,
-    "gossip_stacked_wide_masks": 0}
+    "gossip_stacked_wide_masks": 0, "philox": 0, "philox_bits": 0,
+    "philox_at": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # ptxas report per source, last build
@@ -58,8 +60,8 @@ class FailIds(ctypes.Structure):
     _fields_ = [("ids", ctypes.c_int * 8)]
 
 
-_P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_uint
+_P, _I, _LL, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_uint, ctypes.c_ulonglong)
 _SIGNATURES = {
     "dm_receive": [_I, _U, _I, _I, _I, _I, _LL, _I] + [_P] * 14,
     "dm_gossip": [_U, _I, _I, _I, _I] + [_P] * 6,
@@ -70,6 +72,7 @@ _SIGNATURES = {
     "dm_probe_folded": [_I, _I, _U, _I, _I, _I, _LL, _I, _P, _P, _P, _P,
                         _I, FailIds] + [_P] * 7,
     "dm_gossip_stacked": [_LL] + [_I] * 5 + [_P] * 7,
+    "dm_philox": [_I] + [_U] * 4 + [_ULL, _LL] + [_P] * 3,
 }
 _ENTRY = {name: f"dm_{name}" for name in SOURCES}
 

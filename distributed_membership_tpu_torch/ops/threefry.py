@@ -36,6 +36,14 @@ The round function is written once with plain operators, so the same
 code hashes Python ints and int64 tensors, keys included: one pass over
 a ``[K, numel]`` counter grid with a ``[K, 1]`` key column draws K keys'
 streams at once (``uniform_keys``, the JAX package's vmapped draws).
+
+``PRNG_IMPL: rbg|unsafe_rbg`` keys (``ops/rbg.RbgKey``) take the same
+functions: each public function here dispatches on the key's type, so
+no call site needs to know the implementation.  A vmapped draw is not a
+loop's draw under them (ops/rbg.py): ``uniform_keys``, ``bits_keys``,
+``split_keys``, ``randint_keys`` and ``fold_in_vmapped`` stand for the
+JAX package's vmapped sites, ``uniform_each`` for per-key draws that no
+vmap batches (each shard's own, inside the JAX package's ``shard_map``).
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from distributed_membership_tpu_torch.ops import rbg
 
 M32 = 0xFFFFFFFF
 Key = Tuple[int, int]
@@ -119,9 +129,25 @@ def prng_key(seed: int) -> Key:
     return (0, int(seed) & M32)
 
 
+def is_rbg(key) -> bool:
+    """Whether ``key`` is an rbg or unsafe_rbg key (else threefry's)."""
+    return isinstance(key, rbg.RbgKey)
+
+
 def fold_in(key: Key, data: int) -> Key:
     """``jax.random.fold_in``: hash the count pair ``(0, data)``."""
+    if is_rbg(key):
+        return rbg.fold_in(key, data)
     return threefry2x32(key[0], key[1], 0, int(data) & M32)
+
+
+def fold_in_vmapped(key: Key, data: int, first: int, row: int) -> Key:
+    """Row ``row`` of ``jax.vmap(lambda d: jax.random.fold_in(key,
+    d))(datas)`` with ``datas[0] == first`` and ``datas[row] == data``:
+    ``fold_in(key, data)``, except under unsafe_rbg (ops/rbg.py)."""
+    if is_rbg(key):
+        return rbg.fold_in_vmapped(key, data, first, row)
+    return fold_in(key, data)
 
 
 def split(key: Key, num: int = 2) -> list:
@@ -129,11 +155,21 @@ def split(key: Key, num: int = 2) -> list:
     hash of the count pair ``(0, i)``; on the legacy one the ``2 * num``
     counts hash as the pairs ``(i, i + num)``, whose first words then
     second words, read two at a time, are the keys."""
+    if is_rbg(key):
+        return rbg.split(key, num)
     if _PARTITIONABLE:
         return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
     pairs = [threefry2x32(key[0], key[1], i, i + num) for i in range(num)]
     words = [w0 for w0, _ in pairs] + [w1 for _, w1 in pairs]
     return [(words[2 * i], words[2 * i + 1]) for i in range(num)]
+
+
+def split_keys(keys, num: int) -> list:
+    """``jax.vmap(lambda k: jax.random.split(k, num))(keys)``: one list of
+    ``num`` keys per key."""
+    if is_rbg(keys[0]):
+        return rbg.split_vmapped(keys, num)
+    return [split(k, num) for k in keys]
 
 
 def _check_size(numel: int) -> None:
@@ -148,6 +184,8 @@ def random_bits(key: Key, numel: int, device) -> torch.Tensor:
     """32 random bits per element, flat ``[numel]`` int64 holding u32.
     A shape's draw is its flat draw reshaped, so callers pass the element
     count only."""
+    if is_rbg(key):
+        return rbg.bits(key, numel, device)
     _check_size(numel)
     if _PARTITIONABLE:
         lo = torch.arange(numel, dtype=torch.int64, device=device)
@@ -197,6 +235,8 @@ def _unit(bits: torch.Tensor) -> torch.Tensor:
 
 def uniform(key: Key, shape, device) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on [0, 1)."""
+    if is_rbg(key):
+        return rbg.uniform(key, math.prod(shape), device).reshape(shape)
     return _unit(random_bits(key, math.prod(shape), device)).reshape(shape)
 
 
@@ -216,15 +256,22 @@ def bernoulli_at(key: Key, p: float, idx: torch.Tensor,
 def uniform_at(key: Key, idx: torch.Tensor, numel: int) -> torch.Tensor:
     """Elements ``idx`` (int64, any shape, each < ``numel``) of the flat
     draw ``uniform(key, (numel,))``, on ``idx``'s device."""
+    if is_rbg(key):
+        return rbg.uniform_at(key, idx)
     _check_size(numel)
     return _unit(_bits_at(key[0], key[1], idx, numel))
 
 
 def uniform_keys(keys, numel: int, device) -> torch.Tensor:
-    """``torch.cat([uniform(k, (numel,)) for k in keys])`` in one pass
-    over a ``[len(keys), numel]`` grid (``[len(keys), ceil(numel / 2)]``
-    pairs on the legacy stream).  The key words reach the device as
-    fills, so nothing is copied from the host."""
+    """The JAX package's ``jax.vmap(lambda k: uniform(k, (numel,)))(keys)``
+    flattened.  Under threefry that is ``torch.cat([uniform(k, (numel,))
+    for k in keys])``, drawn in one pass over a ``[len(keys), numel]``
+    grid (``[len(keys), ceil(numel / 2)]`` pairs on the legacy stream;
+    the key words reach the device as fills, so nothing is copied from
+    the host).  Under rbg and unsafe_rbg it is the first key's draw of
+    ``len(keys) * numel`` elements (ops/rbg.py)."""
+    if is_rbg(keys[0]):
+        return rbg.uniform(keys[0], len(keys) * numel, device)
     if len(keys) == 1:
         return uniform(keys[0], (numel,), device)
     _check_size(numel)
@@ -240,20 +287,60 @@ def uniform_keys(keys, numel: int, device) -> torch.Tensor:
     return _unit(_bits_at(column(0), column(1), lo, numel)).reshape(-1)
 
 
+def uniform_each(keys, numel: int, device) -> torch.Tensor:
+    """``torch.cat([uniform(k, (numel,)) for k in keys])``: each key's own
+    draw, as each shard draws inside the JAX package's ``shard_map``
+    (under threefry one pass, :func:`uniform_keys`)."""
+    if is_rbg(keys[0]):
+        return torch.cat([rbg.uniform(k, numel, device) for k in keys])
+    return uniform_keys(keys, numel, device)
+
+
+def bits_keys(keys, numel: int, device) -> torch.Tensor:
+    """The JAX package's ``jax.vmap(lambda k: bits(k, (numel,)))(keys)``
+    flattened: each key's bits under threefry, the first key's draw of
+    ``len(keys) * numel`` under rbg and unsafe_rbg."""
+    if is_rbg(keys[0]):
+        return rbg.bits(keys[0], len(keys) * numel, device)
+    return torch.cat([random_bits(k, numel, device) for k in keys])
+
+
 def randint(key: Key, shape, minval: int, maxval: int, device) -> torch.Tensor:
     """``jax.random.randint`` into int32 for ``0 <= minval < maxval <
     2^31``: two 32-bit draws combined modulo the span, with the
     multiplier ``(2^16 % span)^2 % span`` taken in u32 arithmetic (it
     wraps for spans above 2^16, as JAX's does)."""
-    if not 0 <= minval < maxval < 1 << 31:
-        raise ValueError(f"randint range [{minval}, {maxval}) unsupported")
+    _check_range(minval, maxval)
     k_hi, k_lo = split(key, 2)
     numel = math.prod(shape)
     hi = random_bits(k_hi, numel, device)
     lo = random_bits(k_lo, numel, device)
+    return _span_draw(hi, lo, minval, maxval).reshape(shape)
+
+
+def randint_keys(keys, shape, minval: int, maxval: int, device) -> list:
+    """The JAX package's ``jax.vmap(lambda k: randint(k, shape, minval,
+    maxval))(keys)``, one int32 tensor per key: the vmapped split, then
+    two vmapped bit draws (:func:`split_keys`, :func:`bits_keys`)."""
+    _check_range(minval, maxval)
+    halves = split_keys(keys, 2)
+    numel = math.prod(shape)
+    hi = bits_keys([h[0] for h in halves], numel, device)
+    lo = bits_keys([h[1] for h in halves], numel, device)
+    return list(_span_draw(hi, lo, minval, maxval).view(
+        (len(keys),) + tuple(shape)).unbind(0))
+
+
+def _check_range(minval: int, maxval: int) -> None:
+    if not 0 <= minval < maxval < 1 << 31:
+        raise ValueError(f"randint range [{minval}, {maxval}) unsupported")
+
+
+def _span_draw(hi, lo, minval: int, maxval: int) -> torch.Tensor:
+    """randint's combination of its two bit draws, flat int32."""
     span = maxval - minval
     mult = (1 << 16) % span
     mult = ((mult * mult) & M32) % span
     off = (((hi % span) * mult) & M32) + lo % span
     off = (off & M32) % span
-    return (off + minval).to(torch.int32).reshape(shape)
+    return (off + minval).to(torch.int32)

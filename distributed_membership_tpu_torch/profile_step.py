@@ -21,8 +21,10 @@ are what the run resolved, and the pass model reads them, so an ``auto``
 record on the CPU equals the JAX script's ``off`` record.
 
 Refused by design: ``--cost`` (PyTorch has no counterpart of XLA's
-``cost_analysis``) and ``--prng rbg|unsafe_rbg`` (no portable stream;
-``runtime/failures.py`` ``make_run_key``).
+``cost_analysis``).  ``--prng rbg|unsafe_rbg`` draws jax's Philox4x32-10
+stream (ops/rbg.py; the kernel ``csrc/philox.cu`` on the card), so the
+JAX ladder's rbg rungs (``1M_s16_rbg``, ``1M_s64_rbg``) run through
+:func:`time_point` too.
 
 Usage:
   python -m distributed_membership_tpu_torch.profile_step   # default grid
@@ -298,8 +300,8 @@ def parser() -> argparse.ArgumentParser:
                          "(0 = off)")
     ap.add_argument("--prng", default="threefry2x32",
                     choices=["threefry2x32", "rbg", "unsafe_rbg"],
-                    help="PRNG_IMPL; rbg and unsafe_rbg are refused (no "
-                         "portable stream)")
+                    help="PRNG_IMPL (rbg, unsafe_rbg: jax's Philox4x32-10 "
+                         "stream, bit for bit)")
     ap.add_argument("--rng-mode", default="batched",
                     choices=["batched", "scattered"])
     ap.add_argument("--probe-gather", default="packed",

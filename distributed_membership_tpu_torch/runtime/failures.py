@@ -19,7 +19,7 @@ import torch
 
 from distributed_membership_tpu_torch.addressing import index_to_id
 from distributed_membership_tpu_torch.config import Params
-from distributed_membership_tpu_torch.ops import threefry
+from distributed_membership_tpu_torch.ops import rbg, threefry
 
 
 @dataclasses.dataclass
@@ -84,14 +84,12 @@ def resolve_plan(params: Params, rng: random.Random) -> FailurePlan:
 
 
 def make_run_key(params: Params, seed: int) -> threefry.Key:
-    """Root key of the run.  Only threefry2x32 has a portable stream."""
-    if params.PRNG_IMPL != "threefry2x32":
-        raise NotImplementedError(
-            f"PRNG_IMPL {params.PRNG_IMPL}: it draws from XLA's hardware "
-            "RNG, whose bits no other implementation can reproduce, so it "
-            "has no portable stream; the port runs threefry2x32 (either "
-            "stream, JAX_THREEFRY_PARTITIONABLE) only")
-    return threefry.prng_key(seed)
+    """Root key of the run under ``PRNG_IMPL``: ``PRNGKey(seed)`` for
+    threefry2x32, else ``jax.random.key(seed, impl=PRNG_IMPL)``
+    (ops/rbg.py)."""
+    if params.PRNG_IMPL == "threefry2x32":
+        return threefry.prng_key(seed)
+    return rbg.seed(seed, params.PRNG_IMPL)
 
 
 @dataclasses.dataclass
@@ -113,8 +111,11 @@ class PlanTensors:
     scenario_static: Optional[object] = None
 
     def tick_key(self, t: int) -> threefry.Key:
-        """``fold_in(PRNGKey(seed), t)``, the JAX per-tick key."""
-        return threefry.fold_in(self.root, t)
+        """Row ``t`` of the JAX package's ``jax.vmap(lambda t:
+        fold_in(root, t))(arange(total))``: ``fold_in(root, t)``, but
+        under unsafe_rbg that vmapped fold_in draws every tick's bits from
+        tick 0's seed (ops/rbg.py)."""
+        return threefry.fold_in_vmapped(self.root, t, 0, t)
 
     def drop_active(self, t: int) -> bool:
         return self.drop_lo < t <= self.drop_hi

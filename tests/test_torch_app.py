@@ -368,12 +368,14 @@ def test_refusals_on_the_card_and_off():
     # AggStats path.
     assert not make_config(Params.from_text(base), collect_events=False,
                            fail_ids=tuple(range(9)), device="cpu").fast_agg
-    # Other PRNG implementations have no portable stream.
+    # PRNG_IMPL rbg|unsafe_rbg root keys are jax.random.key(seed, impl)'s
+    # words [0, seed, 0, seed] (ops/rbg.py).
+    from distributed_membership_tpu_torch.ops.rbg import RbgKey
     from distributed_membership_tpu_torch.runtime.failures import (
         make_run_key)
-    with pytest.raises(NotImplementedError,
-                       match="rbg: it draws from XLA's hardware RNG"):
-        make_run_key(Params.from_text(base + "PRNG_IMPL: rbg\n"), 0)
+    for impl in ("rbg", "unsafe_rbg"):
+        assert make_run_key(Params.from_text(
+            base + f"PRNG_IMPL: {impl}\n"), 5) == RbgKey((0, 5, 0, 5), impl)
     # A scenario runs with the checkpoints of item 4 too.
     assert make_config(Params.from_text(base + "SCENARIO: x.json\n"
                                         "CHECKPOINT_EVERY: 5\n"),

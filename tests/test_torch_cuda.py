@@ -226,7 +226,8 @@ def test_run_on_card_matches_cpu(cuda, tmp_path):
         "gossip_folded_masks": 0, "probe_folded": 0, "probe_folded_hist": 0,
         "gossip_stacked": 0, "gossip_stacked_masks": 0, "gossip_wide": 0,
         "gossip_wide_masks": 0, "gossip_stacked_wide": 0,
-        "gossip_stacked_wide_masks": 0}
+        "gossip_stacked_wide_masks": 0, "philox": 0, "philox_bits": 0,
+        "philox_at": 0}
     run_conf(str(conf), out_dir=str(tmp_path / "cpu"), device="cpu")
     for name in ("dbg.log", "stats.log", "msgcount.log"):
         assert ((tmp_path / "cuda" / name).read_bytes()

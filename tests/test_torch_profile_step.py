@@ -134,16 +134,17 @@ def test_cli_prints_one_record_per_point(capsys):
 
 
 def test_refusals():
-    """--cost (no cost_analysis in PyTorch), PRNG_IMPL rbg (no portable
-    stream) and a pinned kernel on the CPU each say why."""
+    """--cost (no cost_analysis in PyTorch) and a pinned kernel on the
+    CPU each say why; PRNG_IMPL rbg (jax's Philox stream, ops/rbg.py)
+    runs."""
     with pytest.raises(SystemExit) as e:
         profile_step.main(["--cost", "--device", "cpu"])
     assert e.value.code == 2
     with pytest.raises(NotImplementedError, match="cost_analysis"):
         profile_step.time_point(256, 16, 6, "ring", cost=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="portable stream"):
-        profile_step.time_point(256, 16, 6, "ring", prng="rbg",
-                                device="cpu")
+    rec = profile_step.time_point(256, 16, 6, "ring", prng="rbg",
+                                  device="cpu")
+    assert (rec["prng"], rec["ticks"]) == ("rbg", 6)
     with pytest.raises(NotImplementedError, match="on the CPU"):
         profile_step.time_point(256, 128, 6, "ring", fused=True,
                                 device="cpu")
